@@ -1,0 +1,138 @@
+"""Quantization: symmetric absmax scales and the int8 weight export (HLS4PC §2.2).
+
+The deployment half of ``repro.core.quant``: scales, rounding and the
+int8 export consumed by ``repro_torch.kernels.int8_matmul``.  Export
+dicts keep the JAX layout, ``{"q": int8[..., d_in, d_out], "scale":
+f32[..., 1, d_out]}``.  ``torch.round`` rounds half to even, as
+``jnp.round`` does, so the exports are bit-identical.  Fake-quant and
+the straight-through estimator belong to the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """Deployment quantization parametrization of one layer.
+
+    ``backend`` names the matmul: ``int8_ref`` (dequantized-weight
+    matmul, W8) or ``int8_cuda`` (W8A8 through the int8 kernel, the
+    port's counterpart of ``int8_pallas``).  ``per_lane`` quantizes activations with one absmax scale per batch
+    lane instead of one per tensor: under serving semantics the JAX
+    walk maps over lanes, so its per-tensor scale is a per-lane scale
+    of the port's batched dispatch.
+    """
+    w_bits: int = 8
+    a_bits: int = 8
+    per_channel: bool = True
+    symmetric: bool = True
+    backend: str = "int8_ref"
+    per_lane: bool = False
+
+    @property
+    def enabled(self) -> bool:
+        return self.w_bits < 32 or self.a_bits < 32
+
+
+def qrange(bits: int) -> Tuple[int, int]:
+    return -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+
+
+def _div_qmax(amax: torch.Tensor, qmax: int) -> torch.Tensor:
+    """``amax / qmax`` as a true division on every device (PyTorch's CUDA
+    division by a Python scalar multiplies by a rounded reciprocal)."""
+    return amax / amax.new_full((), float(qmax))
+
+
+def compute_scale(x: torch.Tensor, bits: int, axis: Optional[int] = None
+                  ) -> torch.Tensor:
+    """Symmetric absmax scale. ``axis`` keeps that axis (per-channel).
+
+    As in ``repro.core.quant``, ``axis`` is compared with the
+    non-negative dim numbers, so a negative ``axis`` keeps no axis.
+    """
+    qmax = 2 ** (bits - 1) - 1
+    if axis is None:
+        amax = x.abs().amax()
+    else:
+        red = tuple(i for i in range(x.ndim) if i != axis)
+        amax = x.abs().amax(dim=red, keepdim=True)
+    return _div_qmax(amax.clamp_min(1e-8), qmax)
+
+
+def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
+    qmin, qmax = qrange(bits)
+    return torch.clamp(torch.round(x / scale), qmin, qmax)
+
+
+def weight_scale(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """Per-out-channel scale of a weight ``[..., d_in, d_out]``: reduce
+    only the contraction dim, so stacked layers keep their own scales."""
+    qmax = 2 ** (bits - 1) - 1
+    return _div_qmax(w.abs().amax(dim=-2, keepdim=True).clamp_min(1e-8), qmax)
+
+
+def quantize_weight_int8(w: torch.Tensor, cfg: QuantConfig
+                         ) -> Dict[str, torch.Tensor]:
+    """Export one weight to ``{q: int8[...], scale: f32[..., 1, d_out]}``."""
+    if cfg.w_bits > 8:
+        raise ValueError(f"int8 export needs w_bits <= 8, got {cfg.w_bits}")
+    if cfg.per_channel and w.ndim >= 2:
+        scale = weight_scale(w, cfg.w_bits)
+    else:
+        scale = compute_scale(w, cfg.w_bits, None)
+    q = quantize(w, scale, cfg.w_bits).to(torch.int8)
+    return {"q": q, "scale": scale.to(torch.float32)}
+
+
+def is_quantizable_leaf_path(path: tuple) -> bool:
+    """Quantize matmul weights only (named ``w`` / ``kernel`` / ``*_w``),
+    never norms, biases or embeddings.  ``path`` holds plain dict keys
+    and list indices."""
+    last = str(path[-1])
+    return last == "w" or last == "kernel" or last.endswith("_w")
+
+
+def _map_leaves(tree: Any, fn: Callable[[tuple, Any], Any],
+                path: tuple = ()) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(v, fn, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def quantize_tree(params: Any, cfg: QuantConfig,
+                  predicate: Optional[Callable[[tuple, Any], bool]] = None
+                  ) -> Any:
+    """Replace each quantizable weight leaf with its int8 export dict.
+
+    ``predicate(path, leaf)`` selects the leaves (default: a matmul
+    weight name and ``ndim >= 2``); everything else passes through.
+    The leaves of an existing export dict (``q``, ``scale``) never
+    match, so an already-frozen tree passes through unchanged.
+    """
+    def fix(path, leaf):
+        take = (predicate(path, leaf) if predicate is not None
+                else is_quantizable_leaf_path(path)
+                and getattr(leaf, "ndim", 0) >= 2)
+        return quantize_weight_int8(leaf, cfg) if take else leaf
+    return _map_leaves(params, fix)
+
+
+def tree_size_bytes(params: Any) -> int:
+    """Model size in bytes over every tensor leaf."""
+    total = 0
+
+    def add(_path, leaf):
+        nonlocal total
+        if isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+        return leaf
+    _map_leaves(params, add)
+    return total

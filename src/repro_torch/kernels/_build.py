@@ -1,0 +1,117 @@
+"""Build and load the CUDA kernels under ``repro_torch/csrc``.
+
+Each ``csrc/<name>.cu`` exports a plain C launch function and compiles,
+with its own ``nvcc`` process (all started together), into
+``build/repro_torch/<name>-<hash>.so`` at the repository root, for
+``sm_90a``.  The hash covers the source and the flags, so an edited
+source rebuilds and an unchanged one loads from disk.  The libraries are
+loaded with ``ctypes``: every pointer and the stream pass as
+``c_void_p``, every int as ``c_int``, and each launch function returns
+its ``cudaGetLastError()`` code.
+
+Nothing here runs at import: the CPU tests import every module without
+``nvcc``.  Only the repository's own sources are compiled.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Dict, List, Tuple
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# Per-source extra flags: the kNN distances must round every product and
+# sum on its own, as the plain version does (no FMA contraction).
+EXTRA_FLAGS: Dict[str, List[str]] = {"knn": ["--fmad=false"]}
+
+P, I = ctypes.c_void_p, ctypes.c_int
+# name -> (C symbol, argtypes); every launch function returns an int.
+SIGNATURES: Dict[str, Tuple[str, list]] = {
+    "knn": ("knn_launch", [P, P, P, I, I, I, I, I, P]),
+    "int8_matmul": ("int8_matmul_launch", [P, P, P, P, P, I, I, I, I, P]),
+    "fused_linear": ("fused_linear_launch", [P, P, P, P, I, I, I, I, P]),
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    default = pathlib.Path(home) / "bin" / "nvcc"
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(name: str) -> Tuple[pathlib.Path, List[str]]:
+    src = CSRC / f"{name}.cu"
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so", flags
+
+
+def build_all() -> Dict[str, ctypes.CDLL]:
+    """Compile every stale kernel library in parallel, load them all.
+
+    Raises ``RuntimeError`` with the compiler's output if a build fails.
+    """
+    with _lock:
+        if len(_libs) == len(SIGNATURES):
+            return dict(_libs)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = []
+        for name in SIGNATURES:
+            out, flags = _target(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, out, tmp, proc))
+        errors = []
+        for name, out, tmp, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name}.cu "
+                              f"(exit {proc.returncode}):\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        for name, (symbol, argtypes) in SIGNATURES.items():
+            lib = ctypes.CDLL(str(_target(name)[0]))
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return dict(_libs)
+
+
+def launcher(name: str):
+    """The C launch function of kernel ``name`` (building at first use)."""
+    lib = _libs.get(name) or build_all()[name]
+    return getattr(lib, SIGNATURES[name][0])
+
+
+def check(name: str, code: int) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if code != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{code}")

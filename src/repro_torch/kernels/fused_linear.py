@@ -1,0 +1,50 @@
+"""Fused linear + bias + activation: the CUDA kernel ``csrc/fused_linear.cu``.
+
+The port of ``repro.kernels.fused_linear.fused_linear_pallas``:
+``act(x @ w + b)`` in full fp32 (no TF32), one launch per layer per
+dispatch.  ``fused_linear_cuda.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ref import ACTIVATIONS
+
+# csrc/fused_linear.cu's act codes.
+_ACT_CODE = {"none": 0, "relu": 1, "gelu": 2}
+
+
+def fused_linear_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      activation: str = "relu") -> torch.Tensor:
+    """Launch the kernel: x f32 [M, K], w f32 [K, N], b f32 [N] -> [M, N]."""
+    from repro_torch.kernels import _build
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"activation must be one of {ACTIVATIONS}, "
+                         f"got {activation!r}")
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"fused_linear: x [M, K] @ w [K, N], got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if b.shape != (w.shape[1],):
+        raise ValueError(f"fused_linear: bias must be [{w.shape[1]}], "
+                         f"got {tuple(b.shape)}")
+    for name, t in (("x", x), ("w", w), ("b", b)):
+        if (not t.is_cuda or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != x.device):
+            raise ValueError(f"fused_linear kernel needs contiguous float32 "
+                             f"CUDA tensors on one device; {name} is "
+                             f"{t.dtype} on {t.device}")
+    m, k = x.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m * n == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = _build.launcher("fused_linear")(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n,
+        _ACT_CODE[activation], stream)
+    _build.check("fused_linear", code)
+    fused_linear_cuda.launches += 1
+    return out
+
+
+fused_linear_cuda.launches = 0

@@ -1,0 +1,63 @@
+"""A8W8 int8 matrix product: the CUDA kernel ``csrc/int8_matmul.cu``.
+
+The port of ``repro.kernels.int8_matmul.int8_matmul_pallas``: int8
+activations ``[M, K]`` times int8 weights ``[K, N]`` into an int32
+accumulator, dequantized by ``a_scale[row // rows_per_lane] *
+w_scale[col]``.  ``int8_matmul_cuda.launches`` counts launches.
+(``w8_matmul`` has no pipeline caller and waits; see ROADMAP.md.)
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _check(x_q, w_q, a_scale, w_scale, rows_per_lane) -> None:
+    m, k = x_q.shape
+    if w_q.ndim != 2 or w_q.shape[0] != k:
+        raise ValueError(f"int8_matmul: x_q [M, K={k}] needs w_q [K, N], "
+                         f"got {tuple(w_q.shape)}")
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise ValueError(f"int8_matmul takes int8 operands, got "
+                         f"{x_q.dtype} and {w_q.dtype}")
+    if rows_per_lane < 1 or m % rows_per_lane:
+        raise ValueError(f"int8_matmul: rows_per_lane={rows_per_lane} must "
+                         f"divide M={m}")
+    lanes = m // rows_per_lane
+    if a_scale.numel() != lanes or w_scale.numel() != w_q.shape[1]:
+        raise ValueError(f"int8_matmul: a_scale needs {lanes} entries and "
+                         f"w_scale {w_q.shape[1]}, got {a_scale.numel()} "
+                         f"and {w_scale.numel()}")
+
+
+def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
+                     a_scale: torch.Tensor, w_scale: torch.Tensor,
+                     rows_per_lane: int) -> torch.Tensor:
+    """Launch the kernel: int8 [M, K] @ int8 [K, N] -> f32 [M, N]."""
+    from repro_torch.kernels import _build
+    _check(x_q, w_q, a_scale, w_scale, rows_per_lane)
+    tensors = (("x_q", x_q), ("w_q", w_q), ("a_scale", a_scale),
+               ("w_scale", w_scale))
+    for name, t in tensors:
+        if not t.is_cuda or not t.is_contiguous() or t.device != x_q.device:
+            raise ValueError(f"int8_matmul kernel needs contiguous CUDA "
+                             f"tensors on one device; {name} is on "
+                             f"{t.device}")
+    for name, t in tensors[2:]:
+        if t.dtype != torch.float32:
+            raise ValueError(f"int8_matmul: {name} must be float32, "
+                             f"got {t.dtype}")
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
+    if m * n == 0:
+        return out
+    stream = torch.cuda.current_stream(x_q.device).cuda_stream
+    code = _build.launcher("int8_matmul")(
+        x_q.data_ptr(), w_q.data_ptr(), a_scale.data_ptr(),
+        w_scale.data_ptr(), out.data_ptr(), m, k, n, rows_per_lane, stream)
+    _build.check("int8_matmul", code)
+    int8_matmul_cuda.launches += 1
+    return out
+
+
+int8_matmul_cuda.launches = 0

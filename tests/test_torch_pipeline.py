@@ -1,0 +1,425 @@
+"""End-to-end parity of the port's pipeline (``repro_torch``) with ``repro.api``.
+
+The same parameters (drawn by ``repro.models.pointmlp.pointmlp_init``,
+with BN statistics perturbed from a numpy seed so the fold is not an
+identity) and the same clouds (``np.random.default_rng``) go through
+``repro.api.build(..., jit=False)`` and the port's ``build(...,
+device="cpu")`` at the tiny size of ``tests/test_kernel_tuning.py``
+(128 points, embed 16, k=8).  Where the JAX side exports int8, its frozen
+parameters are carried into the port, so the int8 weights are identical.
+
+First the mapping is compared: URS indices exactly, per-stage kNN indices
+exactly apart from reported near-tie swaps (JAX forms the kNN cross term
+with a dot product, the port elementwise; see ``test_torch_kernels``).
+Logits are compared on the lanes whose mapping matched, with these
+tolerances:
+
+* every comparison: rtol 1e-4, atol 1e-4 * max|logit|.  In fp32 (M-2,
+  and Lite's W8 dequantized ``ref`` path) float32 sums over K <= 256 are
+  taken in another order and compound over the 15 layers of the walk.
+  In W8A8 (Lite on the port's ``cuda`` backend against JAX's
+  ``pallas_interpret``) the int8 products and their dequantization are
+  bitwise equal; only the normalization sigma differs by about an ulp
+  (JAX sums its mean in float32, the port in float64), which moves the
+  next layer's activation scale by an ulp.  An activation pushed across a
+  rounding tie would move by a whole int8 step (1/127 of its lane's
+  absmax) and fail this bound; these inputs have none.
+"""
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api.build import build as jax_build
+from repro.api.spec import PipelineSpec as JaxSpec
+from repro.api.spec import lite_spec as jax_lite_spec
+from repro.api.spec import m2_spec as jax_m2_spec
+from repro.core import knn as jknn
+from repro.core import sampling as jsampling
+from repro.models import pointmlp as JPM
+from repro_torch.api import plan as tplan
+from repro_torch.api.build import build
+from repro_torch.api.spec import PipelineSpec, elite_spec, lite_spec, m2_spec
+from repro_torch.convert import from_numpy_tree
+from repro_torch.core import knn as tknn
+from repro_torch.core import sampling as tsampling
+from repro_torch.kernels.tuning import DEFAULT_TUNING, KernelTuning
+from repro_torch.models import pointmlp as TPM
+from repro_torch.serve.batching import pad_to_batch
+from repro_torch.serve.pointcloud import PointCloudEngine
+from test_torch_kernels import assert_knn_match, sqdist64
+
+TINY = dict(n_points=128, embed_dim=16, k_neighbors=8)
+B = 4
+SEED = 7
+RTOL = 1e-4
+
+
+def tiny(spec_fn, **over):
+    return spec_fn(8, **TINY).replace(**over).serving()
+
+
+@pytest.fixture(scope="module")
+def raw_params():
+    """A raw (BN-carrying) JAX parameter tree as numpy, BN perturbed."""
+    cfg = tiny(jax_m2_spec).to_model_config()
+    init = jax.jit(JPM.pointmlp_init, static_argnums=1)  # one compile
+    params = jax.tree_util.tree_map(np.asarray,
+                                    init(jax.random.PRNGKey(0), cfg))
+    rng = np.random.default_rng(1)
+
+    def perturb(node):
+        if isinstance(node, dict):
+            if "bn" in node:
+                c = node["bn"]["gamma"].shape[0]
+                node["bn"] = {
+                    "gamma": rng.uniform(0.7, 1.3, c).astype(np.float32),
+                    "beta": (0.1 * rng.standard_normal(c)).astype(np.float32),
+                    "mean": (0.1 * rng.standard_normal(c)).astype(np.float32),
+                    "var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
+            for v in node.values():
+                perturb(v)
+        elif isinstance(node, list):
+            for v in node:
+                perturb(v)
+    perturb(params)
+    return params
+
+
+@pytest.fixture(scope="module")
+def clouds():
+    return np.random.default_rng(2).standard_normal(
+        (B, TINY["n_points"], 3)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def lanes(clouds):
+    return clean_lanes(clouds)
+
+
+@pytest.fixture(scope="module")
+def jax_lite_ref(raw_params, clouds):
+    """JAX's Lite ``ref`` run on ``clouds``: (logits, state, frozen)."""
+    return run_jax(tiny(jax_lite_spec), raw_params, clouds)
+
+
+def jax_tree(tree):
+    return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+def run_jax(spec, params_np, pts):
+    pipe = jax_build(spec, jax_tree(params_np), jit=False)
+    logits, state = pipe.infer(jnp.asarray(pts),
+                               jsampling.seed_streams(SEED, pts.shape[0]))
+    frozen = jax.tree_util.tree_map(np.asarray, pipe.params)
+    return np.asarray(logits), np.asarray(state), frozen
+
+
+def run_port(spec, params_np, pts):
+    pipe = build(spec, from_numpy_tree(params_np), device="cpu")
+    logits, state = pipe.infer(torch.from_numpy(pts),
+                               pipe.seed_state(SEED, pts.shape[0]))
+    return logits.numpy(), state.numpy()
+
+
+def clean_lanes(pts, k=TINY["k_neighbors"]):
+    """Compare the mapping chains of both packages; return the lanes whose
+    kNN indices matched exactly (near-tie swaps are reported)."""
+    j_state = jsampling.seed_streams(SEED, pts.shape[0])
+    t_state = tsampling.seed_streams(SEED, pts.shape[0])
+    j_cur, t_cur = jnp.asarray(pts), torch.from_numpy(pts)
+    ok = np.ones(pts.shape[0], bool)
+    for n_samp in tiny(m2_spec).to_model_config().stage_samples:
+        j_state, j_idx = jsampling.urs_indices(j_state, j_cur.shape[1],
+                                               n_samp)
+        t_state, t_idx = tsampling.urs_indices(t_state, t_cur.shape[1],
+                                               n_samp)
+        np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+        j_new = j_cur[:, np.asarray(j_idx)]
+        t_new = tsampling.gather_points(
+            t_cur, t_idx[None].expand(pts.shape[0], -1))
+        j_nbr = np.asarray(jknn.knn_batched(j_new, j_cur, k))
+        t_nbr = tknn.knn_batched(t_new, t_cur, k).numpy()
+        assert_knn_match(t_nbr, j_nbr,
+                         sqdist64(t_new.numpy(), t_cur.numpy()))
+        ok &= (t_nbr == j_nbr).all(axis=(1, 2))
+        j_cur, t_cur = j_new, t_new
+    np.testing.assert_array_equal(t_state.numpy(),
+                                  np.asarray(j_state).astype(np.int64))
+    assert ok.sum() >= pts.shape[0] - 1, "near-tie swaps in most lanes"
+    return ok
+
+
+def assert_logits_close(got, want, lanes):
+    np.testing.assert_allclose(got[lanes], want[lanes], rtol=RTOL,
+                               atol=RTOL * np.abs(want).max())
+
+
+# ------------------------------------------------------------- parity --
+
+class TestParityWithJax:
+    def test_m2_fp32_ref(self, raw_params, clouds, lanes):
+        want, j_state, _ = run_jax(tiny(jax_m2_spec), raw_params, clouds)
+        got, t_state = run_port(tiny(m2_spec), raw_params, clouds)
+        assert got.shape == (B, 8) and np.isfinite(got).all()
+        assert_logits_close(got, want, lanes)
+        np.testing.assert_array_equal(t_state, j_state.astype(np.int64))
+
+    def test_m2_fp32_cuda_backend_on_cpu(self, raw_params, clouds, lanes):
+        """The port's kernel backend runs fused_linear's plain version on
+        CPU tensors; JAX's runs the Pallas kernel in interpret mode."""
+        want, _, _ = run_jax(tiny(jax_m2_spec, backend="pallas_interpret"),
+                             raw_params, clouds)
+        got, _ = run_port(tiny(m2_spec, backend="cuda"), raw_params, clouds)
+        assert_logits_close(got, want, lanes)
+
+    def test_lite_w8a8_cuda_vs_pallas_interpret(self, raw_params, clouds,
+                                                lanes):
+        want, j_state, frozen = run_jax(
+            tiny(jax_lite_spec, backend="pallas_interpret"), raw_params,
+            clouds)
+        assert frozen["embed"]["w"]["q"].dtype == np.int8
+        got, t_state = run_port(tiny(lite_spec, backend="cuda"), frozen,
+                                clouds)
+        assert np.isfinite(got).all()
+        assert_logits_close(got, want, lanes)
+        np.testing.assert_array_equal(t_state, j_state.astype(np.int64))
+
+    def test_lite_w8_ref(self, jax_lite_ref, clouds, lanes):
+        want, _, frozen = jax_lite_ref
+        got, _ = run_port(tiny(lite_spec), frozen, clouds)
+        assert_logits_close(got, want, lanes)
+
+    def test_stage_precision_mix(self, raw_params, clouds, lanes):
+        mix = ("int8", "int8", "int8", "fp32")
+        want, _, frozen = run_jax(
+            tiny(jax_lite_spec, backend="pallas_interpret",
+                 stage_precision=mix), raw_params, clouds)
+        assert not isinstance(frozen["stages"][3]["transfer"]["w"], dict)
+        assert isinstance(frozen["stages"][2]["transfer"]["w"], dict)
+        got, _ = run_port(tiny(lite_spec, backend="cuda",
+                               stage_precision=mix), frozen, clouds)
+        assert_logits_close(got, want, lanes)
+
+    def test_flops_and_plan_match(self):
+        jspec, tspec = tiny(jax_lite_spec), tiny(lite_spec)
+        jcfg, tcfg = jspec.to_model_config(), tspec.to_model_config()
+        assert TPM.pointmlp_flops_breakdown(tcfg) == \
+            JPM.pointmlp_flops_breakdown(jcfg)
+        plan = tplan.lower(tspec, tcfg)
+        assert len(plan.cbr_ops()) == 27        # + head fc3 = 28 layers
+        assert TPM.count_conv_layers(tcfg) == JPM.count_conv_layers(jcfg)
+
+
+# ------------------------------------------------------------ weights --
+
+class TestConvert:
+    def test_raw_tree_keeps_structure(self, raw_params):
+        tree = from_numpy_tree(raw_params)
+        flat_np = jax.tree_util.tree_flatten_with_path(raw_params)[0]
+        flat_t = jax.tree_util.tree_flatten_with_path(
+            tree, is_leaf=lambda x: isinstance(x, torch.Tensor))[0]
+        assert [p for p, _ in flat_np] == [p for p, _ in flat_t]
+        for (_, a), (_, b) in zip(flat_np, flat_t):
+            assert b.dtype == torch.float32
+            np.testing.assert_array_equal(b.numpy(), a)
+
+    def test_port_freeze_matches_jax_freeze(self, raw_params, jax_lite_ref):
+        """The port fuses and exports a raw tree as JAX does: fused fp32
+        weights to rtol 1e-6, int8 codes within one step on at most 0.1%
+        of the weights (an ulp of rsqrt can tip a code at a tie)."""
+        spec = tiny(lite_spec)
+        jfrozen = jax_lite_ref[2]
+        tfrozen = build(spec, from_numpy_tree(raw_params),
+                        device="cpu").params
+        jleaves = jax.tree_util.tree_flatten_with_path(jfrozen)[0]
+        tleaves = dict(jax.tree_util.tree_flatten_with_path(
+            tfrozen, is_leaf=lambda x: isinstance(x, torch.Tensor))[0])
+        off, total = 0, 0
+        for path, a in jleaves:
+            b = tleaves[path].numpy()
+            assert b.dtype == a.dtype
+            if a.dtype == np.int8:
+                diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+                assert diff.max() <= 1
+                off, total = off + int((diff > 0).sum()), total + a.size
+            else:
+                np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-7)
+        assert off <= 1e-3 * total
+
+    def test_frozen_tree_passes_through_build(self, jax_lite_ref):
+        frozen = jax_lite_ref[2]
+        pipe = build(tiny(lite_spec), from_numpy_tree(frozen), device="cpu")
+        q = pipe.params["stages"][1]["pre"][0]["net1"]["w"]["q"]
+        assert q.dtype == torch.int8
+        np.testing.assert_array_equal(
+            q.numpy(), frozen["stages"][1]["pre"][0]["net1"]["w"]["q"])
+
+    def test_rejects_non_numpy_leaves(self):
+        with pytest.raises(TypeError, match="np.asarray"):
+            from_numpy_tree({"w": jnp.ones((2, 2))})
+
+
+# ------------------------------------------------------------- engine --
+
+class TestEngine:
+    @pytest.fixture(scope="class")
+    def lite_frozen(self, jax_lite_ref):
+        return jax_lite_ref[2]
+
+    def test_ragged_queue_matches_pipeline(self, lite_frozen):
+        spec = tiny(lite_spec, backend="cuda")
+        params = from_numpy_tree(lite_frozen)
+        queue = np.random.default_rng(4).standard_normal(
+            (7, 128, 3)).astype(np.float32)
+        eng = PointCloudEngine(params, spec, max_batch=4, seed=SEED,
+                               device="cpu")
+        got = eng.classify(list(queue))
+        assert got.shape == (7, 8)
+        assert (eng.stats.requests, eng.stats.batches,
+                eng.stats.padded) == (7, 2, 1)
+        assert eng.stats.serve_s > 0 and eng.stats.host_s > 0
+        pipe = build(spec, params, device="cpu")
+        state = pipe.seed_state(SEED, 4)
+        first, state = pipe.infer(torch.from_numpy(queue[:4]), state)
+        tail, _ = pad_to_batch(torch.from_numpy(queue[4:]), 4)
+        second, state = pipe.infer(tail, state)
+        assert torch.equal(got, torch.cat([first, second[:3]]))
+        assert torch.equal(eng.lfsr_state, state)
+        assert eng.predict(queue[:2]).shape == (2,)
+        assert "max_batch : 4" in eng.describe()
+
+    @pytest.mark.parametrize("spec_fn,backend", [(lite_spec, "cuda"),
+                                                 (lite_spec, "ref"),
+                                                 (m2_spec, "cuda")])
+    def test_pad_lanes_do_not_leak(self, lite_frozen, raw_params, spec_fn,
+                                   backend):
+        """A lane's logits are the same alone in a zero-padded dispatch and
+        inside a full one (serving semantics, one dispatch shape)."""
+        tree = lite_frozen if spec_fn is lite_spec else raw_params
+        pipe = build(tiny(spec_fn, backend=backend), from_numpy_tree(tree),
+                     device="cpu")
+        full = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (B, 128, 3)).astype(np.float32))
+        alone, _ = pad_to_batch(full[2:3], B)
+        state = pipe.seed_state(SEED, B)
+        a, _ = pipe.infer(full, state)
+        b, _ = pipe.infer(alone, state)
+        if spec_fn is lite_spec and backend == "cuda":
+            assert torch.equal(a[2], b[0])  # every product integer-exact
+        else:
+            torch.testing.assert_close(a[2], b[0], rtol=1e-5, atol=1e-5)
+
+    def test_warmup_keeps_state_and_empty_queue(self, lite_frozen):
+        eng = PointCloudEngine(from_numpy_tree(lite_frozen),
+                               tiny(lite_spec, backend="cuda"), max_batch=2,
+                               device="cpu")
+        before = eng.lfsr_state
+        assert eng.warmup() > 0
+        assert torch.equal(eng.lfsr_state, before)
+        assert eng.classify(np.zeros((0, 128, 3))).shape == (0, 8)
+        with pytest.raises(ValueError, match="fixed-shape"):
+            eng.classify(np.zeros((2, 64, 3)))
+
+
+# --------------------------------------------------------------- spec --
+
+class TestSpecAndDevice:
+    def test_fields_mirror_jax_spec(self):
+        jf = [(f.name, f.default) for f in dataclasses.fields(JaxSpec)]
+        tf = [(f.name, f.default) for f in dataclasses.fields(PipelineSpec)]
+        assert tf == jf
+
+    def test_variant_helpers_mirror_jax(self):
+        for t_fn, j_fn in ((lite_spec, jax_lite_spec),
+                           (m2_spec, jax_m2_spec)):
+            assert (dataclasses.asdict(t_fn(10).serving())
+                    == dataclasses.asdict(j_fn(10).serving()))
+        assert elite_spec().sampler == "fps"
+
+    @pytest.mark.parametrize("over,item", [
+        (dict(sampler="fps"), "FPS"),
+        (dict(grouper="ball"), "ball"),
+        (dict(fused_group="grouped_transfer"), "grouped_transfer"),
+        (dict(head="seg"), "seg head"),
+        (dict(stream=True), "stream"),
+        (dict(data_shards=2), "sharded"),
+        (dict(kernel_tuning=KernelTuning(knn=64)), "Tuning"),
+    ])
+    def test_unported_values_name_their_roadmap_item(self, raw_params, over,
+                                                     item):
+        with pytest.raises(NotImplementedError, match=f"(?s){item}.*ROADMAP"):
+            build(tiny(m2_spec, **over), from_numpy_tree(raw_params),
+                  device="cpu")
+
+    def test_default_tuning_is_accepted(self, raw_params):
+        pipe = build(tiny(m2_spec, kernel_tuning=DEFAULT_TUNING),
+                     from_numpy_tree(raw_params), device="cpu")
+        assert pipe.plan.cbr_ops()
+
+    def test_unknown_backend_lists_registered(self, raw_params):
+        with pytest.raises(KeyError, match="cuda, ref"):
+            build(tiny(m2_spec, backend="pallas"),
+                  from_numpy_tree(raw_params), device="cpu")
+
+    def test_default_device_needs_a_gpu(self, raw_params, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        params = from_numpy_tree(raw_params)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build(tiny(m2_spec), params)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PointCloudEngine(params, tiny(m2_spec))
+
+    def test_short_lfsr_state_rejected(self, raw_params, clouds):
+        pipe = build(tiny(m2_spec), from_numpy_tree(raw_params),
+                     device="cpu")
+        with pytest.raises(ValueError, match="streams for a batch"):
+            pipe.infer(clouds, pipe.seed_state(0, 2))
+        assert "fp32" in pipe.describe() and pipe.flops() > 0
+
+    def test_port_imports_neither_jax_nor_repro(self):
+        src = pathlib.Path(__file__).resolve().parents[1] / "src"
+        code = (
+            "import importlib, pkgutil, sys, repro_torch\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__,"
+            " 'repro_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
+            " ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "print(len([n for n in sys.modules"
+            " if n.startswith('repro_torch')]))\n")
+        env = dict(os.environ, PYTHONPATH=str(src))
+        out = subprocess.run([sys.executable, "-c", code], env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert int(out.stdout) >= 20
+
+
+# ------------------------------------------------------------- on card --
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_fn", [lite_spec, m2_spec])
+def test_card_matches_cpu(raw_params, clouds, spec_fn):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = tiny(spec_fn, backend="cuda")
+    params = from_numpy_tree(raw_params)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pipe = build(spec, params, device=dev)
+        logits, _ = pipe.infer(clouds, pipe.seed_state(SEED, B))
+        out[dev] = logits.cpu()
+    if spec_fn is lite_spec:
+        assert torch.equal(out["cuda"], out["cpu"])
+    else:
+        torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4,
+                                   atol=1e-4)
