@@ -7,12 +7,17 @@ Run from the repository root with no arguments::
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc``,
 holds each one against its plain PyTorch version on the card at the
-shapes the serving path gives it, then serves PointMLP-Lite (int8 W8A8)
-and M-2 (fused fp32) ragged queues through ``PointCloudEngine`` on the
-card and checks them against the same engines on the CPU.  Every phase
-prints one JSON line; a failed check raises and the script exits non-zero.
-The line before the last lists every ported kernel with its numbers, and
-the last line is ``{"ok": true, "device": {...}}``.
+shapes the serving paths give it, then serves ragged queues through
+``PointCloudEngine`` on the card and checks them against the same engines
+on the CPU: PointMLP-Lite (int8 W8A8) and M-2 (fused fp32) at 512 points,
+and PointMLP-Elite (FPS, learnable affine, fp32, 1024 points) with the
+fused group->transfer kernel.  Elite also runs one dispatch unfused (held
+against the fused one) and one under batch-global sigma (held against
+the CPU).  Every path is driven with the kernels' launch counts set to 0
+just before it and read just after.  Every phase prints one JSON line; a
+failed check raises and the script exits non-zero.  The line before the
+last lists every ported kernel with its numbers, and the last line is
+``{"ok": true, "device": {...}}``.
 
 It needs the repository's ``src/repro_torch`` beside it and a CUDA device;
 without either it exits non-zero and prints no result.  It imports nothing
@@ -41,12 +46,21 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
 
-# The TPU kernel each CUDA kernel replaces (its pl.pallas_call line).
+# The TPU kernel each CUDA kernel replaces (its pl.pallas_call line), and
+# its source.
 REPLACES = {
     "knn": "src/repro/kernels/knn.py:64",
     "int8_matmul": "src/repro/kernels/int8_matmul.py:60",
     "fused_linear": "src/repro/kernels/fused_linear.py:55",
+    "fps": "src/repro/kernels/fps.py:41",
+    "grouped_transfer_stats": "src/repro/kernels/grouped_transfer.py:149",
+    "grouped_transfer": "src/repro/kernels/grouped_transfer.py:173",
 }
+SOURCES = {"knn": "knn.cu", "int8_matmul": "int8_matmul.cu",
+           "fused_linear": "fused_linear.cu", "fps": "fps.cu",
+           "grouped_transfer_stats": "grouped_transfer.cu",
+           "grouped_transfer": "grouped_transfer.cu"}
+ELITE_POINTS = 1024
 
 
 class SmokeFailure(RuntimeError):
@@ -105,7 +119,8 @@ def make_clouds(np, rng, n: int, n_points: int):
 
 
 def perturb_bn(torch, tree, gen):
-    """Draw non-trivial BN statistics so the fold is not an identity."""
+    """Draw non-trivial BN statistics and affine alpha/beta, so neither
+    the BN fold nor the geometric affine is an identity."""
     if isinstance(tree, dict):
         if "bn" in tree:
             c = tree["bn"]["gamma"].shape[0]
@@ -114,6 +129,12 @@ def perturb_bn(torch, tree, gen):
                 "beta": 0.1 * torch.randn(c, generator=gen),
                 "mean": 0.1 * torch.randn(c, generator=gen),
                 "var": 0.5 + torch.rand(c, generator=gen),
+            }
+        if "affine" in tree:
+            c = tree["affine"]["alpha"].shape[0]
+            tree["affine"] = {
+                "alpha": 0.7 + 0.6 * torch.rand(c, generator=gen),
+                "beta": 0.1 * torch.randn(c, generator=gen),
             }
         for v in tree.values():
             perturb_bn(torch, v, gen)
@@ -252,6 +273,12 @@ def kernel_phase(torch, clouds):
             library_ms=lib_ms, max_abs_err=err, bytes=nbytes,
             ops=2 * m * n * k, peak=FP32_OPS_PER_S)
 
+    return emit_rows(rows)
+
+
+def emit_rows(rows):
+    """Add each row's bound (bytes or operations at the published peaks)
+    and print it."""
     for (name, label), r in rows.items():
         r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
                                   r["ops"] / r["peak"])
@@ -262,24 +289,156 @@ def kernel_phase(torch, clouds):
     return rows
 
 
+def elite_kernel_phase(torch, clouds):
+    """FPS and both grouped_transfer kernels against their plain versions
+    at Elite's stage-1 and stage-4 shapes, on the FPS/kNN geometry of
+    real 1024-point clouds."""
+    from repro_torch.core import knn as knn_core
+    from repro_torch.core import sampling
+    from repro_torch.kernels import fps as fps_mod
+    from repro_torch.kernels import grouped_transfer as gt_mod
+    from repro_torch.kernels import knn as knn_mod
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    b = MAX_BATCH
+    cur = torch.from_numpy(clouds[:b]).to(dev)
+    rows, geo = {}, {}
+    for s, n_samp in enumerate((512, 256, 128, 64)):
+        idx = fps_mod.fps_cuda(cur, n_samp)
+        want = ref.fps_ref(cur, n_samp)
+        torch.cuda.synchronize()
+        check(torch.equal(idx, want),
+              f"fps stage {s + 1}: kernel indices differ from the plain "
+              f"version")
+        new = sampling.gather_points(cur, idx).contiguous()
+        geo[s] = (cur, idx, knn_mod.knn_cuda(new, cur, 16))
+        cur = new
+
+    for label, s in (("stage1", 0), ("stage4", 3)):
+        pts, idx, _ = geo[s]
+        bsz, n, c = pts.shape
+        n_samp = idx.shape[1]
+        ms = median_ms(torch, lambda: fps_mod.fps_cuda(pts, n_samp))
+        plain_ms = median_ms(torch, lambda: ref.fps_ref(pts, n_samp),
+                             reps=3, inner=1, warmup=1)
+        # what the function needs: each point read once, int32 indices
+        # out, and per (point, step) 3C flops plus one compare
+        rows[("fps", label)] = dict(
+            shape=f"B={bsz} N={n} S={n_samp}", ms=ms, plain_ms=plain_ms,
+            library_ms=None, max_abs_err=0.0, ms_per_step=ms / n_samp,
+            bytes=4 * pts.numel() + 4 * bsz * n_samp,
+            ops=bsz * n * (n_samp - 1) * (3 * c + 1), peak=FP32_OPS_PER_S)
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    for label, s, c, c_out in (("stage1", 0, 32, 64),
+                               ("stage4", 3, 256, 512)):
+        pts, idx, nbr = geo[s]
+        n, n_samp, k = pts.shape[1], idx.shape[1], nbr.shape[2]
+        feats = torch.randn(b, n, c, generator=gen).to(dev)
+        centers = sampling.gather_points(feats, idx).contiguous()
+        alpha = (0.7 + 0.6 * torch.rand(c, generator=gen)).to(dev)
+        beta = (0.1 * torch.randn(c, generator=gen)).to(dev)
+        w = (torch.randn(2 * c, c_out, generator=gen)
+             / (2 * c) ** 0.5).to(dev)
+        bias = (0.1 * torch.randn(c_out, generator=gen)).to(dev)
+        off = knn_core.gather_neighbors(feats, nbr) - centers[:, :, None, :]
+        sigma = knn_core.group_sigma(off, per_sample=True).reshape(-1)
+        sigma = sigma.contiguous()
+        aff = {"alpha": alpha, "beta": beta}
+
+        def unfused():
+            """The unfused path at this shape: torch gather and normalize
+            ops, then the fused_linear kernel."""
+            x = knn_core.normalize_group(knn_core.gather_neighbors(feats, nbr),
+                                         centers, aff, "affine",
+                                         per_sample=True)
+            x = torch.cat([x, centers[:, :, None, :].expand_as(x)], dim=-1)
+            return ops.fused_linear(x, w, bias, "relu")
+
+        unfused_out = unfused()
+        unfused_ms = median_ms(torch, unfused)
+        variants = (
+            ("grouped_transfer_stats",
+             lambda: gt_mod.grouped_transfer_stats_cuda(
+                 feats, nbr, centers, alpha, beta, w, bias),
+             lambda: ref.grouped_transfer_ref(
+                 feats, nbr, centers, None, alpha, beta, w, bias)),
+            ("grouped_transfer",
+             lambda: gt_mod.grouped_transfer_cuda(
+                 feats, nbr, centers, sigma, alpha, beta, w, bias),
+             lambda: ref.grouped_transfer_ref(
+                 feats, nbr, centers, sigma, alpha, beta, w, bias)))
+        for name, kernel, plain in variants:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+                  f"{name} {label}: max abs err {err} beyond rtol=atol=1e-5")
+            ms = median_ms(torch, kernel)
+            plain_ms = median_ms(torch, plain, reps=10)
+            # feats, int32 indices, centres, alpha/beta, w, b and the
+            # output once each; 2 * 2C * C_out flops per output row
+            nbytes = 4 * (feats.numel() + nbr.numel() + centers.numel()
+                          + 2 * c + w.numel() + c_out + got.numel())
+            if name == "grouped_transfer":
+                nbytes += 4 * b
+            rows[(name, label)] = dict(
+                shape=f"B={b} N={n} S={n_samp} k={k} C={c} C_out={c_out}",
+                ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
+                unfused_ms=unfused_ms,
+                bitwise_vs_unfused=bool(torch.equal(got, unfused_out)),
+                bytes=nbytes, ops=2 * b * n_samp * k * 2 * c * c_out,
+                peak=FP32_OPS_PER_S)
+    return emit_rows(rows)
+
+
 # ------------------------------------------------------------ serving --
 
 def counters():
-    from repro_torch.kernels import fused_linear, int8_matmul, knn
+    from repro_torch.kernels import (fps, fused_linear, grouped_transfer,
+                                     int8_matmul, knn)
     return {"knn": knn.knn_cuda, "int8_matmul": int8_matmul.int8_matmul_cuda,
-            "fused_linear": fused_linear.fused_linear_cuda}
+            "fused_linear": fused_linear.fused_linear_cuda,
+            "fps": fps.fps_cuda,
+            "grouped_transfer_stats":
+                grouped_transfer.grouped_transfer_stats_cuda,
+            "grouped_transfer": grouped_transfer.grouped_transfer_cuda}
 
 
-def mapping_chain(torch, clouds, state, device, k: int = 16):
-    """URS indices and per-stage kNN indices of one dispatch, through the
-    port's core functions on ``device`` (geometry only)."""
+def counted(torch, fn):
+    """Run ``fn`` with every launch count set to 0 just before it; return
+    (its result, the counts just after)."""
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in fns.items()}
+
+
+def expect_launches(name, launches, expect, dispatches=1):
+    for kname, n in launches.items():
+        per = expect.get(kname, 0)
+        check(n == per * dispatches,
+              f"{name}: {kname} launched {n} times over {dispatches} "
+              f"dispatches, expected {per} per dispatch")
+
+
+def mapping_chain(torch, clouds, state, device, spec, k: int = 16):
+    """Sampler indices (URS or FPS) and per-stage kNN indices of one
+    dispatch, through the port's core functions on ``device`` (geometry
+    only)."""
     from repro_torch.core import knn, sampling
     cur = torch.from_numpy(clouds).to(device)
     b = cur.shape[0]
     out = []
-    for n_samp in (256, 128, 64, 32):
-        state, idx = sampling.urs_indices(state, cur.shape[1], n_samp)
-        idx = idx.to(device)[None].expand(b, -1)
+    for n_samp in spec.to_model_config().stage_samples:
+        if spec.sampler == "fps":
+            idx = sampling.fps(cur, n_samp)
+        else:
+            state, idx = sampling.urs_indices(state, cur.shape[1], n_samp)
+            idx = idx.to(device)[None].expand(b, -1)
         new = sampling.gather_points(cur, idx)
         out.append((idx.cpu(), knn.knn_batched(new, cur, k).cpu()))
         cur = new
@@ -308,13 +467,20 @@ def profile_dispatch(torch, pipe, chunk, state):
         if us > 0:
             by_name[ev.key] = by_name.get(ev.key, 0) + us
     dev_ms = sum(by_name.values()) / 1e3
-    ours = sum(us for name, us in by_name.items()
-               if any(k in name for k in ("knn_kernel", "int8_matmul_kernel",
-                                          "fused_linear_kernel"))) / 1e3
+
+    def kernel_ms(*names):
+        return sum(us for name, us in by_name.items()
+                   if any(k in name for k in names)) / 1e3
+    ours = kernel_ms("knn_kernel", "int8_matmul_kernel",
+                     "fused_linear_kernel", "fps_kernel",
+                     "grouped_transfer")
+    fps_ms = kernel_ms("fps_kernel")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall_ms,
             "device_ms": dev_ms if by_name else "not measured",
             "port_kernels_ms": ours if by_name else "not measured",
+            "fps_ms": fps_ms if by_name else "not measured",
+            "fps_share": fps_ms / dev_ms if by_name else "not measured",
             "idle_share": (1 - dev_ms / wall_ms) if by_name else
             "not measured",
             "top": [[name[:70], us / 1e3] for name, us in top]}
@@ -333,31 +499,25 @@ def serving_phase(torch, name, spec, params, clouds, expect,
     state0 = eng.lfsr_state
 
     # The mapping chain of the first dispatch, card against CPU.
-    on_card = mapping_chain(torch, clouds[:MAX_BATCH], state0, "cuda")
-    on_cpu = mapping_chain(torch, clouds[:MAX_BATCH], state0, "cpu")
+    on_card = mapping_chain(torch, clouds[:MAX_BATCH], state0, "cuda", spec)
+    on_cpu = mapping_chain(torch, clouds[:MAX_BATCH], state0, "cpu", spec)
     for s, ((gi, gn), (ci, cn)) in enumerate(zip(on_card, on_cpu)):
-        check(torch.equal(gi, ci), f"{name}: URS indices differ at stage {s}")
+        check(torch.equal(gi, ci),
+              f"{name}: {spec.sampler} indices differ at stage {s}")
         check(torch.equal(gn, cn),
               f"{name}: kNN indices differ on the card at stage {s}")
 
     # The main path, counted: a ragged queue through the engine.
-    fns = counters()
-    for fn in fns.values():
-        fn.launches = 0
-    logits = eng.classify(clouds)
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in fns.items()}
+    logits, launches = counted(torch, lambda: eng.classify(clouds))
     dispatches = eng.stats.batches
-    for kname, per in expect.items():
-        check(launches[kname] == per * dispatches,
-              f"{name}: {kname} launched {launches[kname]} times over "
-              f"{dispatches} dispatches, expected {per} per dispatch")
+    check(len(clouds) % MAX_BATCH != 0, f"{name}: the queue is not ragged")
+    expect_launches(name, launches, expect, dispatches)
 
     ref_logits = cpu.classify(clouds)
     got = logits.cpu()
-    check(got.shape == (N_QUEUE, N_CLASSES) and bool(
+    check(got.shape == (len(clouds), N_CLASSES) and bool(
         torch.isfinite(got).all()), f"{name}: logits not finite "
-          f"[{N_QUEUE}, {N_CLASSES}]")
+          f"[{len(clouds)}, {N_CLASSES}]")
     err = (got - ref_logits).abs().max().item()
     scale = ref_logits.abs().max().item()
     check(err <= atol_rel * scale,
@@ -394,6 +554,59 @@ def serving_phase(torch, name, spec, params, clouds, expect,
     return launches
 
 
+def elite_variants_phase(torch, fused_spec, params, clouds):
+    """Elite's other two lowerings, one full dispatch each on the card:
+    unfused (the grouper's torch ops + fused_linear for the transfer),
+    held against the fused serving pipeline; and batch-global sigma (the
+    spec without ``.serving()``), held against the CPU."""
+    from repro_torch.api.build import build
+    full = torch.from_numpy(clouds[:MAX_BATCH]).cuda()
+    fused = build(fused_spec, params)
+    state = fused.seed_state(SEED, MAX_BATCH)
+    want, _ = fused.infer(full, state.clone())
+
+    unfused = build(fused_spec.replace(fused_group="none"), params)
+    (got, _), launches = counted(
+        torch, lambda: unfused.infer(full, state.clone()))
+    expect_launches("elite unfused", launches,
+                    {"fps": 4, "knn": 4, "fused_linear": 27})
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(err <= 1e-5 * scale, f"elite: unfused vs fused max abs err {err} "
+          f"> 1e-5 * {scale}")
+    emit({"phase": "elite_unfused", "launches": launches,
+          "max_abs_err_vs_fused": err, "max_abs_logit": scale,
+          "bitwise_fused_vs_unfused": bool(torch.equal(got, want)),
+          "tolerance": "1e-5 * max|logit|",
+          "why": "the same mapping, sigma from the same ops, and the fused "
+                 "kernel's product in fused_linear's fmaf order: equal but "
+                 "for sigma's float64 sum order (one rounding to f32)"})
+    total = dict(launches)
+
+    batch_spec = fused_spec.replace(shared_urs=False, per_sample_norm=False)
+    pipe = build(batch_spec, params)
+    (got, _), launches = counted(
+        torch, lambda: pipe.infer(full, state.clone()))
+    expect_launches("elite batch sigma", launches,
+                    {"fps": 4, "knn": 4, "grouped_transfer": 4,
+                     "fused_linear": 23})
+    want, _ = build(batch_spec, params, device="cpu").infer(full.cpu(),
+                                                            state.clone())
+    got = got.cpu()
+    check(bool(torch.isfinite(got).all()), "elite batch sigma: not finite")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(err <= 1e-4 * scale, f"elite batch sigma: card vs CPU max abs err "
+          f"{err} > 1e-4 * {scale}")
+    emit({"phase": "elite_batch_sigma", "launches": launches,
+          "max_abs_err_vs_cpu": err, "max_abs_logit": scale,
+          "bitwise_vs_cpu": bool(torch.equal(got, want)),
+          "tolerance": "1e-4 * max|logit|"})
+    for k, v in launches.items():
+        total[k] += v
+    return total
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch is missing; run it from the "
@@ -413,7 +626,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.api.spec import lite_spec, m2_spec
+    from repro_torch.api.spec import elite_spec, lite_spec, m2_spec
     from repro_torch.kernels import _build
     from repro_torch.models.pointmlp import pointmlp_init
 
@@ -426,7 +639,9 @@ def main() -> int:
     numerics_phase(torch)
     rng = np.random.default_rng(SEED)
     clouds = make_clouds(np, rng, N_QUEUE, 512)
+    elite_clouds = make_clouds(np, rng, N_QUEUE, ELITE_POINTS)
     rows = kernel_phase(torch, clouds)
+    rows.update(elite_kernel_phase(torch, elite_clouds))
 
     gen = torch.Generator().manual_seed(SEED)
     lite = lite_spec(N_CLASSES).serving().replace(backend="cuda")
@@ -435,7 +650,7 @@ def main() -> int:
     total = {k: 0 for k in REPLACES}
     got = serving_phase(
         torch, "lite", lite, params, clouds,
-        expect={"knn": 4, "int8_matmul": 28, "fused_linear": 0},
+        expect={"knn": 4, "int8_matmul": 28},
         atol_rel=0.0,
         why="bitwise: kNN and URS indices are checked identical; every "
             "int8 product is exact and dequantizes in the same f32 order on "
@@ -448,7 +663,7 @@ def main() -> int:
     m2 = m2_spec(N_CLASSES).serving().replace(backend="cuda")
     got = serving_phase(
         torch, "m2", m2, params, clouds,
-        expect={"knn": 4, "int8_matmul": 0, "fused_linear": 27},
+        expect={"knn": 4, "fused_linear": 27},
         atol_rel=1e-4,
         why="indices are identical; each fp32 layer sums K <= 512 products "
             "in another order than the CPU (relative error ~sqrt(K) ulp, "
@@ -457,21 +672,41 @@ def main() -> int:
     for k, v in got.items():
         total[k] += v
 
+    gen = torch.Generator().manual_seed(SEED + 3)
+    elite = elite_spec(N_CLASSES).serving().replace(
+        backend="cuda", fused_group="grouped_transfer")
+    elite_params = pointmlp_init(elite.to_model_config(), gen)
+    perturb_bn(torch, elite_params, gen)
+    got = serving_phase(
+        torch, "elite", elite, elite_params, elite_clouds,
+        expect={"fps": 4, "knn": 4, "grouped_transfer_stats": 4,
+                "fused_linear": 23},
+        atol_rel=1e-4,
+        why="FPS and kNN indices are identical; fp32 layers sum K <= 512 "
+            "products in another order than the CPU, compounded over 15 "
+            "layers, as for M-2")
+    for k, v in got.items():
+        total[k] += v
+    got = elite_variants_phase(torch, elite, elite_params, elite_clouds)
+    for k, v in got.items():
+        total[k] += v
+
     kernels = []
-    for name, src in (("knn", "knn.cu"), ("int8_matmul", "int8_matmul.cu"),
-                      ("fused_linear", "fused_linear.cu")):
-        label = "stage1" if name == "knn" else "stage1_transfer"
+    for name in REPLACES:
+        label = "stage1_transfer" if name in ("int8_matmul",
+                                              "fused_linear") else "stage1"
         r = rows[(name, label)]
-        check(total[name] > 0, f"{name} was never launched on the main path")
+        check(total[name] > 0, f"{name} was never launched on a main path")
+        extra = {k: r[k] for k in ("unfused_ms", "ms_per_step") if k in r}
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{src}",
+            "source": f"src/repro_torch/csrc/{SOURCES[name]}",
             "replaces": REPLACES[name], "launches": total[name],
             "max_abs_err": max(rows[(n, lb)]["max_abs_err"]
                                for n, lb in rows if n == name),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "at": r["shape"]})
+            "library_ms": r["library_ms"], "at": r["shape"], **extra})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -155,10 +155,11 @@ class FrozenPipeline:
             f"FrozenPipeline({s.name})",
             f"  topology  : {s.n_points} pts -> stages {cfg.stage_samples} "
             f"x dims {cfg.stage_dims} -> {s.n_classes} classes",
-            f"  sampler   : {s.sampler}"
-            + (" (shared across batch)" if s.shared_urs else ""),
+            f"  sampler   : {s.sampler}" + _sampler_note(s),
             f"  grouper   : {s.grouper} (k={s.k_neighbors}, {s.affine_mode}"
-            + (", per-sample sigma)" if s.per_sample_norm else ")"),
+            + (", per-sample sigma)" if s.per_sample_norm else ")")
+            + (f" fused with the transfer layer: {s.fused_group}"
+               if s.fused_group != "none" else ""),
             f"  precision : {prec}",
             f"  fusion    : {'BN folded into (w, b)' if s.fuse else 'off'}",
             f"  backend   : {s.backend}",
@@ -167,3 +168,9 @@ class FrozenPipeline:
             f"  params    : {tree_size_bytes(self.params)} bytes",
             f"  plan      : {len(self.plan.ops)} ops; {self.plan.describe()}",
         ])
+
+
+def _sampler_note(spec: PipelineSpec) -> str:
+    if spec.sampler == "fps":
+        return " (farthest point, per cloud)"
+    return " (shared across batch)" if spec.shared_urs else ""

@@ -1,11 +1,14 @@
 """Stage-plan IR: compile a PipelineSpec into an explicit per-stage op plan.
 
-The twin of ``repro.api.plan`` for this slice's ops (``EmbedOp``,
-``SampleOp``, ``GroupOp``, ``CBROp``, ``ResBlockOp``, ``PoolOp``,
-``HeadOp``).  ``lower(spec, cfg)`` resolves every CBR op's precision and
-backend (``stage_precision`` / ``stage_backend`` mixes included) into a
-bound backend callable and deployment :class:`QuantConfig`; the model
-walk (``repro_torch.models.pointmlp._forward_impl``) interprets it.
+The twin of ``repro.api.plan`` for the ported ops (``EmbedOp``,
+``SampleOp``, ``GroupOp``, ``FusedGroupTransferOp``, ``CBROp``,
+``ResBlockOp``, ``PoolOp``, ``HeadOp``).  ``lower(spec, cfg)`` resolves
+every CBR op's precision and backend (``stage_precision`` /
+``stage_backend`` mixes included) into a bound backend callable and
+deployment :class:`QuantConfig`; with ``spec.fused_group`` set, each
+stage's ``GroupOp`` + transfer ``CBROp`` pair becomes one
+``FusedGroupTransferOp``.  The model walk (``repro_torch.models.
+pointmlp._forward_impl``) interprets the plan.
 """
 from __future__ import annotations
 
@@ -58,6 +61,20 @@ class GroupOp:
 
 
 @dataclasses.dataclass(frozen=True)
+class FusedGroupTransferOp:
+    """A ``GroupOp`` + transfer ``CBROp`` pair lowered to one fused
+    gather + geometric-affine-normalize + matmul+bias+ReLU step
+    (``repro_torch.api.registry.FUSED_OPS[kernel]``); the grouped
+    ``[B, S, k, 2C]`` tensor never leaves the kernel."""
+    stage: int
+    k: int
+    cbr: CBROp                      # the transfer layer it absorbs
+    kernel: str                     # FUSED_OPS registry key
+    fn: Optional[Callable] = dataclasses.field(repr=False, compare=False,
+                                               default=None)
+
+
+@dataclasses.dataclass(frozen=True)
 class ResBlockOp:
     """Bottleneck residual block: relu(net2(net1(x)) + x)."""
     stage: int
@@ -95,12 +112,13 @@ class StagePlan:
     stage_backend: Tuple[str, ...]
     precision: str                  # embed + head precision
     backend: str                    # embed + head backend key
+    fused_group: str = "none"       # FUSED_OPS key, or "none"
 
     def cbr_ops(self) -> List[CBROp]:
-        """Every CBR layer in execution order."""
+        """Every CBR layer in execution order (fused transfers included)."""
         out: List[CBROp] = []
         for op in self.ops:
-            if isinstance(op, EmbedOp):
+            if isinstance(op, (EmbedOp, FusedGroupTransferOp)):
                 out.append(op.cbr)
             elif isinstance(op, CBROp):
                 out.append(op)
@@ -127,8 +145,15 @@ class StagePlan:
         return pred
 
     def describe(self) -> str:
-        rows = [f"stage {s + 1}: {self.stage_precision[s]}/"
-                f"{self.stage_backend[s]}" for s in range(_N_STAGES)]
+        fused = {op.stage for op in self.ops
+                 if isinstance(op, FusedGroupTransferOp)}
+        rows = []
+        for s in range(_N_STAGES):
+            row = (f"stage {s + 1}: {self.stage_precision[s]}/"
+                   f"{self.stage_backend[s]}")
+            if s in fused:
+                row += f" [group->transfer fused: {self.fused_group}]"
+            rows.append(row)
         rows.append(f"head: cls/{self.precision}/{self.backend}")
         return "; ".join(rows)
 
@@ -175,13 +200,20 @@ def _quant_for(spec, precision: str,
     return QuantConfig(backend="int8_ref", **common)
 
 
-def _build_ops(cfg, make_cbr: Callable,
-               head_quant: Optional[QuantConfig]) -> Tuple[Any, ...]:
+def _build_ops(cfg, make_cbr: Callable, head_quant: Optional[QuantConfig],
+               fused_key: Optional[str] = None,
+               fused_fn: Optional[Callable] = None) -> Tuple[Any, ...]:
     ops: List[Any] = [EmbedOp(make_cbr(("embed",), None, True))]
     for s in range(_N_STAGES):
         ops.append(SampleOp(stage=s, n_samples=cfg.stage_samples[s]))
-        ops.append(GroupOp(stage=s, k=cfg.k_neighbors))
-        ops.append(make_cbr(("stages", s, "transfer"), s, True))
+        transfer = make_cbr(("stages", s, "transfer"), s, True)
+        if fused_fn is not None:
+            ops.append(FusedGroupTransferOp(
+                stage=s, k=cfg.k_neighbors, cbr=transfer, kernel=fused_key,
+                fn=fused_fn))
+        else:
+            ops.append(GroupOp(stage=s, k=cfg.k_neighbors))
+            ops.append(transfer)
         for branch, count in (("pre", cfg.pre_blocks[s]),
                               ("pos", cfg.pos_blocks[s])):
             for i in range(count):
@@ -203,10 +235,13 @@ def lower(spec, cfg) -> StagePlan:
     """Compile a spec + model config into the executable op plan.
 
     ``cfg`` supplies the topology, ``spec`` the policy.  Raises what
-    ``spec.validate()`` raises for values this slice does not run.
+    ``spec.validate()`` raises for values the port does not run.
     """
     spec.validate()
     stage_prec, stage_back = resolve_stage_fields(spec)
+    fused_key = spec.fused_group
+    fused_fn = (registry.FUSED_OPS.get(fused_key)
+                if fused_key != "none" else None)
 
     def make_cbr(path, stage, act) -> CBROp:
         precision = spec.precision if stage is None else stage_prec[stage]
@@ -217,7 +252,8 @@ def lower(spec, cfg) -> StagePlan:
                      fn=registry.BACKENDS.get(backend))
 
     ops = _build_ops(cfg, make_cbr,
-                     _quant_for(spec, spec.precision, spec.backend))
+                     _quant_for(spec, spec.precision, spec.backend),
+                     fused_key=fused_key, fused_fn=fused_fn)
     return StagePlan(name=spec.name, ops=ops, stage_precision=stage_prec,
                      stage_backend=stage_back, precision=spec.precision,
-                     backend=spec.backend)
+                     backend=spec.backend, fused_group=fused_key)

@@ -1,7 +1,7 @@
 """String-keyed component registries for the pipeline API (HLS4PC §2).
 
-The twin of ``repro.api.registry``: spec fields name samplers, groupers
-and CBR backends by key, and ``build`` resolves them once.
+The twin of ``repro.api.registry``: spec fields name samplers, groupers,
+CBR backends and fused ops by key, and ``build`` resolves them once.
 
 Entry contracts
 ---------------
@@ -12,6 +12,11 @@ grouper(xyz, feats, idx, k, affine_params, mode, per_sample_norm) ->
 backend(p, x, quant, act) -> y
     one Conv(+folded BN)(+ReLU) inference layer; ``p["w"]`` may be an
     int8 export dict, ``quant`` a QuantConfig or None (fp32).
+fused_op(p, xyz, feats, idx, k, affine_params, mode, per_sample_norm,
+         act=True) -> (new_xyz [B,S,3], center_feats [B,S,C],
+                       out [B,S,k,C_out])
+    a GroupOp + transfer CBROp pair in one step; ``p`` is the transfer
+    layer's fused fp32 ``{"w", "b"}`` (``spec.fused_group``).
 """
 from __future__ import annotations
 
@@ -59,13 +64,28 @@ class Registry:
 SAMPLERS = Registry("sampler")
 GROUPERS = Registry("grouper")
 BACKENDS = Registry("backend")
+FUSED_OPS = Registry("fused op")
 
 register_sampler = SAMPLERS.register
 register_grouper = GROUPERS.register
 register_backend = BACKENDS.register
+register_fused_op = FUSED_OPS.register
 
 
 # ------------------------------------------------- builtin samplers -----
+
+@register_sampler("fps")
+def _fps_sampler(xyz: torch.Tensor, n_samples: int, lfsr_state,
+                 shared: bool):
+    """Farthest Point Sampling: data-dependent and stateless, so
+    ``shared`` changes nothing and the LFSR state passes through."""
+    from repro_torch.core import sampling
+    return sampling.fps(xyz, n_samples), lfsr_state
+
+
+#: A sampler that advances the LFSR state must run on every pass.
+_fps_sampler.advances_state = False
+
 
 @register_sampler("urs")
 def _urs_sampler(xyz: torch.Tensor, n_samples: int, lfsr_state,
@@ -133,6 +153,24 @@ def _cbr_cuda(p, x, quant, act: bool):
             b = torch.zeros(w.shape[1], dtype=w.dtype, device=w.device)
         return ops.fused_linear(x, w, b, "relu" if act else "none")
     return _cbr_ref(p, x, quant, act)
+
+
+# ------------------------------------------------- builtin fused ops ----
+
+@register_fused_op("grouped_transfer")
+def _grouped_transfer(p, xyz, feats, idx, k: int, affine_params, mode: str,
+                      per_sample_norm: bool, act: bool = True):
+    """Fused gather + geometric-affine normalize + matmul+bias+ReLU.
+
+    The lowering of a ``GroupOp`` + transfer ``CBROp`` pair: the kNN
+    kernel, then one ``grouped_transfer`` kernel (its stats variant under
+    per-cloud sigma) that never writes the ``[B, S, k, 2C]`` grouped
+    tensor.  Needs a fused fp32 transfer layer (``spec.validate``
+    enforces it).  On CPU tensors it runs the plain versions.
+    """
+    from repro_torch.kernels.grouped_transfer import fused_group_transfer
+    return fused_group_transfer(xyz, feats, idx, k, affine_params, mode,
+                                per_sample_norm, p, act=act)
 
 
 def resolve(sampler: str, grouper: str, backend: str) -> tuple:

@@ -4,13 +4,17 @@ The port's twin of ``repro.api.spec.PipelineSpec``, with the same field
 names and defaults (a parity test pins them), so a spec reads the same
 on both sides.  The paper's ladder as data::
 
+    elite_spec()   # FPS, learnable geometric affine, fp32, 1024 points
     m2_spec()      # URS, alpha/beta pruned, fp32, 512 points
     lite_spec()    # M-2 topology + int8 w8/a8 deployment
 
 Backend keys: ``ref`` (plain PyTorch) and ``cuda`` (the hand-written
-kernels; the port's counterpart of ``pallas``).  Spec values this slice
-does not run yet are rejected by :meth:`PipelineSpec.validate` with a
-``NotImplementedError`` naming the ROADMAP.md item they wait for.
+kernels; the port's counterpart of ``pallas``).  ``fused_group=
+"grouped_transfer"`` lowers each stage's group + transfer pair to one
+fused kernel.  Spec values the port does not run yet are rejected by
+:meth:`PipelineSpec.validate` with a ``NotImplementedError`` naming the
+ROADMAP.md item they wait for; a fused group whose preconditions fail
+(``repro.analysis`` RPA010-012) raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ class PipelineSpec:
     (``repro_torch.api.registry``); ``precision`` / ``w_bits`` /
     ``a_bits`` / ``fuse`` are the deployment policy; ``shared_urs`` and
     ``per_sample_norm`` are the serving batch semantics (see
-    :meth:`serving`).  The streaming, sharding, fused-group, seg-head and
+    :meth:`serving`).  The streaming, sharding, seg-head and
     async-policy fields exist so specs mirror the JAX ones; the slices
     that run them are listed in ROADMAP.md.
     """
@@ -147,15 +151,19 @@ class PipelineSpec:
         return self.replace(**kw)
 
     def validate(self) -> "PipelineSpec":
-        """Reject what this slice does not run (``NotImplementedError``
-        naming the ROADMAP.md item) and unknown registry keys
-        (``KeyError`` listing the registered names).  Returns self."""
+        """Reject what the port does not run (``NotImplementedError``
+        naming the ROADMAP.md item), unknown registry keys (``KeyError``
+        listing the registered names) and a fused group whose
+        preconditions fail (``ValueError``).  Returns self."""
         _check_supported(self)
         from repro_torch.api import registry
         registry.SAMPLERS.get(self.sampler)
         registry.GROUPERS.get(self.grouper)
         for key in {self.backend, *(self.stage_backend or ())}:
             registry.BACKENDS.get(key)
+        if self.fused_group != "none":
+            registry.FUSED_OPS.get(self.fused_group)
+            _check_fused(self)
         return self
 
     # ------------------------------------------- model-config bridge ----
@@ -180,14 +188,10 @@ class PipelineSpec:
             head=self.head, quant=quant)
 
 
-#: Spec values this slice does not run, and the ROADMAP.md item each
+#: Spec values the port does not run yet, and the ROADMAP.md item each
 #: waits for.
 _WAITS = (
-    (lambda s: s.sampler == "fps", "sampler='fps'",
-     "FPS + fps_update kernel + Elite"),
     (lambda s: s.grouper == "ball", "grouper='ball'", "the `ball` grouper"),
-    (lambda s: s.fused_group != "none", "fused_group",
-     "grouped_transfer's two kernels"),
     (lambda s: s.head == "seg", "head='seg'", "the seg head"),
     (lambda s: s.stream, "stream=True", "the async/stream/fleet engines"),
     (lambda s: s.data_shards > 1, "data_shards > 1",
@@ -203,6 +207,28 @@ def _check_supported(spec: PipelineSpec) -> None:
             raise NotImplementedError(
                 f"{what} is not ported yet: it waits for '{item}' in "
                 f"ROADMAP.md (Queue 1)")
+
+
+def _check_fused(spec: PipelineSpec) -> None:
+    """What the fused group->transfer lowering needs (``repro.analysis``
+    RPA010-012), as ``ValueError``s that name the field to change."""
+    fused = spec.fused_group
+    if spec.grouper != "knn":
+        raise ValueError(
+            f"RPA010: fused_group={fused!r} builds its neighbourhoods with "
+            f"the kNN kernel; grouper={spec.grouper!r} cannot lower fused "
+            f"(use grouper='knn' or fused_group='none')")
+    prec = spec.stage_precision or (spec.precision,) * N_STAGES
+    bad = [s + 1 for s in range(N_STAGES) if prec[s] == "int8"]
+    if bad:
+        raise ValueError(
+            f"RPA011: fused_group={fused!r} requires fp32 transfer layers; "
+            f"stages {bad} resolve to int8 (set precision / "
+            f"stage_precision to 'fp32' there, or fused_group='none')")
+    if not spec.fuse:
+        raise ValueError(
+            f"RPA012: fused_group={fused!r} consumes BN-folded (w, b) "
+            f"transfer layers; set fuse=True (or fused_group='none')")
 
 
 # ------------------------------------------------- paper variants -------

@@ -77,24 +77,20 @@ def gather_neighbors(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(feats, 1, flat).reshape(b, s, k, c)
 
 
-def normalize_group(grouped: torch.Tensor, centers: torch.Tensor,
-                    params: Optional[dict], mode: str = "affine",
-                    eps: float = 1e-5,
-                    per_sample: bool = False) -> torch.Tensor:
-    """(g - c) / sigma [* alpha + beta] over grouped [B, S, k, C].
+def group_sigma(off: torch.Tensor, per_sample: bool = False,
+                eps: float = 1e-5) -> torch.Tensor:
+    """``sqrt(mean(off**2) + eps)`` over offsets [B, S, k, C].
 
-    ``sigma = sqrt(mean(off**2) + eps)`` and the division adds ``eps``
-    again, both as in ``repro.core.knn``.  ``per_sample`` takes the mean
-    per cloud (over dims 1, 2, 3) instead of over the whole batch.
+    ``per_sample`` takes the mean per cloud (over dims 1, 2, 3, giving
+    [B, 1, 1, 1]) instead of over the whole batch (a 0-dim tensor).
 
-    The mean is summed in float64 and rounded once to float32, so it does
-    not depend on the order of the reduction, and its root is taken in
-    float64 and rounded once: the card and the CPU get the same sigma bit
-    for bit (``repro`` sums in float32; the two differ by about an ulp).
+    ``off * off`` is rounded in float32 and summed in float64, the mean
+    is a float64 division by a device tensor rounded once to float32,
+    and its root is taken in float64 and rounded once: the card and the
+    CPU get the same sigma bit for bit, and so do the unfused path and
+    the ``grouped_transfer`` kernel, which forms it the same way
+    (``repro`` sums in float32; the two differ by about an ulp).
     """
-    off = grouped - centers[:, :, None, :]
-    if mode == "center":
-        return off
     sq = off * off
     if per_sample:
         total = sq.sum(dim=(1, 2, 3), keepdim=True, dtype=torch.float64)
@@ -107,8 +103,23 @@ def normalize_group(grouped: torch.Tensor, centers: torch.Tensor,
     # float32 sqrt differs by an ulp between PyTorch's CUDA and CPU
     # kernels; a float64 sqrt rounded once to float32 is the correctly
     # rounded float32 root on both
-    sigma = torch.sqrt((mean + eps).double()).to(off.dtype)
-    out = off / (sigma + eps)
+    return torch.sqrt((mean + eps).double()).to(off.dtype)
+
+
+def normalize_group(grouped: torch.Tensor, centers: torch.Tensor,
+                    params: Optional[dict], mode: str = "affine",
+                    eps: float = 1e-5,
+                    per_sample: bool = False) -> torch.Tensor:
+    """(g - c) / sigma [* alpha + beta] over grouped [B, S, k, C].
+
+    ``sigma = sqrt(mean(off**2) + eps)`` (:func:`group_sigma`) and the
+    division adds ``eps`` again, both as in ``repro.core.knn``.
+    ``per_sample`` takes the mean per cloud instead of over the batch.
+    """
+    off = grouped - centers[:, :, None, :]
+    if mode == "center":
+        return off
+    out = off / (group_sigma(off, per_sample, eps) + eps)
     if mode == "norm":
         return out
     if mode == "affine":

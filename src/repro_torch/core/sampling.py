@@ -1,4 +1,4 @@
-"""LFSR-driven Uniform Random Sampling (HLS4PC §2.1), bit-exact with ``repro``.
+"""Point sampling: LFSR-driven URS (HLS4PC §2.1), bit-exact with ``repro``, and FPS.
 
 The paper replaces Farthest Point Sampling by URS driven by Galois LFSRs
 seeded identically at training and deployment time.  The JAX package
@@ -10,7 +10,14 @@ words and indices are bit-identical to ``repro.core.sampling``.
 The walk is sequential and tiny (one word per stream per step), so it
 runs on the host in NumPy whatever device the clouds live on: a state
 is a CPU ``int64`` tensor of ``uint32`` values, and only the indices
-travel to the clouds' device.  FPS waits for the Elite slice.
+travel to the clouds' device.
+
+Farthest Point Sampling, the baseline sampler of PointMLP-Elite that URS
+replaces, is data-dependent and stateless: :func:`fps` runs the whole
+sampler on the clouds' device, as one launch of the hand-written kernel
+(``repro_torch.kernels.fps``) for CUDA tensors and as its plain version
+for CPU tensors.  It picks exactly the indices of ``repro.core.sampling.
+fps_batched``.
 """
 from __future__ import annotations
 
@@ -108,3 +115,11 @@ def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     idx = idx.to(points.device, torch.int64)
     return torch.gather(points, 1,
                         idx[..., None].expand(-1, -1, points.shape[-1]))
+
+
+def fps(points: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """Farthest Point Sampling: [B, N, C] -> [B, S] int64 indices on the
+    points' device (the kernel on CUDA tensors), starting at index 0,
+    ties to the lowest index."""
+    from repro_torch.kernels import fps as fps_kernel
+    return fps_kernel.fps(points, n_samples)

@@ -29,9 +29,12 @@ BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# Per-source extra flags: the kNN distances must round every product and
-# sum on its own, as the plain version does (no FMA contraction).
-EXTRA_FLAGS: Dict[str, List[str]] = {"knn": ["--fmad=false"]}
+# Per-source extra flags: the kNN and FPS distances and the fused
+# group's normalization must round every product and sum on its own, as
+# the plain versions do (no FMA contraction; an explicit fmaf stays fused).
+EXTRA_FLAGS: Dict[str, List[str]] = {"knn": ["--fmad=false"],
+                                     "fps": ["--fmad=false"],
+                                     "grouped_transfer": ["--fmad=false"]}
 
 P, I = ctypes.c_void_p, ctypes.c_int
 # name -> (C symbol, argtypes); every launch function returns an int.
@@ -39,6 +42,9 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
     "knn": ("knn_launch", [P, P, P, I, I, I, I, I, P]),
     "int8_matmul": ("int8_matmul_launch", [P, P, P, P, P, I, I, I, I, P]),
     "fused_linear": ("fused_linear_launch", [P, P, P, P, I, I, I, I, P]),
+    "fps": ("fps_launch", [P, P, I, I, I, P]),
+    "grouped_transfer": ("grouped_transfer_launch",
+                         [P] * 10 + [I] * 9 + [P]),
 }
 
 _lock = threading.Lock()

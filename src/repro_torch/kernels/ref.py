@@ -8,9 +8,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.knn import knn_select, pairwise_sqdist
+from repro_torch.core.knn import (gather_neighbors, group_sigma, knn_select,
+                                  pairwise_sqdist)
 
 ACTIVATIONS = ("relu", "gelu", "none")
+EPS = 1e-5                      # the normalization's eps (both terms)
 
 
 def knn_ref(samples: torch.Tensor, points: torch.Tensor, k: int
@@ -55,3 +57,59 @@ def fused_linear_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         return y
     raise ValueError(f"activation must be one of {ACTIVATIONS}, "
                      f"got {activation!r}")
+
+
+def fps_ref(points: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """Farthest Point Sampling: [B, N, C] f32 -> [B, S] int64 indices.
+
+    The in-order loop of ``repro.core.sampling.fps``, on the whole batch
+    at once: start at index 0; each step forms ``d = (dx*dx + dy*dy) +
+    dz*dz`` (channels added left to right) to the last pick, folds it
+    into a running minimum that starts at +inf, and picks its argmax
+    (ties to the lowest index, as ``jnp.argmax`` and ``torch.argmax``).
+    """
+    b, n, c = points.shape
+    idx = torch.zeros((b, n_samples), dtype=torch.int64,
+                      device=points.device)
+    dists = torch.full((b, n), float("inf"), dtype=torch.float32,
+                       device=points.device)
+    rows = torch.arange(b, device=points.device)
+    last = points[:, 0, :]
+    for s in range(1, n_samples):
+        diff = points - last[:, None, :]
+        sq = diff * diff
+        d = sq[..., 0]
+        for ch in range(1, c):
+            d = d + sq[..., ch]
+        dists = torch.minimum(dists, d)
+        nxt = torch.argmax(dists, dim=1)
+        idx[:, s] = nxt
+        last = points[rows, nxt]
+    return idx
+
+
+def grouped_transfer_ref(feats: torch.Tensor, nidx: torch.Tensor,
+                         centers: torch.Tensor, sigma, alpha: torch.Tensor,
+                         beta: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                         *, normalize: bool = True, affine: bool = True,
+                         act: bool = True) -> torch.Tensor:
+    """Gather -> normalize -> concat -> ``x @ w + b`` -> ReLU, per cloud.
+
+    feats [B, N, C], nidx [B, S, k], centers [B, S, C] -> [B, S, k,
+    C_out].  ``sigma`` is the normalization scale per cloud ([B] f32,
+    given), or None to compute it per cloud (``group_sigma``, the
+    ``pallas_call`` of ``grouped_transfer.py:149``).  Under ``affine``
+    the normalized offsets become ``* alpha + beta`` ([C] each).
+    """
+    off = gather_neighbors(feats, nidx) - centers[:, :, None, :]
+    if normalize:
+        if sigma is None:
+            sigma = group_sigma(off, per_sample=True, eps=EPS)
+        else:
+            sigma = sigma.reshape(-1, 1, 1, 1)
+        off = off / (sigma + EPS)
+    if affine:
+        off = off * alpha + beta
+    x = torch.cat([off, centers[:, :, None, :].expand_as(off)], dim=-1)
+    y = x @ w + b
+    return torch.relu(y) if act else y

@@ -1,11 +1,14 @@
-"""PointMLP-Lite / M-2 inference (HLS4PC §3; Ma et al. 2022), in PyTorch.
+"""PointMLP-Elite / Lite / M-2 inference (HLS4PC §3; Ma et al. 2022), in PyTorch.
 
-Topology: pointwise-conv embedding -> 4 stages of (URS sample, kNN
-group with geometric-affine normalize, transfer CBR, pre residual
-blocks on [B,S,k,C], max-pool over k, pos residual blocks on [B,S,C])
--> global max-pool -> 3-layer classifier.  The walk interprets the op
-plan of ``repro_torch.api.plan.lower``, as ``repro.models.pointmlp.
-_forward_impl`` does.
+Topology: pointwise-conv embedding -> 4 stages of (sample, kNN group
+with geometric-affine normalize, transfer CBR, pre residual blocks on
+[B,S,k,C], max-pool over k, pos residual blocks on [B,S,C]) -> global
+max-pool -> 3-layer classifier.  Elite (the paper's baseline) samples
+with FPS, keeps the learnable affine (alpha, beta) and runs fp32 at
+1024 points; M-2 and Lite sample with URS at 512 points, with alpha and
+beta pruned.  The walk interprets the op plan of ``repro_torch.api.plan.
+lower``, as ``repro.models.pointmlp._forward_impl`` does; under
+``fused_group`` each stage's group + transfer pair is one fused op.
 
 Batched serving.  Under serving semantics (``shared_urs`` and
 ``per_sample_norm``) the JAX walk maps a one-cloud program over the
@@ -13,8 +16,9 @@ lanes.  This walk runs the whole dispatch as one batch, one kernel
 launch per layer, and keeps every per-lane quantity per lane: the int8
 activation scale (``QuantConfig.per_lane``, set at lowering), the
 normalization sigma (a mean per cloud), and one shared URS index
-sequence.  Every kernel sums in an order fixed by its own lane's data,
-so a lane's logits do not depend on what else is in its dispatch.
+sequence (FPS is per cloud by nature).  Every kernel sums in an order
+fixed by its own lane's data, so a lane's logits do not depend on what
+else is in its dispatch.
 """
 from __future__ import annotations
 
@@ -157,6 +161,12 @@ def _forward_impl(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
                                       cfg.affine_mode, per_sample_norm)
         elif isinstance(op, stage_plan.CBROp):
             cur = cbr(op, stage_plan.param_at(params, op.path), cur)
+        elif isinstance(op, stage_plan.FusedGroupTransferOp):
+            affine = params["stages"][op.stage].get("affine")
+            p = stage_plan.param_at(params, op.cbr.path)
+            cur_xyz, _, cur = op.fn(p, cur_xyz, cur, idx, op.k, affine,
+                                    cfg.affine_mode, per_sample_norm,
+                                    act=op.cbr.act)
         elif isinstance(op, stage_plan.ResBlockOp):
             blk = params["stages"][op.stage][op.branch][op.index]
             h = cbr(op.net1, blk["net1"], cur)

@@ -39,6 +39,7 @@ import torch
 
 from repro.api.build import build as jax_build
 from repro.api.spec import PipelineSpec as JaxSpec
+from repro.api.spec import elite_spec as jax_elite_spec
 from repro.api.spec import lite_spec as jax_lite_spec
 from repro.api.spec import m2_spec as jax_m2_spec
 from repro.core import knn as jknn
@@ -339,15 +340,16 @@ class TestSpecAndDevice:
 
     def test_variant_helpers_mirror_jax(self):
         for t_fn, j_fn in ((lite_spec, jax_lite_spec),
-                           (m2_spec, jax_m2_spec)):
+                           (m2_spec, jax_m2_spec),
+                           (elite_spec, jax_elite_spec)):
             assert (dataclasses.asdict(t_fn(10).serving())
                     == dataclasses.asdict(j_fn(10).serving()))
+            assert dataclasses.asdict(t_fn(10)) == dataclasses.asdict(j_fn(10))
         assert elite_spec().sampler == "fps"
 
     @pytest.mark.parametrize("over,item", [
-        (dict(sampler="fps"), "FPS"),
         (dict(grouper="ball"), "ball"),
-        (dict(fused_group="grouped_transfer"), "grouped_transfer"),
+        (dict(grouper="ball", fused_group="grouped_transfer"), "ball"),
         (dict(head="seg"), "seg head"),
         (dict(stream=True), "stream"),
         (dict(data_shards=2), "sharded"),
@@ -358,6 +360,24 @@ class TestSpecAndDevice:
         with pytest.raises(NotImplementedError, match=f"(?s){item}.*ROADMAP"):
             build(tiny(m2_spec, **over), from_numpy_tree(raw_params),
                   device="cpu")
+
+    @pytest.mark.parametrize("over,exc,match", [
+        (dict(precision="int8"), ValueError, r"RPA011.*fp32"),
+        (dict(fuse=False), ValueError, r"RPA012.*fuse=True"),
+        (dict(stream=True), NotImplementedError, r"stream.*ROADMAP"),
+    ])
+    def test_fused_group_rejections(self, raw_params, over, exc, match):
+        """The fused group->transfer lowering's preconditions (the JAX
+        package's RPA010-012) name the field to change; stream specs
+        still wait for their ROADMAP item."""
+        spec = tiny(m2_spec, fused_group="grouped_transfer", **over)
+        with pytest.raises(exc, match=f"(?s){match}"):
+            build(spec, from_numpy_tree(raw_params), device="cpu")
+
+    def test_unknown_fused_group_lists_registered(self, raw_params):
+        with pytest.raises(KeyError, match="grouped_transfer"):
+            build(tiny(m2_spec, fused_group="nope"),
+                  from_numpy_tree(raw_params), device="cpu")
 
     def test_default_tuning_is_accepted(self, raw_params):
         pipe = build(tiny(m2_spec, kernel_tuning=DEFAULT_TUNING),
