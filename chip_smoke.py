@@ -13,8 +13,14 @@ on the CPU: PointMLP-Lite (int8 W8A8) and M-2 (fused fp32) at 512 points,
 and PointMLP-Elite (FPS, learnable affine, fp32, 1024 points) with the
 fused group->transfer kernel.  Elite also runs one dispatch unfused (held
 against the fused one) and one under batch-global sigma (held against
-the CPU).  Every path is driven with the kernels' launch counts set to 0
-just before it and read just after.  Every phase prints one JSON line; a
+the CPU).  Then the decoder LM, tinyllama-1.1b at full width and depth in
+bf16 with random weights from a seed: the flash-attention and W8A16
+kernels against their plain versions at its shapes, a scoring forward of
+4 x 2048 tokens through the flash kernel held against the plain-attention
+route, a 2-layer cut held against the CPU, and ``Engine.generate``
+(prefill plus 32 greedy decode steps) whose last logits are held against
+the forward.  Every path is driven with the kernels' launch counts set to
+0 just before it and read just after.  Every phase prints one JSON line; a
 failed check raises and the script exits non-zero.  The line before the
 last lists every ported kernel with its numbers, and the last line is
 ``{"ok": true, "device": {...}}``.
@@ -41,9 +47,11 @@ N_CLASSES = 40
 SEED = 0
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit):
-# device-memory rate, fp32 on the CUDA cores (no TF32), int8 tensor cores.
+# device-memory rate, fp32 on the CUDA cores (no TF32), bf16 and int8
+# tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
 
 # The TPU kernel each CUDA kernel replaces (its pl.pallas_call line), and
@@ -55,12 +63,35 @@ REPLACES = {
     "fps": "src/repro/kernels/fps.py:41",
     "grouped_transfer_stats": "src/repro/kernels/grouped_transfer.py:149",
     "grouped_transfer": "src/repro/kernels/grouped_transfer.py:173",
+    "w8_matmul": "src/repro/kernels/int8_matmul.py:102",
+    "flash_attention": "src/repro/kernels/flash_attention.py:98",
 }
 SOURCES = {"knn": "knn.cu", "int8_matmul": "int8_matmul.cu",
            "fused_linear": "fused_linear.cu", "fps": "fps.cu",
            "grouped_transfer_stats": "grouped_transfer.cu",
-           "grouped_transfer": "grouped_transfer.cu"}
+           "grouped_transfer": "grouped_transfer.cu",
+           "w8_matmul": "w8_matmul.cu",
+           "flash_attention": "flash_attention.cu"}
+# The row of each kernel that the final line reports.
+MAIN_ROW = {"int8_matmul": "stage1_transfer",
+            "fused_linear": "stage1_transfer", "w8_matmul": "decode",
+            "flash_attention": "tinyllama_fwd"}
+# No path of the JAX package or of the port calls w8_matmul_pallas.
+NO_PATH = {"w8_matmul": "no model path calls w8_matmul, in the JAX package "
+                        "(its W8 deployment dequantizes in layers.py) or in "
+                        "the port; it is held against its plain version "
+                        "only"}
 ELITE_POINTS = 1024
+LM_ARCH = "tinyllama-1.1b"
+LM_BATCH, LM_SEQ = 4, 2048
+# bf16 logits, held against max|logit|.  bf16 keeps 8 significant bits;
+# two routes that round at other places move hidden values by a bf16 step
+# (2**-8 relative) here and there, and that spreads through the residual
+# stream.  On an H100 the card vs the CPU at 2 layers differed by 9.1e-3
+# to 1.05e-2 of max|logit|, the flash vs the plain route at 22 layers by
+# 1.7e-2: these bounds leave a factor of about 2 and 3.
+LM_TOL_2_LAYERS = 2e-2
+LM_TOL_FULL = 5e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -396,14 +427,16 @@ def elite_kernel_phase(torch, clouds):
 # ------------------------------------------------------------ serving --
 
 def counters():
-    from repro_torch.kernels import (fps, fused_linear, grouped_transfer,
-                                     int8_matmul, knn)
+    from repro_torch.kernels import (flash_attention, fps, fused_linear,
+                                     grouped_transfer, int8_matmul, knn)
     return {"knn": knn.knn_cuda, "int8_matmul": int8_matmul.int8_matmul_cuda,
             "fused_linear": fused_linear.fused_linear_cuda,
             "fps": fps.fps_cuda,
             "grouped_transfer_stats":
                 grouped_transfer.grouped_transfer_stats_cuda,
-            "grouped_transfer": grouped_transfer.grouped_transfer_cuda}
+            "grouped_transfer": grouped_transfer.grouped_transfer_cuda,
+            "w8_matmul": int8_matmul.w8_matmul_cuda,
+            "flash_attention": flash_attention.flash_attention_cuda}
 
 
 def counted(torch, fn):
@@ -445,19 +478,21 @@ def mapping_chain(torch, clouds, state, device, spec, k: int = 16):
     return out
 
 
-def profile_dispatch(torch, pipe, chunk, state):
-    """Device time per kernel name over one dispatch (torch.profiler)."""
+def profile_call(torch, fn):
+    """Run ``fn`` once to warm up, then once under torch.profiler: (host
+    wall ms of the profiled call, device us per kernel name, device
+    events: kernel launches and copies)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    pipe.infer(chunk, state.clone())
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.infer(chunk, state.clone())
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    from torch.autograd import DeviceType
-    by_name = {}
+    by_name, events = {}, 0
     for ev in prof.key_averages():
         # device-side events only (kernels, copies): the aten op rows
         # carry the same device time again
@@ -466,24 +501,44 @@ def profile_dispatch(torch, pipe, chunk, state):
         us = getattr(ev, "self_device_time_total", 0) or 0
         if us > 0:
             by_name[ev.key] = by_name.get(ev.key, 0) + us
+            events += ev.count
+    return wall_ms, by_name, events
+
+
+def profile_summary(wall_ms, by_name, events, **named):
+    """Device ms, idle share, device events, the ms of each ``named`` group
+    of kernel-name fragments, and the ten largest kernels."""
     dev_ms = sum(by_name.values()) / 1e3
 
     def kernel_ms(*names):
         return sum(us for name, us in by_name.items()
                    if any(k in name for k in names)) / 1e3
-    ours = kernel_ms("knn_kernel", "int8_matmul_kernel",
-                     "fused_linear_kernel", "fps_kernel",
-                     "grouped_transfer")
-    fps_ms = kernel_ms("fps_kernel")
+    out = {"wall_ms": wall_ms,
+           "device_ms": dev_ms if by_name else "not measured",
+           "idle_share": (1 - dev_ms / wall_ms) if by_name else
+           "not measured",
+           "device_events": events if by_name else "not measured"}
+    for key, names in named.items():
+        out[key] = kernel_ms(*names) if by_name else "not measured"
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"wall_ms": wall_ms,
-            "device_ms": dev_ms if by_name else "not measured",
-            "port_kernels_ms": ours if by_name else "not measured",
-            "fps_ms": fps_ms if by_name else "not measured",
-            "fps_share": fps_ms / dev_ms if by_name else "not measured",
-            "idle_share": (1 - dev_ms / wall_ms) if by_name else
-            "not measured",
-            "top": [[name[:70], us / 1e3] for name, us in top]}
+    out["top"] = [[name[:70], us / 1e3] for name, us in top]
+    return out
+
+
+def profile_dispatch(torch, pipe, chunk, state):
+    """Device time per kernel name over one dispatch (torch.profiler)."""
+    wall_ms, by_name, events = profile_call(
+        torch, lambda: pipe.infer(chunk, state.clone()))
+    out = profile_summary(
+        wall_ms, by_name, events,
+        port_kernels_ms=("knn_kernel", "int8_matmul_kernel",
+                         "fused_linear_kernel", "fps_kernel",
+                         "grouped_transfer"),
+        fps_ms=("fps_kernel",))
+    dev_ms = out["device_ms"]
+    out["fps_share"] = (out["fps_ms"] / dev_ms if by_name
+                        else "not measured")
+    return out
 
 
 def serving_phase(torch, name, spec, params, clouds, expect,
@@ -607,6 +662,309 @@ def elite_variants_phase(torch, fused_spec, params, clouds):
     return total
 
 
+# ---------------------------------------------------------------- LM ---
+
+def attention_pairs(tq: int, tk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave, per batch and head."""
+    total = 0
+    for i in range(tq):
+        qpos = i + tk - tq
+        hi = min(qpos, tk - 1) if causal else tk - 1
+        lo = max(0, qpos - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def rowwise_close(torch, got, want, tol: float):
+    """|got - want| <= tol * |want| + tol * (max |want| of its row), rows
+    along the last axis: an output rounded to bf16 may land one step
+    (2**-8 of its value) from the plain version's, and the absolute slack
+    follows each row's own scale, not the tensor's largest value.
+    -> (ok, max abs err, smallest and largest row atol, largest
+    err / allowed)."""
+    g, w = got.float(), want.float()
+    atol = tol * w.abs().amax(dim=-1, keepdim=True)
+    allowed = tol * w.abs() + atol
+    diff = (g - w).abs()
+    ratio = torch.where(allowed > 0, diff / allowed.clamp_min(1e-30),
+                        torch.where(diff > 0, float("inf"), 0.0))
+    worst = ratio.max().item()
+    ok = bool(torch.isfinite(g).all()) and worst <= 1.0
+    return (ok, diff.max().item(), atol.min().item(), atol.max().item(),
+            worst)
+
+
+def lm_kernel_phase(torch):
+    """The flash-attention and W8A16 kernels against their plain versions
+    at the LM's shapes (tinyllama: 32 query heads over 4 KV heads, head
+    dim 64, 2048 tokens)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import int8_matmul as i8_mod
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import f32_sums
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rows = {}
+    b, h, hkv, t = LM_BATCH, 32, 4, LM_SEQ
+    cases = (("tinyllama_fwd", h, hkv, t, t, 64, torch.bfloat16, True, 0),
+             ("d128", 16, 4, t, t, 128, torch.bfloat16, True, 0),
+             ("window256", h, hkv, t, t, 64, torch.bfloat16, True, 256),
+             ("decode_q1", h, hkv, 1, 200, 64, torch.bfloat16, True, 0),
+             ("noncausal_200", h, hkv, 200, 200, 64, torch.bfloat16, False,
+              0),
+             ("fp32", h, hkv, 512, 512, 64, torch.float32, True, 0))
+    for label, nh, nkv, tq, tk, d, dt, causal, win in cases:
+        q = torch.randn(b, nh, tq, d, generator=gen, device=dev).to(dt)
+        k = torch.randn(b, nkv, tk, d, generator=gen, device=dev).to(dt)
+        v = torch.randn(b, nkv, tk, d, generator=gen, device=dev).to(dt)
+        got = fa_mod.flash_attention_cuda(q, k, v, causal, win)
+        want = ref.attention_ref(q, k, v, causal, win)
+        torch.cuda.synchronize()
+        # bf16: the output is rounded to bf16, so a value near a rounding
+        # boundary may land one bf16 step away; f32: the sums run in
+        # another order (tile order of the rescale)
+        tol = 2.0 ** -7 if dt == torch.bfloat16 else 1e-5
+        ok, err, atol_lo, atol_hi, worst = rowwise_close(torch, got, want,
+                                                         tol)
+        check(ok, f"flash_attention {label}: max abs err {err}, "
+                  f"{worst} x its allowance (rtol={tol}, atol={tol} * "
+                  f"max|out| of the row, {atol_lo}..{atol_hi})")
+        ms = median_ms(torch, lambda: fa_mod.flash_attention_cuda(
+            q, k, v, causal, win))
+        plain_ms = median_ms(torch, lambda: ref.attention_ref(
+            q, k, v, causal, win), reps=5)
+        lib_ms = None
+        if tq == tk and win == 0:
+            # SDPA's is_causal is top-left aligned: the same function only
+            # where Tq == Tk
+            lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True))
+        pairs = b * nh * attention_pairs(tq, tk, causal, win)
+        nops = 4 * pairs * d
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        rows[("flash_attention", label)] = dict(
+            shape=f"B={b} H={nh} Hkv={nkv} Tq={tq} Tk={tk} D={d} "
+                  f"{str(dt)[6:]} causal={causal} window={win}",
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+            tolerance=f"rtol={tol}, atol={tol} * max|out| of the row",
+            atol_range=[atol_lo, atol_hi], err_over_allowed=worst,
+            bytes=nbytes,
+            ops=nops, peak=BF16_OPS_PER_S if dt == torch.bfloat16
+            else FP32_OPS_PER_S,
+            bound_ms_fp32_peak=1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                         nops / FP32_OPS_PER_S))
+
+    # W8A16 at tinyllama's MLP up-projection, decode (4 tokens) and
+    # prefill (4 x 2048 tokens) shapes.
+    for label, m in (("decode", LM_BATCH), ("prefill", LM_BATCH * LM_SEQ)):
+        kk, n = 2048, 5632
+        x = torch.randn(m, kk, generator=gen, device=dev).to(torch.bfloat16)
+        w_q = torch.randint(-127, 128, (kk, n), generator=gen, device=dev,
+                            dtype=torch.int8)
+        w_scale = torch.rand(n, generator=gen, device=dev) / 127 + 1e-4
+        got = i8_mod.w8_matmul_cuda(x, w_q, w_scale)
+        want = ref.w8_matmul_plain(x, w_q, w_scale)
+        torch.cuda.synchronize()
+        tol = 2.0 ** -7
+        ok, err, atol_lo, atol_hi, worst = rowwise_close(torch, got, want,
+                                                         tol)
+        check(ok, f"w8_matmul {label}: max abs err {err}, {worst} x its "
+                  f"allowance (rtol={tol}, atol={tol} * max|out| of the "
+                  f"row, {atol_lo}..{atol_hi})")
+        ms = median_ms(torch, lambda: i8_mod.w8_matmul_cuda(x, w_q, w_scale))
+        plain_ms = median_ms(torch, lambda: ref.w8_matmul_plain(
+            x, w_q, w_scale))
+        w_deq = (w_q.float() * w_scale).to(torch.bfloat16)
+        with f32_sums():
+            deq_ms = median_ms(torch, lambda: x @ w_deq)
+        nbytes = 2 * m * kk + kk * n + 4 * n + 2 * m * n
+        nops = 2 * m * kk * n
+        rows[("w8_matmul", label)] = dict(
+            shape=f"M={m} K={kk} N={n} bf16", ms=ms, plain_ms=plain_ms,
+            library_ms=None, max_abs_err=err,
+            tolerance=f"rtol={tol}, atol={tol} * max|out| of the row",
+            atol_range=[atol_lo, atol_hi], err_over_allowed=worst,
+            dequantized_matmul_ms=deq_ms,
+            dequantized_matmul_note="x @ w_dequant (bf16, weight "
+            "dequantized beforehand): not the same function, for "
+            "comparison only",
+            bytes=nbytes, ops=nops, peak=BF16_OPS_PER_S,
+            bound_ms_fp32_peak=1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                         nops / FP32_OPS_PER_S))
+    return emit_rows(rows)
+
+
+def lm_tokens(np, vocab: int, b: int, t: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, vocab, (b, t)).astype(np.int64)
+
+
+def rel_err(a, b):
+    """max|a - b| and max|b| of two logit tensors (on any device)."""
+    return ((a.float() - b.float()).abs().max().item(),
+            b.float().abs().max().item())
+
+
+def lm_forward_phase(torch, np, params, cfg):
+    """Score LM_BATCH x LM_SEQ random ids through the flash route (the
+    kernel, once per layer) and the plain-attention route on the card."""
+    import torch.nn.functional as F
+    from repro_torch.models.api import get_model
+
+    ids = torch.from_numpy(lm_tokens(np, cfg.vocab_size, LM_BATCH, LM_SEQ,
+                                     SEED)).cuda()
+    apis = {impl: get_model(cfg.replace(attn_impl=impl))
+            for impl in ("flash", "xla")}
+    out, launches, tok_s = {}, {}, {}
+    for impl, api in apis.items():
+        (logits, aux), launches[impl] = counted(
+            torch, lambda: api.forward(params, ids))
+        check(logits.shape == (LM_BATCH, LM_SEQ, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()) and aux.item() == 0,
+              f"lm forward {impl}: logits not finite [{LM_BATCH}, "
+              f"{LM_SEQ}, {cfg.vocab_size}]")
+        out[impl] = logits
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.forward(params, ids)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        tok_s[impl] = LM_BATCH * LM_SEQ / statistics.median(times)
+    expect_launches("lm forward flash", launches["flash"],
+                    {"flash_attention": cfg.n_layers})
+    expect_launches("lm forward xla", launches["xla"], {})
+    err, scale = rel_err(out["flash"], out["xla"])
+    check(err <= LM_TOL_FULL * scale,
+          f"lm forward: flash vs xla max abs err {err} > {LM_TOL_FULL} * "
+          f"{scale}")
+    top1 = (out["flash"].argmax(-1) == out["xla"].argmax(-1)).float().mean()
+    del out
+    # The gate activation on the card is one F.silu; the CPU keeps XLA-CPU's
+    # five-op expansion of logistic (bitwise parity).  What the expansion
+    # would cost a forward here, at the gate's shape:
+    gate = torch.randn(LM_BATCH * LM_SEQ, cfg.d_ff, device="cuda",
+                       dtype=torch.bfloat16)
+    silu_ms = {"f_silu": median_ms(torch, lambda: F.silu(gate)),
+               "expanded": median_ms(
+                   torch, lambda: gate * (1 / (1 + torch.exp(-gate))))}
+    del gate
+    prof = profile_summary(*profile_call(
+        torch, lambda: apis["flash"].forward(params, ids)),
+        flash_ms=("flash_attention_kernel",))
+    emit({"phase": "lm_forward", "arch": cfg.name, "layers": cfg.n_layers,
+          "batch": LM_BATCH, "seq": LM_SEQ, "dtype": cfg.dtype,
+          "launches": launches["flash"],
+          "max_abs_err_flash_vs_xla": err, "max_abs_logit": scale,
+          "tolerance": f"{LM_TOL_FULL} * max|logit|",
+          "top1_agree": top1.item(), "tokens_per_s": tok_s,
+          "profile_flash": prof, "silu_ms_per_layer": silu_ms,
+          "silu_expansion_ms_per_forward": cfg.n_layers * (
+              silu_ms["expanded"] - silu_ms["f_silu"])})
+    return launches["flash"]
+
+
+def lm_cpu_phase(torch, np, cfg):
+    """The LM cut to 2 layers at full width, B=2 T=128: the card (flash
+    kernel) against the CPU (plain versions)."""
+    from repro_torch.api.build import to_device
+    from repro_torch.models.api import get_model
+
+    cut = cfg.replace(n_layers=2, attn_impl="flash")
+    api = get_model(cut)
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED + 5))
+    ids = torch.from_numpy(lm_tokens(np, cut.vocab_size, 2, 128, SEED + 1))
+    (got, _), launches = counted(torch, lambda: api.forward(params,
+                                                            ids.cuda()))
+    expect_launches("lm 2 layers", launches, {"flash_attention": 2})
+    want, _ = api.forward(to_device(params, "cpu"), ids)
+    got = got.cpu()
+    check(bool(torch.isfinite(got).all()), "lm 2 layers: not finite")
+    err, scale = rel_err(got, want)
+    check(err <= LM_TOL_2_LAYERS * scale,
+          f"lm 2 layers: card vs CPU max abs err {err} > "
+          f"{LM_TOL_2_LAYERS} * {scale}")
+    emit({"phase": "lm_card_vs_cpu", "layers": 2, "batch": 2, "seq": 128,
+          "launches": launches, "max_abs_err_vs_cpu": err,
+          "max_abs_logit": scale,
+          "tolerance": f"{LM_TOL_2_LAYERS} * max|logit|",
+          "top1_agree": (got.argmax(-1) == want.argmax(-1)).float().mean()
+          .item()})
+    return launches
+
+
+def lm_generate_phase(torch, np, params, cfg):
+    """Engine.generate: B=4, a 512-token prompt, 32 greedy tokens.  The
+    last decode step's logits are held against the flash forward on the
+    prompt extended by the generated ids."""
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.engine import Engine
+
+    prompt_len, n_gen = 512, 32
+    api = get_model(cfg.replace(attn_impl="flash"))
+    eng = Engine(api, params, max_len=prompt_len + n_gen,
+                 batch_size=LM_BATCH)
+    prompt = torch.from_numpy(lm_tokens(np, cfg.vocab_size, LM_BATCH,
+                                        prompt_len, SEED + 2))
+    eng.generate({"tokens": prompt}, n_gen)            # warm-up
+    out, launches = counted(torch, lambda: eng.generate({"tokens": prompt},
+                                                        n_gen))
+    expect_launches("lm generate", launches, {})
+    ids = out["ids"]
+    check(ids.shape == (LM_BATCH, n_gen) and int(ids.min()) >= 0
+          and int(ids.max()) < cfg.vocab_size, "lm generate: bad ids")
+    full = torch.cat([prompt.cuda(), ids], dim=1)
+    want, _ = api.forward(params, full)
+    want = want[:, -1]
+    err, scale = rel_err(out["logits"], want)
+    check(err <= LM_TOL_FULL * scale,
+          f"lm generate: last decode logits vs forward max abs err {err} > "
+          f"{LM_TOL_FULL} * {scale}")
+    # one decode step alone, under the profiler, at the prompt's end
+    cache = api.init_cache(LM_BATCH, prompt_len + 1)
+    _, cache = api.prefill(params, {"tokens": prompt.cuda()}, cache)
+    step = {"token": ids[:, 0], "pos": prompt_len}
+    prof = profile_summary(*profile_call(
+        torch, lambda: api.decode_step(params, step, cache)))
+    st = out["stats"]
+    emit({"phase": "lm_generate", "batch": LM_BATCH, "prompt": prompt_len,
+          "new_tokens": n_gen, "launches": launches,
+          "prefill_ms": 1e3 * st.prefill_s,
+          "decode_tokens_per_s": st.decode_tok_per_s,
+          "decode_ms_per_step": 1e3 * st.decode_s / n_gen,
+          "max_abs_err_last_logits_vs_forward": err, "max_abs_logit": scale,
+          "tolerance": f"{LM_TOL_FULL} * max|logit|",
+          "top1_agree": (out["logits"].argmax(-1) == want.argmax(-1))
+          .float().mean().item(), "profile_decode_step": prof})
+    return launches
+
+
+def lm_phases(torch, np):
+    """The LM phases on tinyllama-1.1b at full width and depth (bf16,
+    random weights from a seed): (kernel rows, launches on main paths)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import param_count
+
+    rows = lm_kernel_phase(torch)
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    emit({"phase": "lm_init", "arch": cfg.name,
+          "params": param_count(params), "seconds": time.perf_counter() - t0})
+    total = dict(lm_forward_phase(torch, np, params, cfg))
+    for launches in (lm_cpu_phase(torch, np, cfg),
+                     lm_generate_phase(torch, np, params, cfg)):
+        for k, v in launches.items():
+            total[k] += v
+    return rows, total
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch is missing; run it from the "
@@ -690,20 +1048,34 @@ def main() -> int:
     got = elite_variants_phase(torch, elite, elite_params, elite_clouds)
     for k, v in got.items():
         total[k] += v
+    del elite_params, params
+    lm_rows, got = lm_phases(torch, np)
+    rows.update(lm_rows)
+    for k, v in got.items():
+        total[k] += v
 
     kernels = []
     for name in REPLACES:
-        label = "stage1_transfer" if name in ("int8_matmul",
-                                              "fused_linear") else "stage1"
-        r = rows[(name, label)]
-        check(total[name] > 0, f"{name} was never launched on a main path")
-        extra = {k: r[k] for k in ("unfused_ms", "ms_per_step") if k in r}
+        r = rows[(name, MAIN_ROW.get(name, "stage1"))]
+        if name in NO_PATH:
+            check(total[name] == 0, f"{name} was launched on a main path")
+        else:
+            check(total[name] > 0, f"{name} was never launched on a main "
+                                   f"path")
+        extra = {k: r[k] for k in ("unfused_ms", "ms_per_step",
+                                   "bound_ms_fp32_peak",
+                                   "dequantized_matmul_ms", "tolerance",
+                                   "atol_range", "err_over_allowed")
+                 if k in r}
+        if name in NO_PATH:
+            extra["no_main_path"] = NO_PATH[name]
+        err, err_at = max((rows[(n, lb)]["max_abs_err"], lb)
+                          for n, lb in rows if n == name)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{SOURCES[name]}",
             "replaces": REPLACES[name], "launches": total[name],
-            "max_abs_err": max(rows[(n, lb)]["max_abs_err"]
-                               for n, lb in rows if n == name),
+            "max_abs_err": err, "max_abs_err_at": err_at,
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "at": r["shape"], **extra})

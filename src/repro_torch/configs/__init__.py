@@ -1,0 +1,56 @@
+"""Architecture registry of the decoder LMs the port serves.
+
+``get_config``/``get_smoke_config`` resolve an arch id as
+``repro.configs`` does; an arch of the JAX package that the port does
+not serve yet raises ``NotImplementedError`` naming the ROADMAP.md item
+that brings it.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ModelConfig
+
+_ARCH_MODULES: Dict[str, str] = {
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "llama3.2-1b": "llama3_2_1b",
+}
+
+# The JAX package's other archs and the ROADMAP.md item that ports them.
+_UNPORTED: Dict[str, str] = {
+    "yi-9b": "Queue 1 item 7, the remaining dense configs",
+    "minitron-8b": "Queue 1 item 7, the remaining dense configs",
+    "moonshot-v1-16b-a3b": "Queue 1 item 7, MoE",
+    "llama4-maverick-400b-a17b": "Queue 1 item 7, MoE",
+    "internvl2-26b": "Queue 1 item 7, the VLM patch stub",
+    "whisper-tiny": "Queue 1 item 7, encoder-decoder",
+    "xlstm-1.3b": "Queue 1 item 7, xLSTM",
+    "hymba-1.5b": "Queue 1 item 7, Hymba",
+}
+
+
+def list_archs() -> List[str]:
+    return list(_ARCH_MODULES)
+
+
+def _module(name: str):
+    if name in _UNPORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet; it waits for "
+            f"{_UNPORTED[name]} in ROADMAP.md")
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; choose from {list_archs()}")
+    return importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).config()
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).smoke_config()
+
+
+__all__ = ["ModelConfig", "get_config", "get_smoke_config", "list_archs"]

@@ -6,8 +6,8 @@ with its own ``nvcc`` process (all started together), into
 ``sm_90a``.  The hash covers the source and the flags, so an edited
 source rebuilds and an unchanged one loads from disk.  The libraries are
 loaded with ``ctypes``: every pointer and the stream pass as
-``c_void_p``, every int as ``c_int``, and each launch function returns
-its ``cudaGetLastError()`` code.
+``c_void_p``, every int as ``c_int``, every float as ``c_float``, and
+each launch function returns its ``cudaGetLastError()`` code.
 
 Nothing here runs at import: the CPU tests import every module without
 ``nvcc``.  Only the repository's own sources are compiled.
@@ -36,7 +36,7 @@ EXTRA_FLAGS: Dict[str, List[str]] = {"knn": ["--fmad=false"],
                                      "fps": ["--fmad=false"],
                                      "grouped_transfer": ["--fmad=false"]}
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> (C symbol, argtypes); every launch function returns an int.
 SIGNATURES: Dict[str, Tuple[str, list]] = {
     "knn": ("knn_launch", [P, P, P, I, I, I, I, I, P]),
@@ -45,6 +45,9 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
     "fps": ("fps_launch", [P, P, I, I, I, P]),
     "grouped_transfer": ("grouped_transfer_launch",
                          [P] * 10 + [I] * 9 + [P]),
+    "w8_matmul": ("w8_matmul_launch", [P, P, P, P, I, I, I, I, P]),
+    "flash_attention": ("flash_attention_launch",
+                        [P] * 4 + [I] * 9 + [F, P]),
 }
 
 _lock = threading.Lock()

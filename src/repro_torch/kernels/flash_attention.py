@@ -1,0 +1,59 @@
+"""Flash attention: the CUDA kernel ``csrc/flash_attention.cu``.
+
+The port of ``repro.kernels.flash_attention.flash_attention_pallas``:
+online-softmax GQA attention over q [B, H, Tq, D] and k, v [B, Hkv, Tk,
+D] (bf16 or f32) with a causal and a sliding-window mask, queries aligned
+bottom-right.  ``flash_attention_cuda.launches`` counts launches.  The
+kernel's tiles are fixed (64 queries by 64 keys); the Pallas kernel's
+``tq``/``tk`` are tuning knobs that ``kernels.ops.flash_attention``
+accepts only at their defaults on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+HEAD_DIMS = (32, 64, 128)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, window: int = 0
+                         ) -> torch.Tensor:
+    """Launch the kernel: [B, H, Tq, D] x [B, Hkv, Tk, D] -> q's shape."""
+    from repro_torch.kernels import _build
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q [B, H, Tq, D] and k, v [B, Hkv, "
+                         f"Tk, D] expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or hkv < 1 or h % hkv:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
+                         f"q {tuple(q.shape)} (same B and D, H a multiple "
+                         f"of Hkv)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head dims "
+                         f"{HEAD_DIMS}, got {d}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention takes bf16 or f32 q, k, v of one "
+                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash_attention kernel needs contiguous CUDA "
+                             f"tensors on one device; {name} is on "
+                             f"{t.device}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    sm_scale = 1.0 / d ** 0.5          # rounded to f32 by ctypes
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = _build.launcher("flash_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv,
+        tq, tk, d, int(causal), int(window), int(q.dtype == torch.bfloat16),
+        sm_scale, stream)
+    _build.check("flash_attention", code)
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0

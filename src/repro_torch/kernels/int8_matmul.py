@@ -1,10 +1,14 @@
-"""A8W8 int8 matrix product: the CUDA kernel ``csrc/int8_matmul.cu``.
+"""The int8 matrix products: the CUDA kernels ``csrc/int8_matmul.cu`` and
+``csrc/w8_matmul.cu``.
 
-The port of ``repro.kernels.int8_matmul.int8_matmul_pallas``: int8
-activations ``[M, K]`` times int8 weights ``[K, N]`` into an int32
-accumulator, dequantized by ``a_scale[row // rows_per_lane] *
-w_scale[col]``.  ``int8_matmul_cuda.launches`` counts launches.
-(``w8_matmul`` has no pipeline caller and waits; see ROADMAP.md.)
+``int8_matmul_cuda`` ports ``repro.kernels.int8_matmul.
+int8_matmul_pallas`` (A8W8): int8 activations ``[M, K]`` times int8
+weights ``[K, N]`` into an int32 accumulator, dequantized by
+``a_scale[row // rows_per_lane] * w_scale[col]``.  ``w8_matmul_cuda``
+ports ``w8_matmul_pallas`` (W8A16): bf16/f32 activations times int8
+weights widened in the tile, f32 sums, a per-column scale, the result in
+the activations' dtype.  No model path calls it, in the JAX package or
+here.  Each wrapper counts its launches on ``<fn>.launches``.
 """
 from __future__ import annotations
 
@@ -61,3 +65,40 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
 
 
 int8_matmul_cuda.launches = 0
+
+
+def w8_matmul_cuda(x: torch.Tensor, w_q: torch.Tensor,
+                   w_scale: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel: x [M, K] (bf16/f32) @ int8 [K, N] * w_scale [N]
+    -> x.dtype [M, N]."""
+    from repro_torch.kernels import _build
+    if x.ndim != 2 or w_q.ndim != 2 or w_q.shape[0] != x.shape[1]:
+        raise ValueError(f"w8_matmul: x [M, K] needs w_q [K, N], got "
+                         f"{tuple(x.shape)} and {tuple(w_q.shape)}")
+    m, k = x.shape
+    n = w_q.shape[1]
+    if x.dtype not in (torch.bfloat16, torch.float32) or \
+            w_q.dtype != torch.int8 or w_scale.dtype != torch.float32:
+        raise ValueError(f"w8_matmul takes bf16/f32 x, int8 w_q and f32 "
+                         f"w_scale, got {x.dtype}, {w_q.dtype}, "
+                         f"{w_scale.dtype}")
+    if w_scale.numel() != n:
+        raise ValueError(f"w8_matmul: w_scale needs {n} entries, got "
+                         f"{w_scale.numel()}")
+    for name, t in (("x", x), ("w_q", w_q), ("w_scale", w_scale)):
+        if not t.is_cuda or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"w8_matmul kernel needs contiguous CUDA tensors "
+                             f"on one device; {name} is on {t.device}")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m * n == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = _build.launcher("w8_matmul")(
+        x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(), m,
+        k, n, int(x.dtype == torch.bfloat16), stream)
+    _build.check("w8_matmul", code)
+    w8_matmul_cuda.launches += 1
+    return out
+
+
+w8_matmul_cuda.launches = 0

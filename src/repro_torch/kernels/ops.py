@@ -10,8 +10,9 @@ import torch
 
 from repro_torch.core.quant import compute_scale, qrange
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_linear import fused_linear_cuda
-from repro_torch.kernels.int8_matmul import int8_matmul_cuda
+from repro_torch.kernels.int8_matmul import int8_matmul_cuda, w8_matmul_cuda
 
 
 def _device_kind(*ts: torch.Tensor) -> str:
@@ -67,3 +68,40 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     else:
         y = ref.fused_linear_ref(x2, w, b, activation)
     return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+def w8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor
+              ) -> torch.Tensor:
+    """W8A16: x [..., K] (bf16/f32) @ int8 w_q [K, N] * w_scale [1, N] ->
+    x.dtype [..., N]."""
+    kind = _device_kind(x, w_q, w_scale)
+    x2 = x.reshape(-1, x.shape[-1])
+    if kind == "cuda":
+        y = w8_matmul_cuda(x2.contiguous(), w_q.contiguous(),
+                           w_scale.reshape(-1).contiguous())
+    else:
+        y = ref.w8_matmul_plain(x2, w_q, w_scale)
+    return y.reshape(*x.shape[:-1], w_q.shape[1])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0, tq: int = 128,
+                    tk: int = 128) -> torch.Tensor:
+    """Attention over q [B, H, Tq, D] and k, v [B, Hkv, Tk, D] -> [B, H,
+    Tq, D], queries aligned bottom-right.
+
+    ``tq``/``tk`` are the Pallas kernel's tiles; the CUDA kernel's are
+    fixed, so on the card anything but the defaults raises (as ``build``
+    does for a non-default ``KernelTuning``).  The plain version has no
+    tiles.
+    """
+    kind = _device_kind(q, k, v)
+    if kind == "cuda":
+        if (tq, tk) != (128, 128):
+            raise NotImplementedError(
+                f"flash_attention: tiles tq={tq}, tk={tk} wait for "
+                f"'Tuning and analysis' in ROADMAP.md; the CUDA kernel's "
+                f"tiles are fixed")
+        return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal, window)
+    return ref.attention_ref(q, k, v, causal, window)

@@ -6,6 +6,8 @@ its plain version on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.knn import (gather_neighbors, group_sigma, knn_select,
@@ -38,6 +40,50 @@ def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
     lane_scale = a_scale.repeat_interleave(rows_per_lane)     # [M]
     scale = lane_scale[:, None] * w_scale.reshape(1, -1)      # f32 [M, N]
     return acc.to(torch.float32) * scale
+
+
+def w8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
+                    w_scale: torch.Tensor) -> torch.Tensor:
+    """W8A16: x [M, K] (bf16/f32) @ int8 w_q [K, N] * w_scale [1, N] ->
+    x.dtype [M, N].
+
+    The Pallas kernel's arithmetic (``int8_matmul.py::_w8_kernel``): x and
+    the int8 weight widened (exactly), products summed in f32, the sum
+    times the scale in f32, rounded to ``x.dtype``.  Not the JAX ``ref``
+    oracle, which dequantizes the weight in ``x.dtype`` before the
+    product.
+    """
+    acc = x.float() @ w_q.float()
+    return (acc * w_scale.reshape(1, -1).float()).to(x.dtype)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, sliding_window: int = 0
+                  ) -> torch.Tensor:
+    """GQA attention oracle: q [B, H, Tq, D], k/v [B, Hkv, Tk, D] ->
+    [B, H, Tq, D] in q's dtype (``repro.kernels.ref.attention_ref``).
+
+    f32 logits divided by sqrt(D), queries aligned bottom-right
+    (``qpos = i + Tk - Tq``), masked logits set to -1e30, f32 softmax.
+    Query head h reads KV head h // (H // Hkv).
+    """
+    b, h, tq, d = q.shape
+    rep = h // k.shape[1]
+    k = k.repeat_interleave(rep, dim=1).float()
+    v = v.repeat_interleave(rep, dim=1).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k)
+    logits = logits / logits.new_full((), math.sqrt(d))
+    tk = k.shape[2]
+    qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if sliding_window > 0:
+        mask &= kpos > qpos - sliding_window
+    logits = torch.where(mask, logits, logits.new_full((), -1e30))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
 
 
 def gelu_tanh(y: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,191 @@
+"""GQA attention with KV caches (full, causal, sliding-window).
+
+The port of ``repro.models.attention`` for the decoder LM:
+
+* full sequence, no cache (the scoring forward): ``impl="flash"`` runs
+  the flash-attention CUDA kernel (``kernels.ops.flash_attention``),
+  ``impl="xla"`` the plain einsum form ``_sdpa_xla``;
+* prefill and decode, with a cache: always ``_sdpa_xla`` over the dense
+  cache, or ``_rolling_sdpa`` over a rolling sliding-window cache, as in
+  JAX (the flash route is taken exactly where JAX takes it: ``impl ==
+  "flash"`` and no cache).
+
+Layouts are JAX's: q [B, T, H, D], k/v and caches [B, S, Hkv, D].  The
+cache is updated in place (JAX's engine donates it), and the updated
+cache is returned as JAX returns it.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+NEG = -1e30
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def attn_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.kv_head_dim
+    dt = torch_dtype(cfg)
+    return {
+        "wq": L.dense_init(generator, d, h * hd, bias=False, dtype=dt),
+        "wk": L.dense_init(generator, d, cfg.n_kv_heads * hd, bias=False,
+                           dtype=dt),
+        "wv": L.dense_init(generator, d, cfg.n_kv_heads * hd, bias=False,
+                           dtype=dt),
+        "wo": L.dense_init(generator, h * hd, d, bias=False, dtype=dt),
+    }
+
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, t, _ = x.shape
+    return x.reshape(b, t, n_heads, -1)
+
+
+def _masked_softmax_av(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mask: torch.Tensor, out_shape, dtype) -> torch.Tensor:
+    """softmax(where(mask, qg.k / sqrt(D), -1e30)) @ v, all in f32, for
+    qg [B, T, Hkv, G, D] and k, v [B, S, Hkv, D]."""
+    d = qg.shape[-1]
+    logits = torch.einsum("bthgd,bshd->bhgts", qg.float(), k.float())
+    logits = logits / logits.new_full((), math.sqrt(d))
+    logits = torch.where(mask, logits, logits.new_full((), NEG))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgts,bshd->bthgd", p, v.float())
+    return out.reshape(out_shape).to(dtype)
+
+
+def _sdpa_xla(q, k, v, causal: bool, window: int, q_offset: int,
+              kv_len: Optional[int] = None) -> torch.Tensor:
+    """q [B,T,H,D], k/v [B,S,Hkv,D]; GQA by reshape (query head h reads
+    KV head h // (H // Hkv)).  q_offset: absolute position of q[:, 0];
+    kv_len: count of valid cache entries (prefill/decode)."""
+    b, t, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, t, hkv, h // hkv, d)
+    qpos = q_offset + torch.arange(t, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    if kv_len is not None:
+        mask &= kpos < kv_len
+    return _masked_softmax_av(qg, k, v, mask, (b, t, h, d), q.dtype)
+
+
+def _rolling_sdpa(q, k, v, slot_pos: torch.Tensor, window: int,
+                  q_offset: int) -> torch.Tensor:
+    """Attention over a rolling window cache; slot_pos [W] absolute
+    positions, valid iff 0 <= slot_pos <= qpos and slot_pos > qpos -
+    window."""
+    b, t, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, t, hkv, h // hkv, d)
+    qpos = q_offset + torch.arange(t, device=q.device)[:, None]
+    sp = slot_pos[None, :]
+    mask = (sp >= 0) & (sp <= qpos) & (sp > qpos - window)
+    return _masked_softmax_av(qg, k, v, mask, (b, t, h, d), q.dtype)
+
+
+def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
+               causal: bool = True, q_offset: int = 0,
+               cache: Optional[Dict] = None,
+               cache_pos: Optional[int] = None, rope: bool = True,
+               window: int = 0, impl: Optional[str] = None
+               ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Returns (out [B,T,d], updated cache or None).
+
+    cache: {"k","v": [B, S_max, Hkv, D]}, dense, or rolling when
+    ``window > 0`` and ``S_max == window`` (slot = absolute_pos % window).
+    cache_pos: absolute position (int) of x[:, 0] when caching.
+    """
+    impl = impl or cfg.attn_impl
+    if impl == "xla_chunked":
+        raise NotImplementedError(
+            "attn_impl='xla_chunked' waits for Queue 1 item 7 (the LM side) "
+            "in ROADMAP.md; use 'xla' or 'flash'")
+    if impl not in ("xla", "flash"):
+        raise ValueError(f"unknown attn_impl {impl!r}; the port serves "
+                         f"'xla' and 'flash'")
+    h = cfg.n_heads
+    quant = cfg.quant if cfg.quant.enabled else None
+    b, t, _ = x.shape
+    if cache is not None and cache_pos is not None:
+        q_offset = cache_pos          # absolute positions for RoPE/masks
+    q = _split_heads(L.dense_apply(p["wq"], x, quant), h)
+    k = _split_heads(L.dense_apply(p["wk"], x, quant), cfg.n_kv_heads)
+    v = _split_heads(L.dense_apply(p["wv"], x, quant), cfg.n_kv_heads)
+    if rope:
+        pos = q_offset + torch.arange(t, device=x.device)
+        q = L.apply_rope(q.transpose(1, 2), pos,
+                         cfg.rope_theta).transpose(1, 2)
+        k = L.apply_rope(k.transpose(1, 2), pos,
+                         cfg.rope_theta).transpose(1, 2)
+
+    new_cache = None
+    kv_len = None
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        s_max = ck.shape[1]
+        if window > 0 and s_max == window:
+            # rolling cache: only the last min(t, window) tokens survive a
+            # multi-token (prefill) write, so slots never collide
+            w_eff = min(t, window)
+            slots = (cache_pos + t - w_eff
+                     + torch.arange(w_eff, device=x.device)) % window
+            ck[:, slots] = k[:, t - w_eff:].to(ck.dtype)
+            cv[:, slots] = v[:, t - w_eff:].to(cv.dtype)
+            if t > 1:
+                # prefill: windowed attention over the in-sequence keys
+                out = _sdpa_xla(q, k, v, causal=True, window=window,
+                                q_offset=0)
+            else:
+                # decode: the rolling cache with reconstructed absolute
+                # slot positions
+                pos_now = cache_pos + t - 1
+                slot_ids = torch.arange(window, device=x.device)
+                slot_pos = pos_now - ((pos_now - slot_ids) % window)
+                out = _rolling_sdpa(q, ck, cv, slot_pos, window,
+                                    q_offset=cache_pos)
+            return (L.dense_apply(p["wo"], out.reshape(b, t, -1), quant),
+                    {"k": ck, "v": cv})
+        if cache_pos < 0 or cache_pos + t > s_max:
+            # JAX's dynamic_update_slice would clamp the start silently
+            raise ValueError(f"cache write of {t} tokens at position "
+                             f"{cache_pos} does not fit a cache of {s_max}")
+        ck[:, cache_pos:cache_pos + t] = k.to(ck.dtype)
+        cv[:, cache_pos:cache_pos + t] = v.to(cv.dtype)
+        new_cache = {"k": ck, "v": cv}
+        k, v = ck, cv
+        kv_len = cache_pos + t
+        q_offset = cache_pos
+
+    if impl == "flash" and cache is None:
+        from repro_torch.kernels import ops
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=causal,
+                                  window=window).transpose(1, 2)
+    else:
+        out = _sdpa_xla(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset, kv_len=kv_len)
+    return (L.dense_apply(p["wo"], out.reshape(b, t, -1), quant),
+            new_cache)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
+               device=None) -> Dict:
+    """Dense cache [B, S, Hkv, D] or rolling [B, W, Hkv, D] of one layer."""
+    s = window if window > 0 else max_len
+    shape = (batch, s, cfg.n_kv_heads, cfg.kv_head_dim)
+    dt = torch_dtype(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}

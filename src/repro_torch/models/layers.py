@@ -1,4 +1,7 @@
-"""Pointwise layers over plain parameter dicts (the JAX package's layout).
+"""Layers over plain parameter dicts (the JAX package's layout).
+
+PointMLP's pointwise layers, and the decoder LM's norms, embeddings,
+RoPE and SwiGLU.
 
 Matmul weights are ``[d_in, d_out]`` under ``"w"``; a weight may have
 been replaced by an int8 export dict ``{"q", "scale"}``, and the apply
@@ -6,10 +9,12 @@ functions dispatch on that.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.fusion import batchnorm_apply
 from repro_torch.core.quant import QuantConfig
@@ -28,11 +33,12 @@ def _bn_init(channels: int, device) -> Dict[str, torch.Tensor]:
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
-               bias: bool = True, scale: Optional[float] = None) -> Dict:
+               bias: bool = True, scale: Optional[float] = None,
+               dtype=torch.float32) -> Dict:
     std = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    p = {"w": _normal(generator, (d_in, d_out), std)}
+    p = {"w": _normal(generator, (d_in, d_out), std).to(dtype)}
     if bias:
-        p["b"] = torch.zeros(d_out, device=generator.device)
+        p["b"] = torch.zeros(d_out, dtype=dtype, device=generator.device)
     return p
 
 
@@ -67,6 +73,20 @@ def _matmul(x: torch.Tensor, w, quant: Optional[QuantConfig]
     return x @ w.to(x.dtype)
 
 
+@contextlib.contextmanager
+def f32_sums():
+    """Within the block, cuBLAS sums bf16 products in f32, as XLA's dot
+    does; PyTorch's default lets it reduce them in bf16.  The flag is
+    process-wide; it is restored on exit."""
+    m = torch.backends.cuda.matmul
+    saved = m.allow_bf16_reduced_precision_reduction
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        m.allow_bf16_reduced_precision_reduction = saved
+
+
 def dense_apply(p: Dict, x: torch.Tensor,
                 quant: Optional[QuantConfig] = None) -> torch.Tensor:
     y = _matmul(x, p["w"], quant)
@@ -89,3 +109,81 @@ def conv1d_apply(p: Dict, x: torch.Tensor,
     if "bn" in p:
         y = batchnorm_apply(y, p["bn"], bn_eps)
     return y
+
+
+# ------------------------------------------------ decoder LM layers -----
+# Each op keeps its JAX counterpart's order of roundings
+# (``repro.models.layers``); inits draw from an explicit generator in f32
+# and cast to the config's dtype, as the JAX inits do.
+
+def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> Dict:
+    return {"g": torch.ones(d, dtype=dtype, device=device)}
+
+
+def rmsnorm_apply(p: Dict, x: torch.Tensor, eps: float = 1e-5
+                  ) -> torch.Tensor:
+    """f32 mean of squares and rsqrt, the normalized x cast to x.dtype,
+    then times g in x.dtype."""
+    x32 = x.float()
+    inv = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (x32 * inv).to(x.dtype) * p["g"].to(x.dtype)
+
+
+def embedding_init(generator: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32) -> Dict:
+    return {"table": _normal(generator, (vocab, d), 0.02).to(dtype)}
+
+
+def embedding_apply(p: Dict, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"][ids]
+
+
+def unembed_apply(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding: logits = x @ table.T in f32."""
+    return x.float() @ p["table"].float().T
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None
+                     ) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x [..., T, D]; positions broadcastable to [..., T].  f32 angles,
+    split-halves rotation, cast back to x.dtype."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)               # [D/2]
+    angles = positions[..., None].float() * freqs               # [..., T, D/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x).  On the CPU, sigmoid is ``1 / (1 + exp(-x))`` with
+    each op rounded in x.dtype: ``jax.nn.sigmoid`` is XLA's ``logistic``,
+    which the CPU backend expands so (bitwise in bf16, where
+    ``torch.sigmoid`` rounds once and differs in about a third of
+    values).  On the card, where nothing is held bitwise against XLA, it
+    is one ``F.silu`` pass (f32 inside, rounded once) in place of five."""
+    if x.is_cuda:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def swiglu_init(generator: torch.Generator, d: int, d_ff: int,
+                dtype=torch.float32) -> Dict:
+    return {"gate": dense_init(generator, d, d_ff, bias=False, dtype=dtype),
+            "up": dense_init(generator, d, d_ff, bias=False, dtype=dtype),
+            "down": dense_init(generator, d_ff, d, bias=False, dtype=dtype)}
+
+
+def swiglu_apply(p: Dict, x: torch.Tensor,
+                 quant: Optional[QuantConfig] = None) -> torch.Tensor:
+    g = dense_apply(p["gate"], x, quant)
+    u = dense_apply(p["up"], x, quant)
+    return dense_apply(p["down"], silu(g) * u, quant)
