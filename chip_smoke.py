@@ -714,7 +714,8 @@ def lm_kernel_phase(torch):
              ("decode_q1", h, hkv, 1, 200, 64, torch.bfloat16, True, 0),
              ("noncausal_200", h, hkv, 200, 200, 64, torch.bfloat16, False,
               0),
-             ("fp32", h, hkv, 512, 512, 64, torch.float32, True, 0))
+             ("fp32", h, hkv, 512, 512, 64, torch.float32, True, 0),
+             ("d16_window8", 8, 2, 256, 256, 16, torch.bfloat16, True, 8))
     for label, nh, nkv, tq, tk, d, dt, causal, win in cases:
         q = torch.randn(b, nh, tq, d, generator=gen, device=dev).to(dt)
         k = torch.randn(b, nkv, tk, d, generator=gen, device=dev).to(dt)
@@ -747,6 +748,7 @@ def lm_kernel_phase(torch):
         rows[("flash_attention", label)] = dict(
             shape=f"B={b} H={nh} Hkv={nkv} Tq={tq} Tk={tk} D={d} "
                   f"{str(dt)[6:]} causal={causal} window={win}",
+            kernel_route=fa_mod.route(dt, d), tflops=nops / ms / 1e9,
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
             tolerance=f"rtol={tol}, atol={tol} * max|out| of the row",
             atol_range=[atol_lo, atol_hi], err_over_allowed=worst,
@@ -854,7 +856,10 @@ def lm_forward_phase(torch, np, params, cfg):
     del gate
     prof = profile_summary(*profile_call(
         torch, lambda: apis["flash"].forward(params, ids)),
-        flash_ms=("flash_attention_kernel",))
+        flash_ms=("flash_attention_wgmma_kernel",
+                  "flash_attention_ffma_kernel"))
+    check(prof["flash_ms"] == "not measured" or prof["flash_ms"] > 0,
+          "lm forward: the profile found no flash_attention kernel by name")
     emit({"phase": "lm_forward", "arch": cfg.name, "layers": cfg.n_layers,
           "batch": LM_BATCH, "seq": LM_SEQ, "dtype": cfg.dtype,
           "launches": launches["flash"],
@@ -1062,7 +1067,8 @@ def main() -> int:
         else:
             check(total[name] > 0, f"{name} was never launched on a main "
                                    f"path")
-        extra = {k: r[k] for k in ("unfused_ms", "ms_per_step",
+        extra = {k: r[k] for k in ("kernel_route", "tflops",
+                                   "unfused_ms", "ms_per_step",
                                    "bound_ms_fp32_peak",
                                    "dequantized_matmul_ms", "tolerance",
                                    "atol_range", "err_over_allowed")

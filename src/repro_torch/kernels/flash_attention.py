@@ -4,15 +4,24 @@ The port of ``repro.kernels.flash_attention.flash_attention_pallas``:
 online-softmax GQA attention over q [B, H, Tq, D] and k, v [B, Hkv, Tk,
 D] (bf16 or f32) with a causal and a sliding-window mask, queries aligned
 bottom-right.  ``flash_attention_cuda.launches`` counts launches.  The
-kernel's tiles are fixed (64 queries by 64 keys); the Pallas kernel's
-``tq``/``tk`` are tuning knobs that ``kernels.ops.flash_attention``
-accepts only at their defaults on the card.
+source has two kernels and the route is fixed by dtype and head dim
+(``route``): bf16 at D = 64 or 128 runs on the tensor cores (wgmma, TMA-fed
+K/V ring, 128 queries by 128 keys a tile); f32, and bf16 at D = 16 or 32,
+on the CUDA cores (FFMA, 64 by 64).  The Pallas kernel's ``tq``/``tk`` are
+tuning knobs that ``kernels.ops.flash_attention`` accepts only at their
+defaults on the card.
 """
 from __future__ import annotations
 
 import torch
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a call of this dtype and head dim launches, as the C
+    launch function fixes it: ``"wgmma"`` or ``"ffma"``."""
+    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "ffma"
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

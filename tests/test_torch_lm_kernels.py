@@ -16,6 +16,12 @@ numpy.  Tolerances:
 * w8 matmul, f32: rtol 1e-5, atol 1e-5 * max|out| (f32 sums over K in
   another order).  bf16: one bf16 step, as for attention.
 
+The tensor-core route of the CUDA kernel (bf16, D = 64 and 128) rounds at
+two other points than the Pallas kernel: it scales the f32 logits after
+the product (not q before it), and it rounds P to bf16 before P V (f32
+sums).  ``wgmma_route_emulation`` repeats that arithmetic in plain torch,
+so the CPU can tell how much of the card check's allowance it uses.
+
 Tests marked ``cuda`` hold the CUDA kernels against the same plain
 versions on the card and skip where no GPU is present.
 """
@@ -76,6 +82,57 @@ def close(got, want, dtype):
                                    atol=1e-5 * np.abs(want).max())
 
 
+def rowwise_worst(got, want, tol=BF16_REL):
+    """The largest |got - want| / (tol |want| + tol max|want| of its row):
+    the card check's ratio (``chip_smoke.py``'s ``rowwise_close``)."""
+    g = np.asarray(got, np.float32)
+    w = np.asarray(want, np.float32)
+    allowed = tol * np.abs(w) + tol * np.abs(w).max(-1, keepdims=True)
+    diff = np.abs(g - w)
+    ratio = np.where(allowed > 0, diff / np.maximum(allowed, 1e-30),
+                     np.where(diff > 0, np.inf, 0.0))
+    return float(ratio.max())
+
+
+def wgmma_route_emulation(q, k, v, causal, window, bkv=128):
+    """The tensor-core route's arithmetic in plain torch, tile by tile:
+    f32 logits of the raw bf16 q and k scaled by sm_scale * log2(e)
+    afterwards, exp2 in an online softmax over ``bkv``-key tiles, P rounded
+    to bf16 before P V with f32 sums, the normalizer summed from the f32
+    P, bf16 out."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    rep = h // k.shape[1]
+    qf = q.float()
+    kf = k.repeat_interleave(rep, dim=1).float()
+    vf = v.repeat_interleave(rep, dim=1).float()
+    scale = torch.tensor(np.float32(1.0 / d ** 0.5)
+                         * np.float32(1.4426950408889634))
+    neg = torch.tensor(-1e30)
+    qpos = torch.arange(tq)[:, None] + (tk - tq)
+    m = torch.full((b, h, tq, 1), -1e30)
+    l = torch.zeros((b, h, tq, 1))
+    acc = torch.zeros((b, h, tq, d))
+    for k_lo in range(0, tk, bkv):
+        kpos = torch.arange(k_lo, min(k_lo + bkv, tk))[None, :]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k_lo:k_lo + bkv])
+        mask = torch.ones(s.shape[-2:], dtype=torch.bool)
+        if causal:
+            mask &= kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
+        s = torch.where(mask, s * scale, neg)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(mask, torch.exp2(s - m_new), 0.0)
+        alpha = torch.exp2(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
+            vf[:, :, k_lo:k_lo + bkv])
+        m = m_new
+    return (acc / torch.where(l == 0, 1.0, l)).to(torch.bfloat16)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -120,6 +177,22 @@ class TestAttention:
             interpret=True)
         close(got.float(), want, "bf16")
 
+    @pytest.mark.parametrize("case", [(1, 8, 2, 512, 512, 64, True, 0),
+                                      (1, 4, 2, 384, 384, 128, True, 0),
+                                      (1, 8, 2, 512, 512, 64, True, 200)])
+    def test_tensor_core_rounding_fits_the_card_check(self, case):
+        """The tensor-core route's rounding points, emulated, against the
+        Pallas kernel on bf16 inputs under the card check's allowance."""
+        causal, window = case[6], case[7]
+        q, k, v = qkv(case, seed=2)
+        got = wgmma_route_emulation(*(to_torch(a, torch.bfloat16)
+                                      for a in (q, k, v)), causal, window)
+        want = flash_attention_pallas(
+            to_jax(q, jnp.bfloat16), to_jax(k, jnp.bfloat16),
+            to_jax(v, jnp.bfloat16), causal=causal, window=window,
+            interpret=True)
+        assert rowwise_worst(got.float(), want) <= 1.0
+
     def test_fully_masked_rows_follow_the_oracle(self):
         """Tq > Tk under the causal mask leaves the first rows with no key:
         the oracle's softmax over all -1e30 averages v (the Pallas kernel
@@ -144,6 +217,21 @@ class TestAttention:
         with pytest.raises(ValueError, match="one CUDA device"):
             ops.flash_attention(q, k, torch.zeros(1, 2, 8, 64,
                                                   device="meta"))
+
+    @pytest.mark.parametrize("d", fa_mod.HEAD_DIMS)
+    def test_kernel_wrapper_takes_every_head_dim(self, d):
+        """D = 16 included: a CPU tensor of any head dim the kernel takes
+        is refused for its device, not its head dim."""
+        q = torch.zeros(1, 4, 8, d, dtype=torch.bfloat16)
+        k = torch.zeros(1, 2, 8, d, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="contiguous CUDA tensors"):
+            fa_mod.flash_attention_cuda(q, k, k)
+
+    def test_route_is_fixed_by_dtype_and_head_dim(self):
+        assert [fa_mod.route(torch.bfloat16, d) for d in fa_mod.HEAD_DIMS] \
+            == ["ffma", "ffma", "wgmma", "wgmma"]
+        assert {fa_mod.route(torch.float32, d) for d in fa_mod.HEAD_DIMS} \
+            == {"ffma"}
 
     @pytest.mark.cuda
     @pytest.mark.parametrize("case", ATTN_CASES + [
