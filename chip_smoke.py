@@ -107,6 +107,16 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def gemm_work(kind: str, m: int, k: int, n: int, lanes: int):
+    """(bytes, operations, peak) the function of one GEMM launch needs:
+    each input read once and the f32 output written once; int8_matmul
+    reads int8 operands and f32 scales (one a lane and a column)."""
+    if kind == "int8_matmul":
+        return (m * k + k * n + 4 * (lanes + n) + 4 * m * n, 2 * m * n * k,
+                INT8_OPS_PER_S)
+    return 4 * (m * k + k * n + n + m * n), 2 * m * n * k, FP32_OPS_PER_S
+
+
 def median_ms(torch, fn, reps: int = 25, inner: int = 5,
               warmup: int = 3) -> float:
     """Median over ``reps`` CUDA-event windows of ``inner`` back-to-back
@@ -124,6 +134,32 @@ def median_ms(torch, fn, reps: int = 25, inner: int = 5,
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def graph_ms(torch, fn, launches: int = 20, reps: int = 15) -> float:
+    """Device ms a call: median over ``reps`` CUDA-event windows of one
+    replay of a CUDA graph holding ``launches`` calls of ``fn``.  No host
+    time enters it, where back-to-back calls of a short kernel would time
+    the Python wrapper instead."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
     return statistics.median(times)
 
 
@@ -206,6 +242,7 @@ def numerics_phase(torch):
 def kernel_phase(torch, clouds):
     """Each kernel against its plain version at serving-path shapes."""
     from repro_torch.core import sampling
+    from repro_torch.kernels import _build
     from repro_torch.kernels import fused_linear as fl_mod
     from repro_torch.kernels import int8_matmul as i8_mod
     from repro_torch.kernels import knn as knn_mod
@@ -272,19 +309,25 @@ def kernel_phase(torch, clouds):
         check(torch.equal(got, want),
               f"int8_matmul {label}: kernel is not bitwise equal to the "
               f"plain version")
-        ms = median_ms(torch, lambda: i8_mod.int8_matmul_cuda(
-            x_q, w_q, a_scale, w_scale, rpl))
+        # the GEMM rows' ms and library_ms are device times (graph_ms);
+        # *_events_ms are the back-to-back windows of earlier runs
+        kernel = lambda: i8_mod.int8_matmul_cuda(  # noqa: E731
+            x_q, w_q, a_scale, w_scale, rpl)
+        ms, events_ms = graph_ms(torch, kernel), median_ms(torch, kernel)
         plain_ms = median_ms(torch, lambda: ref.int8_matmul_ref(
             x_q, w_q, a_scale, w_scale, rpl), reps=10)
-        lib_ms = None
+        lib_ms = lib_events_ms = None
         if m > 16 and k % 8 == 0 and n % 8 == 0:
             # torch._int_mm: int8 x int8 -> int32 only (no dequantize)
-            lib_ms = median_ms(torch, lambda: torch._int_mm(x_q, w_q))
-        nbytes = m * k + k * n + 4 * (b + n) + 4 * m * n
+            lib_ms = graph_ms(torch, lambda: torch._int_mm(x_q, w_q))
+            lib_events_ms = median_ms(torch, lambda: torch._int_mm(x_q, w_q))
+        nbytes, nops, peak = gemm_work("int8_matmul", m, k, n, b)
         rows[("int8_matmul", label)] = dict(
-            shape=f"M={m} K={k} N={n} lanes={b}", ms=ms, plain_ms=plain_ms,
-            library_ms=lib_ms, max_abs_err=0.0, bytes=nbytes,
-            ops=2 * m * n * k, peak=INT8_OPS_PER_S)
+            shape=f"M={m} K={k} N={n} lanes={b}",
+            template=i8_mod.template(k, n, _build.aligned16(x_q, w_q)).name,
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=0.0,
+            events_ms=events_ms, library_events_ms=lib_events_ms,
+            bytes=nbytes, ops=nops, peak=peak)
 
         got = fl_mod.fused_linear_cuda(x, w, bias, "relu")
         want = ref.fused_linear_ref(x, w, bias, "relu")
@@ -292,17 +335,23 @@ def kernel_phase(torch, clouds):
         err = (got - want).abs().max().item()
         check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
               f"fused_linear {label}: max abs err {err} beyond rtol=atol=1e-5")
-        ms = median_ms(torch, lambda: fl_mod.fused_linear_cuda(
-            x, w, bias, "relu"))
+        kernel = lambda: fl_mod.fused_linear_cuda(  # noqa: E731
+            x, w, bias, "relu")
+        ms, events_ms = graph_ms(torch, kernel), median_ms(torch, kernel)
         plain_ms = median_ms(torch, lambda: ref.fused_linear_ref(
             x, w, bias, "relu"))
         # torch.addmm: bias + x @ w in one call (no ReLU)
-        lib_ms = median_ms(torch, lambda: torch.addmm(bias, x, w))
-        nbytes = 4 * (m * k + k * n + n + m * n)
+        lib_ms = graph_ms(torch, lambda: torch.addmm(bias, x, w))
+        lib_events_ms = median_ms(torch, lambda: torch.addmm(bias, x, w))
+        nbytes, nops, peak = gemm_work("fused_linear", m, k, n, b)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         rows[("fused_linear", label)] = dict(
-            shape=f"M={m} K={k} N={n}", ms=ms, plain_ms=plain_ms,
-            library_ms=lib_ms, max_abs_err=err, bytes=nbytes,
-            ops=2 * m * n * k, peak=FP32_OPS_PER_S)
+            shape=f"M={m} K={k} N={n}",
+            template=fl_mod.template(m, k, n, _build.aligned16(x, w),
+                                     sms).name,
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+            events_ms=events_ms, library_events_ms=lib_events_ms,
+            bytes=nbytes, ops=nops, peak=peak)
 
     return emit_rows(rows)
 
@@ -406,6 +455,13 @@ def elite_kernel_phase(torch, clouds):
             err = (got - want).abs().max().item()
             check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
                   f"{name} {label}: max abs err {err} beyond rtol=atol=1e-5")
+            bitwise = bool(torch.equal(got, unfused_out))
+            if name == "grouped_transfer":
+                # the card's witness that both kernels keep fused_linear's
+                # in-order fmaf chain
+                check(bitwise, f"{name} {label}: not bitwise equal to the "
+                               f"unfused path (fused_linear on the same "
+                               f"rows)")
             ms = median_ms(torch, kernel)
             plain_ms = median_ms(torch, plain, reps=10)
             # feats, int32 indices, centres, alpha/beta, w, b and the
@@ -418,7 +474,7 @@ def elite_kernel_phase(torch, clouds):
                 shape=f"B={b} N={n} S={n_samp} k={k} C={c} C_out={c_out}",
                 ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
                 unfused_ms=unfused_ms,
-                bitwise_vs_unfused=bool(torch.equal(got, unfused_out)),
+                bitwise_vs_unfused=bitwise,
                 bytes=nbytes, ops=2 * b * n_samp * k * 2 * c * c_out,
                 peak=FP32_OPS_PER_S)
     return emit_rows(rows)
@@ -525,19 +581,60 @@ def profile_summary(wall_ms, by_name, events, **named):
     return out
 
 
+def gemm_bounds(torch, pipe, chunk, state):
+    """The GEMM launches of one dispatch, recorded from the shapes the
+    ``int8_matmul`` and ``fused_linear`` wrappers are given: per kernel,
+    the launches and the sum of their bounds (ms)."""
+    from repro_torch.kernels import ops
+    shapes = []
+    int8_cuda, fused_cuda = ops.int8_matmul_cuda, ops.fused_linear_cuda
+
+    def int8_rec(x_q, w_q, a_scale, w_scale, rows_per_lane):
+        shapes.append(("int8_matmul", *x_q.shape, w_q.shape[1],
+                       a_scale.numel()))
+        return int8_cuda(x_q, w_q, a_scale, w_scale, rows_per_lane)
+
+    def fused_rec(x, w, b, activation="relu"):
+        shapes.append(("fused_linear", *x.shape, w.shape[1], 0))
+        return fused_cuda(x, w, b, activation)
+
+    ops.int8_matmul_cuda, ops.fused_linear_cuda = int8_rec, fused_rec
+    try:
+        pipe.infer(chunk, state.clone())
+        torch.cuda.synchronize()
+    finally:
+        ops.int8_matmul_cuda, ops.fused_linear_cuda = int8_cuda, fused_cuda
+    out = {kind: {"launches": 0, "bound_ms": 0.0}
+           for kind in ("int8_matmul", "fused_linear")}
+    for kind, m, k, n, lanes in shapes:
+        nbytes, nops, peak = gemm_work(kind, m, k, n, lanes)
+        out[kind]["launches"] += 1
+        out[kind]["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                           nops / peak)
+    return out
+
+
 def profile_dispatch(torch, pipe, chunk, state):
-    """Device time per kernel name over one dispatch (torch.profiler)."""
+    """Device time per kernel name over one dispatch (torch.profiler),
+    with each GEMM kernel's ms beside the summed bound of its launches."""
     wall_ms, by_name, events = profile_call(
         torch, lambda: pipe.infer(chunk, state.clone()))
     out = profile_summary(
         wall_ms, by_name, events,
         port_kernels_ms=("knn_kernel", "int8_matmul_kernel",
-                         "fused_linear_kernel", "fps_kernel",
+                         "fused_linear_wide_kernel",
+                         "fused_linear_small_kernel", "fps_kernel",
                          "grouped_transfer"),
-        fps_ms=("fps_kernel",))
+        fps_ms=("fps_kernel",),
+        int8_matmul_kernel_ms=("int8_matmul_kernel",),
+        fused_linear_kernel_ms=("fused_linear_wide_kernel",
+                                "fused_linear_small_kernel"))
     dev_ms = out["device_ms"]
     out["fps_share"] = (out["fps_ms"] / dev_ms if by_name
                         else "not measured")
+    for kind, got in gemm_bounds(torch, pipe, chunk, state).items():
+        out[f"{kind}_launches"] = got["launches"]
+        out[f"{kind}_bound_ms"] = got["bound_ms"]
     return out
 
 
@@ -1067,7 +1164,9 @@ def main() -> int:
         else:
             check(total[name] > 0, f"{name} was never launched on a main "
                                    f"path")
-        extra = {k: r[k] for k in ("kernel_route", "tflops",
+        extra = {k: r[k] for k in ("template", "events_ms",
+                                   "library_events_ms", "kernel_route",
+                                   "tflops",
                                    "unfused_ms", "ms_per_step",
                                    "bound_ms_fp32_peak",
                                    "dequantized_matmul_ms", "tolerance",

@@ -5,24 +5,78 @@
 // act relu, gelu (tanh form, jax.nn.gelu's default) or none, accumulated
 // in fp32.  It runs every BN-folded fp32 CBR layer of the pipeline.
 //
-// What bounds it on the H100: full-precision fp32 (no TF32) runs on the
-// CUDA cores at 67 TFLOP/s, and at the pipeline's shapes (K, N <= 512,
-// M up to 131072 rows) the layers move about as many bytes as they do
-// flops per byte allowed, so both limits are close; the wide early-stage
-// layers lean to bytes, the 512-wide ones to flops.
+// The contract: each output is one fmaf chain over k = 0 .. K-1 in order,
+// from 0.0f, then activate(acc + b[c], act).  So a value does not depend on
+// M, on its row's position, on the tile, or on what else is in the batch,
+// and it equals the product in grouped_transfer.cu bit for bit.  That rules
+// out TF32 and split-fp32 tensor-core schemes, split-K and independent
+// partial sums: the product runs on the CUDA cores.
 //
-// Design (simple first; tensor cores would need TF32 or a split-fp32
-// scheme and are later work): 64x64 output tiles, 256 threads, 4x4
-// outputs per thread, K in steps of 16 staged in shared memory (x tile
-// transposed so a thread reads its four rows as one float4).  Each
-// output is one fmaf chain over k = 0 .. K-1 in order, so its value does
-// not depend on M, on its row's position, or on what else is in the
-// batch.  Ragged edges are zero-filled on load and masked on store.
+// What bounds it on the H100: fp32 FFMA at 67 TFLOP/s against 3.35 TB/s.
+// The 512-wide layers are bound by operations (M16384 K512 N512: 0.128 ms
+// of FFMA, 0.050 ms of bytes), the 64-wide ones nearly equally by both
+// (M131072 K64 N64: 0.016 ms of FFMA, 0.020 ms of bytes).  So the inner
+// loop must keep the FMA pipes fed from shared memory, and the copies must
+// overlap it.
+//
+// Design (two kernels; the wrapper, kernels/fused_linear.py, picks one):
+//   * The wide kernel.  Block tiles of BM x BN, BN (16, 32, 64, 128)
+//     following N, 256 threads, a thread holding 8 x 8 outputs at BN = 128
+//     (8 x 4 at 64 and 32, 4 x 4 at 16).  x is fetched into registers one
+//     16-k step ahead (16-byte loads) and stored transposed into a k-major
+//     tile, so a thread reads its rows of a k as float4s; w comes through a
+//     3-stage cp.async ring.  Per k a thread does 64 FMAs for 4 float4
+//     reads from shared memory, on distinct banks or broadcast, with one
+//     __syncthreads a step; output stores are float4s.  Measured on the
+//     H100 against a persistent walk, a deeper cp.async ring for x, BK 8
+//     and 32, and other BN = 64 tiles (PERF.md), this one was
+//     fastest over a dispatch.
+//   * The small kernel, for products that leave the card idle with the
+//     wide tile (the head at M = 32, the late stages): BN 16 or 32, one row
+//     and 4 columns a thread, x row-major and w through a 4-stage cp.async
+//     ring of 32-k steps, so that more blocks and deeper copies hide the
+//     latency a short step cannot.
+//   * The scalar route of both (VEC = false) takes K % 4 != 0, N % 4 != 0
+//     or unaligned bases (the embed layer has K = 3): scalar loads into the
+//     same buffers, masked scalar stores.
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
+constexpr int THREADS = 256;
+
+// The wide tile: BM x BN outputs a block, TM x TN a thread (8 x 8 at
+// BN = 128, 8 x 4 at 64 and 32, 4 x 4 at 16; BM 128, or 256 at BN <= 32).
+// A thread's rows are (i / 4) * (BM / MH) + ty * 4 + i % 4, its columns
+// (j / 4) * (BN / NH) + tx * 4 + j % 4: reads of both operands are float4s
+// on distinct banks or broadcasts, and stores float4s, TX of them
+// contiguous.
+constexpr int BK = 16;                 // k a step
+template <int BN>
+struct Wide {
+  static constexpr int TN = BN == 128 ? 8 : 4;
+  static constexpr int TM = BN == 16 ? 4 : 8;
+  static constexpr int TX = BN / TN, TY = THREADS / TX;
+  static constexpr int BM = TY * TM;
+  static constexpr int MH = TM / 4, NH = TN / 4;
+  static constexpr int BMP = BM + 4;   // As row stride (floats)
+  static constexpr int A4 = BM * BK / 4 / THREADS;   // x float4s a thread
+  static constexpr int SMEM = (2 * BK * BMP + 3 * BK * BN) * 4;
+};
+
+// The small tile, for products too small to fill the card with the wide
+// one: BN 16 or 32, one row and 4 columns a thread (BM 64 or 32), a deeper
+// ring of longer steps, since a step holds little work to hide a copy.
+constexpr int SBK = 32, SNSTAGE = 4;
+constexpr int SLDA = SBK + 4;          // x row stride in the ring (floats)
+template <int BN>
+struct Small {
+  static constexpr int TX = BN / 4, TY = THREADS / TX, BM = TY;
+  static constexpr int STAGE = BM * SLDA + SBK * BN;   // floats a stage
+  static constexpr int SMEM = SNSTAGE * STAGE * 4;
+};
 
 __device__ __forceinline__ float activate(float y, int act) {
   if (act == 1) return fmaxf(y, 0.0f);
@@ -34,66 +88,313 @@ __device__ __forceinline__ float activate(float y, int act) {
   return y;
 }
 
-__global__ void fused_linear_kernel(const float* __restrict__ x,
-                                    const float* __restrict__ w,
-                                    const float* __restrict__ b,
-                                    float* __restrict__ out, int M, int K,
-                                    int N, int act) {
-  __shared__ __align__(16) float As[BK][BM];      // x tile, transposed
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;  // 16 x 16
-  float acc[4][4] = {};
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = threadIdx.x; i < BM * BK; i += THREADS) {
-      const int r = i / BK, kk = i % BK;
-      const int gr = row0 + r, gk = k0 + kk;
-      As[kk][r] = (gr < M && gk < K) ? x[(size_t)gr * K + gk] : 0.0f;
-    }
-    for (int i = threadIdx.x; i < BK * BN; i += THREADS) {
-      const int kk = i / BN, c = i % BN;
-      const int gk = k0 + kk, gc = col0 + c;
-      Bs[kk][c] = (gk < K && gc < N) ? w[(size_t)gk * N + gc] : 0.0f;
-    }
-    __syncthreads();
-    const int kend = min(BK, K - k0);   // zero-filled k adds nothing, but
-                                        // stopping keeps the chain exact
-    for (int kk = 0; kk < kend; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][tr * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tc * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Bias, activation and the store of a thread's 4 consecutive columns.
+template <bool VEC>
+__device__ __forceinline__ void store4(float* o, int c, int N,
+                                       const float (&acc)[4],
+                                       const float (&bias)[4], int act) {
+  float y[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int e = 0; e < 4; ++e) y[e] = activate(acc[e] + bias[e], act);
+  if (VEC) {
+    if (c < N) *reinterpret_cast<float4*>(o) = make_float4(y[0], y[1], y[2], y[3]);
+  } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
-    }
-    __syncthreads();
+    for (int e = 0; e < 4; ++e)
+      if (c + e < N) o[e] = y[e];
   }
+}
+
+// The wide kernel.  x goes through registers into a 2-stage k-major copy
+// As [BK][BMP] (the transpose a thread's float4 row reads need), one step
+// ahead; w through a 3-stage cp.async ring Bs [BK][BN].  One __syncthreads
+// a step.  Grid (column tiles, row tiles).
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+    fused_linear_wide_kernel(const float* __restrict__ x,
+                             const float* __restrict__ w,
+                             const float* __restrict__ b,
+                             float* __restrict__ out, int M, int K, int N,
+                             int act) {
+  using T = Wide<BN>;
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                               // [2][BK][BMP]
+  float* Bs = smem + 2 * BK * T::BMP;          // [3][BK][BN]
+  const int col0 = blockIdx.x * BN, row0 = blockIdx.y * T::BM;
+  const int tx = threadIdx.x % T::TX, ty = threadIdx.x / T::TX;
+  const int KT = K > 0 ? (K + BK - 1) / BK : 1;
+
+  float4 xs[T::A4];                               // x of the next step
+  auto fetch_x = [&](int kt) {
+#pragma unroll
+    for (int j = 0; j < T::A4; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      const int gr = row0 + i / (BK / 4);
+      const int gk = kt * BK + (i % (BK / 4)) * 4;
+      const float* src = x + (size_t)gr * K + gk;
+      if (VEC) {
+        xs[j] = gr < M && gk < K ? *reinterpret_cast<const float4*>(src)
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      } else {
+        xs[j].x = gr < M && gk < K ? src[0] : 0.0f;
+        xs[j].y = gr < M && gk + 1 < K ? src[1] : 0.0f;
+        xs[j].z = gr < M && gk + 2 < K ? src[2] : 0.0f;
+        xs[j].w = gr < M && gk + 3 < K ? src[3] : 0.0f;
+      }
+    }
+  };
+  auto store_x = [&](int kt) {
+    float* a = As + (kt & 1) * BK * T::BMP;
+#pragma unroll
+    for (int j = 0; j < T::A4; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      const int r = i / (BK / 4), k4 = (i % (BK / 4)) * 4;
+      a[(k4 + 0) * T::BMP + r] = xs[j].x;
+      a[(k4 + 1) * T::BMP + r] = xs[j].y;
+      a[(k4 + 2) * T::BMP + r] = xs[j].z;
+      a[(k4 + 3) * T::BMP + r] = xs[j].w;
+    }
+  };
+  auto load_w = [&](int kt) {
+    float* bs = Bs + (kt % 3) * BK * BN;
+    const int k0 = kt * BK;
+    if (VEC) {
+      for (int i = threadIdx.x; i < BK * BN / 4; i += THREADS) {
+        const int kk = i / (BN / 4), gc = col0 + (i % (BN / 4)) * 4;
+        const bool ok = k0 + kk < K && gc < N;
+        cp_async16(bs + kk * BN + gc - col0,
+                   ok ? w + (size_t)(k0 + kk) * N + gc : w, ok);
+      }
+    } else {
+      for (int i = threadIdx.x; i < BK * BN; i += THREADS) {
+        const int kk = i / BN, gc = col0 + i % BN;
+        bs[i] = k0 + kk < K && gc < N ? w[(size_t)(k0 + kk) * N + gc] : 0.0f;
+      }
+    }
+  };
+
+  fetch_x(0);
+  store_x(0);
+  load_w(0);
+  cp_async_commit();
+  float acc[T::TM][T::TN] = {};
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt + 1 < KT) {
+      fetch_x(kt + 1);
+      load_w(kt + 1);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();               // step kt's x and w are in place
+    const float* a = As + (kt & 1) * BK * T::BMP;
+    const float* bs = Bs + (kt % 3) * BK * BN;
+    auto step = [&](int kk) {
+      float av[T::TM], bv[T::TN];
+#pragma unroll
+      for (int h = 0; h < T::MH; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            a + kk * T::BMP + h * (T::BM / T::MH) + ty * 4);
+        av[4 * h] = v.x, av[4 * h + 1] = v.y, av[4 * h + 2] = v.z,
+        av[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < T::NH; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            bs + kk * BN + h * (BN / T::NH) + tx * 4);
+        bv[4 * h] = v.x, bv[4 * h + 1] = v.y, bv[4 * h + 2] = v.z,
+        bv[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+        for (int j = 0; j < T::TN; ++j)
+          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    };
+    const int kend = min(BK, K - kt * BK);   // the chain ends at K
+    if (kend == BK) {
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) step(kk);
+    } else {
+      for (int kk = 0; kk < kend; ++kk) step(kk);
+    }
+    if (kt + 1 < KT) store_x(kt + 1);
+  }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + tr * 4 + i;
-    if (r >= M) continue;
+  for (int h = 0; h < T::NH; ++h) {
+    const int c = col0 + h * (BN / T::NH) + tx * 4;
+    float bias[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tc * 4 + j;
-      if (c >= N) continue;
-      out[(size_t)r * N + c] = activate(acc[i][j] + b[c], act);
+    for (int e = 0; e < 4; ++e) bias[e] = c + e < N ? b[c + e] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i) {
+      const int r = row0 + (i / 4) * (T::BM / T::MH) + ty * 4 + i % 4;
+      const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1],
+                          acc[i][4 * h + 2], acc[i][4 * h + 3]};
+      if (r < M) store4<VEC>(out + (size_t)r * N + c, c, N, v, bias, act);
     }
   }
 }
 
-}  // namespace
+// The small kernel: x [BM][SLDA] row-major and w [SBK][BN] through a
+// SNSTAGE-stage cp.async ring; a thread reads four k of its row as one
+// float4.  Grid (column tiles, row tiles).
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+    fused_linear_small_kernel(const float* __restrict__ x,
+                              const float* __restrict__ w,
+                              const float* __restrict__ b,
+                              float* __restrict__ out, int M, int K, int N,
+                              int act) {
+  using T = Small<BN>;
+  extern __shared__ __align__(16) float smem[];   // SNSTAGE x [As | Bs]
+  const int col0 = blockIdx.x * BN, row0 = blockIdx.y * T::BM;
+  const int tx = threadIdx.x % T::TX, ty = threadIdx.x / T::TX;
+  const int KT = K > 0 ? (K + SBK - 1) / SBK : 1;
 
-// act: 0 none, 1 relu, 2 gelu (tanh form).
-extern "C" int fused_linear_launch(const void* x, const void* w,
-                                   const void* b, void* out, int M, int K,
-                                   int N, int act, void* stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  fused_linear_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  auto load = [&](int kt) {
+    float* as = smem + (kt % SNSTAGE) * T::STAGE;
+    float* bs = as + T::BM * SLDA;
+    const int k0 = kt * SBK;
+    if (VEC) {
+      for (int i = threadIdx.x; i < T::BM * (SBK / 4); i += THREADS) {
+        const int r = i / (SBK / 4), q = i % (SBK / 4);
+        const int gr = row0 + r, gk = k0 + q * 4;
+        const bool ok = gr < M && gk < K;
+        cp_async16(as + r * SLDA + q * 4, ok ? x + (size_t)gr * K + gk : x,
+                   ok);
+      }
+      for (int i = threadIdx.x; i < SBK * (BN / 4); i += THREADS) {
+        const int kk = i / (BN / 4), q = i % (BN / 4);
+        const int gk = k0 + kk, gc = col0 + q * 4;
+        const bool ok = gk < K && gc < N;
+        cp_async16(bs + kk * BN + q * 4, ok ? w + (size_t)gk * N + gc : w,
+                   ok);
+      }
+    } else {
+      for (int i = threadIdx.x; i < T::BM * SBK; i += THREADS) {
+        const int r = i / SBK, kk = i % SBK;
+        const int gr = row0 + r, gk = k0 + kk;
+        as[r * SLDA + kk] = gr < M && gk < K ? x[(size_t)gr * K + gk] : 0.0f;
+      }
+      for (int i = threadIdx.x; i < SBK * BN; i += THREADS) {
+        const int kk = i / BN, c = i % BN;
+        const int gk = k0 + kk, gc = col0 + c;
+        bs[kk * BN + c] = gk < K && gc < N ? w[(size_t)gk * N + gc] : 0.0f;
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < SNSTAGE - 1; ++s) {
+    if (s < KT) load(s);
+    cp_async_commit();
+  }
+  float acc[4] = {};
+  const float* arow = smem + ty * SLDA;
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<SNSTAGE - 2>();
+    __syncthreads();               // step kt landed; step kt - 1 is read
+    if (kt + SNSTAGE - 1 < KT) load(kt + SNSTAGE - 1);
+    cp_async_commit();
+    const float* as = arow + (kt % SNSTAGE) * T::STAGE;
+    const float* bs = smem + (kt % SNSTAGE) * T::STAGE + T::BM * SLDA +
+                      tx * 4;
+    auto step = [&](float a, int kk) {
+      const float4 v = *reinterpret_cast<const float4*>(bs + kk * BN);
+      acc[0] = fmaf(a, v.x, acc[0]);
+      acc[1] = fmaf(a, v.y, acc[1]);
+      acc[2] = fmaf(a, v.z, acc[2]);
+      acc[3] = fmaf(a, v.w, acc[3]);
+    };
+    const int kend = min(SBK, K - kt * SBK);   // the chain stops at K
+    if (VEC && kend == SBK) {
+#pragma unroll
+      for (int kq = 0; kq < SBK; kq += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(as + kq);
+        step(a.x, kq);
+        step(a.y, kq + 1);
+        step(a.z, kq + 2);
+        step(a.w, kq + 3);
+      }
+    } else {
+      for (int kk = 0; kk < kend; ++kk) step(as[kk], kk);
+    }
+  }
+  cp_async_wait<0>();
+
+  const int r = row0 + ty, c = col0 + tx * 4;
+  float bias[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) bias[e] = c + e < N ? b[c + e] : 0.0f;
+  if (r < M) store4<VEC>(out + (size_t)r * N + c, c, N, acc, bias, act);
+}
+
+template <int BN, bool SMALL, bool VEC>
+int launch(const void* x, const void* w, const void* b, void* out, int M,
+           int K, int N, int act, cudaStream_t stream) {
+  using T = std::conditional_t<SMALL, Small<BN>, Wide<BN>>;
+  auto kernel = fused_linear_wide_kernel<BN, VEC>;
+  if constexpr (SMALL) kernel = fused_linear_small_kernel<BN, VEC>;
+  static bool sized = false;        // per template: the smem attribute set
+  if (!sized) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  dim3 grid((N + BN - 1) / BN, (M + T::BM - 1) / T::BM);
+  kernel<<<grid, THREADS, T::SMEM, stream>>>(
       (const float*)x, (const float*)w, (const float*)b, (float*)out, M, K,
       N, act);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// act: 0 none, 1 relu, 2 gelu (tanh form).  tmpl = vec + 2 * log2(BN / 16)
+// + 8 * small, BN in {16, 32, 64, 128} (16 or 32 when small): the
+// wrapper's choice (kernels/fused_linear.py::template).  vec needs 16-byte
+// aligned x and w, K % 4 == 0 and N % 4 == 0.
+extern "C" int fused_linear_launch(const void* x, const void* w,
+                                   const void* b, void* out, int M, int K,
+                                   int N, int act, int tmpl, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (tmpl) {
+    case 0: return launch<16, false, false>(x, w, b, out, M, K, N, act, st);
+    case 1: return launch<16, false, true>(x, w, b, out, M, K, N, act, st);
+    case 2: return launch<32, false, false>(x, w, b, out, M, K, N, act, st);
+    case 3: return launch<32, false, true>(x, w, b, out, M, K, N, act, st);
+    case 4: return launch<64, false, false>(x, w, b, out, M, K, N, act, st);
+    case 5: return launch<64, false, true>(x, w, b, out, M, K, N, act, st);
+    case 6: return launch<128, false, false>(x, w, b, out, M, K, N, act, st);
+    case 7: return launch<128, false, true>(x, w, b, out, M, K, N, act, st);
+    case 8: return launch<16, true, false>(x, w, b, out, M, K, N, act, st);
+    case 9: return launch<16, true, true>(x, w, b, out, M, K, N, act, st);
+    case 10: return launch<32, true, false>(x, w, b, out, M, K, N, act, st);
+    case 11: return launch<32, true, true>(x, w, b, out, M, K, N, act, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -21,7 +21,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -40,8 +40,8 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> (C symbol, argtypes); every launch function returns an int.
 SIGNATURES: Dict[str, Tuple[str, list]] = {
     "knn": ("knn_launch", [P, P, P, I, I, I, I, I, P]),
-    "int8_matmul": ("int8_matmul_launch", [P, P, P, P, P, I, I, I, I, P]),
-    "fused_linear": ("fused_linear_launch", [P, P, P, P, I, I, I, I, P]),
+    "int8_matmul": ("int8_matmul_launch", [P] * 5 + [I] * 5 + [P]),
+    "fused_linear": ("fused_linear_launch", [P] * 4 + [I] * 5 + [P]),
     "fps": ("fps_launch", [P, P, I, I, I, P]),
     "grouped_transfer": ("grouped_transfer_launch",
                          [P] * 10 + [I] * 9 + [P]),
@@ -49,6 +49,43 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
     "flash_attention": ("flash_attention_launch",
                         [P] * 4 + [I] * 9 + [F, P]),
 }
+
+# The column-tile widths of the two GEMM kernels' templates
+# (csrc/int8_matmul.cu, csrc/fused_linear.cu).  A launch passes
+# tmpl = vec + 2 * TILE_WIDTHS.index(BN) + 8 * small.
+TILE_WIDTHS = (16, 32, 64, 128)
+
+
+class GemmTemplate(NamedTuple):
+    """A GEMM kernel's template: its column tile ``bn``, its load route
+    (``vec``: 16-byte copies and stores; else scalar, masked) and, for
+    ``fused_linear``, whether it is the small tile (``small``: 4 outputs
+    a thread, for products that the wide tile leaves the card idle on)."""
+    bn: int
+    vec: bool
+    small: bool = False
+
+    @property
+    def code(self) -> int:
+        return int(self.vec) + 2 * TILE_WIDTHS.index(self.bn) + 8 * self.small
+
+    @property
+    def name(self) -> str:
+        return (f"bn{self.bn}{'_small' if self.small else ''}_"
+                f"{'vec' if self.vec else 'scalar'}")
+
+
+def gemm_template(n: int, vec: bool) -> GemmTemplate:
+    """The narrowest column tile that covers ``n`` columns (the widest
+    past 128), with the given load route."""
+    bn = next((t for t in TILE_WIDTHS if t >= n), TILE_WIDTHS[-1])
+    return GemmTemplate(bn, vec)
+
+
+def aligned16(*ts) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

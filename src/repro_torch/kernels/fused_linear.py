@@ -2,22 +2,49 @@
 
 The port of ``repro.kernels.fused_linear.fused_linear_pallas``:
 ``act(x @ w + b)`` in full fp32 (no TF32), one launch per layer per
-dispatch.  ``fused_linear_cuda.launches`` counts launches.
+dispatch.  ``fused_linear_cuda.launches`` counts launches;
+:func:`template` names the template of ``csrc/fused_linear.cu`` that a
+product takes.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ACTIVATIONS
 
 # csrc/fused_linear.cu's act codes.
 _ACT_CODE = {"none": 0, "relu": 1, "gelu": 2}
+H100_SMS = 132
+
+
+def template(m: int, k: int, n: int, aligned: bool = True,
+             sms: int = H100_SMS) -> _build.GemmTemplate:
+    """The template of ``csrc/fused_linear.cu`` for ``[M, K] @ [K, N]``.
+
+    The column tile follows N, with 128 rows a block, or 256 at BN <= 32;
+    where that gives at most one block for two of the card's SMs
+    (``sms``), the small tile (BN 16 or 32, one row and 4 columns a
+    thread) spreads the product wider.  16-byte copies and stores
+    (``vec``) need 16-byte aligned operands, K % 4 == 0 and N % 4 == 0.
+    """
+    wide = _build.gemm_template(n, aligned and k % 4 == 0 and n % 4 == 0)
+    rows = 256 if wide.bn <= 32 else 128
+    if 2 * -(-m // rows) * -(-n // wide.bn) > sms:
+        return wide
+    return _build.GemmTemplate(16 if n <= 16 else 32, wide.vec, small=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def fused_linear_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       activation: str = "relu") -> torch.Tensor:
     """Launch the kernel: x f32 [M, K], w f32 [K, N], b f32 [N] -> [M, N]."""
-    from repro_torch.kernels import _build
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation must be one of {ACTIVATIONS}, "
                          f"got {activation!r}")
@@ -38,10 +65,12 @@ def fused_linear_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m * n == 0:
         return out
+    tmpl = template(m, k, n, _build.aligned16(x, w),
+                    _sm_count(x.device.index))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = _build.launcher("fused_linear")(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n,
-        _ACT_CODE[activation], stream)
+        _ACT_CODE[activation], tmpl.code, stream)
     _build.check("fused_linear", code)
     fused_linear_cuda.launches += 1
     return out

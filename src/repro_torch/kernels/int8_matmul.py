@@ -9,10 +9,26 @@ ports ``w8_matmul_pallas`` (W8A16): bf16/f32 activations times int8
 weights widened in the tile, f32 sums, a per-column scale, the result in
 the activations' dtype.  No model path calls it, in the JAX package or
 here.  Each wrapper counts its launches on ``<fn>.launches``.
+:func:`template` names the template of ``csrc/int8_matmul.cu`` that a
+product takes.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import _build
+
+# csrc/int8_matmul.cu keeps a block's [K, BN] slice of w_q in shared
+# memory; at K <= 1024 it fits beside the ring at every BN.
+MAX_K = 1024
+
+
+def template(k: int, n: int, aligned: bool = True) -> _build.GemmTemplate:
+    """The template of ``csrc/int8_matmul.cu`` for ``[M, K] @ [K, N]``:
+    the column tile follows N; 16-byte copies (``vec``) need 16-byte
+    aligned operands, K % 16 == 0 (rows of x_q on 16-byte boundaries) and
+    N % 4 == 0 (whole 4-column words of w_q)."""
+    return _build.gemm_template(n, aligned and k % 16 == 0 and n % 4 == 0)
 
 
 def _check(x_q, w_q, a_scale, w_scale, rows_per_lane) -> None:
@@ -26,6 +42,9 @@ def _check(x_q, w_q, a_scale, w_scale, rows_per_lane) -> None:
     if rows_per_lane < 1 or m % rows_per_lane:
         raise ValueError(f"int8_matmul: rows_per_lane={rows_per_lane} must "
                          f"divide M={m}")
+    if k > MAX_K:
+        raise ValueError(f"int8_matmul: K={k} is past the kernel's "
+                         f"{MAX_K} (w_q's slice lives in shared memory)")
     lanes = m // rows_per_lane
     if a_scale.numel() != lanes or w_scale.numel() != w_q.shape[1]:
         raise ValueError(f"int8_matmul: a_scale needs {lanes} entries and "
@@ -37,7 +56,6 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
                      a_scale: torch.Tensor, w_scale: torch.Tensor,
                      rows_per_lane: int) -> torch.Tensor:
     """Launch the kernel: int8 [M, K] @ int8 [K, N] -> f32 [M, N]."""
-    from repro_torch.kernels import _build
     _check(x_q, w_q, a_scale, w_scale, rows_per_lane)
     tensors = (("x_q", x_q), ("w_q", w_q), ("a_scale", a_scale),
                ("w_scale", w_scale))
@@ -55,10 +73,12 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     if m * n == 0:
         return out
+    tmpl = template(k, n, _build.aligned16(x_q, w_q))
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
     code = _build.launcher("int8_matmul")(
         x_q.data_ptr(), w_q.data_ptr(), a_scale.data_ptr(),
-        w_scale.data_ptr(), out.data_ptr(), m, k, n, rows_per_lane, stream)
+        w_scale.data_ptr(), out.data_ptr(), m, k, n, rows_per_lane,
+        tmpl.code, stream)
     _build.check("int8_matmul", code)
     int8_matmul_cuda.launches += 1
     return out
@@ -71,7 +91,6 @@ def w8_matmul_cuda(x: torch.Tensor, w_q: torch.Tensor,
                    w_scale: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: x [M, K] (bf16/f32) @ int8 [K, N] * w_scale [N]
     -> x.dtype [M, N]."""
-    from repro_torch.kernels import _build
     if x.ndim != 2 or w_q.ndim != 2 or w_q.shape[0] != x.shape[1]:
         raise ValueError(f"w8_matmul: x [M, K] needs w_q [K, N], got "
                          f"{tuple(x.shape)} and {tuple(w_q.shape)}")
