@@ -13,7 +13,9 @@ on the CPU: PointMLP-Lite (int8 W8A8) and M-2 (fused fp32) at 512 points,
 and PointMLP-Elite (FPS, learnable affine, fp32, 1024 points) with the
 fused group->transfer kernel.  Elite also runs one dispatch unfused (held
 against the fused one) and one under batch-global sigma (held against
-the CPU).  Then the decoder LM, tinyllama-1.1b at full width and depth in
+the CPU), and Lite at embed width 128 (stage depth up to 2048, past the
+int8 kernel's one-slice K) serves one dispatch held bitwise against the
+CPU.  Then the decoder LM, tinyllama-1.1b at full width and depth in
 bf16 with random weights from a seed: the flash-attention and W8A16
 kernels against their plain versions at its shapes, a scoring forward of
 4 x 2048 tokens through the flash kernel held against the plain-attention
@@ -105,6 +107,18 @@ def check(cond: bool, what: str) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def grouped_work(b: int, n: int, s: int, k: int, c: int, c_out: int,
+                 sigma_given: bool):
+    """(bytes, operations) the fused group->transfer function needs: feats,
+    int32 indices, centres, alpha/beta, w, b (and sigma, given) read once,
+    the f32 output written once; 2 * 2C * C_out flops a row."""
+    nbytes = 4 * (b * n * c + b * s * k + b * s * c + 2 * c
+                  + 2 * c * c_out + c_out + b * s * k * c_out)
+    if sigma_given:
+        nbytes += 4 * b
+    return nbytes, 2 * b * s * k * 2 * c * c_out
 
 
 def gemm_work(kind: str, m: int, k: int, n: int, lanes: int):
@@ -353,6 +367,33 @@ def kernel_phase(torch, clouds):
             events_ms=events_ms, library_events_ms=lib_events_ms,
             bytes=nbytes, ops=nops, peak=peak)
 
+    # int8 past one shared-memory slice of w (K > 1024): the depth of
+    # lite_spec(40, embed_dim=128)'s stage-4 transfer.
+    m, k, n = 4096, 2048, 512
+    x_q = torch.randint(-127, 128, (m, k), generator=gen,
+                        dtype=torch.int8).to(dev)
+    w_q = torch.randint(-127, 128, (k, n), generator=gen,
+                        dtype=torch.int8).to(dev)
+    a_scale = (torch.rand(b, generator=gen) / 127 + 1e-4).to(dev)
+    w_scale = (torch.rand(n, generator=gen) / 127 + 1e-4).to(dev)
+    rpl = m // b
+    got = i8_mod.int8_matmul_cuda(x_q, w_q, a_scale, w_scale, rpl)
+    want = ref.int8_matmul_ref(x_q, w_q, a_scale, w_scale, rpl)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "int8_matmul k2048: kernel is not bitwise "
+                                  "equal to the plain version")
+    kernel = lambda: i8_mod.int8_matmul_cuda(  # noqa: E731
+        x_q, w_q, a_scale, w_scale, rpl)
+    nbytes, nops, peak = gemm_work("int8_matmul", m, k, n, b)
+    rows[("int8_matmul", "k2048")] = dict(
+        shape=f"M={m} K={k} N={n} lanes={b}",
+        template=i8_mod.template(k, n, _build.aligned16(x_q, w_q)).name,
+        ms=graph_ms(torch, kernel), events_ms=median_ms(torch, kernel),
+        plain_ms=median_ms(torch, lambda: ref.int8_matmul_ref(
+            x_q, w_q, a_scale, w_scale, rpl), reps=10),
+        library_ms=graph_ms(torch, lambda: torch._int_mm(x_q, w_q)),
+        max_abs_err=0.0, bytes=nbytes, ops=nops, peak=peak)
+
     return emit_rows(rows)
 
 
@@ -370,11 +411,16 @@ def emit_rows(rows):
 
 
 def elite_kernel_phase(torch, clouds):
-    """FPS and both grouped_transfer kernels against their plain versions
-    at Elite's stage-1 and stage-4 shapes, on the FPS/kNN geometry of
-    real 1024-point clouds."""
+    """FPS at Elite's stage-1 and stage-4 shapes and both grouped_transfer
+    kernels at all four of its stages against their plain versions, on
+    the FPS/kNN geometry of real 1024-point clouds.  The sigma-given
+    kernel is also held bitwise against the unfused path, and a cloud
+    alone against its lane in the dispatch; grouped_transfer times are
+    device times of a graph replay (``graph_ms``), with the stats pass
+    and the product apart by kernel name."""
     from repro_torch.core import knn as knn_core
     from repro_torch.core import sampling
+    from repro_torch.kernels import _build
     from repro_torch.kernels import fps as fps_mod
     from repro_torch.kernels import grouped_transfer as gt_mod
     from repro_torch.kernels import knn as knn_mod
@@ -412,6 +458,8 @@ def elite_kernel_phase(torch, clouds):
 
     gen = torch.Generator().manual_seed(SEED + 2)
     for label, s, c, c_out in (("stage1", 0, 32, 64),
+                               ("stage2", 1, 64, 128),
+                               ("stage3", 2, 128, 256),
                                ("stage4", 3, 256, 512)):
         pts, idx, nbr = geo[s]
         n, n_samp, k = pts.shape[1], idx.shape[1], nbr.shape[2]
@@ -437,16 +485,17 @@ def elite_kernel_phase(torch, clouds):
             return ops.fused_linear(x, w, bias, "relu")
 
         unfused_out = unfused()
-        unfused_ms = median_ms(torch, unfused)
+        unfused_ms = graph_ms(torch, unfused)
+        unfused_events_ms = median_ms(torch, unfused)
         variants = (
             ("grouped_transfer_stats",
-             lambda: gt_mod.grouped_transfer_stats_cuda(
-                 feats, nbr, centers, alpha, beta, w, bias),
+             lambda f=feats, nb=nbr, ce=centers: gt_mod.
+             grouped_transfer_stats_cuda(f, nb, ce, alpha, beta, w, bias),
              lambda: ref.grouped_transfer_ref(
                  feats, nbr, centers, None, alpha, beta, w, bias)),
             ("grouped_transfer",
-             lambda: gt_mod.grouped_transfer_cuda(
-                 feats, nbr, centers, sigma, alpha, beta, w, bias),
+             lambda f=feats, nb=nbr, ce=centers, sg=sigma: gt_mod.
+             grouped_transfer_cuda(f, nb, ce, sg, alpha, beta, w, bias),
              lambda: ref.grouped_transfer_ref(
                  feats, nbr, centers, sigma, alpha, beta, w, bias)))
         for name, kernel, plain in variants:
@@ -462,21 +511,39 @@ def elite_kernel_phase(torch, clouds):
                 check(bitwise, f"{name} {label}: not bitwise equal to the "
                                f"unfused path (fused_linear on the same "
                                f"rows)")
-            ms = median_ms(torch, kernel)
+            # a cloud alone against its lane in the full dispatch
+            lane = 5
+            alone = kernel(feats[lane:lane + 1].contiguous(),
+                           nbr[lane:lane + 1].contiguous(),
+                           centers[lane:lane + 1].contiguous(),
+                           *(() if name == "grouped_transfer_stats"
+                             else (sigma[lane:lane + 1].contiguous(),)))
+            torch.cuda.synchronize()
+            check(torch.equal(alone[0], got[lane]),
+                  f"{name} {label}: a cloud's output depends on the rest of "
+                  f"its dispatch")
+            ms, events_ms = graph_ms(torch, kernel), median_ms(torch, kernel)
             plain_ms = median_ms(torch, plain, reps=10)
-            # feats, int32 indices, centres, alpha/beta, w, b and the
-            # output once each; 2 * 2C * C_out flops per output row
-            nbytes = 4 * (feats.numel() + nbr.numel() + centers.numel()
-                          + 2 * c + w.numel() + c_out + got.numel())
-            if name == "grouped_transfer":
-                nbytes += 4 * b
+            # device time by kernel name (the stats pass is its own launch)
+            _, by_name, _ = profile_call(torch, kernel)
+            by_kernel = {
+                part: sum(us for key, us in by_name.items() if part in key)
+                / 1e3 if by_name else "not measured"
+                for part in ("grouped_transfer_stats_kernel",
+                             "grouped_transfer_wide_kernel")}
+            nbytes, nops = grouped_work(b, n, n_samp, k, c, c_out,
+                                        name == "grouped_transfer")
             rows[(name, label)] = dict(
                 shape=f"B={b} N={n} S={n_samp} k={k} C={c} C_out={c_out}",
-                ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
-                unfused_ms=unfused_ms,
-                bitwise_vs_unfused=bitwise,
-                bytes=nbytes, ops=2 * b * n_samp * k * 2 * c * c_out,
-                peak=FP32_OPS_PER_S)
+                template=gt_mod.template(
+                    b * n_samp * k, c, c_out,
+                    _build.aligned16(feats, centers, alpha, beta, w)).name,
+                ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+                library_ms=None, max_abs_err=err, unfused_ms=unfused_ms,
+                unfused_events_ms=unfused_events_ms,
+                bitwise_vs_unfused=bitwise, lone_cloud_bitwise=True,
+                profile_ms_by_kernel=by_kernel,
+                bytes=nbytes, ops=nops, peak=FP32_OPS_PER_S)
     return emit_rows(rows)
 
 
@@ -582,12 +649,15 @@ def profile_summary(wall_ms, by_name, events, **named):
 
 
 def gemm_bounds(torch, pipe, chunk, state):
-    """The GEMM launches of one dispatch, recorded from the shapes the
-    ``int8_matmul`` and ``fused_linear`` wrappers are given: per kernel,
-    the launches and the sum of their bounds (ms)."""
+    """The product launches of one dispatch, recorded from the shapes the
+    ``int8_matmul``, ``fused_linear`` and ``grouped_transfer`` wrappers
+    are given: per kernel, the launches and the sum of their bounds
+    (ms)."""
+    from repro_torch.kernels import grouped_transfer as gt_mod
     from repro_torch.kernels import ops
     shapes = []
     int8_cuda, fused_cuda = ops.int8_matmul_cuda, ops.fused_linear_cuda
+    gt_launch = gt_mod._launch
 
     def int8_rec(x_q, w_q, a_scale, w_scale, rows_per_lane):
         shapes.append(("int8_matmul", *x_q.shape, w_q.shape[1],
@@ -598,16 +668,30 @@ def gemm_bounds(torch, pipe, chunk, state):
         shapes.append(("fused_linear", *x.shape, w.shape[1], 0))
         return fused_cuda(x, w, b, activation)
 
+    def grouped_rec(feats, nidx, centers, sigma, alpha, beta, w, b, **kw):
+        # both wrappers launch through _launch; sigma is given or None
+        shapes.append(("grouped_transfer", *feats.shape, *nidx.shape[1:],
+                       w.shape[1], sigma is not None))
+        return gt_launch(feats, nidx, centers, sigma, alpha, beta, w, b,
+                         **kw)
+
     ops.int8_matmul_cuda, ops.fused_linear_cuda = int8_rec, fused_rec
+    gt_mod._launch = grouped_rec
     try:
         pipe.infer(chunk, state.clone())
         torch.cuda.synchronize()
     finally:
         ops.int8_matmul_cuda, ops.fused_linear_cuda = int8_cuda, fused_cuda
+        gt_mod._launch = gt_launch
     out = {kind: {"launches": 0, "bound_ms": 0.0}
-           for kind in ("int8_matmul", "fused_linear")}
-    for kind, m, k, n, lanes in shapes:
-        nbytes, nops, peak = gemm_work(kind, m, k, n, lanes)
+           for kind in ("int8_matmul", "fused_linear", "grouped_transfer")}
+    for kind, *dims in shapes:
+        if kind == "grouped_transfer":
+            b, n, c, s, k, c_out, given = dims
+            nbytes, nops = grouped_work(b, n, s, k, c, c_out, given)
+            peak = FP32_OPS_PER_S
+        else:
+            nbytes, nops, peak = gemm_work(kind, *dims)
         out[kind]["launches"] += 1
         out[kind]["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_PER_S,
                                            nops / peak)
@@ -616,7 +700,8 @@ def gemm_bounds(torch, pipe, chunk, state):
 
 def profile_dispatch(torch, pipe, chunk, state):
     """Device time per kernel name over one dispatch (torch.profiler),
-    with each GEMM kernel's ms beside the summed bound of its launches."""
+    with each product kernel's ms (``grouped_transfer``: both of its
+    launches) beside the summed bound of its launches."""
     wall_ms, by_name, events = profile_call(
         torch, lambda: pipe.infer(chunk, state.clone()))
     out = profile_summary(
@@ -628,7 +713,9 @@ def profile_dispatch(torch, pipe, chunk, state):
         fps_ms=("fps_kernel",),
         int8_matmul_kernel_ms=("int8_matmul_kernel",),
         fused_linear_kernel_ms=("fused_linear_wide_kernel",
-                                "fused_linear_small_kernel"))
+                                "fused_linear_small_kernel"),
+        grouped_transfer_kernel_ms=("grouped_transfer",),
+        grouped_transfer_stats_pass_ms=("grouped_transfer_stats_kernel",))
     dev_ms = out["device_ms"]
     out["fps_share"] = (out["fps_ms"] / dev_ms if by_name
                         else "not measured")
@@ -757,6 +844,55 @@ def elite_variants_phase(torch, fused_spec, params, clouds):
     for k, v in launches.items():
         total[k] += v
     return total
+
+
+def lite_wide_phase(torch, clouds, gen):
+    """One 32-cloud dispatch of ``lite_spec(40, embed_dim=128).serving()``
+    (stage dims 256-2048, so int8 products up to K = 2048, past one
+    shared-memory slice of w) on the card, held bitwise against the CPU:
+    Lite's contract."""
+    from repro_torch.api.build import build
+    from repro_torch.api.spec import lite_spec
+    from repro_torch.kernels import ops
+    from repro_torch.models.pointmlp import pointmlp_init
+    spec = lite_spec(N_CLASSES, embed_dim=128).serving().replace(
+        backend="cuda")
+    params = pointmlp_init(spec.to_model_config(), gen)
+    perturb_bn(torch, params, gen)
+    pipe = build(spec, params)
+    state = pipe.seed_state(SEED, MAX_BATCH)
+    full = torch.from_numpy(clouds[:MAX_BATCH])
+    ks = []                         # the depth K of each int8 product
+    int8_cuda = ops.int8_matmul_cuda
+
+    def int8_rec(x_q, *rest):
+        ks.append(x_q.shape[1])
+        return int8_cuda(x_q, *rest)
+
+    ops.int8_matmul_cuda = int8_rec
+    try:
+        (got, _), launches = counted(
+            torch, lambda: pipe.infer(full.cuda(), state.clone()))
+    finally:
+        ops.int8_matmul_cuda = int8_cuda
+    expect_launches("lite embed 128", launches,
+                    {"knn": 4, "int8_matmul": 28})
+    check(max(ks) > 1024, f"lite embed 128: no int8 product past K = 1024 "
+                          f"(largest K {max(ks)})")
+    want, _ = build(spec, params, device="cpu").infer(full, state.clone())
+    got = got.cpu()
+    check(got.shape == (MAX_BATCH, N_CLASSES)
+          and bool(torch.isfinite(got).all()), "lite embed 128: logits not "
+          "finite")
+    err = (got - want).abs().max().item()
+    check(torch.equal(got, want), f"lite embed 128: card vs CPU not bitwise "
+                                  f"(max abs err {err})")
+    emit({"phase": "lite_embed128", "launches": launches,
+          "bitwise_vs_cpu": True, "max_abs_err_vs_cpu": err,
+          "max_abs_logit": want.abs().max().item(),
+          "int8_depths_past_1024": sorted(k for k in ks if k > 1024),
+          "tolerance": "bitwise (Lite's contract)"})
+    return launches
 
 
 # ---------------------------------------------------------------- LM ---
@@ -1148,6 +1284,10 @@ def main() -> int:
     for k, v in got.items():
         total[k] += v
     got = elite_variants_phase(torch, elite, elite_params, elite_clouds)
+    for k, v in got.items():
+        total[k] += v
+    got = lite_wide_phase(torch, clouds, torch.Generator().manual_seed(
+        SEED + 6))
     for k, v in got.items():
         total[k] += v
     del elite_params, params

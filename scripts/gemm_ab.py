@@ -1,30 +1,37 @@
 #!/usr/bin/env python3
-"""Time GEMM kernel sources (``int8_matmul``, ``fused_linear``) on one GPU.
+"""Time GEMM kernel sources (``int8_matmul``, ``fused_linear``, ``grouped_transfer``) on one GPU.
 
     python3 scripts/gemm_ab.py [--ptxas] [--ptxas-dir DIR] [--kernel NAME]
                                [NAME=OTHER.cu ...]
 
-Builds ``src/repro_torch/csrc/int8_matmul.cu`` and ``fused_linear.cu``
-(as ``shipped``) and each other source given as ``NAME=PATH`` (NAME is
-``int8_matmul`` or ``fused_linear``: a parent commit's copy, whose launch
-function may lack the template argument, or an edited variant) with the
-port's ``nvcc`` flags.  ``--ptxas`` adds ``-Xptxas -v`` and prints each
-template's registers and spills; ``--ptxas-dir DIR`` also keeps each
-whole report there as ``ptxas-<kernel>-<source>.txt``.
+Builds ``src/repro_torch/csrc/int8_matmul.cu``, ``fused_linear.cu`` and
+``grouped_transfer.cu`` (as ``shipped``) and each other source given as
+``NAME=PATH`` (NAME is one of those three kernels: a parent commit's
+copy, whose launch function may lack the template argument, or an edited
+variant; ``-I csrc`` finds the shared headers) with the port's ``nvcc``
+flags.  ``--ptxas`` adds ``-Xptxas -v`` and prints each template's
+registers and spills; ``--ptxas-dir DIR`` also keeps each whole report
+there as ``ptxas-<kernel>-<source>.txt``.
 
 At every GEMM shape of one 32-cloud dispatch (Lite's for ``int8_matmul``,
-M-2's for ``fused_linear``) it holds each source against the plain
+M-2's for ``fused_linear``; ``int8_matmul`` also at three K = 2048
+products, outside the dispatch's sums) it holds each source against the plain
 version (int8 bitwise; ``fused_linear`` within rtol = atol = 1e-5, and
 bit for bit against the shipped source, since both keep one in-order
-fmaf chain an output).  Then it times each in turns (shipped, others,
-others reversed, shipped) beside ``torch._int_mm`` or ``torch.addmm``,
-and the shipped ``fused_linear`` at both of its tile families (wide and
-small).  A time is the device time of one call (``chip_smoke.graph_ms``:
-a CUDA graph of back-to-back launches, replayed), so no host time enters
-the figure of a short kernel.  Prints the card line, one JSON line a
-(kernel, shape) and one a kernel with each source's sum over the dispatch
-(launches x ms) beside the summed bound.  Exits non-zero without a CUDA
-device, or if a source fails to build, launch or agree.
+fmaf chain an output).  ``grouped_transfer`` runs at Elite's four
+stages (B32 k16, C 32 -> 64 up to 256 -> 512, random neighbour indices),
+both variants (sigma computed, sigma given), each within rtol = atol =
+1e-5 of the plain version, the sigma-given one bit for bit against the
+shipped source.  Then it times each in turns (shipped, others, others
+reversed, shipped) beside ``torch._int_mm`` or ``torch.addmm`` where one
+computes the function, and the shipped ``fused_linear`` at both of its
+tile families (wide and small).  A time is the device time of one call
+(``chip_smoke.graph_ms``: a CUDA graph of back-to-back launches,
+replayed), so no host time enters the figure of a short kernel.  Prints
+the card line, one JSON line a (kernel, shape) and one a kernel with each
+source's sum over the dispatch (launches x ms) beside the summed bound.
+Exits non-zero without a CUDA device, or if a source fails to build,
+launch or agree.
 
 To hold a change against its parent on one card::
 
@@ -45,7 +52,11 @@ import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import HBM_BYTES_PER_S, gemm_work, graph_ms  # noqa: E402
+from chip_smoke import (FP32_OPS_PER_S, HBM_BYTES_PER_S,  # noqa: E402
+                        gemm_work, graph_ms, grouped_work)
+KERNELS = ("int8_matmul", "fused_linear", "grouped_transfer")
+# Pointer arguments before the ints of each launch function.
+N_PTRS = {"int8_matmul": 5, "fused_linear": 4, "grouped_transfer": 10}
 
 LANES = 32
 # (M, K, N): launches in one 32-cloud dispatch (tests/test_torch_gemm.py
@@ -60,17 +71,26 @@ M2_SHAPES = {
     (16384, 128, 512): 1, (1024, 512, 128): 1, (1024, 128, 512): 1,
     (32, 512, 512): 1, (32, 512, 256): 1}
 LITE_SHAPES = {**M2_SHAPES, (32, 256, 40): 1}
+# int8 products deeper than one shared-memory slice of w (K > 1024):
+# lite_spec(40, embed_dim=128)'s stage-4 transfers and the smoke's row.
+# Not in Lite's dispatch: 0 launches there.
+INT8_DEEP_SHAPES = {(16384, 2048, 2048): 0, (16384, 2048, 512): 0,
+                    (4096, 2048, 512): 0}
+# Elite's group->transfer stages: (N, S, C, C_out) at B32 k16, one launch
+# each in a dispatch.
+ELITE_STAGES = ((1024, 512, 32, 64), (512, 256, 64, 128),
+                (256, 128, 128, 256), (128, 64, 256, 512))
 
 
 def build(kernel, sources, build_dir, flags, ptxas: bool, ptxas_dir=None):
     """Compile each source in parallel; -> {name: (launch fn, has_tmpl)}."""
     from repro_torch.kernels import _build
     symbol = f"{kernel}_launch"
-    n_ptrs = 5 if kernel == "int8_matmul" else 4
+    n_ptrs = N_PTRS[kernel]
     procs = {}
     for name, src in sources.items():
         so = build_dir / f"{kernel}-{name}.so"
-        cmd = ["/usr/local/cuda/bin/nvcc", *flags,
+        cmd = ["/usr/local/cuda/bin/nvcc", *flags, "-I", str(_build.CSRC),
                *(["-Xptxas", "-v"] if ptxas else []), "-o", str(so),
                str(src)]
         procs[name] = (src, so, subprocess.Popen(
@@ -115,7 +135,8 @@ def run_kernel(torch, kernel, fns):
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import fused_linear as fl_mod
     from repro_torch.kernels import int8_matmul as i8_mod
-    shapes = LITE_SHAPES if kernel == "int8_matmul" else M2_SHAPES
+    shapes = ({**LITE_SHAPES, **INT8_DEEP_SHAPES} if kernel == "int8_matmul"
+              else M2_SHAPES)
     gen = torch.Generator(device="cuda").manual_seed(7)
     dev = "cuda"
     sums = {name: 0.0 for name in fns}
@@ -175,9 +196,11 @@ def run_kernel(torch, kernel, fns):
                 else:
                     row[f"{name}_bitwise_vs_shipped"] = bool(
                         torch.equal(out, shipped))
+                    ok = ok and row[f"{name}_bitwise_vs_shipped"]
             if not ok:
                 raise RuntimeError(f"{kernel} {name} at {row['shape']}: "
-                                   f"disagrees with the plain version")
+                                   f"disagrees with the plain version or "
+                                   f"the shipped source")
         names = list(fns)
         for name in names + names[::-1]:
             row.setdefault(f"{name}_ms", []).append(
@@ -203,12 +226,91 @@ def run_kernel(torch, kernel, fns):
                       "dispatch_bound_ms": total_bound}), flush=True)
 
 
+def run_grouped(torch, fns):
+    """Both grouped_transfer variants of each source at Elite's four
+    stages, checked, then timed in turns."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import grouped_transfer as gt_mod
+    b, k = LANES, 16
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dev = "cuda"
+    sums = {name: 0.0 for name in fns}
+    total_bound = 0.0
+    for n, s, c, c_out in ELITE_STAGES:
+        feats = torch.randn(b, n, c, generator=gen, device=dev)
+        nidx = torch.randint(0, n, (b, s, k), generator=gen, device=dev)
+        centers = torch.randn(b, s, c, generator=gen, device=dev)
+        alpha = 0.7 + 0.6 * torch.rand(c, generator=gen, device=dev)
+        beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+        w = torch.randn(2 * c, c_out, generator=gen, device=dev) / (
+            2 * c) ** 0.5
+        bias = 0.1 * torch.randn(c_out, generator=gen, device=dev)
+        sigma = 0.5 + torch.rand(b, generator=gen, device=dev)
+        out = torch.empty(b, s, k, c_out, device=dev)
+        partials = torch.empty(b, -(-s // 8), dtype=torch.float64,
+                               device=dev)
+        tmpl = gt_mod.template(b * s * k, c, c_out,
+                               _build.aligned16(feats, centers, alpha, beta,
+                                                w))
+        for mode, sig in ((2, None), (1, sigma)):
+
+            def call(fn, has_tmpl):
+                extra = (tmpl.code,) if has_tmpl else ()
+                _build.check("grouped_transfer", fn(
+                    feats.data_ptr(), nidx.data_ptr(), centers.data_ptr(),
+                    sigma.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
+                    w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                    partials.data_ptr(), b, n, s, k, c, c_out, mode, 1, 1,
+                    *extra, torch.cuda.current_stream().cuda_stream))
+            want = ref.grouped_transfer_ref(feats, nidx, centers, sig, alpha,
+                                            beta, w, bias)
+            nbytes, nops = grouped_work(b, n, s, k, c, c_out, mode == 1)
+            row = {"kernel": "grouped_transfer",
+                   "variant": "stats" if mode == 2 else "sigma_given",
+                   "shape": f"B={b} N={n} S={s} k={k} C={c} C_out={c_out}",
+                   "launches": 1, "template": tmpl.name,
+                   "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                         nops / FP32_OPS_PER_S)}
+            shipped = None
+            for name, (fn, has_tmpl) in fns.items():
+                out.fill_(float("nan"))
+                call(fn, has_tmpl)
+                torch.cuda.synchronize()
+                ok = torch.allclose(out, want, rtol=1e-5, atol=1e-5)
+                row.setdefault("max_abs_err", {})[name] = (
+                    out - want).abs().max().item()
+                if shipped is None:
+                    shipped = out.clone()
+                else:
+                    same = bool(torch.equal(out, shipped))
+                    row[f"{name}_bitwise_vs_shipped"] = same
+                    # the sigma-given product is one fmaf chain an output
+                    # in every source; a computed sigma may differ in its
+                    # float64 sum order
+                    ok = ok and (same or mode == 2)
+                if not ok:
+                    raise RuntimeError(
+                        f"grouped_transfer {name} {row['variant']} at "
+                        f"{row['shape']}: disagrees with the plain version "
+                        f"or the shipped source")
+            names = list(fns)
+            for name in names + names[::-1]:
+                row.setdefault(f"{name}_ms", []).append(
+                    graph_ms(torch, lambda: call(*fns[name])))
+            for name in names:
+                sums[name] += statistics.mean(row[f"{name}_ms"])
+            total_bound += row["bound_ms"]
+            print(json.dumps(row), flush=True)
+    print(json.dumps({"kernel": "grouped_transfer",
+                      "sum_over_stages_and_variants_ms": sums,
+                      "bound_ms": total_bound}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--ptxas-dir", metavar="DIR")
-    ap.add_argument("--kernel", choices=("int8_matmul", "fused_linear"),
-                    action="append")
+    ap.add_argument("--kernel", choices=KERNELS, action="append")
     ap.add_argument("others", nargs="*", metavar="NAME=OTHER.cu")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
@@ -223,7 +325,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0], flush=True)
-    kernels = args.kernel or ["int8_matmul", "fused_linear"]
+    kernels = args.kernel or list(KERNELS)
     sources = {kn: {"shipped": _build.CSRC / f"{kn}.cu"} for kn in kernels}
     for arg in args.others:
         kn, _, path = arg.partition("=")
@@ -238,7 +340,10 @@ def main() -> int:
                            args.ptxas_dir)
                  for kn, srcs in sources.items()}
         for kn, fns in built.items():
-            run_kernel(torch, kn, fns)
+            if kn == "grouped_transfer":
+                run_grouped(torch, fns)
+            else:
+                run_kernel(torch, kn, fns)
     return 0
 
 

@@ -20,7 +20,9 @@
 // overlap it.
 //
 // Design (two kernels; the wrapper, kernels/fused_linear.py, picks one):
-//   * The wide kernel.  Block tiles of BM x BN, BN (16, 32, 64, 128)
+//   * The wide kernel: the main loop of fp32_wide_tile.cuh (shared with
+//     grouped_transfer.cu, which feeds it another A loader) under the
+//     dense row loader below.  Block tiles of BM x BN, BN (16, 32, 64, 128)
 //     following N, 256 threads, a thread holding 8 x 8 outputs at BN = 128
 //     (8 x 4 at 64 and 32, 4 x 4 at 16).  x is fetched into registers one
 //     16-k step ahead (16-byte loads) and stored transposed into a k-major
@@ -43,28 +45,11 @@
 
 #include <cuda_runtime.h>
 
+#include "fp32_wide_tile.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-
-// The wide tile: BM x BN outputs a block, TM x TN a thread (8 x 8 at
-// BN = 128, 8 x 4 at 64 and 32, 4 x 4 at 16; BM 128, or 256 at BN <= 32).
-// A thread's rows are (i / 4) * (BM / MH) + ty * 4 + i % 4, its columns
-// (j / 4) * (BN / NH) + tx * 4 + j % 4: reads of both operands are float4s
-// on distinct banks or broadcasts, and stores float4s, TX of them
-// contiguous.
-constexpr int BK = 16;                 // k a step
-template <int BN>
-struct Wide {
-  static constexpr int TN = BN == 128 ? 8 : 4;
-  static constexpr int TM = BN == 16 ? 4 : 8;
-  static constexpr int TX = BN / TN, TY = THREADS / TX;
-  static constexpr int BM = TY * TM;
-  static constexpr int MH = TM / 4, NH = TN / 4;
-  static constexpr int BMP = BM + 4;   // As row stride (floats)
-  static constexpr int A4 = BM * BK / 4 / THREADS;   // x float4s a thread
-  static constexpr int SMEM = (2 * BK * BMP + 3 * BK * BN) * 4;
-};
+using namespace fp32_wide;
 
 // The small tile, for products too small to fill the card with the wide
 // one: BN 16 or 32, one row and 4 columns a thread (BM 64 or 32), a deeper
@@ -78,58 +63,38 @@ struct Small {
   static constexpr int SMEM = SNSTAGE * STAGE * 4;
 };
 
-__device__ __forceinline__ float activate(float y, int act) {
-  if (act == 1) return fmaxf(y, 0.0f);
-  if (act == 2) {
-    const float c = 0.7978845608028654f;          // sqrt(2 / pi)
-    const float inner = c * (y + 0.044715f * y * y * y);
-    return 0.5f * y * (1.0f + tanhf(inner));
-  }
-  return y;
-}
+// The dense row loader of the wide tile: slot j of a thread is row
+// row0 + tid / 4 + 64 j of x, four k from kt * BK + (tid % 4) * 4, loaded
+// one step ahead into registers (16-byte loads on the vector route).
+template <int BN, bool VEC>
+struct RowLoader {
+  const float* x;
+  int M, K, row0;
+  float4 xs[Wide<BN>::A4];                        // x of the next step
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Bias, activation and the store of a thread's 4 consecutive columns.
-template <bool VEC>
-__device__ __forceinline__ void store4(float* o, int c, int N,
-                                       const float (&acc)[4],
-                                       const float (&bias)[4], int act) {
-  float y[4];
+  __device__ __forceinline__ void fetch(int kt) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) y[e] = activate(acc[e] + bias[e], act);
-  if (VEC) {
-    if (c < N) *reinterpret_cast<float4*>(o) = make_float4(y[0], y[1], y[2], y[3]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (c + e < N) o[e] = y[e];
+    for (int j = 0; j < Wide<BN>::A4; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      const int gr = row0 + i / (BK / 4);
+      const int gk = kt * BK + (i % (BK / 4)) * 4;
+      const float* src = x + (size_t)gr * K + gk;
+      if (VEC) {
+        xs[j] = gr < M && gk < K ? __ldg(reinterpret_cast<const float4*>(src))
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      } else {
+        xs[j].x = gr < M && gk < K ? __ldg(src) : 0.0f;
+        xs[j].y = gr < M && gk + 1 < K ? __ldg(src + 1) : 0.0f;
+        xs[j].z = gr < M && gk + 2 < K ? __ldg(src + 2) : 0.0f;
+        xs[j].w = gr < M && gk + 3 < K ? __ldg(src + 3) : 0.0f;
+      }
+    }
   }
-}
+  __device__ __forceinline__ float4 get(int j) const { return xs[j]; }
+};
 
-// The wide kernel.  x goes through registers into a 2-stage k-major copy
-// As [BK][BMP] (the transpose a thread's float4 row reads need), one step
-// ahead; w through a 3-stage cp.async ring Bs [BK][BN].  One __syncthreads
-// a step.  Grid (column tiles, row tiles).
+// The wide kernel: the shared wide tile (fp32_wide_tile.cuh) fed by the
+// dense row loader.  Grid (column tiles, row tiles).
 template <int BN, bool VEC>
 __global__ void __launch_bounds__(THREADS, 2)
     fused_linear_wide_kernel(const float* __restrict__ x,
@@ -137,125 +102,11 @@ __global__ void __launch_bounds__(THREADS, 2)
                              const float* __restrict__ b,
                              float* __restrict__ out, int M, int K, int N,
                              int act) {
-  using T = Wide<BN>;
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                               // [2][BK][BMP]
-  float* Bs = smem + 2 * BK * T::BMP;          // [3][BK][BN]
-  const int col0 = blockIdx.x * BN, row0 = blockIdx.y * T::BM;
-  const int tx = threadIdx.x % T::TX, ty = threadIdx.x / T::TX;
-  const int KT = K > 0 ? (K + BK - 1) / BK : 1;
-
-  float4 xs[T::A4];                               // x of the next step
-  auto fetch_x = [&](int kt) {
-#pragma unroll
-    for (int j = 0; j < T::A4; ++j) {
-      const int i = threadIdx.x + j * THREADS;
-      const int gr = row0 + i / (BK / 4);
-      const int gk = kt * BK + (i % (BK / 4)) * 4;
-      const float* src = x + (size_t)gr * K + gk;
-      if (VEC) {
-        xs[j] = gr < M && gk < K ? *reinterpret_cast<const float4*>(src)
-                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      } else {
-        xs[j].x = gr < M && gk < K ? src[0] : 0.0f;
-        xs[j].y = gr < M && gk + 1 < K ? src[1] : 0.0f;
-        xs[j].z = gr < M && gk + 2 < K ? src[2] : 0.0f;
-        xs[j].w = gr < M && gk + 3 < K ? src[3] : 0.0f;
-      }
-    }
-  };
-  auto store_x = [&](int kt) {
-    float* a = As + (kt & 1) * BK * T::BMP;
-#pragma unroll
-    for (int j = 0; j < T::A4; ++j) {
-      const int i = threadIdx.x + j * THREADS;
-      const int r = i / (BK / 4), k4 = (i % (BK / 4)) * 4;
-      a[(k4 + 0) * T::BMP + r] = xs[j].x;
-      a[(k4 + 1) * T::BMP + r] = xs[j].y;
-      a[(k4 + 2) * T::BMP + r] = xs[j].z;
-      a[(k4 + 3) * T::BMP + r] = xs[j].w;
-    }
-  };
-  auto load_w = [&](int kt) {
-    float* bs = Bs + (kt % 3) * BK * BN;
-    const int k0 = kt * BK;
-    if (VEC) {
-      for (int i = threadIdx.x; i < BK * BN / 4; i += THREADS) {
-        const int kk = i / (BN / 4), gc = col0 + (i % (BN / 4)) * 4;
-        const bool ok = k0 + kk < K && gc < N;
-        cp_async16(bs + kk * BN + gc - col0,
-                   ok ? w + (size_t)(k0 + kk) * N + gc : w, ok);
-      }
-    } else {
-      for (int i = threadIdx.x; i < BK * BN; i += THREADS) {
-        const int kk = i / BN, gc = col0 + i % BN;
-        bs[i] = k0 + kk < K && gc < N ? w[(size_t)(k0 + kk) * N + gc] : 0.0f;
-      }
-    }
-  };
-
-  fetch_x(0);
-  store_x(0);
-  load_w(0);
-  cp_async_commit();
-  float acc[T::TM][T::TN] = {};
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) {
-      fetch_x(kt + 1);
-      load_w(kt + 1);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();               // step kt's x and w are in place
-    const float* a = As + (kt & 1) * BK * T::BMP;
-    const float* bs = Bs + (kt % 3) * BK * BN;
-    auto step = [&](int kk) {
-      float av[T::TM], bv[T::TN];
-#pragma unroll
-      for (int h = 0; h < T::MH; ++h) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            a + kk * T::BMP + h * (T::BM / T::MH) + ty * 4);
-        av[4 * h] = v.x, av[4 * h + 1] = v.y, av[4 * h + 2] = v.z,
-        av[4 * h + 3] = v.w;
-      }
-#pragma unroll
-      for (int h = 0; h < T::NH; ++h) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            bs + kk * BN + h * (BN / T::NH) + tx * 4);
-        bv[4 * h] = v.x, bv[4 * h + 1] = v.y, bv[4 * h + 2] = v.z,
-        bv[4 * h + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < T::TM; ++i)
-#pragma unroll
-        for (int j = 0; j < T::TN; ++j)
-          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    };
-    const int kend = min(BK, K - kt * BK);   // the chain ends at K
-    if (kend == BK) {
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) step(kk);
-    } else {
-      for (int kk = 0; kk < kend; ++kk) step(kk);
-    }
-    if (kt + 1 < KT) store_x(kt + 1);
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int h = 0; h < T::NH; ++h) {
-    const int c = col0 + h * (BN / T::NH) + tx * 4;
-    float bias[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) bias[e] = c + e < N ? b[c + e] : 0.0f;
-#pragma unroll
-    for (int i = 0; i < T::TM; ++i) {
-      const int r = row0 + (i / 4) * (T::BM / T::MH) + ty * 4 + i % 4;
-      const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1],
-                          acc[i][4 * h + 2], acc[i][4 * h + 3]};
-      if (r < M) store4<VEC>(out + (size_t)r * N + c, c, N, v, bias, act);
-    }
-  }
+  const int row0 = blockIdx.y * Wide<BN>::BM;
+  RowLoader<BN, VEC> ld{x, M, K, row0};
+  wide_tile<BN, VEC>(ld, w, b, out, M, K, N, act, row0, blockIdx.x * BN,
+                     smem);
 }
 
 // The small kernel: x [BM][SLDA] row-major and w [SBK][BN] through a

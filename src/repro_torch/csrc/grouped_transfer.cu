@@ -2,10 +2,11 @@
 //
 // Replaces: src/repro/kernels/grouped_transfer.py, grouped_transfer_pallas:
 //   * with sigma = None, the stats variant (_grouped_transfer_stats_kernel,
-//     its (2, s_tiles) grid): pass 0 sums the masked off^2, pass 1 forms
-//     sigma and runs the epilogue below;
-//   * with sigma given (_grouped_transfer_kernel), or with no normalization
-//     at all (affine_mode "center"): the epilogue alone.
+//     the pallas_call at :149, its (2, s_tiles) grid): pass 0 sums the
+//     masked off^2, pass 1 forms sigma and runs the product below;
+//   * with sigma given (_grouped_transfer_kernel, the pallas_call at :173),
+//     or with no normalization at all (affine_mode "center"): the product
+//     alone.
 // For each sample s of a cloud and each of its k neighbours j, with
 // off = feats[nidx[s, j]] - centers[s] (C values):
 //   x = off / (sigma + eps), then x * alpha + beta under "affine";
@@ -14,58 +15,112 @@
 // The [B, S, k, 2C] grouped tensor never exists in device memory.
 //
 // What bounds it on the H100: operations, on the CUDA cores (fp32 FFMA at
-// 67 TFLOP/s, no TF32).  At the pipeline's shapes the output alone is
-// 67 MB a dispatch (B32 S512 k16 C_out 64 at stage 1, S64 C_out 512 at
-// stage 4), against 2.1 GFLOP at stage 1 (C = 32), where the two limits
-// are close, and 17.2 GFLOP at stage 4 (C = 256).
+// 67 TFLOP/s, no TF32): 2 * 2C * C_out flops a row, 17.2 GFLOP at Elite's
+// stage 4 (B32 S64 k16, C 256 -> 512; 0.256 ms).  At stage 1 (S512,
+// C 32 -> 64) the 67 MB output (0.020 ms at 3.35 TB/s) is close to the
+// 2.1 GFLOP (0.032 ms).  So the product has to run at the FFMA rate, which
+// is what fused_linear.cu's wide tile does.
 //
-// Design (simple first): no atomics anywhere, so results are the same run
-// to run and a cloud's result does not depend on the rest of its dispatch.
-//   * Stats launch: grid (ceil(S / 8), B).  A block gathers its 8 samples'
-//     neighbour rows, forms off * off in float32 and sums it in float64 in
-//     a fixed order (a strided loop, then a tree in shared memory); it
-//     writes one partial per (cloud, tile).
-//   * Compute launch: grid (C_out / 64, S*k / 64, B), 256 threads, the
-//     tiling of fused_linear.cu.  Each block first forms its cloud's
-//     sigma: the partials summed in a fixed order, mean =
+// Design: no atomics anywhere, so results are the same run to run and a
+// cloud's result does not depend on the rest of its dispatch.
+//   * Stats launch (stats variant only): grid (ceil(S / 8), B), 256
+//     threads.  A block takes 8 samples' neighbour rows; each warp walks
+//     whole rows (a group of lanes a row, sized to C), reading the row's
+//     index once and the row as float4s, and sums off * off (formed in
+//     float32) in float64 in a fixed order; a tree in shared memory gives
+//     one partial per (cloud, tile).
+//   * Compute launch: grid (C_out / BN, S*k / BM, B), the main loop of
+//     fp32_wide_tile.cuh (fused_linear.cu's wide tile: the same w ring,
+//     k-major A buffer, register tile and epilogue) fed by a
+//     gather-normalize A loader.  Each block first forms its cloud's
+//     divisor: the partials summed in a fixed order, mean =
 //     f32(total / count), sigma = f32(sqrt(f64(mean + eps))), exactly as
-//     repro_torch.core.knn.group_sigma does; or it takes the given sigma.
-//     It then builds each K-slice of its [64, 2C] row tile in shared
-//     memory straight from the gather (__fsub_rn, __fdiv_rn, __fmul_rn,
-//     __fadd_rn: one rounding per op, in the unfused path's order), and
-//     forms each output as one fmaf chain over k = 0 .. 2C-1 in order,
-//     from 0, then + b, then ReLU: the order of fused_linear.cu.  So the
-//     fused path equals the unfused one (torch gather and normalize ops,
-//     then the fused_linear kernel) bit for bit on the same inputs.
-// The file builds with --fmad=false; the explicit fmaf stays fused.
+//     repro_torch.core.knn.group_sigma does; or the given sigma; den =
+//     sigma + eps (1 in "center" mode, where the division is exact).  A
+//     thread's rows are fixed across the k steps, so it finds each row's
+//     neighbour and centre offsets once, before the main loop.  A step
+//     loads the neighbour's features a step ahead (16-byte loads); the
+//     centre, alpha and beta are read when the values are formed, after
+//     the step before it has been computed (L1 hits: a warp's rows share
+//     one centre row, prefetched with the neighbour); forming the values
+//     at the loads instead, or dropping the prefetch, measured 1-2%
+//     slower over Elite's stages (PERF.md).  The values are
+//     __fsub_rn, __fdiv_rn(., den) and, under affine,
+//     __fadd_rn(__fmul_rn(., alpha), beta): one rounding per op, in the
+//     unfused path's order; k >= C takes centers[s][k - C].  Each output
+//     is then one fmaf chain over k = 0 .. 2C-1 in order, from 0, then
+//     + b, then ReLU: fused_linear's order.  So the fused path equals the
+//     unfused one (torch gather and normalize ops, then the fused_linear
+//     kernel) bit for bit on the same inputs.
+//   * Templates: the wrapper (kernels/grouped_transfer.py) picks the tile
+//     with kernels/fused_linear.py::template for the same (S*k*B, 2C,
+//     C_out).  Where that names fused_linear's small tile (small products,
+//     in tests), this file runs the wide tile of the same BN.  The vector
+//     route needs C % 4 == 0 (a float4 never straddles C), C_out % 4 == 0
+//     and 16-byte aligned feats, centers, alpha, beta and w; otherwise the
+//     scalar route forms each value from scalar loads, for any C.
+// Row offsets are 32-bit, registers being the scarce resource (the
+// wrapper checks B*N*C, B*S*C and S*k < 2^31).  The file builds with
+// --fmad=false; the explicit fmaf and __f*_rn stay as written, so both flag
+// sets give the same bits.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fp32_wide_tile.cuh"
+
 namespace {
+
+using namespace fp32_wide;
 
 constexpr float EPS = 1e-5f;
 constexpr int STATS_SAMPLES = 8, STATS_THREADS = 256;
-constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
 constexpr int MODE_CENTER = 0, MODE_GIVEN = 1, MODE_STATS = 2;
 
-__global__ void grouped_transfer_stats_kernel(
-    const float* __restrict__ feats, const int64_t* __restrict__ nidx,
-    const float* __restrict__ centers, double* __restrict__ partials, int N,
-    int S, int k, int C) {
+__device__ __forceinline__ double sq(float f, float c) {
+  const float off = __fsub_rn(f, c);
+  return (double)__fmul_rn(off, off);
+}
+
+// One partial of sum(off^2) per (cloud, tile of STATS_SAMPLES samples).
+// Lanes are grouped by lpr (a power of two covering the row's float4s,
+// or scalars on the scalar route, at most 32); a group walks whole rows.
+__global__ void __launch_bounds__(STATS_THREADS)
+    grouped_transfer_stats_kernel(const float* __restrict__ feats,
+                                  const int64_t* __restrict__ nidx,
+                                  const float* __restrict__ centers,
+                                  double* __restrict__ partials, int N,
+                                  int S, int k, int C, int vec) {
   __shared__ double red[STATS_THREADS];
   const int b = blockIdx.y, tile = blockIdx.x;
   const int s0 = tile * STATS_SAMPLES;
   const int s1 = min(S, s0 + STATS_SAMPLES);
-  const int per_sample = k * C;
-  const int count = (s1 - s0) * per_sample;
+  const float* fb = feats + (size_t)b * N * C;
+  const float* cb = centers + (size_t)b * S * C;
+  const int64_t* nb = nidx + (size_t)b * S * k;
+  const int units = vec ? C / 4 : C;
+  int lpr = 1;
+  while (lpr < 32 && lpr < units) lpr <<= 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rows_per_pass = (STATS_THREADS / 32) * (32 / lpr);
+  const int l = lane % lpr;
   double acc = 0.0;
-  for (int e = threadIdx.x; e < count; e += STATS_THREADS) {
-    const int s = s0 + e / per_sample, r = e % per_sample;
-    const int j = r / C, c = r % C;
-    const int64_t nb = nidx[((size_t)b * S + s) * k + j];
-    const float off = __fsub_rn(feats[((size_t)b * N + nb) * C + c],
-                                centers[((size_t)b * S + s) * C + c]);
-    acc = __dadd_rn(acc, (double)__fmul_rn(off, off));
+  for (int r = s0 * k + warp * (32 / lpr) + lane / lpr; r < s1 * k;
+       r += rows_per_pass) {
+    const float* f = fb + (int)nb[r] * C;
+    const float* c = cb + (r / k) * C;
+    if (vec) {
+      for (int q = l; q < units; q += lpr) {
+        const float4 fv = __ldg(reinterpret_cast<const float4*>(f) + q);
+        const float4 cv = __ldg(reinterpret_cast<const float4*>(c) + q);
+        acc = __dadd_rn(acc, sq(fv.x, cv.x));
+        acc = __dadd_rn(acc, sq(fv.y, cv.y));
+        acc = __dadd_rn(acc, sq(fv.z, cv.z));
+        acc = __dadd_rn(acc, sq(fv.w, cv.w));
+      }
+    } else {
+      for (int q = l; q < C; q += lpr)
+        acc = __dadd_rn(acc, sq(__ldg(f + q), __ldg(c + q)));
+    }
   }
   red[threadIdx.x] = acc;
   __syncthreads();
@@ -77,100 +132,171 @@ __global__ void grouped_transfer_stats_kernel(
   if (threadIdx.x == 0) partials[(size_t)b * gridDim.x + tile] = red[0];
 }
 
-__global__ void grouped_transfer_kernel(
-    const float* __restrict__ feats, const int64_t* __restrict__ nidx,
-    const float* __restrict__ centers, const float* __restrict__ sigma,
-    const double* __restrict__ partials, const float* __restrict__ alpha,
-    const float* __restrict__ beta, const float* __restrict__ w,
-    const float* __restrict__ bias, float* __restrict__ out, int N, int S,
-    int k, int C, int C_out, int n_tiles, int mode, int affine, int act) {
-  __shared__ __align__(16) float As[BK][BM];      // row tile, transposed
-  __shared__ __align__(16) float Bs[BK][BN];
-  __shared__ int64_t nbr[BM];
-  __shared__ float den_sh;
-  const int b = blockIdx.z;
-  const int M = S * k, K = 2 * C;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;  // 16 x 16
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
 
-  if (threadIdx.x < 32 && mode != MODE_CENTER) {
-    float sig = 0.0f;
-    if (mode == MODE_STATS) {
+struct Args {
+  const float* feats;
+  const int64_t* nidx;
+  const float* centers;
+  const float* sigma;
+  const double* partials;
+  const float* alpha;
+  const float* beta;
+  const float* w;
+  const float* bias;
+  float* out;
+  int N, S, k, C, C_out, n_tiles, mode, affine, act;
+};
+
+// The block's divisor, sigma + eps (1 in "center" mode), formed by warp 0.
+__shared__ float den_sh;
+
+// The gather-normalize A loader of the wide tile: slot j is row
+// row0 + tid / 4 + 64 j of cloud b's [S*k, 2C] rows, four k from
+// kt * BK + (tid % 4) * 4.  It keeps only what changes with the thread
+// (two row offsets a slot, the step's loads): the arguments are the
+// kernel's (read from the constant bank, not held in registers) and the
+// divisor is read from shared memory, so the tile keeps its registers.
+template <int BN, bool VEC>
+struct GatherLoader {
+  static constexpr int A4 = Wide<BN>::A4;
+  Args a;
+  int nbr[A4], cen[A4];            // element offsets of the row's neighbour
+                                   // in feats and its centre in centers;
+                                   // cen -1 past M
+  int gk;                          // this thread's first k of the step
+  float4 v[A4];                    // the step's raw loads (VEC) or values
+
+  __device__ __forceinline__ void init(int b, int M, int row0) {
+#pragma unroll
+    for (int j = 0; j < A4; ++j) {
+      const int r = row0 + (int)threadIdx.x / (BK / 4) + j * (THREADS / 4);
+      const int64_t n = r < M ? a.nidx[(size_t)b * M + r] : 0;
+      nbr[j] = (b * a.N + (int)n) * a.C;
+      cen[j] = r < M ? (b * a.S + r / a.k) * a.C : -1;
+    }
+  }
+
+  __device__ __forceinline__ float norm(float f, float c, float al,
+                                        float be) const {
+    float x = __fdiv_rn(__fsub_rn(f, c), den_sh);
+    if (a.affine) x = __fadd_rn(__fmul_rn(x, al), be);
+    return x;
+  }
+
+  __device__ __forceinline__ void fetch(int kt) {
+    gk = kt * BK + ((int)threadIdx.x % (BK / 4)) * 4;
+    const int C = a.C;
+#pragma unroll
+    for (int j = 0; j < A4; ++j) {
+      if (VEC) {
+        // a float4 lies wholly below C or wholly past it (C % 4 == 0)
+        if (cen[j] < 0 || gk >= 2 * C) {
+          v[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        } else if (gk < C) {
+          v[j] = __ldg(reinterpret_cast<const float4*>(a.feats + nbr[j] +
+                                                       gk));
+          prefetch_l1(a.centers + cen[j] + gk);
+        } else {
+          v[j] = __ldg(reinterpret_cast<const float4*>(a.centers + cen[j] +
+                                                       gk - C));
+        }
+      } else {
+        float e[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int kk = gk + q;
+          e[q] = 0.0f;
+          if (cen[j] >= 0 && kk < C) {
+            e[q] = norm(__ldg(a.feats + nbr[j] + kk),
+                        __ldg(a.centers + cen[j] + kk),
+                        a.affine ? __ldg(a.alpha + kk) : 1.0f,
+                        a.affine ? __ldg(a.beta + kk) : 0.0f);
+          } else if (cen[j] >= 0 && kk < 2 * C) {
+            e[q] = __ldg(a.centers + cen[j] + kk - C);
+          }
+        }
+        v[j] = make_float4(e[0], e[1], e[2], e[3]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ float4 get(int j) const {
+    if (!VEC || cen[j] < 0 || gk >= a.C) return v[j];
+    const float4 c = *reinterpret_cast<const float4*>(a.centers + cen[j] +
+                                                      gk);
+    float4 al = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+    float4 be = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (a.affine) {
+      al = *reinterpret_cast<const float4*>(a.alpha + gk);
+      be = *reinterpret_cast<const float4*>(a.beta + gk);
+    }
+    return make_float4(norm(v[j].x, c.x, al.x, be.x),
+                       norm(v[j].y, c.y, al.y, be.y),
+                       norm(v[j].z, c.z, al.z, be.z),
+                       norm(v[j].w, c.w, al.w, be.w));
+  }
+};
+
+// Grid (column tiles, row tiles of a cloud, clouds).
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+    grouped_transfer_wide_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.z;
+  const int M = a.S * a.k;
+  if (threadIdx.x < 32) {
+    float den = 1.0f;              // "center": x / 1 is x
+    if (a.mode == MODE_STATS) {
       // lane l sums tiles l, l + 32, ... in order; the shuffle tree is
       // fixed, so lane 0's total is the same in every block
       double tot = 0.0;
-      for (int t = threadIdx.x; t < n_tiles; t += 32)
-        tot = __dadd_rn(tot, partials[(size_t)b * n_tiles + t]);
+      for (int t = threadIdx.x; t < a.n_tiles; t += 32)
+        tot = __dadd_rn(tot, a.partials[(size_t)b * a.n_tiles + t]);
       for (int off = 16; off > 0; off >>= 1)
         tot = __dadd_rn(tot, __shfl_down_sync(0xffffffffu, tot, off));
-      const double count = (double)S * k * C;
+      const double count = (double)a.S * a.k * a.C;
       const float mean = __double2float_rn(__ddiv_rn(tot, count));
-      sig = __double2float_rn(__dsqrt_rn((double)__fadd_rn(mean, EPS)));
-    } else if (mode == MODE_GIVEN) {
-      sig = sigma[b];
+      den = __fadd_rn(
+          __double2float_rn(__dsqrt_rn((double)__fadd_rn(mean, EPS))), EPS);
+    } else if (a.mode == MODE_GIVEN) {
+      den = __fadd_rn(a.sigma[b], EPS);
     }
-    if (threadIdx.x == 0) den_sh = __fadd_rn(sig, EPS);
+    if (threadIdx.x == 0) den_sh = den;
   }
-  for (int i = threadIdx.x; i < BM; i += THREADS) {
-    const int r = row0 + i;
-    nbr[i] = r < M ? nidx[(size_t)b * M + r] : 0;
-  }
-  __syncthreads();
-  const float den = mode != MODE_CENTER ? den_sh : 1.0f;
-  const float* cen = centers + (size_t)b * S * C;
-  const float* fb = feats + (size_t)b * N * C;
-  float acc[4][4] = {};
+  const int row0 = blockIdx.y * Wide<BN>::BM;
+  GatherLoader<BN, VEC> ld;
+  ld.a = a;
+  ld.init(b, M, row0);
+  __syncthreads();                 // den_sh is in place
+  wide_tile<BN, VEC>(ld, a.w, a.bias, a.out + (size_t)b * M * a.C_out, M,
+                     2 * a.C, a.C_out, a.act, row0, blockIdx.x * BN, smem);
+}
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = threadIdx.x; i < BM * BK; i += THREADS) {
-      const int r = i / BK, kk = i % BK;
-      const int gr = row0 + r, gk = k0 + kk;
-      float v = 0.0f;
-      if (gr < M && gk < K) {
-        const int s = gr / k;
-        if (gk < C) {
-          v = __fsub_rn(fb[(size_t)nbr[r] * C + gk], cen[(size_t)s * C + gk]);
-          if (mode != MODE_CENTER) v = __fdiv_rn(v, den);
-          if (affine) v = __fadd_rn(__fmul_rn(v, alpha[gk]), beta[gk]);
-        } else {
-          v = cen[(size_t)s * C + gk - C];
-        }
-      }
-      As[kk][r] = v;
-    }
-    for (int i = threadIdx.x; i < BK * BN; i += THREADS) {
-      const int kk = i / BN, c = i % BN;
-      const int gk = k0 + kk, gc = col0 + c;
-      Bs[kk][c] = (gk < K && gc < C_out) ? w[(size_t)gk * C_out + gc] : 0.0f;
-    }
-    __syncthreads();
-    const int kend = min(BK, K - k0);
-    for (int kk = 0; kk < kend; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][tr * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tc * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
-    }
-    __syncthreads();
+template <int BN, bool VEC>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  using T = Wide<BN>;
+  auto kernel = grouped_transfer_wide_kernel<BN, VEC>;
+  static bool sized = false;        // per template: the smem attribute set
+  if (!sized) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
   }
-
-  float* ob = out + (size_t)b * M * C_out;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + tr * 4 + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tc * 4 + j;
-      if (c >= C_out) continue;
-      const float y = __fadd_rn(acc[i][j], bias[c]);
-      ob[(size_t)r * C_out + c] = act ? fmaxf(y, 0.0f) : y;
-    }
+  if (a.mode == MODE_STATS) {
+    dim3 sgrid(a.n_tiles, B);
+    grouped_transfer_stats_kernel<<<sgrid, STATS_THREADS, 0, stream>>>(
+        a.feats, a.nidx, a.centers, const_cast<double*>(a.partials), a.N,
+        a.S, a.k, a.C, (int)VEC);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
+  dim3 grid((a.C_out + BN - 1) / BN, (a.S * a.k + T::BM - 1) / T::BM, B);
+  kernel<<<grid, THREADS, T::SMEM, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -180,26 +306,36 @@ __global__ void grouped_transfer_kernel(
 // w f32 [2C, C_out], b f32 [C_out] -> out f32 [B, S, k, C_out];
 // partials f64 [B, ceil(S / 8)] is scratch for mode 2.
 // mode: 0 no normalization ("center"), 1 sigma given, 2 sigma computed.
+// tmpl = vec + 2 * log2(BN / 16) + 8 * small: fused_linear's template
+// code for the product (kernels/fused_linear.py::template); the small
+// codes run the wide tile of the same BN.  vec needs C % 4 == 0,
+// C_out % 4 == 0 and 16-byte aligned feats, centers, alpha, beta and w.
 extern "C" int grouped_transfer_launch(
     const void* feats, const void* nidx, const void* centers,
     const void* sigma, const void* alpha, const void* beta, const void* w,
     const void* b, void* out, void* partials, int B, int N, int S, int k,
-    int C, int C_out, int mode, int affine, int act, void* stream) {
+    int C, int C_out, int mode, int affine, int act, int tmpl,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int n_tiles = (S + STATS_SAMPLES - 1) / STATS_SAMPLES;
-  if (mode == MODE_STATS) {
-    dim3 sgrid(n_tiles, B);
-    grouped_transfer_stats_kernel<<<sgrid, STATS_THREADS, 0, st>>>(
-        (const float*)feats, (const int64_t*)nidx, (const float*)centers,
-        (double*)partials, N, S, k, C);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  const Args a{(const float*)feats, (const int64_t*)nidx,
+               (const float*)centers, (const float*)sigma,
+               (const double*)partials, (const float*)alpha,
+               (const float*)beta, (const float*)w, (const float*)b,
+               (float*)out, N, S, k, C, C_out,
+               (S + STATS_SAMPLES - 1) / STATS_SAMPLES, mode, affine, act};
+  switch (tmpl) {
+    case 0: return launch<16, false>(a, B, st);
+    case 1: return launch<16, true>(a, B, st);
+    case 2: return launch<32, false>(a, B, st);
+    case 3: return launch<32, true>(a, B, st);
+    case 4: return launch<64, false>(a, B, st);
+    case 5: return launch<64, true>(a, B, st);
+    case 6: return launch<128, false>(a, B, st);
+    case 7: return launch<128, true>(a, B, st);
+    case 8: return launch<16, false>(a, B, st);
+    case 9: return launch<16, true>(a, B, st);
+    case 10: return launch<32, false>(a, B, st);
+    case 11: return launch<32, true>(a, B, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  dim3 grid((C_out + BN - 1) / BN, (S * k + BM - 1) / BM, B);
-  grouped_transfer_kernel<<<grid, THREADS, 0, st>>>(
-      (const float*)feats, (const int64_t*)nidx, (const float*)centers,
-      (const float*)sigma, (const double*)partials, (const float*)alpha,
-      (const float*)beta, (const float*)w, (const float*)b, (float*)out, N, S,
-      k, C, C_out, n_tiles, mode, affine, act);
-  return (int)cudaGetLastError();
 }

@@ -20,12 +20,21 @@
 //     accumulators.  The column tile BN (16, 32, 64, 128) follows N, so the
 //     narrow layers compute no padding columns; BM is 128 at BN = 128 and
 //     256 below (half that on the scalar route).
-//   * B (w_q [K, N], N-contiguous) is loaded once per block: the block's
-//     whole [K, BN] slice (at most 64 KB at K = 512) goes to shared memory
-//     transposed to [BN][K] (k-contiguous, the .col operand), each 4x4 byte
-//     block turned around with __byte_perm on the way.  The block then walks
-//     several M tiles with it: no launch, and no shared-memory traffic, is
-//     spent on the transpose in the main loop.
+//   * B (w_q [K, N], N-contiguous) is loaded once per block where K <= 1024:
+//     the block's whole [K, BN] slice (at most 64 KB at K = 512) goes to
+//     shared memory transposed to [BN][K] (k-contiguous, the .col operand),
+//     each 4x4 byte block turned around with __byte_perm on the way.  The
+//     block then walks several M tiles with it: no launch, and no
+//     shared-memory traffic, is spent on the transpose in the main loop.
+//     Past K = 1024 a second instantiation (SLICED) walks K in slices of
+//     512 through the same buffer (64 KB at BN = 128, so two blocks still
+//     fit an SM), loading and transposing each slice of each M tile it
+//     walks when the ring reaches it; the int32 accumulators carry across
+//     slices, so the sums stay exact.  The launch picks it by K, so the
+//     whole-K kernel is the same code as before the slices existed.  The
+//     sliced kernel reads w_scale again at each epilogue, to leave its
+//     registers to the slice loads beside the live accumulators; at BN 64
+//     and 128 on the vector route it still spills 24 bytes (-Xptxas -v).
 //   * A (x_q [M, K], K-contiguous) streams through a 3-stage ring of
 //     64-byte k chunks with 16-byte cp.async (zero-filled past M and K),
 //     one __syncthreads a chunk, the chunks of consecutive M tiles in one
@@ -50,6 +59,9 @@ constexpr int THREADS = 256, NSTAGE = 3;
 constexpr int BK = 64;                // bytes of k in one ring stage
 constexpr int LDA = BK + 16;          // ring row stride: 16-byte aligned,
                                       // ldmatrix rows on distinct banks
+// w's shared-memory slice: all of K up to MAX_WHOLE_K bytes; past it (the
+// SLICED kernels) slices of SLICE_CHUNKS ring chunks.
+constexpr int MAX_WHOLE_K = 1024, SLICE_CHUNKS = 512 / BK;
 
 // The scalar route takes half the rows a block, for more blocks on its
 // small products.
@@ -122,8 +134,10 @@ __device__ __forceinline__ void transpose4x4(uint32_t r0, uint32_t r1,
 }
 
 // Grid: (column tiles, M-tile walkers).  Block (x, y) takes columns
-// [x * BN, x * BN + BN) and the M tiles y, y + gridDim.y, ...
-template <int BN, bool VEC>
+// [x * BN, x * BN + BN) and the M tiles y, y + gridDim.y, ...  SLICED
+// walks w in slices (K > MAX_WHOLE_K); otherwise the whole [K, BN] slice
+// is loaded once, before the first M tile.
+template <int BN, bool VEC, bool SLICED>
 __global__ void __launch_bounds__(THREADS, 2)
     int8_matmul_kernel(const int8_t* __restrict__ x,
                        const int8_t* __restrict__ w,
@@ -134,7 +148,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   using T = Tile<BN, VEC>;
   extern __shared__ __align__(16) int8_t smem[];
   const int KC = K > 0 ? (K + BK - 1) / BK : 1;   // ring chunks an M tile
-  const int KP = KC * BK + 16;                    // slice row stride
+  const int SC = SLICED ? SLICE_CHUNKS : KC;      // ring chunks a w slice
+  const int KP = SC * BK + 16;                    // slice row stride
   int8_t* Bs = smem;                              // [BN][KP], k-contiguous
   int8_t* As = smem + BN * KP;                    // [NSTAGE][BM][LDA]
   const int col0 = blockIdx.x * BN;
@@ -142,56 +157,60 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
   const int g = lane >> 2, tig = lane & 3;
 
-  // The block's [K, BN] slice of w, transposed, zero past K and N: 16
-  // columns a task where N % 16 == 0, else 4.
-  if (VEC && N % 16 != 0) {
-    const int K4 = KC * BK / 4, tasks = K4 * (BN / 4);
-    for (int t = threadIdx.x; t < tasks; t += THREADS) {
-      const int k = (t % K4) * 4, n = (t / K4) * 4, gc = col0 + n;
-      uint32_t r[4];
+  // The block's [SC * BK, BN] slice of w from row k0, transposed, zero
+  // past K and N: 16 columns a task where N % 16 == 0, else 4.
+  auto load_w = [&](int k0) {
+    if (VEC && N % 16 != 0) {
+      const int K4 = SC * BK / 4, tasks = K4 * (BN / 4);
+      for (int t = threadIdx.x; t < tasks; t += THREADS) {
+        const int k = (t % K4) * 4, n = (t / K4) * 4, gc = col0 + n;
+        uint32_t r[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        r[i] = (k + i < K && gc < N)
-                   ? *reinterpret_cast<const uint32_t*>(
-                         w + (size_t)(k + i) * N + gc)
-                   : 0u;
-      uint32_t tw[4];
-      transpose4x4(r[0], r[1], r[2], r[3], tw);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<uint32_t*>(Bs + (n + j) * KP + k) = tw[j];
-    }
-  } else if (VEC) {
-    const int K4 = KC * BK / 4, tasks = K4 * (BN / 16);
-    for (int t = threadIdx.x; t < tasks; t += THREADS) {
-      const int k = (t % K4) * 4, n = (t / K4) * 16, gc = col0 + n;
-      uint4 r[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        r[i] = (k + i < K && gc < N)
-                   ? *reinterpret_cast<const uint4*>(w + (size_t)(k + i) * N +
-                                                     gc)
-                   : make_uint4(0u, 0u, 0u, 0u);
-      const uint32_t q[4][4] = {{r[0].x, r[1].x, r[2].x, r[3].x},
-                                {r[0].y, r[1].y, r[2].y, r[3].y},
-                                {r[0].z, r[1].z, r[2].z, r[3].z},
-                                {r[0].w, r[1].w, r[2].w, r[3].w}};
-#pragma unroll
-      for (int c4 = 0; c4 < 4; ++c4) {
+        for (int i = 0; i < 4; ++i)
+          r[i] = (k0 + k + i < K && gc < N)
+                     ? *reinterpret_cast<const uint32_t*>(
+                           w + (size_t)(k0 + k + i) * N + gc)
+                     : 0u;
         uint32_t tw[4];
-        transpose4x4(q[c4][0], q[c4][1], q[c4][2], q[c4][3], tw);
+        transpose4x4(r[0], r[1], r[2], r[3], tw);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          *reinterpret_cast<uint32_t*>(Bs + (n + 4 * c4 + j) * KP + k) = tw[j];
+          *reinterpret_cast<uint32_t*>(Bs + (n + j) * KP + k) = tw[j];
+      }
+    } else if (VEC) {
+      const int K4 = SC * BK / 4, tasks = K4 * (BN / 16);
+      for (int t = threadIdx.x; t < tasks; t += THREADS) {
+        const int k = (t % K4) * 4, n = (t / K4) * 16, gc = col0 + n;
+        uint4 r[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          r[i] = (k0 + k + i < K && gc < N)
+                     ? *reinterpret_cast<const uint4*>(
+                           w + (size_t)(k0 + k + i) * N + gc)
+                     : make_uint4(0u, 0u, 0u, 0u);
+        const uint32_t q[4][4] = {{r[0].x, r[1].x, r[2].x, r[3].x},
+                                  {r[0].y, r[1].y, r[2].y, r[3].y},
+                                  {r[0].z, r[1].z, r[2].z, r[3].z},
+                                  {r[0].w, r[1].w, r[2].w, r[3].w}};
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) {
+          uint32_t tw[4];
+          transpose4x4(q[c4][0], q[c4][1], q[c4][2], q[c4][3], tw);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<uint32_t*>(Bs + (n + 4 * c4 + j) * KP + k) = tw[j];
+        }
+      }
+    } else {
+      const int kw = SC * BK;
+      for (int t = threadIdx.x; t < BN * kw; t += THREADS) {
+        const int n = t / kw, k = t % kw, gc = col0 + n;
+        Bs[n * KP + k] = load_or_zero(w + (size_t)(k0 + k) * N + gc,
+                                      k0 + k < K && gc < N);
       }
     }
-  } else {
-    const int kw = KC * BK;
-    for (int t = threadIdx.x; t < BN * kw; t += THREADS) {
-      const int n = t / kw, k = t % kw, gc = col0 + n;
-      Bs[n * KP + k] = load_or_zero(w + (size_t)k * N + gc, k < K && gc < N);
-    }
-  }
+  };
+  load_w(0);
 
   const int m_tiles = (M + T::BM - 1) / T::BM;
   const int my_tiles =
@@ -230,15 +249,20 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
   };
 
-  // This thread's columns: wn * WN + nt * 8 + tig * 2 + {0, 1}.
+  // This thread's columns: wn * WN + nt * 8 + tig * 2 + {0, 1}.  Their
+  // scales stay in registers, or in the sliced kernel (whose slice loads
+  // need those registers) are read again at each epilogue.
+  auto wscale = [&](int nt, int e) {
+    const int c = col0 + wn * T::WN + nt * 8 + tig * 2 + e;
+    return c < N ? w_scale[c] : 0.0f;
+  };
   float ws[T::NT][2];
+  if (!SLICED) {
 #pragma unroll
-  for (int nt = 0; nt < T::NT; ++nt)
+    for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = col0 + wn * T::WN + nt * 8 + tig * 2 + e;
-      ws[nt][e] = c < N ? w_scale[c] : 0.0f;
-    }
+      for (int e = 0; e < 2; ++e) ws[nt][e] = wscale(nt, e);
+  }
 
   if (!VEC) {
     for (int i = threadIdx.x; i < NSTAGE * T::BM * LDA / 4; i += THREADS)
@@ -259,6 +283,11 @@ __global__ void __launch_bounds__(THREADS, 2)
     cp_async_commit();
 
     const int kc = c % KC;
+    const int kw0 = SLICED ? (kc - kc % SC) * BK : 0;   // k of Bs's slice
+    if (SLICED && kc % SC == 0 && c > 0) {    // the next slice of w
+      load_w(kw0);
+      __syncthreads();
+    }
     const int8_t* At = As + (c % NSTAGE) * T::BM * LDA;
 #pragma unroll
     for (int ks = 0; ks < BK / 32; ++ks) {
@@ -276,7 +305,7 @@ __global__ void __launch_bounds__(THREADS, 2)
         ldmatrix_x4(b[nt][0], b[nt][1], b[nt + 1][0], b[nt + 1][1],
                     Bs + (wn * T::WN + nt * 8 + (lane & 7) +
                           (lane >> 4) * 8) * KP +
-                        kb + ((lane >> 3) & 1) * 16);
+                        kb - kw0 + ((lane >> 3) & 1) * 16);
 #pragma unroll
       for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
@@ -298,11 +327,13 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
           for (int nt = 0; nt < T::NT; ++nt) {
             const int cc = col0 + wn * T::WN + nt * 8 + tig * 2;
+            const float s0 = SLICED ? wscale(nt, 0) : ws[nt][0];
+            const float s1 = SLICED ? wscale(nt, 1) : ws[nt][1];
             const float v0 = __fmul_rn(__int2float_rn(acc[mt][nt][2 * h]),
-                                       __fmul_rn(as, ws[nt][0]));
+                                       __fmul_rn(as, s0));
             const float v1 =
                 __fmul_rn(__int2float_rn(acc[mt][nt][2 * h + 1]),
-                          __fmul_rn(as, ws[nt][1]));
+                          __fmul_rn(as, s1));
             if (VEC) {
               if (cc < N)
                 *reinterpret_cast<float2*>(orow + cc) = make_float2(v0, v1);
@@ -323,14 +354,15 @@ __global__ void __launch_bounds__(THREADS, 2)
   cp_async_wait<0>();
 }
 
-template <int BN, bool VEC>
-int launch(const void* x, const void* w, const void* a_scale,
-           const void* w_scale, void* out, int M, int K, int N,
-           int rows_per_lane, cudaStream_t stream) {
+template <int BN, bool VEC, bool SLICED>
+int launch_kernel(const void* x, const void* w, const void* a_scale,
+                  const void* w_scale, void* out, int M, int K, int N,
+                  int rows_per_lane, cudaStream_t stream) {
   using T = Tile<BN, VEC>;
-  auto kernel = int8_matmul_kernel<BN, VEC>;
+  auto kernel = int8_matmul_kernel<BN, VEC, SLICED>;
   const int KC = K > 0 ? (K + BK - 1) / BK : 1;
-  const int smem = BN * (KC * BK + 16) + NSTAGE * T::BM * LDA;
+  const int smem = BN * ((SLICED ? SLICE_CHUNKS : KC) * BK + 16) +
+                   NSTAGE * T::BM * LDA;
   // Per template: the largest dynamic shared memory granted so far, and
   // the resident blocks an SM takes at the last size asked.
   static int granted = 48 * 1024, sized = -1, per_sm = 1, sms = 0;
@@ -363,6 +395,17 @@ int launch(const void* x, const void* w, const void* a_scale,
       (const int8_t*)x, (const int8_t*)w, (const float*)a_scale,
       (const float*)w_scale, (float*)out, M, K, N, rows_per_lane);
   return (int)cudaGetLastError();
+}
+
+template <int BN, bool VEC>
+int launch(const void* x, const void* w, const void* a_scale,
+           const void* w_scale, void* out, int M, int K, int N,
+           int rows_per_lane, cudaStream_t stream) {
+  if (K > MAX_WHOLE_K)
+    return launch_kernel<BN, VEC, true>(x, w, a_scale, w_scale, out, M, K,
+                                        N, rows_per_lane, stream);
+  return launch_kernel<BN, VEC, false>(x, w, a_scale, w_scale, out, M, K, N,
+                                       rows_per_lane, stream);
 }
 
 }  // namespace

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exports a plain C launch function and compiles,
 with its own ``nvcc`` process (all started together), into
 ``build/repro_torch/<name>-<hash>.so`` at the repository root, for
-``sm_90a``.  The hash covers the source and the flags, so an edited
-source rebuilds and an unchanged one loads from disk.  The libraries are
+``sm_90a``.  The hash covers the source, every shared header
+(``csrc/*.cuh``, which a source includes from its own directory) and the
+flags, so an edited source or header rebuilds and an unchanged one loads
+from disk.  The libraries are
 loaded with ``ctypes``: every pointer and the stream pass as
 ``c_void_p``, every int as ``c_int``, every float as ``c_float``, and
 each launch function returns its ``cudaGetLastError()`` code.
@@ -44,7 +46,7 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
     "fused_linear": ("fused_linear_launch", [P] * 4 + [I] * 5 + [P]),
     "fps": ("fps_launch", [P, P, I, I, I, P]),
     "grouped_transfer": ("grouped_transfer_launch",
-                         [P] * 10 + [I] * 9 + [P]),
+                         [P] * 10 + [I] * 10 + [P]),
     "w8_matmul": ("w8_matmul_launch", [P, P, P, P, I, I, I, I, P]),
     "flash_attention": ("flash_attention_launch",
                         [P] * 4 + [I] * 9 + [F, P]),
@@ -103,12 +105,15 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _target(name: str) -> Tuple[pathlib.Path, List[str]]:
-    src = CSRC / f"{name}.cu"
+def _target(name: str, csrc: pathlib.Path = CSRC
+            ) -> Tuple[pathlib.Path, List[str]]:
+    """The library a build of ``<csrc>/<name>.cu`` makes, and its flags."""
     flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(flags).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so", flags
+    digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so", flags
 
 
 def build_all() -> Dict[str, ctypes.CDLL]:

@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, fused_linear, ref
 
 _STATS_SAMPLES = 8              # csrc/grouped_transfer.cu: samples per tile
 _MODE_CENTER, _MODE_GIVEN, _MODE_STATS = 0, 1, 2
@@ -53,9 +53,19 @@ def _check(feats, nidx, centers, alpha, beta, w, b) -> None:
                          f"got {tuple(alpha.shape)} and {tuple(beta.shape)}")
 
 
+def template(m: int, c: int, c_out: int, aligned: bool = True,
+             sms: int = fused_linear.H100_SMS) -> _build.GemmTemplate:
+    """The template of ``csrc/grouped_transfer.cu`` for ``m = B*S*k`` rows
+    of ``[2C]`` times ``w [2C, C_out]``: ``fused_linear``'s rule for the
+    same product (the kernel runs its wide tile, of the same BN, where the
+    rule names the small one).  16-byte loads (``vec``) also need
+    C % 4 == 0, so that no float4 of a row straddles the centre half."""
+    return fused_linear.template(m, 2 * c, c_out, aligned and c % 4 == 0,
+                                 sms)
+
+
 def _launch(feats, nidx, centers, sigma, alpha, beta, w, b, *, mode: int,
             affine: bool, act: bool) -> torch.Tensor:
-    from repro_torch.kernels import _build
     _check(feats, nidx, centers, alpha, beta, w, b)
     dev = feats.device
     tensors = dict(feats=feats, centers=centers, alpha=alpha, beta=beta,
@@ -75,9 +85,16 @@ def _launch(feats, nidx, centers, sigma, alpha, beta, w, b, *, mode: int,
     bsz, n, c = feats.shape
     _, s, k = nidx.shape
     c_out = w.shape[1]
+    if max(bsz * n * c, bsz * s * c, s * k) >= 2 ** 31:
+        raise ValueError(f"grouped_transfer kernel: row offsets are 32-bit; "
+                         f"B*N*C={bsz * n * c}, B*S*C={bsz * s * c}, "
+                         f"S*k={s * k}")
     out = torch.empty((bsz, s, k, c_out), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    tmpl = template(bsz * s * k, c, c_out,
+                    _build.aligned16(feats, centers, alpha, beta, w),
+                    fused_linear._sm_count(dev.index))
     partials = (torch.empty((bsz, -(-s // _STATS_SAMPLES)),
                             dtype=torch.float64, device=dev)
                 if mode == _MODE_STATS else None)
@@ -87,7 +104,7 @@ def _launch(feats, nidx, centers, sigma, alpha, beta, w, b, *, mode: int,
         None if sigma is None else sigma.data_ptr(), alpha.data_ptr(),
         beta.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
         None if partials is None else partials.data_ptr(), bsz, n, s, k, c,
-        c_out, mode, int(affine), int(act), stream)
+        c_out, mode, int(affine), int(act), tmpl.code, stream)
     _build.check("grouped_transfer", code)
     return out
 

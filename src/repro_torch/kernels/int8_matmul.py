@@ -18,11 +18,6 @@ import torch
 
 from repro_torch.kernels import _build
 
-# csrc/int8_matmul.cu keeps a block's [K, BN] slice of w_q in shared
-# memory; at K <= 1024 it fits beside the ring at every BN.
-MAX_K = 1024
-
-
 def template(k: int, n: int, aligned: bool = True) -> _build.GemmTemplate:
     """The template of ``csrc/int8_matmul.cu`` for ``[M, K] @ [K, N]``:
     the column tile follows N; 16-byte copies (``vec``) need 16-byte
@@ -42,9 +37,6 @@ def _check(x_q, w_q, a_scale, w_scale, rows_per_lane) -> None:
     if rows_per_lane < 1 or m % rows_per_lane:
         raise ValueError(f"int8_matmul: rows_per_lane={rows_per_lane} must "
                          f"divide M={m}")
-    if k > MAX_K:
-        raise ValueError(f"int8_matmul: K={k} is past the kernel's "
-                         f"{MAX_K} (w_q's slice lives in shared memory)")
     lanes = m // rows_per_lane
     if a_scale.numel() != lanes or w_scale.numel() != w_q.shape[1]:
         raise ValueError(f"int8_matmul: a_scale needs {lanes} entries and "

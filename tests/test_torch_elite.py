@@ -289,9 +289,17 @@ class TestGroupedTransfer:
 
     @pytest.mark.cuda
     @pytest.mark.parametrize("n,s,c,c_out", [(1024, 512, 32, 64),
+                                             (512, 256, 64, 128),
+                                             (256, 128, 128, 256),
                                              (128, 64, 256, 512),
-                                             (64, 40, 16, 40)])
+                                             (64, 40, 16, 40),
+                                             (64, 40, 20, 40),
+                                             (64, 40, 10, 30)])
     def test_kernels_match_plain_on_card(self, cuda_device, n, s, c, c_out):
+        """Both variants (and "center") within GT_TOL of the plain version
+        at Elite's four stage widths, a 16-k step straddling C (C = 20)
+        and the scalar route (C % 4 != 0); a cloud alone equals its lane
+        in the dispatch."""
         x = gt_inputs(28, b=3, n=n, s=s, k=16, c=c, c_out=c_out)
         cpu = {k: t(v) for k, v in x.items()}
         dev = {k: v.to(cuda_device) for k, v in cpu.items()}

@@ -1,12 +1,14 @@
-"""The GEMM kernels' templates and dispatch shapes (``int8_matmul``, ``fused_linear``).
+"""The GEMM kernels' templates and dispatch shapes (``int8_matmul``, ``fused_linear``, ``grouped_transfer``).
 
 ``csrc/int8_matmul.cu`` and ``csrc/fused_linear.cu`` are templates on the
 column tile and the load route, and the wrappers pick one
 (``kernels/int8_matmul.py::template``, ``kernels/fused_linear.py::
-template``).  On the CPU these tests hold the choice to its rules at every
-product of a 32-cloud dispatch of Lite, M-2 and Elite, recorded through
-the plain versions, and hold the C launch functions' template switches to
-the Python encoding.
+template``); ``csrc/grouped_transfer.cu`` runs ``fused_linear``'s wide
+tile (``csrc/fp32_wide_tile.cuh``) under the same rule.  On the CPU these
+tests hold the choice to its rules at every product of a 32-cloud
+dispatch of Lite, M-2 and Elite, recorded through the plain versions,
+hold the C launch functions' template switches to the Python encoding,
+and check that the build hashes the shared header.
 
 Tests marked ``cuda`` run the kernels on the card and skip without one;
 they import no JAX, so they also run on a GPU machine without it
@@ -28,6 +30,7 @@ from repro_torch.api.build import build
 from repro_torch.api.spec import elite_spec, lite_spec, m2_spec
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import fused_linear as fl_mod
+from repro_torch.kernels import grouped_transfer as gt_mod
 from repro_torch.kernels import int8_matmul as i8_mod
 from repro_torch.models.pointmlp import pointmlp_init
 
@@ -82,20 +85,59 @@ def launch_table(name):
     return table
 
 
-@pytest.mark.parametrize("name", ["int8_matmul", "fused_linear"])
+@pytest.mark.parametrize("name", ["int8_matmul", "fused_linear",
+                                  "grouped_transfer"])
 def test_template_codes_match_the_launch_switch(name):
     """Every template the wrapper can pick reaches the C instantiation of
-    the same tile, smallness and route."""
+    the same tile, smallness and route (``grouped_transfer`` takes
+    ``fused_linear``'s codes and runs the wide tile of the same BN where
+    they name the small one)."""
     table = launch_table(name)
-    smalls = (False, True) if name == "fused_linear" else (False,)
+    smalls = (False,) if name == "int8_matmul" else (False, True)
     for bn in _build.TILE_WIDTHS:
         for small in smalls:
             if small and bn > 32:
                 continue
             for vec in (False, True):
                 t = _build.GemmTemplate(bn, vec, small)
-                assert table[t.code] == (bn, small, vec), t.name
-    assert len(table) == (12 if name == "fused_linear" else 8)
+                runs_small = small and name == "fused_linear"
+                assert table[t.code] == (bn, runs_small, vec), t.name
+    assert len(table) == (8 if name == "int8_matmul" else 12)
+
+
+def test_wide_kernels_share_the_header_under_their_own_names():
+    """Both wide kernels are built on ``fp32_wide_tile.cuh`` and keep
+    distinct ``__global__`` names (the smoke's profile sums device time
+    by name), and ``grouped_transfer.cu`` has no other product kernel."""
+    fl = (_build.CSRC / "fused_linear.cu").read_text()
+    gt = (_build.CSRC / "grouped_transfer.cu").read_text()
+    for text in (fl, gt):
+        assert '#include "fp32_wide_tile.cuh"' in text
+        assert "wide_tile<BN, VEC>(" in text
+    assert "fused_linear_wide_kernel(" in fl
+    kernels = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?"
+                         r"\s+(\w+)\(", gt)
+    assert kernels == ["grouped_transfer_stats_kernel",
+                       "grouped_transfer_wide_kernel"]
+
+
+def test_build_hash_covers_the_shared_header(tmp_path):
+    """Editing ``csrc/*.cuh`` changes the library path of every source
+    (so a stale build is never loaded); the hash follows the text, not
+    the directory."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in (*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")):
+        (csrc / f.name).write_bytes(f.read_bytes())
+    names = ("fused_linear", "grouped_transfer")
+    before = {n: _build._target(n, csrc)[0] for n in names}
+    assert before == {n: _build._target(n)[0] for n in names}
+    header = csrc / "fp32_wide_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build._target(n, csrc)[0] for n in names}
+    for n in names:
+        assert after[n] != before[n], n
+        assert after[n].name.startswith(f"{n}-")
 
 
 @pytest.mark.parametrize("m,k,n", ALL_SHAPES)
@@ -126,10 +168,24 @@ def test_fused_linear_template_rules(m, k, n):
 
 
 def test_int8_wrapper_rejects_k_past_the_slice():
-    k = i8_mod.MAX_K + 16
+    """K past the kernel's 1024-byte w slice is taken (the kernel walks K
+    in slices), and ``_check`` still rejects what the kernel cannot
+    take: mismatched K, non-int8 operands, rows_per_lane not dividing M
+    and scales of the wrong size."""
+    k = 2048
     x_q = torch.zeros(4, k, dtype=torch.int8)
     w_q = torch.zeros(k, 8, dtype=torch.int8)
-    with pytest.raises(ValueError, match="shared memory"):
+    i8_mod._check(x_q, w_q, torch.ones(1), torch.ones(8), 4)
+    with pytest.raises(ValueError, match="needs w_q"):
+        i8_mod._check(x_q, w_q[:-16], torch.ones(1), torch.ones(8), 4)
+    with pytest.raises(ValueError, match="int8 operands"):
+        i8_mod._check(x_q.float(), w_q, torch.ones(1), torch.ones(8), 4)
+    with pytest.raises(ValueError, match="rows_per_lane"):
+        i8_mod._check(x_q, w_q, torch.ones(1), torch.ones(8), 3)
+    with pytest.raises(ValueError, match="a_scale needs"):
+        i8_mod._check(x_q, w_q, torch.ones(2), torch.ones(8), 4)
+    # on a CPU tensor the kernel wrapper refuses (the device), not K
+    with pytest.raises(ValueError, match="CUDA"):
         i8_mod.int8_matmul_cuda(x_q, w_q, torch.ones(1), torch.ones(8), 4)
 
 
@@ -162,6 +218,45 @@ def record_dispatch(monkeypatch, spec, n_points):
     logits, _ = pipe.infer(pts, pipe.seed_state(0, BATCH))
     assert logits.shape == (BATCH, 40) and bool(torch.isfinite(logits).all())
     return shapes
+
+
+# (B*S*k, C, C_out) of the group->transfer products of one 32-cloud Elite
+# dispatch, one launch each: stages 1-4.
+ELITE_GROUPED = [(262144, 32, 64), (131072, 64, 128), (65536, 128, 256),
+                 (32768, 256, 512)]
+
+
+def test_grouped_transfer_template_at_elite_dispatch(monkeypatch):
+    """Recorded through the plain version, Elite's four fused products
+    take ``fused_linear``'s template for the same (M, 2C, C_out): the
+    wide tile with 16-byte loads, BN 64 at stage 1 and 128 at 2-4."""
+    shapes = []
+    plain = ref.grouped_transfer_ref
+
+    def rec(feats, nidx, centers, sigma, alpha, beta, w, b, **kw):
+        bsz, s, k = nidx.shape
+        shapes.append((bsz * s * k, feats.shape[-1], w.shape[1]))
+        assert _build.aligned16(feats, centers, alpha, beta, w)
+        return plain(feats, nidx, centers, sigma, alpha, beta, w, b, **kw)
+
+    monkeypatch.setattr(ref, "grouped_transfer_ref", rec)
+    spec = elite_spec(40).serving().replace(
+        backend="cuda", fused_group="grouped_transfer")
+    params = pointmlp_init(spec.to_model_config(),
+                           torch.Generator().manual_seed(0))
+    pipe = build(spec, params, device="cpu")
+    pts = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (BATCH, 1024, 3)).astype(np.float32))
+    logits, _ = pipe.infer(pts, pipe.seed_state(0, BATCH))
+    assert bool(torch.isfinite(logits).all())
+    assert shapes == ELITE_GROUPED
+    for (m, c, c_out), bn in zip(shapes, (64, 128, 128, 128)):
+        t = gt_mod.template(m, c, c_out)
+        assert t == fl_mod.template(m, 2 * c, c_out)
+        assert t == _build.GemmTemplate(bn, True, False)
+    # C % 4 != 0 takes the scalar route, whatever fused_linear would take
+    assert not gt_mod.template(262144, 6, 64).vec
+    assert fl_mod.template(262144, 12, 64).vec
 
 
 @pytest.mark.parametrize("name,spec,n_points,kernel,want", [
@@ -203,10 +298,16 @@ def int8_case(dev, m, k, n, lanes, seed, offset=0):
     (231, 40, 24, 3, 0), (1000, 100, 200, 8, 0), (1200, 16, 48, 4, 0),
     (4097, 20, 500, 17, 0), (300, 17, 130, 1, 0), (5, 1024, 7, 5, 0),
     (1000, 64, 20, 8, 0), (96, 512, 132, 3, 0),
-    (777, 64, 64, 3, 1), (512, 32, 32, 2, 3)])
+    (777, 64, 64, 3, 1), (512, 32, 32, 2, 3),
+    # K past one 1024-byte w slice: lite_spec(40, embed_dim=128)'s
+    # stage-4 transfer depth, several M tiles a block, a partial last
+    # slice, and the scalar route
+    (4096, 2048, 512, BATCH, 0), (4096, 2048, 2048, BATCH, 0),
+    (600, 1100, 72, 3, 0), (257, 1027, 40, 1, 0), (64, 4096, 128, 2, 1)])
 def test_int8_bitwise_on_card(cuda_device, m, k, n, lanes, offset):
     """Bitwise at every Lite shape and at ragged M, N and K, with
-    rows_per_lane not a multiple of the row tile, and unaligned x_q."""
+    rows_per_lane not a multiple of the row tile, unaligned x_q, and K
+    past the kernel's shared-memory slice."""
     x_q, w_q, a_scale, w_scale = int8_case(cuda_device, m, k, n, lanes,
                                            m + k + n, offset)
     rpl = m // lanes
@@ -245,11 +346,15 @@ def test_fused_linear_tile_invariance_on_card(cuda_device, m, k, act):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,c_out", [(32, 64), (256, 512)])
+@pytest.mark.parametrize("c,c_out", [(32, 64), (64, 128), (128, 256),
+                                     (256, 512), (16, 40), (20, 40),
+                                     (10, 30)])
 def test_fused_linear_equals_grouped_transfer_on_card(cuda_device, c,
                                                       c_out):
     """On the same normalized rows, fused_linear and grouped_transfer with
-    sigma given compute the same product, bit for bit."""
+    sigma given compute the same product, bit for bit: at Elite's four
+    stage widths, where a 16-k step straddles C (C = 20), and on the
+    scalar route (C % 4 != 0)."""
     from repro_torch.core import knn as knn_core
     from repro_torch.core import sampling
     from repro_torch.kernels import grouped_transfer as gt_mod
