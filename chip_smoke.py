@@ -121,6 +121,28 @@ def grouped_work(b: int, n: int, s: int, k: int, c: int, c_out: int,
     return nbytes, 2 * b * s * k * 2 * c * c_out
 
 
+def knn_work(b: int, s: int, n: int, c: int, k: int):
+    """(bytes, fp32 operations) the kNN function needs: each sample and
+    point read once, int32 indices (as the TPU kernel returns) written
+    once, and per (query, point) pair 2C+2 distance flops plus one compare
+    of a streaming top-k."""
+    return 4 * b * (s + n) * c + 4 * b * s * k, b * s * n * (2 * c + 3)
+
+
+def fps_work(b: int, n: int, s: int, c: int):
+    """(bytes, fp32 operations) the FPS function needs: each point read
+    once, int32 indices out, and per (point, step) 3C flops plus one
+    compare."""
+    return 4 * b * n * c + 4 * b * s, b * n * (s - 1) * (3 * c + 1)
+
+
+def work_bound_ms(nbytes: int, nops: int, peak: float = FP32_OPS_PER_S
+                  ) -> float:
+    """The least time the card could take: bytes at the memory rate or
+    operations at the peak, whichever is longer."""
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, nops / peak)
+
+
 def gemm_work(kind: str, m: int, k: int, n: int, lanes: int):
     """(bytes, operations, peak) the function of one GEMM launch needs:
     each input read once and the f32 output written once; int8_matmul
@@ -259,7 +281,6 @@ def kernel_phase(torch, clouds):
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_linear as fl_mod
     from repro_torch.kernels import int8_matmul as i8_mod
-    from repro_torch.kernels import knn as knn_mod
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
@@ -267,37 +288,17 @@ def kernel_phase(torch, clouds):
     xyz = torch.from_numpy(clouds[:b]).to(dev)
     rows = {}
 
-    # kNN at stage 1 (S=256 of N=512) and stage 4 (S=32 of N=64), k=16,
-    # on the URS-sampled centroids of real clouds.
+    # kNN at Lite's and M-2's four stages (S=256 of N=512 down to S=32 of
+    # N=64), k=16, on the URS-sampled centroids of real clouds.
     state = sampling.seed_streams(SEED, b)
     cur = xyz
-    stages = {}
     for s, n_samp in enumerate((256, 128, 64, 32)):
         state, idx = sampling.urs_indices(state, cur.shape[1], n_samp)
         new = sampling.gather_points(cur, idx.to(dev)[None].expand(b, -1))
-        stages[s] = (new.contiguous(), cur.contiguous())
+        new = new.contiguous()
+        rows[("knn", f"stage{s + 1}")] = knn_row(torch, new, cur.contiguous(),
+                                                16)
         cur = new
-    for label, s in (("stage1", 0), ("stage4", 3)):
-        q, p = stages[s]
-        got = knn_mod.knn_cuda(q, p, 16)
-        want = ref.knn_ref(q, p, 16)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want),
-              f"knn {label}: kernel indices differ from the plain version")
-        ms = median_ms(torch, lambda: knn_mod.knn_cuda(q, p, 16))
-        plain_ms = median_ms(torch, lambda: ref.knn_ref(q, p, 16), reps=5)
-        bsz, n_s, c = q.shape
-        n_p = p.shape[1]
-        # what the function needs, not what this kernel does: each point
-        # read once, int32 indices (as the TPU kernel returns), and per
-        # (query, point) pair 2C+2 distance flops plus one compare of a
-        # streaming top-k (the kernel's k rounds of argmin do k compares)
-        nbytes = 4 * (q.numel() + p.numel()) + 4 * bsz * n_s * 16
-        nops = bsz * n_s * n_p * (2 * c + 3)
-        rows[("knn", label)] = dict(
-            shape=f"B={bsz} S={n_s} N={n_p} C={c} k=16", ms=ms,
-            plain_ms=plain_ms, library_ms=None, max_abs_err=0.0,
-            bytes=nbytes, ops=nops, peak=FP32_OPS_PER_S)
 
     # The three GEMM shapes of the check: Lite/M-2 stage-1 transfer,
     # stage-4 transfer and head fc1, at a dispatch of MAX_BATCH clouds.
@@ -397,6 +398,55 @@ def kernel_phase(torch, clouds):
     return emit_rows(rows)
 
 
+def knn_row(torch, q, p, k: int, launches: int = 20, reps: int = 15):
+    """The kNN kernel against its plain version (bitwise), then its device
+    time (``graph_ms``; ``events_ms``: back-to-back windows) beside the
+    plain version's."""
+    from repro_torch.kernels import knn as knn_mod
+    from repro_torch.kernels import ref
+    bsz, n_s, c = q.shape
+    n_p = p.shape[1]
+    got = knn_mod.knn_cuda(q, p, k)
+    want = ref.knn_ref(q, p, k)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"knn B={bsz} S={n_s} N={n_p} k={k}: "
+                                  f"kernel indices differ from the plain "
+                                  f"version")
+    del want
+    kernel = lambda: knn_mod.knn_cuda(q, p, k)  # noqa: E731
+    nbytes, nops = knn_work(bsz, n_s, n_p, c, k)
+    return dict(shape=f"B={bsz} S={n_s} N={n_p} C={c} k={k}",
+                ms=graph_ms(torch, kernel, launches, reps),
+                events_ms=median_ms(torch, kernel, reps=reps),
+                plain_ms=median_ms(torch, lambda: ref.knn_ref(q, p, k),
+                                   reps=3, inner=1, warmup=0),
+                library_ms=None, max_abs_err=0.0, bytes=nbytes, ops=nops,
+                peak=FP32_OPS_PER_S)
+
+
+def fps_row(torch, pts, n_samp: int, launches: int = 20, reps: int = 15):
+    """The FPS kernel against its plain version (bitwise), then its device
+    time beside the plain version's, as :func:`knn_row`."""
+    from repro_torch.kernels import fps as fps_mod
+    from repro_torch.kernels import ref
+    bsz, n, c = pts.shape
+    idx = fps_mod.fps_cuda(pts, n_samp)
+    want = ref.fps_ref(pts, n_samp)
+    torch.cuda.synchronize()
+    check(torch.equal(idx, want), f"fps B={bsz} N={n} S={n_samp}: kernel "
+                                  f"indices differ from the plain version")
+    kernel = lambda: fps_mod.fps_cuda(pts, n_samp)  # noqa: E731
+    ms = graph_ms(torch, kernel, launches, reps)
+    nbytes, nops = fps_work(bsz, n, n_samp, c)
+    return idx, dict(
+        shape=f"B={bsz} N={n} S={n_samp}", ms=ms,
+        events_ms=median_ms(torch, kernel, reps=reps, inner=1),
+        plain_ms=median_ms(torch, lambda: ref.fps_ref(pts, n_samp),
+                           reps=min(reps, 3), inner=1, warmup=0),
+        library_ms=None, max_abs_err=0.0,
+        ms_per_step=ms / n_samp, bytes=nbytes, ops=nops, peak=FP32_OPS_PER_S)
+
+
 def emit_rows(rows):
     """Add each row's bound (bytes or operations at the published peaks)
     and print it."""
@@ -411,9 +461,10 @@ def emit_rows(rows):
 
 
 def elite_kernel_phase(torch, clouds):
-    """FPS at Elite's stage-1 and stage-4 shapes and both grouped_transfer
-    kernels at all four of its stages against their plain versions, on
-    the FPS/kNN geometry of real 1024-point clouds.  The sigma-given
+    """FPS and kNN at Elite's four stages (and once each past their old N
+    limits) and both grouped_transfer kernels at all four of its stages
+    against their plain versions, on the FPS/kNN geometry of real
+    1024-point clouds.  The sigma-given
     kernel is also held bitwise against the unfused path, and a cloud
     alone against its lane in the dispatch; grouped_transfer times are
     device times of a graph replay (``graph_ms``), with the stats pass
@@ -421,7 +472,6 @@ def elite_kernel_phase(torch, clouds):
     from repro_torch.core import knn as knn_core
     from repro_torch.core import sampling
     from repro_torch.kernels import _build
-    from repro_torch.kernels import fps as fps_mod
     from repro_torch.kernels import grouped_transfer as gt_mod
     from repro_torch.kernels import knn as knn_mod
     from repro_torch.kernels import ops, ref
@@ -431,30 +481,23 @@ def elite_kernel_phase(torch, clouds):
     cur = torch.from_numpy(clouds[:b]).to(dev)
     rows, geo = {}, {}
     for s, n_samp in enumerate((512, 256, 128, 64)):
-        idx = fps_mod.fps_cuda(cur, n_samp)
-        want = ref.fps_ref(cur, n_samp)
-        torch.cuda.synchronize()
-        check(torch.equal(idx, want),
-              f"fps stage {s + 1}: kernel indices differ from the plain "
-              f"version")
+        # FPS and kNN at Elite's four stages: each kernel held bitwise
+        # against its plain version, then timed
+        idx, rows[("fps", f"stage{s + 1}")] = fps_row(torch, cur, n_samp)
         new = sampling.gather_points(cur, idx).contiguous()
+        rows[("knn", f"elite_stage{s + 1}")] = knn_row(torch, new, cur, 16)
         geo[s] = (cur, idx, knn_mod.knn_cuda(new, cur, 16))
         cur = new
 
-    for label, s in (("stage1", 0), ("stage4", 3)):
-        pts, idx, _ = geo[s]
-        bsz, n, c = pts.shape
-        n_samp = idx.shape[1]
-        ms = median_ms(torch, lambda: fps_mod.fps_cuda(pts, n_samp))
-        plain_ms = median_ms(torch, lambda: ref.fps_ref(pts, n_samp),
-                             reps=3, inner=1, warmup=1)
-        # what the function needs: each point read once, int32 indices
-        # out, and per (point, step) 3C flops plus one compare
-        rows[("fps", label)] = dict(
-            shape=f"B={bsz} N={n} S={n_samp}", ms=ms, plain_ms=plain_ms,
-            library_ms=None, max_abs_err=0.0, ms_per_step=ms / n_samp,
-            bytes=4 * pts.numel() + 4 * bsz * n_samp,
-            ops=bsz * n * (n_samp - 1) * (3 * c + 1), peak=FP32_OPS_PER_S)
+    # Past the old limits (kNN N <= 4842, FPS N <= 8192): one case each.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    big = torch.randn(2, 24000, 3, generator=gen, device=dev)
+    _, rows[("fps", "n24000")] = fps_row(torch, big, 6000, launches=2,
+                                         reps=3)
+    q = big[:, torch.randperm(24000, generator=gen, device=dev)[:6000]]
+    rows[("knn", "n24000")] = knn_row(torch, q.contiguous(), big, 32,
+                                      launches=2, reps=3)
+    del big, q
 
     gen = torch.Generator().manual_seed(SEED + 2)
     for label, s, c, c_out in (("stage1", 0, 32, 64),
@@ -698,19 +741,54 @@ def gemm_bounds(torch, pipe, chunk, state):
     return out
 
 
+def mapping_bounds(torch, pipe, chunk, state):
+    """The kNN and FPS launches of one dispatch, recorded from the shapes
+    their wrappers are given: per kernel, the launches and the sum of their
+    bounds (ms)."""
+    from repro_torch.kernels import fps as fps_mod
+    from repro_torch.kernels import knn as knn_mod
+    out = {kind: {"launches": 0, "bound_ms": 0.0} for kind in ("knn", "fps")}
+    knn, fps = knn_mod.knn, fps_mod.fps
+
+    def add(kind, nbytes, nops):
+        out[kind]["launches"] += 1
+        out[kind]["bound_ms"] += work_bound_ms(nbytes, nops)
+
+    def knn_rec(samples, points, k):
+        b, s, c = samples.shape
+        add("knn", *knn_work(b, s, points.shape[1], c, k))
+        return knn(samples, points, k)
+
+    def fps_rec(points, n_samples):
+        b, n, c = points.shape
+        add("fps", *fps_work(b, n, n_samples, c))
+        return fps(points, n_samples)
+
+    # the pipeline reaches both through these module attributes
+    knn_mod.knn, fps_mod.fps = knn_rec, fps_rec
+    try:
+        pipe.infer(chunk, state.clone())
+        torch.cuda.synchronize()
+    finally:
+        knn_mod.knn, fps_mod.fps = knn, fps
+    return out
+
+
 def profile_dispatch(torch, pipe, chunk, state):
     """Device time per kernel name over one dispatch (torch.profiler),
-    with each product kernel's ms (``grouped_transfer``: both of its
-    launches) beside the summed bound of its launches."""
+    with each product and mapping kernel's ms (``grouped_transfer``: both
+    of its launches) beside the summed bound of its launches."""
     wall_ms, by_name, events = profile_call(
         torch, lambda: pipe.infer(chunk, state.clone()))
     out = profile_summary(
         wall_ms, by_name, events,
-        port_kernels_ms=("knn_kernel", "int8_matmul_kernel",
+        port_kernels_ms=("knn_kernel", "knn_rounds_kernel",
+                         "int8_matmul_kernel",
                          "fused_linear_wide_kernel",
                          "fused_linear_small_kernel", "fps_kernel",
                          "grouped_transfer"),
         fps_ms=("fps_kernel",),
+        knn_ms=("knn_kernel", "knn_rounds_kernel"),
         int8_matmul_kernel_ms=("int8_matmul_kernel",),
         fused_linear_kernel_ms=("fused_linear_wide_kernel",
                                 "fused_linear_small_kernel"),
@@ -719,7 +797,8 @@ def profile_dispatch(torch, pipe, chunk, state):
     dev_ms = out["device_ms"]
     out["fps_share"] = (out["fps_ms"] / dev_ms if by_name
                         else "not measured")
-    for kind, got in gemm_bounds(torch, pipe, chunk, state).items():
+    for kind, got in {**gemm_bounds(torch, pipe, chunk, state),
+                      **mapping_bounds(torch, pipe, chunk, state)}.items():
         out[f"{kind}_launches"] = got["launches"]
         out[f"{kind}_bound_ms"] = got["bound_ms"]
     return out

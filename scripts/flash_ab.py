@@ -21,13 +21,14 @@ To hold a change against its parent on one card::
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import pathlib
 import statistics
 import subprocess
 import sys
 import tempfile
+
+from ab_build import build
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SHAPES = [  # (B, H, Hkv, T, D, causal, window)
@@ -56,27 +57,6 @@ def median_ms(torch, fn, reps: int = 30, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def build(sources, build_dir, nvcc_flags, argtypes):
-    """Compile every source in parallel; -> {name: launch function}."""
-    procs = {}
-    for name, src in sources.items():
-        so = build_dir / f"{name}.so"
-        procs[name] = (so, subprocess.Popen(
-            ["/usr/local/cuda/bin/nvcc", *nvcc_flags, "-o", str(so),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    fns = {}
-    for name, (so, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(so)).flash_attention_launch
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
-
-
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -94,8 +74,7 @@ def main() -> int:
     for arg in sys.argv[1:]:
         sources[pathlib.Path(arg).stem] = pathlib.Path(arg).resolve()
     with tempfile.TemporaryDirectory() as tmp:
-        fns = build(sources, pathlib.Path(tmp), _build.NVCC_FLAGS,
-                    _build.SIGNATURES["flash_attention"][1])
+        fns = build("flash_attention", sources, tmp, _build.NVCC_FLAGS)
         stream = torch.cuda.current_stream().cuda_stream
         gen = torch.Generator(device="cuda").manual_seed(4)
         for b, h, hkv, t, d, causal, win in SHAPES:

@@ -41,10 +41,8 @@ To hold a change against its parent on one card::
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import pathlib
-import re
 import statistics
 import subprocess
 import sys
@@ -52,12 +50,10 @@ import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+from ab_build import build  # noqa: E402
 from chip_smoke import (FP32_OPS_PER_S, HBM_BYTES_PER_S,  # noqa: E402
                         gemm_work, graph_ms, grouped_work)
 KERNELS = ("int8_matmul", "fused_linear", "grouped_transfer")
-# Pointer arguments before the ints of each launch function.
-N_PTRS = {"int8_matmul": 5, "fused_linear": 4, "grouped_transfer": 10}
-
 LANES = 32
 # (M, K, N): launches in one 32-cloud dispatch (tests/test_torch_gemm.py
 # records the same lists through the pipeline).
@@ -80,50 +76,6 @@ INT8_DEEP_SHAPES = {(16384, 2048, 2048): 0, (16384, 2048, 512): 0,
 # each in a dispatch.
 ELITE_STAGES = ((1024, 512, 32, 64), (512, 256, 64, 128),
                 (256, 128, 128, 256), (128, 64, 256, 512))
-
-
-def build(kernel, sources, build_dir, flags, ptxas: bool, ptxas_dir=None):
-    """Compile each source in parallel; -> {name: (launch fn, has_tmpl)}."""
-    from repro_torch.kernels import _build
-    symbol = f"{kernel}_launch"
-    n_ptrs = N_PTRS[kernel]
-    procs = {}
-    for name, src in sources.items():
-        so = build_dir / f"{kernel}-{name}.so"
-        cmd = ["/usr/local/cuda/bin/nvcc", *flags, "-I", str(_build.CSRC),
-               *(["-Xptxas", "-v"] if ptxas else []), "-o", str(so),
-               str(src)]
-        procs[name] = (src, so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    fns = {}
-    for name, (src, so, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {kernel} {name}:\n{log}")
-        if ptxas:
-            if ptxas_dir:
-                out_dir = pathlib.Path(ptxas_dir)
-                out_dir.mkdir(parents=True, exist_ok=True)
-                (out_dir / f"ptxas-{kernel}-{name}.txt").write_text(log)
-            # one line a kernel template: registers, and spills where any
-            lines = [ln.split("ptxas info    : ")[-1] for ln in
-                     log.splitlines() if "registers" in ln
-                     or ("spill" in ln and " 0 bytes spill stores" not in ln)]
-            print(json.dumps({"ptxas": f"{kernel} {name}", "info": lines}),
-                  flush=True)
-        params = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)",
-                           pathlib.Path(src).read_text()).group(1)
-        n_args = len(params.split(","))
-        fn = getattr(ctypes.CDLL(str(so)), symbol)
-        # pointers, ints, the stream; the shipped launch function ends its
-        # ints with the template code, an older one does not
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs
-                       + [ctypes.c_int] * (n_args - n_ptrs - 1)
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fns[name] = (fn, n_args == len(_build.SIGNATURES[kernel][1]))
-    return fns
 
 
 def bound_ms(kernel, m, k, n) -> float:
@@ -334,11 +286,16 @@ def main() -> int:
                              f"{kernels}")
         sources[kn][pathlib.Path(path).stem] = pathlib.Path(path).resolve()
     with tempfile.TemporaryDirectory() as tmp:
-        built = {kn: build(kn, srcs, pathlib.Path(tmp),
-                           _build.NVCC_FLAGS + _build.EXTRA_FLAGS.get(kn, []),
-                           args.ptxas or bool(args.ptxas_dir),
-                           args.ptxas_dir)
-                 for kn, srcs in sources.items()}
+        built = {}
+        for kn, srcs in sources.items():
+            fns = build(kn, srcs, tmp,
+                        _build.NVCC_FLAGS + _build.EXTRA_FLAGS.get(kn, []),
+                        args.ptxas or bool(args.ptxas_dir), args.ptxas_dir)
+            # the shipped launch function ends its ints with the template
+            # code, an older one does not
+            n_args = len(_build.SIGNATURES[kn][1])
+            built[kn] = {name: (fn, len(fn.argtypes) == n_args)
+                         for name, fn in fns.items()}
         for kn, fns in built.items():
             if kn == "grouped_transfer":
                 run_grouped(torch, fns)

@@ -8,8 +8,9 @@ with its own ``nvcc`` process (all started together), into
 flags, so an edited source or header rebuilds and an unchanged one loads
 from disk.  The libraries are
 loaded with ``ctypes``: every pointer and the stream pass as
-``c_void_p``, every int as ``c_int``, every float as ``c_float``, and
-each launch function returns its ``cudaGetLastError()`` code.
+``c_void_p``, every int as ``c_int`` (a scratch buffer's length as
+``c_longlong``), every float as ``c_float``, and each launch function
+returns its ``cudaGetLastError()`` code.
 
 Nothing here runs at import: the CPU tests import every module without
 ``nvcc``.  Only the repository's own sources are compiled.
@@ -38,13 +39,14 @@ EXTRA_FLAGS: Dict[str, List[str]] = {"knn": ["--fmad=false"],
                                      "fps": ["--fmad=false"],
                                      "grouped_transfer": ["--fmad=false"]}
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+              ctypes.c_float)
 # name -> (C symbol, argtypes); every launch function returns an int.
 SIGNATURES: Dict[str, Tuple[str, list]] = {
-    "knn": ("knn_launch", [P, P, P, I, I, I, I, I, P]),
+    "knn": ("knn_launch", [P, P, P, P, L, I, I, I, I, I, P]),
     "int8_matmul": ("int8_matmul_launch", [P] * 5 + [I] * 5 + [P]),
     "fused_linear": ("fused_linear_launch", [P] * 4 + [I] * 5 + [P]),
-    "fps": ("fps_launch", [P, P, I, I, I, P]),
+    "fps": ("fps_launch", [P, P, P, L, I, I, I, P]),
     "grouped_transfer": ("grouped_transfer_launch",
                          [P] * 10 + [I] * 10 + [P]),
     "w8_matmul": ("w8_matmul_launch", [P, P, P, P, I, I, I, I, P]),

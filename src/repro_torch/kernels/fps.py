@@ -3,9 +3,9 @@
 The port of ``repro.kernels.fps.fps_update_pallas`` with the loop around
 it, ``fps_pallas``: one launch runs a stage's whole sampler for every cloud
 of a dispatch (update, argmax and next centroid for each of the S
-steps).  :func:`fps` launches the kernel for CUDA tensors, runs
-:func:`repro_torch.kernels.ref.fps_ref` for CPU tensors, and raises on
-anything else.  ``fps_cuda.launches`` counts launches.
+steps), for any N.  :func:`fps` launches the kernel for CUDA tensors,
+runs :func:`repro_torch.kernels.ref.fps_ref` for CPU tensors, and raises
+on anything else.  ``fps_cuda.launches`` counts launches.
 """
 from __future__ import annotations
 
@@ -13,9 +13,9 @@ import torch
 
 from repro_torch.kernels import ref
 
-_THREADS = 512                  # csrc/fps.cu
-MAX_POINTS = 16 * _THREADS      # its largest per-thread register tile
-_SMEM_LIMIT = 232448            # bytes of shared memory a block can use
+# csrc/fps.cu keeps up to 8192 points a cloud in registers; past that it
+# keeps the rest's running minima in a scratch buffer (B * N floats).
+_REGISTER_POINTS = 8192
 
 
 def _check(points: torch.Tensor, n_samples: int) -> None:
@@ -32,21 +32,23 @@ def fps_cuda(points: torch.Tensor, n_samples: int) -> torch.Tensor:
     from repro_torch.kernels import _build
     _check(points, n_samples)
     b, n, c = points.shape
+    if c != 3:
+        raise ValueError(f"fps kernel takes xyz (C = 3), got C = {c}")
     if (not points.is_cuda or points.dtype != torch.float32
             or not points.is_contiguous()):
         raise ValueError(f"fps kernel needs a contiguous float32 CUDA "
                          f"tensor, got {points.dtype} on {points.device}")
-    if c != 3:
-        raise ValueError(f"fps kernel takes xyz (C = 3), got C = {c}")
-    if n > MAX_POINTS or n * c * 4 > _SMEM_LIMIT:
-        raise ValueError(f"fps kernel takes N <= {MAX_POINTS}, got {n}")
     out = torch.empty((b, n_samples), dtype=torch.int64,
                       device=points.device)
     if b == 0:
         return out
+    scratch = (torch.empty(b * n, dtype=torch.float32, device=points.device)
+               if n > _REGISTER_POINTS else None)
     stream = torch.cuda.current_stream(points.device).cuda_stream
-    code = _build.launcher("fps")(points.data_ptr(), out.data_ptr(), b, n,
-                                  n_samples, stream)
+    code = _build.launcher("fps")(
+        points.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        0 if scratch is None else scratch.numel(), b, n, n_samples, stream)
     _build.check("fps", code)
     fps_cuda.launches += 1
     return out

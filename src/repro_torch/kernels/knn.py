@@ -1,10 +1,10 @@
 """kNN selection: the CUDA kernel ``csrc/knn.cu`` and its wrapper.
 
 The port of ``repro.kernels.knn.knn_pallas``, batched over lanes: one
-launch serves a whole dispatch.  :func:`knn` launches the kernel for
-CUDA tensors, runs :func:`repro_torch.kernels.ref.knn_ref` for CPU
-tensors, and raises on anything else.  ``knn_cuda.launches`` counts
-launches.
+launch serves a whole dispatch, for any N and any 1 <= k <= N.
+:func:`knn` launches the kernel for CUDA tensors, runs
+:func:`repro_torch.kernels.ref.knn_ref` for CPU tensors, and raises on
+anything else.  ``knn_cuda.launches`` counts launches.
 """
 from __future__ import annotations
 
@@ -13,8 +13,12 @@ import torch
 from repro_torch.kernels import ref
 
 MAX_CHANNELS = 8
-_SMEM_LIMIT = 232448            # bytes of shared memory a block can use
-_QUERIES_PER_BLOCK = 8          # csrc/knn.cu
+# csrc/knn.cu: past k = 32 or N = 1024 it runs k rounds of argmin, one
+# warp a query, 4 warps a block on at most 264 blocks, each warp's
+# distance row in shared memory while 4 rows fit in a block's 232448
+# bytes, else in a scratch row of N floats.
+_ROUND_ROWS = 264 * 4
+_SMEM_ROW_FLOATS = 232448 // (4 * 4)
 
 
 def _check(samples: torch.Tensor, points: torch.Tensor, k: int) -> None:
@@ -38,24 +42,25 @@ def knn_cuda(samples: torch.Tensor, points: torch.Tensor, k: int
     _check(samples, points, k)
     b, s, c = samples.shape
     n = points.shape[1]
+    if c > MAX_CHANNELS:
+        raise ValueError(f"knn kernel takes C <= {MAX_CHANNELS}, got {c}")
     for name, t in (("samples", samples), ("points", points)):
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"knn kernel needs a contiguous float32 CUDA "
                              f"{name} tensor, got {t.dtype} on {t.device}")
     if points.device != samples.device:
         raise ValueError("knn: samples and points on different devices")
-    if c > MAX_CHANNELS:
-        raise ValueError(f"knn kernel takes C <= {MAX_CHANNELS}, got {c}")
-    smem = (n * c + n + _QUERIES_PER_BLOCK * n) * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"knn kernel: N={n} needs {smem} bytes of shared "
-                         f"memory, more than {_SMEM_LIMIT}")
     out = torch.empty((b, s, k), dtype=torch.int64, device=samples.device)
     if b * s == 0:
         return out
+    scratch = (torch.empty(_ROUND_ROWS * n, dtype=torch.float32,
+                           device=samples.device)
+               if n > _SMEM_ROW_FLOATS else None)
     stream = torch.cuda.current_stream(samples.device).cuda_stream
-    code = _build.launcher("knn")(samples.data_ptr(), points.data_ptr(),
-                                  out.data_ptr(), b, s, n, c, k, stream)
+    code = _build.launcher("knn")(
+        samples.data_ptr(), points.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        0 if scratch is None else scratch.numel(), b, s, n, c, k, stream)
     _build.check("knn", code)
     knn_cuda.launches += 1
     return out

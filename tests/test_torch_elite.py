@@ -136,11 +136,8 @@ class TestFps:
     @pytest.mark.parametrize("b,n,s", [(4, 1024, 512), (4, 128, 64),
                                        (3, 50, 17), (2, 9000, 8)])
     def test_kernel_matches_plain_on_card(self, cuda_device, b, n, s):
-        if n > fps_mod.MAX_POINTS:
-            with pytest.raises(ValueError, match="N <="):
-                fps_mod.fps_cuda(torch.zeros(b, n, 3, device=cuda_device),
-                                 s)
-            return
+        # N = 9000 is past the register tile: the tail's minima go to a
+        # scratch buffer (no N limit since the kernel's redesign)
         pts = torch.from_numpy(np.random.default_rng(n).standard_normal(
             (b, n, 3)).astype(np.float32))
         pts[0] = 0                                    # a padded lane
