@@ -84,6 +84,9 @@ NO_PATH = {"w8_matmul": "no model path calls w8_matmul, in the JAX package "
                         "the port; it is held against its plain version "
                         "only"}
 ELITE_POINTS = 1024
+# Distinct W8A16 weights a timing rotates over: 6 x 11.5 MB exceeds the
+# H100's 50 MB L2.
+W8_COPIES = 6
 LM_ARCH = "tinyllama-1.1b"
 LM_BATCH, LM_SEQ = 4, 2048
 # bf16 logits, held against max|logit|.  bf16 keeps 8 significant bits;
@@ -1012,9 +1015,7 @@ def lm_kernel_phase(torch):
     dim 64, 2048 tokens)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import int8_matmul as i8_mod
     from repro_torch.kernels import ref
-    from repro_torch.models.layers import f32_sums
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
@@ -1070,44 +1071,106 @@ def lm_kernel_phase(torch):
             bound_ms_fp32_peak=1e3 * max(nbytes / HBM_BYTES_PER_S,
                                          nops / FP32_OPS_PER_S))
 
-    # W8A16 at tinyllama's MLP up-projection, decode (4 tokens) and
-    # prefill (4 x 2048 tokens) shapes.
-    for label, m in (("decode", LM_BATCH), ("prefill", LM_BATCH * LM_SEQ)):
-        kk, n = 2048, 5632
-        x = torch.randn(m, kk, generator=gen, device=dev).to(torch.bfloat16)
-        w_q = torch.randint(-127, 128, (kk, n), generator=gen, device=dev,
-                            dtype=torch.int8)
-        w_scale = torch.rand(n, generator=gen, device=dev) / 127 + 1e-4
-        got = i8_mod.w8_matmul_cuda(x, w_q, w_scale)
-        want = ref.w8_matmul_plain(x, w_q, w_scale)
-        torch.cuda.synchronize()
-        tol = 2.0 ** -7
-        ok, err, atol_lo, atol_hi, worst = rowwise_close(torch, got, want,
-                                                         tol)
-        check(ok, f"w8_matmul {label}: max abs err {err}, {worst} x its "
-                  f"allowance (rtol={tol}, atol={tol} * max|out| of the "
-                  f"row, {atol_lo}..{atol_hi})")
-        ms = median_ms(torch, lambda: i8_mod.w8_matmul_cuda(x, w_q, w_scale))
-        plain_ms = median_ms(torch, lambda: ref.w8_matmul_plain(
-            x, w_q, w_scale))
-        w_deq = (w_q.float() * w_scale).to(torch.bfloat16)
-        with f32_sums():
-            deq_ms = median_ms(torch, lambda: x @ w_deq)
-        nbytes = 2 * m * kk + kk * n + 4 * n + 2 * m * n
-        nops = 2 * m * kk * n
-        rows[("w8_matmul", label)] = dict(
-            shape=f"M={m} K={kk} N={n} bf16", ms=ms, plain_ms=plain_ms,
-            library_ms=None, max_abs_err=err,
-            tolerance=f"rtol={tol}, atol={tol} * max|out| of the row",
-            atol_range=[atol_lo, atol_hi], err_over_allowed=worst,
-            dequantized_matmul_ms=deq_ms,
-            dequantized_matmul_note="x @ w_dequant (bf16, weight "
-            "dequantized beforehand): not the same function, for "
-            "comparison only",
-            bytes=nbytes, ops=nops, peak=BF16_OPS_PER_S,
-            bound_ms_fp32_peak=1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                         nops / FP32_OPS_PER_S))
+    # W8A16 at tinyllama's MLP up- and down-projection, decode (4 tokens)
+    # and prefill (4 x 2048 tokens).  ms is a CUDA-graph replay over
+    # W8_COPIES distinct weights that together exceed the 50 MB L2, so each
+    # launch finds its weight cold, as a decode step over 22 layers does;
+    # warm_l2_ms replays one weight, events_ms times back-to-back calls.
+    for label, m, kk, n in (("decode", LM_BATCH, 2048, 5632),
+                            ("prefill", LM_BATCH * LM_SEQ, 2048, 5632),
+                            ("decode_down", LM_BATCH, 5632, 2048),
+                            ("prefill_down", LM_BATCH * LM_SEQ, 5632, 2048)):
+        rows[("w8_matmul", label)] = w8_row(torch, gen, m, kk, n)
     return emit_rows(rows)
+
+
+def rotation(fns):
+    """One call that runs the next of ``fns`` each time (for graph_ms
+    over several weights)."""
+    turn = [0]
+
+    def call():
+        fns[turn[0] % len(fns)]()
+        turn[0] += 1
+    return call
+
+
+def w8_row(torch, gen, m: int, kk: int, n: int):
+    """One W8A16 row: held against the plain version (and bitwise against
+    a second launch), timed cold and warm in L2, beside the plain version,
+    the library call and the pre-dequantized product."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import int8_matmul as i8_mod
+    from repro_torch.models.layers import f32_sums
+
+    dev = torch.device("cuda")
+    x = torch.randn(m, kk, generator=gen, device=dev).to(torch.bfloat16)
+    w_qs = [torch.randint(-127, 128, (kk, n), generator=gen, device=dev,
+                          dtype=torch.int8) for _ in range(W8_COPIES)]
+    w_q = w_qs[0]
+    w_scale = torch.rand(n, generator=gen, device=dev) / 127 + 1e-4
+    route = i8_mod.w8_route(m, kk, n, x.dtype,
+                            _build.aligned16(x, w_q, w_scale))
+    got = i8_mod.w8_matmul_cuda(x, w_q, w_scale)
+    again = i8_mod.w8_matmul_cuda(x, w_q, w_scale)
+    want = ref.w8_matmul_plain(x, w_q, w_scale)
+    torch.cuda.synchronize()
+    tol = 2.0 ** -7
+    ok, err, atol_lo, atol_hi, worst = rowwise_close(torch, got, want, tol)
+    check(ok, f"w8_matmul M{m} K{kk} N{n}: max abs err {err}, {worst} x "
+              f"its allowance (rtol={tol}, atol={tol} * max|out| of the "
+              f"row, {atol_lo}..{atol_hi})")
+    check(torch.equal(got, again), f"w8_matmul M{m} K{kk} N{n}: two "
+                                   f"launches differ")
+    # a prefill call allocates 92 MB of output: fewer launches a graph
+    launches = 20 if m <= i8_mod.STREAM_MAX_M else 5
+    ms = graph_ms(torch, rotation([
+        lambda w=w: i8_mod.w8_matmul_cuda(x, w, w_scale) for w in w_qs]),
+        launches=launches)
+    warm_ms = graph_ms(torch, lambda: i8_mod.w8_matmul_cuda(x, w_q, w_scale),
+                       launches=launches)
+    w_deqs = [(w.float() * w_scale).to(torch.bfloat16) for w in w_qs]
+    with f32_sums():
+        deq_ms = graph_ms(torch, rotation([lambda d=d: x @ d
+                                           for d in w_deqs]),
+                          launches=launches)
+    del w_deqs
+    # torch._weight_int8pack_mm computes x @ w_q^T * scale with w_q [N, K]
+    # and the scale in x's dtype (rounded to bf16 here).
+    scale_x = w_scale.to(x.dtype)
+    try:
+        w_ts = [w.t().contiguous() for w in w_qs]
+        torch._weight_int8pack_mm(x, w_ts[0], scale_x)
+        torch.cuda.synchronize()
+        # its kernel is slow at prefill rows: fewer replays there
+        lib_ms = graph_ms(torch, rotation([
+            lambda w=w: torch._weight_int8pack_mm(x, w, scale_x)
+            for w in w_ts]), launches=launches,
+            reps=15 if m <= i8_mod.STREAM_MAX_M else 3)
+        lib_note = ("torch._weight_int8pack_mm(x, w_q.t(), w_scale.to(x."
+                    "dtype)): the scale rounded to bf16, weights cold")
+    except (RuntimeError, NotImplementedError) as exc:
+        lib_ms = None
+        lib_note = (f"torch._weight_int8pack_mm has no kernel here: "
+                    f"{str(exc).splitlines()[0][:160]}")
+    nbytes = 2 * m * kk + kk * n + 4 * n + 2 * m * n
+    nops = 2 * m * kk * n
+    return dict(
+        shape=f"M={m} K={kk} N={n} bf16", kernel_route=route.name, ms=ms,
+        warm_l2_ms=warm_ms,
+        events_ms=median_ms(torch, lambda: i8_mod.w8_matmul_cuda(
+            x, w_q, w_scale)),
+        plain_ms=median_ms(torch, lambda: ref.w8_matmul_plain(
+            x, w_q, w_scale), reps=5),
+        library_ms=lib_ms, library_note=lib_note, max_abs_err=err,
+        tolerance=f"rtol={tol}, atol={tol} * max|out| of the row",
+        atol_range=[atol_lo, atol_hi], err_over_allowed=worst,
+        dequantized_matmul_ms=deq_ms,
+        dequantized_matmul_note="x @ w_dequant (bf16, weight dequantized "
+        "beforehand, cold): not the same function, for comparison only",
+        bytes=nbytes, ops=nops, peak=BF16_OPS_PER_S,
+        bound_ms_fp32_peak=1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                     nops / FP32_OPS_PER_S))
 
 
 def lm_tokens(np, vocab: int, b: int, t: int, seed: int):
@@ -1385,7 +1448,7 @@ def main() -> int:
                                    f"path")
         extra = {k: r[k] for k in ("template", "events_ms",
                                    "library_events_ms", "kernel_route",
-                                   "tflops",
+                                   "warm_l2_ms", "library_note", "tflops",
                                    "unfused_ms", "ms_per_step",
                                    "bound_ms_fp32_peak",
                                    "dequantized_matmul_ms", "tolerance",

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Time GEMM kernel sources (``int8_matmul``, ``fused_linear``, ``grouped_transfer``) on one GPU.
+"""Time GEMM kernel sources (``int8_matmul``, ``fused_linear``, ``grouped_transfer``, ``w8_matmul``) on one GPU.
 
     python3 scripts/gemm_ab.py [--ptxas] [--ptxas-dir DIR] [--kernel NAME]
                                [NAME=OTHER.cu ...]
 
-Builds ``src/repro_torch/csrc/int8_matmul.cu``, ``fused_linear.cu`` and
-``grouped_transfer.cu`` (as ``shipped``) and each other source given as
-``NAME=PATH`` (NAME is one of those three kernels: a parent commit's
-copy, whose launch function may lack the template argument, or an edited
-variant; ``-I csrc`` finds the shared headers) with the port's ``nvcc``
-flags.  ``--ptxas`` adds ``-Xptxas -v`` and prints each template's
-registers and spills; ``--ptxas-dir DIR`` also keeps each whole report
-there as ``ptxas-<kernel>-<source>.txt``.
+Builds ``src/repro_torch/csrc/int8_matmul.cu``, ``fused_linear.cu``,
+``grouped_transfer.cu`` and ``w8_matmul.cu`` (as ``shipped``) and each
+other source given as ``NAME=PATH`` (NAME is one of those four kernels: a
+parent commit's copy, whose launch function may lack the template or
+route arguments, or an edited variant; ``-I csrc`` finds the shared
+headers) with the port's ``nvcc`` flags.  ``--ptxas`` adds ``-Xptxas
+-v`` and prints each template's registers and spills; ``--ptxas-dir
+DIR`` also keeps each whole report there as
+``ptxas-<kernel>-<source>.txt``.
 
 At every GEMM shape of one 32-cloud dispatch (Lite's for ``int8_matmul``,
 M-2's for ``fused_linear``; ``int8_matmul`` also at three K = 2048
@@ -25,13 +26,21 @@ both variants (sigma computed, sigma given), each within rtol = atol =
 shipped source.  Then it times each in turns (shipped, others, others
 reversed, shipped) beside ``torch._int_mm`` or ``torch.addmm`` where one
 computes the function, and the shipped ``fused_linear`` at both of its
-tile families (wide and small).  A time is the device time of one call
-(``chip_smoke.graph_ms``: a CUDA graph of back-to-back launches,
-replayed), so no host time enters the figure of a short kernel.  Prints
-the card line, one JSON line a (kernel, shape) and one a kernel with each
-source's sum over the dispatch (launches x ms) beside the summed bound.
-Exits non-zero without a CUDA device, or if a source fails to build,
-launch or agree.
+tile families (wide and small).  ``w8_matmul`` runs at tinyllama's MLP
+up- and down-projection (K2048 N5632, K5632 N2048) at decode (M 1 and
+4), each side of the stream route's row limit and prefill (M 8192) in
+bf16, and at decode in f32, each source within the per-row tolerance of
+the plain version (2**-7 in bf16, 1e-5 in f32); its times rotate over
+six weights that together exceed the L2 (cold, as a decode step over
+many layers finds them), beside the shipped source with one weight
+(warm), ``torch._weight_int8pack_mm`` (scale rounded to x's dtype) and
+the pre-dequantized bf16 product (context only).  A time is the device
+time of one call (``chip_smoke.graph_ms``: a CUDA graph of back-to-back
+launches, replayed), so no host time enters the figure of a short
+kernel.  Prints the card line, one JSON line a (kernel, shape) and, but
+for ``w8_matmul``, one a kernel with each source's sum over the dispatch
+(launches x ms) beside the summed bound.  Exits non-zero without a CUDA
+device, or if a source fails to build, launch or agree.
 
 To hold a change against its parent on one card::
 
@@ -51,9 +60,10 @@ import tempfile
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from ab_build import build  # noqa: E402
-from chip_smoke import (FP32_OPS_PER_S, HBM_BYTES_PER_S,  # noqa: E402
-                        gemm_work, graph_ms, grouped_work)
-KERNELS = ("int8_matmul", "fused_linear", "grouped_transfer")
+from chip_smoke import (BF16_OPS_PER_S, FP32_OPS_PER_S,  # noqa: E402
+                        HBM_BYTES_PER_S, W8_COPIES, gemm_work, graph_ms,
+                        grouped_work, rotation, rowwise_close)
+KERNELS = ("int8_matmul", "fused_linear", "grouped_transfer", "w8_matmul")
 LANES = 32
 # (M, K, N): launches in one 32-cloud dispatch (tests/test_torch_gemm.py
 # records the same lists through the pipeline).
@@ -76,6 +86,14 @@ INT8_DEEP_SHAPES = {(16384, 2048, 2048): 0, (16384, 2048, 512): 0,
 # each in a dispatch.
 ELITE_STAGES = ((1024, 512, 32, 64), (512, 256, 64, 128),
                 (256, 128, 128, 256), (128, 64, 256, 512))
+# W8A16 rows: (M, K, N, x dtype name) at tinyllama's MLP shapes; 64 and 65
+# straddle the stream route's row limit.
+W8_SHAPES = ((1, 2048, 5632, "bf16"), (4, 2048, 5632, "bf16"),
+             (4, 5632, 2048, "bf16"), (64, 2048, 5632, "bf16"),
+             (65, 2048, 5632, "bf16"), (8192, 2048, 5632, "bf16"),
+             (8192, 5632, 2048, "bf16"), (4, 2048, 5632, "f32"),
+             (4, 5632, 2048, "f32"), (64, 2048, 5632, "f32"),
+             (65, 2048, 5632, "f32"))
 
 
 def bound_ms(kernel, m, k, n) -> float:
@@ -258,6 +276,76 @@ def run_grouped(torch, fns):
                       "bound_ms": total_bound}), flush=True)
 
 
+def run_w8(torch, fns):
+    """Each w8_matmul source at W8_SHAPES, checked, then timed in turns
+    as graph replays over W8_COPIES weights."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import int8_matmul as i8_mod
+    from repro_torch.models.layers import f32_sums
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    dev = "cuda"
+    for m, k, n, dname in W8_SHAPES:
+        dt = torch.bfloat16 if dname == "bf16" else torch.float32
+        x = torch.randn(m, k, generator=gen, device=dev).to(dt)
+        w_qs = [torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(W8_COPIES)]
+        w_scale = torch.rand(n, generator=gen, device=dev) / 127 + 1e-4
+        route = i8_mod.w8_route(m, k, n, dt,
+                                _build.aligned16(x, w_qs[0], w_scale))
+        scratch = torch.empty(route.splits(k), m, n, device=dev)
+        out = torch.empty(m, n, dtype=dt, device=dev)
+
+        def call(fn, new_sig, w):
+            # a parent's launch function has no scratch, route or ks
+            head = (x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
+                    out.data_ptr())
+            args = ((*head, scratch.data_ptr(), m, k, n, int(dname == "bf16"),
+                     route.code, route.ks) if new_sig else
+                    (*head, m, k, n, int(dname == "bf16")))
+            _build.check("w8_matmul", fn(
+                *args, torch.cuda.current_stream().cuda_stream))
+        nbytes = x.element_size() * (m * k + m * n) + k * n + 4 * n
+        nops = 2 * m * k * n
+        peak = BF16_OPS_PER_S if dname == "bf16" else FP32_OPS_PER_S
+        row = {"kernel": "w8_matmul", "shape": f"M={m} K={k} N={n} {dname}",
+               "route": route.name,
+               "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, nops / peak)}
+        want = ref.w8_matmul_plain(x, w_qs[0], w_scale)
+        tol = 2.0 ** -7 if dname == "bf16" else 1e-5
+        for name, (fn, new_sig) in fns.items():
+            out.fill_(float("nan"))
+            call(fn, new_sig, w_qs[0])
+            torch.cuda.synchronize()
+            ok, err, _, _, worst = rowwise_close(torch, out, want, tol)
+            row.setdefault("err_over_allowed", {})[name] = worst
+            if not ok:
+                raise RuntimeError(f"w8_matmul {name} at {row['shape']}: "
+                                   f"{worst} x the allowance")
+        launches = 20 if m <= i8_mod.STREAM_MAX_M else 5
+        names = list(fns)
+        for name in names + names[::-1]:
+            row.setdefault(f"{name}_ms", []).append(graph_ms(
+                torch, rotation([lambda w=w: call(*fns[name], w)
+                                 for w in w_qs]), launches=launches))
+        row["shipped_warm_l2_ms"] = graph_ms(
+            torch, lambda: call(*fns["shipped"], w_qs[0]), launches=launches)
+        if dname == "bf16":
+            w_ts = [w.t().contiguous() for w in w_qs]
+            scale_x = w_scale.to(dt)
+            row["library_ms"] = graph_ms(torch, rotation([
+                lambda w=w: torch._weight_int8pack_mm(x, w, scale_x)
+                for w in w_ts]), launches=launches,
+                reps=15 if m <= i8_mod.STREAM_MAX_M else 3)
+            del w_ts
+            w_deqs = [(w.float() * w_scale).to(dt) for w in w_qs]
+            with f32_sums():
+                row["dequantized_matmul_ms"] = graph_ms(
+                    torch, rotation([lambda d=d: x @ d for d in w_deqs]),
+                    launches=launches)
+            del w_deqs
+        print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ptxas", action="store_true")
@@ -292,13 +380,16 @@ def main() -> int:
                         _build.NVCC_FLAGS + _build.EXTRA_FLAGS.get(kn, []),
                         args.ptxas or bool(args.ptxas_dir), args.ptxas_dir)
             # the shipped launch function ends its ints with the template
-            # code, an older one does not
+            # code (w8_matmul: takes scratch, route and ks), an older one
+            # does not
             n_args = len(_build.SIGNATURES[kn][1])
             built[kn] = {name: (fn, len(fn.argtypes) == n_args)
                          for name, fn in fns.items()}
         for kn, fns in built.items():
             if kn == "grouped_transfer":
                 run_grouped(torch, fns)
+            elif kn == "w8_matmul":
+                run_w8(torch, fns)
             else:
                 run_kernel(torch, kn, fns)
     return 0

@@ -49,7 +49,7 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
     "fps": ("fps_launch", [P, P, P, L, I, I, I, P]),
     "grouped_transfer": ("grouped_transfer_launch",
                          [P] * 10 + [I] * 10 + [P]),
-    "w8_matmul": ("w8_matmul_launch", [P, P, P, P, I, I, I, I, P]),
+    "w8_matmul": ("w8_matmul_launch", [P] * 5 + [I] * 6 + [P]),
     "flash_attention": ("flash_attention_launch",
                         [P] * 4 + [I] * 9 + [F, P]),
 }

@@ -1,4 +1,4 @@
-"""The GEMM kernels' templates and dispatch shapes (``int8_matmul``, ``fused_linear``, ``grouped_transfer``).
+"""The GEMM kernels' templates and dispatch shapes (``int8_matmul``, ``fused_linear``, ``grouped_transfer``), and ``w8_matmul``'s routes.
 
 ``csrc/int8_matmul.cu`` and ``csrc/fused_linear.cu`` are templates on the
 column tile and the load route, and the wrappers pick one
@@ -8,7 +8,10 @@ tile (``csrc/fp32_wide_tile.cuh``) under the same rule.  On the CPU these
 tests hold the choice to its rules at every product of a 32-cloud
 dispatch of Lite, M-2 and Elite, recorded through the plain versions,
 hold the C launch functions' template switches to the Python encoding,
-and check that the build hashes the shared header.
+and check that the build hashes the shared header.  ``w8_matmul``'s
+route rule and its mirror of the C launch switch and stream sizes are
+checked on the CPU; its card tests hold each route to the plain version
+(see the W8A16 section).
 
 Tests marked ``cuda`` run the kernels on the card and skip without one;
 they import no JAX, so they also run on a GPU machine without it
@@ -382,3 +385,153 @@ def test_fused_linear_equals_grouped_transfer_on_card(cuda_device, c,
                                         bias)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------- W8A16 --
+#
+# ``csrc/w8_matmul.cu`` has three routes (``kernels/int8_matmul.py::
+# w8_route``): ``stream`` (split-K int8 weight stream, few rows),
+# ``wgmma`` (bf16 tensor cores, the int8 tile widened in shared memory)
+# and ``tiled`` (every other shape).  Card tolerance, per output row
+# against ``ref.w8_matmul_plain``: |got - want| <= tol |want| + tol max
+# |want| of the row, tol = 2**-7 in bf16 (an output near a rounding
+# boundary may land one bf16 step away: the sums run in another order)
+# and 1e-5 in f32 (f32 sums over K in another order than cuBLAS).
+
+W8_UP, W8_DOWN = (2048, 5632), (5632, 2048)   # tinyllama's MLP (K, N)
+W8_RULE_SHAPES = [
+    (1, *W8_UP), (4, *W8_UP), (8192, *W8_UP), (1, *W8_DOWN),
+    (4, *W8_DOWN), (8192, *W8_DOWN), (16, *W8_UP), (17, *W8_UP),
+    (37, 100, 70), (4, 1000, 512), (300, 1000, 512), (4, 2048, 5648),
+    (300, 2048, 5648), (4, 40, 16), (4, 8, 16), (128, 8, 16), (3, 0, 16),
+    (4, 100000, 16), (9, 1000, 512), (64, 100, 64), (2, 512, 70)]
+
+
+def w8_launch_table():
+    """route code -> route name, from the launch switch of
+    ``csrc/w8_matmul.cu``."""
+    text = (_build.CSRC / "w8_matmul.cu").read_text()
+    return {int(code): name for code, name in re.findall(
+        r"case (\d+):\s*return (?:is_bf16 \?\s*)?launch_(\w+)", text)}
+
+
+def test_w8_route_codes_match_the_launch_switch():
+    """Every route the wrapper can pick reaches the C launch function of
+    the same name."""
+    assert w8_launch_table() == {i8_mod.W8Route(name).code: name
+                                 for name in i8_mod.W8_ROUTES}
+
+
+def test_w8_stream_sizes_mirror_the_kernel():
+    """The split rule's strip width, rows a block and longest split are
+    the stream kernel's own constants."""
+    text = (_build.CSRC / "w8_matmul.cu").read_text()
+    body = text[text.index("namespace stream {"):]
+    body = body[:body.index("}  // namespace stream")]
+    consts = {name: int(v) for name, v in
+              re.findall(r"(\w+) = (\d+)", body)}
+    assert consts["COLS"] == i8_mod._STREAM_COLS
+    assert consts["MR_MAX"] == i8_mod._STREAM_ROWS[torch.float32]
+    assert consts["MMA_ROWS"] == i8_mod._STREAM_ROWS[torch.bfloat16]
+    assert consts["KS_MAX"] == i8_mod._STREAM_KS_MAX
+    assert consts["TX"] * 16 == consts["COLS"]
+    assert consts["TX"] * consts["TY"] == consts["THREADS"]
+
+
+@pytest.mark.parametrize("m,k,n", W8_RULE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w8_route_rules(m, k, n, dtype):
+    """stream for at most STREAM_MAX_M rows, wgmma for more rows of bf16
+    x with K % 8 == 0, both only on 16-byte aligned data with N % 16 ==
+    0; tiled otherwise.  A stream split takes a multiple of 16 rows of w,
+    at most KS_MAX, none is empty, and there are no more splits than K /
+    32 rounded up."""
+    r = i8_mod.w8_route(m, k, n, dtype)
+    fast = k > 0 and n % 16 == 0
+    if fast and m <= i8_mod.STREAM_MAX_M:
+        want = "stream"
+    elif fast and dtype == torch.bfloat16 and k % 8 == 0:
+        want = "wgmma"
+    else:
+        want = "tiled"
+    assert r.name == want
+    assert i8_mod.w8_route(m, k, n, dtype, aligned=False).name == "tiled"
+    if r.name != "stream":
+        assert r.ks == 0 and r.splits(k) == 1
+        return
+    splits = r.splits(k)
+    assert r.ks % 16 == 0 and r.ks <= i8_mod._STREAM_KS_MAX
+    assert (splits - 1) * r.ks < k <= splits * r.ks
+    assert splits <= -(-k // 32)
+
+
+@pytest.mark.parametrize("k,n", [W8_UP, W8_DOWN])
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16])
+def test_w8_stream_fills_the_card(m, k, n):
+    """At tinyllama's MLP shapes the stream route's grid gives every one
+    of an H100's 132 SMs at least two blocks."""
+    r = i8_mod.w8_route(m, k, n, torch.bfloat16)
+    assert r.name == "stream"
+    blocks = (-(-n // i8_mod._STREAM_COLS) * r.splits(k)
+              * -(-m // i8_mod._STREAM_ROWS[torch.bfloat16]))
+    assert blocks >= 2 * 132
+
+
+W8_CARD_CASES = [
+    # tinyllama's MLP up- and down-projection, decode and prefill
+    *[(m, *kn, torch.bfloat16, 0) for kn in (W8_UP, W8_DOWN)
+      for m in (1, 4, 8192)],
+    # each side of the stream/wgmma threshold, bf16 and f32
+    (i8_mod.STREAM_MAX_M, *W8_UP, torch.bfloat16, 0),
+    (i8_mod.STREAM_MAX_M + 1, *W8_UP, torch.bfloat16, 0),
+    (i8_mod.STREAM_MAX_M, *W8_DOWN, torch.float32, 0),
+    (i8_mod.STREAM_MAX_M + 1, *W8_DOWN, torch.float32, 0),
+    # K not a multiple of the 64-deep tile or of a split, K below a tile
+    (4, 1000, 512, torch.bfloat16, 0), (300, 1000, 512, torch.bfloat16, 0),
+    (9, 1000, 512, torch.bfloat16, 0), (3, 2056, 5632, torch.bfloat16, 0),
+    (4, 8, 16, torch.bfloat16, 0), (128, 8, 16, torch.bfloat16, 0),
+    # N not a multiple of the 128-column strip or tile
+    (4, 2048, 5648, torch.bfloat16, 0), (300, 2048, 5648, torch.bfloat16, 0),
+    (2, 512, 272, torch.float32, 0),
+    # the unaligned shape, ragged N, unaligned x
+    (37, 100, 70, torch.bfloat16, 0), (37, 100, 70, torch.float32, 0),
+    (300, 1024, 512, torch.bfloat16, 1), (4, 2048, 512, torch.bfloat16, 1),
+    # f32 x
+    (4, *W8_UP, torch.float32, 0), (1, *W8_DOWN, torch.float32, 0),
+    (8, *W8_UP, torch.float32, 0), (300, 1000, 512, torch.float32, 0)]
+
+
+@pytest.mark.cuda
+class TestW8A16:
+    @pytest.mark.parametrize("m,k,n,dtype,offset", W8_CARD_CASES)
+    def test_routes_match_plain_on_card(self, cuda_device, m, k, n, dtype,
+                                        offset):
+        """Each route within the row-wise tolerance of the plain version,
+        one launch a call, and two launches equal bit for bit (the
+        stream route adds its K splits in a fixed order)."""
+        g = torch.Generator().manual_seed(m + k + n)
+        # offset > 0 starts x off a 16-byte boundary
+        x = torch.empty(m * k + offset, dtype=dtype,
+                        device=cuda_device)[offset:].view(m, k)
+        x.copy_(torch.randn(m, k, generator=g).to(dtype))
+        w_q = torch.randint(-127, 128, (k, n), generator=g,
+                            dtype=torch.int8).to(cuda_device)
+        w_scale = (torch.rand(n, generator=g) / 127 + 1e-4).to(cuda_device)
+        route = i8_mod.w8_route(m, k, n, dtype,
+                                _build.aligned16(x, w_q, w_scale))
+        if offset:
+            assert route.name == "tiled"
+        before = i8_mod.w8_matmul_cuda.launches
+        got = i8_mod.w8_matmul_cuda(x, w_q, w_scale)
+        again = i8_mod.w8_matmul_cuda(x, w_q, w_scale)
+        want = ref.w8_matmul_plain(x, w_q, w_scale)
+        torch.cuda.synchronize()
+        assert i8_mod.w8_matmul_cuda.launches == before + 2
+        assert got.dtype == dtype and got.shape == (m, n)
+        assert torch.equal(got, again), route.name
+        tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        g32, w32 = got.float(), want.float()
+        allowed = tol * w32.abs() + tol * w32.abs().amax(-1, keepdim=True)
+        assert bool(torch.isfinite(g32).all()), route.name
+        worst = ((g32 - w32).abs() - allowed).max().item()
+        assert worst <= 0, (route.name, worst)
