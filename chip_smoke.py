@@ -15,7 +15,13 @@ fused group->transfer kernel.  Elite also runs one dispatch unfused (held
 against the fused one) and one under batch-global sigma (held against
 the CPU), and Lite at embed width 128 (stage depth up to 2048, past the
 int8 kernel's one-slice K) serves one dispatch held bitwise against the
-CPU.  Then the decoder LM, tinyllama-1.1b at full width and depth in
+CPU.  The compression ladder and its neighbours each serve one dispatch
+of 32 clouds on the card and on the CPU: Table 1's M-1, M-3 and M-4
+(fused fp32; each rung's ``compress()`` report is printed), Fig. 4's
+W/A sweep at w4a4, w6a6, w4a8 and w8a16 (int8, bitwise), M-2 with the
+``ball`` grouper (the kNN kernel's radius fill) and the seg head on Lite
+(bitwise) and on Elite fused (50 part labels, as ShapeNetPart).  Then
+the decoder LM, tinyllama-1.1b at full width and depth in
 bf16 with random weights from a seed: the flash-attention and W8A16
 kernels against their plain versions at its shapes, a scoring forward of
 4 x 2048 tokens through the flash kernel held against the plain-attention
@@ -46,6 +52,11 @@ SRC = ROOT / "src"
 MAX_BATCH = 32
 N_QUEUE = 70
 N_CLASSES = 40
+# The seg head's classes: ShapeNetPart's 50 part labels (Yi et al. 2016).
+SEG_CLASSES = 50
+# The ball grouper's rows: the radius of repro_torch.api.registry's
+# builtin entry.
+BALL_RADIUS = 0.5
 SEED = 0
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit):
@@ -74,6 +85,9 @@ SOURCES = {"knn": "knn.cu", "int8_matmul": "int8_matmul.cu",
            "grouped_transfer": "grouped_transfer.cu",
            "w8_matmul": "w8_matmul.cu",
            "flash_attention": "flash_attention.cu"}
+# Rows of a kernel that the final line reports beside its main row, and
+# the launch count each reports (a count the wrapper keeps per variant).
+EXTRA_ROWS = {("knn", "ball"): "knn_ball", ("knn", "seg_upsample"): "knn_k1"}
 # The row of each kernel that the final line reports.
 MAIN_ROW = {"int8_matmul": "stage1_transfer",
             "fused_linear": "stage1_transfer", "w8_matmul": "decode",
@@ -301,6 +315,11 @@ def kernel_phase(torch, clouds):
         new = new.contiguous()
         rows[("knn", f"stage{s + 1}")] = knn_row(torch, new, cur.contiguous(),
                                                 16)
+        if s == 0:
+            # the ball query at the same shape: the fill against the plain
+            # version, and r2 = inf against the kNN indices
+            rows[("knn", "ball")] = knn_row(torch, new, cur.contiguous(), 16,
+                                            radius=BALL_RADIUS)
         cur = new
 
     # The three GEMM shapes of the check: Lite/M-2 stage-1 transfer,
@@ -401,30 +420,42 @@ def kernel_phase(torch, clouds):
     return emit_rows(rows)
 
 
-def knn_row(torch, q, p, k: int, launches: int = 20, reps: int = 15):
+def knn_row(torch, q, p, k: int, launches: int = 20, reps: int = 15,
+            radius=None):
     """The kNN kernel against its plain version (bitwise), then its device
     time (``graph_ms``; ``events_ms``: back-to-back windows) beside the
-    plain version's."""
+    plain version's.  With ``radius``, the ball query: also the count of
+    filled picks, and ``radius=inf`` held against the kNN indices."""
     from repro_torch.kernels import knn as knn_mod
     from repro_torch.kernels import ref
     bsz, n_s, c = q.shape
     n_p = p.shape[1]
-    got = knn_mod.knn_cuda(q, p, k)
-    want = ref.knn_ref(q, p, k)
+    got = knn_mod.knn_cuda(q, p, k, radius)
+    want = ref.knn_ref(q, p, k, radius)
     torch.cuda.synchronize()
-    check(torch.equal(got, want), f"knn B={bsz} S={n_s} N={n_p} k={k}: "
-                                  f"kernel indices differ from the plain "
-                                  f"version")
+    what = f"knn B={bsz} S={n_s} N={n_p} k={k} radius={radius}"
+    check(torch.equal(got, want), f"{what}: kernel indices differ from the "
+                                  f"plain version")
     del want
-    kernel = lambda: knn_mod.knn_cuda(q, p, k)  # noqa: E731
+    extra = {}
+    if radius is not None:
+        plain_knn = knn_mod.knn_cuda(q, p, k)
+        infinite = knn_mod.knn_cuda(q, p, k, float("inf"))
+        torch.cuda.synchronize()
+        check(torch.equal(infinite, plain_knn), f"{what}: radius=inf is not "
+                                                f"the kNN indices")
+        extra = dict(radius=radius, filled_picks=int((got != plain_knn).sum()),
+                     picks=got.numel(), inf_radius_equals_knn=True)
+    kernel = lambda: knn_mod.knn_cuda(q, p, k, radius)  # noqa: E731
     nbytes, nops = knn_work(bsz, n_s, n_p, c, k)
-    return dict(shape=f"B={bsz} S={n_s} N={n_p} C={c} k={k}",
+    return dict(shape=f"B={bsz} S={n_s} N={n_p} C={c} k={k}"
+                + (f" radius={radius}" if radius is not None else ""),
                 ms=graph_ms(torch, kernel, launches, reps),
                 events_ms=median_ms(torch, kernel, reps=reps),
-                plain_ms=median_ms(torch, lambda: ref.knn_ref(q, p, k),
+                plain_ms=median_ms(torch, lambda: ref.knn_ref(q, p, k, radius),
                                    reps=3, inner=1, warmup=0),
                 library_ms=None, max_abs_err=0.0, bytes=nbytes, ops=nops,
-                peak=FP32_OPS_PER_S)
+                peak=FP32_OPS_PER_S, **extra)
 
 
 def fps_row(torch, pts, n_samp: int, launches: int = 20, reps: int = 15):
@@ -482,6 +513,7 @@ def elite_kernel_phase(torch, clouds):
     dev = torch.device("cuda")
     b = MAX_BATCH
     cur = torch.from_numpy(clouds[:b]).to(dev)
+    xyz = cur
     rows, geo = {}, {}
     for s, n_samp in enumerate((512, 256, 128, 64)):
         # FPS and kNN at Elite's four stages: each kernel held bitwise
@@ -491,6 +523,8 @@ def elite_kernel_phase(torch, clouds):
         rows[("knn", f"elite_stage{s + 1}")] = knn_row(torch, new, cur, 16)
         geo[s] = (cur, idx, knn_mod.knn_cuda(new, cur, 16))
         cur = new
+    # the seg head's upsample: every input point's nearest stage-4 point
+    rows[("knn", "seg_upsample")] = knn_row(torch, xyz, cur, 1)
 
     # Past the old limits (kNN N <= 4842, FPS N <= 8192): one case each.
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
@@ -596,27 +630,33 @@ def elite_kernel_phase(torch, clouds):
 # ------------------------------------------------------------ serving --
 
 def counters():
+    """Each launch count: (wrapper, attribute).  ``knn_ball`` and
+    ``knn_k1`` are the kNN launches with a radius and at k = 1 (the seg
+    head's upsample), which the wrapper counts among its launches."""
     from repro_torch.kernels import (flash_attention, fps, fused_linear,
                                      grouped_transfer, int8_matmul, knn)
-    return {"knn": knn.knn_cuda, "int8_matmul": int8_matmul.int8_matmul_cuda,
-            "fused_linear": fused_linear.fused_linear_cuda,
-            "fps": fps.fps_cuda,
-            "grouped_transfer_stats":
-                grouped_transfer.grouped_transfer_stats_cuda,
-            "grouped_transfer": grouped_transfer.grouped_transfer_cuda,
-            "w8_matmul": int8_matmul.w8_matmul_cuda,
-            "flash_attention": flash_attention.flash_attention_cuda}
+    fns = {"knn": knn.knn_cuda, "int8_matmul": int8_matmul.int8_matmul_cuda,
+           "fused_linear": fused_linear.fused_linear_cuda,
+           "fps": fps.fps_cuda,
+           "grouped_transfer_stats":
+               grouped_transfer.grouped_transfer_stats_cuda,
+           "grouped_transfer": grouped_transfer.grouped_transfer_cuda,
+           "w8_matmul": int8_matmul.w8_matmul_cuda,
+           "flash_attention": flash_attention.flash_attention_cuda}
+    return {**{k: (f, "launches") for k, f in fns.items()},
+            "knn_ball": (knn.knn_cuda, "radius_launches"),
+            "knn_k1": (knn.knn_cuda, "k1_launches")}
 
 
 def counted(torch, fn):
     """Run ``fn`` with every launch count set to 0 just before it; return
     (its result, the counts just after)."""
-    fns = counters()
-    for f in fns.values():
-        f.launches = 0
+    cs = counters()
+    for f, attr in cs.values():
+        setattr(f, attr, 0)
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: f.launches for k, f in fns.items()}
+    return out, {k: getattr(f, attr) for k, (f, attr) in cs.items()}
 
 
 def expect_launches(name, launches, expect, dispatches=1):
@@ -627,12 +667,15 @@ def expect_launches(name, launches, expect, dispatches=1):
               f"dispatches, expected {per} per dispatch")
 
 
-def mapping_chain(torch, clouds, state, device, spec, k: int = 16):
-    """Sampler indices (URS or FPS) and per-stage kNN indices of one
-    dispatch, through the port's core functions on ``device`` (geometry
-    only)."""
+def mapping_chain(torch, clouds, state, device, spec):
+    """Sampler indices (URS or FPS) and per-stage neighbour indices (kNN,
+    or the ``ball`` grouper's query within its radius) of one dispatch,
+    and for the seg head the 1-NN upsample's, through the port's core
+    functions on ``device`` (geometry only)."""
+    from repro_torch.api import registry
     from repro_torch.core import knn, sampling
-    cur = torch.from_numpy(clouds).to(device)
+    radius = getattr(registry.GROUPERS.get(spec.grouper), "radius", None)
+    xyz = cur = torch.from_numpy(clouds).to(device)
     b = cur.shape[0]
     out = []
     for n_samp in spec.to_model_config().stage_samples:
@@ -642,8 +685,11 @@ def mapping_chain(torch, clouds, state, device, spec, k: int = 16):
             state, idx = sampling.urs_indices(state, cur.shape[1], n_samp)
             idx = idx.to(device)[None].expand(b, -1)
         new = sampling.gather_points(cur, idx)
-        out.append((idx.cpu(), knn.knn_batched(new, cur, k).cpu()))
+        out.append((idx.cpu(), knn.neighbor_index(new, cur, spec.k_neighbors,
+                                                  radius).cpu()))
         cur = new
+    if spec.head == "seg":
+        out.append((torch.zeros(0), knn.knn_batched(xyz, cur, 1).cpu()))
     return out
 
 
@@ -757,10 +803,10 @@ def mapping_bounds(torch, pipe, chunk, state):
         out[kind]["launches"] += 1
         out[kind]["bound_ms"] += work_bound_ms(nbytes, nops)
 
-    def knn_rec(samples, points, k):
+    def knn_rec(samples, points, k, radius=None):
         b, s, c = samples.shape
         add("knn", *knn_work(b, s, points.shape[1], c, k))
-        return knn(samples, points, k)
+        return knn(samples, points, k, radius)
 
     def fps_rec(points, n_samples):
         b, n, c = points.shape
@@ -975,6 +1021,148 @@ def lite_wide_phase(torch, clouds, gen):
           "int8_depths_past_1024": sorted(k for k in ks if k > 1024),
           "tolerance": "bitwise (Lite's contract)"})
     return launches
+
+
+def dispatch_phase(torch, name, spec, params, clouds, expect,
+                   atol_rel: float, why: str):
+    """One dispatch of MAX_BATCH clouds through ``PointCloudEngine`` on
+    the card, counted, held against the CPU engine (indices identical,
+    logits within ``atol_rel`` of max|logit|; 0 means bitwise), then
+    profiled.  Returns the launches."""
+    from repro_torch.serve.pointcloud import PointCloudEngine
+    clouds = clouds[:MAX_BATCH]
+    eng = PointCloudEngine(params, spec, max_batch=MAX_BATCH, seed=SEED)
+    cpu = PointCloudEngine(params, spec, max_batch=MAX_BATCH, seed=SEED,
+                           device="cpu")
+    check(eng.device.type == "cuda", f"{name}: engine is not on the card")
+    state0 = eng.lfsr_state
+    on_card = mapping_chain(torch, clouds, state0, "cuda", spec)
+    on_cpu = mapping_chain(torch, clouds, state0, "cpu", spec)
+    for s, ((gi, gn), (ci, cn)) in enumerate(zip(on_card, on_cpu)):
+        check(torch.equal(gi, ci), f"{name}: sampler indices differ at "
+                                   f"step {s}")
+        check(torch.equal(gn, cn), f"{name}: neighbour indices differ on "
+                                   f"the card at step {s}")
+    fills = None
+    if spec.grouper == "ball":
+        knn_nbr = mapping_chain(torch, clouds, state0, "cuda",
+                                spec.replace(grouper="knn"))
+        fills = [int((a[1] != b[1]).sum()) for a, b in zip(on_card, knn_nbr)]
+
+    logits, launches = counted(torch, lambda: eng.classify(clouds))
+    expect_launches(name, launches, expect, eng.stats.batches)
+    want = cpu.classify(clouds)
+    got = logits.cpu()
+    shape = ((len(clouds), spec.n_points, spec.n_classes)
+             if spec.head == "seg" else (len(clouds), spec.n_classes))
+    check(got.shape == shape and bool(torch.isfinite(got).all()),
+          f"{name}: logits not finite {list(shape)}")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    bitwise = bool(torch.equal(got, want))
+    check(bitwise if atol_rel == 0 else err <= atol_rel * scale,
+          f"{name}: card vs CPU max abs err {err} beyond "
+          f"{atol_rel or 'bitwise'} * {scale}")
+    full = torch.from_numpy(clouds).cuda()
+    prof = profile_dispatch(torch, eng.pipeline, full, state0)
+    emit({"phase": name, "spec": spec.name, "n_points": spec.n_points,
+          "grouper": spec.grouper, "head": spec.head,
+          "precision": f"{spec.precision} w{spec.w_bits}a{spec.a_bits}"
+          if spec.precision == "int8" else "fp32",
+          "dispatches": eng.stats.batches, "launches": launches,
+          "max_abs_err_vs_cpu": err, "max_abs_logit": scale,
+          "bitwise_vs_cpu": bitwise,
+          "tolerance": f"{atol_rel} * max|logit|" if atol_rel else "bitwise",
+          "why": why, "top1_agree": (got.argmax(-1) == want.argmax(-1))
+          .float().mean().item(), "ball_fills_per_stage": fills,
+          "serve_s": eng.stats.serve_s, "profile": prof})
+    return launches
+
+
+def add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] += v
+
+
+def ladder_phases(torch, np, rng, lite_params):
+    """Table 1's rungs M-1, M-3 and M-4 (fused fp32) and every rung's
+    ``compress()`` report; Fig. 4's sweep at w4a4, w6a6, w4a8 and w8a16
+    on Lite's topology (int8, bitwise); M-2 with the ``ball`` grouper;
+    the seg head on Lite and on Elite fused.  One dispatch each, on the
+    card and the CPU.  Returns the launches."""
+    from repro_torch.api.spec import (PipelineSpec, compression_ladder_specs,
+                                      elite_spec, lite_spec, m2_spec)
+    from repro_torch.core import compress
+    from repro_torch.models.pointmlp import pointmlp_init
+    total = {k: 0 for k in counters()}
+    gen = torch.Generator().manual_seed(SEED + 8)
+
+    reports = []
+    for cfg in compress.compression_ladder(N_CLASSES):
+        params = pointmlp_init(cfg, gen)
+        perturb_bn(torch, params, gen)
+        _, dcfg, rep = compress.compress(params, cfg)
+        reports.append({**rep.__dict__, "n_points": cfg.n_points,
+                        "deploy_quant": f"w{dcfg.quant.w_bits}a"
+                                        f"{dcfg.quant.a_bits}"
+                        if dcfg.quant.enabled else "fp32"})
+    emit({"phase": "ladder_compress", "reports": reports})
+
+    why_fp32 = ("indices are identical; each fp32 layer sums K <= 512 "
+                "products in another order than the CPU, compounded over 15 "
+                "layers, as for M-2")
+    ladder = {s.name: s for s in compression_ladder_specs(N_CLASSES)}
+    m2_params = None
+    for rung in ("M-1", "M-3", "M-4"):
+        spec = ladder[rung].serving().replace(backend="cuda")
+        params = pointmlp_init(spec.to_model_config(), gen)
+        perturb_bn(torch, params, gen)
+        m2_params = params
+        add_launches(total, dispatch_phase(
+            torch, f"ladder_{rung}", spec, params,
+            make_clouds(np, rng, MAX_BATCH, spec.n_points),
+            {"knn": 4, "fused_linear": 27}, 1e-4, why_fp32))
+
+    clouds = make_clouds(np, rng, MAX_BATCH, 512)
+    sweep = {c.name: c for c in compress.precision_sweep(N_CLASSES)}
+    for rung in ("M-2-w4a4", "M-2-w6a6", "M-2-w4a8", "M-2-w8a16"):
+        spec = PipelineSpec.from_model_config(sweep[rung]).serving().replace(
+            backend="cuda")
+        add_launches(total, dispatch_phase(
+            torch, f"precision_sweep_{rung}", spec, lite_params, clouds,
+            {"knn": 4, "int8_matmul": 28}, 0.0,
+            "bitwise (Lite's contract): exact int8 products, activations "
+            "quantized on each device alike (a_bits = 16 saturates into "
+            "int8 as XLA's cast does)"))
+
+    spec = m2_spec(N_CLASSES, grouper="ball").serving().replace(
+        backend="cuda")
+    add_launches(total, dispatch_phase(
+        torch, "ball", spec, m2_params, clouds,
+        {"knn": 4, "knn_ball": 4, "fused_linear": 27}, 1e-4,
+        "ball-query indices identical; fp32 layers as for M-2"))
+
+    spec = lite_spec(SEG_CLASSES, head="seg").serving().replace(
+        backend="cuda")
+    params = pointmlp_init(spec.to_model_config(), gen)
+    perturb_bn(torch, params, gen)
+    add_launches(total, dispatch_phase(
+        torch, "seg_lite", spec, params, clouds,
+        {"knn": 5, "knn_k1": 1, "int8_matmul": 28}, 0.0,
+        "bitwise (Lite's contract), the 1-NN upsample's indices "
+        "identical"))
+    spec = elite_spec(SEG_CLASSES, head="seg").serving().replace(
+        backend="cuda", fused_group="grouped_transfer")
+    params = pointmlp_init(spec.to_model_config(), gen)
+    perturb_bn(torch, params, gen)
+    add_launches(total, dispatch_phase(
+        torch, "seg_elite", spec, params,
+        make_clouds(np, rng, MAX_BATCH, ELITE_POINTS),
+        {"fps": 4, "knn": 5, "knn_k1": 1, "grouped_transfer_stats": 4,
+         "fused_linear": 23}, 1e-4,
+        "FPS, kNN and upsample indices identical; fp32 layers (fc1 at K = "
+        "1056) sum in another order than the CPU, as for Elite"))
+    return total
 
 
 # ---------------------------------------------------------------- LM ---
@@ -1346,6 +1534,7 @@ def lm_phases(torch, np):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch is missing; run it from the "
               "repository root", file=sys.stderr)
@@ -1385,7 +1574,7 @@ def main() -> int:
     lite = lite_spec(N_CLASSES).serving().replace(backend="cuda")
     params = pointmlp_init(lite.to_model_config(), gen)
     perturb_bn(torch, params, gen)
-    total = {k: 0 for k in REPLACES}
+    total = {k: 0 for k in counters()}
     got = serving_phase(
         torch, "lite", lite, params, clouds,
         expect={"knn": 4, "int8_matmul": 28},
@@ -1432,6 +1621,7 @@ def main() -> int:
         SEED + 6))
     for k, v in got.items():
         total[k] += v
+    add_launches(total, ladder_phases(torch, np, rng, params))
     del elite_params, params
     lm_rows, got = lm_phases(torch, np)
     rows.update(lm_rows)
@@ -1466,6 +1656,21 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "at": r["shape"], **extra})
+    for (name, label), count in EXTRA_ROWS.items():
+        r = rows[(name, label)]
+        check(total[count] > 0, f"{name} {label} was never launched on a "
+                                f"main path")
+        kernels.append({
+            "name": name, "row": label, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{SOURCES[name]}",
+            "replaces": REPLACES[name], "launches": total[count],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "at": r["shape"], "events_ms": r["events_ms"],
+            **{k: r[k] for k in ("filled_picks", "picks",
+                                 "inf_radius_equals_knn") if k in r}})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

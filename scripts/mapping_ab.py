@@ -65,10 +65,12 @@ def knn_caller(torch, fn, has_scratch, smp, pts, out, k):
     b, s, c = smp.shape
     n = pts.shape[1]
     scratch = (() if not has_scratch else (None, 0))
+    # the shipped launch function takes the ball's r2 (+inf: plain kNN)
+    r2 = (float("inf"),) if ctypes.c_float in fn.argtypes else ()
 
     def call():
         _build.check("knn", fn(smp.data_ptr(), pts.data_ptr(),
-                               out.data_ptr(), *scratch, b, s, n, c, k,
+                               out.data_ptr(), *scratch, b, s, n, c, k, *r2,
                                torch.cuda.current_stream().cuda_stream))
     return call
 

@@ -109,8 +109,9 @@ class FrozenPipeline:
         """Run the pipeline on ``pts`` [B, N, 3] (tensor or array).
 
         ``lfsr_state`` holds one LFSR stream per lane (URS specs); it is
-        advanced on the host.  Returns (logits [B, n_classes] on the
-        pipeline's device, advanced state as a CPU int64 tensor).
+        advanced on the host.  Returns (logits [B, n_classes], or [B,
+        n_points, n_classes] for the seg head, on the pipeline's device;
+        advanced state as a CPU int64 tensor).
         """
         from repro_torch.models import pointmlp as PM
         if isinstance(pts, np.ndarray):
@@ -154,9 +155,13 @@ class FrozenPipeline:
         return "\n".join([
             f"FrozenPipeline({s.name})",
             f"  topology  : {s.n_points} pts -> stages {cfg.stage_samples} "
-            f"x dims {cfg.stage_dims} -> {s.n_classes} classes",
+            f"x dims {cfg.stage_dims} -> {s.n_classes} classes"
+            + (" per point (seg head)" if s.head == "seg" else ""),
             f"  sampler   : {s.sampler}" + _sampler_note(s),
-            f"  grouper   : {s.grouper} (k={s.k_neighbors}, {s.affine_mode}"
+            f"  grouper   : {s.grouper} (k={s.k_neighbors}"
+            + (f", radius {self.grouper.radius}"
+               if hasattr(self.grouper, "radius") else "")
+            + f", {s.affine_mode}"
             + (", per-sample sigma)" if s.per_sample_norm else ")")
             + (f" fused with the transfer layer: {s.fused_group}"
                if s.fused_group != "none" else ""),

@@ -2,12 +2,13 @@
 
 The twin of ``repro.api.plan`` for the ported ops (``EmbedOp``,
 ``SampleOp``, ``GroupOp``, ``FusedGroupTransferOp``, ``CBROp``,
-``ResBlockOp``, ``PoolOp``, ``HeadOp``).  ``lower(spec, cfg)`` resolves
+``ResBlockOp``, ``PoolOp``, ``HeadOp``, ``SegHeadOp``).  ``lower(spec, cfg)`` resolves
 every CBR op's precision and backend (``stage_precision`` /
 ``stage_backend`` mixes included) into a bound backend callable and
 deployment :class:`QuantConfig`; with ``spec.fused_group`` set, each
 stage's ``GroupOp`` + transfer ``CBROp`` pair becomes one
-``FusedGroupTransferOp``.  The model walk (``repro_torch.models.
+``FusedGroupTransferOp``; with ``spec.head="seg"`` a ``SegHeadOp`` takes
+the place of the global pool and ``HeadOp``.  The model walk (``repro_torch.models.
 pointmlp._forward_impl``) interprets the plan.
 """
 from __future__ import annotations
@@ -101,6 +102,23 @@ class HeadOp:
                                                          default=None)
 
 
+@dataclasses.dataclass(frozen=True)
+class SegHeadOp:
+    """Per-point segmentation head (``spec.head="seg"``): in place of the
+    global ``PoolOp`` + :class:`HeadOp`, it max-pools the global
+    descriptor itself, upsamples the last stage's features to the input
+    points by 1-NN (the kNN kernel at k = 1), concatenates ``[embed,
+    upsampled, global]`` and runs the 3-layer classifier per point ->
+    ``[B, n_points, n_classes]``.  ``cached`` (replaying the upsample
+    index from a stream cache) stays False until streaming is ported."""
+    fc1: CBROp
+    fc2: CBROp
+    fc3_path: Tuple[Any, ...]
+    fc3_quant: Optional[QuantConfig] = dataclasses.field(compare=False,
+                                                         default=None)
+    cached: bool = False
+
+
 # ---------------------------------------------------------- StagePlan ---
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +131,7 @@ class StagePlan:
     precision: str                  # embed + head precision
     backend: str                    # embed + head backend key
     fused_group: str = "none"       # FUSED_OPS key, or "none"
+    head: str = "cls"               # "cls" | "seg" (SegHeadOp lowering)
 
     def cbr_ops(self) -> List[CBROp]:
         """Every CBR layer in execution order (fused transfers included)."""
@@ -124,7 +143,7 @@ class StagePlan:
                 out.append(op)
             elif isinstance(op, ResBlockOp):
                 out.extend((op.net1, op.net2))
-            elif isinstance(op, HeadOp):
+            elif isinstance(op, (HeadOp, SegHeadOp)):
                 out.extend((op.fc1, op.fc2))
         return out
 
@@ -154,7 +173,7 @@ class StagePlan:
             if s in fused:
                 row += f" [group->transfer fused: {self.fused_group}]"
             rows.append(row)
-        rows.append(f"head: cls/{self.precision}/{self.backend}")
+        rows.append(f"head: {self.head}/{self.precision}/{self.backend}")
         return "; ".join(rows)
 
 
@@ -202,7 +221,8 @@ def _quant_for(spec, precision: str,
 
 def _build_ops(cfg, make_cbr: Callable, head_quant: Optional[QuantConfig],
                fused_key: Optional[str] = None,
-               fused_fn: Optional[Callable] = None) -> Tuple[Any, ...]:
+               fused_fn: Optional[Callable] = None,
+               head: str = "cls") -> Tuple[Any, ...]:
     ops: List[Any] = [EmbedOp(make_cbr(("embed",), None, True))]
     for s in range(_N_STAGES):
         ops.append(SampleOp(stage=s, n_samples=cfg.stage_samples[s]))
@@ -224,10 +244,12 @@ def _build_ops(cfg, make_cbr: Callable, head_quant: Optional[QuantConfig],
                     net2=make_cbr(base + ("net2",), s, False)))
             if branch == "pre":
                 ops.append(PoolOp(stage=s, axis=2))
-    ops.append(PoolOp(stage=None, axis=1))
-    ops.append(HeadOp(fc1=make_cbr(("head", "fc1"), None, True),
-                      fc2=make_cbr(("head", "fc2"), None, True),
-                      fc3_path=("head", "fc3"), fc3_quant=head_quant))
+    head_cls = SegHeadOp if head == "seg" else HeadOp
+    if head != "seg":
+        ops.append(PoolOp(stage=None, axis=1))
+    ops.append(head_cls(fc1=make_cbr(("head", "fc1"), None, True),
+                        fc2=make_cbr(("head", "fc2"), None, True),
+                        fc3_path=("head", "fc3"), fc3_quant=head_quant))
     return tuple(ops)
 
 
@@ -253,7 +275,8 @@ def lower(spec, cfg) -> StagePlan:
 
     ops = _build_ops(cfg, make_cbr,
                      _quant_for(spec, spec.precision, spec.backend),
-                     fused_key=fused_key, fused_fn=fused_fn)
+                     fused_key=fused_key, fused_fn=fused_fn, head=spec.head)
     return StagePlan(name=spec.name, ops=ops, stage_precision=stage_prec,
                      stage_backend=stage_back, precision=spec.precision,
-                     backend=spec.backend, fused_group=fused_key)
+                     backend=spec.backend, fused_group=fused_key,
+                     head=spec.head)

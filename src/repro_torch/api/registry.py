@@ -123,6 +123,38 @@ def _knn_grouper(xyz, feats, idx, k: int, affine_params, mode: str,
                                  per_sample_norm=per_sample_norm)
 
 
+#: The ``ball`` grouper's radius.  The synthetic clouds live on
+#: unit-scale surfaces, where 0.5 covers k <= 16 neighbours in dense
+#: regions and clips far-side strays (``repro.api.registry``'s value);
+#: register another radius with :func:`make_ball_grouper`.
+DEFAULT_BALL_RADIUS = 0.5
+
+
+def make_ball_grouper(radius: float):
+    """A grouper doing ball query (radius + k cap) on the kNN kernel: the
+    k nearest, each outside ``radius`` replaced by the nearest (PointNet++
+    fill; ``radius=inf`` gives the ``knn`` entry's indices bit for bit).
+    Register it under a key of its own for another radius::
+
+        register_grouper("ball-0.2")(make_ball_grouper(0.2))
+    """
+    from repro_torch.core.knn import radius_sq
+    radius_sq(radius)         # raises unless radius > 0 (NaN too)
+
+    def ball_grouper(xyz, feats, idx, k: int, affine_params, mode: str,
+                     per_sample_norm: bool):
+        from repro_torch.core import knn as knn_core
+        return knn_core.group_points(xyz, feats, idx, k, affine_params,
+                                     mode, per_sample_norm=per_sample_norm,
+                                     radius=radius)
+
+    ball_grouper.radius = radius
+    return ball_grouper
+
+
+GROUPERS.register("ball")(make_ball_grouper(DEFAULT_BALL_RADIUS))
+
+
 # ------------------------------------------------- builtin backends -----
 
 @register_backend("ref")

@@ -7,6 +7,7 @@ on both sides.  The paper's ladder as data::
     elite_spec()   # FPS, learnable geometric affine, fp32, 1024 points
     m2_spec()      # URS, alpha/beta pruned, fp32, 512 points
     lite_spec()    # M-2 topology + int8 w8/a8 deployment
+    compression_ladder_specs()   # Table 1: Elite, M-1 .. M-4, Lite
 
 Backend keys: ``ref`` (plain PyTorch) and ``cuda`` (the hand-written
 kernels; the port's counterpart of ``pallas``).  ``fused_group=
@@ -19,7 +20,7 @@ ROADMAP.md item they wait for; a fused group whose preconditions fail
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 from repro_torch.kernels.tuning import DEFAULT_TUNING, KernelTuning
 
@@ -38,9 +39,9 @@ class PipelineSpec:
     (``repro_torch.api.registry``); ``precision`` / ``w_bits`` /
     ``a_bits`` / ``fuse`` are the deployment policy; ``shared_urs`` and
     ``per_sample_norm`` are the serving batch semantics (see
-    :meth:`serving`).  The streaming, sharding, seg-head and
-    async-policy fields exist so specs mirror the JAX ones; the slices
-    that run them are listed in ROADMAP.md.
+    :meth:`serving`).  The streaming, sharding and async-policy fields
+    exist so specs mirror the JAX ones; the slices that run them are
+    listed in ROADMAP.md.
     """
     name: str = "pointmlp-elite"
     # ---- topology (PointMLP walk) ----
@@ -187,12 +188,35 @@ class PipelineSpec:
             sampler=self.sampler, affine_mode=self.affine_mode,
             head=self.head, quant=quant)
 
+    @classmethod
+    def from_model_config(cls, cfg, **overrides) -> "PipelineSpec":
+        """Lift a :class:`PointMLPConfig` into a spec.
+
+        An enabled quant config maps to ``precision="int8"`` with its w/a
+        bits and scale policy kept exactly (so :meth:`to_model_config`
+        round-trips; ``build`` clamps w_bits to 8 at the export).  Pass
+        ``precision="fp32"`` in ``overrides`` to serve the fused-fp32
+        deployment of a quantized config.
+        """
+        fields = dict(
+            name=cfg.name, n_points=cfg.n_points, n_classes=cfg.n_classes,
+            embed_dim=cfg.embed_dim, k_neighbors=cfg.k_neighbors,
+            stage_expansion=cfg.stage_expansion, pre_blocks=cfg.pre_blocks,
+            pos_blocks=cfg.pos_blocks, res_expansion=cfg.res_expansion,
+            sampler=cfg.sampler, affine_mode=cfg.affine_mode,
+            head=cfg.head, precision="fp32")
+        if cfg.quant.enabled:
+            fields.update(precision="int8", w_bits=cfg.quant.w_bits,
+                          a_bits=cfg.quant.a_bits,
+                          per_channel=cfg.quant.per_channel,
+                          symmetric=cfg.quant.symmetric)
+        fields.update(overrides)
+        return cls(**fields)
+
 
 #: Spec values the port does not run yet, and the ROADMAP.md item each
 #: waits for.
 _WAITS = (
-    (lambda s: s.grouper == "ball", "grouper='ball'", "the `ball` grouper"),
-    (lambda s: s.head == "seg", "head='seg'", "the seg head"),
     (lambda s: s.stream, "stream=True", "the async/stream/fleet engines"),
     (lambda s: s.data_shards > 1, "data_shards > 1",
      "the async/stream/fleet engines (sharded dispatch)"),
@@ -254,3 +278,12 @@ def lite_spec(n_classes: int = 40, **overrides) -> PipelineSpec:
                   a_bits=8)
     fields.update(overrides)
     return m2_spec(n_classes).replace(**fields)
+
+
+def compression_ladder_specs(n_classes: int = 40) -> List[PipelineSpec]:
+    """The Table 1 ladder as specs: Elite, M-1 .. M-4, Lite, lifted from
+    ``repro_torch.core.compress.compression_ladder`` (imported here, when
+    called: ``core.compress`` sits above the models in the import graph)."""
+    from repro_torch.core.compress import compression_ladder
+    return [PipelineSpec.from_model_config(cfg)
+            for cfg in compression_ladder(n_classes)]

@@ -50,3 +50,17 @@ def fuse_pointmlp(params: Any, cfg: Any, eps: float = 1e-5
     """Whole-tree inference freeze: (fused params, ``cfg`` with
     ``use_bn=False``)."""
     return fuse_tree(params, eps), cfg.replace(use_bn=False)
+
+
+def count_bn_blocks(params: Any) -> int:
+    """The number of ``{"w", "b", "bn"}`` blocks in a param tree (what
+    :func:`fuse_tree` folds)."""
+    n = 0
+    if isinstance(params, dict):
+        if {"w", "b", "bn"} <= set(params):
+            n += 1
+        for v in params.values():
+            n += count_bn_blocks(v) if isinstance(v, (dict, list, tuple)) else 0
+    elif isinstance(params, (list, tuple)):
+        n += sum(count_bn_blocks(v) for v in params)
+    return n

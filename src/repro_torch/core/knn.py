@@ -4,8 +4,10 @@ The paper's kNN engine computes every sample-to-point distance into a
 distance buffer, then extracts the k nearest by repeatedly taking the
 argmin and overwriting the pick with the format's maximum.  This module
 is the composable form used by the model walk; ``knn``/``knn_batched``
-launch the hand-written kernel (``repro_torch.kernels.knn``) for CUDA
-tensors and run the plain version for CPU tensors.
+and the ball query (``ball_query``/``ball_query_batched``: the k nearest,
+each outside the radius replaced by the nearest) launch the hand-written
+kernel (``repro_torch.kernels.knn``) for CUDA tensors and run the plain
+version for CPU tensors.
 
 Distances are ``s2 - 2*cross + p2`` with ``s2``, ``p2`` and ``cross``
 each summed over the channels in order (x, then y, then z), one rounded
@@ -57,6 +59,27 @@ def knn_select(dist: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat(out, dim=-1)
 
 
+def radius_sq(radius: Optional[float]) -> float:
+    """The ball's squared radius as ``repro.core.knn.ball_query`` forms it
+    (the radius rounded to float32, squared in float32); +inf for None,
+    which is plain kNN."""
+    if radius is None:
+        return float("inf")
+    if not radius > 0:      # also rejects NaN
+        raise ValueError(f"ball-query radius must be positive, got "
+                         f"{radius!r}")
+    r = torch.tensor(radius, dtype=torch.float32)
+    return float(r * r)
+
+
+def ball_fill(dist: torch.Tensor, idx: torch.Tensor, r2: float
+              ) -> torch.Tensor:
+    """PointNet++'s fill: each pick of ``idx`` [..., S, k] whose distance
+    in ``dist`` [..., S, N] exceeds ``r2`` becomes pick 0, the nearest."""
+    sel = torch.gather(dist, -1, idx)
+    return torch.where(sel <= r2, idx, idx[..., :1])
+
+
 def knn_batched(samples: torch.Tensor, points: torch.Tensor, k: int
                 ) -> torch.Tensor:
     """[B, S, C], [B, N, C] -> [B, S, k] int64 (kernel on CUDA tensors)."""
@@ -67,6 +90,21 @@ def knn_batched(samples: torch.Tensor, points: torch.Tensor, k: int
 def knn(samples: torch.Tensor, points: torch.Tensor, k: int) -> torch.Tensor:
     """[S, C], [N, C] -> [S, k] nearest-neighbour indices."""
     return knn_batched(samples[None], points[None], k)[0]
+
+
+def ball_query_batched(samples: torch.Tensor, points: torch.Tensor, k: int,
+                       radius: float) -> torch.Tensor:
+    """Ball query: the k nearest, each one outside ``radius`` replaced by
+    the nearest (the kNN kernel's fill on CUDA tensors).  ``radius=inf``
+    is plain kNN, bit for bit.  [B, S, C], [B, N, C] -> [B, S, k]."""
+    from repro_torch.kernels import knn as knn_kernel
+    return knn_kernel.knn(samples, points, k, radius=radius)
+
+
+def ball_query(samples: torch.Tensor, points: torch.Tensor, k: int,
+               radius: float) -> torch.Tensor:
+    """[S, C], [N, C] -> [S, k] ball-query indices."""
+    return ball_query_batched(samples[None], points[None], k, radius)[0]
 
 
 def gather_neighbors(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -131,11 +169,11 @@ def normalize_group(grouped: torch.Tensor, centers: torch.Tensor,
 
 def neighbor_index(new_xyz: torch.Tensor, xyz: torch.Tensor, k: int,
                    radius: Optional[float] = None) -> torch.Tensor:
-    """The mapping half of the grouper: [B, S, 3], [B, N, 3] -> [B, S, k]."""
-    if radius is not None:
-        raise NotImplementedError(
-            "ball query waits for the `ball` grouper item of ROADMAP.md")
-    return knn_batched(new_xyz, xyz, k)
+    """The mapping half of the grouper: [B, S, 3], [B, N, 3] -> [B, S, k];
+    ``radius=None`` is plain kNN, a float the ball query."""
+    if radius is None:
+        return knn_batched(new_xyz, xyz, k)
+    return ball_query_batched(new_xyz, xyz, k, radius)
 
 
 def group_with_idx(xyz: torch.Tensor, feats: torch.Tensor,
@@ -160,10 +198,12 @@ def group_with_idx(xyz: torch.Tensor, feats: torch.Tensor,
 def group_points(xyz: torch.Tensor, feats: torch.Tensor,
                  sample_idx: torch.Tensor, k: int,
                  affine_params: Optional[dict], mode: str,
-                 per_sample_norm: bool = False
+                 per_sample_norm: bool = False,
+                 radius: Optional[float] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full local grouper: sample -> kNN -> gather -> normalize -> concat."""
+    """Full local grouper: sample -> kNN (or the ball query within
+    ``radius``) -> gather -> normalize -> concat."""
     sample_idx = sample_idx.to(xyz.device, torch.int64)
-    nbr_idx = neighbor_index(gather_points(xyz, sample_idx), xyz, k)
+    nbr_idx = neighbor_index(gather_points(xyz, sample_idx), xyz, k, radius)
     return group_with_idx(xyz, feats, sample_idx, nbr_idx, affine_params,
                           mode, per_sample_norm)

@@ -5,7 +5,9 @@
 // rounds of row argmin, each pick overwritten with the float maximum.
 // Output int64 [B, S, k] in ascending distance order, ties to the lowest
 // index (jnp.argmin's and torch.argmin's rule).  Any N, any 1 <= k <= N,
-// C <= 8 (the wrapper checks).
+// C <= 8 (the wrapper checks).  With a radius (r2 = radius^2, +inf for
+// plain kNN) it is also src/repro/core/knn.py's ball_query: a pick whose
+// distance exceeds r2 is replaced by pick 0 (PointNet++'s fill).
 //
 // What bounds it on the H100: operations, not bytes.  A dispatch reads
 // B*(S+N)*C floats and writes B*S*k indices, but does B*S*N*(2C+3)
@@ -45,6 +47,12 @@
 //   picks so far and the first candidate left if it is exactly FLT_MAX (or
 //   if there are no picks yet), and overwrites it with itself, so the
 //   kernel writes j* to the rest of the row, as knn_select does.
+// - The radius fill.  As each kernel writes out, it holds the distance of
+//   every pick as the key it selected on (a re-pick j* takes the key of
+//   the pick that first chose it), compares that key with key(r2), and
+//   writes pick 0's index where it is larger.  d <= r2 and key(d) <=
+//   key(r2) agree for every non-NaN d, so no distance is recomputed, and
+//   at r2 = +inf nothing is filled: plain kNN, bit for bit.
 // - Any other shape (N > 1024 or k > 32; no model's launch has one):
 //   knn_rounds_kernel runs the TPU kernel's algorithm, k rounds of argmin
 //   with each pick overwritten by FLT_MAX, one warp a query, its distance
@@ -61,6 +69,7 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
@@ -77,10 +86,13 @@ constexpr int SMEM_BYTES = 232448;       // dynamic shared memory a block
 constexpr unsigned KEY_FLT_MAX = 0xff7fffffu;   // key(FLT_MAX)
 constexpr u64 NONE = ~0ull;                     // no candidate
 
-__device__ __forceinline__ unsigned order_key(float d) {
-  unsigned u = __float_as_uint(d);
+__host__ __device__ __forceinline__ unsigned key_of_bits(unsigned u) {
   if (u == 0x80000000u) u = 0u;          // -0 -> +0
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ unsigned order_key(float d) {
+  return key_of_bits(__float_as_uint(d));
 }
 
 // sum_c a[c] * b[c], added left to right, each step rounded on its own.
@@ -119,7 +131,7 @@ template <int C>
 __global__ void __launch_bounds__(THREADS)
     knn_kernel(const float* __restrict__ samples,
                const float* __restrict__ points, int64_t* __restrict__ out,
-               int S, int N, int k, int qpw, int tcap) {
+               int S, int N, int k, int qpw, int tcap, unsigned kr2) {
   constexpr int M = SELECT_POINTS / 32;           // candidates a lane
   extern __shared__ __align__(16) unsigned char smem[];
   u64* gather = reinterpret_cast<u64*>(smem);              // [WARPS][32]
@@ -215,10 +227,10 @@ __global__ void __launch_bounds__(THREADS)
     }
     // Lane r holds pick r.  From the first pick not below FLT_MAX on, every
     // pick is the lowest index among the earlier picks and that one (if it
-    // is exactly FLT_MAX, or it is the first).
-    unsigned idx = (unsigned)v;
-    const unsigned big = __ballot_sync(
-        0xffffffffu, lane < k && (unsigned)(v >> 32) >= KEY_FLT_MAX);
+    // is exactly FLT_MAX, or it is the first), with that pick's key.
+    unsigned idx = (unsigned)v, key = (unsigned)(v >> 32);
+    const unsigned big =
+        __ballot_sync(0xffffffffu, lane < k && key >= KEY_FLT_MAX);
     if (big != 0u) {
       const int r0 = __ffs(big) - 1;
       const unsigned lowest =
@@ -226,20 +238,33 @@ __global__ void __launch_bounds__(THREADS)
       const u64 first = shfl(v, r0);
       const unsigned js = ((unsigned)(first >> 32) == KEY_FLT_MAX || r0 == 0)
                               ? min(lowest, (unsigned)first) : lowest;
-      if (lane >= r0) idx = js;
+      const unsigned holder = __ballot_sync(0xffffffffu,
+                                            lane < r0 && idx == js);
+      const unsigned held_key =
+          __shfl_sync(0xffffffffu, key, holder ? __ffs(holder) - 1 : 0);
+      if (lane >= r0) {
+        idx = js;
+        key = holder ? held_key : (unsigned)(first >> 32);
+      }
     }
+    const unsigned idx0 = __shfl_sync(0xffffffffu, idx, 0);
+    if (key > kr2) idx = idx0;                  // outside the ball
     if (lane < k) out[((size_t)lane_b * S + q) * k + lane] = idx;
   }
 }
 
 // N > SELECT_POINTS or k > SELECT_K: the k-round selection, one warp a
-// query, grid-strided.
+// query, grid-strided.  Each round writes (key << 32) | index to out: the
+// key of the pick's own distance, which a re-pick (selected at FLT_MAX,
+// its slot overwritten) finds at the round that first chose it; a last
+// pass over the row applies the radius fill and keeps the indices.
 template <int C>
 __global__ void __launch_bounds__(32 * ROUND_WARPS)
     knn_rounds_kernel(const float* __restrict__ samples,
                       const float* __restrict__ points,
                       int64_t* __restrict__ out, float* __restrict__ scratch,
-                      int B, int S, int N, int k, int row_in_smem) {
+                      int B, int S, int N, int k, int row_in_smem,
+                      unsigned kr2) {
   extern __shared__ float rows_sm[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gw = blockIdx.x * ROUND_WARPS + warp;
@@ -283,10 +308,26 @@ __global__ void __launch_bounds__(32 * ROUND_WARPS)
           best_j = oj;
         }
       }
-      if (lane == 0) o[r] = best_j;
+      if (lane == 0) {
+        unsigned key = order_key(best);
+        if (key >= KEY_FLT_MAX)                 // a re-pick keeps its key
+          for (int r1 = 0; r1 < r; ++r1)
+            if ((unsigned)o[r1] == (unsigned)best_j) {
+              key = (unsigned)((u64)o[r1] >> 32);
+              break;
+            }
+        o[r] = (int64_t)(((u64)key << 32) | (unsigned)best_j);
+      }
       if (best_j < N && (best_j % 32) == lane) row[best_j] = FLT_MAX;
       __syncwarp();
     }
+    const unsigned idx0 = (unsigned)o[0];
+    __syncwarp();                               // o[0] is rewritten below
+    for (int r = lane; r < k; r += 32) {
+      const u64 p = (u64)o[r];
+      o[r] = (unsigned)(p >> 32) > kr2 ? idx0 : (unsigned)p;
+    }
+    __syncwarp();
   }
 }
 
@@ -299,7 +340,8 @@ inline int queries_per_warp(int B, int S) {
 
 template <int C>
 int launch_select(const float* samples, const float* points, int64_t* out,
-                  int B, int S, int N, int k, cudaStream_t stream) {
+                  int B, int S, int N, int k, unsigned kr2,
+                  cudaStream_t stream) {
   const int tcap = (N + 31) / 32 * 32;
   const size_t smem = WARPS * 32 * sizeof(u64) +
                       (size_t)(C + 1) * tcap * sizeof(float);
@@ -309,14 +351,14 @@ int launch_select(const float* samples, const float* points, int64_t* out,
       knn_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   knn_kernel<C><<<grid, THREADS, smem, stream>>>(samples, points, out, S, N,
-                                                 k, qpw, tcap);
+                                                 k, qpw, tcap, kr2);
   return (int)cudaGetLastError();
 }
 
 template <int C>
 int launch_rounds(const float* samples, const float* points, int64_t* out,
                   float* scratch, long long scratch_floats, int B, int S,
-                  int N, int k, cudaStream_t stream) {
+                  int N, int k, unsigned kr2, cudaStream_t stream) {
   const long long queries = (long long)B * S;
   const int blocks = (int)std::min<long long>(
       (queries + ROUND_WARPS - 1) / ROUND_WARPS, ROUND_MAX_BLOCKS);
@@ -331,43 +373,56 @@ int launch_rounds(const float* samples, const float* points, int64_t* out,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   knn_rounds_kernel<C><<<blocks, 32 * ROUND_WARPS, smem, stream>>>(
-      samples, points, out, scratch, B, S, N, k, in_smem);
+      samples, points, out, scratch, B, S, N, k, in_smem, kr2);
   return (int)cudaGetLastError();
 }
 
 template <int C>
 int launch_c(const float* samples, const float* points, int64_t* out,
              float* scratch, long long scratch_floats, int B, int S, int N,
-             int k, cudaStream_t stream) {
+             int k, unsigned kr2, cudaStream_t stream) {
   if (k <= SELECT_K && N <= SELECT_POINTS)
-    return launch_select<C>(samples, points, out, B, S, N, k, stream);
+    return launch_select<C>(samples, points, out, B, S, N, k, kr2, stream);
   return launch_rounds<C>(samples, points, out, scratch, scratch_floats, B,
-                          S, N, k, stream);
+                          S, N, k, kr2, stream);
 }
 
 }  // namespace
 
 // samples f32 [B, S, C], points f32 [B, N, C] contiguous -> out int64
 // [B, S, k].  scratch: f32, at least 1056 * N floats when 4 * N floats
-// exceed a block's shared memory (N > 14528), else unused.
+// exceed a block's shared memory (N > 14528), else unused.  r2: the ball's
+// radius squared (> 0, or +inf for plain kNN; not NaN).
 extern "C" int knn_launch(const void* samples, const void* points, void* out,
                           void* scratch, long long scratch_floats, int B,
-                          int S, int N, int C, int k, void* stream) {
+                          int S, int N, int C, int k, float r2,
+                          void* stream) {
   const float* s = (const float*)samples;
   const float* p = (const float*)points;
   int64_t* o = (int64_t*)out;
   float* sc = (float*)scratch;
   cudaStream_t st = (cudaStream_t)stream;
-  if (k < 1 || k > N) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > N || !(r2 >= 0.0f)) return (int)cudaErrorInvalidValue;
+  unsigned r2_bits;
+  std::memcpy(&r2_bits, &r2, sizeof r2_bits);
+  const unsigned kr2 = key_of_bits(r2_bits);
   switch (C) {
-    case 1: return launch_c<1>(s, p, o, sc, scratch_floats, B, S, N, k, st);
-    case 2: return launch_c<2>(s, p, o, sc, scratch_floats, B, S, N, k, st);
-    case 3: return launch_c<3>(s, p, o, sc, scratch_floats, B, S, N, k, st);
-    case 4: return launch_c<4>(s, p, o, sc, scratch_floats, B, S, N, k, st);
-    case 5: return launch_c<5>(s, p, o, sc, scratch_floats, B, S, N, k, st);
-    case 6: return launch_c<6>(s, p, o, sc, scratch_floats, B, S, N, k, st);
-    case 7: return launch_c<7>(s, p, o, sc, scratch_floats, B, S, N, k, st);
-    case 8: return launch_c<8>(s, p, o, sc, scratch_floats, B, S, N, k, st);
+    case 1:
+      return launch_c<1>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
+    case 2:
+      return launch_c<2>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
+    case 3:
+      return launch_c<3>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
+    case 4:
+      return launch_c<4>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
+    case 5:
+      return launch_c<5>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
+    case 6:
+      return launch_c<6>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
+    case 7:
+      return launch_c<7>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
+    case 8:
+      return launch_c<8>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -43,7 +43,7 @@ P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
               ctypes.c_float)
 # name -> (C symbol, argtypes); every launch function returns an int.
 SIGNATURES: Dict[str, Tuple[str, list]] = {
-    "knn": ("knn_launch", [P, P, P, P, L, I, I, I, I, I, P]),
+    "knn": ("knn_launch", [P, P, P, P, L, I, I, I, I, I, F, P]),
     "int8_matmul": ("int8_matmul_launch", [P] * 5 + [I] * 5 + [P]),
     "fused_linear": ("fused_linear_launch", [P] * 4 + [I] * 5 + [P]),
     "fps": ("fps_launch", [P, P, P, L, I, I, I, P]),

@@ -1,15 +1,21 @@
 """kNN selection: the CUDA kernel ``csrc/knn.cu`` and its wrapper.
 
 The port of ``repro.kernels.knn.knn_pallas``, batched over lanes: one
-launch serves a whole dispatch, for any N and any 1 <= k <= N.
-:func:`knn` launches the kernel for CUDA tensors, runs
-:func:`repro_torch.kernels.ref.knn_ref` for CPU tensors, and raises on
-anything else.  ``knn_cuda.launches`` counts launches.
+launch serves a whole dispatch, for any N and any 1 <= k <= N.  Given a
+``radius`` the same launch is ``repro.core.knn.ball_query``: a pick
+farther than the radius becomes the nearest pick.  :func:`knn` launches
+the kernel for CUDA tensors, runs :func:`repro_torch.kernels.ref.knn_ref`
+for CPU tensors, and raises on anything else.  ``knn_cuda.launches``
+counts launches; ``radius_launches`` and ``k1_launches`` count those with
+a radius and those at k = 1 (the seg head's upsample) among them.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.core.knn import radius_sq
 from repro_torch.kernels import ref
 
 MAX_CHANNELS = 8
@@ -35,11 +41,13 @@ def _check(samples: torch.Tensor, points: torch.Tensor, k: int) -> None:
                          f"N={points.shape[1]}")
 
 
-def knn_cuda(samples: torch.Tensor, points: torch.Tensor, k: int
-             ) -> torch.Tensor:
-    """Launch the kNN kernel: [B, S, C], [B, N, C] f32 -> [B, S, k] int64."""
+def knn_cuda(samples: torch.Tensor, points: torch.Tensor, k: int,
+             radius: Optional[float] = None) -> torch.Tensor:
+    """Launch the kNN kernel: [B, S, C], [B, N, C] f32 -> [B, S, k] int64
+    (a ball query within ``radius``, if given)."""
     from repro_torch.kernels import _build
     _check(samples, points, k)
+    r2 = radius_sq(radius)
     b, s, c = samples.shape
     n = points.shape[1]
     if c > MAX_CHANNELS:
@@ -60,22 +68,28 @@ def knn_cuda(samples: torch.Tensor, points: torch.Tensor, k: int
     code = _build.launcher("knn")(
         samples.data_ptr(), points.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        0 if scratch is None else scratch.numel(), b, s, n, c, k, stream)
+        0 if scratch is None else scratch.numel(), b, s, n, c, k, r2, stream)
     _build.check("knn", code)
     knn_cuda.launches += 1
+    knn_cuda.radius_launches += int(radius is not None)
+    knn_cuda.k1_launches += int(k == 1)
     return out
 
 
-def knn(samples: torch.Tensor, points: torch.Tensor, k: int) -> torch.Tensor:
+def knn(samples: torch.Tensor, points: torch.Tensor, k: int,
+        radius: Optional[float] = None) -> torch.Tensor:
     """[B, S, C], [B, N, C] -> [B, S, k] int64 nearest-neighbour indices,
-    ascending distance, ties to the lowest index."""
+    ascending distance, ties to the lowest index; with ``radius``, each
+    pick farther than it replaced by pick 0."""
     if samples.is_cuda:
-        return knn_cuda(samples.contiguous(), points.contiguous(), k)
+        return knn_cuda(samples.contiguous(), points.contiguous(), k, radius)
     if samples.device.type == "cpu" and points.device.type == "cpu":
         _check(samples, points, k)
-        return ref.knn_ref(samples, points, k)
+        return ref.knn_ref(samples, points, k, radius)
     raise ValueError(f"knn: unsupported devices {samples.device} / "
                      f"{points.device}")
 
 
 knn_cuda.launches = 0
+knn_cuda.radius_launches = 0
+knn_cuda.k1_launches = 0

@@ -29,11 +29,15 @@ def quantize_activations(x: torch.Tensor, a_bits: int, lanes: int = 1):
     x [L * r, ..., K] -> (x_q int8 [M, K], a_scale f32 [lanes]); the
     arithmetic of ``repro.core.quant.compute_scale`` then ``quantize``,
     applied to each lane's slice (``lanes=1`` is one per-tensor scale).
+    The int8 cast saturates, as XLA's ``astype(jnp.int8)`` does: past
+    ``a_bits = 8`` the grid is wider than int8, and ``Tensor.to(int8)``
+    would wrap (CPU) or is undefined (CUDA) there.
     """
     qmin, qmax = qrange(a_bits)
     flat = x.reshape(lanes, -1)
     a_scale = compute_scale(flat, a_bits, axis=0).reshape(lanes)
-    x_q = torch.clamp(torch.round(flat / a_scale[:, None]), qmin, qmax)
+    x_q = torch.clamp(torch.round(flat / a_scale[:, None]), max(qmin, -128),
+                      min(qmax, 127))
     return x_q.to(torch.int8).reshape(-1, x.shape[-1]), a_scale
 
 

@@ -7,22 +7,29 @@ its plain version on the card.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
-from repro_torch.core.knn import (gather_neighbors, group_sigma, knn_select,
-                                  pairwise_sqdist)
+from repro_torch.core.knn import (ball_fill, gather_neighbors, group_sigma,
+                                  knn_select, pairwise_sqdist, radius_sq)
 
 ACTIVATIONS = ("relu", "gelu", "none")
 EPS = 1e-5                      # the normalization's eps (both terms)
 
 
-def knn_ref(samples: torch.Tensor, points: torch.Tensor, k: int
-            ) -> torch.Tensor:
+def knn_ref(samples: torch.Tensor, points: torch.Tensor, k: int,
+            radius: Optional[float] = None) -> torch.Tensor:
     """[..., S, C], [..., N, C] -> [..., S, k] int64 ascending-distance
     indices, the cross term summed elementwise in channel order (the
-    same rounding as the kNN kernel)."""
-    return knn_select(pairwise_sqdist(samples, points), k)
+    same rounding as the kNN kernel).  With ``radius``, the ball query
+    of ``repro.core.knn.ball_query``: a pick whose distance exceeds
+    ``radius_sq(radius)`` is replaced by pick 0."""
+    dist = pairwise_sqdist(samples, points)
+    idx = knn_select(dist, k)
+    if radius is None:
+        return idx
+    return ball_fill(dist, idx, radius_sq(radius))
 
 
 def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,

@@ -3,7 +3,8 @@
 Topology: pointwise-conv embedding -> 4 stages of (sample, kNN group
 with geometric-affine normalize, transfer CBR, pre residual blocks on
 [B,S,k,C], max-pool over k, pos residual blocks on [B,S,C]) -> global
-max-pool -> 3-layer classifier.  Elite (the paper's baseline) samples
+max-pool -> 3-layer classifier; or, with the seg head, per-point logits
+over ``[embed, last stage upsampled by 1-NN, global max]``.  Elite (the paper's baseline) samples
 with FPS, keeps the learnable affine (alpha, beta) and runs fp32 at
 1024 points; M-2 and Lite sample with URS at 512 points, with alpha and
 beta pruned.  The walk interprets the op plan of ``repro_torch.api.plan.
@@ -28,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.api import plan as stage_plan
+from repro_torch.core import knn as knn_core
 from repro_torch.core.quant import QuantConfig
 from repro_torch.models import layers as L
 
@@ -117,11 +119,11 @@ def pointmlp_init(cfg: PointMLPConfig, generator: torch.Generator) -> Dict:
         stages.append(st)
         c_prev = c_out
     params["stages"] = stages
-    if cfg.head != "cls":
-        raise NotImplementedError(
-            "the seg head waits for its item in ROADMAP.md")
+    # The seg head's fc1 takes the per-point concat [embed (E), upsampled
+    # last stage (C4), global max (C4)].
+    fc1_in = cfg.embed_dim + 2 * c_prev if cfg.head == "seg" else c_prev
     params["head"] = {
-        "fc1": _cbr_init(generator, c_prev, 512, cfg),
+        "fc1": _cbr_init(generator, fc1_in, 512, cfg),
         "fc2": _cbr_init(generator, 512, 256, cfg),
         "fc3": L.conv1d_init(generator, 256, cfg.n_classes, bias=True,
                              bn=False),
@@ -143,15 +145,17 @@ def _forward_impl(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Interpret ``plan`` over a batch of clouds (inference only).
 
-    Returns (logits [B, n_classes], advanced LFSR state).
+    Returns (logits [B, n_classes], or [B, n_points, n_classes] for the
+    seg head; advanced LFSR state).
     """
     def cbr(op, p, x):
         return op.fn(p, x, op.quant, op.act)
 
     cur_xyz, cur, idx, logits = xyz, None, None, None
+    embed = None
     for op in plan.ops:
         if isinstance(op, stage_plan.EmbedOp):
-            cur = cbr(op.cbr, params["embed"], xyz)
+            cur = embed = cbr(op.cbr, params["embed"], xyz)
         elif isinstance(op, stage_plan.SampleOp):
             idx, lfsr_state = sampler(cur_xyz, op.n_samples, lfsr_state,
                                       shared_urs)
@@ -179,6 +183,16 @@ def _forward_impl(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
             h = cbr(op.fc1, head["fc1"], cur)
             h = cbr(op.fc2, head["fc2"], h)
             logits = L.conv1d_apply(head["fc3"], h, quant=op.fc3_quant)
+        elif isinstance(op, stage_plan.SegHeadOp):
+            g = cur.amax(dim=1)                                 # [B, C4]
+            up_idx = knn_core.knn_batched(xyz, cur_xyz, 1)      # [B, N, 1]
+            up = knn_core.gather_neighbors(cur, up_idx)[:, :, 0, :]
+            h = torch.cat([embed, up,
+                           g[:, None, :].expand(-1, up.shape[1], -1)], dim=-1)
+            head = params["head"]
+            h = cbr(op.fc1, head["fc1"], h)
+            h = cbr(op.fc2, head["fc2"], h)
+            logits = L.conv1d_apply(head["fc3"], h, quant=op.fc3_quant)
         else:
             raise TypeError(f"unknown stage-plan op {type(op).__name__}")
     return logits, lfsr_state
@@ -195,7 +209,8 @@ def pointmlp_infer_with(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
     the plan once and calls this.  The whole batch runs as one dispatch
     (see the module docstring for the per-lane quantities).
 
-    Returns (logits [B, n_classes], advanced LFSR state).
+    Returns (logits [B, n_classes], or [B, n_points, n_classes] for the
+    seg head; advanced LFSR state).
     """
     with torch.inference_mode():
         return _forward_impl(params, cfg, xyz, lfsr_state, sampler=sampler,
@@ -222,7 +237,14 @@ def pointmlp_flops_breakdown(cfg: PointMLPConfig) -> Dict[str, int]:
         fl[f"stage{s + 1}.pos"] = (cfg.pos_blocks[s] * 2 * smp
                                    * (c * mid + mid * c))
         n, c_prev = smp, c
-    fl["head"] = 2 * (c_prev * 512 + 512 * 256 + 256 * cfg.n_classes)
+    if cfg.head == "seg":
+        # the 1-NN upsample's distances, then the classifier per point
+        n0 = cfg.n_points
+        fl["head"] = (2 * n0 * n * 3
+                      + 2 * n0 * ((cfg.embed_dim + 2 * c_prev) * 512
+                                  + 512 * 256 + 256 * cfg.n_classes))
+    else:
+        fl["head"] = 2 * (c_prev * 512 + 512 * 256 + 256 * cfg.n_classes)
     return {op: int(v) for op, v in fl.items()}
 
 

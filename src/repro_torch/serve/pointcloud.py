@@ -79,8 +79,8 @@ class PointCloudEngine:
 
     def classify(self, points) -> torch.Tensor:
         """Classify a ragged queue: [R, N, 3] (or a list of [N, 3] clouds)
-        -> logits [R, n_classes] on the engine's device; pad lanes are
-        computed but never returned.
+        -> logits [R, n_classes] (the seg head: [R, n_points, n_classes])
+        on the engine's device; pad lanes are computed but never returned.
 
         ``stats.serve_s`` times the dispatch loop up to a device sync;
         queue conversion, upload and padding land in ``stats.host_s``.
@@ -88,7 +88,10 @@ class PointCloudEngine:
         t_host = time.perf_counter()
         pts = batching.as_point_queue(points, self.cfg.n_points, self.device)
         if pts.shape[0] == 0:
-            return torch.zeros((0, self.cfg.n_classes), device=self.device)
+            per_point = ((self.cfg.n_points,) if self.cfg.head == "seg"
+                         else ())
+            return torch.zeros((0, *per_point, self.cfg.n_classes),
+                               device=self.device)
         r = pts.shape[0]
         chunks = self._chunk_queue(pts)
         self.stats.host_s += time.perf_counter() - t_host
@@ -105,7 +108,8 @@ class PointCloudEngine:
         return torch.cat(out, dim=0)
 
     def predict(self, points) -> torch.Tensor:
-        """Top-1 class ids [R] for a ragged queue."""
+        """Top-1 class ids for a ragged queue: [R], or [R, n_points] for
+        the seg head."""
         return torch.argmax(self.classify(points), dim=-1)
 
     def describe(self) -> str:

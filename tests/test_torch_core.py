@@ -272,6 +272,14 @@ class TestGrouping:
         np.testing.assert_allclose(pg.numpy(), n(jg), rtol=1e-5, atol=1e-6)
 
     def test_ball_radius_waits(self):
-        x = torch.zeros(1, 4, 3)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            knn.neighbor_index(x, x, 2, radius=0.5)
+        """The ball query no longer waits for its ROADMAP item:
+        ``neighbor_index(radius=)`` gives ``repro``'s indices (this input
+        has no distance near the radius or a tie)."""
+        rng = np.random.default_rng(9)
+        pts = rng.uniform(-1, 1, (2, 40, 3)).astype(np.float32)
+        smp = pts[:, :10]
+        got = knn.neighbor_index(t(smp), t(pts), 6, radius=0.5)
+        want = jknn.neighbor_index(jnp.asarray(smp), jnp.asarray(pts), 6,
+                                   radius=0.5)
+        np.testing.assert_array_equal(got.numpy(), n(want))
+        assert (got[..., 1:] == got[..., :1]).any()

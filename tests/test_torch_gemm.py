@@ -51,6 +51,13 @@ M2_SHAPES = {
     (8192, 16, 64): 1,
     (32, 512, 512): 1, (32, 512, 256): 1, (16384, 3, 32): 1}
 LITE_SHAPES = {**M2_SHAPES, (32, 256, 40): 1}
+# The seg head (n_classes = 50, ShapeNetPart's part labels) runs its
+# classifier per point: fc1 over [embed, upsampled, global] (K = 32 + 2 *
+# 512 = 1056), fc2, and fc3 at N = 50, in place of the cls head's rows.
+LITE_SEG_SHAPES = {
+    **{s: c for s, c in M2_SHAPES.items()
+       if s not in ((32, 512, 512), (32, 512, 256))},
+    (16384, 1056, 512): 1, (16384, 512, 256): 1, (16384, 256, 50): 1}
 ELITE_SHAPES = {
     (32768, 3, 32): 1, (262144, 64, 16): 1, (262144, 16, 64): 1,
     (16384, 64, 16): 1, (16384, 16, 64): 1, (131072, 128, 32): 1,
@@ -61,7 +68,8 @@ ELITE_SHAPES = {
     (32, 512, 256): 1}
 RAGGED = [(1, 1, 1), (77, 3, 33), (231, 40, 24), (1000, 100, 200),
           (300, 17, 130), (4097, 20, 500), (5, 1024, 7), (129, 48, 16)]
-ALL_SHAPES = sorted({*LITE_SHAPES, *ELITE_SHAPES, *RAGGED})
+ALL_SHAPES = sorted({*LITE_SHAPES, *LITE_SEG_SHAPES, *ELITE_SHAPES,
+                     *RAGGED})
 
 
 @pytest.fixture
@@ -219,7 +227,9 @@ def record_dispatch(monkeypatch, spec, n_points):
     pts = torch.from_numpy(
         rng.standard_normal((BATCH, n_points, 3)).astype(np.float32))
     logits, _ = pipe.infer(pts, pipe.seed_state(0, BATCH))
-    assert logits.shape == (BATCH, 40) and bool(torch.isfinite(logits).all())
+    want = ((BATCH, n_points, spec.n_classes) if spec.head == "seg"
+            else (BATCH, spec.n_classes))
+    assert logits.shape == want and bool(torch.isfinite(logits).all())
     return shapes
 
 
@@ -267,16 +277,19 @@ def test_grouped_transfer_template_at_elite_dispatch(monkeypatch):
     ("m2", m2_spec(40).serving(), 512, "fused_linear", M2_SHAPES),
     ("elite", elite_spec(40).serving().replace(
         fused_group="grouped_transfer"), 1024, "fused_linear",
-     ELITE_SHAPES)])
+     ELITE_SHAPES),
+    ("lite_seg", lite_spec(50, head="seg").serving(), 512, "int8_matmul",
+     LITE_SEG_SHAPES)])
 def test_dispatch_gemm_shapes(monkeypatch, name, spec, n_points, kernel,
                               want):
-    """A dispatch launches one GEMM kernel, 28 / 27 / 23 times, at
+    """A dispatch launches one GEMM kernel, 28 / 27 / 23 / 28 times, at
     exactly the shapes that the templates above are held to."""
     shapes = record_dispatch(monkeypatch, spec, n_points)
     assert {s[0] for s in shapes} == {kernel}
     got = collections.Counter(s[1:] for s in shapes)
     assert got == collections.Counter(want)
-    assert len(shapes) == {"lite": 28, "m2": 27, "elite": 23}[name]
+    assert len(shapes) == {"lite": 28, "m2": 27, "elite": 23,
+                           "lite_seg": 28}[name]
 
 
 # ------------------------------------------------------------- on card --
@@ -306,7 +319,12 @@ def int8_case(dev, m, k, n, lanes, seed, offset=0):
     # stage-4 transfer depth, several M tiles a block, a partial last
     # slice, and the scalar route
     (4096, 2048, 512, BATCH, 0), (4096, 2048, 2048, BATCH, 0),
-    (600, 1100, 72, 3, 0), (257, 1027, 40, 1, 0), (64, 4096, 128, 2, 1)])
+    (600, 1100, 72, 3, 0), (257, 1027, 40, 1, 0), (64, 4096, 128, 2, 1),
+    # the Lite seg head: fc1 at K = 1056 (a 32-byte last slice), fc3 at
+    # N = 50 (N % 4 != 0: the scalar route)
+    *[(m, k, n, BATCH, 0) for m, k, n in ((16384, 1056, 512),
+                                          (16384, 512, 256),
+                                          (16384, 256, 50))]])
 def test_int8_bitwise_on_card(cuda_device, m, k, n, lanes, offset):
     """Bitwise at every Lite shape and at ragged M, N and K, with
     rows_per_lane not a multiple of the row tile, unaligned x_q, and K
@@ -346,6 +364,25 @@ def test_fused_linear_tile_invariance_on_card(cuda_device, m, k, act):
         padded = ops.fused_linear(x, w_pad, b_pad, act)
         assert torch.equal(padded[:, :16], got)
     assert torch.equal(ops.fused_linear(x[5:6], w, b, act), got[5:6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(32768, 1056, 512), (32768, 512, 256),
+                                   (2048, 256, 50)])
+def test_fused_linear_seg_head_products_on_card(cuda_device, m, k, n):
+    """The Elite seg head's per-point fc1 (K = 1056) and fc2, and an
+    N = 50 product (the scalar route), within rtol = atol = 1e-5 of the
+    plain version, and a row alone bitwise equal to its row in the
+    batch."""
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g).to(cuda_device)
+    w = (torch.randn(k, n, generator=g) / k ** 0.5).to(cuda_device)
+    b = (0.1 * torch.randn(n, generator=g)).to(cuda_device)
+    assert fl_mod.template(m, k, n).vec == (n % 4 == 0)
+    got = ops.fused_linear(x, w, b, "relu")
+    torch.testing.assert_close(got, ref.fused_linear_ref(x, w, b, "relu"),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(ops.fused_linear(x[7:8], w, b, "relu"), got[7:8])
 
 
 @pytest.mark.cuda

@@ -4,10 +4,13 @@ CPU tests hold the plain versions (``repro_torch.kernels.ref.knn_ref`` and
 ``fps_ref``) to a numpy float32 evaluation in the same rounding order,
 hold the selection rule that ``csrc/knn.cu`` implements (a stable sort by
 (distance, index), then the float maximum's re-picks) to ``knn_select``,
-and check the wrappers' refusals and their mirror of the kernels' sizes.
+hold the ball query's fill (a pick farther than the radius becomes pick
+0, judged on the pick's own distance) to a numpy loop, and check the
+wrappers' refusals and their mirror of the kernels' sizes.
 
 Tests marked ``cuda`` run the kernels on the card and skip without one.
-They assert bitwise equality with the plain version and one launch.  The
+They assert bitwise equality with the plain version and one launch, with
+and without a radius (``radius=inf`` must give the kNN indices).  The
 file imports no JAX and nothing of ``repro``, so it also runs on a GPU
 machine without them::
 
@@ -25,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import knn as tknn
 from repro_torch.core.knn import knn_select
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import fps as fps_mod
@@ -37,6 +41,8 @@ FLT_MAX = np.finfo(F32).max
 LITE_KNN = [(256, 512), (128, 256), (64, 128), (32, 64)]
 ELITE_KNN = [(512, 1024), (256, 512), (128, 256), (64, 128)]
 ELITE_FPS = [(1024, 512), (512, 256), (256, 128), (128, 64)]
+# (S, N) of the seg head's 1-NN upsample (k = 1): Lite's, Elite's.
+SEG_UPSAMPLE = [(512, 32), (1024, 64)]
 
 
 @pytest.fixture
@@ -173,6 +179,63 @@ class TestKnnPlain:
         np.testing.assert_array_equal(select_like_kernel(d, k), want)
 
 
+class TestBallPlain:
+    @pytest.mark.parametrize("radius", [0.25, 1.0, 3.0])
+    @pytest.mark.parametrize("kind", ["normal", "grid"])
+    def test_knn_ref_radius_matches_numpy(self, radius, kind):
+        rng = np.random.default_rng(int(radius * 4))
+        pts = (grid_cloud(rng, 2, 70, 3, span=2) if kind == "grid"
+               else rng.standard_normal((2, 70, 3)).astype(F32))
+        smp = pts[:, :12] + F32(0.1) * rng.standard_normal(
+            (2, 12, 3)).astype(F32)
+        r2 = F32(radius) * F32(radius)
+        got = ref.knn_ref(t(smp), t(pts), 10, radius).numpy()
+        for b in range(2):
+            d = sqdist_numpy(smp[b], pts[b])
+            picks = knn_numpy(smp[b:b + 1], pts[b:b + 1], 10)[0]
+            want = np.where(np.take_along_axis(d, picks, 1) <= r2, picks,
+                            picks[:, :1])
+            np.testing.assert_array_equal(got[b], want)
+        if radius < 3:
+            assert (got[..., 1:] == got[..., :1]).any(), "no pick filled"
+
+    @pytest.mark.parametrize("k", [3, 8, 24])
+    def test_fill_judges_a_repick_by_its_own_distance(self, k):
+        """At the float maximum's re-picks (``knn_select``'s overwrite
+        rule) the fill reads the re-picked point's own distance: the
+        rule csrc/knn.cu implements with the key of the pick that first
+        chose it."""
+        rng = np.random.default_rng(k)
+        n = 24
+        rows = []
+        for finite in range(1, 9):      # row i: i + 1 finite distances
+            v = np.where(rng.random(n) < 0.5, FLT_MAX, np.inf).astype(F32)
+            v[rng.choice(n, finite, replace=False)] = rng.random(finite) * 4
+            rows.append(v)
+        d = np.stack(rows)
+        idx = knn_select(t(d), k).numpy()
+        got = tknn_ball_fill(d, idx, 2.0)
+        want = np.where(np.take_along_axis(d, idx, 1) <= F32(2), idx,
+                        idx[:, :1])
+        np.testing.assert_array_equal(got, want)
+        # where knn_select re-picks an earlier point, that pick is kept
+        # when its distance is inside the ball, unlike a test of the
+        # FLT_MAX it was selected at
+        assert ((d < FLT_MAX).sum(1) < k).any()
+
+    def test_radius_squared_in_float32(self):
+        assert tknn.radius_sq(None) == float("inf")
+        assert tknn.radius_sq(float("inf")) == float("inf")
+        assert tknn.radius_sq(0.1) == float(F32(0.1) * F32(0.1))
+        assert tknn.radius_sq(0.1) != 0.1 * 0.1
+        with pytest.raises(ValueError, match="positive"):
+            tknn.radius_sq(float("nan"))
+
+
+def tknn_ball_fill(d, idx, r2):
+    return tknn.ball_fill(t(d), t(idx), r2).numpy()
+
+
 class TestFpsPlain:
     @pytest.mark.parametrize("kind", ["normal", "padded", "duplicates",
                                       "grid"])
@@ -220,6 +283,8 @@ class TestWrappers:
             knn_mod.knn_cuda(x.double(), x.double(), 2)
         with pytest.raises(ValueError, match="unsupported devices"):
             knn_mod.knn(x.to("meta"), x.to("meta"), 2)
+        with pytest.raises(ValueError, match="radius must be positive"):
+            knn_mod.knn_cuda(x, x, 2, radius=-1.0)
 
     def test_fps_refusals(self):
         with pytest.raises(ValueError, match=r"C = 3"):
@@ -268,10 +333,11 @@ class TestWrappers:
             text = (_build.CSRC / f"{name}.cu").read_text()
             params = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)",
                                text).group(1).split(",")
-            kinds = [("P" if "*" in p else "L" if "long long" in p else "I")
-                     for p in params]
+            kinds = [("P" if "*" in p else "L" if "long long" in p
+                      else "F" if "float" in p else "I") for p in params]
             want = [{ctypes.c_void_p: "P", ctypes.c_longlong: "L",
-                     ctypes.c_int: "I"}[a] for a in argtypes]
+                     ctypes.c_int: "I", ctypes.c_float: "F"}[a]
+                    for a in argtypes]
             assert kinds == want, name
 
     @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
@@ -313,13 +379,17 @@ def knn_case(dev, b, s, n, c, seed, grid=False):
     return t(smp).to(dev), t(pts).to(dev)
 
 
-def assert_knn_kernel(smp, pts, k):
+def assert_knn_kernel(smp, pts, k, radius=None):
     before = knn_mod.knn_cuda.launches
-    got = knn_mod.knn(smp, pts, k)
+    before_radius = knn_mod.knn_cuda.radius_launches
+    got = knn_mod.knn(smp, pts, k, radius)
     torch.cuda.synchronize()
     assert knn_mod.knn_cuda.launches == before + 1
-    want = ref.knn_ref(smp, pts, k)
+    assert knn_mod.knn_cuda.radius_launches == before_radius + (
+        radius is not None)
+    want = ref.knn_ref(smp, pts, k, radius)
     assert torch.equal(got, want), (got != want).nonzero()[:5]
+    return got
 
 
 @pytest.mark.cuda
@@ -372,6 +442,47 @@ def test_knn_float_maximum_and_ties_on_card(cuda_device, k):
     # integer grid, samples on grid points: exact ties and d = 0
     smp_t, pts_t = knn_case(cuda_device, 4, 50, n, 3, seed=k, grid=True)
     assert_knn_kernel(smp_t, pts_t, min(k, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [0.1, 0.5, float("inf")])
+@pytest.mark.parametrize("s,n,k", [
+    *[(s, n, 16) for s, n in LITE_KNN + ELITE_KNN],
+    *[(s, n, 1) for s, n in SEG_UPSAMPLE],
+    (40, 4843, 16), (40, 1000, 48), (8, 2000, 2000)])
+def test_knn_radius_on_card(cuda_device, radius, s, n, k):
+    """The ball query's fill in both kernels (knn_kernel; past N = 1024
+    or k = 32 the k-round kernel), bitwise against the plain version; at
+    radius = inf the plain kNN indices."""
+    smp, pts = knn_case(cuda_device, 32 if n <= 1024 else 2, s, n, 3,
+                        seed=s + n + k)
+    smp, pts = 0.5 * smp, 0.5 * pts              # radii of a few picks
+    got = assert_knn_kernel(smp, pts, k, radius)
+    plain = knn_mod.knn_cuda(smp, pts, k)
+    if radius == float("inf"):
+        assert torch.equal(got, plain)
+    elif k > 1 and radius < 0.5:
+        assert bool((got != plain).any()), "the radius filled no pick"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 8, 16, 40, 100])
+def test_knn_radius_at_the_float_maximum_on_card(cuda_device, k):
+    """Re-picks at FLT_MAX keep or fill by the re-picked point's own
+    distance (the key of the pick that first chose it), in both
+    kernels."""
+    n = 120
+    rng = np.random.default_rng(k + 1)
+    x_max, y_max = F32(1.8446743e19), F32(4.503599e15)
+    pts = grid_cloud(rng, 4, n, 3, span=2)
+    kind = rng.integers(0, 3, (4, n))
+    kind[3] = np.where(rng.random(n) < 0.9, 2, 0)   # few finite points
+    for b in range(4):
+        pts[b, kind[b] == 1] = (x_max, y_max, 0)
+        pts[b, kind[b] == 2] = (F32(3e19), 0, 0)
+    smp = np.zeros((4, 6, 3), F32)
+    assert_knn_kernel(t(smp).to(cuda_device), t(pts).to(cuda_device), k,
+                      radius=2.0)
 
 
 def assert_fps_kernel(pts, s):

@@ -348,9 +348,6 @@ class TestSpecAndDevice:
         assert elite_spec().sampler == "fps"
 
     @pytest.mark.parametrize("over,item", [
-        (dict(grouper="ball"), "ball"),
-        (dict(grouper="ball", fused_group="grouped_transfer"), "ball"),
-        (dict(head="seg"), "seg head"),
         (dict(stream=True), "stream"),
         (dict(data_shards=2), "sharded"),
         (dict(kernel_tuning=KernelTuning(knn=64)), "Tuning"),
@@ -361,15 +358,35 @@ class TestSpecAndDevice:
             build(tiny(m2_spec, **over), from_numpy_tree(raw_params),
                   device="cpu")
 
+    @pytest.mark.parametrize("over,shape", [
+        (dict(grouper="ball"), (B, 8)),
+        (dict(head="seg"), (B, 128, 8)),
+    ])
+    def test_ball_and_seg_build_and_infer(self, raw_params, clouds, over,
+                                          shape):
+        """The `ball` grouper and the seg head, once refused here, now
+        build and infer on the CPU (their parity with JAX is in
+        ``test_torch_ladder``)."""
+        if "head" in over:
+            cfg = tiny(m2_spec, **over).to_model_config()
+            params = TPM.pointmlp_init(cfg, torch.Generator().manual_seed(0))
+        else:
+            params = from_numpy_tree(raw_params)
+        pipe = build(tiny(m2_spec, **over), params, device="cpu")
+        logits, _ = pipe.infer(clouds, pipe.seed_state(SEED, B))
+        assert logits.shape == shape and bool(torch.isfinite(logits).all())
+
     @pytest.mark.parametrize("over,exc,match", [
+        (dict(grouper="ball"), ValueError, r"RPA010.*grouper='ball'"),
         (dict(precision="int8"), ValueError, r"RPA011.*fp32"),
         (dict(fuse=False), ValueError, r"RPA012.*fuse=True"),
         (dict(stream=True), NotImplementedError, r"stream.*ROADMAP"),
     ])
     def test_fused_group_rejections(self, raw_params, over, exc, match):
         """The fused group->transfer lowering's preconditions (the JAX
-        package's RPA010-012) name the field to change; stream specs
-        still wait for their ROADMAP item."""
+        package's RPA010-012: the kNN grouper, fp32 transfers, folded BN)
+        name the field to change; stream specs still wait for their
+        ROADMAP item."""
         spec = tiny(m2_spec, fused_group="grouped_transfer", **over)
         with pytest.raises(exc, match=f"(?s){match}"):
             build(spec, from_numpy_tree(raw_params), device="cpu")
