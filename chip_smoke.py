@@ -20,8 +20,18 @@ of 32 clouds on the card and on the CPU: Table 1's M-1, M-3 and M-4
 (fused fp32; each rung's ``compress()`` report is printed), Fig. 4's
 W/A sweep at w4a4, w6a6, w4a8 and w8a16 (int8, bitwise), M-2 with the
 ``ball`` grouper (the kNN kernel's radius fill) and the seg head on Lite
-(bitwise) and on Elite fused (50 part labels, as ShapeNetPart).  Then
-the decoder LM, tinyllama-1.1b at full width and depth in
+(bitwise) and on Elite fused (50 part labels, as ShapeNetPart).  The
+serving engines follow: Lite through ``AsyncPointCloudEngine`` (the
+deadline policy, clouds submitted one at a time; every future bitwise
+against its cloud's solo dispatch and the CPU engine; the host syncs of
+a dispatch; the idle share beside the sync engine's), three stream
+sessions of drifting frames with a scene cut and a reset (Lite with FPS,
+Lite's seg head, Elite unfused with an eviction age: bitwise against
+``replay_reference``, hit decisions as on the CPU, no mapping kernel on a
+hit, Lite bitwise again through the async engine), and README.md's fleet
+of a Lite and an Elite tier (a burst that sheds, every admitted future
+bitwise against its tier's solo dispatch, and a stream session through
+the fleet).  Then the decoder LM, tinyllama-1.1b at full width and depth in
 bf16 with random weights from a seed: the flash-attention and W8A16
 kernels against their plain versions at its shapes, a scoring forward of
 4 x 2048 tokens through the flash kernel held against the plain-attention
@@ -693,10 +703,10 @@ def mapping_chain(torch, clouds, state, device, spec):
     return out
 
 
-def profile_call(torch, fn):
-    """Run ``fn`` once to warm up, then once under torch.profiler: (host
-    wall ms of the profiled call, device us per kernel name, device
-    events: kernel launches and copies)."""
+def profile_call(torch, fn, reps: int = 1):
+    """Run ``fn`` once to warm up, then ``reps`` times under
+    torch.profiler: per call, (host wall ms, device us per kernel name,
+    device events: kernel launches and copies)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -704,9 +714,10 @@ def profile_call(torch, fn):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
     by_name, events = {}, 0
     for ev in prof.key_averages():
         # device-side events only (kernels, copies): the aten op rows
@@ -715,8 +726,8 @@ def profile_call(torch, fn):
             continue
         us = getattr(ev, "self_device_time_total", 0) or 0
         if us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0) + us
-            events += ev.count
+            by_name[ev.key] = by_name.get(ev.key, 0) + us / reps
+            events += ev.count / reps
     return wall_ms, by_name, events
 
 
@@ -936,7 +947,7 @@ def elite_variants_phase(torch, fused_spec, params, clouds):
     (got, _), launches = counted(
         torch, lambda: unfused.infer(full, state.clone()))
     expect_launches("elite unfused", launches,
-                    {"fps": 4, "knn": 4, "fused_linear": 27})
+                    {"fps": 4, "knn": 4, "fused_linear": 28})
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
     check(err <= 1e-5 * scale, f"elite: unfused vs fused max abs err {err} "
@@ -956,7 +967,7 @@ def elite_variants_phase(torch, fused_spec, params, clouds):
         torch, lambda: pipe.infer(full, state.clone()))
     expect_launches("elite batch sigma", launches,
                     {"fps": 4, "knn": 4, "grouped_transfer": 4,
-                     "fused_linear": 23})
+                     "fused_linear": 24})
     want, _ = build(batch_spec, params, device="cpu").infer(full.cpu(),
                                                             state.clone())
     got = got.cpu()
@@ -1121,7 +1132,7 @@ def ladder_phases(torch, np, rng, lite_params):
         add_launches(total, dispatch_phase(
             torch, f"ladder_{rung}", spec, params,
             make_clouds(np, rng, MAX_BATCH, spec.n_points),
-            {"knn": 4, "fused_linear": 27}, 1e-4, why_fp32))
+            {"knn": 4, "fused_linear": 28}, 1e-4, why_fp32))
 
     clouds = make_clouds(np, rng, MAX_BATCH, 512)
     sweep = {c.name: c for c in compress.precision_sweep(N_CLASSES)}
@@ -1139,7 +1150,7 @@ def ladder_phases(torch, np, rng, lite_params):
         backend="cuda")
     add_launches(total, dispatch_phase(
         torch, "ball", spec, m2_params, clouds,
-        {"knn": 4, "knn_ball": 4, "fused_linear": 27}, 1e-4,
+        {"knn": 4, "knn_ball": 4, "fused_linear": 28}, 1e-4,
         "ball-query indices identical; fp32 layers as for M-2"))
 
     spec = lite_spec(SEG_CLASSES, head="seg").serving().replace(
@@ -1159,10 +1170,442 @@ def ladder_phases(torch, np, rng, lite_params):
         torch, "seg_elite", spec, params,
         make_clouds(np, rng, MAX_BATCH, ELITE_POINTS),
         {"fps": 4, "knn": 5, "knn_k1": 1, "grouped_transfer_stats": 4,
-         "fused_linear": 23}, 1e-4,
+         "fused_linear": 24}, 1e-4,
         "FPS, kNN and upsample indices identical; fp32 layers (fc1 at K = "
         "1056) sum in another order than the CPU, as for Elite"))
     return total
+
+
+# ----------------------------------------------- async, stream, fleet --
+
+# Stream sessions: frames a session serves, the frame of its scene cut
+# (+1.0 in x) and of its reset(), the drift threshold of README.md's
+# stream spec, and the Elite session's eviction age.
+STREAM_FRAMES, STREAM_CUT, STREAM_RESET = 32, 16, 24
+STREAM_THRESHOLD = 0.05
+ELITE_MAX_AGE = 8
+# The async phase's Lite deadline and the fleet of README.md's "Fleet
+# serving" section.
+ASYNC_SLO_MS = 50.0
+ASYNC_QUEUES = 5
+FLEET_BATCH, FLEET_REPLICAS, LIDAR_INFLIGHT, LIDAR_SLO_MS = 8, 2, 8, 20.0
+
+
+def rigid_frames(np, rng, n_points: int):
+    """STREAM_FRAMES frames of one synthetic cloud, each the last turned
+    by 0.004 rad about z and shifted by 0.002 of a normal draw (at most
+    about 0.015 of displacement a frame on these clouds, well under
+    STREAM_THRESHOLD), with a scene cut of +1.0 in x at STREAM_CUT."""
+    cur = make_clouds(np, rng, 1, n_points)[0]
+    c, s = np.cos(0.004), np.sin(0.004)
+    rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    frames = []
+    for i in range(STREAM_FRAMES):
+        if i == STREAM_CUT:
+            cur = cur + np.float32([1.0, 0.0, 0.0])
+        frames.append(np.ascontiguousarray(cur, np.float32))
+        cur = (cur @ rot.T + 0.002 * rng.standard_normal(3)).astype(
+            np.float32)
+    return frames
+
+
+def host_syncs(torch, fn):
+    """Run ``fn`` under CUDA's sync debug mode and the profiler: (the
+    synchronizing calls PyTorch reports, and per name the CUDA runtime
+    calls that block the host; the profiler's own start adds some, which
+    a window around ``lambda: None`` shows)."""
+    import warnings
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    reported = sum("synchroniz" in str(w.message) for w in caught)
+    blocking = {ev.key: ev.count for ev in prof.key_averages()
+                if ev.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                              "cudaEventSynchronize", "cudaMemcpy")}
+    return reported, blocking
+
+
+def solo_logits(torch, pipe, cloud, max_batch):
+    """A cloud served alone: zero-padded to ``max_batch``, from the seed
+    LFSR state, on the pipeline's device."""
+    from repro_torch.serve.batching import pad_to_batch
+    batch, _ = pad_to_batch(torch.from_numpy(cloud[None]), max_batch)
+    logits, _ = pipe.infer(batch, pipe.seed_state(SEED, max_batch))
+    return logits[0]
+
+
+def percentiles(np, values):
+    lat = np.asarray(values, np.float64)
+    return {"p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99))}
+
+
+def async_phase(torch, np, params, clouds, smi):
+    """Lite (int8) through ``AsyncPointCloudEngine`` at MAX_BATCH with the
+    deadline policy: the clouds submitted one at a time and pumped
+    without blocking, on the real clock.  Every future is held bitwise
+    against its cloud's solo dispatch on the card and against the CPU
+    port's async engine.  Returns the launches."""
+    from repro_torch.api.spec import lite_spec
+    from repro_torch.serve.async_engine import AsyncPointCloudEngine
+    from repro_torch.serve.pointcloud import PointCloudEngine
+    t_phase = time.perf_counter()
+    spec = lite_spec(N_CLASSES).serving(
+        policy="deadline", slo_ms=ASYNC_SLO_MS).replace(backend="cuda")
+    eng = AsyncPointCloudEngine.from_params(params, spec,
+                                            max_batch=MAX_BATCH, seed=SEED)
+    check(eng.device.type == "cuda", "async: engine is not on the card")
+    warm_s = eng.warmup()
+
+    def serve():
+        futs = []
+        for cloud in clouds:
+            futs.append(eng.submit(cloud))
+            eng.pump(block=False)
+        while eng.pending:
+            eng.pump(block=False)
+        return futs
+
+    eng.reset_stats()
+    t0 = time.perf_counter()
+    futs, launches = counted(torch, serve)
+    wall_s = time.perf_counter() - t0
+    dispatches = eng.stats.batches
+    expect_launches("async", launches, {"knn": 4, "int8_matmul": 28},
+                    dispatches)
+    stats = dict(eng.stats.__dict__, samples_per_s=eng.stats.samples_per_s)
+    lat = percentiles(np, eng.latencies_ms)
+
+    for i, (cloud, fut) in enumerate(zip(clouds, futs)):
+        check(torch.equal(fut.result(),
+                          solo_logits(torch, eng.pipeline, cloud, MAX_BATCH)),
+              f"async: request {i} differs from its solo dispatch")
+    cpu = AsyncPointCloudEngine.from_params(params, spec, device="cpu",
+                                            max_batch=MAX_BATCH, seed=SEED)
+    cfuts = [cpu.submit(c) for c in clouds]
+    cpu.flush()
+    for i, (fut, cfut) in enumerate(zip(futs, cfuts)):
+        check(torch.equal(fut.result().cpu(), cfut.result()),
+              f"async: request {i} differs from the CPU port's")
+
+    # One dispatch of MAX_BATCH clouds: its host syncs.
+    for cloud in clouds[:MAX_BATCH]:
+        eng.submit(cloud)
+    reported, blocking = host_syncs(torch, lambda: eng.pump(block=False))
+    eng.flush()
+    _, blocking_empty = host_syncs(torch, lambda: None)
+
+    def burst():
+        for cloud in clouds:
+            eng.submit(cloud)
+        eng.flush()
+
+    # The async engine beside the sync engine on the same queue: device
+    # idle share under the profiler, and samples/s (each engine's own
+    # serve_s) over ASYNC_QUEUES queues a turn, in turns: the async engine
+    # as above ("async": its tail waits out the deadline, the card idle),
+    # the sync engine, and the async engine given the whole queue at once
+    # and flushed ("async_burst": no wait).
+    prof_async = profile_summary(*profile_call(torch, serve))
+    sync = PointCloudEngine(params, spec, max_batch=MAX_BATCH, seed=SEED)
+    sync.warmup()
+    prof_sync = profile_summary(*profile_call(
+        torch, lambda: sync.classify(clouds)))
+    turns = {"async": [], "sync": [], "async_burst": []}
+    runs = {"async": serve, "async_burst": burst,
+            "sync": lambda: sync.classify(clouds)}
+    for kind in ("async", "sync", "async_burst", "async_burst", "sync",
+                 "async"):
+        engine = sync if kind == "sync" else eng
+        engine.stats.reset()
+        for _ in range(ASYNC_QUEUES):
+            runs[kind]()
+        turns[kind].append(engine.stats.samples_per_s)
+    emit({"phase": "async_lite", "card": smi, "policy": eng.policy.describe(),
+          "max_batch": MAX_BATCH, "requests": len(clouds),
+          "dispatches": dispatches, "launches": launches,
+          "warmup_s": warm_s, "wall_s": wall_s,
+          "wall_samples_per_s": len(clouds) / wall_s, **stats,
+          "per_request": lat,
+          "bitwise_vs_solo_dispatch": True, "bitwise_vs_cpu_engine": True,
+          "host_syncs_per_dispatch": {
+              "sync_debug_mode": reported,
+              "blocking_runtime_calls": blocking,
+              "blocking_runtime_calls_empty_window": blocking_empty},
+          "device_ms": prof_async["device_ms"],
+          "idle_share": prof_async["idle_share"],
+          "sync_engine": {"device_ms": prof_sync["device_ms"],
+                          "idle_share": prof_sync["idle_share"]},
+          "samples_per_s_in_turns": turns,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def stream_specs():
+    """The stream phase's three sessions: (name, spec, max_age)."""
+    from repro_torch.api.spec import elite_spec, lite_spec
+    stream = dict(stream=True, stream_drift_threshold=STREAM_THRESHOLD,
+                  backend="cuda")
+    lite = lite_spec(N_CLASSES).replace(sampler="fps", **stream).serving()
+    return (("lite", lite, None),
+            ("lite_seg", lite.replace(head="seg", n_classes=SEG_CLASSES),
+             None),
+            ("elite", elite_spec(N_CLASSES).replace(**stream).serving(),
+             ELITE_MAX_AGE))
+
+
+def stream_session(torch, pipe, frames, max_age):
+    """Serve ``frames`` through a direct StreamSession (reset() before
+    STREAM_RESET): the logits, the hit flags, the wall ms a frame (ended
+    by a device sync on the card) and the kNN and FPS launches of each
+    frame."""
+    from repro_torch.kernels import fps, knn
+    from repro_torch.serve.streaming import StreamSession
+    sess = StreamSession(pipe, seed=SEED, max_age=max_age)
+    outs, hits, wall_ms, mapping = [], [], [], []
+    on_card = pipe.device.type == "cuda"
+    for i, frame in enumerate(frames):
+        if i == STREAM_RESET:
+            sess.reset()
+        before = (sess.stats.hits, knn.knn_cuda.launches,
+                  fps.fps_cuda.launches)
+        t0 = time.perf_counter()
+        out = sess.infer(frame)
+        if on_card:
+            torch.cuda.synchronize()
+        wall_ms.append(1e3 * (time.perf_counter() - t0))
+        outs.append(out)
+        hits.append(sess.stats.hits > before[0])
+        mapping.append(knn.knn_cuda.launches - before[1]
+                       + fps.fps_cuda.launches - before[2])
+    return outs, hits, wall_ms, mapping, sess.stats
+
+
+def stream_phase(torch, np, rng, params_by_name, smi):
+    """Three direct stream sessions on the card (Lite FPS, the same with
+    the seg head, Elite unfused with max_age), STREAM_FRAMES drifting
+    frames each with a scene cut and a reset(): hit and miss decisions
+    equal to the CPU port's, every frame bitwise equal to
+    ``replay_reference`` on the card, Lite bitwise and Elite within
+    1e-4 of max|logit| against the CPU, a hit launching no mapping
+    kernel; Lite's frames bitwise again through the async engine's
+    stream.  Returns (launches, Lite's frames, Lite's logits)."""
+    from repro_torch.api.build import build
+    from repro_torch.serve.async_engine import AsyncPointCloudEngine
+    from repro_torch.serve.streaming import replay_reference
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in counters()}
+    lite_frames = lite_outs = None
+    for name, spec, max_age in stream_specs():
+        params = params_by_name[name]
+        pipe = build(spec, params)
+        frames = rigid_frames(np, rng, spec.n_points)
+        pipe.infer_collect(frames[0][None], pipe.seed_state(SEED, 1))
+        (outs, hits, wall_ms, mapping, stats), launches = counted(
+            torch, lambda: stream_session(torch, pipe, frames, max_age))
+        misses = hits.count(False)
+        seg = spec.head == "seg"
+        product = ("int8_matmul", 28) if spec.precision == "int8" else (
+            "fused_linear", 28)
+        expect = {"knn": misses * (5 if seg else 4),
+                  "knn_k1": misses if seg else 0,
+                  "fps": misses * 4, product[0]: product[1] * len(frames)}
+        for kname, n in launches.items():
+            check(n == expect.get(kname, 0),
+                  f"stream {name}: {kname} launched {n} times, expected "
+                  f"{expect.get(kname, 0)} ({misses} misses of "
+                  f"{len(frames)} frames)")
+        check(0 < misses < len(frames), f"stream {name}: no hit or no miss")
+        check(all(m == 0 for m, h in zip(mapping, hits) if h),
+              f"stream {name}: a hit launched a mapping kernel")
+
+        ref = replay_reference(pipe, frames, seed=SEED, max_age=max_age,
+                               resets=(STREAM_RESET,))
+        for i, (got, want) in enumerate(zip(outs, ref)):
+            check(torch.equal(got, want), f"stream {name}: frame {i} differs "
+                                          f"from replay_reference")
+        cpu_outs, cpu_hits, _, _, cpu_stats = stream_session(
+            torch, build(spec, params, device="cpu"), frames, max_age)
+        check(cpu_hits == hits, f"stream {name}: hits differ from the CPU "
+                                f"port's")
+        got = torch.stack([o.cpu() for o in outs])
+        want = torch.stack(cpu_outs)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        bitwise = bool(torch.equal(got, want))
+        tol = 0.0 if spec.precision == "int8" else 1e-4
+        check(bitwise if tol == 0 else err <= tol * scale,
+              f"stream {name}: card vs CPU max abs err {err} beyond "
+              f"{tol or 'bitwise'} * {scale}")
+
+        # A hit and a miss dispatch alone: device time under the profiler
+        # (ten calls each, per call).
+        state = pipe.seed_state(SEED, 1)
+        pts = torch.from_numpy(frames[1][None])
+        _, _, cache = pipe.infer_collect(torch.from_numpy(frames[0][None]),
+                                         state.clone())
+        prof_hit = profile_summary(
+            *profile_call(torch, lambda: pipe.infer_cached(
+                pts, state.clone(), cache), reps=10),
+            mapping_ms=("knn_kernel", "fps_kernel"))
+        prof_miss = profile_summary(
+            *profile_call(torch, lambda: pipe.infer_collect(
+                pts, state.clone()), reps=10),
+            mapping_ms=("knn_kernel", "fps_kernel"))
+        row = {"phase": f"stream_{name}", "card": smi, "spec": spec.name,
+               "sampler": spec.sampler, "head": spec.head,
+               "fused_group": spec.fused_group, "max_age": max_age,
+               "frames": len(frames), "hits": stats.hits,
+               "misses": stats.misses, "evictions": stats.evictions,
+               "resets": stats.resets, "hit_flags_equal_cpu": True,
+               "bitwise_vs_replay_reference": True,
+               "bitwise_vs_cpu": bitwise, "max_abs_err_vs_cpu": err,
+               "max_abs_logit": scale,
+               "tolerance": f"{tol} * max|logit|" if tol else "bitwise",
+               "launches": launches,
+               "mapping_launches_a_hit_skips": max(mapping),
+               "hit_wall_ms": statistics.median(
+                   [w for w, h in zip(wall_ms[1:], hits[1:]) if h]),
+               "miss_wall_ms": statistics.median(
+                   [w for w, h in zip(wall_ms[1:], hits[1:]) if not h]),
+               "hit_device_ms": prof_hit["device_ms"],
+               "miss_device_ms": prof_miss["device_ms"],
+               "miss_mapping_device_ms": prof_miss["mapping_ms"],
+               "hit_idle_share": prof_hit["idle_share"],
+               "miss_idle_share": prof_miss["idle_share"]}
+        # The same frames through the async engine's stream, MAX_BATCH
+        # lanes a dispatch: Lite's contract is bitwise; for the fp32 specs
+        # the difference is reported (the head's last product is a cuBLAS
+        # call, whose kernel may change with the number of rows).
+        eng = AsyncPointCloudEngine(pipe, max_batch=MAX_BATCH, seed=SEED)
+        asess = eng.open_stream(max_age=max_age)
+        async_err = 0.0
+        for i, frame in enumerate(frames):
+            if i == STREAM_RESET:
+                asess.reset()
+            fut = asess.submit(frame)
+            eng.flush()
+            async_err = max(async_err,
+                            (fut.result() - outs[i]).abs().max().item())
+        check(asess.stats.hits == stats.hits,
+              f"stream {name}: the async session's hits differ")
+        if spec.precision == "int8":
+            check(async_err == 0.0, f"stream {name}: a frame through the "
+                  f"async engine ({MAX_BATCH} lanes) differs from the direct "
+                  f"session (max abs err {async_err})")
+        row["async_engine_vs_direct_max_abs_err"] = async_err
+        if name == "lite":
+            lite_frames, lite_outs = frames, outs
+        row["seconds"] = time.perf_counter() - t_phase
+        emit(row)
+        add_launches(total, launches)
+    return total, lite_frames, lite_outs
+
+
+def fleet_phase(torch, np, params_by_name, clouds, elite_clouds,
+                lite_frames, lite_outs, smi):
+    """README.md's fleet (Lite and Elite tiers, tenants ``lidar`` and
+    ``analytics``, two replicas each, least-loaded, max_batch 8) on the
+    card: the Lite tier is the stream phase's Lite spec (so a stream
+    session can ride the fleet), Elite runs the fused group->transfer
+    kernel.  Both tenants submit the whole queue without pumping, so
+    ``lidar``'s bulkhead sheds; every shed is an ``Overloaded`` and every
+    admitted future equals its tier's solo dispatch bitwise.  Then one
+    ``fleet.open_stream("lidar")`` session replays the stream phase's
+    Lite frames bitwise.  Returns the launches."""
+    from repro_torch.api.spec import FleetSpec, TenantSpec, elite_spec
+    from repro_torch.serve.admission import Overloaded
+    from repro_torch.serve.fleet import PipelineFleet
+    t_phase = time.perf_counter()
+    lite = stream_specs()[0][1]
+    elite = elite_spec(N_CLASSES).serving().replace(
+        backend="cuda", fused_group="grouped_transfer")
+    fleet_spec = FleetSpec(
+        pipelines=(lite, elite),
+        tenants=(TenantSpec("lidar", lite.name, slo_ms=LIDAR_SLO_MS,
+                            max_inflight=LIDAR_INFLIGHT),
+                 TenantSpec("analytics", elite.name, slo_ms=0.0)),
+        replicas=FLEET_REPLICAS, router="least-loaded",
+        max_batch=FLEET_BATCH)
+    fleet = PipelineFleet.from_specs(
+        fleet_spec, {lite.name: params_by_name["lite"],
+                     elite.name: params_by_name["elite"]}, seed=SEED)
+    warm_s = fleet.warmup()
+    queues = {"lidar": clouds, "analytics": elite_clouds}
+
+    def burst():
+        admitted, shed = [], []
+        for i in range(N_QUEUE):
+            for tenant, queue in queues.items():
+                try:
+                    admitted.append((tenant, i,
+                                     fleet.submit(tenant, queue[i])))
+                except Overloaded as exc:
+                    shed.append((tenant, exc))
+        fleet.flush()
+        return admitted, shed
+
+    t0 = time.perf_counter()
+    (admitted, shed), launches = counted(torch, burst)
+    wall_s = time.perf_counter() - t0
+    per_tier = {lite.name: {"fps": 4, "knn": 4, "int8_matmul": 28},
+                elite.name: {"fps": 4, "knn": 4, "grouped_transfer_stats": 4,
+                             "fused_linear": 24}}
+    expect = {}
+    for rep in fleet.replicas:
+        for kname, n in per_tier[rep.tier].items():
+            expect[kname] = expect.get(kname, 0) + n * rep.engine.stats.batches
+    for kname, n in launches.items():
+        check(n == expect.get(kname, 0), f"fleet: {kname} launched {n} times, "
+                                         f"expected {expect.get(kname, 0)}")
+    check(launches["grouped_transfer_stats"] > 0,
+          "fleet: grouped_transfer never launched")
+    tstats = fleet.tenant_stats()
+    check(all(isinstance(exc, Overloaded) for _, exc in shed),
+          "fleet: a shed is not an Overloaded")
+    check(tstats["lidar"]["shed"] == N_QUEUE - LIDAR_INFLIGHT
+          and tstats["lidar"]["submitted"] == LIDAR_INFLIGHT,
+          f"fleet: lidar's bulkhead admitted {tstats['lidar']['submitted']}")
+    pipes = {rep.tier: rep.engine.pipeline for rep in fleet.replicas}
+    for tenant, i, fut in admitted:
+        tier = fleet_spec.tier_of(tenant).name
+        check(torch.equal(fut.result(), solo_logits(
+            torch, pipes[tier], queues[tenant][i], FLEET_BATCH)),
+              f"fleet: {tenant} request {i} differs from its tier's solo "
+              f"dispatch")
+    agg = fleet.stats()
+
+    sess = fleet.open_stream("lidar")
+    for i, frame in enumerate(lite_frames):
+        if i == STREAM_RESET:
+            sess.reset()
+        fut = sess.submit(frame)
+        fleet.flush()
+        check(torch.equal(fut.result(), lite_outs[i]),
+              f"fleet: lidar stream frame {i} differs from the stream "
+              f"phase's Lite session")
+    emit({"phase": "fleet", "card": smi, "router": fleet_spec.router,
+          "replicas": len(fleet.replicas), "max_batch": FLEET_BATCH,
+          "warmup_s": warm_s, "wall_s": wall_s, "launches": launches,
+          "admitted": len(admitted), "shed": len(shed),
+          "shed_reasons": sorted({exc.reason for _, exc in shed}),
+          "tenants": tstats, "samples_per_s": agg["samples_per_s"],
+          "wall_samples_per_s": len(admitted) / wall_s,
+          "serve_s": agg["serve_s"], "dispatches": agg["batches"],
+          "padded": agg["padded"], "bitwise_vs_tier_solo": True,
+          "lidar_stream_bitwise_vs_stream_phase": True,
+          "lidar_stream_hits": sess.stats.hits,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 # ---------------------------------------------------------------- LM ---
@@ -1590,7 +2033,7 @@ def main() -> int:
     m2 = m2_spec(N_CLASSES).serving().replace(backend="cuda")
     got = serving_phase(
         torch, "m2", m2, params, clouds,
-        expect={"knn": 4, "fused_linear": 27},
+        expect={"knn": 4, "fused_linear": 28},
         atol_rel=1e-4,
         why="indices are identical; each fp32 layer sums K <= 512 products "
             "in another order than the CPU (relative error ~sqrt(K) ulp, "
@@ -1607,7 +2050,7 @@ def main() -> int:
     got = serving_phase(
         torch, "elite", elite, elite_params, elite_clouds,
         expect={"fps": 4, "knn": 4, "grouped_transfer_stats": 4,
-                "fused_linear": 23},
+                "fused_linear": 24},
         atol_rel=1e-4,
         why="FPS and kNN indices are identical; fp32 layers sum K <= 512 "
             "products in another order than the CPU, compounded over 15 "
@@ -1622,7 +2065,20 @@ def main() -> int:
     for k, v in got.items():
         total[k] += v
     add_launches(total, ladder_phases(torch, np, rng, params))
-    del elite_params, params
+
+    t_engines = time.perf_counter()
+    add_launches(total, async_phase(torch, np, params, clouds, smi))
+    seg_params = pointmlp_init(stream_specs()[1][1].to_model_config(),
+                               torch.Generator().manual_seed(SEED + 9))
+    perturb_bn(torch, seg_params, torch.Generator().manual_seed(SEED + 10))
+    by_name = {"lite": params, "lite_seg": seg_params, "elite": elite_params}
+    got, lite_frames, lite_outs = stream_phase(torch, np, rng, by_name, smi)
+    add_launches(total, got)
+    add_launches(total, fleet_phase(torch, np, by_name, clouds, elite_clouds,
+                                    lite_frames, lite_outs, smi))
+    emit({"phase": "engines_total", "card": smi,
+          "seconds": time.perf_counter() - t_engines})
+    del elite_params, params, seg_params, by_name
     lm_rows, got = lm_phases(torch, np)
     rows.update(lm_rows)
     for k, v in got.items():

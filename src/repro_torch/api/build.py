@@ -11,11 +11,15 @@ and place the frozen params on the device::
 ``device="cpu"`` to run the plain versions on the CPU.  The freeze runs
 on the CPU whatever the target device, so a CPU and a CUDA pipeline
 built from the same params hold bit-identical weights.
+
+A ``stream=True`` spec adds :meth:`FrozenPipeline.infer_collect` and
+:meth:`FrozenPipeline.infer_cached`, the two passes of a stream session.
+:func:`build_pool` builds a fleet's pool, one pipeline per replica.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -92,6 +96,39 @@ def build(spec: PipelineSpec, params: Dict, *, device=None
                           sampler=sampler, grouper=grouper)
 
 
+def build_pool(specs: Sequence[PipelineSpec],
+               params_by_name: Mapping[str, Dict], *, device=None
+               ) -> List["FrozenPipeline"]:
+    """A fleet's pool: one :class:`FrozenPipeline` per spec of ``specs``
+    (``FleetSpec.pool_specs()``), on ``device`` (default ``cuda``).
+
+    Replicas of one (:func:`~repro_torch.api.plan.spec_fingerprint`,
+    params) pair share one frozen pipeline: on one card they are
+    interchangeable.  ``params_by_name`` maps each ``spec.name`` to its
+    parameter tree; a missing name raises ``KeyError`` listing what was
+    given.  A pool with ``data_shards > 1`` raises the
+    ``NotImplementedError`` of :meth:`PipelineSpec.validate` (the sharded
+    dispatch, ROADMAP.md).
+    """
+    from repro_torch.api import plan as stage_plan
+    dev = resolve_device(device)
+    shared: Dict[Tuple[str, int], FrozenPipeline] = {}
+    pool: List[FrozenPipeline] = []
+    for spec in specs:
+        try:
+            params = params_by_name[spec.name]
+        except KeyError:
+            raise KeyError(
+                f"build_pool: no params for pool pipeline {spec.name!r}; "
+                f"params_by_name has "
+                f"{', '.join(map(repr, params_by_name))}") from None
+        key = (stage_plan.spec_fingerprint(spec), id(params))
+        if key not in shared:
+            shared[key] = build(spec, params, device=dev)
+        pool.append(shared[key])
+    return pool
+
+
 @dataclasses.dataclass(frozen=True)
 class FrozenPipeline:
     """Frozen params + the resolved walk on one device (from
@@ -113,6 +150,9 @@ class FrozenPipeline:
         n_points, n_classes] for the seg head, on the pipeline's device;
         advanced state as a CPU int64 tensor).
         """
+        return self._run(pts, lfsr_state)
+
+    def _run(self, pts, lfsr_state, **cache_kw):
         from repro_torch.models import pointmlp as PM
         if isinstance(pts, np.ndarray):
             pts = torch.from_numpy(pts)
@@ -127,7 +167,44 @@ class FrozenPipeline:
             self.params, self.model_config, pts, lfsr_state,
             sampler=self.sampler, grouper=self.grouper, plan=self.plan,
             shared_urs=self.spec.shared_urs,
-            per_sample_norm=self.spec.per_sample_norm)
+            per_sample_norm=self.spec.per_sample_norm, **cache_kw)
+
+    @property
+    def streaming(self) -> bool:
+        """Whether the plan was lowered with cache-aware mapping ops
+        (``spec.stream=True``): :meth:`infer_collect` and
+        :meth:`infer_cached` need it."""
+        return bool(self.plan.stream)
+
+    def _require_streaming(self, what: str) -> None:
+        if not self.streaming:
+            raise ValueError(
+                f"{what} needs a streaming pipeline; build one from a spec "
+                f"with stream=True (e.g. spec.replace(stream=True, "
+                f"stream_drift_threshold=...))")
+
+    def infer_collect(self, pts, lfsr_state: Optional[torch.Tensor] = None):
+        """The cold pass of a stream: :meth:`infer` (the same logits and
+        state, bit for bit) and the mapping cache it computed, ``{"sample":
+        (idx, ...), "nbr": (nbr, ...)[, "up": idx]}``, batch-leading
+        tensors on the pipeline's device.
+
+        Returns (logits, advanced LFSR state, cache).
+        """
+        self._require_streaming("infer_collect")
+        return self._run(pts, lfsr_state, collect_cache=True)
+
+    def infer_cached(self, pts, lfsr_state: Optional[torch.Tensor], cache
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The cached pass: the mapping ops replay ``cache`` (from
+        :meth:`infer_collect`, one row per lane of ``pts``); the
+        arithmetic recomputes on the frame's own points.
+
+        Returns (logits, advanced LFSR state).
+        """
+        self._require_streaming("infer_cached")
+        return self._run(pts, lfsr_state,
+                         mapping_cache=to_device(cache, self.device))
 
     def seed_state(self, seed: int, n_streams: int = 64) -> torch.Tensor:
         """Fresh LFSR streams (the paper's "same starting states"); size

@@ -8,16 +8,22 @@ every CBR op's precision and backend (``stage_precision`` /
 deployment :class:`QuantConfig`; with ``spec.fused_group`` set, each
 stage's ``GroupOp`` + transfer ``CBROp`` pair becomes one
 ``FusedGroupTransferOp``; with ``spec.head="seg"`` a ``SegHeadOp`` takes
-the place of the global pool and ``HeadOp``.  The model walk (``repro_torch.models.
-pointmlp._forward_impl``) interprets the plan.
+the place of the global pool and ``HeadOp``; with ``spec.stream`` every
+mapping op is marked ``cached`` so a stream cache can replay it.  The
+model walk (``repro_torch.models.pointmlp._forward_impl``) interprets
+the plan.  :func:`spec_fingerprint` names a spec by its field values.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
+import json
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from repro_torch.api import registry
 from repro_torch.api.spec import N_STAGES as _N_STAGES
+from repro_torch.api.spec import check_lowering
 from repro_torch.core.quant import QuantConfig, is_quantizable_leaf_path
 
 _KERNEL_BACKENDS = ("cuda",)
@@ -49,16 +55,30 @@ class EmbedOp:
 
 @dataclasses.dataclass(frozen=True)
 class SampleOp:
-    """Pick stage centroids with the resolved sampler."""
+    """Pick stage centroids with the resolved sampler.
+
+    ``cached`` (stream lowering): the walk replays the stage's indices
+    from a stream cache, but only for a sampler with ``advances_state``
+    False; a state-advancing sampler (URS) still runs, so the LFSR state
+    walks as on the cold path.  The collect pass records the indices
+    either way.
+    """
     stage: int
     n_samples: int
+    cached: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
 class GroupOp:
-    """(xyz, feats, idx) -> (new_xyz, centre feats, grouped [B,S,k,2C])."""
+    """(xyz, feats, idx) -> (new_xyz, centre feats, grouped [B,S,k,2C]).
+
+    ``cached`` (stream lowering) splits the grouper into its mapping half
+    (``neighbor_index``, replayed from the stream cache) and its
+    arithmetic half (``group_with_idx``, always recomputed).
+    """
     stage: int
     k: int
+    cached: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,7 +114,8 @@ class PoolOp:
 
 @dataclasses.dataclass(frozen=True)
 class HeadOp:
-    """3-layer MLP classifier; fc3 is a plain linear (no activation)."""
+    """3-layer MLP classifier; fc3 is a linear without activation, run
+    on the head's backend (``fc1.fn`` with act=False)."""
     fc1: CBROp
     fc2: CBROp
     fc3_path: Tuple[Any, ...]
@@ -109,8 +130,8 @@ class SegHeadOp:
     descriptor itself, upsamples the last stage's features to the input
     points by 1-NN (the kNN kernel at k = 1), concatenates ``[embed,
     upsampled, global]`` and runs the 3-layer classifier per point ->
-    ``[B, n_points, n_classes]``.  ``cached`` (replaying the upsample
-    index from a stream cache) stays False until streaming is ported."""
+    ``[B, n_points, n_classes]``.  ``cached`` (stream lowering) replays
+    the upsample index from a stream cache."""
     fc1: CBROp
     fc2: CBROp
     fc3_path: Tuple[Any, ...]
@@ -132,6 +153,7 @@ class StagePlan:
     backend: str                    # embed + head backend key
     fused_group: str = "none"       # FUSED_OPS key, or "none"
     head: str = "cls"               # "cls" | "seg" (SegHeadOp lowering)
+    stream: bool = False            # cache-aware mapping ops
 
     def cbr_ops(self) -> List[CBROp]:
         """Every CBR layer in execution order (fused transfers included)."""
@@ -172,6 +194,8 @@ class StagePlan:
                    f"{self.stage_backend[s]}")
             if s in fused:
                 row += f" [group->transfer fused: {self.fused_group}]"
+            if self.stream:
+                row += " [stream-cached mapping]"
             rows.append(row)
         rows.append(f"head: {self.head}/{self.precision}/{self.backend}")
         return "; ".join(rows)
@@ -222,17 +246,18 @@ def _quant_for(spec, precision: str,
 def _build_ops(cfg, make_cbr: Callable, head_quant: Optional[QuantConfig],
                fused_key: Optional[str] = None,
                fused_fn: Optional[Callable] = None,
-               head: str = "cls") -> Tuple[Any, ...]:
+               head: str = "cls", stream: bool = False) -> Tuple[Any, ...]:
     ops: List[Any] = [EmbedOp(make_cbr(("embed",), None, True))]
     for s in range(_N_STAGES):
-        ops.append(SampleOp(stage=s, n_samples=cfg.stage_samples[s]))
+        ops.append(SampleOp(stage=s, n_samples=cfg.stage_samples[s],
+                            cached=stream))
         transfer = make_cbr(("stages", s, "transfer"), s, True)
         if fused_fn is not None:
             ops.append(FusedGroupTransferOp(
                 stage=s, k=cfg.k_neighbors, cbr=transfer, kernel=fused_key,
                 fn=fused_fn))
         else:
-            ops.append(GroupOp(stage=s, k=cfg.k_neighbors))
+            ops.append(GroupOp(stage=s, k=cfg.k_neighbors, cached=stream))
             ops.append(transfer)
         for branch, count in (("pre", cfg.pre_blocks[s]),
                               ("pos", cfg.pos_blocks[s])):
@@ -244,8 +269,10 @@ def _build_ops(cfg, make_cbr: Callable, head_quant: Optional[QuantConfig],
                     net2=make_cbr(base + ("net2",), s, False)))
             if branch == "pre":
                 ops.append(PoolOp(stage=s, axis=2))
-    head_cls = SegHeadOp if head == "seg" else HeadOp
-    if head != "seg":
+    head_cls = HeadOp
+    if head == "seg":
+        head_cls = functools.partial(SegHeadOp, cached=stream)
+    else:
         ops.append(PoolOp(stage=None, axis=1))
     ops.append(head_cls(fc1=make_cbr(("head", "fc1"), None, True),
                         fc2=make_cbr(("head", "fc2"), None, True),
@@ -257,9 +284,10 @@ def lower(spec, cfg) -> StagePlan:
     """Compile a spec + model config into the executable op plan.
 
     ``cfg`` supplies the topology, ``spec`` the policy.  Raises what
-    ``spec.validate()`` raises for values the port does not run.
+    ``api.spec.check_lowering`` raises (the policy key is the engines'
+    to check, as in ``repro.api.plan.lower``).
     """
-    spec.validate()
+    check_lowering(spec)
     stage_prec, stage_back = resolve_stage_fields(spec)
     fused_key = spec.fused_group
     fused_fn = (registry.FUSED_OPS.get(fused_key)
@@ -275,8 +303,22 @@ def lower(spec, cfg) -> StagePlan:
 
     ops = _build_ops(cfg, make_cbr,
                      _quant_for(spec, spec.precision, spec.backend),
-                     fused_key=fused_key, fused_fn=fused_fn, head=spec.head)
+                     fused_key=fused_key, fused_fn=fused_fn, head=spec.head,
+                     stream=spec.stream)
     return StagePlan(name=spec.name, ops=ops, stage_precision=stage_prec,
                      stage_backend=stage_back, precision=spec.precision,
                      backend=spec.backend, fused_group=fused_key,
-                     head=spec.head)
+                     head=spec.head, stream=spec.stream)
+
+
+def spec_fingerprint(spec) -> str:
+    """A deterministic 12-hex-digit fingerprint of a spec's field values
+    (``repro.api.plan.spec_fingerprint``'s): two specs share it iff
+    their fields agree, with an unset ``stage_precision`` /
+    ``stage_backend`` hashed as the inherited 4-tuple.  ``build_pool``
+    dedupes its freeze on it."""
+    d = dataclasses.asdict(spec)
+    prec, back = resolve_stage_fields(spec)
+    d["stage_precision"], d["stage_backend"] = list(prec), list(back)
+    blob = json.dumps(d, sort_keys=True, default=str, separators=(",", ":"))
+    return hashlib.sha256(blob.encode()).hexdigest()[:12]

@@ -46,6 +46,9 @@ class Registry:
             return fn
         return deco
 
+    def unregister(self, name: str) -> None:
+        self._entries.pop(name, None)
+
     def get(self, name: str) -> Callable:
         try:
             return self._entries[name]
@@ -83,7 +86,9 @@ def _fps_sampler(xyz: torch.Tensor, n_samples: int, lfsr_state,
     return sampling.fps(xyz, n_samples), lfsr_state
 
 
-#: A sampler that advances the LFSR state must run on every pass.
+#: Stream-cache contract: a sampler that advances the LFSR state still
+#: runs on the cached path, so the state walks as on the cold path; only
+#: a stateless sampler's indices are replayed from a stream cache.
 _fps_sampler.advances_state = False
 
 
@@ -123,6 +128,28 @@ def _knn_grouper(xyz, feats, idx, k: int, affine_params, mode: str,
                                  per_sample_norm=per_sample_norm)
 
 
+def _knn_neighbor_index(new_xyz, xyz, k: int):
+    from repro_torch.core import knn as knn_core
+    return knn_core.neighbor_index(new_xyz, xyz, k)
+
+
+def _group_with_idx(xyz, feats, idx, nbr_idx, affine_params, mode: str,
+                    per_sample_norm: bool):
+    from repro_torch.core import knn as knn_core
+    return knn_core.group_with_idx(xyz, feats, idx, nbr_idx, affine_params,
+                                   mode, per_sample_norm=per_sample_norm)
+
+
+#: Stream-cache contract: a grouper with these two attributes splits into
+#: its mapping half (``neighbor_index``, which a stream cache replays) and
+#: its arithmetic half (``group_with_idx``, always recomputed), and
+#: ``group_with_idx(.., neighbor_index(..), ..)`` is bit for bit the whole
+#: grouper.  ``spec.validate`` refuses a stream spec whose grouper lacks
+#: them (RPA014).
+_knn_grouper.neighbor_index = _knn_neighbor_index
+_knn_grouper.group_with_idx = _group_with_idx
+
+
 #: The ``ball`` grouper's radius.  The synthetic clouds live on
 #: unit-scale surfaces, where 0.5 covers k <= 16 neighbours in dense
 #: regions and clips far-side strays (``repro.api.registry``'s value);
@@ -148,7 +175,13 @@ def make_ball_grouper(radius: float):
                                      mode, per_sample_norm=per_sample_norm,
                                      radius=radius)
 
+    def ball_neighbor_index(new_xyz, xyz, k: int):
+        from repro_torch.core import knn as knn_core
+        return knn_core.neighbor_index(new_xyz, xyz, k, radius)
+
     ball_grouper.radius = radius
+    ball_grouper.neighbor_index = ball_neighbor_index
+    ball_grouper.group_with_idx = _group_with_idx
     return ball_grouper
 
 

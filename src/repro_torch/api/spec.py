@@ -12,10 +12,16 @@ on both sides.  The paper's ladder as data::
 Backend keys: ``ref`` (plain PyTorch) and ``cuda`` (the hand-written
 kernels; the port's counterpart of ``pallas``).  ``fused_group=
 "grouped_transfer"`` lowers each stage's group + transfer pair to one
-fused kernel.  Spec values the port does not run yet are rejected by
-:meth:`PipelineSpec.validate` with a ``NotImplementedError`` naming the
-ROADMAP.md item they wait for; a fused group whose preconditions fail
-(``repro.analysis`` RPA010-012) raises ``ValueError``.
+fused kernel; ``stream=True`` lowers the cache-aware mapping ops that
+``repro_torch.serve.streaming`` replays.  Spec values the port does not
+run yet are rejected by :meth:`PipelineSpec.validate` with a
+``NotImplementedError`` naming the ROADMAP.md item they wait for; a
+spec that breaks a rule of ``repro.analysis`` raises with that rule's
+code (RPA005, RPA010-015).
+
+:class:`TenantSpec` and :class:`FleetSpec` describe a whole deployment
+for ``repro_torch.serve.fleet.PipelineFleet``: the pipeline pool, the
+tenants and the router.
 """
 from __future__ import annotations
 
@@ -39,9 +45,10 @@ class PipelineSpec:
     (``repro_torch.api.registry``); ``precision`` / ``w_bits`` /
     ``a_bits`` / ``fuse`` are the deployment policy; ``shared_urs`` and
     ``per_sample_norm`` are the serving batch semantics (see
-    :meth:`serving`).  The streaming, sharding and async-policy fields
-    exist so specs mirror the JAX ones; the slices that run them are
-    listed in ROADMAP.md.
+    :meth:`serving`); ``stream`` / ``stream_drift_threshold`` configure
+    stream sessions and ``policy`` / ``slo_ms`` / ``dispatch_ms`` the
+    async engine's batching.  ``data_shards > 1`` waits for the sharded
+    dispatch (ROADMAP.md).
     """
     name: str = "pointmlp-elite"
     # ---- topology (PointMLP walk) ----
@@ -152,19 +159,13 @@ class PipelineSpec:
         return self.replace(**kw)
 
     def validate(self) -> "PipelineSpec":
-        """Reject what the port does not run (``NotImplementedError``
-        naming the ROADMAP.md item), unknown registry keys (``KeyError``
-        listing the registered names) and a fused group whose
-        preconditions fail (``ValueError``).  Returns self."""
-        _check_supported(self)
-        from repro_torch.api import registry
-        registry.SAMPLERS.get(self.sampler)
-        registry.GROUPERS.get(self.grouper)
-        for key in {self.backend, *(self.stage_backend or ())}:
-            registry.BACKENDS.get(key)
-        if self.fused_group != "none":
-            registry.FUSED_OPS.get(self.fused_group)
-            _check_fused(self)
+        """Everything :func:`check_lowering` checks, and that the async
+        engines can make the batch policy (RPA005: an
+        :class:`UnknownKeyError` listing the registered policies).
+        Returns self."""
+        check_lowering(self)
+        from repro_torch.serve.policy import POLICIES
+        _known_key("RPA005", POLICIES, self.policy, "policy")
         return self
 
     # ------------------------------------------- model-config bridge ----
@@ -214,10 +215,42 @@ class PipelineSpec:
         return cls(**fields)
 
 
+class UnknownKeyError(KeyError, ValueError):
+    """A registry key a spec names that is not registered.  A ``KeyError``
+    as ``repro``'s analyzer raises it (RPA005, RPA006), and a
+    ``ValueError`` like the port's other coded spec rules."""
+
+
+def _known_key(code: str, reg, name: str, field: str) -> None:
+    try:
+        reg.get(name)
+    except KeyError as e:
+        raise UnknownKeyError(f"{code}: {e.args[0]} (set {field} to one of "
+                              f"them)") from None
+
+
+def check_lowering(spec: PipelineSpec) -> None:
+    """What ``plan.lower`` needs: values the port runs
+    (``NotImplementedError`` naming the ROADMAP.md item), registered
+    sampler, grouper, backend and fused-op keys (``KeyError`` listing
+    the registered names), the fused group's preconditions (RPA010-012)
+    and the stream-cache contract (RPA013-015), both ``ValueError``s."""
+    _check_supported(spec)
+    from repro_torch.api import registry
+    registry.SAMPLERS.get(spec.sampler)
+    registry.GROUPERS.get(spec.grouper)
+    for key in {spec.backend, *(spec.stage_backend or ())}:
+        registry.BACKENDS.get(key)
+    if spec.fused_group != "none":
+        registry.FUSED_OPS.get(spec.fused_group)
+        _check_fused(spec)
+    if spec.stream:
+        _check_stream(spec)
+
+
 #: Spec values the port does not run yet, and the ROADMAP.md item each
 #: waits for.
 _WAITS = (
-    (lambda s: s.stream, "stream=True", "the async/stream/fleet engines"),
     (lambda s: s.data_shards > 1, "data_shards > 1",
      "the async/stream/fleet engines (sharded dispatch)"),
     (lambda s: s.kernel_tuning not in (None, DEFAULT_TUNING),
@@ -253,6 +286,158 @@ def _check_fused(spec: PipelineSpec) -> None:
         raise ValueError(
             f"RPA012: fused_group={fused!r} consumes BN-folded (w, b) "
             f"transfer layers; set fuse=True (or fused_group='none')")
+
+
+def _check_stream(spec: PipelineSpec) -> None:
+    """The stream-cache lowering contract (``repro.analysis`` RPA013-015),
+    as ``ValueError``s that name the field to change."""
+    from repro_torch.api import registry
+    if spec.fused_group != "none":
+        raise ValueError(
+            f"RPA013: stream=True is incompatible with fused_group="
+            f"{spec.fused_group!r}: the fused group->transfer kernel has no "
+            f"cache-aware lowering (set fused_group='none', or stream=False)")
+    grouper = registry.GROUPERS.get(spec.grouper)
+    if (getattr(grouper, "neighbor_index", None) is None
+            or getattr(grouper, "group_with_idx", None) is None):
+        raise ValueError(
+            f"RPA014: stream=True needs a grouper exposing the "
+            f"neighbor_index/group_with_idx split (stream-cache contract); "
+            f"grouper {spec.grouper!r} does not (set grouper='knn', or "
+            f"stream=False)")
+    if getattr(registry.SAMPLERS.get(spec.sampler), "advances_state",
+               None) is None:
+        raise ValueError(
+            f"RPA015: stream=True needs a sampler declaring its "
+            f"advances_state stream-cache semantics; sampler "
+            f"{spec.sampler!r} does not (set sampler='fps' or 'urs', or "
+            f"stream=False)")
+
+
+# ------------------------------------------------- fleet serving --------
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantSpec:
+    """One tenant's serving contract (see ``repro.api.spec.TenantSpec``).
+
+    ``name`` is the key callers pass to ``fleet.submit``; ``tier`` names
+    the pool pipeline (a :class:`PipelineSpec` ``name``) that serves it;
+    ``slo_ms`` is its latency objective, against which admission prices
+    a replica's backlog once the replica's cost model is calibrated (0 =
+    no SLO shedding); ``max_inflight`` caps its admitted, unresolved
+    requests (the bulkhead).
+    """
+    name: str
+    tier: str
+    slo_ms: float = 50.0
+    max_inflight: int = 64
+
+    def __post_init__(self):
+        if not self.name or not isinstance(self.name, str):
+            raise ValueError(f"tenant name must be a non-empty string, "
+                             f"got {self.name!r}")
+        if not self.tier or not isinstance(self.tier, str):
+            raise ValueError(f"tenant {self.name!r} tier must be a "
+                             f"non-empty string, got {self.tier!r}")
+        if self.slo_ms < 0:
+            raise ValueError(f"tenant {self.name!r} slo_ms must be >= 0, "
+                             f"got {self.slo_ms!r}")
+        if not isinstance(self.max_inflight, int) or self.max_inflight < 1:
+            raise ValueError(f"tenant {self.name!r} max_inflight must be "
+                             f"a positive int, got {self.max_inflight!r}")
+
+    def replace(self, **kw) -> "TenantSpec":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetSpec:
+    """A serving deployment: the pipeline pool, its tenants and the
+    router (see ``repro.api.spec.FleetSpec``).
+
+    ``pipelines`` are the distinct variants, each with a unique
+    ``name``; ``replicas`` copies of each make the pool, in the order
+    of :meth:`pool_specs` (replica ``r`` of pipeline ``i`` at index
+    ``r * len(pipelines) + i``); every tenant names its tier.
+    """
+    name: str = "fleet"
+    pipelines: Tuple[PipelineSpec, ...] = ()
+    tenants: Tuple[TenantSpec, ...] = ()
+    replicas: int = 1
+    router: str = "least-loaded"
+    max_batch: int = 8
+
+    def __post_init__(self):
+        for field in ("pipelines", "tenants"):
+            val = getattr(self, field)
+            if isinstance(val, list):        # normalize to a hashable spec
+                object.__setattr__(self, field, tuple(val))
+        if not self.pipelines:
+            raise ValueError("FleetSpec needs at least one pipeline")
+        if not all(isinstance(p, PipelineSpec) for p in self.pipelines):
+            raise ValueError("FleetSpec.pipelines must be PipelineSpecs")
+        if not all(isinstance(t, TenantSpec) for t in self.tenants):
+            raise ValueError("FleetSpec.tenants must be TenantSpecs")
+        names = [p.name for p in self.pipelines]
+        if len(set(names)) != len(names):
+            raise ValueError(f"pool pipeline names must be unique (they "
+                             f"key tenant tiers and params), got {names}")
+        tnames = [t.name for t in self.tenants]
+        if len(set(tnames)) != len(tnames):
+            raise ValueError(f"tenant names must be unique, got {tnames}")
+        for t in self.tenants:
+            if t.tier not in names:
+                raise ValueError(
+                    f"tenant {t.name!r} names tier {t.tier!r} but the "
+                    f"pool has only {names}")
+        shards = {p.data_shards for p in self.pipelines}
+        if len(shards) > 1:
+            raise ValueError(
+                f"pool pipelines must agree on data_shards (the replica x "
+                f"data mesh is rectangular), got {sorted(shards)}")
+        if not isinstance(self.replicas, int) or self.replicas < 1:
+            raise ValueError(f"replicas must be a positive int, "
+                             f"got {self.replicas!r}")
+        if not isinstance(self.max_batch, int) or self.max_batch < 1:
+            raise ValueError(f"max_batch must be a positive int, "
+                             f"got {self.max_batch!r}")
+        if self.max_batch % self.data_shards:
+            raise ValueError(
+                f"data_shards={self.data_shards} must divide "
+                f"max_batch={self.max_batch} (every fixed-shape dispatch "
+                f"splits across the mesh's data axis)")
+
+    @property
+    def data_shards(self) -> int:
+        """The pool's (uniform) data split."""
+        return self.pipelines[0].data_shards
+
+    def pool_specs(self) -> Tuple[PipelineSpec, ...]:
+        """The flat pool, one spec per replica, in placement order."""
+        return tuple(p for _ in range(self.replicas) for p in self.pipelines)
+
+    def tier_of(self, tenant: str) -> PipelineSpec:
+        """The pipeline spec serving ``tenant`` (KeyError lists tenants)."""
+        for t in self.tenants:
+            if t.name == tenant:
+                return next(p for p in self.pipelines if p.name == t.tier)
+        raise KeyError(f"unknown tenant {tenant!r}; registered tenants: "
+                       f"{', '.join(t.name for t in self.tenants)}")
+
+    def replace(self, **kw) -> "FleetSpec":
+        return dataclasses.replace(self, **kw)
+
+    def validate(self) -> "FleetSpec":
+        """Validate every pool pipeline (:meth:`PipelineSpec.validate`),
+        then the router key (RPA006: an :class:`UnknownKeyError` listing
+        the registered routers).  Tenant tiers are checked at
+        construction.  Returns self."""
+        for p in self.pipelines:
+            p.validate()
+        from repro_torch.serve.router import ROUTERS
+        _known_key("RPA006", ROUTERS, self.router, "router")
+        return self
 
 
 # ------------------------------------------------- paper variants -------

@@ -98,10 +98,28 @@ def gelu_tanh(y: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(y, approximate="tanh")
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]``, each row summed as in a product of many
+    rows.
+
+    For one row PyTorch takes a matrix-vector routine (MKL's on the CPU),
+    which sums in another order than its matrix product: a cloud's head
+    layers at batch 1 would then differ in the last bits from the same
+    cloud's lane in a wider dispatch.  A lone row is multiplied as one of
+    two equal rows, so a lane's logits do not depend on the dispatch
+    width.
+    """
+    rows = x.reshape(-1, x.shape[-1])
+    if rows.shape[0] != 1:
+        return x @ w
+    y = (torch.cat([rows, rows]) @ w)[:1]
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def fused_linear_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      activation: str = "relu") -> torch.Tensor:
     """act(x @ w + b) for x [M, K], w [K, N], b [N]."""
-    y = x @ w + b
+    y = matmul(x, w) + b
     if activation == "relu":
         return torch.relu(y)
     if activation == "gelu":

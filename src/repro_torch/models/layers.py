@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.fusion import batchnorm_apply
 from repro_torch.core.quant import QuantConfig
+from repro_torch.kernels.ref import matmul
 
 
 def _normal(generator: torch.Generator, shape, std: float) -> torch.Tensor:
@@ -65,12 +66,12 @@ def _matmul(x: torch.Tensor, w, quant: Optional[QuantConfig]
             return ops.int8_matmul(x, w["q"], w["scale"], a_bits=quant.a_bits,
                                    lanes=lanes)
         # W8 reference path: dequantized weight matmul.
-        return x @ (w["q"].to(x.dtype) * w["scale"].to(x.dtype))
+        return matmul(x, w["q"].to(x.dtype) * w["scale"].to(x.dtype))
     if quant is not None and quant.enabled:
         raise NotImplementedError(
             "fake-quant (QAT) matmuls wait for the training slice of "
             "ROADMAP.md; serve a frozen int8 or fp32 pipeline")
-    return x @ w.to(x.dtype)
+    return matmul(x, w.to(x.dtype))
 
 
 @contextlib.contextmanager

@@ -19,7 +19,17 @@ activation scale (``QuantConfig.per_lane``, set at lowering), the
 normalization sigma (a mean per cloud), and one shared URS index
 sequence (FPS is per cloud by nature).  Every kernel sums in an order
 fixed by its own lane's data, so a lane's logits do not depend on what
-else is in its dispatch.
+else is in its dispatch, nor on how many lanes it has: the head's last
+product runs on the head's backend too (on the card an fp32 one is the
+in-order ``fused_linear`` kernel, not cuBLAS, whose kernel changes with
+the row count), and on the CPU a lone row's product sums as a wider
+one's (``kernels.ref.matmul``).
+
+Stream caches.  A ``stream=True`` plan marks its mapping ops ``cached``:
+``collect_cache`` returns what they computed (sampled indices, neighbour
+lists, the seg head's 1-NN index; batch-leading tensors on the clouds'
+device), and ``mapping_cache`` replays them, as ``repro.models.pointmlp.
+_forward_impl`` does, so a frame of a stream skips its mapping kernels.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ import torch
 from repro_torch.api import plan as stage_plan
 from repro_torch.core import knn as knn_core
 from repro_torch.core.quant import QuantConfig
+from repro_torch.core.sampling import gather_points
 from repro_torch.models import layers as L
 
 
@@ -141,28 +152,66 @@ def count_conv_layers(cfg: PointMLPConfig) -> int:
 def _forward_impl(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
                   lfsr_state: Optional[torch.Tensor], *, sampler, grouper,
                   plan, shared_urs: bool = False,
-                  per_sample_norm: bool = False
-                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                  per_sample_norm: bool = False,
+                  mapping_cache: Optional[Dict] = None,
+                  collect_cache: bool = False):
     """Interpret ``plan`` over a batch of clouds (inference only).
 
+    ``mapping_cache`` replays the mapping results of the ops the plan
+    marked ``cached``: sampled indices (only for a sampler whose
+    ``advances_state`` is False: URS still runs, so its LFSR state walks
+    as on the cold path), neighbour lists (the grouper's
+    ``neighbor_index``; its ``group_with_idx`` always recomputes) and
+    the seg head's 1-NN index.  ``collect_cache`` also returns the cache
+    ``{"sample": (idx, ...), "nbr": (nbr, ...)[, "up": idx]}`` this pass
+    computed.  With neither, this is the plain walk.
+
     Returns (logits [B, n_classes], or [B, n_points, n_classes] for the
-    seg head; advanced LFSR state).
+    seg head; advanced LFSR state; the collected cache or None).
     """
     def cbr(op, p, x):
         return op.fn(p, x, op.quant, op.act)
 
+    def fc3(op, p, x):
+        # the head's last layer runs on the head's backend (fc1's) without
+        # activation: on the card an fp32 fc3 is then the fused_linear
+        # kernel, whose rows do not depend on M (cuBLAS picks its kernel
+        # by M, so a cloud's logits would depend on the dispatch width)
+        return op.fc1.fn(p, x, op.fc3_quant, False)
+
     cur_xyz, cur, idx, logits = xyz, None, None, None
     embed = None
+    got_sample, got_nbr, got_up = [], [], None
     for op in plan.ops:
         if isinstance(op, stage_plan.EmbedOp):
             cur = embed = cbr(op.cbr, params["embed"], xyz)
         elif isinstance(op, stage_plan.SampleOp):
-            idx, lfsr_state = sampler(cur_xyz, op.n_samples, lfsr_state,
-                                      shared_urs)
+            if (op.cached and mapping_cache is not None
+                    and not getattr(sampler, "advances_state", True)):
+                idx = mapping_cache["sample"][op.stage]
+            else:
+                idx, lfsr_state = sampler(cur_xyz, op.n_samples, lfsr_state,
+                                          shared_urs)
+            if collect_cache:
+                got_sample.append(idx)
         elif isinstance(op, stage_plan.GroupOp):
             affine = params["stages"][op.stage].get("affine")
-            cur_xyz, _, cur = grouper(cur_xyz, cur, idx, op.k, affine,
-                                      cfg.affine_mode, per_sample_norm)
+            if op.cached and (mapping_cache is not None or collect_cache):
+                # the split grouper: group_with_idx(.., neighbor_index(..))
+                # is the whole grouper bit for bit
+                if mapping_cache is not None:
+                    nbr = mapping_cache["nbr"][op.stage]
+                else:
+                    nbr = grouper.neighbor_index(
+                        gather_points(cur_xyz, idx), cur_xyz, op.k)
+                if collect_cache:
+                    got_nbr.append(nbr)
+                cur_xyz, _, cur = grouper.group_with_idx(
+                    cur_xyz, cur, idx, nbr, affine, cfg.affine_mode,
+                    per_sample_norm)
+            else:
+                cur_xyz, _, cur = grouper(cur_xyz, cur, idx, op.k, affine,
+                                          cfg.affine_mode, per_sample_norm)
         elif isinstance(op, stage_plan.CBROp):
             cur = cbr(op, stage_plan.param_at(params, op.path), cur)
         elif isinstance(op, stage_plan.FusedGroupTransferOp):
@@ -182,41 +231,58 @@ def _forward_impl(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
             head = params["head"]
             h = cbr(op.fc1, head["fc1"], cur)
             h = cbr(op.fc2, head["fc2"], h)
-            logits = L.conv1d_apply(head["fc3"], h, quant=op.fc3_quant)
+            logits = fc3(op, head["fc3"], h)
         elif isinstance(op, stage_plan.SegHeadOp):
             g = cur.amax(dim=1)                                 # [B, C4]
-            up_idx = knn_core.knn_batched(xyz, cur_xyz, 1)      # [B, N, 1]
+            if op.cached and mapping_cache is not None:
+                up_idx = mapping_cache["up"]
+            else:
+                up_idx = knn_core.knn_batched(xyz, cur_xyz, 1)  # [B, N, 1]
+            if collect_cache:
+                got_up = up_idx
             up = knn_core.gather_neighbors(cur, up_idx)[:, :, 0, :]
             h = torch.cat([embed, up,
                            g[:, None, :].expand(-1, up.shape[1], -1)], dim=-1)
             head = params["head"]
             h = cbr(op.fc1, head["fc1"], h)
             h = cbr(op.fc2, head["fc2"], h)
-            logits = L.conv1d_apply(head["fc3"], h, quant=op.fc3_quant)
+            logits = fc3(op, head["fc3"], h)
         else:
             raise TypeError(f"unknown stage-plan op {type(op).__name__}")
-    return logits, lfsr_state
+    cache = None
+    if collect_cache:
+        cache = {"sample": tuple(got_sample), "nbr": tuple(got_nbr)}
+        if got_up is not None:
+            cache["up"] = got_up
+    return logits, lfsr_state, cache
 
 
 def pointmlp_infer_with(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
                         lfsr_state: Optional[torch.Tensor] = None, *,
                         sampler, grouper, plan, shared_urs: bool = False,
-                        per_sample_norm: bool = False
-                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                        per_sample_norm: bool = False,
+                        mapping_cache: Optional[Dict] = None,
+                        collect_cache: bool = False):
     """Inference forward over resolved pipeline components.
 
     ``repro_torch.api.build`` resolves the spec's registry keys, lowers
     the plan once and calls this.  The whole batch runs as one dispatch
-    (see the module docstring for the per-lane quantities).
+    (see the module docstring for the per-lane quantities), so a stream
+    cache is batch-leading tensors on the clouds' device; see
+    :func:`_forward_impl` for ``mapping_cache`` and ``collect_cache``.
 
     Returns (logits [B, n_classes], or [B, n_points, n_classes] for the
-    seg head; advanced LFSR state).
+    seg head; advanced LFSR state[, the collected cache]).
     """
     with torch.inference_mode():
-        return _forward_impl(params, cfg, xyz, lfsr_state, sampler=sampler,
-                             grouper=grouper, plan=plan,
-                             shared_urs=shared_urs,
-                             per_sample_norm=per_sample_norm)
+        logits, state, cache = _forward_impl(
+            params, cfg, xyz, lfsr_state, sampler=sampler, grouper=grouper,
+            plan=plan, shared_urs=shared_urs,
+            per_sample_norm=per_sample_norm, mapping_cache=mapping_cache,
+            collect_cache=collect_cache)
+    if collect_cache:
+        return logits, state, cache
+    return logits, state
 
 
 def pointmlp_flops_breakdown(cfg: PointMLPConfig) -> Dict[str, int]:

@@ -1,14 +1,15 @@
 """Pad/dispatch/unpad core of the point-cloud serving engine.
 
 The twin of ``repro.serve.batching``: queue normalization, ``max_batch``
-chunking, zero pad-to-batch and the stats schema.  Pad lanes are
+chunking, zero pad-to-batch, request stacking and the stats schema that
+the sync and async engines share.  Pad lanes are
 computed but never returned, and under ``spec.serving()`` semantics they
 cannot leak into a real lane's result.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Tuple
+from typing import Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +69,17 @@ def as_point_queue(points, n_points: int, device=None) -> torch.Tensor:
     return pts
 
 
+def check_shard_batch(max_batch: int, data_shards: int) -> None:
+    """Reject a dispatch shape that ``data_shards`` devices cannot split
+    evenly (``data_shards == 1`` always can; more waits for the sharded
+    dispatch, which ``PipelineSpec.validate`` refuses)."""
+    if max_batch % data_shards:
+        raise ValueError(
+            f"data_shards={data_shards} must divide max_batch evenly: got "
+            f"max_batch={max_batch} (every fixed-shape dispatch is split "
+            f"across the devices)")
+
+
 def split_queue(pts: torch.Tensor, max_batch: int) -> Iterator[torch.Tensor]:
     """Split a [R, N, 3] queue into <= ``max_batch`` chunks, in order."""
     for i in range(0, pts.shape[0], max_batch):
@@ -88,3 +100,20 @@ def pad_to_batch(chunk: torch.Tensor, max_batch: int
     if pad:
         chunk = torch.cat([chunk, chunk.new_zeros((pad, n, 3))], dim=0)
     return chunk, pad
+
+
+def stack_requests(clouds: Sequence, n_points: int) -> torch.Tensor:
+    """Stack [N, 3] request clouds into a float32 [r, N, 3] CPU tensor.
+
+    Every cloud is shape-checked first, so a ragged request list raises a
+    ``ValueError`` naming the offending requests.
+    """
+    arrs = [np.asarray(c, np.float32) for c in clouds]
+    bad = [(i, a.shape) for i, a in enumerate(arrs)
+           if a.shape != (n_points, 3)]
+    if bad:
+        raise ValueError(
+            f"requests must be [N={n_points}, 3] clouds; got "
+            + "; ".join(f"request {i}: shape {s}" for i, s in bad[:4])
+            + (f" (+{len(bad) - 4} more)" if len(bad) > 4 else ""))
+    return torch.from_numpy(np.stack(arrs, axis=0))

@@ -5,7 +5,8 @@ is frozen once by ``repro_torch.api.build`` and the engine drains a
 ragged request queue in fixed-shape ``max_batch`` chunks, zero-padding
 the last.  The URS sampler runs off a persistent LFSR state held by the
 engine, so results are queue-order invariant and the state advances
-deterministically across calls.
+deterministically across calls.  ``open_stream`` gives a blocking stream
+session (``repro_torch.serve.streaming``) on the engine's pipeline.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ class PointCloudEngine:
         if not isinstance(spec, PipelineSpec):
             raise TypeError(f"PointCloudEngine takes a repro_torch "
                             f"PipelineSpec, got {type(spec).__name__}")
+        spec.validate()
         self.device = resolve_device(device)
         self.max_batch = int(max_batch)
         self.pipeline = build(spec, params, device=self.device)
@@ -111,6 +113,15 @@ class PointCloudEngine:
         """Top-1 class ids for a ragged queue: [R], or [R, n_points] for
         the seg head."""
         return torch.argmax(self.classify(points), dim=-1)
+
+    def open_stream(self, *, max_age=None, batch=None):
+        """A blocking :class:`~repro_torch.serve.streaming.StreamSession`
+        over this engine's pipeline, with the engine's seed: every frame
+        restarts from the seed LFSR state, so a session neither reads nor
+        moves the engine's queue state.  Needs a ``stream=True`` spec."""
+        from repro_torch.serve.streaming import StreamSession
+        return StreamSession(self.pipeline, seed=self._seed,
+                             max_age=max_age, batch=batch)
 
     def describe(self) -> str:
         """The frozen pipeline's description plus serving shape."""

@@ -49,14 +49,15 @@ M2_SHAPES = {
     (2048, 64, 256): 2,
     (4096, 128, 32): 1, (4096, 32, 128): 1, (8192, 64, 16): 1,
     (8192, 16, 64): 1,
-    (32, 512, 512): 1, (32, 512, 256): 1, (16384, 3, 32): 1}
-LITE_SHAPES = {**M2_SHAPES, (32, 256, 40): 1}
+    (32, 512, 512): 1, (32, 512, 256): 1, (16384, 3, 32): 1,
+    (32, 256, 40): 1}
+LITE_SHAPES = M2_SHAPES
 # The seg head (n_classes = 50, ShapeNetPart's part labels) runs its
 # classifier per point: fc1 over [embed, upsampled, global] (K = 32 + 2 *
 # 512 = 1056), fc2, and fc3 at N = 50, in place of the cls head's rows.
 LITE_SEG_SHAPES = {
     **{s: c for s, c in M2_SHAPES.items()
-       if s not in ((32, 512, 512), (32, 512, 256))},
+       if s not in ((32, 512, 512), (32, 512, 256), (32, 256, 40))},
     (16384, 1056, 512): 1, (16384, 512, 256): 1, (16384, 256, 50): 1}
 ELITE_SHAPES = {
     (32768, 3, 32): 1, (262144, 64, 16): 1, (262144, 16, 64): 1,
@@ -65,7 +66,7 @@ ELITE_SHAPES = {
     (65536, 256, 64): 2, (65536, 64, 256): 2, (4096, 256, 64): 2,
     (4096, 64, 256): 2, (32768, 512, 128): 1, (32768, 128, 512): 1,
     (2048, 512, 128): 1, (2048, 128, 512): 1, (32, 512, 512): 1,
-    (32, 512, 256): 1}
+    (32, 512, 256): 1, (32, 256, 40): 1}
 RAGGED = [(1, 1, 1), (77, 3, 33), (231, 40, 24), (1000, 100, 200),
           (300, 17, 130), (4097, 20, 500), (5, 1024, 7), (129, 48, 16)]
 ALL_SHAPES = sorted({*LITE_SHAPES, *LITE_SEG_SHAPES, *ELITE_SHAPES,
@@ -282,13 +283,14 @@ def test_grouped_transfer_template_at_elite_dispatch(monkeypatch):
      LITE_SEG_SHAPES)])
 def test_dispatch_gemm_shapes(monkeypatch, name, spec, n_points, kernel,
                               want):
-    """A dispatch launches one GEMM kernel, 28 / 27 / 23 / 28 times, at
-    exactly the shapes that the templates above are held to."""
+    """A dispatch launches one GEMM kernel, 28 / 28 / 24 / 28 times, at
+    exactly the shapes that the templates above are held to (the head's
+    fc3 included: on the ``cuda`` backend it runs on the head's kernel)."""
     shapes = record_dispatch(monkeypatch, spec, n_points)
     assert {s[0] for s in shapes} == {kernel}
     got = collections.Counter(s[1:] for s in shapes)
     assert got == collections.Counter(want)
-    assert len(shapes) == {"lite": 28, "m2": 27, "elite": 23,
+    assert len(shapes) == {"lite": 28, "m2": 28, "elite": 24,
                            "lite_seg": 28}[name]
 
 

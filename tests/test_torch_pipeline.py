@@ -348,7 +348,6 @@ class TestSpecAndDevice:
         assert elite_spec().sampler == "fps"
 
     @pytest.mark.parametrize("over,item", [
-        (dict(stream=True), "stream"),
         (dict(data_shards=2), "sharded"),
         (dict(kernel_tuning=KernelTuning(knn=64)), "Tuning"),
     ])
@@ -376,20 +375,71 @@ class TestSpecAndDevice:
         logits, _ = pipe.infer(clouds, pipe.seed_state(SEED, B))
         assert logits.shape == shape and bool(torch.isfinite(logits).all())
 
+    def test_stream_spec_builds_and_infers(self, raw_params, clouds):
+        """A stream spec, once refused here, builds and infers; its
+        collect pass gives infer's logits bit for bit (sessions and
+        their parity with JAX are in ``test_torch_streaming``)."""
+        pipe = build(tiny(m2_spec, stream=True, stream_drift_threshold=0.05),
+                     from_numpy_tree(raw_params), device="cpu")
+        assert pipe.streaming and pipe.plan.stream
+        logits, _ = pipe.infer(clouds, pipe.seed_state(SEED, B))
+        assert logits.shape == (B, 8) and bool(torch.isfinite(logits).all())
+        again, _, cache = pipe.infer_collect(clouds, pipe.seed_state(SEED, B))
+        assert torch.equal(again, logits) and len(cache["nbr"]) == 4
+
     @pytest.mark.parametrize("over,exc,match", [
         (dict(grouper="ball"), ValueError, r"RPA010.*grouper='ball'"),
         (dict(precision="int8"), ValueError, r"RPA011.*fp32"),
         (dict(fuse=False), ValueError, r"RPA012.*fuse=True"),
-        (dict(stream=True), NotImplementedError, r"stream.*ROADMAP"),
+        (dict(stream=True), ValueError, r"RPA013.*fused_group='none'"),
     ])
     def test_fused_group_rejections(self, raw_params, over, exc, match):
         """The fused group->transfer lowering's preconditions (the JAX
         package's RPA010-012: the kNN grouper, fp32 transfers, folded BN)
-        name the field to change; stream specs still wait for their
-        ROADMAP item."""
+        name the field to change; so does RPA013, the stream lowering's
+        refusal of a fused group."""
         spec = tiny(m2_spec, fused_group="grouped_transfer", **over)
         with pytest.raises(exc, match=f"(?s){match}"):
             build(spec, from_numpy_tree(raw_params), device="cpu")
+
+    @pytest.mark.parametrize("rule", ["RPA014", "RPA015", "RPA005"])
+    def test_stream_and_policy_rules(self, raw_params, rule):
+        """The stream-cache contract (a grouper with the neighbor_index /
+        group_with_idx split, RPA014; a sampler declaring advances_state,
+        RPA015) and the batch-policy key (RPA005, which only the spec's
+        ``validate`` and the engines check, as in JAX) name the field to
+        change."""
+        from repro_torch.api import registry
+
+        def bare_grouper(xyz, feats, idx, k, affine, mode, per_sample):
+            raise AssertionError("never called")
+
+        def bare_sampler(xyz, n, state, shared):
+            raise AssertionError("never called")
+
+        registry.register_grouper("_bare_grouper")(bare_grouper)
+        registry.register_sampler("_bare_sampler")(bare_sampler)
+        try:
+            over, match = {
+                "RPA014": (dict(grouper="_bare_grouper"),
+                           r"RPA014.*grouper='knn'"),
+                "RPA015": (dict(sampler="_bare_sampler"),
+                           r"RPA015.*sampler='fps' or 'urs'"),
+                "RPA005": (dict(policy="nope"), r"RPA005.*set policy"),
+            }[rule]
+            spec = tiny(m2_spec, stream=rule != "RPA005",
+                        stream_drift_threshold=0.05, **over)
+            with pytest.raises(ValueError, match=match):
+                spec.validate()
+            if rule == "RPA005":
+                assert build(spec, from_numpy_tree(raw_params),
+                             device="cpu").streaming is False
+            else:
+                with pytest.raises(ValueError, match=match):
+                    build(spec, from_numpy_tree(raw_params), device="cpu")
+        finally:
+            registry.GROUPERS.unregister("_bare_grouper")
+            registry.SAMPLERS.unregister("_bare_sampler")
 
     def test_unknown_fused_group_lists_registered(self, raw_params):
         with pytest.raises(KeyError, match="grouped_transfer"):
