@@ -920,6 +920,11 @@ def serving_phase(torch, name, spec, params, clouds, expect,
         eng.classify(clouds)
     sps = eng.stats.samples_per_s
     prof = profile_dispatch(torch, pipe, full, state0)
+    # Host time a dispatch beyond its device time, per lane: the fixed
+    # term of repro_torch.roofline.H100_SXM (dispatch_overhead_s).
+    over = ("not measured" if isinstance(prof["device_ms"], str) else
+            (eng.stats.serve_s / eng.stats.batches
+             - prof["device_ms"] / 1e3) / MAX_BATCH)
     emit({"phase": "serve", "name": name, "warmup_s": warm_s,
           "dispatches": dispatches, "launches": launches,
           "per_dispatch": {k: v / dispatches for k, v in launches.items()},
@@ -928,7 +933,7 @@ def serving_phase(torch, name, spec, params, clouds, expect,
           "tolerance": f"{atol_rel} * max|logit|", "why": why,
           "top1_agree": top1, "samples_per_s": sps,
           "serve_s": eng.stats.serve_s, "host_s": eng.stats.host_s,
-          "profile": prof})
+          "overhead_s_per_sample": over, "profile": prof})
     return launches
 
 
@@ -1173,6 +1178,184 @@ def ladder_phases(torch, np, rng, lite_params):
          "fused_linear": 24}, 1e-4,
         "FPS, kNN and upsample indices identical; fp32 layers (fc1 at K = "
         "1056) sum in another order than the CPU, as for Elite"))
+    return total
+
+
+# ------------------------------------------------- analysis, tune --
+
+# The tune phase: Lite's quick space, every candidate measured on the
+# card through PointCloudEngine over a queue of 64 clouds, three times.
+TUNE_REQUESTS = 64
+TUNE_ITERS = 3
+# The product kernels a candidate may launch (knn runs on every one).
+PRODUCT_KERNELS = ("int8_matmul", "fused_linear", "grouped_transfer_stats",
+                   "grouped_transfer", "fps", "w8_matmul", "flash_attention")
+
+
+def analysis_phase(torch):
+    """``python -m repro_torch.analysis --all-variants`` in process: the
+    spec passes over every shipped variant, the registry contracts (each
+    entry run twice on CPU tensors), README.md's fleet and the plan-space
+    sweep.  0 error findings; no kernel launch (it runs on the CPU).
+    Returns the launches."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis.__main__ import main as analyze
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc, launches = counted(torch, lambda: analyze(["--all-variants",
+                                                        "-q"]))
+    lines = buf.getvalue().splitlines()
+    summary = next((ln for ln in lines if ln.startswith("SUMMARY")), "")
+    check(rc == 0 and " 0 error(s)" in summary,
+          f"analysis: error findings on the shipped specs: "
+          f"{buf.getvalue()}")
+    check(not any(launches.values()),
+          f"analysis: launched a kernel: {launches}")
+    emit({"phase": "analysis", "summary": summary, "rc": rc,
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
+def ranks(values):
+    """1-based ranks of ``values``, largest first, ties averaged."""
+    order = sorted(range(len(values)), key=lambda i: -values[i])
+    out = [0.0] * len(values)
+    i = 0
+    while i < len(order):
+        j = i
+        while j + 1 < len(order) and values[order[j + 1]] == values[order[i]]:
+            j += 1
+        for t in range(i, j + 1):
+            out[order[t]] = (i + j) / 2 + 1
+        i = j + 1
+    return out
+
+
+def spearman(a, b):
+    """Spearman's rho of two rank lists (Pearson's r on the ranks)."""
+    n = len(a)
+    ma, mb = sum(a) / n, sum(b) / n
+    cov = sum((x - ma) * (y - mb) for x, y in zip(a, b))
+    va = sum((x - ma) ** 2 for x in a) ** 0.5
+    vb = sum((y - mb) ** 2 for y in b) ** 0.5
+    return cov / (va * vb) if va and vb else float("nan")
+
+
+def expected_kernels(spec):
+    """The kernels a quick-space candidate must launch: kNN always; on
+    ``cuda`` stages, the int8 product for int8 ones and the fp32 product
+    for fp32 ones (their residual blocks, fused or not); the fused
+    group's stats variant on either backend (a fused op is its kernel, as
+    JAX's runs its Pallas kernel on any backend).  Embed and head follow
+    ``spec.backend`` (``ref``)."""
+    want = {"knn"}
+    if spec.fused_group != "none":
+        want.add("grouped_transfer_stats")
+    if set(spec.stage_backend or (spec.backend,)) == {"cuda"}:
+        prec = set(spec.stage_precision or (spec.precision,))
+        if "int8" in prec:
+            want.add("int8_matmul")
+        if "fp32" in prec:
+            want.add("fused_linear")
+    return want
+
+
+def tune_phase(torch, params, smi):
+    """``tune()`` on the card at full width: Lite's topology (512 points,
+    URS, k = 16) with its quick space whole (every CBR route, both group
+    paths) measured, the anchor included, in the estimate's order.  Each
+    candidate's measurement is counted on its own: a ``cuda`` candidate
+    launches its product kernels, a ``ref`` one none, only kNN.  The
+    estimate is ``H100_SXM``'s; the phase prints both ranks and
+    Spearman's rho.  Returns the launches."""
+    from repro_torch import roofline
+    from repro_torch.api.spec import lite_spec
+    from repro_torch.tune import search
+    from repro_torch.tune.artifact import validate_artifact
+
+    t0 = time.perf_counter()
+    # Lite's topology with fp32 embed and head (JAX's tuner tests' base):
+    # under Lite's int8 embed and head no candidate but the anchor would
+    # be fp32, and the fp32 check below would hold nothing.
+    base = lite_spec(N_CLASSES, precision="fp32")
+    space = search.quick_space(base.serving())
+    measured = []
+    inner = search._measure
+
+    def measure(cand, *args, **kw):
+        out, launches = counted(torch, lambda: inner(cand, *args, **kw))
+        measured.append((cand, launches, out))
+        return out
+
+    search._measure = measure
+    try:
+        doc = search.tune(base, params, top_k=len(space),
+                          hw=roofline.H100_SXM, max_batch=MAX_BATCH,
+                          n_requests=TUNE_REQUESTS, measure_iters=TUNE_ITERS,
+                          seed=SEED)
+    finally:
+        search._measure = inner
+    validate_artifact(doc)
+    check(measured and measured[0][0].anchor,
+          "tune: the anchor was not measured first")
+    anchor_logits = measured[0][2]
+    scale = anchor_logits.abs().max().item()
+    rows = doc["rows"]
+    anchor = rows[0]
+    check(anchor["anchor"] and anchor["measured_sps"] is not None
+          and anchor["frontier"], "tune: the anchor is not measured on the "
+                                  "frontier")
+    estimated = [c for c, _, _ in measured[1:]]
+    check(estimated == sorted(estimated,
+                              key=lambda c: (c.est_time, c.fingerprint)),
+          "tune: candidates were not measured in (estimated time, "
+          "fingerprint) order")
+    want_names = {r["name"] for r in rows[1:] if r["estimated_sps"]}
+    check({c.label for c in estimated} == want_names
+          and len(estimated) == len(space),
+          f"tune: measured {len(estimated)} candidates, the space has "
+          f"{len(space)}")
+    total = {k: 0 for k in counters()}
+    by_name = {r["name"]: r for r in rows}
+    cands = []
+    for cand, launches, _ in measured:
+        add_launches(total, launches)
+        row = by_name[cand.label]
+        check(cand.measure_error is None and row["measured_sps"],
+              f"tune: {cand.label} was not measured: {cand.measure_error}")
+        want = expected_kernels(cand.spec)
+        for kname in ("knn",) + PRODUCT_KERNELS:
+            check((launches[kname] > 0) == (kname in want),
+                  f"tune: {cand.label} launched {kname} {launches[kname]} "
+                  f"times; it should launch {sorted(want)} only")
+        int8 = "int8" in (cand.spec.stage_precision or ()) or \
+            cand.spec.precision == "int8"
+        if not int8:
+            check(row["err_vs_fp32"] <= 1e-4 * scale,
+                  f"tune: fp32 candidate {cand.label} err_vs_fp32 "
+                  f"{row['err_vs_fp32']} beyond 1e-4 * {scale}")
+        cands.append({"label": cand.label, "estimated_sps":
+                      row["estimated_sps"], "measured_sps":
+                      row["measured_sps"], "err_vs_fp32": row["err_vs_fp32"],
+                      "precision": "int8" if int8 else "fp32",
+                      "frontier": row["frontier"],
+                      "launches": {k: v for k, v in launches.items() if v}})
+    est_rank = ranks([c["estimated_sps"] for c in cands])
+    meas_rank = ranks([c["measured_sps"] for c in cands])
+    for c, e, m in zip(cands, est_rank, meas_rank):
+        c["estimated_rank"], c["measured_rank"] = e, m
+        emit({"phase": "tune_row", **c})
+    emit({"phase": "tune", "card": smi, "hw": doc["hw"], "base": base.name,
+          "n_points": base.n_points, "max_batch": MAX_BATCH,
+          "n_requests": TUNE_REQUESTS, "measure_iters": TUNE_ITERS,
+          "candidates": len(cands), "anchor_max_abs_logit": scale,
+          "fp32_tolerance": "1e-4 * the anchor's max|logit| (M-2's)",
+          "spearman_rho": spearman(est_rank, meas_rank),
+          "frontier": [c["label"] for c in cands if c["frontier"]],
+          "launches": total, "seconds": time.perf_counter() - t0})
     return total
 
 
@@ -2065,6 +2248,8 @@ def main() -> int:
     for k, v in got.items():
         total[k] += v
     add_launches(total, ladder_phases(torch, np, rng, params))
+    add_launches(total, analysis_phase(torch))
+    add_launches(total, tune_phase(torch, params, smi))
 
     t_engines = time.perf_counter()
     add_launches(total, async_phase(torch, np, params, clouds, smi))

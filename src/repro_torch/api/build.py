@@ -222,6 +222,11 @@ class FrozenPipeline:
         from repro_torch.models import pointmlp as PM
         return PM.pointmlp_flops_breakdown(self.model_config)
 
+    def cost_breakdown(self) -> List[Dict[str, Any]]:
+        """Per-op FLOPs, weight bytes and activation bytes of the compiled
+        plan (:meth:`~repro_torch.api.plan.StagePlan.cost_breakdown`)."""
+        return self.plan.cost_breakdown(self.model_config)
+
     def describe(self) -> str:
         """Human-readable rendering of the compiled variant."""
         from repro_torch.core.quant import tree_size_bytes

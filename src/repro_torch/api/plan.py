@@ -11,20 +11,26 @@ stage's ``GroupOp`` + transfer ``CBROp`` pair becomes one
 the place of the global pool and ``HeadOp``; with ``spec.stream`` every
 mapping op is marked ``cached`` so a stream cache can replay it.  The
 model walk (``repro_torch.models.pointmlp._forward_impl``) interprets
-the plan.  :func:`spec_fingerprint` names a spec by its field values.
+the plan.  :meth:`StagePlan.cost_breakdown` gives the analytic per-op
+FLOPs and bytes the roofline estimate (``repro_torch.roofline``) and the
+analyzer's perf pass read.  :func:`spec_fingerprint` and
+:func:`spec_label` name a spec; :func:`enumerate_plan_space` is the
+tuner's search space, pruned by the analyzer's lowering passes.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import hashlib
+import itertools
 import json
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 from repro_torch.api import registry
 from repro_torch.api.spec import N_STAGES as _N_STAGES
 from repro_torch.api.spec import check_lowering
 from repro_torch.core.quant import QuantConfig, is_quantizable_leaf_path
+from repro_torch.kernels.tuning import DEFAULT_TUNING, KernelTuning
 
 _KERNEL_BACKENDS = ("cuda",)
 
@@ -154,6 +160,9 @@ class StagePlan:
     fused_group: str = "none"       # FUSED_OPS key, or "none"
     head: str = "cls"               # "cls" | "seg" (SegHeadOp lowering)
     stream: bool = False            # cache-aware mapping ops
+    #: ``spec.kernel_tuning`` or the defaults; the roofline estimate's
+    #: tile-waste term reads it.
+    tuning: KernelTuning = DEFAULT_TUNING
 
     def cbr_ops(self) -> List[CBROp]:
         """Every CBR layer in execution order (fused transfers included)."""
@@ -199,6 +208,64 @@ class StagePlan:
             rows.append(row)
         rows.append(f"head: {self.head}/{self.precision}/{self.backend}")
         return "; ".join(rows)
+
+    def cost_breakdown(self, cfg) -> List[Dict[str, Any]]:
+        """Analytic per-op FLOPs, weight bytes and activation bytes, the
+        rows of ``repro.api.plan.StagePlan.cost_breakdown``.
+
+        The FLOPs are :func:`repro_torch.models.pointmlp.
+        pointmlp_flops_breakdown`'s (the rows sum to ``pointmlp_flops``);
+        the bytes follow the plan: an int8 region's weights are one byte
+        and an f32 scale a column, and a fused group->transfer stage
+        never writes the ``[S, k, 2C]`` grouped tensor, though its sigma
+        stats pass still reads a ``[S, k, C]`` gather (all affine modes
+        but "center").  No kNN or FPS work is counted, as in JAX.
+        """
+        from repro_torch.models.pointmlp import pointmlp_flops_breakdown
+        flops = pointmlp_flops_breakdown(cfg)
+        rows: List[Dict[str, Any]] = []
+
+        def wbytes(c_in: int, c_out: int, precision: str) -> int:
+            if precision == "int8":
+                return c_in * c_out + 4 * c_out      # int8 q + f32 scales
+            return 4 * c_in * c_out
+
+        def row(op: str, w_bytes: int, act_bytes: int) -> None:
+            rows.append({"op": op, "flops": flops[op],
+                         "w_bytes": w_bytes, "act_bytes": act_bytes})
+
+        n, e = cfg.n_points, cfg.embed_dim
+        row("embed", wbytes(3, e, self.precision), 4 * n * e)
+        c_prev = e
+        fused = {op.stage for op in self.ops
+                 if isinstance(op, FusedGroupTransferOp)}
+        for s in range(_N_STAGES):
+            smp, c = cfg.stage_samples[s], cfg.stage_dims[s]
+            k = cfg.k_neighbors
+            prec = self.stage_precision[s]
+            if s not in fused:
+                group_bytes = 4 * smp * k * 2 * c_prev
+            elif cfg.affine_mode == "center":
+                group_bytes = 0
+            else:
+                group_bytes = 4 * smp * k * c_prev
+            row(f"stage{s + 1}.group", 0, group_bytes)
+            row(f"stage{s + 1}.transfer", wbytes(2 * c_prev, c, prec),
+                4 * smp * k * c)
+            mid = max(1, int(c * cfg.res_expansion))
+            blk = wbytes(c, mid, prec) + wbytes(mid, c, prec)
+            row(f"stage{s + 1}.pre", cfg.pre_blocks[s] * blk,
+                4 * smp * k * c)
+            row(f"stage{s + 1}.pos", cfg.pos_blocks[s] * blk, 4 * smp * c)
+            c_prev = c
+        # The seg head runs per point on the [N, E + 2*C4] skip concat.
+        c_in, m = ((cfg.embed_dim + 2 * c_prev, n) if self.head == "seg"
+                   else (c_prev, 1))
+        row("head", wbytes(c_in, 512, self.precision)
+            + wbytes(512, 256, self.precision)
+            + wbytes(256, cfg.n_classes, self.precision),
+            4 * m * (512 + 256 + cfg.n_classes))
+        return rows
 
 
 def _path_stage(path: tuple) -> Optional[int]:
@@ -284,8 +351,9 @@ def lower(spec, cfg) -> StagePlan:
     """Compile a spec + model config into the executable op plan.
 
     ``cfg`` supplies the topology, ``spec`` the policy.  Raises what
-    ``api.spec.check_lowering`` raises (the policy key is the engines'
-    to check, as in ``repro.api.plan.lower``).
+    ``api.spec.check_lowering`` raises: the ``lowering`` scope of
+    ``repro_torch.analysis`` (the policy key is the engines' to check, as
+    in ``repro.api.plan.lower``).
     """
     check_lowering(spec)
     stage_prec, stage_back = resolve_stage_fields(spec)
@@ -308,7 +376,8 @@ def lower(spec, cfg) -> StagePlan:
     return StagePlan(name=spec.name, ops=ops, stage_precision=stage_prec,
                      stage_backend=stage_back, precision=spec.precision,
                      backend=spec.backend, fused_group=fused_key,
-                     head=spec.head, stream=spec.stream)
+                     head=spec.head, stream=spec.stream,
+                     tuning=spec.kernel_tuning or DEFAULT_TUNING)
 
 
 def spec_fingerprint(spec) -> str:
@@ -322,3 +391,69 @@ def spec_fingerprint(spec) -> str:
     d["stage_precision"], d["stage_backend"] = list(prec), list(back)
     blob = json.dumps(d, sort_keys=True, default=str, separators=(",", ":"))
     return hashlib.sha256(blob.encode()).hexdigest()[:12]
+
+
+def spec_label(spec) -> str:
+    """The searched axes of a spec in one short string, the tuner's row
+    name (``repro.api.plan.spec_label``'s format, so a row keeps its name
+    across revisions and packages).  A non-default ``kernel_tuning``
+    appends a ``/kt=`` token."""
+    prec, back = resolve_stage_fields(spec)
+    label = (f"{spec.sampler}/{spec.grouper}"
+             f"/prec={'.'.join(prec)}+{spec.precision}"
+             f"/be={back[0] if len(set(back)) == 1 else '.'.join(back)}"
+             f"/fg={spec.fused_group}"
+             f"/ds={spec.data_shards}")
+    kt = spec.kernel_tuning
+    if kt is not None and kt != DEFAULT_TUNING:
+        tm, tk, tn = kt.fused_linear
+        label += (f"/kt={tm}x{tk}x{tn}.gt{kt.grouped_transfer}"
+                  f".f{kt.fps}.k{kt.knn}")
+    return label
+
+
+#: The per-stage precision ladder the tuner searches: the two uniform
+#: ends and the paper-style mixes that keep the tail in fp32.
+DEFAULT_STAGE_PRECISIONS: Tuple[Tuple[str, ...], ...] = (
+    ("fp32",) * _N_STAGES,
+    ("int8",) * _N_STAGES,
+    ("int8", "int8", "int8", "fp32"),
+    ("int8", "int8", "fp32", "fp32"),
+)
+
+
+def enumerate_plan_space(base,
+                         *,
+                         stage_precisions: Iterable = DEFAULT_STAGE_PRECISIONS,
+                         stage_backends: Iterable = (("ref",) * _N_STAGES,),
+                         fused_groups: Iterable = ("none",),
+                         data_shards: Iterable = (1,),
+                         samplers: Optional[Iterable] = None,
+                         groupers: Optional[Iterable] = None,
+                         kernel_tunings: Iterable = (None,)) -> List:
+    """The valid spec search space around ``base``.
+
+    The product ``stage_precision`` x ``stage_backend`` x ``fused_group``
+    x ``data_shards`` x sampler x grouper x ``kernel_tuning``, in argument
+    order, less every point with a finding of the analyzer's lowering
+    passes (an error or a warning).  A ``kernel_tunings`` entry of None
+    keeps ``base.kernel_tuning``.
+    """
+    from repro_torch.analysis.passes import analyze_spec
+    samplers = tuple(samplers) if samplers is not None else (base.sampler,)
+    groupers = tuple(groupers) if groupers is not None else (base.grouper,)
+    out = []
+    for sp, sb, fg, ds, sam, grp, kt in itertools.product(
+            tuple(tuple(p) for p in stage_precisions),
+            tuple(tuple(b) for b in stage_backends),
+            tuple(fused_groups), tuple(data_shards),
+            samplers, groupers, tuple(kernel_tunings)):
+        spec = base.replace(stage_precision=sp, stage_backend=sb,
+                            fused_group=fg, data_shards=ds,
+                            sampler=sam, grouper=grp)
+        if kt is not None:
+            spec = spec.replace(kernel_tuning=kt)
+        if analyze_spec(spec, scopes=("lowering",)):
+            continue
+        out.append(spec)
+    return out

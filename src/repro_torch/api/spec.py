@@ -16,8 +16,8 @@ fused kernel; ``stream=True`` lowers the cache-aware mapping ops that
 ``repro_torch.serve.streaming`` replays.  Spec values the port does not
 run yet are rejected by :meth:`PipelineSpec.validate` with a
 ``NotImplementedError`` naming the ROADMAP.md item they wait for; a
-spec that breaks a rule of ``repro.analysis`` raises with that rule's
-code (RPA005, RPA010-015).
+spec that breaks a rule of ``repro_torch.analysis`` (the port's twin of
+``repro.analysis``) raises with that rule's code.
 
 :class:`TenantSpec` and :class:`FleetSpec` describe a whole deployment
 for ``repro_torch.serve.fleet.PipelineFleet``: the pipeline pool, the
@@ -159,13 +159,16 @@ class PipelineSpec:
         return self.replace(**kw)
 
     def validate(self) -> "PipelineSpec":
-        """Everything :func:`check_lowering` checks, and that the async
-        engines can make the batch policy (RPA005: an
-        :class:`UnknownKeyError` listing the registered policies).
-        Returns self."""
-        check_lowering(self)
-        from repro_torch.serve.policy import POLICIES
-        _known_key("RPA005", POLICIES, self.policy, "policy")
+        """Refuse what the port does not run yet (``NotImplementedError``
+        naming the ROADMAP.md item), then run every ``repro_torch.
+        analysis`` pass scope over this spec and enforce the findings:
+        unknown registry keys raise :class:`UnknownKeyError` listing the
+        registered names (RPA001-005), broken lowering / placement rules
+        raise ``ValueError`` with their ``RPAxxx`` code, soft
+        misconfigurations warn (RPA1xx).  Returns self."""
+        _check_supported(self)
+        from repro_torch.analysis.passes import enforce_spec
+        enforce_spec(self)
         return self
 
     # ------------------------------------------- model-config bridge ----
@@ -217,35 +220,20 @@ class PipelineSpec:
 
 class UnknownKeyError(KeyError, ValueError):
     """A registry key a spec names that is not registered.  A ``KeyError``
-    as ``repro``'s analyzer raises it (RPA005, RPA006), and a
-    ``ValueError`` like the port's other coded spec rules."""
-
-
-def _known_key(code: str, reg, name: str, field: str) -> None:
-    try:
-        reg.get(name)
-    except KeyError as e:
-        raise UnknownKeyError(f"{code}: {e.args[0]} (set {field} to one of "
-                              f"them)") from None
+    as ``repro``'s analyzer raises it (RPA001-006), and a ``ValueError``
+    like the port's other coded spec rules."""
 
 
 def check_lowering(spec: PipelineSpec) -> None:
     """What ``plan.lower`` needs: values the port runs
-    (``NotImplementedError`` naming the ROADMAP.md item), registered
-    sampler, grouper, backend and fused-op keys (``KeyError`` listing
-    the registered names), the fused group's preconditions (RPA010-012)
-    and the stream-cache contract (RPA013-015), both ``ValueError``s."""
+    (``NotImplementedError`` naming the ROADMAP.md item), then the
+    ``lowering`` scope of ``repro_torch.analysis``: registered sampler,
+    grouper, backend and fused-op keys (RPA001-004), the fused group's
+    preconditions (RPA010-012) and the stream-cache contract
+    (RPA013-015)."""
     _check_supported(spec)
-    from repro_torch.api import registry
-    registry.SAMPLERS.get(spec.sampler)
-    registry.GROUPERS.get(spec.grouper)
-    for key in {spec.backend, *(spec.stage_backend or ())}:
-        registry.BACKENDS.get(key)
-    if spec.fused_group != "none":
-        registry.FUSED_OPS.get(spec.fused_group)
-        _check_fused(spec)
-    if spec.stream:
-        _check_stream(spec)
+    from repro_torch.analysis.passes import enforce_spec
+    enforce_spec(spec, scopes=("lowering",))
 
 
 #: Spec values the port does not run yet, and the ROADMAP.md item each
@@ -254,7 +242,7 @@ _WAITS = (
     (lambda s: s.data_shards > 1, "data_shards > 1",
      "the async/stream/fleet engines (sharded dispatch)"),
     (lambda s: s.kernel_tuning not in (None, DEFAULT_TUNING),
-     "a non-default kernel_tuning", "Tuning and analysis"),
+     "a non-default kernel_tuning", "Tuning and analysis, part (b)"),
 )
 
 
@@ -264,54 +252,6 @@ def _check_supported(spec: PipelineSpec) -> None:
             raise NotImplementedError(
                 f"{what} is not ported yet: it waits for '{item}' in "
                 f"ROADMAP.md (Queue 1)")
-
-
-def _check_fused(spec: PipelineSpec) -> None:
-    """What the fused group->transfer lowering needs (``repro.analysis``
-    RPA010-012), as ``ValueError``s that name the field to change."""
-    fused = spec.fused_group
-    if spec.grouper != "knn":
-        raise ValueError(
-            f"RPA010: fused_group={fused!r} builds its neighbourhoods with "
-            f"the kNN kernel; grouper={spec.grouper!r} cannot lower fused "
-            f"(use grouper='knn' or fused_group='none')")
-    prec = spec.stage_precision or (spec.precision,) * N_STAGES
-    bad = [s + 1 for s in range(N_STAGES) if prec[s] == "int8"]
-    if bad:
-        raise ValueError(
-            f"RPA011: fused_group={fused!r} requires fp32 transfer layers; "
-            f"stages {bad} resolve to int8 (set precision / "
-            f"stage_precision to 'fp32' there, or fused_group='none')")
-    if not spec.fuse:
-        raise ValueError(
-            f"RPA012: fused_group={fused!r} consumes BN-folded (w, b) "
-            f"transfer layers; set fuse=True (or fused_group='none')")
-
-
-def _check_stream(spec: PipelineSpec) -> None:
-    """The stream-cache lowering contract (``repro.analysis`` RPA013-015),
-    as ``ValueError``s that name the field to change."""
-    from repro_torch.api import registry
-    if spec.fused_group != "none":
-        raise ValueError(
-            f"RPA013: stream=True is incompatible with fused_group="
-            f"{spec.fused_group!r}: the fused group->transfer kernel has no "
-            f"cache-aware lowering (set fused_group='none', or stream=False)")
-    grouper = registry.GROUPERS.get(spec.grouper)
-    if (getattr(grouper, "neighbor_index", None) is None
-            or getattr(grouper, "group_with_idx", None) is None):
-        raise ValueError(
-            f"RPA014: stream=True needs a grouper exposing the "
-            f"neighbor_index/group_with_idx split (stream-cache contract); "
-            f"grouper {spec.grouper!r} does not (set grouper='knn', or "
-            f"stream=False)")
-    if getattr(registry.SAMPLERS.get(spec.sampler), "advances_state",
-               None) is None:
-        raise ValueError(
-            f"RPA015: stream=True needs a sampler declaring its "
-            f"advances_state stream-cache semantics; sampler "
-            f"{spec.sampler!r} does not (set sampler='fps' or 'urs', or "
-            f"stream=False)")
 
 
 # ------------------------------------------------- fleet serving --------
@@ -429,14 +369,16 @@ class FleetSpec:
         return dataclasses.replace(self, **kw)
 
     def validate(self) -> "FleetSpec":
-        """Validate every pool pipeline (:meth:`PipelineSpec.validate`),
-        then the router key (RPA006: an :class:`UnknownKeyError` listing
-        the registered routers).  Tenant tiers are checked at
-        construction.  Returns self."""
+        """Refuse pool pipelines the port does not run yet, then enforce
+        the fleet-level ``repro_torch.analysis`` findings: every pool
+        pipeline through every pass scope, and the router key (RPA006:
+        an :class:`UnknownKeyError` listing the registered routers).
+        Tenant tiers are checked at construction.  Returns self."""
         for p in self.pipelines:
-            p.validate()
-        from repro_torch.serve.router import ROUTERS
-        _known_key("RPA006", ROUTERS, self.router, "router")
+            _check_supported(p)
+        from repro_torch.analysis import enforce
+        from repro_torch.analysis.passes import analyze_fleet_spec
+        enforce(analyze_fleet_spec(self))
         return self
 
 

@@ -104,8 +104,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if (tq, tk) != (128, 128):
             raise NotImplementedError(
                 f"flash_attention: tiles tq={tq}, tk={tk} wait for "
-                f"'Tuning and analysis' in ROADMAP.md; the CUDA kernel's "
-                f"tiles are fixed")
+                f"'Tuning and analysis, part (b)' in ROADMAP.md; the CUDA "
+                f"kernel's tiles are fixed")
         return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal, window)
     return ref.attention_ref(q, k, v, causal, window)

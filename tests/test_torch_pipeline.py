@@ -481,6 +481,11 @@ class TestSpecAndDevice:
             "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"
+            "new = ('repro_torch.analysis.passes',"
+            " 'repro_torch.analysis.contracts',"
+            " 'repro_torch.analysis.__main__', 'repro_torch.roofline',"
+            " 'repro_torch.tune.search', 'repro_torch.tune.artifact')\n"
+            "assert all(n in sys.modules for n in new), new\n"
             "print(len([n for n in sys.modules"
             " if n.startswith('repro_torch')]))\n")
         env = dict(os.environ, PYTHONPATH=str(src))
