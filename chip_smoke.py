@@ -31,7 +31,16 @@ Lite's seg head, Elite unfused with an eviction age: bitwise against
 hit, Lite bitwise again through the async engine), and README.md's fleet
 of a Lite and an Elite tier (a burst that sheds, every admitted future
 bitwise against its tier's solo dispatch, and a stream session through
-the fleet).  Then the decoder LM, tinyllama-1.1b at full width and depth in
+the fleet).  The ``tiles`` phase pins the kernels' templates through
+``KernelTuning``: every template of every tunable kernel at Lite's, M-2's
+and Elite's ``plan_shapes`` (and the head's fc1, and flash attention at a
+tinyllama shape) held bitwise against the wrapper's own pick and against
+the plain version, each timed (``tile_row`` lines), then one dispatch of
+each spec under every ``tuning_candidates(quick=False)`` entry and under
+``plan_tuning``, bitwise ``DEFAULT_TUNING``'s logits with the pinned
+templates in the wrappers' ``.templates`` counters.  An early line prints
+the ``launch_profile()`` the script applied before torch started CUDA.
+Then the decoder LM, tinyllama-1.1b at full width and depth in
 bf16 with random weights from a seed: the flash-attention and W8A16
 kernels against their plain versions at its shapes, a scoring forward of
 4 x 2048 tokens through the flash kernel held against the plain-attention
@@ -49,6 +58,7 @@ of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -762,14 +772,14 @@ def gemm_bounds(torch, pipe, chunk, state):
     int8_cuda, fused_cuda = ops.int8_matmul_cuda, ops.fused_linear_cuda
     gt_launch = gt_mod._launch
 
-    def int8_rec(x_q, w_q, a_scale, w_scale, rows_per_lane):
+    def int8_rec(x_q, w_q, a_scale, w_scale, rows_per_lane, tile=None):
         shapes.append(("int8_matmul", *x_q.shape, w_q.shape[1],
                        a_scale.numel()))
-        return int8_cuda(x_q, w_q, a_scale, w_scale, rows_per_lane)
+        return int8_cuda(x_q, w_q, a_scale, w_scale, rows_per_lane, tile)
 
-    def fused_rec(x, w, b, activation="relu"):
+    def fused_rec(x, w, b, activation="relu", tile=None):
         shapes.append(("fused_linear", *x.shape, w.shape[1], 0))
-        return fused_cuda(x, w, b, activation)
+        return fused_cuda(x, w, b, activation, tile)
 
     def grouped_rec(feats, nidx, centers, sigma, alpha, beta, w, b, **kw):
         # both wrappers launch through _launch; sigma is given or None
@@ -814,15 +824,15 @@ def mapping_bounds(torch, pipe, chunk, state):
         out[kind]["launches"] += 1
         out[kind]["bound_ms"] += work_bound_ms(nbytes, nops)
 
-    def knn_rec(samples, points, k, radius=None):
+    def knn_rec(samples, points, k, radius=None, tile=None):
         b, s, c = samples.shape
         add("knn", *knn_work(b, s, points.shape[1], c, k))
-        return knn(samples, points, k, radius)
+        return knn(samples, points, k, radius, tile)
 
-    def fps_rec(points, n_samples):
+    def fps_rec(points, n_samples, tile=None):
         b, n, c = points.shape
         add("fps", *fps_work(b, n, n_samples, c))
-        return fps(points, n_samples)
+        return fps(points, n_samples, tile)
 
     # the pipeline reaches both through these module attributes
     knn_mod.knn, fps_mod.fps = knn_rec, fps_rec
@@ -1355,6 +1365,190 @@ def tune_phase(torch, params, smi):
           "fp32_tolerance": "1e-4 * the anchor's max|logit| (M-2's)",
           "spearman_rho": spearman(est_rank, meas_rank),
           "frontier": [c["label"] for c in cands if c["frontier"]],
+          "launches": total, "seconds": time.perf_counter() - t0})
+    return total
+
+
+# ------------------------------------------------------------- tiles --
+
+# The tiles phase: the tile sweep's timings (CUDA-graph replays, the
+# median of TILE_ITERS) at Lite's, M-2's and Elite's plan shapes for a
+# MAX_BATCH dispatch, and flash attention at a 512-token tinyllama shape.
+TILE_ITERS = 5
+TILE_FLASH_SHAPE = (32, 512, 64)
+TILE_HEAD_SHAPE = (1, 512, 512)
+
+
+def pinned_names(kernel: str, tile):
+    """The template names (the wrappers' ``.templates`` keys) a pinned
+    ``KernelTuning`` value may launch: the route suffix follows the
+    operands, ``grouped_transfer``'s BN follows C_out within its row tile
+    and ``fps`` runs its tail variant on a cloud past the tile."""
+    from repro_torch.kernels import tuning
+    routes = ("vec", "scalar")
+    if kernel == "fused_linear":
+        bn, small = tuning.card_tile(kernel, tile)
+        return {f"bn{bn}{'_small' if small else ''}_{r}" for r in routes}
+    if kernel == "int8_matmul":
+        return {f"bn{tuning.card_tile(kernel, tile)}_{r}" for r in routes}
+    if kernel in ("grouped_transfer", "grouped_transfer_stats"):
+        rows = tuning.card_tile("grouped_transfer", tile)
+        return {f"bn{bn}_{r}" for bn in tuning.GROUPED_TRANSFER_ROWS[rows]
+                for r in routes}
+    if kernel == "knn":
+        return {f"select_q{tile}"}
+    return {f"tile{tile}", f"tile{tile}_tail"}
+
+
+def template_counters():
+    """Each tunable wrapper's per-template launch counter, by the name of
+    its launch count (``counters()``)."""
+    return {k: f.templates for k, (f, attr) in counters().items()
+            if attr == "launches" and hasattr(f, "templates")}
+
+
+def tile_parity(torch, kernel, got, want):
+    """(ok, max abs err, rule) of a template's output against the plain
+    version, by the kernel phases' rules."""
+    if kernel in ("knn", "fps", "int8_matmul"):
+        return bool(torch.equal(got, want)), 0.0, "bitwise"
+    if kernel == "flash_attention":
+        tol = 2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-5
+        ok, err = rowwise_close(torch, got, want, tol)[:2]
+        return ok, err, f"rowwise rtol=atol={tol}"
+    err = (got - want).abs().max().item()
+    return (bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5)), err,
+            "rtol=atol=1e-5")
+
+
+def tile_sweep(torch, kernel, shape, batch, dtype, specs):
+    """Every template of ``kernel`` in the full grid at one shape: its
+    output bitwise equal to the wrapper's own choice and within the plain
+    version's rule, its time from ``tune.kernels.sweep``.  One
+    ``tile_row`` line a template; returns the rows."""
+    from repro_torch.tune import kernels as K
+    args = K.make_inputs(kernel, shape, batch=batch, dtype=dtype,
+                         device="cuda", seed=SEED)
+    auto_tile = K.TILE_GRIDS[kernel]["full"][0]
+    auto = K.run(kernel, args, auto_tile)
+    want = K.plain(kernel, args)
+    own = K.template_name(kernel, args, auto_tile)
+    timed = dict(K.sweep(kernel, shape, batch=batch, dtype=dtype,
+                         quick=False, iters=TILE_ITERS))
+    rows = []
+    for tile in K.TILE_GRIDS[kernel]["full"]:
+        if tile not in timed:
+            # a tile the kernel cannot take here (flash's other route):
+            # refused as ValueError
+            try:
+                K.run(kernel, args, tile)
+            except ValueError as e:
+                rows.append({"kernel": kernel, "tile": tile,
+                             "refused": str(e)})
+                continue
+            raise SmokeFailure(f"tiles: {kernel} {tile} ran but the sweep "
+                               f"skipped it")
+        got = K.run(kernel, args, tile)
+        torch.cuda.synchronize()
+        check(torch.equal(got, auto), f"tiles: {kernel} {tile} at {shape} "
+              f"is not bitwise equal to the wrapper's own template")
+        ok, err, rule = tile_parity(torch, kernel, got, want)
+        check(ok, f"tiles: {kernel} {tile} at {shape}: {err} beyond the "
+                  f"plain version's rule ({rule})")
+        name = K.template_name(kernel, args, tile)
+        rows.append({"kernel": kernel, "specs": specs, "shape": shape,
+                     "batch": batch, "dtype": dtype, "tile": tile,
+                     "template": name, "ms": timed[tile],
+                     "own_choice": tile == auto_tile or name == own,
+                     "vs_plain": rule, "max_abs_err": err})
+    fastest = min((r for r in rows if "ms" in r), key=lambda r: r["ms"])
+    for r in rows:
+        if "ms" in r:
+            r["fastest"] = r is fastest
+        emit({"phase": "tile_row", **r})
+    return rows
+
+
+def tiles_phase(torch, smi, cases):
+    """``KernelTuning`` on the card.  (a) Every template of every tunable
+    kernel at ``plan_shapes`` of Lite, M-2 and Elite for a MAX_BATCH
+    dispatch (the product kernels also at the head's fc1, and flash at a
+    tinyllama shape, bf16 and f32): bitwise the
+    wrapper's own choice, within the plain version's rule, timed.
+    (b) One dispatch of each spec under every
+    ``tuning_candidates(quick=False)`` entry and under ``plan_tuning``:
+    logits bitwise ``DEFAULT_TUNING``'s, the same launches, and the
+    ``.templates`` counters showing the pinned templates.  ``cases``:
+    (name, spec, params, clouds).  Returns the dispatches' launches."""
+    from repro_torch.api.build import build
+    from repro_torch.kernels.tuning import DEFAULT_TUNING, pinned
+    from repro_torch.tune import kernels as K
+
+    t0 = time.perf_counter()
+    K.clear_cache()
+    by_shape = {}
+    for name, spec, _, _ in cases:
+        for kernel, shape in K.plan_shapes(spec).items():
+            by_shape.setdefault((kernel, shape), []).append(name)
+    rows = []
+    # the head's fc1 (Lite's and M-2's 512 -> 512 at one row a cloud)
+    for kernel in ("fused_linear", "int8_matmul"):
+        by_shape[(kernel, TILE_HEAD_SHAPE)] = ["head_fc1"]
+    for (kernel, shape), specs in by_shape.items():
+        rows += tile_sweep(torch, kernel, shape, MAX_BATCH, "float32", specs)
+    for dtype in ("bfloat16", "float32"):
+        rows += tile_sweep(torch, "flash_attention", TILE_FLASH_SHAPE,
+                           LM_BATCH, dtype, ["tinyllama-1.1b"])
+    sweep_s = time.perf_counter() - t0
+
+    total = {k: 0 for k in counters()}
+    tcs = template_counters()
+    dispatches = []
+    for name, spec, params, clouds in cases:
+        full = torch.from_numpy(clouds[:MAX_BATCH]).cuda()
+        tunings = list(K.tuning_candidates(quick=False))
+        tunings.append(K.plan_tuning(spec, batch=MAX_BATCH,
+                                     iters=TILE_ITERS))
+        want = launches0 = None
+        for i, kt in enumerate(tunings):
+            pipe = build(spec.replace(kernel_tuning=kt), params)
+            state = pipe.seed_state(SEED, MAX_BATCH)
+            for c in tcs.values():
+                c.clear()
+            (got, _), launches = counted(
+                torch, lambda: pipe.infer(full, state.clone()))
+            add_launches(total, launches)
+            used = {k: dict(c) for k, c in tcs.items() if c}
+            if i == 0:
+                check(kt == DEFAULT_TUNING, "tiles: the first candidate is "
+                                            "not DEFAULT_TUNING")
+                want, launches0 = got, launches
+            else:
+                check(torch.equal(got, want),
+                      f"tiles: {name} under {kt} is not bitwise equal to "
+                      f"DEFAULT_TUNING's logits")
+                check(launches == launches0,
+                      f"tiles: {name} under {kt} launched {launches}, "
+                      f"DEFAULT_TUNING {launches0}")
+                for kernel, names in used.items():
+                    field = ("grouped_transfer" if kernel.startswith(
+                        "grouped_transfer") else kernel)
+                    tile = pinned(field, kt)
+                    if tile is not None:
+                        check(set(names) <= pinned_names(kernel, tile),
+                              f"tiles: {name} under {kt}: {kernel} "
+                              f"launched {names}, not the pinned {tile}")
+            dispatches.append({"spec": name, "tuning": dataclasses.asdict(kt),
+                               "plan_tuning": i == len(tunings) - 1,
+                               "templates": used,
+                               "bitwise_vs_default": True})
+    for d in dispatches:
+        emit({"phase": "tile_dispatch", **d})
+    emit({"phase": "tiles", "card": smi, "max_batch": MAX_BATCH,
+          "iters": TILE_ITERS, "graph_calls": K.GRAPH_CALLS,
+          "templates": sum(1 for r in rows if "ms" in r),
+          "refused": sum(1 for r in rows if "refused" in r),
+          "dispatches": len(dispatches), "sweep_s": sweep_s,
           "launches": total, "seconds": time.perf_counter() - t0})
     return total
 
@@ -2166,6 +2360,10 @@ def main() -> int:
               "repository root", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # the launch recipe, before torch initialises CUDA
+    from repro_torch.launch.profile import launch_profile
+    profile = launch_profile()
+    applied = profile.apply()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -2176,6 +2374,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    emit({"phase": "launch_profile", "name": profile.name,
+          "env": dict(profile.env), "applied": applied,
+          "shell_prefix": profile.shell_prefix()})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2250,6 +2451,9 @@ def main() -> int:
     add_launches(total, ladder_phases(torch, np, rng, params))
     add_launches(total, analysis_phase(torch))
     add_launches(total, tune_phase(torch, params, smi))
+    add_launches(total, tiles_phase(torch, smi, (
+        ("lite", lite, params, clouds), ("m2", m2, params, clouds),
+        ("elite", elite, elite_params, elite_clouds))))
 
     t_engines = time.perf_counter()
     add_launches(total, async_phase(torch, np, params, clouds, smi))

@@ -75,8 +75,9 @@ M2_SHAPES = {
     (32768, 256, 64): 2, (32768, 64, 256): 2, (2048, 256, 64): 2,
     (2048, 64, 256): 2, (16384, 512, 512): 1, (16384, 512, 128): 1,
     (16384, 128, 512): 1, (1024, 512, 128): 1, (1024, 128, 512): 1,
-    (32, 512, 512): 1, (32, 512, 256): 1}
-LITE_SHAPES = {**M2_SHAPES, (32, 256, 40): 1}
+    (32, 512, 512): 1, (32, 512, 256): 1, (32, 256, 40): 1}
+# fc3 runs on the head's backend, so both kernels take all 28 products.
+LITE_SHAPES = M2_SHAPES
 # int8 products deeper than one shared-memory slice of w (K > 1024):
 # lite_spec(40, embed_dim=128)'s stage-4 transfers and the smoke's row.
 # Not in Lite's dispatch: 0 launches there.

@@ -66,12 +66,14 @@ def knn_caller(torch, fn, has_scratch, smp, pts, out, k):
     n = pts.shape[1]
     scratch = (() if not has_scratch else (None, 0))
     # the shipped launch function takes the ball's r2 (+inf: plain kNN)
+    # and then the query tile (0: its own rule)
     r2 = (float("inf"),) if ctypes.c_float in fn.argtypes else ()
+    qpw = (0,) if r2 and fn.argtypes[-2] is ctypes.c_int else ()
 
     def call():
         _build.check("knn", fn(smp.data_ptr(), pts.data_ptr(),
                                out.data_ptr(), *scratch, b, s, n, c, k, *r2,
-                               torch.cuda.current_stream().cuda_stream))
+                               *qpw, torch.cuda.current_stream().cuda_stream))
     return call
 
 
@@ -80,10 +82,14 @@ def fps_caller(torch, fn, has_scratch, pts, out):
     b, n, _ = pts.shape
     s = out.shape[1]
     scratch = (() if not has_scratch else (None, 0))
+    # the shipped launch function takes the block's threads (0: its own
+    # rule) after S
+    threads = (0,) if len(fn.argtypes) == 9 else ()
 
     def call():
         _build.check("fps", fn(pts.data_ptr(), out.data_ptr(), *scratch, b,
-                               n, s, torch.cuda.current_stream().cuda_stream))
+                               n, s, *threads,
+                               torch.cuda.current_stream().cuda_stream))
     return call
 
 

@@ -30,6 +30,7 @@ from repro_torch.api import registry
 from repro_torch.api.spec import N_STAGES as _N_STAGES
 from repro_torch.api.spec import check_lowering
 from repro_torch.core.quant import QuantConfig, is_quantizable_leaf_path
+from repro_torch.kernels import tuning as kernel_tiles
 from repro_torch.kernels.tuning import DEFAULT_TUNING, KernelTuning
 
 _KERNEL_BACKENDS = ("cuda",)
@@ -67,11 +68,13 @@ class SampleOp:
     from a stream cache, but only for a sampler with ``advances_state``
     False; a state-advancing sampler (URS) still runs, so the LFSR state
     walks as on the cold path.  The collect pass records the indices
-    either way.
+    either way.  ``tile`` is the FPS register tile the spec pins (None:
+    the kernel's own rule, or a sampler that launches no FPS).
     """
     stage: int
     n_samples: int
     cached: bool = False
+    tile: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,11 +83,14 @@ class GroupOp:
 
     ``cached`` (stream lowering) splits the grouper into its mapping half
     (``neighbor_index``, replayed from the stream cache) and its
-    arithmetic half (``group_with_idx``, always recomputed).
+    arithmetic half (``group_with_idx``, always recomputed).  ``tile`` is
+    the kNN query tile the spec pins (None: the kernel's own rule, or a
+    grouper that launches no kNN).
     """
     stage: int
     k: int
     cached: bool = False
+    tile: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +98,8 @@ class FusedGroupTransferOp:
     """A ``GroupOp`` + transfer ``CBROp`` pair lowered to one fused
     gather + geometric-affine-normalize + matmul+bias+ReLU step
     (``repro_torch.api.registry.FUSED_OPS[kernel]``); the grouped
-    ``[B, S, k, 2C]`` tensor never leaves the kernel."""
+    ``[B, S, k, 2C]`` tensor never leaves the kernel.  ``fn`` carries the
+    pinned ``tile_s`` (grouped_transfer) and ``knn_tile`` keywords."""
     stage: int
     k: int
     cbr: CBROp                      # the transfer layer it absorbs
@@ -137,13 +144,15 @@ class SegHeadOp:
     points by 1-NN (the kNN kernel at k = 1), concatenates ``[embed,
     upsampled, global]`` and runs the 3-layer classifier per point ->
     ``[B, n_points, n_classes]``.  ``cached`` (stream lowering) replays
-    the upsample index from a stream cache."""
+    the upsample index from a stream cache; ``knn_tile`` is the
+    upsample's pinned kNN query tile."""
     fc1: CBROp
     fc2: CBROp
     fc3_path: Tuple[Any, ...]
     fc3_quant: Optional[QuantConfig] = dataclasses.field(compare=False,
                                                          default=None)
     cached: bool = False
+    knn_tile: Optional[int] = None
 
 
 # ---------------------------------------------------------- StagePlan ---
@@ -207,6 +216,11 @@ class StagePlan:
                 row += " [stream-cached mapping]"
             rows.append(row)
         rows.append(f"head: {self.head}/{self.precision}/{self.backend}")
+        pinned = [f"{k} {kernel_tiles.pinned(k, self.tuning)}"
+                  for k in kernel_tiles.KERNELS
+                  if kernel_tiles.pinned(k, self.tuning) is not None]
+        if pinned:
+            rows.append(f"tiles: {', '.join(pinned)}")
         return "; ".join(rows)
 
     def cost_breakdown(self, cfg) -> List[Dict[str, Any]]:
@@ -297,7 +311,8 @@ def _quant_for(spec, precision: str,
     """The deployment QuantConfig one CBR op runs under (None = fp32).
 
     An int8 op on the ``cuda`` backend runs W8A8 through the int8 kernel
-    (``int8_cuda``); on ``ref`` it runs the dequantized-weight matmul.
+    (``int8_cuda``), on the template that ``spec.kernel_tuning`` pins
+    (``tiles``); on ``ref`` it runs the dequantized-weight matmul.
     Serving semantics quantize activations per lane.
     """
     if precision != "int8":
@@ -306,25 +321,30 @@ def _quant_for(spec, precision: str,
                   per_channel=spec.per_channel, symmetric=spec.symmetric,
                   per_lane=bool(spec.shared_urs and spec.per_sample_norm))
     if backend in _KERNEL_BACKENDS:
-        return QuantConfig(backend="int8_cuda", **common)
+        return QuantConfig(backend="int8_cuda", tiles=kernel_tiles.pinned(
+            "int8_matmul", spec.kernel_tuning), **common)
     return QuantConfig(backend="int8_ref", **common)
 
 
 def _build_ops(cfg, make_cbr: Callable, head_quant: Optional[QuantConfig],
                fused_key: Optional[str] = None,
                fused_fn: Optional[Callable] = None,
-               head: str = "cls", stream: bool = False) -> Tuple[Any, ...]:
+               head: str = "cls", stream: bool = False,
+               fps_tile: Optional[int] = None,
+               knn_tile: Optional[int] = None,
+               head_knn_tile: Optional[int] = None) -> Tuple[Any, ...]:
     ops: List[Any] = [EmbedOp(make_cbr(("embed",), None, True))]
     for s in range(_N_STAGES):
         ops.append(SampleOp(stage=s, n_samples=cfg.stage_samples[s],
-                            cached=stream))
+                            cached=stream, tile=fps_tile))
         transfer = make_cbr(("stages", s, "transfer"), s, True)
         if fused_fn is not None:
             ops.append(FusedGroupTransferOp(
                 stage=s, k=cfg.k_neighbors, cbr=transfer, kernel=fused_key,
                 fn=fused_fn))
         else:
-            ops.append(GroupOp(stage=s, k=cfg.k_neighbors, cached=stream))
+            ops.append(GroupOp(stage=s, k=cfg.k_neighbors, cached=stream,
+                               tile=knn_tile))
             ops.append(transfer)
         for branch, count in (("pre", cfg.pre_blocks[s]),
                               ("pos", cfg.pos_blocks[s])):
@@ -338,7 +358,8 @@ def _build_ops(cfg, make_cbr: Callable, head_quant: Optional[QuantConfig],
                 ops.append(PoolOp(stage=s, axis=2))
     head_cls = HeadOp
     if head == "seg":
-        head_cls = functools.partial(SegHeadOp, cached=stream)
+        head_cls = functools.partial(SegHeadOp, cached=stream,
+                                     knn_tile=head_knn_tile)
     else:
         ops.append(PoolOp(stage=None, axis=1))
     ops.append(head_cls(fc1=make_cbr(("head", "fc1"), None, True),
@@ -354,30 +375,60 @@ def lower(spec, cfg) -> StagePlan:
     ``api.spec.check_lowering`` raises: the ``lowering`` scope of
     ``repro_torch.analysis`` (the policy key is the engines' to check, as
     in ``repro.api.plan.lower``).
+
+    Kernel tiles: each field ``spec.kernel_tuning`` pins (a value other
+    than its default; ``repro_torch.kernels.tuning``) is checked against
+    the tiles its kernel has on the card, on any device (``ValueError``
+    naming them), and bound onto the ops that launch that kernel: a
+    ``cuda`` CBR op's ``fn`` gets ``tile=`` (``fused_linear``), an int8
+    one's ``quant.tiles`` (``int8_matmul``), the fused op's ``fn``
+    ``tile_s=`` and ``knn_tile=``, a ``SampleOp`` the ``fps`` tile and a
+    ``GroupOp`` (and the seg head's upsample) the ``knn`` tile, where the
+    registered sampler or grouper launches that kernel (its
+    ``tile_kernel``).  Default fields bind nothing.
     """
     check_lowering(spec)
+    tuning = spec.kernel_tuning or DEFAULT_TUNING
+    kernel_tiles.check(tuning)
     stage_prec, stage_back = resolve_stage_fields(spec)
     fused_key = spec.fused_group
     fused_fn = (registry.FUSED_OPS.get(fused_key)
                 if fused_key != "none" else None)
+    tiles = {k: kernel_tiles.pinned(k, tuning) for k in kernel_tiles.KERNELS}
+    if fused_fn is not None and (tiles["grouped_transfer"] is not None
+                                 or tiles["knn"] is not None):
+        fused_fn = functools.partial(fused_fn,
+                                     tile_s=tiles["grouped_transfer"],
+                                     knn_tile=tiles["knn"])
 
     def make_cbr(path, stage, act) -> CBROp:
         precision = spec.precision if stage is None else stage_prec[stage]
         backend = spec.backend if stage is None else stage_back[stage]
+        fn = registry.BACKENDS.get(backend)
+        if backend in _KERNEL_BACKENDS and tiles["fused_linear"] is not None:
+            fn = functools.partial(fn, tile=tiles["fused_linear"])
         return CBROp(path=tuple(path), stage=stage, act=act,
                      precision=precision, backend=backend,
-                     quant=_quant_for(spec, precision, backend),
-                     fn=registry.BACKENDS.get(backend))
+                     quant=_quant_for(spec, precision, backend), fn=fn)
+
+    def tile_of(component, kernel):
+        return (tiles[kernel]
+                if getattr(component, "tile_kernel", None) == kernel
+                else None)
 
     ops = _build_ops(cfg, make_cbr,
                      _quant_for(spec, spec.precision, spec.backend),
                      fused_key=fused_key, fused_fn=fused_fn, head=spec.head,
-                     stream=spec.stream)
+                     stream=spec.stream,
+                     fps_tile=tile_of(registry.SAMPLERS.get(spec.sampler),
+                                      "fps"),
+                     knn_tile=tile_of(registry.GROUPERS.get(spec.grouper),
+                                      "knn"),
+                     head_knn_tile=tiles["knn"])
     return StagePlan(name=spec.name, ops=ops, stage_precision=stage_prec,
                      stage_backend=stage_back, precision=spec.precision,
                      backend=spec.backend, fused_group=fused_key,
-                     head=spec.head, stream=spec.stream,
-                     tuning=spec.kernel_tuning or DEFAULT_TUNING)
+                     head=spec.head, stream=spec.stream, tuning=tuning)
 
 
 def spec_fingerprint(spec) -> str:

@@ -79,17 +79,22 @@ register_fused_op = FUSED_OPS.register
 
 @register_sampler("fps")
 def _fps_sampler(xyz: torch.Tensor, n_samples: int, lfsr_state,
-                 shared: bool):
+                 shared: bool, tile=None):
     """Farthest Point Sampling: data-dependent and stateless, so
     ``shared`` changes nothing and the LFSR state passes through."""
     from repro_torch.core import sampling
-    return sampling.fps(xyz, n_samples), lfsr_state
+    return sampling.fps(xyz, n_samples, tile), lfsr_state
 
 
 #: Stream-cache contract: a sampler that advances the LFSR state still
 #: runs on the cached path, so the state walks as on the cold path; only
 #: a stateless sampler's indices are replayed from a stream cache.
 _fps_sampler.advances_state = False
+#: Tile contract: an entry with ``tile_kernel`` launches that
+#: ``KernelTuning`` field's kernel and takes a ``tile=`` keyword, which
+#: ``plan.lower`` binds onto its op where the spec pins the field (the
+#: groupers' ``neighbor_index`` takes it too).
+_fps_sampler.tile_kernel = "fps"
 
 
 @register_sampler("urs")
@@ -121,16 +126,16 @@ _urs_sampler.advances_state = True
 
 @register_grouper("knn")
 def _knn_grouper(xyz, feats, idx, k: int, affine_params, mode: str,
-                 per_sample_norm: bool):
+                 per_sample_norm: bool, tile=None):
     """kNN group + geometric-affine normalize (HLS4PC §2.1, Fig. 2)."""
     from repro_torch.core import knn as knn_core
     return knn_core.group_points(xyz, feats, idx, k, affine_params, mode,
-                                 per_sample_norm=per_sample_norm)
+                                 per_sample_norm=per_sample_norm, tile=tile)
 
 
-def _knn_neighbor_index(new_xyz, xyz, k: int):
+def _knn_neighbor_index(new_xyz, xyz, k: int, tile=None):
     from repro_torch.core import knn as knn_core
-    return knn_core.neighbor_index(new_xyz, xyz, k)
+    return knn_core.neighbor_index(new_xyz, xyz, k, tile=tile)
 
 
 def _group_with_idx(xyz, feats, idx, nbr_idx, affine_params, mode: str,
@@ -148,6 +153,7 @@ def _group_with_idx(xyz, feats, idx, nbr_idx, affine_params, mode: str,
 #: them (RPA014).
 _knn_grouper.neighbor_index = _knn_neighbor_index
 _knn_grouper.group_with_idx = _group_with_idx
+_knn_grouper.tile_kernel = "knn"
 
 
 #: The ``ball`` grouper's radius.  The synthetic clouds live on
@@ -169,19 +175,20 @@ def make_ball_grouper(radius: float):
     radius_sq(radius)         # raises unless radius > 0 (NaN too)
 
     def ball_grouper(xyz, feats, idx, k: int, affine_params, mode: str,
-                     per_sample_norm: bool):
+                     per_sample_norm: bool, tile=None):
         from repro_torch.core import knn as knn_core
         return knn_core.group_points(xyz, feats, idx, k, affine_params,
                                      mode, per_sample_norm=per_sample_norm,
-                                     radius=radius)
+                                     radius=radius, tile=tile)
 
-    def ball_neighbor_index(new_xyz, xyz, k: int):
+    def ball_neighbor_index(new_xyz, xyz, k: int, tile=None):
         from repro_torch.core import knn as knn_core
-        return knn_core.neighbor_index(new_xyz, xyz, k, radius)
+        return knn_core.neighbor_index(new_xyz, xyz, k, radius, tile)
 
     ball_grouper.radius = radius
     ball_grouper.neighbor_index = ball_neighbor_index
     ball_grouper.group_with_idx = _group_with_idx
+    ball_grouper.tile_kernel = "knn"
     return ball_grouper
 
 
@@ -199,15 +206,16 @@ def _cbr_ref(p, x, quant, act: bool):
 
 
 @register_backend("cuda")
-def _cbr_cuda(p, x, quant, act: bool):
+def _cbr_cuda(p, x, quant, act: bool, tile=None):
     """CBR layers through the hand-written kernels.
 
     A frozen fp32 layer (2-D weight, BN folded, no quantization) runs the
-    ``fused_linear`` kernel, bias and ReLU included.  An int8 export dict
-    goes through the reference lowering, whose ``layers._matmul`` runs
-    the int8 kernel for ``quant.backend == "int8_cuda"`` (bias and ReLU
-    follow as tensor ops).  On CPU tensors every kernel wrapper runs its
-    plain version.
+    ``fused_linear`` kernel, bias and ReLU included, on the template a
+    ``tile`` pins (``plan.lower`` binds it).  An int8 export dict goes
+    through the reference lowering, whose ``layers._matmul`` runs the
+    int8 kernel for ``quant.backend == "int8_cuda"`` (bias and ReLU
+    follow as tensor ops; ``quant.tiles`` pins its template).  On CPU
+    tensors every kernel wrapper runs its plain version.
     """
     w = p["w"]
     if (not isinstance(w, dict) and w.ndim == 2 and "bn" not in p
@@ -216,7 +224,7 @@ def _cbr_cuda(p, x, quant, act: bool):
         b = p.get("b")
         if b is None:
             b = torch.zeros(w.shape[1], dtype=w.dtype, device=w.device)
-        return ops.fused_linear(x, w, b, "relu" if act else "none")
+        return ops.fused_linear(x, w, b, "relu" if act else "none", tile)
     return _cbr_ref(p, x, quant, act)
 
 
@@ -224,18 +232,22 @@ def _cbr_cuda(p, x, quant, act: bool):
 
 @register_fused_op("grouped_transfer")
 def _grouped_transfer(p, xyz, feats, idx, k: int, affine_params, mode: str,
-                      per_sample_norm: bool, act: bool = True):
+                      per_sample_norm: bool, act: bool = True,
+                      tile_s=None, knn_tile=None):
     """Fused gather + geometric-affine normalize + matmul+bias+ReLU.
 
     The lowering of a ``GroupOp`` + transfer ``CBROp`` pair: the kNN
     kernel, then one ``grouped_transfer`` kernel (its stats variant under
     per-cloud sigma) that never writes the ``[B, S, k, 2C]`` grouped
     tensor.  Needs a fused fp32 transfer layer (``spec.validate``
-    enforces it).  On CPU tensors it runs the plain versions.
+    enforces it).  ``tile_s`` and ``knn_tile`` pin the two kernels'
+    templates (``plan.lower`` binds them, as JAX's binds ``tile_s``).
+    On CPU tensors it runs the plain versions.
     """
     from repro_torch.kernels.grouped_transfer import fused_group_transfer
     return fused_group_transfer(xyz, feats, idx, k, affine_params, mode,
-                                per_sample_norm, p, act=act)
+                                per_sample_norm, p, act=act, tile=tile_s,
+                                knn_tile=knn_tile)
 
 
 def resolve(sampler: str, grouper: str, backend: str) -> tuple:

@@ -80,11 +80,12 @@ def ball_fill(dist: torch.Tensor, idx: torch.Tensor, r2: float
     return torch.where(sel <= r2, idx, idx[..., :1])
 
 
-def knn_batched(samples: torch.Tensor, points: torch.Tensor, k: int
-                ) -> torch.Tensor:
-    """[B, S, C], [B, N, C] -> [B, S, k] int64 (kernel on CUDA tensors)."""
+def knn_batched(samples: torch.Tensor, points: torch.Tensor, k: int,
+                tile=None) -> torch.Tensor:
+    """[B, S, C], [B, N, C] -> [B, S, k] int64 (kernel on CUDA tensors;
+    ``tile`` pins its queries a block)."""
     from repro_torch.kernels import knn as knn_kernel
-    return knn_kernel.knn(samples, points, k)
+    return knn_kernel.knn(samples, points, k, tile=tile)
 
 
 def knn(samples: torch.Tensor, points: torch.Tensor, k: int) -> torch.Tensor:
@@ -93,12 +94,12 @@ def knn(samples: torch.Tensor, points: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def ball_query_batched(samples: torch.Tensor, points: torch.Tensor, k: int,
-                       radius: float) -> torch.Tensor:
+                       radius: float, tile=None) -> torch.Tensor:
     """Ball query: the k nearest, each one outside ``radius`` replaced by
     the nearest (the kNN kernel's fill on CUDA tensors).  ``radius=inf``
     is plain kNN, bit for bit.  [B, S, C], [B, N, C] -> [B, S, k]."""
     from repro_torch.kernels import knn as knn_kernel
-    return knn_kernel.knn(samples, points, k, radius=radius)
+    return knn_kernel.knn(samples, points, k, radius=radius, tile=tile)
 
 
 def ball_query(samples: torch.Tensor, points: torch.Tensor, k: int,
@@ -168,12 +169,14 @@ def normalize_group(grouped: torch.Tensor, centers: torch.Tensor,
 
 
 def neighbor_index(new_xyz: torch.Tensor, xyz: torch.Tensor, k: int,
-                   radius: Optional[float] = None) -> torch.Tensor:
+                   radius: Optional[float] = None,
+                   tile=None) -> torch.Tensor:
     """The mapping half of the grouper: [B, S, 3], [B, N, 3] -> [B, S, k];
-    ``radius=None`` is plain kNN, a float the ball query."""
+    ``radius=None`` is plain kNN, a float the ball query; ``tile`` pins
+    the kNN kernel's queries a block."""
     if radius is None:
-        return knn_batched(new_xyz, xyz, k)
-    return ball_query_batched(new_xyz, xyz, k, radius)
+        return knn_batched(new_xyz, xyz, k, tile)
+    return ball_query_batched(new_xyz, xyz, k, radius, tile)
 
 
 def group_with_idx(xyz: torch.Tensor, feats: torch.Tensor,
@@ -199,11 +202,12 @@ def group_points(xyz: torch.Tensor, feats: torch.Tensor,
                  sample_idx: torch.Tensor, k: int,
                  affine_params: Optional[dict], mode: str,
                  per_sample_norm: bool = False,
-                 radius: Optional[float] = None
+                 radius: Optional[float] = None, tile=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full local grouper: sample -> kNN (or the ball query within
     ``radius``) -> gather -> normalize -> concat."""
     sample_idx = sample_idx.to(xyz.device, torch.int64)
-    nbr_idx = neighbor_index(gather_points(xyz, sample_idx), xyz, k, radius)
+    nbr_idx = neighbor_index(gather_points(xyz, sample_idx), xyz, k, radius,
+                             tile)
     return group_with_idx(xyz, feats, sample_idx, nbr_idx, affine_params,
                           mode, per_sample_norm)

@@ -24,7 +24,10 @@ class QuantConfig:
     port's counterpart of ``int8_pallas``).  ``per_lane`` quantizes activations with one absmax scale per batch
     lane instead of one per tensor: under serving semantics the JAX
     walk maps over lanes, so its per-tensor scale is a per-lane scale
-    of the port's batched dispatch.
+    of the port's batched dispatch.  ``tiles`` (``int8_cuda`` only) pins
+    the int8 kernel's template: a ``KernelTuning.int8_matmul`` value, or
+    None for the wrapper's rule (as ``repro.core.quant.QuantConfig.
+    tiles`` carries the Pallas tiles).
     """
     w_bits: int = 8
     a_bits: int = 8
@@ -32,6 +35,7 @@ class QuantConfig:
     symmetric: bool = True
     backend: str = "int8_ref"
     per_lane: bool = False
+    tiles: Optional[Tuple[int, int, int]] = None
 
     @property
     def enabled(self) -> bool:

@@ -117,9 +117,9 @@ def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                         idx[..., None].expand(-1, -1, points.shape[-1]))
 
 
-def fps(points: torch.Tensor, n_samples: int) -> torch.Tensor:
+def fps(points: torch.Tensor, n_samples: int, tile=None) -> torch.Tensor:
     """Farthest Point Sampling: [B, N, C] -> [B, S] int64 indices on the
-    points' device (the kernel on CUDA tensors), starting at index 0,
-    ties to the lowest index."""
+    points' device (the kernel on CUDA tensors; ``tile`` pins its
+    register tile), starting at index 0, ties to the lowest index."""
     from repro_torch.kernels import fps as fps_kernel
-    return fps_kernel.fps(points, n_samples)
+    return fps_kernel.fps(points, n_samples, tile)

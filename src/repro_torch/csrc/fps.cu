@@ -47,6 +47,9 @@
 //   threads, each walking its tail points j = 8192 + tid + i * 1024 with
 //   their running minima in a device scratch buffer [B, N - 8192] that the
 //   wrapper allocates; the cloud is then read from device memory.
+// - A pinned tile.  The launch takes the block's threads (a KernelTuning
+//   fps tile of 8 * threads); a cloud past that register tile runs the
+//   same tail walk at that width.  Every width picks the same indices.
 //
 // A cluster of 2 or 4 blocks a cloud, its step's reduction through
 // distributed shared memory, was 2.7-2.8x slower at Elite's stage 1: one
@@ -66,7 +69,6 @@ namespace {
 typedef unsigned long long u64;
 constexpr int PT = 8;                           // points a thread
 constexpr int MAX_THREADS = 1024;
-constexpr int REG_POINTS = MAX_THREADS * PT;    // the largest register tile
 
 __device__ __forceinline__ float sqdist(float x, float y, float z,
                                         float4 l) {
@@ -82,8 +84,8 @@ __device__ __forceinline__ u64 pack(unsigned key, unsigned idx) {
   return ((u64)key << 32) | (unsigned)~idx;
 }
 
-// One block per cloud.  TAIL: N > THREADS * PT (then THREADS = 1024): the
-// cloud stays in device memory and the tail's minima in scratch.
+// One block per cloud.  TAIL: N > THREADS * PT: the cloud stays in device
+// memory and the tail's minima in scratch.
 template <int THREADS, bool TAIL>
 __global__ void __launch_bounds__(THREADS)
     fps_kernel(const float* __restrict__ points, int64_t* __restrict__ out,
@@ -226,30 +228,45 @@ int launch(const float* points, int64_t* out, float* scratch,
   return (int)cudaGetLastError();
 }
 
+// The launch at THREADS threads: the register tile THREADS * PT, and past
+// it the TAIL variant, which keeps the rest's minima in scratch.
+template <int THREADS>
+int launch_at(const float* points, int64_t* out, float* scratch,
+              long long scratch_floats, int B, int N, int S,
+              cudaStream_t stream) {
+  if (N <= THREADS * PT)
+    return launch<THREADS, false>(points, out, scratch, scratch_floats, B, N,
+                                  S, stream);
+  return launch<THREADS, true>(points, out, scratch, scratch_floats, B, N, S,
+                               stream);
+}
+
 }  // namespace
 
-// points f32 [B, N, 3] contiguous -> out int64 [B, S].  scratch: f32, at
-// least B * (N - 8192) floats past the register tile (B * N is always
-// enough), else unused.
+// points f32 [B, N, 3] contiguous -> out int64 [B, S].  threads: the
+// block's threads (32, 64, ..., 1024; the register tile is 8 a thread),
+// or 0 for the smallest that covers N, at most 1024.  scratch: f32, at
+// least B * (N - 8 * threads) floats where N exceeds the register tile
+// (B * N is always enough), else unused.
 extern "C" int fps_launch(const void* points, void* out, void* scratch,
                           long long scratch_floats, int B, int N, int S,
-                          void* stream) {
+                          int threads, void* stream) {
   const float* p = (const float*)points;
   int64_t* o = (int64_t*)out;
   float* sc = (float*)scratch;
   cudaStream_t st = (cudaStream_t)stream;
   if (N < 1 || S < 1) return (int)cudaErrorInvalidValue;
-  if (N <= 32 * PT)
-    return launch<32, false>(p, o, sc, scratch_floats, B, N, S, st);
-  if (N <= 64 * PT)
-    return launch<64, false>(p, o, sc, scratch_floats, B, N, S, st);
-  if (N <= 128 * PT)
-    return launch<128, false>(p, o, sc, scratch_floats, B, N, S, st);
-  if (N <= 256 * PT)
-    return launch<256, false>(p, o, sc, scratch_floats, B, N, S, st);
-  if (N <= 512 * PT)
-    return launch<512, false>(p, o, sc, scratch_floats, B, N, S, st);
-  if (N <= REG_POINTS)
-    return launch<1024, false>(p, o, sc, scratch_floats, B, N, S, st);
-  return launch<1024, true>(p, o, sc, scratch_floats, B, N, S, st);
+  if (threads == 0) {
+    threads = 32;
+    while (threads < MAX_THREADS && threads * PT < N) threads *= 2;
+  }
+  switch (threads) {
+    case 32: return launch_at<32>(p, o, sc, scratch_floats, B, N, S, st);
+    case 64: return launch_at<64>(p, o, sc, scratch_floats, B, N, S, st);
+    case 128: return launch_at<128>(p, o, sc, scratch_floats, B, N, S, st);
+    case 256: return launch_at<256>(p, o, sc, scratch_floats, B, N, S, st);
+    case 512: return launch_at<512>(p, o, sc, scratch_floats, B, N, S, st);
+    case 1024: return launch_at<1024>(p, o, sc, scratch_floats, B, N, S, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

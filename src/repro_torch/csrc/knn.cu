@@ -338,14 +338,15 @@ inline int queries_per_warp(int B, int S) {
   return (S + WARPS * blocks_per_cloud - 1) / (WARPS * blocks_per_cloud);
 }
 
+// qpw: queries a warp, or 0 for queries_per_warp's choice.
 template <int C>
 int launch_select(const float* samples, const float* points, int64_t* out,
-                  int B, int S, int N, int k, unsigned kr2,
+                  int B, int S, int N, int k, unsigned kr2, int qpw,
                   cudaStream_t stream) {
   const int tcap = (N + 31) / 32 * 32;
   const size_t smem = WARPS * 32 * sizeof(u64) +
                       (size_t)(C + 1) * tcap * sizeof(float);
-  const int qpw = queries_per_warp(B, S);
+  if (qpw == 0) qpw = queries_per_warp(B, S);
   const dim3 grid((S + WARPS * qpw - 1) / (WARPS * qpw), B);
   cudaError_t err = cudaFuncSetAttribute(
       knn_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -380,9 +381,11 @@ int launch_rounds(const float* samples, const float* points, int64_t* out,
 template <int C>
 int launch_c(const float* samples, const float* points, int64_t* out,
              float* scratch, long long scratch_floats, int B, int S, int N,
-             int k, unsigned kr2, cudaStream_t stream) {
+             int k, unsigned kr2, int qpw, cudaStream_t stream) {
   if (k <= SELECT_K && N <= SELECT_POINTS)
-    return launch_select<C>(samples, points, out, B, S, N, k, kr2, stream);
+    return launch_select<C>(samples, points, out, B, S, N, k, kr2, qpw,
+                            stream);
+  if (qpw != 0) return (int)cudaErrorInvalidValue;   // no query tile here
   return launch_rounds<C>(samples, points, out, scratch, scratch_floats, B,
                           S, N, k, kr2, stream);
 }
@@ -392,37 +395,48 @@ int launch_c(const float* samples, const float* points, int64_t* out,
 // samples f32 [B, S, C], points f32 [B, N, C] contiguous -> out int64
 // [B, S, k].  scratch: f32, at least 1056 * N floats when 4 * N floats
 // exceed a block's shared memory (N > 14528), else unused.  r2: the ball's
-// radius squared (> 0, or +inf for plain kNN; not NaN).
+// radius squared (> 0, or +inf for plain kNN; not NaN).  qpw: knn_kernel's
+// queries a warp (a block serves 8 * qpw), or 0 for queries_per_warp's
+// choice; the rounds kernel (N > 1024 or k > 32) takes 0 only.
 extern "C" int knn_launch(const void* samples, const void* points, void* out,
                           void* scratch, long long scratch_floats, int B,
-                          int S, int N, int C, int k, float r2,
+                          int S, int N, int C, int k, float r2, int qpw,
                           void* stream) {
   const float* s = (const float*)samples;
   const float* p = (const float*)points;
   int64_t* o = (int64_t*)out;
   float* sc = (float*)scratch;
   cudaStream_t st = (cudaStream_t)stream;
-  if (k < 1 || k > N || !(r2 >= 0.0f)) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > N || !(r2 >= 0.0f) || qpw < 0)
+    return (int)cudaErrorInvalidValue;
   unsigned r2_bits;
   std::memcpy(&r2_bits, &r2, sizeof r2_bits);
   const unsigned kr2 = key_of_bits(r2_bits);
   switch (C) {
     case 1:
-      return launch_c<1>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
+      return launch_c<1>(s, p, o, sc, scratch_floats, B, S, N, k, kr2,
+                           qpw, st);
     case 2:
-      return launch_c<2>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
+      return launch_c<2>(s, p, o, sc, scratch_floats, B, S, N, k, kr2,
+                           qpw, st);
     case 3:
-      return launch_c<3>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
+      return launch_c<3>(s, p, o, sc, scratch_floats, B, S, N, k, kr2,
+                           qpw, st);
     case 4:
-      return launch_c<4>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
+      return launch_c<4>(s, p, o, sc, scratch_floats, B, S, N, k, kr2,
+                           qpw, st);
     case 5:
-      return launch_c<5>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
+      return launch_c<5>(s, p, o, sc, scratch_floats, B, S, N, k, kr2,
+                           qpw, st);
     case 6:
-      return launch_c<6>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
+      return launch_c<6>(s, p, o, sc, scratch_floats, B, S, N, k, kr2,
+                           qpw, st);
     case 7:
-      return launch_c<7>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
+      return launch_c<7>(s, p, o, sc, scratch_floats, B, S, N, k, kr2,
+                           qpw, st);
     case 8:
-      return launch_c<8>(s, p, o, sc, scratch_floats, B, S, N, k, kr2, st);
+      return launch_c<8>(s, p, o, sc, scratch_floats, B, S, N, k, kr2,
+                           qpw, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -43,10 +43,10 @@ P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
               ctypes.c_float)
 # name -> (C symbol, argtypes); every launch function returns an int.
 SIGNATURES: Dict[str, Tuple[str, list]] = {
-    "knn": ("knn_launch", [P, P, P, P, L, I, I, I, I, I, F, P]),
+    "knn": ("knn_launch", [P, P, P, P, L, I, I, I, I, I, F, I, P]),
     "int8_matmul": ("int8_matmul_launch", [P] * 5 + [I] * 5 + [P]),
     "fused_linear": ("fused_linear_launch", [P] * 4 + [I] * 5 + [P]),
-    "fps": ("fps_launch", [P, P, P, L, I, I, I, P]),
+    "fps": ("fps_launch", [P, P, P, L, I, I, I, I, P]),
     "grouped_transfer": ("grouped_transfer_launch",
                          [P] * 10 + [I] * 10 + [P]),
     "w8_matmul": ("w8_matmul_launch", [P] * 5 + [I] * 6 + [P]),

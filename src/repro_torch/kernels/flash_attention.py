@@ -3,17 +3,21 @@
 The port of ``repro.kernels.flash_attention.flash_attention_pallas``:
 online-softmax GQA attention over q [B, H, Tq, D] and k, v [B, Hkv, Tk,
 D] (bf16 or f32) with a causal and a sliding-window mask, queries aligned
-bottom-right.  ``flash_attention_cuda.launches`` counts launches.  The
-source has two kernels and the route is fixed by dtype and head dim
-(``route``): bf16 at D = 64 or 128 runs on the tensor cores (wgmma, TMA-fed
-K/V ring, 128 queries by 128 keys a tile); f32, and bf16 at D = 16 or 32,
-on the CUDA cores (FFMA, 64 by 64).  The Pallas kernel's ``tq``/``tk`` are
-tuning knobs that ``kernels.ops.flash_attention`` accepts only at their
-defaults on the card.
+bottom-right.  ``flash_attention_cuda.launches`` counts launches and
+``.templates`` those of each route and tile by name.  The source has two
+kernels and the route is fixed by dtype and head dim (``route``): bf16 at
+D = 64 or 128 runs on the tensor cores (wgmma, TMA-fed K/V ring, 128
+queries by 128 keys a tile); f32, and bf16 at D = 16 or 32, on the CUDA
+cores (FFMA, 64 by 64).  A pinned ``tile`` must be the route's own
+(``kernels.tuning.FLASH_TILES``).
 """
 from __future__ import annotations
 
+import collections
+
 import torch
+
+from repro_torch.kernels import tuning
 
 HEAD_DIMS = (16, 32, 64, 128)
 
@@ -25,9 +29,11 @@ def route(dtype: torch.dtype, d: int) -> str:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True, window: int = 0
+                         causal: bool = True, window: int = 0, tile=None
                          ) -> torch.Tensor:
-    """Launch the kernel: [B, H, Tq, D] x [B, Hkv, Tk, D] -> q's shape."""
+    """Launch the kernel: [B, H, Tq, D] x [B, Hkv, Tk, D] -> q's shape, on
+    the route :func:`route` names (a pinned (tq, tk) ``tile`` must be the
+    route's; ``ValueError`` otherwise)."""
     from repro_torch.kernels import _build
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q [B, H, Tq, D] and k, v [B, Hkv, "
@@ -51,6 +57,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention kernel needs contiguous CUDA "
                              f"tensors on one device; {name} is on "
                              f"{t.device}")
+    rt = route(q.dtype, d)
+    bq, bkv = (tuning.FLASH_TILES[rt] if tile is None
+               else tuning.card_tile("flash_attention", tile, route=rt))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -62,7 +71,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sm_scale, stream)
     _build.check("flash_attention", code)
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.templates[f"{rt}_{bq}x{bkv}"] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.templates = collections.Counter()

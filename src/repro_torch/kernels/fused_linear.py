@@ -2,17 +2,19 @@
 
 The port of ``repro.kernels.fused_linear.fused_linear_pallas``:
 ``act(x @ w + b)`` in full fp32 (no TF32), one launch per layer per
-dispatch.  ``fused_linear_cuda.launches`` counts launches;
-:func:`template` names the template of ``csrc/fused_linear.cu`` that a
-product takes.
+dispatch.  ``fused_linear_cuda.launches`` counts launches and
+``.templates`` the launches of each template by name; :func:`template`
+names the template of ``csrc/fused_linear.cu`` that a product takes,
+by the wrapper's rule or as a ``KernelTuning`` tile pins it.
 """
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tuning
 from repro_torch.kernels.ref import ACTIVATIONS
 
 # csrc/fused_linear.cu's act codes.
@@ -21,7 +23,7 @@ H100_SMS = 132
 
 
 def template(m: int, k: int, n: int, aligned: bool = True,
-             sms: int = H100_SMS) -> _build.GemmTemplate:
+             sms: int = H100_SMS, tile=None) -> _build.GemmTemplate:
     """The template of ``csrc/fused_linear.cu`` for ``[M, K] @ [K, N]``.
 
     The column tile follows N, with 128 rows a block, or 256 at BN <= 32;
@@ -29,8 +31,15 @@ def template(m: int, k: int, n: int, aligned: bool = True,
     (``sms``), the small tile (BN 16 or 32, one row and 4 columns a
     thread) spreads the product wider.  16-byte copies and stores
     (``vec``) need 16-byte aligned operands, K % 4 == 0 and N % 4 == 0.
+    A ``tile`` (BM, BK, BN) pins one template instead
+    (``kernels.tuning.FUSED_LINEAR_TILES``); ``vec`` still follows the
+    operands.
     """
-    wide = _build.gemm_template(n, aligned and k % 4 == 0 and n % 4 == 0)
+    vec = aligned and k % 4 == 0 and n % 4 == 0
+    if tile is not None:
+        bn, small = tuning.card_tile("fused_linear", tile)
+        return _build.GemmTemplate(bn, vec, small)
+    wide = _build.gemm_template(n, vec)
     rows = 256 if wide.bn <= 32 else 128
     if 2 * -(-m // rows) * -(-n // wide.bn) > sms:
         return wide
@@ -43,8 +52,9 @@ def _sm_count(device_index: int) -> int:
 
 
 def fused_linear_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                      activation: str = "relu") -> torch.Tensor:
-    """Launch the kernel: x f32 [M, K], w f32 [K, N], b f32 [N] -> [M, N]."""
+                      activation: str = "relu", tile=None) -> torch.Tensor:
+    """Launch the kernel: x f32 [M, K], w f32 [K, N], b f32 [N] -> [M, N],
+    on the template :func:`template` names (``tile`` pins one)."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation must be one of {ACTIVATIONS}, "
                          f"got {activation!r}")
@@ -66,14 +76,16 @@ def fused_linear_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if m * n == 0:
         return out
     tmpl = template(m, k, n, _build.aligned16(x, w),
-                    _sm_count(x.device.index))
+                    _sm_count(x.device.index), tile)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = _build.launcher("fused_linear")(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n,
         _ACT_CODE[activation], tmpl.code, stream)
     _build.check("fused_linear", code)
     fused_linear_cuda.launches += 1
+    fused_linear_cuda.templates[tmpl.name] += 1
     return out
 
 
 fused_linear_cuda.launches = 0
+fused_linear_cuda.templates = collections.Counter()

@@ -15,18 +15,20 @@ Two wrappers, one per ``pallas_call`` of the JAX module:
 * :func:`grouped_transfer_cuda` takes sigma as given (one per cloud), or
   normalizes not at all (``center``): ``grouped_transfer.py:173``.
 
-Each counts its launches on ``.launches``.  :func:`fused_group_transfer`
+Each counts its launches on ``.launches`` and those of each template
+by name on ``.templates``.  :func:`fused_group_transfer`
 is the batched wrapper of the ``FUSED_OPS`` registry contract (the twin
 of ``repro.kernels.grouped_transfer.fused_group_transfer``); on CPU
 tensors it runs :func:`repro_torch.kernels.ref.grouped_transfer_ref`.
 """
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, fused_linear, ref
+from repro_torch.kernels import _build, fused_linear, ref, tuning
 
 _STATS_SAMPLES = 8              # csrc/grouped_transfer.cu: samples per tile
 _MODE_CENTER, _MODE_GIVEN, _MODE_STATS = 0, 1, 2
@@ -54,18 +56,27 @@ def _check(feats, nidx, centers, alpha, beta, w, b) -> None:
 
 
 def template(m: int, c: int, c_out: int, aligned: bool = True,
-             sms: int = fused_linear.H100_SMS) -> _build.GemmTemplate:
+             sms: int = fused_linear.H100_SMS,
+             tile=None) -> _build.GemmTemplate:
     """The template of ``csrc/grouped_transfer.cu`` for ``m = B*S*k`` rows
     of ``[2C]`` times ``w [2C, C_out]``: ``fused_linear``'s rule for the
     same product (the kernel runs its wide tile, of the same BN, where the
-    rule names the small one).  16-byte loads (``vec``) also need
-    C % 4 == 0, so that no float4 of a row straddles the centre half."""
+    rule names the small one).  A ``tile`` pins the wide tile's rows a
+    block (128 or 256), BN following C_out within it
+    (``kernels.tuning.grouped_transfer_bn``).  16-byte loads (``vec``)
+    also need C % 4 == 0, so that no float4 of a row straddles the centre
+    half."""
+    if tile is not None:
+        rows = tuning.card_tile("grouped_transfer", tile)
+        return _build.GemmTemplate(
+            tuning.grouped_transfer_bn(rows, c_out),
+            aligned and c % 4 == 0 and c_out % 4 == 0)
     return fused_linear.template(m, 2 * c, c_out, aligned and c % 4 == 0,
                                  sms)
 
 
 def _launch(feats, nidx, centers, sigma, alpha, beta, w, b, *, mode: int,
-            affine: bool, act: bool) -> torch.Tensor:
+            affine: bool, act: bool, tile, counter) -> torch.Tensor:
     _check(feats, nidx, centers, alpha, beta, w, b)
     dev = feats.device
     tensors = dict(feats=feats, centers=centers, alpha=alpha, beta=beta,
@@ -94,7 +105,7 @@ def _launch(feats, nidx, centers, sigma, alpha, beta, w, b, *, mode: int,
         return out
     tmpl = template(bsz * s * k, c, c_out,
                     _build.aligned16(feats, centers, alpha, beta, w),
-                    fused_linear._sm_count(dev.index))
+                    fused_linear._sm_count(dev.index), tile)
     partials = (torch.empty((bsz, -(-s // _STATS_SAMPLES)),
                             dtype=torch.float64, device=dev)
                 if mode == _MODE_STATS else None)
@@ -106,25 +117,29 @@ def _launch(feats, nidx, centers, sigma, alpha, beta, w, b, *, mode: int,
         None if partials is None else partials.data_ptr(), bsz, n, s, k, c,
         c_out, mode, int(affine), int(act), tmpl.code, stream)
     _build.check("grouped_transfer", code)
+    # the small codes run the wide tile of the same BN
+    counter[_build.GemmTemplate(tmpl.bn, tmpl.vec).name] += 1
     return out
 
 
 def grouped_transfer_stats_cuda(feats, nidx, centers, alpha, beta, w, b, *,
-                                affine: bool = True, act: bool = True
-                                ) -> torch.Tensor:
+                                affine: bool = True, act: bool = True,
+                                tile=None) -> torch.Tensor:
     """The stats variant: sigma per cloud, computed inside.  feats
     [B, N, C], nidx int64 [B, S, k], centers [B, S, C], alpha/beta [C],
     w [2C, C_out], b [C_out] (all contiguous, on the card) -> [B, S, k,
-    C_out]."""
+    C_out], on the template :func:`template` names (``tile`` pins
+    one)."""
     out = _launch(feats, nidx, centers, None, alpha, beta, w, b,
-                  mode=_MODE_STATS, affine=affine, act=act)
+                  mode=_MODE_STATS, affine=affine, act=act, tile=tile,
+                  counter=grouped_transfer_stats_cuda.templates)
     grouped_transfer_stats_cuda.launches += 1
     return out
 
 
 def grouped_transfer_cuda(feats, nidx, centers, sigma, alpha, beta, w, b, *,
                           normalize: bool = True, affine: bool = True,
-                          act: bool = True) -> torch.Tensor:
+                          act: bool = True, tile=None) -> torch.Tensor:
     """The given-sigma variant: ``sigma`` f32 [B] (one per cloud; unread
     when ``normalize`` is False), otherwise as
     :func:`grouped_transfer_stats_cuda`."""
@@ -133,34 +148,40 @@ def grouped_transfer_cuda(feats, nidx, centers, sigma, alpha, beta, w, b, *,
                          "grouped_transfer_stats_cuda computes it")
     out = _launch(feats, nidx, centers, sigma if normalize else None, alpha,
                   beta, w, b, mode=_MODE_GIVEN if normalize else _MODE_CENTER,
-                  affine=affine, act=act)
+                  affine=affine, act=act, tile=tile,
+                  counter=grouped_transfer_cuda.templates)
     grouped_transfer_cuda.launches += 1
     return out
 
 
 grouped_transfer_stats_cuda.launches = 0
+grouped_transfer_stats_cuda.templates = collections.Counter()
 grouped_transfer_cuda.launches = 0
+grouped_transfer_cuda.templates = collections.Counter()
 
 
 def grouped_transfer(feats, nidx, centers, sigma, alpha, beta, w, b, *,
                      normalize: bool = True, affine: bool = True,
-                     act: bool = True) -> torch.Tensor:
+                     act: bool = True, tile=None) -> torch.Tensor:
     """One of the two kernels for CUDA tensors (the stats variant when
     ``normalize`` and ``sigma is None``), the plain version for CPU
-    tensors."""
+    tensors (``tile`` checked, then unused: the plain version has
+    none)."""
     if feats.is_cuda:
         args = [t.contiguous() for t in (feats, nidx, centers)]
         rest = [t.contiguous() for t in (alpha, beta, w, b)]
         if normalize and sigma is None:
             return grouped_transfer_stats_cuda(*args, *rest, affine=affine,
-                                               act=act)
+                                               act=act, tile=tile)
         if sigma is not None:
             sigma = sigma.reshape(-1).contiguous()
         return grouped_transfer_cuda(*args, sigma, *rest,
                                      normalize=normalize, affine=affine,
-                                     act=act)
+                                     act=act, tile=tile)
     if feats.device.type == "cpu":
         _check(feats, nidx, centers, alpha, beta, w, b)
+        if tile is not None:
+            tuning.card_tile("grouped_transfer", tile)
         return ref.grouped_transfer_ref(feats, nidx, centers, sigma, alpha,
                                         beta, w, b, normalize=normalize,
                                         affine=affine, act=act)
@@ -171,7 +192,7 @@ def fused_group_transfer(xyz: torch.Tensor, feats: torch.Tensor,
                          sample_idx: torch.Tensor, k: int,
                          affine_params: Optional[dict], mode: str,
                          per_sample_norm: bool, p: dict, *,
-                         act: bool = True):
+                         act: bool = True, tile=None, knn_tile=None):
     """A whole ``GroupOp`` + transfer ``CBROp`` pair, batched over clouds.
 
     Args mirror the grouper contract (xyz [B, N, 3], feats [B, N, C],
@@ -183,7 +204,9 @@ def fused_group_transfer(xyz: torch.Tensor, feats: torch.Tensor,
     Per-cloud sigma (``per_sample_norm``) is computed inside the kernel.
     Batch-global sigma reduces across clouds, so it is formed outside by
     ``repro_torch.core.knn.group_sigma`` (as the unfused path forms it)
-    and handed to the given-sigma kernel.
+    and handed to the given-sigma kernel.  ``tile`` and ``knn_tile`` pin
+    the ``grouped_transfer`` and ``knn`` templates (``KernelTuning``
+    values; None: the wrappers' rules).
     """
     from repro_torch.core import knn as knn_core
     from repro_torch.core.sampling import gather_points
@@ -200,7 +223,7 @@ def fused_group_transfer(xyz: torch.Tensor, feats: torch.Tensor,
     sample_idx = sample_idx.to(xyz.device, torch.int64)
     new_xyz = gather_points(xyz, sample_idx)
     center_f = gather_points(feats, sample_idx)
-    nbr_idx = knn_core.knn_batched(new_xyz, xyz, k)              # [B, S, k]
+    nbr_idx = knn_core.knn_batched(new_xyz, xyz, k, tile=knn_tile)
 
     if mode not in ("affine", "norm", "center"):
         raise ValueError(f"unknown normalize mode: {mode}")
@@ -221,5 +244,6 @@ def fused_group_transfer(xyz: torch.Tensor, feats: torch.Tensor,
         sigma = knn_core.group_sigma(off, per_sample=False,
                                      eps=ref.EPS).expand(feats.shape[0])
     out = grouped_transfer(feats, nbr_idx, center_f, sigma, alpha, beta, w,
-                           bias, normalize=normalize, affine=affine, act=act)
+                           bias, normalize=normalize, affine=affine, act=act,
+                           tile=tile)
     return new_xyz, center_f, out

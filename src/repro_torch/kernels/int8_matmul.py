@@ -8,24 +8,34 @@ weights ``[K, N]`` into an int32 accumulator, dequantized by
 ports ``w8_matmul_pallas`` (W8A16): bf16/f32 activations times int8
 weights widened in the tile, f32 sums, a per-column scale, the result in
 the activations' dtype.  No model path calls it, in the JAX package or
-here.  Each wrapper counts its launches on ``<fn>.launches``.
+here.  Each wrapper counts its launches on ``<fn>.launches``, and
+``int8_matmul_cuda.templates`` those of each template by name.
 :func:`template` names the template of ``csrc/int8_matmul.cu`` that a
-product takes, :func:`w8_route` the route of ``csrc/w8_matmul.cu``.
+product takes (by the wrapper's rule or as a ``KernelTuning`` tile pins
+it), :func:`w8_route` the route of ``csrc/w8_matmul.cu``.
 """
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tuning
 
-def template(k: int, n: int, aligned: bool = True) -> _build.GemmTemplate:
+
+def template(k: int, n: int, aligned: bool = True,
+             tile=None) -> _build.GemmTemplate:
     """The template of ``csrc/int8_matmul.cu`` for ``[M, K] @ [K, N]``:
-    the column tile follows N; 16-byte copies (``vec``) need 16-byte
-    aligned operands, K % 16 == 0 (rows of x_q on 16-byte boundaries) and
-    N % 4 == 0 (whole 4-column words of w_q)."""
-    return _build.gemm_template(n, aligned and k % 16 == 0 and n % 4 == 0)
+    the column tile follows N, or the BN of a pinned ``tile`` (BM, BK,
+    BN) (``kernels.tuning.INT8_MATMUL_TILES``); 16-byte copies (``vec``)
+    need 16-byte aligned operands, K % 16 == 0 (rows of x_q on 16-byte
+    boundaries) and N % 4 == 0 (whole 4-column words of w_q)."""
+    vec = aligned and k % 16 == 0 and n % 4 == 0
+    if tile is not None:
+        return _build.GemmTemplate(tuning.card_tile("int8_matmul", tile),
+                                   vec)
+    return _build.gemm_template(n, vec)
 
 
 def _check(x_q, w_q, a_scale, w_scale, rows_per_lane) -> None:
@@ -48,8 +58,9 @@ def _check(x_q, w_q, a_scale, w_scale, rows_per_lane) -> None:
 
 def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
                      a_scale: torch.Tensor, w_scale: torch.Tensor,
-                     rows_per_lane: int) -> torch.Tensor:
-    """Launch the kernel: int8 [M, K] @ int8 [K, N] -> f32 [M, N]."""
+                     rows_per_lane: int, tile=None) -> torch.Tensor:
+    """Launch the kernel: int8 [M, K] @ int8 [K, N] -> f32 [M, N], on the
+    template :func:`template` names (``tile`` pins one)."""
     _check(x_q, w_q, a_scale, w_scale, rows_per_lane)
     tensors = (("x_q", x_q), ("w_q", w_q), ("a_scale", a_scale),
                ("w_scale", w_scale))
@@ -67,7 +78,7 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     if m * n == 0:
         return out
-    tmpl = template(k, n, _build.aligned16(x_q, w_q))
+    tmpl = template(k, n, _build.aligned16(x_q, w_q), tile)
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
     code = _build.launcher("int8_matmul")(
         x_q.data_ptr(), w_q.data_ptr(), a_scale.data_ptr(),
@@ -75,10 +86,12 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
         tmpl.code, stream)
     _build.check("int8_matmul", code)
     int8_matmul_cuda.launches += 1
+    int8_matmul_cuda.templates[tmpl.name] += 1
     return out
 
 
 int8_matmul_cuda.launches = 0
+int8_matmul_cuda.templates = collections.Counter()
 
 
 # csrc/w8_matmul.cu's routes, by their code in its launch switch.

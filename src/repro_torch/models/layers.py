@@ -64,7 +64,7 @@ def _matmul(x: torch.Tensor, w, quant: Optional[QuantConfig]
             from repro_torch.kernels import ops
             lanes = x.shape[0] if quant.per_lane else 1
             return ops.int8_matmul(x, w["q"], w["scale"], a_bits=quant.a_bits,
-                                   lanes=lanes)
+                                   lanes=lanes, tile=quant.tiles)
         # W8 reference path: dequantized weight matmul.
         return matmul(x, w["q"].to(x.dtype) * w["scale"].to(x.dtype))
     if quant is not None and quant.enabled:

@@ -149,6 +149,12 @@ def count_conv_layers(cfg: PointMLPConfig) -> int:
 
 # ------------------------------------------------------------ apply -----
 
+def _tile(tile) -> Dict:
+    """The ``tile=`` keyword of a sampler or grouper call: only where the
+    plan pins one, so an entry without the keyword runs the default."""
+    return {} if tile is None else {"tile": tile}
+
+
 def _forward_impl(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
                   lfsr_state: Optional[torch.Tensor], *, sampler, grouper,
                   plan, shared_urs: bool = False,
@@ -191,7 +197,7 @@ def _forward_impl(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
                 idx = mapping_cache["sample"][op.stage]
             else:
                 idx, lfsr_state = sampler(cur_xyz, op.n_samples, lfsr_state,
-                                          shared_urs)
+                                          shared_urs, **_tile(op.tile))
             if collect_cache:
                 got_sample.append(idx)
         elif isinstance(op, stage_plan.GroupOp):
@@ -203,7 +209,8 @@ def _forward_impl(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
                     nbr = mapping_cache["nbr"][op.stage]
                 else:
                     nbr = grouper.neighbor_index(
-                        gather_points(cur_xyz, idx), cur_xyz, op.k)
+                        gather_points(cur_xyz, idx), cur_xyz, op.k,
+                        **_tile(op.tile))
                 if collect_cache:
                     got_nbr.append(nbr)
                 cur_xyz, _, cur = grouper.group_with_idx(
@@ -211,7 +218,8 @@ def _forward_impl(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
                     per_sample_norm)
             else:
                 cur_xyz, _, cur = grouper(cur_xyz, cur, idx, op.k, affine,
-                                          cfg.affine_mode, per_sample_norm)
+                                          cfg.affine_mode, per_sample_norm,
+                                          **_tile(op.tile))
         elif isinstance(op, stage_plan.CBROp):
             cur = cbr(op, stage_plan.param_at(params, op.path), cur)
         elif isinstance(op, stage_plan.FusedGroupTransferOp):
@@ -237,7 +245,8 @@ def _forward_impl(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
             if op.cached and mapping_cache is not None:
                 up_idx = mapping_cache["up"]
             else:
-                up_idx = knn_core.knn_batched(xyz, cur_xyz, 1)  # [B, N, 1]
+                up_idx = knn_core.knn_batched(xyz, cur_xyz, 1,
+                                              op.knn_tile)      # [B, N, 1]
             if collect_cache:
                 got_up = up_idx
             up = knn_core.gather_neighbors(cur, up_idx)[:, :, 0, :]

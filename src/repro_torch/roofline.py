@@ -102,70 +102,104 @@ def _ceil_waste(dim: int, tile: int) -> float:
     return (math.ceil(dim / tile) * tile) / dim
 
 
-def _tile_waste(plan, cfg, op: str) -> float:
-    """Padding-waste multiplier (>= 1) on a matmul op's compute term on the
-    ``cuda`` backend: every matmul dimension rounds up to its tile of
-    ``plan.tuning``, read exactly as ``repro.roofline._tile_waste`` reads
-    it on ``pallas``.  The CUDA kernels pick their own templates and do
-    not take ``KernelTuning`` yet (ROADMAP.md Queue 1 item 5 (b)), so this
-    term models JAX's tiles, not the card's.  Ops on other backends, and
-    the gather/normalize ``group`` rows, return 1.0.
+def _gemm_waste(kernel: str, m: int, k: int, n: int, tile=None,
+                rows: int = 0) -> float:
+    """Padding waste of one product on the card: ``[m, k] @ [k, n]`` on
+    the template the wrapper launches (its own rule, or the one ``tile``
+    pins, with aligned operands), every dimension rounded up to the
+    template's: M to BM (per cloud of ``rows`` rows for
+    ``grouped_transfer``, whose grid is per cloud), N to BN, and K to the
+    64-byte chunks ``int8_matmul`` computes whole (the fp32 chains end at
+    K)."""
+    from repro_torch.kernels import fused_linear, grouped_transfer
+    from repro_torch.kernels import int8_matmul, tuning
+    if kernel == "int8_matmul":
+        t = int8_matmul.template(k, n, True, tile)
+        bm, bk, bn = tuning.template_tile(kernel, t.bn, vec=t.vec)
+        return (_ceil_waste(m, bm) * _ceil_waste(k, bk)
+                * _ceil_waste(n, bn))
+    if kernel == "grouped_transfer":
+        t = grouped_transfer.template(m, k // 2, n, True, tile=tile)
+        bm, _, bn = tuning.template_tile(kernel, t.bn)
+        return _ceil_waste(rows, bm) * _ceil_waste(n, bn)
+    t = fused_linear.template(m, k, n, True, tile=tile)
+    bm, _, bn = tuning.template_tile(kernel, t.bn, t.small)
+    return _ceil_waste(m, bm) * _ceil_waste(n, bn)
+
+
+def _tile_waste(plan, cfg, op: str, batch: int = 1) -> float:
+    """Padding-waste multiplier (>= 1) on a product op's compute term on
+    the ``cuda`` backend, at a dispatch of ``batch`` clouds: each product
+    of the op on the template its kernel launches (:func:`_gemm_waste`),
+    ``int8_matmul`` for int8 regions, ``fused_linear`` for fp32 ones and
+    ``grouped_transfer`` for a fused stage's transfer, by the wrapper's
+    rule or as ``plan.tuning`` pins it.  A residual block's two products
+    and the head's three count as their mean, as in
+    ``repro.roofline._tile_waste``.  Ops on other backends, and the
+    gather/normalize ``group`` rows, return 1.0 (as JAX's do off
+    ``pallas``).
     """
-    from repro_torch.api.plan import _KERNEL_BACKENDS
-    t = plan.tuning
+    from repro_torch.api.plan import _KERNEL_BACKENDS, FusedGroupTransferOp
+    from repro_torch.kernels import tuning
+
+    def gemm(prec: str, m: int, k: int, n: int) -> float:
+        kernel = "int8_matmul" if prec == "int8" else "fused_linear"
+        return _gemm_waste(kernel, m, k, n,
+                           tuning.pinned(kernel, plan.tuning))
+
     if op.startswith("stage"):
         s = int(op.split(".")[0][len("stage"):]) - 1
-        if plan.stage_backend[s] not in _KERNEL_BACKENDS:
-            return 1.0
-        tm, tk, tn = (t.int8_matmul if plan.stage_precision[s] == "int8"
-                      else t.fused_linear)
         kind = op.split(".")[1]
+        if plan.stage_backend[s] not in _KERNEL_BACKENDS or kind == "group":
+            return 1.0
+        prec = plan.stage_precision[s]
         smp, c = cfg.stage_samples[s], cfg.stage_dims[s]
         c_prev = cfg.stage_dims[s - 1] if s else cfg.embed_dim
         k = cfg.k_neighbors
-        if kind == "group":
-            return 1.0
         if kind == "transfer":
-            return (_ceil_waste(smp * k, tm) * _ceil_waste(2 * c_prev, tk)
-                    * _ceil_waste(c, tn))
-        # pre/pos residual blocks: two matmuls (c->mid, mid->c), the mean
-        # of their waste.
+            fused = any(isinstance(o, FusedGroupTransferOp) and o.stage == s
+                        for o in plan.ops)
+            if fused:
+                return _gemm_waste(
+                    "grouped_transfer", batch * smp * k, 2 * c_prev, c,
+                    tuning.pinned("grouped_transfer", plan.tuning),
+                    rows=smp * k)
+            return gemm(prec, batch * smp * k, 2 * c_prev, c)
         mid = max(1, int(c * cfg.res_expansion))
-        m = smp * k if kind == "pre" else smp
-        w1 = _ceil_waste(m, tm) * _ceil_waste(c, tk) * _ceil_waste(mid, tn)
-        w2 = _ceil_waste(m, tm) * _ceil_waste(mid, tk) * _ceil_waste(c, tn)
-        return 0.5 * (w1 + w2)
-    if op == "head" and plan.backend in _KERNEL_BACKENDS:
-        tm, tk, tn = (t.int8_matmul if plan.precision == "int8"
-                      else t.fused_linear)
-        m = cfg.n_points if plan.head == "seg" else 1
+        m = batch * (smp * k if kind == "pre" else smp)
+        return 0.5 * (gemm(prec, m, c, mid) + gemm(prec, m, mid, c))
+    if plan.backend not in _KERNEL_BACKENDS:
+        return 1.0
+    if op == "embed":
+        return gemm(plan.precision, batch * cfg.n_points, 3, cfg.embed_dim)
+    if op == "head":
+        m = batch * (cfg.n_points if plan.head == "seg" else 1)
         c_in = (cfg.embed_dim + 2 * cfg.stage_dims[-1]
                 if plan.head == "seg" else cfg.stage_dims[-1])
-        w1 = _ceil_waste(m, tm) * _ceil_waste(c_in, tk) * _ceil_waste(512, tn)
-        w2 = _ceil_waste(m, tm) * _ceil_waste(512, tk) * _ceil_waste(256, tn)
-        w3 = (_ceil_waste(m, tm) * _ceil_waste(256, tk)
-              * _ceil_waste(cfg.n_classes, tn))
-        return (w1 + w2 + w3) / 3.0
+        return (gemm(plan.precision, m, c_in, 512)
+                + gemm(plan.precision, m, 512, 256)
+                + gemm(plan.precision, m, 256, cfg.n_classes)) / 3.0
     return 1.0
 
 
 def estimate_plan(plan, cfg, hw: HardwareModel = H100_SXM,
-                  *, data_shards: int = 1) -> PlanEstimate:
+                  *, data_shards: int = 1, batch: int = 1) -> PlanEstimate:
     """Score a compiled :class:`~repro_torch.api.plan.StagePlan` statically.
 
-    Each ``cost_breakdown`` row's FLOPs (times the tile waste) divide by
-    the peak its precision buys, its weight and activation bytes by the
-    memory rate, and the op's bound is the larger of the two: int8 stages
-    shrink both terms and a fused group->transfer stage drops the grouped
-    tensor's traffic, so the estimate ranks the tuner's space as the
-    paper's design-space exploration does.
+    Each ``cost_breakdown`` row's FLOPs (times the tile waste of a
+    dispatch of ``batch`` clouds) divide by the peak its precision buys,
+    its weight and activation bytes by the memory rate, and the op's bound
+    is the larger of the two: int8 stages shrink both terms and a fused
+    group->transfer stage drops the grouped tensor's traffic, so the
+    estimate ranks the tuner's space as the paper's design-space
+    exploration does.
     """
     rows = []
     for row in plan.cost_breakdown(cfg):
         prec = _op_precision(plan, row["op"])
         peak = hw.peak_int8_ops if prec == "int8" else hw.peak_flops
         nbytes = row["w_bytes"] + row["act_bytes"]
-        t_c = row["flops"] * _tile_waste(plan, cfg, row["op"]) / peak
+        t_c = row["flops"] * _tile_waste(plan, cfg, row["op"], batch) / peak
         t_m = nbytes / hw.hbm_bw
         rows.append({"op": row["op"], "precision": prec,
                      "flops": row["flops"], "w_bytes": row["w_bytes"],

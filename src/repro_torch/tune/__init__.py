@@ -6,8 +6,9 @@
 Submodules: ``search`` (estimate -> rank -> measure), ``frontier``
 (deterministic Pareto selection) and ``artifact`` (the ``repro.bench/v1``
 writer, reader and validator, shared with ``repro.tune`` and
-``scripts/bench_diff.py``).  The kernel-tile sweep of ``repro.tune.
-kernels`` waits for ROADMAP.md Queue 1 item 5 (b).
+``scripts/bench_diff.py``); ``kernels`` (the tile sweep on the card,
+``plan_tuning`` and ``tuning_candidates``) is imported as
+``repro_torch.tune.kernels``.
 """
 from __future__ import annotations
 

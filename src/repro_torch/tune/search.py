@@ -25,6 +25,7 @@ from repro_torch.api import plan as stage_plan
 from repro_torch.kernels.tuning import DEFAULT_TUNING
 from repro_torch.tune import artifact as art
 from repro_torch.tune.frontier import mark_frontier
+from repro_torch.tune.kernels import tuning_candidates
 
 ANCHOR_NAME = "fp32-ref"
 
@@ -49,16 +50,16 @@ class Candidate:
 
 def quick_space(base) -> List[Any]:
     """The quick search space around ``base``: the precision ladder x
-    {``ref``, ``cuda``} x {unfused, fused group->transfer}, on one device
-    (``data_shards=1``), with the default tiles (the first entry of
-    ``repro.tune.quick_space``'s tile set; smaller tiles wait for
-    ROADMAP.md Queue 1 item 5 (b))."""
+    {``ref``, ``cuda``} x {unfused, fused group->transfer} x the static
+    tile candidates (``tune.kernels.tuning_candidates(quick=True)``: the
+    defaults and the card's small tiles), on one device
+    (``data_shards=1``), as ``repro.tune.quick_space`` on one host."""
     return stage_plan.enumerate_plan_space(
         base,
         stage_backends=(("ref",) * 4, ("cuda",) * 4),
         fused_groups=("none", "grouped_transfer"),
         data_shards=(1,),
-        kernel_tunings=(DEFAULT_TUNING,))
+        kernel_tunings=tuning_candidates(quick=True))
 
 
 def anchor_spec(base):
@@ -82,10 +83,12 @@ def _static_prune(cand: Candidate) -> bool:
     return False
 
 
-def _estimate(cand: Candidate, hw: roofline.HardwareModel) -> None:
-    """Lower and estimate.  A spec the port does not run yet records its
-    ``NotImplementedError`` (naming its ROADMAP.md item) as the row's
-    ``est_error``, as an invalid one records its ``ValueError``."""
+def _estimate(cand: Candidate, hw: roofline.HardwareModel,
+              batch: int) -> None:
+    """Lower and estimate at a dispatch of ``batch`` clouds.  A spec the
+    port does not run yet records its ``NotImplementedError`` (naming its
+    ROADMAP.md item) as the row's ``est_error``, as an invalid one (a
+    tile its kernel lacks among them) records its ``ValueError``."""
     try:
         cfg = cand.spec.to_model_config()
         with warnings.catch_warnings():
@@ -93,7 +96,7 @@ def _estimate(cand: Candidate, hw: roofline.HardwareModel) -> None:
             warnings.simplefilter("ignore")
             plan = stage_plan.lower(cand.spec, cfg)
         cand.estimate = roofline.estimate_plan(
-            plan, cfg, hw, data_shards=cand.spec.data_shards)
+            plan, cfg, hw, data_shards=cand.spec.data_shards, batch=batch)
     except (ValueError, KeyError, NotImplementedError) as e:
         cand.est_error = f"{type(e).__name__}: {e}"
 
@@ -165,7 +168,8 @@ def tune(base_spec, params=None, *, space: Optional[List] = None,
         besides the anchor.
       hw: the estimate's hardware model; None means ``H100_SXM`` on
         ``cuda`` and ``CPU_HOST`` on the CPU.
-      max_batch: the one dispatch shape every measured candidate uses.
+      max_batch: the one dispatch shape every measured candidate uses
+        (and the estimate's tile waste assumes).
       n_requests: the measured queue's length (``2 * max_batch`` when
         None): standard-normal ``[n_requests, n_points, 3]`` float32
         clouds from ``np.random.default_rng(seed + 1)``.
@@ -195,7 +199,7 @@ def tune(base_spec, params=None, *, space: Optional[List] = None,
 
     for cand in cands:
         if not _static_prune(cand):
-            _estimate(cand, hw)
+            _estimate(cand, hw, max_batch)
 
     # The anchor, then the top-K estimated-fastest viable candidates in a
     # deterministic order (estimated time, then fingerprint).
