@@ -40,7 +40,16 @@ each spec under every ``tuning_candidates(quick=False)`` entry and under
 ``plan_tuning``, bitwise ``DEFAULT_TUNING``'s logits with the pinned
 templates in the wrappers' ``.templates`` counters.  An early line prints
 the ``launch_profile()`` the script applied before torch started CUDA.
-Then the decoder LM, tinyllama-1.1b at full width and depth in
+The ``train`` phase trains on the card: full-width
+PointMLP-Lite (8/8 fake quant) on the synthetic set, one step against the
+CPU (indices identical; loss, gradients and refreshed BN stats within
+stated bounds, the CPU replaying the card's fake-quant codes, which are
+counted), 20 steps at batch 32 (the eval loss must drop; ms a step,
+samples/s, peak memory, a profiled step), a checkpoint at step 10
+restored and finished (bitwise under deterministic algorithms), then
+``compress`` and the Lite spec serving the result bitwise the CPU's; and
+Elite (FPS, learnable affine), one step against the CPU and 3 at batch
+32.  Then the decoder LM, tinyllama-1.1b at full width and depth in
 bf16 with random weights from a seed: the flash-attention and W8A16
 kernels against their plain versions at its shapes, a scoring forward of
 4 x 2048 tokens through the flash kernel held against the plain-attention
@@ -60,11 +69,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -1987,6 +1998,423 @@ def fleet_phase(torch, np, params_by_name, clouds, elite_clouds,
 
 # ---------------------------------------------------------------- LM ---
 
+# -------------------------------------------------------------- train --
+
+TRAIN_BATCH = 32
+TRAIN_STEPS = 20
+TRAIN_LR = 0.02
+TRAIN_RESUME_AT = 10
+ELITE_TRAIN_STEPS = 3
+# Card against CPU, one float32 training step from the same params, batch
+# and LFSR state.  Indices are identical, so what differs is summation
+# order (cuBLAS against MKL, CUDA reductions, gather's backward summed
+# with atomics on the card), ~1e-6 relative a layer, which BN on batch
+# statistics magnifies where a channel's batch variance is small (the
+# head's BN sees 8 or 4 rows), and a max-pool window whose two largest
+# values are that close (or tied in one run, an ulp apart in the other)
+# sends its gradient elsewhere.  scripts/train_rounding.py changes only
+# the rounding of every product (float64 sums) in a CPU step: at seed 0
+# it moved Elite's loss by 8.3e-7 relative, its gradient tree by 0.22%
+# and no leaf by more than 0.59% of its norm, and a BN running stat by
+# 2.8e-4 of its leaf's largest value.  The bounds leave a factor of 3.5
+# to 12.  The embedding's BN mean is ~1e-10 on centred clouds, pure
+# rounding: hence the absolute 1e-6.  The same script moved 22% of
+# Lite's fake-quant activation codes, its loss by 2% and its gradients
+# by more than their norm: one code a step away (1/127 of a tensor's
+# absmax) changes the next layer's inputs enough to move codes there,
+# and so on.  So Lite's CPU step replays the card's codes
+# (``fake_quant_tap``) and the phase counts the codes that differ.
+TRAIN_TOL = {"loss_rel": 1e-5, "leaf": 5e-2, "tree_floor": 1e-4,
+             "tree": 2e-2, "bn_rel": 1e-3, "bn_abs": 1e-6}
+TRAIN_WHY = (
+    "float32 summation order differs (cuBLAS vs MKL, CUDA reductions, "
+    "gather's backward with atomics), ~1e-6 a layer, magnified by BN on "
+    "batch statistics, and near-tied max-pool windows route their "
+    "gradient elsewhere; scripts/train_rounding.py measures the same "
+    "change of rounding on the CPU (Elite: loss 8.3e-7, gradient tree "
+    "0.22%, leaf 0.59%, BN 2.8e-4).  Lite's CPU step replays the card's "
+    "fake-quant codes: one code a step apart cascades (the script moved "
+    "22% of them, the loss by 2%, the gradients by more than their norm)")
+
+
+def fake_quant_tap(replay=None):
+    """Wrap ``layers.fake_quant_act``: record each call's activation codes
+    and scale, and with ``replay`` (another run's record) return that
+    run's quantized values instead of this run's own (the straight-through
+    gradient is unchanged).  Returns (record, restore)."""
+    from repro_torch.core import quant as Q
+    from repro_torch.models import layers as L
+    orig = L.fake_quant_act
+    record = []
+
+    def tap(x, q):
+        scale = Q.compute_scale(x.detach(), q.a_bits)
+        codes = Q.quantize(x.detach(), scale, q.a_bits)
+        i = len(record)
+        record.append((codes, scale))
+        if replay is None:
+            return orig(x, q)
+        want_codes, want_scale = replay[i]
+        qv = want_codes.to(x.device) * want_scale.to(x.device)
+        return x + (qv - x).detach()
+    L.fake_quant_act = tap
+    return record, lambda: setattr(L, "fake_quant_act", orig)
+
+
+def train_mapping(cfg, pts, lfsr, device):
+    """Per-stage sampled and kNN indices of one training forward
+    (per-cloud URS, or FPS) on ``device``."""
+    from repro_torch.core import knn, sampling
+    cur = pts.to(device)
+    out = []
+    for n_samp in cfg.stage_samples:
+        if cfg.sampler == "fps":
+            idx = sampling.fps(cur, n_samp)
+        else:
+            lfsr, idx = sampling.urs_indices_batched(
+                lfsr, cur.shape[1], n_samp, batch=cur.shape[0])
+            idx = idx.to(device)
+        new = sampling.gather_points(cur, idx)
+        out.append((idx.cpu(), knn.knn_batched(new, cur, cfg.k_neighbors)
+                    .cpu()))
+        cur = new
+    return out
+
+
+def tree_cpu(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: x.detach().cpu(), tree)
+
+
+def compare_step(name, card, cpu):
+    """Hold one training step's loss, gradients and refreshed BN stats,
+    card against CPU, to ``TRAIN_TOL``; return the errors found."""
+    from repro_torch.tree import leaves_with_paths
+    loss_c, grads_c, bn_c = card
+    loss_h, grads_h, bn_h = cpu
+    t = TRAIN_TOL
+    loss_err = abs(loss_c - loss_h)
+    check(loss_err <= t["loss_rel"] * abs(loss_h),
+          f"{name}: loss {loss_c} on the card, {loss_h} on the CPU")
+    gc, gh = dict(leaves_with_paths(grads_c)), dict(leaves_with_paths(
+        grads_h))
+    norm = sum(float((v.double() ** 2).sum()) for v in gh.values()) ** 0.5
+    tree_err = sum(float(((gc[k] - gh[k]).double() ** 2).sum())
+                   for k in gh) ** 0.5
+    check(tree_err <= t["tree"] * norm,
+          f"{name}: gradient tree differs by {tree_err} of {norm}")
+    worst_leaf, worst_at = 0.0, None
+    for k, v in gh.items():
+        allowed = t["leaf"] * float(v.norm()) + t["tree_floor"] * norm
+        err = float((gc[k] - v).norm())
+        check(err <= allowed, f"{name}: gradient of {k} differs by {err} "
+                              f"> {allowed}")
+        if err / allowed > worst_leaf:
+            worst_leaf, worst_at = err / allowed, "/".join(map(str, k))
+    bn_worst = 0.0
+    for k, v in dict(leaves_with_paths(bn_h)).items():
+        if k[-2:-1] != ("bn",) or k[-1] not in ("mean", "var"):
+            continue
+        c = dict(leaves_with_paths(bn_c))[k]
+        err = float((c - v).abs().max())
+        allowed = t["bn_rel"] * float(v.abs().max()) + t["bn_abs"]
+        check(err <= allowed, f"{name}: BN {k} differs by {err}")
+        bn_worst = max(bn_worst, err / allowed)
+    return {"loss_card": loss_c, "loss_cpu": loss_h,
+            "loss_rel_err": loss_err / abs(loss_h),
+            "grad_tree_rel_err": tree_err / norm,
+            "grad_leaf_worst_of_allowance": worst_leaf,
+            "grad_leaf_worst_at": worst_at,
+            "bn_worst_of_allowance": bn_worst}
+
+
+def step_vs_cpu(torch, name, cfg, params, pts, cls, lfsr_seed):
+    """One training step (loss, gradients, refreshed BN) on the card and
+    on the CPU from the same params, batch and LFSR state; the card's run
+    counted.  Lite's CPU run replays the card's activation codes."""
+    from repro_torch.api.build import to_device
+    from repro_torch.core import sampling
+    from repro_torch.train import pointmlp as TP
+    b = pts.shape[0]
+    for s, ((gi, gn), (ci, cn)) in enumerate(zip(
+            train_mapping(cfg, pts, sampling.seed_streams(
+                lfsr_seed, b), "cuda"),
+            train_mapping(cfg, pts, sampling.seed_streams(
+                lfsr_seed, b), "cpu"))):
+        check(torch.equal(gi, ci), f"{name}: {cfg.sampler} indices differ "
+                                   f"at stage {s}")
+        check(torch.equal(gn, cn), f"{name}: kNN indices differ at stage {s}")
+
+    def run(device, replay):
+        rec, restore = fake_quant_tap(replay)
+        try:
+            loss, grads, p_new, _ = TP.loss_and_grads(
+                to_device(params, device), cfg, pts.to(device),
+                cls.to(device), sampling.seed_streams(lfsr_seed, b))
+        finally:
+            restore()
+        return (float(loss), tree_cpu(grads), tree_cpu(p_new)), rec
+
+    (card, rec_card), launches = counted(torch, lambda: run("cuda", None))
+    cpu, rec_cpu = run("cpu", rec_card)
+    codes = sum(int((a.cpu() != c).sum())
+                for (a, _), (c, _) in zip(rec_card, rec_cpu))
+    scales = sum(int(not torch.equal(s.cpu(), t))
+                 for (_, s), (_, t) in zip(rec_card, rec_cpu))
+    out = compare_step(name, card, cpu)
+    out.update(fake_quant_layers=len(rec_card),
+               fake_quant_codes=sum(int(c.numel()) for c, _ in rec_card),
+               fake_quant_codes_differ=codes,
+               fake_quant_scales_differ=scales)
+    return out, launches, card
+
+
+def train_loop_on_card(torch, cfg, params, batches, steps, lfsr_seed,
+                       start=0, lfsr=None, timed=False):
+    """``steps`` trainer steps on the card, cycling ``batches`` (on the
+    card), from step ``start``; returns (params, lfsr, per-step ms)."""
+    from repro_torch.core import sampling
+    from repro_torch.train import pointmlp as TP
+    if lfsr is None:
+        lfsr = sampling.seed_streams(lfsr_seed, batches[0][0].shape[0])
+    ms = []
+    for s in range(start, start + steps):
+        pts, cls = batches[s % len(batches)]
+        if timed:
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            t0.record()
+        _, params, lfsr = TP.sgd_step(params, cfg, pts, cls, lfsr, TRAIN_LR)
+        if timed:
+            t1.record()
+            t1.synchronize()
+            ms.append(t0.elapsed_time(t1))
+    return params, lfsr, ms
+
+
+def params_diff(a, b):
+    from repro_torch.tree import leaves_with_paths
+    pa, pb = dict(leaves_with_paths(a)), dict(leaves_with_paths(b))
+    return max(float((pa[k] - pb[k]).abs().max()) for k in pa)
+
+
+def resume_check(torch, cfg, params0, batches, straight):
+    """Train ``TRAIN_RESUME_AT`` steps, checkpoint (params and LFSR state)
+    to a temporary directory, restore into a fresh tree and finish;
+    compare with ``straight``, the uninterrupted run's params."""
+    import tempfile
+
+    from repro_torch.models.pointmlp import pointmlp_init
+    from repro_torch.train import checkpoint as ckpt
+    p, lfsr, _ = train_loop_on_card(torch, cfg, params0, batches,
+                                    TRAIN_RESUME_AT, SEED)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save(d, TRAIN_RESUME_AT, {"params": p, "lfsr": lfsr},
+                  extra={"step": TRAIN_RESUME_AT})
+        check(ckpt.latest_step(d) == TRAIN_RESUME_AT, "checkpoint not found")
+        fresh = {"params": pointmlp_init(cfg, torch.Generator(
+            device="cuda").manual_seed(SEED + 99)), "lfsr": lfsr}
+        back, extra = ckpt.restore(d, TRAIN_RESUME_AT, fresh)
+    check(extra == {"step": TRAIN_RESUME_AT}, "checkpoint extra lost")
+    check(params_diff(back["params"], p) == 0.0
+          and torch.equal(back["lfsr"], lfsr),
+          "restored state differs from the saved one")
+    done, _, _ = train_loop_on_card(
+        torch, cfg, back["params"], batches, TRAIN_STEPS - TRAIN_RESUME_AT,
+        SEED, start=TRAIN_RESUME_AT, lfsr=back["lfsr"])
+    diff = params_diff(done, straight)
+    return {"bitwise": diff == 0.0, "max_abs_diff": diff}
+
+
+def eval_loss(cfg, params, pts, cls):
+    from repro_torch.core import sampling
+    from repro_torch.models import layers as L
+    from repro_torch.models.pointmlp import pointmlp_apply
+    logits, _, _ = pointmlp_apply(params, cfg, pts, sampling.seed_streams(
+        SEED + 1, pts.shape[0]))
+    return float(L.softmax_cross_entropy(logits, cls))
+
+
+def train_lite_phase(torch, smi, clouds):
+    """``train_lite``: full-width PointMLP-Lite (8/8 fake quant) on the
+    synthetic set: one step against the CPU, 20 steps cycling two batches
+    (timed, profiled), resume from a checkpoint, then compress and serve
+    on the card bitwise against the CPU."""
+    from repro_torch.api.build import build, to_device
+    from repro_torch.api.spec import lite_spec
+    from repro_torch.core.compress import compress
+    from repro_torch.data import pointclouds
+    from repro_torch.models.pointmlp import (pointmlp_init,
+                                             pointmlp_lite_config)
+    from repro_torch.core import sampling
+    from repro_torch.train import pointmlp as TP
+    cfg = pointmlp_lite_config(N_CLASSES)
+    params0 = pointmlp_init(cfg, torch.Generator().manual_seed(SEED + 20))
+    total = {k: 0 for k in counters()}
+
+    # 1-2. one step at batch 8, card against CPU
+    pts, cls = pointclouds.make_batch(SEED, 0, cfg.n_points, 8, "cpu")
+    vs_cpu, launches, _ = step_vs_cpu(torch, "train_lite", cfg, params0,
+                                      pts, cls, SEED)
+    expect_launches("train_lite step", launches, {"knn": 4})
+    add_launches(total, launches)
+
+    # 3. 20 steps at batch 32 cycling two fixed batches, timed
+    batches = [pointclouds.make_batch(SEED, s, cfg.n_points, TRAIN_BATCH,
+                                      "cuda") for s in range(2)]
+    ev_pts = torch.cat([b[0] for b in batches])
+    ev_cls = torch.cat([b[1] for b in batches])
+    p_card = to_device(params0, "cuda")
+    before = eval_loss(cfg, p_card, ev_pts, ev_cls)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (straight, _, ms), launches = counted(torch, lambda: train_loop_on_card(
+        torch, cfg, p_card, batches, TRAIN_STEPS, SEED, timed=True))
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches("train_lite loop", launches, {"knn": 4}, TRAIN_STEPS)
+    add_launches(total, launches)
+    loop_launches = {k: v / TRAIN_STEPS for k, v in launches.items() if v}
+    after = eval_loss(cfg, straight, ev_pts, ev_cls)
+    check(after < before - 0.05, f"train_lite: eval loss {before} -> "
+                                 f"{after}, not down by 0.05")
+    step_ms = statistics.median(ms)
+    lf = sampling.seed_streams(SEED, TRAIN_BATCH)
+    prof = profile_summary(*profile_call(torch, lambda: TP.sgd_step(
+        straight, cfg, batches[0][0], batches[0][1], lf.clone(), TRAIN_LR)),
+        knn_ms=("knn",))
+
+    # 4. checkpoint and resume, in the default mode and deterministic.
+    # Only the restored state is required to equal the saved one: in
+    # the default mode gather's backward sums with atomics, and QAT
+    # carries a last-bit difference into other codes, so two runs part.
+    resume = {"default": resume_check(torch, cfg, p_card, batches, straight)}
+    saved_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            det_straight, _, det_ms = train_loop_on_card(
+                torch, cfg, p_card, batches, TRAIN_STEPS, SEED, timed=True)
+            resume["deterministic"] = resume_check(torch, cfg, p_card,
+                                                   batches, det_straight)
+        resume["deterministic"]["warnings"] = sorted(
+            {str(w.message)[:120] for w in caught})
+        check(resume["deterministic"]["bitwise"],
+              "train_lite: a resumed run differs from the straight one "
+              "under deterministic algorithms")
+        resume["deterministic"]["ms_per_step_median"] = statistics.median(
+            det_ms)
+        resume["deterministic_vs_default_max_abs_diff"] = params_diff(
+            det_straight, straight)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if saved_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved_env
+
+    # 5. compress the trained params and serve them
+    deploy, _, report = compress(tree_cpu(straight), cfg)
+    spec = lite_spec(N_CLASSES).serving().replace(backend="cuda")
+    card_pipe = build(spec, deploy)
+    cpu_pipe = build(spec, deploy, device="cpu")
+    chunk = torch.from_numpy(clouds[:MAX_BATCH])
+    (served, _), launches = counted(torch, lambda: card_pipe.infer(
+        chunk.cuda(), card_pipe.seed_state(SEED, MAX_BATCH)))
+    expect_launches("train_lite serve", launches, {"knn": 4,
+                                                    "int8_matmul": 28})
+    add_launches(total, launches)
+    want, _ = cpu_pipe.infer(chunk, cpu_pipe.seed_state(SEED, MAX_BATCH))
+    check(torch.equal(served.cpu(), want),
+          "train_lite: the compressed model's logits differ on the card")
+    emit({"phase": "train_lite", "card": smi, "config": cfg.name,
+          "n_points": cfg.n_points, "quant": [cfg.quant.w_bits,
+                                              cfg.quant.a_bits],
+          "step_vs_cpu": dict(vs_cpu, batch=8, tolerance=TRAIN_TOL,
+                              why=TRAIN_WHY),
+          "launches_per_step": loop_launches,
+          "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "lr": TRAIN_LR,
+          "eval_loss_before": before, "eval_loss_after": after,
+          "ms_per_step_median": step_ms, "ms_per_step": ms,
+          "samples_per_s": TRAIN_BATCH / (step_ms / 1e3),
+          "max_memory_allocated_bytes": peak, "profile_one_step": prof,
+          "resume": resume,
+          "compress": {"bn_blocks_fused": report.bn_blocks_fused,
+                       "size_ratio_vs_f32": report.size_ratio_vs_f32},
+          "served_bitwise_vs_cpu": True,
+          "served_launches": launches})
+    return total
+
+
+def train_elite_phase(torch, smi):
+    """``train_elite``: full-width PointMLP-Elite (FPS, learnable affine,
+    fp32): one step at batch 4 against the CPU, 3 steps at batch 32."""
+    from repro_torch.api.build import to_device
+    from repro_torch.data import pointclouds
+    from repro_torch.models.pointmlp import (pointmlp_elite_config,
+                                             pointmlp_init)
+    from repro_torch.tree import leaves_with_paths
+    cfg = pointmlp_elite_config(N_CLASSES)
+    params0 = pointmlp_init(cfg, torch.Generator().manual_seed(SEED + 21))
+    gen = torch.Generator().manual_seed(SEED + 22)
+    for st in params0["stages"]:          # alpha and beta off identity
+        c = st["affine"]["alpha"].shape[0]
+        st["affine"] = {"alpha": 0.5 + torch.rand(c, generator=gen),
+                        "beta": 0.1 * torch.randn(c, generator=gen)}
+    total = {k: 0 for k in counters()}
+    pts, cls = pointclouds.make_batch(SEED + 1, 0, cfg.n_points, 4, "cpu")
+    vs_cpu, launches, card = step_vs_cpu(torch, "train_elite", cfg, params0,
+                                         pts, cls, SEED)
+    expect_launches("train_elite step", launches, {"knn": 4, "fps": 4})
+    add_launches(total, launches)
+    g = dict(leaves_with_paths(card[1]))
+    affine = {}
+    for s in range(4):
+        for k in ("alpha", "beta"):
+            v = g[("stages", s, "affine", k)]
+            check(float(v.abs().max()) > 0,
+                  f"train_elite: stage {s} {k} has no gradient")
+            affine[f"stage{s}.{k}"] = float(v.norm())
+    batches = [pointclouds.make_batch(SEED + 1, s, cfg.n_points, TRAIN_BATCH,
+                                      "cuda") for s in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (_, _, ms), launches = counted(torch, lambda: train_loop_on_card(
+        torch, cfg, to_device(params0, "cuda"), batches, ELITE_TRAIN_STEPS,
+        SEED, timed=True))
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches("train_elite loop", launches, {"knn": 4, "fps": 4},
+                    ELITE_TRAIN_STEPS)
+    add_launches(total, launches)
+    step_ms = statistics.median(ms)
+    emit({"phase": "train_elite", "card": smi, "config": cfg.name,
+          "n_points": cfg.n_points,
+          "step_vs_cpu": dict(vs_cpu, batch=4, tolerance=TRAIN_TOL,
+                              why=TRAIN_WHY),
+          "affine_grad_norms": affine,
+          "beta_note": "the transfer layer's BN subtracts any constant a "
+                       "channel, so beta's true gradient is 0 (in JAX "
+                       "too): both devices return rounding noise, held "
+                       "by the tree-wide term of the leaf bound",
+          "steps": ELITE_TRAIN_STEPS,
+          "batch": TRAIN_BATCH, "ms_per_step_median": step_ms,
+          "ms_per_step": ms,
+          "samples_per_s": TRAIN_BATCH / (step_ms / 1e3),
+          "max_memory_allocated_bytes": peak,
+          "launches_per_step": {k: v / ELITE_TRAIN_STEPS
+                                for k, v in launches.items() if v}})
+    return total
+
+
+def train_phases(torch, smi, clouds):
+    t0 = time.perf_counter()
+    total = train_lite_phase(torch, smi, clouds)
+    add_launches(total, train_elite_phase(torch, smi))
+    emit({"phase": "train_total", "card": smi,
+          "seconds": time.perf_counter() - t0, "launches": total})
+    return total
+
+
 def attention_pairs(tq: int, tk: int, causal: bool, window: int) -> int:
     """(query, key) pairs the masks leave, per batch and head."""
     total = 0
@@ -2467,6 +2895,7 @@ def main() -> int:
                                     lite_frames, lite_outs, smi))
     emit({"phase": "engines_total", "card": smi,
           "seconds": time.perf_counter() - t_engines})
+    add_launches(total, train_phases(torch, smi, clouds))
     del elite_params, params, seg_params, by_name
     lm_rows, got = lm_phases(torch, np)
     rows.update(lm_rows)

@@ -13,7 +13,8 @@ mapping op is marked ``cached`` so a stream cache can replay it.  The
 model walk (``repro_torch.models.pointmlp._forward_impl``) interprets
 the plan.  :meth:`StagePlan.cost_breakdown` gives the analytic per-op
 FLOPs and bytes the roofline estimate (``repro_torch.roofline``) and the
-analyzer's perf pass read.  :func:`spec_fingerprint` and
+analyzer's perf pass read; :func:`lower_config` is the uniform plan of a
+bare model config (``pointmlp_apply``'s route).  :func:`spec_fingerprint` and
 :func:`spec_label` name a spec; :func:`enumerate_plan_space` is the
 tuner's search space, pruned by the analyzer's lowering passes.
 """
@@ -429,6 +430,35 @@ def lower(spec, cfg) -> StagePlan:
                      stage_backend=stage_back, precision=spec.precision,
                      backend=spec.backend, fused_group=fused_key,
                      head=spec.head, stream=spec.stream, tuning=tuning)
+
+
+def lower_config(cfg, backend_fn: Callable,
+                 backend_key: str = "<resolved>") -> StagePlan:
+    """A uniform plan from a :class:`PointMLPConfig` and one resolved
+    backend callable, ``repro.api.plan.lower_config``'s twin: the route
+    of ``pointmlp_apply`` (training and eval), so one interpreter serves
+    both.
+
+    Every CBR op gets ``backend_fn`` and the config's own quant (an
+    enabled one fake-quantizes float weights), with ``per_lane=False``:
+    this walk is not mapped over lanes, so the activation scale is one
+    per tensor, the batch included.
+    """
+    quant = (dataclasses.replace(cfg.quant, per_lane=False)
+             if cfg.quant.enabled else None)
+    precision = "int8" if quant is not None else "fp32"
+
+    def make_cbr(path, stage, act) -> CBROp:
+        return CBROp(path=tuple(path), stage=stage, act=act,
+                     precision=precision, backend=backend_key,
+                     quant=quant, fn=backend_fn)
+
+    return StagePlan(name=cfg.name,
+                     ops=_build_ops(cfg, make_cbr, quant, head=cfg.head),
+                     stage_precision=(precision,) * _N_STAGES,
+                     stage_backend=(backend_key,) * _N_STAGES,
+                     precision=precision, backend=backend_key,
+                     head=cfg.head)
 
 
 def spec_fingerprint(spec) -> str:

@@ -1,4 +1,4 @@
-"""Model config of the decoder LMs the port serves.
+"""Model config of the decoder LMs the port serves, and the training recipe.
 
 A subset of ``repro.configs.base.ModelConfig``: the fields the port's
 dense LM reads, with the JAX names and defaults; ``quant`` is the port's
@@ -6,6 +6,8 @@ own ``QuantConfig``.  The JAX fields for MoE routing, the encoder, SSMs,
 frontends, remat, layer unrolling and sharding profiles come with the
 slices that read them (ROADMAP.md, Queue 1 item 7).  ``n_experts > 0``
 and ``seq_parallel=True`` raise ``NotImplementedError`` in the model.
+:class:`TrainConfig` is ``repro.configs.base.TrainConfig``, field for
+field.
 """
 from __future__ import annotations
 
@@ -45,3 +47,21 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Paper recipe defaults (§3): SGD momentum=0.8, wd=2e-4, cosine LR
+    0.1 -> 0.005, batch 256, (1000 epochs full-scale)."""
+    optimizer: str = "sgd"
+    lr: float = 0.1
+    lr_min: float = 0.005
+    momentum: float = 0.8
+    weight_decay: float = 0.0002
+    steps: int = 1000
+    batch_size: int = 256
+    microbatch: int = 0              # 0 = no grad accumulation
+    seed: int = 0
+    grad_compress_bits: int = 0      # 0=off, 8=int8 all-reduce (unported)
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "checkpoints"

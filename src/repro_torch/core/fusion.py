@@ -5,12 +5,51 @@
 
 The same exact algebra as ``repro.core.fusion``; the fused parameters
 are what the int8 export consumes.
+
+Training-mode BN (:func:`batch_moments`, :func:`batchnorm_update_stats`)
+follows the JAX package, not ``torch.nn.BatchNorm``: the batch variance
+is the population one (divided by the count, not by count - 1), and the
+running stats move as ``m * old + (1 - m) * new`` with ``m`` the config's
+``bn_momentum`` (0.9), where torch's ``momentum`` weighs the new value.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+
+
+def batchnorm_init(channels: int, device=None) -> Dict[str, torch.Tensor]:
+    """Identity BN: gamma 1, beta 0, running mean 0, running var 1."""
+    return {"gamma": torch.ones(channels, device=device),
+            "beta": torch.zeros(channels, device=device),
+            "mean": torch.zeros(channels, device=device),
+            "var": torch.ones(channels, device=device)}
+
+
+def batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and population variance of ``x [..., C]`` over every axis but
+    the last (``jnp.mean`` and ``jnp.var`` over those axes)."""
+    red = tuple(range(x.ndim - 1))
+    mu = x.mean(dim=red)
+    return mu, ((x - mu) ** 2).mean(dim=red)
+
+
+def running_stats(bn: Dict[str, torch.Tensor], mu: torch.Tensor,
+                  var: torch.Tensor, momentum: float
+                  ) -> Dict[str, torch.Tensor]:
+    """``bn`` with its running stats moved toward the batch's:
+    ``momentum * old + (1 - momentum) * new``."""
+    return {"gamma": bn["gamma"], "beta": bn["beta"],
+            "mean": momentum * bn["mean"] + (1 - momentum) * mu,
+            "var": momentum * bn["var"] + (1 - momentum) * var}
+
+
+def batchnorm_update_stats(bn: Dict[str, torch.Tensor], x: torch.Tensor,
+                           momentum: float = 0.9) -> Dict[str, torch.Tensor]:
+    """EMA running-stat update (training mode) from ``x [..., C]``."""
+    mu, var = batch_moments(x)
+    return running_stats(bn, mu, var, momentum)
 
 
 def batchnorm_apply(x: torch.Tensor, bn: Dict[str, torch.Tensor],

@@ -1,11 +1,17 @@
-"""Quantization: symmetric absmax scales and the int8 weight export (HLS4PC §2.2).
+"""Quantization: QAT fake-quant (STE), symmetric absmax scales and the int8 export (HLS4PC §2.2).
 
-The deployment half of ``repro.core.quant``: scales, rounding and the
-int8 export consumed by ``repro_torch.kernels.int8_matmul``.  Export
-dicts keep the JAX layout, ``{"q": int8[..., d_in, d_out], "scale":
-f32[..., 1, d_out]}``.  ``torch.round`` rounds half to even, as
-``jnp.round`` does, so the exports are bit-identical.  Fake-quant and
-the straight-through estimator belong to the training slice.
+The port of ``repro.core.quant``: scales, rounding and the int8 export
+consumed by ``repro_torch.kernels.int8_matmul``, and the training half,
+fake-quant with the straight-through estimator.  Export dicts keep the
+JAX layout, ``{"q": int8[..., d_in, d_out], "scale": f32[..., 1,
+d_out]}``.  ``torch.round`` rounds half to even, as ``jnp.round`` does,
+so the exports are bit-identical.
+
+Fake-quant is ``x + (q - x).detach()`` with the scale detached, the
+expression ``repro.core.quant.fake_quant`` writes with
+``stop_gradient``: the forward value rounds as JAX's does and the
+gradient is the identity.  The QAT activation scale is one absmax over
+the whole tensor (the batch included), unlike serving's per-lane scale.
 """
 from __future__ import annotations
 
@@ -14,20 +20,26 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.tree import tree_map_with_path
+
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
-    """Deployment quantization parametrization of one layer.
+    """Quantization parametrization of one layer.
 
-    ``backend`` names the matmul: ``int8_ref`` (dequantized-weight
-    matmul, W8) or ``int8_cuda`` (W8A8 through the int8 kernel, the
-    port's counterpart of ``int8_pallas``).  ``per_lane`` quantizes activations with one absmax scale per batch
-    lane instead of one per tensor: under serving semantics the JAX
-    walk maps over lanes, so its per-tensor scale is a per-lane scale
-    of the port's batched dispatch.  ``tiles`` (``int8_cuda`` only) pins
-    the int8 kernel's template: a ``KernelTuning.int8_matmul`` value, or
-    None for the wrapper's rule (as ``repro.core.quant.QuantConfig.
-    tiles`` carries the Pallas tiles).
+    ``backend`` names the matmul of an int8 export dict: ``int8_ref``
+    (dequantized-weight matmul, W8) or ``int8_cuda`` (W8A8 through the
+    int8 kernel, the port's counterpart of ``int8_pallas``); JAX's
+    default ``fake`` is accepted too and means ``int8_ref`` there.  A
+    float weight under an enabled config is fake-quantized whatever the
+    backend (QAT), as in ``repro.models.layers._matmul``.  ``per_lane``
+    quantizes activations with one absmax scale per batch lane instead
+    of one per tensor: under serving semantics the JAX walk maps over
+    lanes, so its per-tensor scale is a per-lane scale of the port's
+    batched dispatch.  ``tiles`` (``int8_cuda`` only) pins the int8
+    kernel's template: a ``KernelTuning.int8_matmul`` value, or None for
+    the wrapper's rule (as ``repro.core.quant.QuantConfig.tiles``
+    carries the Pallas tiles).
     """
     w_bits: int = 8
     a_bits: int = 8
@@ -73,11 +85,44 @@ def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.clamp(torch.round(x / scale), qmin, qmax)
 
 
+def _round_ste(x: torch.Tensor, scale: torch.Tensor, bits: int
+               ) -> torch.Tensor:
+    """``x`` rounded to the grid of ``scale`` in the forward, the
+    identity in the backward (the scale gets no gradient)."""
+    scale = scale.detach()
+    q = quantize(x, scale, bits) * scale
+    return x + (q - x).detach()
+
+
+def fake_quant(x: torch.Tensor, bits: int, axis: Optional[int] = None
+               ) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through estimator: the
+    forward rounds to the absmax grid (``axis`` keeps that axis), the
+    gradient is the identity."""
+    if bits >= 32:
+        return x
+    return _round_ste(x, compute_scale(x, bits, axis), bits)
+
+
 def weight_scale(w: torch.Tensor, bits: int) -> torch.Tensor:
     """Per-out-channel scale of a weight ``[..., d_in, d_out]``: reduce
     only the contraction dim, so stacked layers keep their own scales."""
     qmax = 2 ** (bits - 1) - 1
     return _div_qmax(w.abs().amax(dim=-2, keepdim=True).clamp_min(1e-8), qmax)
+
+
+def fake_quant_weight(w: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    """Weights are ``[..., d_in, d_out]``; per-channel over the out axis."""
+    if cfg.w_bits >= 32:
+        return w
+    if not cfg.per_channel:
+        return fake_quant(w, cfg.w_bits, None)
+    return _round_ste(w, weight_scale(w, cfg.w_bits), cfg.w_bits)
+
+
+def fake_quant_act(x: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    """Activations: one scale over the whole tensor."""
+    return fake_quant(x, cfg.a_bits, axis=None)
 
 
 def quantize_weight_int8(w: torch.Tensor, cfg: QuantConfig
@@ -101,16 +146,6 @@ def is_quantizable_leaf_path(path: tuple) -> bool:
     return last == "w" or last == "kernel" or last.endswith("_w")
 
 
-def _map_leaves(tree: Any, fn: Callable[[tuple, Any], Any],
-                path: tuple = ()) -> Any:
-    if isinstance(tree, dict):
-        return {k: _map_leaves(v, fn, path + (k,)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_leaves(v, fn, path + (i,))
-                          for i, v in enumerate(tree))
-    return fn(path, tree)
-
-
 def quantize_tree(params: Any, cfg: QuantConfig,
                   predicate: Optional[Callable[[tuple, Any], bool]] = None
                   ) -> Any:
@@ -126,7 +161,35 @@ def quantize_tree(params: Any, cfg: QuantConfig,
                 else is_quantizable_leaf_path(path)
                 and getattr(leaf, "ndim", 0) >= 2)
         return quantize_weight_int8(leaf, cfg) if take else leaf
-    return _map_leaves(params, fix)
+    return tree_map_with_path(fix, params)
+
+
+def dequantize_tree(qparams: Any) -> Any:
+    """Inverse of :func:`quantize_tree`: every ``{"q", "scale"}`` dict
+    becomes ``f32(q) * scale``."""
+    if isinstance(qparams, dict):
+        if set(qparams) == {"q", "scale"}:
+            return qparams["q"].to(torch.float32) * qparams["scale"]
+        return {k: dequantize_tree(v) for k, v in qparams.items()}
+    if isinstance(qparams, (list, tuple)):
+        return type(qparams)(dequantize_tree(v) for v in qparams)
+    return qparams
+
+
+def stochastic_round_int8(x: torch.Tensor, scale: torch.Tensor,
+                          rand_bits: torch.Tensor) -> torch.Tensor:
+    """Stochastic rounding of ``x / scale`` to int8, driven by
+    ``rand_bits``: uint32 uniform bits (any integer dtype holding values
+    below 2**32), the shape of ``x``.  A value rounds up when its
+    ``u = (bits + 0.5) / 2**32`` (in f32) is below its fraction."""
+    y = x / scale
+    fl = torch.floor(y)
+    frac = y - fl
+    # dividing by a power of two is exact on every device
+    u = ((rand_bits.to(torch.int64) & 0xFFFFFFFF).to(torch.float32)
+         + 0.5) / 4294967296.0
+    q = fl + (u < frac).to(y.dtype)
+    return torch.clamp(q, -128, 127).to(torch.int8)
 
 
 def tree_size_bytes(params: Any) -> int:
@@ -138,5 +201,5 @@ def tree_size_bytes(params: Any) -> int:
         if isinstance(leaf, torch.Tensor):
             total += leaf.numel() * leaf.element_size()
         return leaf
-    _map_leaves(params, add)
+    tree_map_with_path(add, params)
     return total

@@ -2,8 +2,9 @@
 
 ``get_model(cfg)`` -> :class:`ModelAPI` with ``init``, ``forward``,
 ``init_cache``, ``prefill`` and ``decode_step``, for ``family="dense"``
-only.  ``loss_fn`` waits for the training slice; ``input_specs`` (JAX
-``ShapeDtypeStruct`` stand-ins for the dry-run) has no counterpart.
+only.  ``loss_fn`` (LM training) waits for ROADMAP.md Queue 1 item 7;
+``input_specs`` (JAX ``ShapeDtypeStruct`` stand-ins for the dry-run)
+has no counterpart.
 ``init`` and ``init_cache`` put their tensors on ``cuda`` unless given a
 device, and raise without a GPU.
 """

@@ -1,7 +1,7 @@
 """Layers over plain parameter dicts (the JAX package's layout).
 
-PointMLP's pointwise layers, and the decoder LM's norms, embeddings,
-RoPE and SwiGLU.
+PointMLP's pointwise layers (with the QAT fake-quant matmul and the
+training loss), and the decoder LM's norms, embeddings, RoPE and SwiGLU.
 
 Matmul weights are ``[d_in, d_out]`` under ``"w"``; a weight may have
 been replaced by an int8 export dict ``{"q", "scale"}``, and the apply
@@ -16,21 +16,15 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.fusion import batchnorm_apply
-from repro_torch.core.quant import QuantConfig
+from repro_torch.core.fusion import batchnorm_apply, batchnorm_init
+from repro_torch.core.quant import (QuantConfig, fake_quant_act,
+                                    fake_quant_weight)
 from repro_torch.kernels.ref import matmul
 
 
 def _normal(generator: torch.Generator, shape, std: float) -> torch.Tensor:
     return torch.randn(shape, generator=generator,
                        device=generator.device) * std
-
-
-def _bn_init(channels: int, device) -> Dict[str, torch.Tensor]:
-    return {"gamma": torch.ones(channels, device=device),
-            "beta": torch.zeros(channels, device=device),
-            "mean": torch.zeros(channels, device=device),
-            "var": torch.ones(channels, device=device)}
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
@@ -51,13 +45,17 @@ def conv1d_init(generator: torch.Generator, c_in: int, c_out: int,
     if bias:
         p["b"] = torch.zeros(c_out, device=generator.device)
     if bn:
-        p["bn"] = _bn_init(c_out, generator.device)
+        p["bn"] = batchnorm_init(c_out, generator.device)
     return p
 
 
 def _matmul(x: torch.Tensor, w, quant: Optional[QuantConfig]
             ) -> torch.Tensor:
-    """Dispatch: fp32 matmul, W8 dequantized matmul, or the W8A8 kernel."""
+    """Dispatch: fp32 matmul, W8 dequantized matmul, the W8A8 kernel, or
+    (a float weight under an enabled ``quant``) the QAT fake-quant matmul:
+    the weight per out-channel and the activation per tensor, rounded to
+    their grids with a straight-through gradient, then the plain
+    product."""
     if isinstance(w, dict):                  # int8 export {"q", "scale"}
         backend = quant.backend if quant is not None else "int8_ref"
         if backend == "int8_cuda":
@@ -68,9 +66,8 @@ def _matmul(x: torch.Tensor, w, quant: Optional[QuantConfig]
         # W8 reference path: dequantized weight matmul.
         return matmul(x, w["q"].to(x.dtype) * w["scale"].to(x.dtype))
     if quant is not None and quant.enabled:
-        raise NotImplementedError(
-            "fake-quant (QAT) matmuls wait for the training slice of "
-            "ROADMAP.md; serve a frozen int8 or fp32 pipeline")
+        w = fake_quant_weight(w, quant)
+        x = fake_quant_act(x, quant)
     return matmul(x, w.to(x.dtype))
 
 
@@ -174,6 +171,17 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         return F.silu(x)
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                          ) -> torch.Tensor:
+    """logits [..., V], labels [...] int -> scalar mean loss in f32:
+    ``mean(logsumexp(logits) - logits[label])``, as
+    ``repro.models.layers.softmax_cross_entropy``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.to(torch.int64)[..., None])[..., 0]
+    return (lse - ll).mean()
 
 
 def swiglu_init(generator: torch.Generator, d: int, d_ff: int,

@@ -1,4 +1,4 @@
-"""PointMLP-Elite / Lite / M-2 inference (HLS4PC §3; Ma et al. 2022), in PyTorch.
+"""PointMLP-Elite / Lite / M-2 (HLS4PC §3; Ma et al. 2022), in PyTorch.
 
 Topology: pointwise-conv embedding -> 4 stages of (sample, kNN group
 with geometric-affine normalize, transfer CBR, pre residual blocks on
@@ -25,6 +25,17 @@ in-order ``fused_linear`` kernel, not cuBLAS, whose kernel changes with
 the row count), and on the CPU a lone row's product sums as a wider
 one's (``kernels.ref.matmul``).
 
+Training.  ``pointmlp_apply(..., train=True)`` walks the uniform plan
+of ``lower_config`` with every CBR on :func:`_cbr_apply`: the fake-quant
+matmul under an enabled quant, BN on the batch's mean and population
+variance, and a params tree with the refreshed running stats returned
+beside the logits (functional BN, as ``repro.models.pointmlp``).  It
+samples per cloud (no shared URS) and normalizes with one sigma over the
+batch.  The kNN (and FPS) indices still come from the hand-written
+kernels on CUDA tensors; every product is a plain ``torch.matmul``, as
+JAX trains on ``backend="ref"``.  Pools are ``amax``, whose gradient
+splits a tie evenly, as ``reduce_max``'s does.
+
 Stream caches.  A ``stream=True`` plan marks its mapping ops ``cached``:
 ``collect_cache`` returns what they computed (sampled indices, neighbour
 lists, the seg head's 1-NN index; batch-leading tensors on the clouds'
@@ -39,7 +50,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.api import plan as stage_plan
+from repro_torch.api import registry
 from repro_torch.core import knn as knn_core
+from repro_torch.core.fusion import batch_moments, running_stats
 from repro_torch.core.quant import QuantConfig
 from repro_torch.core.sampling import gather_points
 from repro_torch.models import layers as L
@@ -155,13 +168,43 @@ def _tile(tile) -> Dict:
     return {} if tile is None else {"tile": tile}
 
 
+def _cbr_apply(p: Dict, x: torch.Tensor, cfg: PointMLPConfig, train: bool,
+               act: bool = True) -> Tuple[torch.Tensor, Dict]:
+    """Conv(+BN)(+ReLU) on the reference lowering.  In train mode BN uses
+    the batch's mean and population variance, and the returned params
+    carry the refreshed running stats (detached: they are state, not a
+    function of the weights' gradient)."""
+    quant = cfg.quant if cfg.quant.enabled else None
+    y = L._matmul(x, p["w"], quant)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    p_new = p
+    if "bn" in p:
+        bn = p["bn"]
+        if train:
+            mu, var = batch_moments(y)
+            p_new = dict(p, bn=running_stats(bn, mu.detach(), var.detach(),
+                                             cfg.bn_momentum))
+        else:
+            mu, var = bn["mean"], bn["var"]
+        y = (y - mu) * torch.rsqrt(var + 1e-5) * bn["gamma"] + bn["beta"]
+    if act:
+        y = torch.relu(y)
+    return y, p_new
+
+
 def _forward_impl(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
                   lfsr_state: Optional[torch.Tensor], *, sampler, grouper,
-                  plan, shared_urs: bool = False,
+                  plan, train: bool = False, shared_urs: bool = False,
                   per_sample_norm: bool = False,
                   mapping_cache: Optional[Dict] = None,
                   collect_cache: bool = False):
-    """Interpret ``plan`` over a batch of clouds (inference only).
+    """Interpret ``plan`` over a batch of clouds.
+
+    ``train`` runs every CBR op on :func:`_cbr_apply` with batch BN
+    statistics (the ops' own backends are bypassed, as in JAX) and the
+    head's fc3 under the config's quant; a fused group->transfer op
+    raises ``ValueError`` there, as JAX's does.
 
     ``mapping_cache`` replays the mapping results of the ops the plan
     marked ``cached``: sampled indices (only for a sampler whose
@@ -173,24 +216,33 @@ def _forward_impl(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
     computed.  With neither, this is the plain walk.
 
     Returns (logits [B, n_classes], or [B, n_points, n_classes] for the
-    seg head; advanced LFSR state; the collected cache or None).
+    seg head; the params tree, with refreshed BN stats in train mode;
+    advanced LFSR state; the collected cache or None).
     """
     def cbr(op, p, x):
-        return op.fn(p, x, op.quant, op.act)
+        if train:
+            return _cbr_apply(p, x, cfg, True, op.act)
+        return op.fn(p, x, op.quant, op.act), p
 
     def fc3(op, p, x):
+        if train:
+            return L.conv1d_apply(p, x, quant=cfg.quant if cfg.quant.enabled
+                                  else None)
         # the head's last layer runs on the head's backend (fc1's) without
         # activation: on the card an fp32 fc3 is then the fused_linear
         # kernel, whose rows do not depend on M (cuBLAS picks its kernel
         # by M, so a cloud's logits would depend on the dispatch width)
         return op.fc1.fn(p, x, op.fc3_quant, False)
 
+    new_params = dict(params)
+    new_stages = [dict(st, pre=[], pos=[]) for st in params["stages"]]
     cur_xyz, cur, idx, logits = xyz, None, None, None
     embed = None
     got_sample, got_nbr, got_up = [], [], None
     for op in plan.ops:
         if isinstance(op, stage_plan.EmbedOp):
-            cur = embed = cbr(op.cbr, params["embed"], xyz)
+            cur, new_params["embed"] = cbr(op.cbr, params["embed"], xyz)
+            embed = cur
         elif isinstance(op, stage_plan.SampleOp):
             if (op.cached and mapping_cache is not None
                     and not getattr(sampler, "advances_state", True)):
@@ -221,8 +273,14 @@ def _forward_impl(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
                                           cfg.affine_mode, per_sample_norm,
                                           **_tile(op.tile))
         elif isinstance(op, stage_plan.CBROp):
-            cur = cbr(op, stage_plan.param_at(params, op.path), cur)
+            # bare CBR ops are the stage transfers
+            cur, new_stages[op.stage]["transfer"] = cbr(
+                op, stage_plan.param_at(params, op.path), cur)
         elif isinstance(op, stage_plan.FusedGroupTransferOp):
+            if train:
+                raise ValueError(
+                    "fused group->transfer ops are inference-only; "
+                    "train with fused_group='none'")
             affine = params["stages"][op.stage].get("affine")
             p = stage_plan.param_at(params, op.cbr.path)
             cur_xyz, _, cur = op.fn(p, cur_xyz, cur, idx, op.k, affine,
@@ -230,16 +288,18 @@ def _forward_impl(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
                                     act=op.cbr.act)
         elif isinstance(op, stage_plan.ResBlockOp):
             blk = params["stages"][op.stage][op.branch][op.index]
-            h = cbr(op.net1, blk["net1"], cur)
-            h = cbr(op.net2, blk["net2"], h)
+            h, n1 = cbr(op.net1, blk["net1"], cur)
+            h, n2 = cbr(op.net2, blk["net2"], h)
             cur = torch.relu(h + cur)
+            new_stages[op.stage][op.branch].append({"net1": n1, "net2": n2})
         elif isinstance(op, stage_plan.PoolOp):
             cur = cur.amax(dim=op.axis)
         elif isinstance(op, stage_plan.HeadOp):
             head = params["head"]
-            h = cbr(op.fc1, head["fc1"], cur)
-            h = cbr(op.fc2, head["fc2"], h)
+            h, f1 = cbr(op.fc1, head["fc1"], cur)
+            h, f2 = cbr(op.fc2, head["fc2"], h)
             logits = fc3(op, head["fc3"], h)
+            new_params["head"] = {"fc1": f1, "fc2": f2, "fc3": head["fc3"]}
         elif isinstance(op, stage_plan.SegHeadOp):
             g = cur.amax(dim=1)                                 # [B, C4]
             if op.cached and mapping_cache is not None:
@@ -253,17 +313,19 @@ def _forward_impl(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
             h = torch.cat([embed, up,
                            g[:, None, :].expand(-1, up.shape[1], -1)], dim=-1)
             head = params["head"]
-            h = cbr(op.fc1, head["fc1"], h)
-            h = cbr(op.fc2, head["fc2"], h)
+            h, f1 = cbr(op.fc1, head["fc1"], h)
+            h, f2 = cbr(op.fc2, head["fc2"], h)
             logits = fc3(op, head["fc3"], h)
+            new_params["head"] = {"fc1": f1, "fc2": f2, "fc3": head["fc3"]}
         else:
             raise TypeError(f"unknown stage-plan op {type(op).__name__}")
+    new_params["stages"] = new_stages
     cache = None
     if collect_cache:
         cache = {"sample": tuple(got_sample), "nbr": tuple(got_nbr)}
         if got_up is not None:
             cache["up"] = got_up
-    return logits, lfsr_state, cache
+    return logits, new_params, lfsr_state, cache
 
 
 def pointmlp_infer_with(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
@@ -284,7 +346,7 @@ def pointmlp_infer_with(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
     seg head; advanced LFSR state[, the collected cache]).
     """
     with torch.inference_mode():
-        logits, state, cache = _forward_impl(
+        logits, _, state, cache = _forward_impl(
             params, cfg, xyz, lfsr_state, sampler=sampler, grouper=grouper,
             plan=plan, shared_urs=shared_urs,
             per_sample_norm=per_sample_norm, mapping_cache=mapping_cache,
@@ -292,6 +354,35 @@ def pointmlp_infer_with(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
     if collect_cache:
         return logits, state, cache
     return logits, state
+
+
+def pointmlp_apply(params: Dict, cfg: PointMLPConfig, xyz: torch.Tensor,
+                   lfsr_state: Optional[torch.Tensor] = None,
+                   train: bool = False):
+    """Training-facing forward over the uniform plan of
+    ``plan.lower_config`` (``repro.models.pointmlp.pointmlp_apply``).
+
+    Samples with ``cfg.sampler``, groups by kNN and runs every CBR on the
+    ``ref`` backend; one LFSR stream per cloud (no shared URS) and one
+    normalization sigma over the batch.  ``train=True`` uses batch BN
+    statistics (differentiable: take gradients with ``torch.autograd``)
+    and returns the params with refreshed running stats; eval mode runs
+    :func:`pointmlp_infer_with` (no autograd) and returns ``params``
+    unchanged.
+
+    Returns (logits [B, n_classes], params, advanced LFSR state).
+    """
+    sampler, grouper, backend = registry.resolve(cfg.sampler, "knn", "ref")
+    plan = stage_plan.lower_config(cfg, backend, "ref")
+    if not train:
+        logits, state = pointmlp_infer_with(
+            params, cfg, xyz, lfsr_state, sampler=sampler, grouper=grouper,
+            plan=plan)
+        return logits, params, state
+    logits, new_params, state, _ = _forward_impl(
+        params, cfg, xyz, lfsr_state, sampler=sampler, grouper=grouper,
+        plan=plan, train=True)
+    return logits, new_params, state
 
 
 def pointmlp_flops_breakdown(cfg: PointMLPConfig) -> Dict[str, int]:

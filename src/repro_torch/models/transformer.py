@@ -21,9 +21,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.quant import _map_leaves
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.tree import tree_map_with_path
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -47,7 +47,7 @@ def _stack(trees) -> Any:
 
 def layer_params(blocks: Dict, layer: int) -> Dict:
     """Layer ``layer``'s view of the stacked block params."""
-    return _map_leaves(blocks, lambda _path, t: t[layer])
+    return tree_map_with_path(lambda _path, t: t[layer], blocks)
 
 
 # ------------------------------------------------------------- init -----
@@ -181,5 +181,5 @@ def param_count(params: Any) -> int:
         nonlocal total
         total += t.numel()
         return t
-    _map_leaves(params, add)
+    tree_map_with_path(add, params)
     return total

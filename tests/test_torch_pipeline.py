@@ -51,10 +51,12 @@ from repro_torch.api.spec import PipelineSpec, elite_spec, lite_spec, m2_spec
 from repro_torch.convert import from_numpy_tree
 from repro_torch.core import knn as tknn
 from repro_torch.core import sampling as tsampling
+from repro_torch.data.pointclouds import make_batch
 from repro_torch.kernels.tuning import DEFAULT_TUNING, KernelTuning
 from repro_torch.models import pointmlp as TPM
 from repro_torch.serve.batching import pad_to_batch
 from repro_torch.serve.pointcloud import PointCloudEngine
+from repro_torch.train.pointmlp import train_eval
 from test_torch_kernels import assert_knn_match, sqdist64
 
 TINY = dict(n_points=128, embed_dim=16, k_neighbors=8)
@@ -470,6 +472,10 @@ class TestSpecAndDevice:
             build(tiny(m2_spec), params)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             PointCloudEngine(params, tiny(m2_spec))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_eval(tiny(m2_spec).to_model_config(), steps=1)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_batch(0, 0, 128, 2)
 
     def test_short_lfsr_state_rejected(self, raw_params, clouds):
         pipe = build(tiny(m2_spec), from_numpy_tree(raw_params),
@@ -491,7 +497,10 @@ class TestSpecAndDevice:
             "new = ('repro_torch.analysis.passes',"
             " 'repro_torch.analysis.contracts',"
             " 'repro_torch.analysis.__main__', 'repro_torch.roofline',"
-            " 'repro_torch.tune.search', 'repro_torch.tune.artifact')\n"
+            " 'repro_torch.tune.search', 'repro_torch.tune.artifact',"
+            " 'repro_torch.train.optimizer', 'repro_torch.train.checkpoint',"
+            " 'repro_torch.train.train_loop', 'repro_torch.train.pointmlp',"
+            " 'repro_torch.data.pointclouds')\n"
             "assert all(n in sys.modules for n in new), new\n"
             "print(len([n for n in sys.modules"
             " if n.startswith('repro_torch')]))\n")
