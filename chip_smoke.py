@@ -55,8 +55,20 @@ kernels against their plain versions at its shapes, a scoring forward of
 4 x 2048 tokens through the flash kernel held against the plain-attention
 route, a 2-layer cut held against the CPU, and ``Engine.generate``
 (prefill plus 32 greedy decode steps) whose last logits are held against
-the forward.  Every path is driven with the kernels' launch counts set to
-0 just before it and read just after.  Every phase prints one JSON line; a
+the forward.  Then the MoE decoder moonshot-v1-16b-a3b at full width and
+depth (48 layers, 64 experts top-6, 28.06 B parameters in bf16): the
+flash kernel at its shape, a 2-layer cut against the CPU, a 4 x 2048
+scoring forward on the flash, xla and xla_chunked routes (entries dropped
+at the default capacity, a profile split among attention, router,
+dispatch, expert products and combine), and ``Engine.generate`` with the
+host syncs of a decode step; and one forward each of llama4-maverick,
+internvl2 (stub embeddings), yi-9b and minitron-8b at their smoke configs
+against the CPU.  Two MoE runs that round differently may route a
+near-tied token differently, and then its output moves by a whole
+expert: the share of choices that agree is printed, and the held run
+replays the reference run's routing (``route_tap``).  Every path is
+driven with the kernels' launch counts set to 0 just before it and read
+just after.  Every phase prints one JSON line; a
 failed check raises and the script exits non-zero.  The line before the
 last lists every ported kernel with its numbers, and the last line is
 ``{"ok": true, "device": {...}}``.
@@ -117,8 +129,10 @@ SOURCES = {"knn": "knn.cu", "int8_matmul": "int8_matmul.cu",
            "w8_matmul": "w8_matmul.cu",
            "flash_attention": "flash_attention.cu"}
 # Rows of a kernel that the final line reports beside its main row, and
-# the launch count each reports (a count the wrapper keeps per variant).
-EXTRA_ROWS = {("knn", "ball"): "knn_ball", ("knn", "seg_upsample"): "knn_k1"}
+# the launch count each reports (a count the wrapper keeps per variant;
+# flash_moonshot: the flash launches of moonshot's scoring forward).
+EXTRA_ROWS = {("knn", "ball"): "knn_ball", ("knn", "seg_upsample"): "knn_k1",
+              ("flash_attention", "moonshot_fwd"): "flash_moonshot"}
 # The row of each kernel that the final line reports.
 MAIN_ROW = {"int8_matmul": "stage1_transfer",
             "fused_linear": "stage1_transfer", "w8_matmul": "decode",
@@ -724,23 +738,46 @@ def mapping_chain(torch, clouds, state, device, spec):
     return out
 
 
-def profile_call(torch, fn, reps: int = 1):
+def profile_call(torch, fn, reps: int = 1, sections=(), split=None):
     """Run ``fn`` once to warm up, then ``reps`` times under
     torch.profiler: per call, (host wall ms, device us per kernel name,
-    device events: kernel launches and copies)."""
+    device events: kernel launches and copies).  Each of ``sections``
+    (module, attribute, label) is wrapped in a ``record_function`` range
+    for the profiled calls, and ``split`` gets each label's device ms a
+    call (the kernels launched inside it); the ranges' own rows are left
+    out of the device total."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    saved = []
+    for mod, attr, label in sections:
+        orig = getattr(mod, attr)
+
+        def wrapped(*a, _orig=orig, _label=label, **kw):
+            with record_function(_label):
+                return _orig(*a, **kw)
+        saved.append((mod, attr, orig))
+        setattr(mod, attr, wrapped)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+    labels = {label for _, _, label in sections}
     by_name, events = {}, 0
     for ev in prof.key_averages():
+        if ev.key in labels:
+            if getattr(ev, "device_type", None) != DeviceType.CUDA:
+                split[ev.key] = split.get(ev.key, 0.0) + (
+                    getattr(ev, "device_time_total", 0) or 0) / 1e3 / reps
+            continue
         # device-side events only (kernels, copies): the aten op rows
         # carry the same device time again
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
@@ -2445,14 +2482,59 @@ def rowwise_close(torch, got, want, tol: float):
             worst)
 
 
-def lm_kernel_phase(torch):
-    """The flash-attention and W8A16 kernels against their plain versions
-    at the LM's shapes (tinyllama: 32 query heads over 4 KV heads, head
-    dim 64, 2048 tokens)."""
+def flash_row(torch, label, q, k, v, causal: bool, win: int,
+              timer=median_ms):
+    """One flash-attention row: the kernel held against its plain version
+    and timed with ``timer`` beside the plain version and (where it
+    computes the same function) SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ref
 
+    b, nh, tq, d = q.shape
+    nkv, tk, dt = k.shape[1], k.shape[2], q.dtype
+    got = fa_mod.flash_attention_cuda(q, k, v, causal, win)
+    want = ref.attention_ref(q, k, v, causal, win)
+    torch.cuda.synchronize()
+    # bf16: the output is rounded to bf16, so a value near a rounding
+    # boundary may land one bf16 step away; f32: the sums run in another
+    # order (tile order of the rescale)
+    tol = 2.0 ** -7 if dt == torch.bfloat16 else 1e-5
+    ok, err, atol_lo, atol_hi, worst = rowwise_close(torch, got, want, tol)
+    check(ok, f"flash_attention {label}: max abs err {err}, {worst} x its "
+              f"allowance (rtol={tol}, atol={tol} * max|out| of the row, "
+              f"{atol_lo}..{atol_hi})")
+    ms = timer(torch, lambda: fa_mod.flash_attention_cuda(q, k, v, causal,
+                                                          win))
+    plain_ms = median_ms(torch, lambda: ref.attention_ref(
+        q, k, v, causal, win), reps=5)
+    lib_ms = None
+    if tq == tk and win == 0:
+        # SDPA's is_causal is top-left aligned: the same function only
+        # where Tq == Tk
+        lib_ms = timer(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True))
+    pairs = b * nh * attention_pairs(tq, tk, causal, win)
+    nops = 4 * pairs * d
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    return dict(
+        shape=f"B={b} H={nh} Hkv={nkv} Tq={tq} Tk={tk} D={d} "
+              f"{str(dt)[6:]} causal={causal} window={win}",
+        kernel_route=fa_mod.route(dt, d), tflops=nops / ms / 1e9,
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+        tolerance=f"rtol={tol}, atol={tol} * max|out| of the row",
+        atol_range=[atol_lo, atol_hi], err_over_allowed=worst,
+        bytes=nbytes,
+        ops=nops, peak=BF16_OPS_PER_S if dt == torch.bfloat16
+        else FP32_OPS_PER_S,
+        bound_ms_fp32_peak=1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                     nops / FP32_OPS_PER_S))
+
+
+def lm_kernel_phase(torch):
+    """The flash-attention and W8A16 kernels against their plain versions
+    at the LM's shapes (tinyllama: 32 query heads over 4 KV heads, head
+    dim 64, 2048 tokens)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     rows = {}
@@ -2469,43 +2551,8 @@ def lm_kernel_phase(torch):
         q = torch.randn(b, nh, tq, d, generator=gen, device=dev).to(dt)
         k = torch.randn(b, nkv, tk, d, generator=gen, device=dev).to(dt)
         v = torch.randn(b, nkv, tk, d, generator=gen, device=dev).to(dt)
-        got = fa_mod.flash_attention_cuda(q, k, v, causal, win)
-        want = ref.attention_ref(q, k, v, causal, win)
-        torch.cuda.synchronize()
-        # bf16: the output is rounded to bf16, so a value near a rounding
-        # boundary may land one bf16 step away; f32: the sums run in
-        # another order (tile order of the rescale)
-        tol = 2.0 ** -7 if dt == torch.bfloat16 else 1e-5
-        ok, err, atol_lo, atol_hi, worst = rowwise_close(torch, got, want,
-                                                         tol)
-        check(ok, f"flash_attention {label}: max abs err {err}, "
-                  f"{worst} x its allowance (rtol={tol}, atol={tol} * "
-                  f"max|out| of the row, {atol_lo}..{atol_hi})")
-        ms = median_ms(torch, lambda: fa_mod.flash_attention_cuda(
-            q, k, v, causal, win))
-        plain_ms = median_ms(torch, lambda: ref.attention_ref(
-            q, k, v, causal, win), reps=5)
-        lib_ms = None
-        if tq == tk and win == 0:
-            # SDPA's is_causal is top-left aligned: the same function only
-            # where Tq == Tk
-            lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=True))
-        pairs = b * nh * attention_pairs(tq, tk, causal, win)
-        nops = 4 * pairs * d
-        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        rows[("flash_attention", label)] = dict(
-            shape=f"B={b} H={nh} Hkv={nkv} Tq={tq} Tk={tk} D={d} "
-                  f"{str(dt)[6:]} causal={causal} window={win}",
-            kernel_route=fa_mod.route(dt, d), tflops=nops / ms / 1e9,
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
-            tolerance=f"rtol={tol}, atol={tol} * max|out| of the row",
-            atol_range=[atol_lo, atol_hi], err_over_allowed=worst,
-            bytes=nbytes,
-            ops=nops, peak=BF16_OPS_PER_S if dt == torch.bfloat16
-            else FP32_OPS_PER_S,
-            bound_ms_fp32_peak=1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                         nops / FP32_OPS_PER_S))
+        rows[("flash_attention", label)] = flash_row(torch, label, q, k, v,
+                                                     causal, win)
 
     # W8A16 at tinyllama's MLP up- and down-projection, decode (4 tokens)
     # and prefill (4 x 2048 tokens).  ms is a CUDA-graph replay over
@@ -2781,6 +2828,479 @@ def lm_phases(torch, np):
     return rows, total
 
 
+# ----------------------------------------------------------------- MoE --
+
+MOE_ARCH = "moonshot-v1-16b-a3b"
+# jax.eval_shape(lm_init) of the JAX config: 56.13 GB in bf16 (the
+# router in f32)
+MOE_PARAMS = 28_057_995_264
+MOE_PROMPT, MOE_GEN = 512, 32
+# A first-layer routing flip between two roundings (the card against the
+# CPU, one attention route against another) is accepted where its k-th and
+# (k+1)-th router probabilities differ by less than this.  Both runs start
+# the layer from the same embeddings, and a bf16 step of the router input
+# moves a logit by about 2**-8 of its size, a probability of 0.1 by
+# 4e-4; a flip needs the two probabilities' moves together to pass the
+# gap, about 8e-4, and the limit leaves a factor of 2.5.  A later layer's
+# inputs also carry the earlier layers' differences, and there the flips
+# are only counted.
+MOE_GAP = 2e-3
+SMOKE_ARCHS = ("llama4-maverick-400b-a17b", "internvl2-26b", "yi-9b",
+               "minitron-8b")
+
+
+def route_tap(fn, replay=None):
+    """Run ``fn`` with ``moe.route`` and ``moe.dispatch`` wrapped: record
+    each call's top-k experts, the gap between its k-th and (k+1)-th
+    router probabilities and its dropped entries (device tensors, no
+    sync).  With ``replay`` (another run's top-k experts, call by call)
+    route to those experts instead, with weights renormalized from this
+    run's own probabilities: the two runs then dispatch and drop alike,
+    and differ by rounding only.  Returns (fn's result, the record)."""
+    from repro_torch.models import moe as M
+    route, dispatch = M.route, M.dispatch
+    record = {"top_e": [], "gap": [], "dropped": []}
+    calls = None if replay is None else iter(replay)
+
+    def tapped_route(p, cfg, xf):
+        probs, top_p, top_e = route(p, cfg, xf)
+        srt = probs.sort(dim=-1, descending=True).values
+        k = cfg.experts_per_token
+        record["gap"].append(srt[:, k - 1] - srt[:, k])
+        if calls is not None:
+            top_e = next(calls).to(xf.device)
+            top_p = probs.gather(1, top_e)
+            top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+        record["top_e"].append(top_e)
+        return probs, top_p, top_e
+
+    def tapped_dispatch(cfg, xf, top_e, c):
+        d = dispatch(cfg, xf, top_e, c)
+        record["dropped"].append((~d.keep).sum())
+        return d
+
+    M.route, M.dispatch = tapped_route, tapped_dispatch
+    try:
+        out = fn()
+    finally:
+        M.route, M.dispatch = route, dispatch
+    if replay is not None:
+        check(len(record["top_e"]) == len(replay),
+              f"routing replay: {len(replay)} calls recorded, "
+              f"{len(record['top_e'])} replayed")
+    return out, record
+
+
+def routing_agreement(torch, ref, other):
+    """Per layer: the share of the reference's (token, slot) choices the
+    other run also made, and the tokens whose expert sets differ; the
+    reference's gap at each first-layer flip."""
+    shares, misses = [], []
+    for a, b in zip(ref["top_e"], other["top_e"]):
+        hit = (a[:, :, None] == b.to(a.device)[:, None, :]).any(-1)
+        shares.append(hit.float().mean().item())
+        misses.append((~hit).any(-1))
+    return {"share_all_layers": sum(shares) / len(shares),
+            "share_by_layer": shares,
+            "tokens_flipped_by_layer": [int(m.sum()) for m in misses],
+            "first_layer_flip_gaps": ref["gap"][0][misses[0]].tolist()}
+
+
+def check_first_layer_flips(name, agreement):
+    worst = max(agreement["first_layer_flip_gaps"], default=0.0)
+    check(worst < MOE_GAP, f"{name}: a first-layer routing flip at a gap "
+                           f"of {worst} >= {MOE_GAP}")
+
+
+def moe_sections():
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+    return ((A, "attn_apply", "attention"), (M, "route", "router"),
+            (M, "dispatch", "dispatch"), (M, "experts", "expert_products"),
+            (M, "combine", "combine"))
+
+
+def moe_forward_bound_ms(cfg, b: int, t: int):
+    """The operations side of a scoring forward's bound: each product's
+    operations at its type's peak (bf16 tensor cores; the f32 router on
+    the CUDA cores), ms by part; and the capacity."""
+    from repro_torch.models.moe import capacity
+    n, d, hd = b * t, cfg.d_model, cfg.kv_head_dim
+    c = capacity(cfg, n)
+    q_out = cfg.n_heads * hd
+    kv_out = cfg.n_kv_heads * hd
+    parts = {
+        "experts": cfg.n_layers * 6 * cfg.n_experts * c * d * cfg.d_ff
+        / BF16_OPS_PER_S,
+        "attention_projections": cfg.n_layers * 2 * n * d * (
+            2 * q_out + 2 * kv_out) / BF16_OPS_PER_S,
+        "flash": cfg.n_layers * 4 * b * cfg.n_heads * attention_pairs(
+            t, t, True, 0) * hd / BF16_OPS_PER_S,
+        "unembed": 2 * n * d * cfg.vocab_size / BF16_OPS_PER_S,
+        "router_f32": cfg.n_layers * 2 * n * d * cfg.n_experts
+        / FP32_OPS_PER_S,
+    }
+    return {k: 1e3 * v for k, v in parts.items()}, c
+
+
+def moe_kernel_phase(torch, smi):
+    """The flash kernel at moonshot's shape (16 query heads over 16 KV
+    heads, head dim 128, B4 T2048 bf16 causal) against its plain version,
+    timed as CUDA-graph replays beside SDPA."""
+    from repro_torch.kernels import flash_attention as fa_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    q, k, v = (torch.randn(LM_BATCH, 16, LM_SEQ, 128, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    row = flash_row(torch, "moonshot_fwd", q, k, v, True, 0, timer=graph_ms)
+    row.update(timing="CUDA-graph replays (ms and library_ms)", card=smi,
+               events_ms=median_ms(torch, lambda: fa_mod.flash_attention_cuda(
+                   q, k, v, True, 0)))
+    return emit_rows({("flash_attention", "moonshot_fwd"): row})
+
+
+def moe_cpu_phase(torch, np, cfg, smi):
+    """moonshot cut to 2 layers at full width, B2 T128 (capacity 32): the
+    card (flash kernel) against the CPU (plain versions).  The CPU first
+    routes on its own (the share of choices that agree is printed), then
+    replays the card's routing, and its logits are held against the
+    card's."""
+    from repro_torch.api.build import to_device
+    from repro_torch.models.api import get_model
+    from repro_torch.models.moe import capacity
+
+    cut = cfg.replace(n_layers=2, attn_impl="flash")
+    api = get_model(cut)
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED + 5))
+    ids = torch.from_numpy(lm_tokens(np, cut.vocab_size, 2, 128, SEED + 1))
+    ((got, _), card), launches = counted(torch, lambda: route_tap(
+        lambda: api.forward(params, ids.cuda())))
+    expect_launches("moe 2 layers", launches, {"flash_attention": 2})
+    cpu_params = to_device(params, "cpu")
+    del params
+    (_, cpu_free) = route_tap(lambda: api.forward(cpu_params, ids))
+    agree = routing_agreement(torch, card, cpu_free)
+    check_first_layer_flips("moe 2 layers", agree)
+    (want, _), _ = route_tap(lambda: api.forward(cpu_params, ids),
+                          replay=[e.cpu() for e in card["top_e"]])
+    got = got.cpu()
+    check(bool(torch.isfinite(got).all()), "moe 2 layers: not finite")
+    err, scale = rel_err(got, want)
+    check(err <= LM_TOL_2_LAYERS * scale,
+          f"moe 2 layers: card vs CPU (the card's routing) max abs err "
+          f"{err} > {LM_TOL_2_LAYERS} * {scale}")
+    emit({"phase": "moe_card_vs_cpu", "arch": cfg.name, "layers": 2,
+          "batch": 2, "seq": 128, "capacity": capacity(cut, 256),
+          "launches": launches, "max_abs_err_vs_cpu": err,
+          "max_abs_logit": scale,
+          "tolerance": f"{LM_TOL_2_LAYERS} * max|logit|, the CPU replaying "
+                       f"the card's routing",
+          "routing_agreement_cpu_own": agree,
+          "first_layer_gap_limit": MOE_GAP,
+          "dropped_card": [int(x) for x in card["dropped"]],
+          "top1_agree": (got.argmax(-1) == want.argmax(-1)).float().mean()
+          .item(), "card": smi})
+    return launches
+
+
+def moe_forward_phase(torch, np, params, cfg, smi):
+    """Score LM_BATCH x LM_SEQ ids through the flash route (48 launches),
+    the xla route and the xla_chunked route.  The xla route is the
+    reference: each other route first routes on its own (the share of
+    choices that agree is printed), then replays the xla route's routing,
+    and its logits are held against the reference's, one route at a time
+    (each logits tensor is 5.37 GB)."""
+    from repro_torch.models.api import get_model
+    from repro_torch.tree import tree_leaves
+
+    ids = torch.from_numpy(lm_tokens(np, cfg.vocab_size, LM_BATCH, LM_SEQ,
+                                     SEED)).cuda()
+    apis = {impl: get_model(cfg.replace(attn_impl=impl))
+            for impl in ("flash", "xla", "xla_chunked")}
+    torch.cuda.reset_peak_memory_stats()
+    ((ref, aux), ref_rec), launches_xla = counted(torch, lambda: route_tap(
+        lambda: apis["xla"].forward(params, ids)))
+    expect_launches("moe forward xla", launches_xla, {})
+    check(ref.shape == (LM_BATCH, LM_SEQ, cfg.vocab_size)
+          and bool(torch.isfinite(ref).all()) and aux.item() > 0,
+          f"moe forward xla: logits not finite [{LM_BATCH}, {LM_SEQ}, "
+          f"{cfg.vocab_size}] or aux not positive")
+    scale = ref.abs().max().item()
+    routes, launches_flash = {}, None
+    for impl in ("flash", "xla_chunked"):
+        fn = (lambda api=apis[impl]: api.forward(params, ids))
+        ((logits, _), own), launches = counted(torch, lambda: route_tap(fn))
+        expect_launches(f"moe forward {impl}", launches,
+                        {"flash_attention": cfg.n_layers}
+                        if impl == "flash" else {})
+        if impl == "flash":
+            launches_flash, flash_rec = launches, own
+        top1 = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        # in place: a logits tensor is 5.37 GB
+        free_err = logits.sub_(ref).abs_().max().item()
+        del logits
+        agree = routing_agreement(torch, ref_rec, own)
+        check_first_layer_flips(f"moe forward {impl}", agree)
+        (logits, _), _ = route_tap(fn, replay=ref_rec["top_e"])
+        err = logits.sub_(ref).abs_().max().item()
+        del logits
+        check(err <= LM_TOL_FULL * scale,
+              f"moe forward: {impl} vs xla (xla's routing) max abs err "
+              f"{err} > {LM_TOL_FULL} * {scale}")
+        routes[impl] = {"max_abs_err_vs_xla": err,
+                        "max_abs_err_vs_xla_own_routing": free_err,
+                        "top1_agree_own_routing": top1,
+                        "routing_agreement_own": agree}
+    del ref
+    peak = torch.cuda.max_memory_allocated()
+    dropped = [int(x) for x in flash_rec["dropped"]]
+    tok_s = {}
+    for impl in ("flash", "xla", "xla_chunked"):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            apis[impl].forward(params, ids)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        tok_s[impl] = LM_BATCH * LM_SEQ / statistics.median(times)
+    bound, c = moe_forward_bound_ms(cfg, LM_BATCH, LM_SEQ)
+    # bytes: every parameter read once, the f32 logits written once
+    bytes_ms = 1e3 * (sum(t.numel() * t.element_size()
+                          for t in tree_leaves(params))
+                      + 4 * LM_BATCH * LM_SEQ * cfg.vocab_size
+                      ) / HBM_BYTES_PER_S
+    split = {}
+    prof = profile_summary(*profile_call(
+        torch, lambda: apis["flash"].forward(params, ids),
+        sections=moe_sections(), split=split))
+    split = {label: split.get(label) or "not measured"
+             for _, _, label in moe_sections()}
+    emit({"phase": "moe_forward", "arch": cfg.name, "layers": cfg.n_layers,
+          "batch": LM_BATCH, "seq": LM_SEQ, "dtype": cfg.dtype,
+          "launches": launches_flash, "max_abs_logit": scale,
+          "tolerance": f"{LM_TOL_FULL} * max|logit|, each route replaying "
+                       f"the xla route's routing",
+          "routes": routes, "first_layer_gap_limit": MOE_GAP,
+          "capacity": c, "dropped_by_layer": dropped,
+          "dropped_total": sum(dropped),
+          "entries_per_layer": LM_BATCH * LM_SEQ * cfg.experts_per_token,
+          "entries_total": cfg.n_layers * LM_BATCH * LM_SEQ
+          * cfg.experts_per_token,
+          "drop_rate": sum(dropped) / (cfg.n_layers * LM_BATCH * LM_SEQ
+                                       * cfg.experts_per_token),
+          "max_memory_allocated": peak, "tokens_per_s": tok_s,
+          "ms_flash": 1e3 * LM_BATCH * LM_SEQ / tok_s["flash"],
+          "bound_ms": max(sum(bound.values()), bytes_ms),
+          "bound_parts_ms": bound, "bound_bytes_ms": bytes_ms,
+          "bound_by": ("operations" if sum(bound.values()) >= bytes_ms
+                       else "bytes"), "profile_flash": prof,
+          "device_ms_split": split, "card": smi})
+    return launches_flash
+
+
+def generate_replay(torch, gen_rec, n_layers: int, b: int):
+    """The forward's routing, layer by layer, from a generate run's
+    record (the prefill's layers, then each decode step's): positions in
+    order, [B * (prompt + steps), k] a layer."""
+    calls = gen_rec["top_e"]
+    steps = len(calls) // n_layers
+    out = []
+    for layer in range(n_layers):
+        parts = [calls[s * n_layers + layer] for s in range(steps)]
+        k = parts[0].shape[-1]
+        out.append(torch.cat([p.reshape(b, -1, k) for p in parts],
+                             dim=1).reshape(-1, k))
+    return out
+
+
+def moe_generate_phase(torch, np, params, cfg, smi):
+    """Engine.generate: B=4, a 512-token prompt, 32 greedy tokens.  Held
+    under capacity_factor = E / k, where the capacity is at least a call's
+    tokens and nothing drops: the last decode logits against the flash
+    forward over the prompt and the generated ids, the forward replaying
+    the generate run's routing.  Timed and profiled at the default
+    factor."""
+    from repro_torch.models.api import get_model
+    from repro_torch.models.moe import capacity
+    from repro_torch.serve.engine import Engine
+    from repro_torch.tree import tree_leaves
+
+    n_tok = LM_BATCH * (MOE_PROMPT + MOE_GEN)
+    nodrop = cfg.replace(attn_impl="flash", capacity_factor=cfg.n_experts
+                         / cfg.experts_per_token)
+    check(capacity(nodrop, n_tok) >= n_tok, "moe generate: the no-drop "
+                                            "factor drops")
+    prompt = torch.from_numpy(lm_tokens(np, cfg.vocab_size, LM_BATCH,
+                                        MOE_PROMPT, SEED + 2))
+    api = get_model(nodrop)
+    eng = Engine(api, params, max_len=MOE_PROMPT + MOE_GEN,
+                 batch_size=LM_BATCH)
+    (out, rec), launches = counted(torch, lambda: route_tap(
+        lambda: eng.generate({"tokens": prompt}, MOE_GEN)))
+    expect_launches("moe generate", launches, {})
+    ids = out["ids"]
+    check(ids.shape == (LM_BATCH, MOE_GEN) and int(ids.min()) >= 0
+          and int(ids.max()) < cfg.vocab_size, "moe generate: bad ids")
+    full = torch.cat([prompt.cuda(), ids], dim=1)
+    (free, _), own = route_tap(lambda: api.forward(params, full))
+    free_err = (out["logits"] - free[:, -1]).abs().max().item()
+    replay = generate_replay(torch, rec, cfg.n_layers, LM_BATCH)
+    agree = routing_agreement(torch, own, {"top_e": replay})
+    check_first_layer_flips("moe generate", agree)
+    del free
+    (want, _), _ = route_tap(lambda: api.forward(params, full), replay=replay)
+    want = want[:, -1]
+    err, scale = rel_err(out["logits"], want)
+    check(err <= LM_TOL_FULL * scale,
+          f"moe generate: last decode logits vs forward (generate's "
+          f"routing) max abs err {err} > {LM_TOL_FULL} * {scale}")
+    check(sum(int(x) for x in rec["dropped"]) == 0,
+          "moe generate: an entry dropped under the no-drop factor")
+
+    # the default factor: timed, a decode step profiled and its syncs
+    api = get_model(cfg.replace(attn_impl="flash"))
+    eng = Engine(api, params, max_len=MOE_PROMPT + MOE_GEN,
+                 batch_size=LM_BATCH)
+    eng.generate({"tokens": prompt}, MOE_GEN)            # warm-up
+    timed, launches_d = counted(torch, lambda: eng.generate(
+        {"tokens": prompt}, MOE_GEN))
+    expect_launches("moe generate (default factor)", launches_d, {})
+    cache = api.init_cache(LM_BATCH, MOE_PROMPT + 1)
+    _, cache = api.prefill(params, {"tokens": prompt.cuda()}, cache)
+    step = {"token": timed["ids"][:, 0], "pos": MOE_PROMPT}
+    prof = profile_summary(*profile_call(
+        torch, lambda: api.decode_step(params, step, cache)))
+    reported, blocking = host_syncs(
+        torch, lambda: api.decode_step(params, step, cache))
+    _, blocking_empty = host_syncs(torch, lambda: None)
+    check(reported == 0, f"moe decode step: {reported} host syncs reported")
+    st = timed["stats"]
+    # a decode step reads every parameter but the embedding table (the
+    # dense-capacity expert products read every expert) and the cache
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    nbytes -= params["embed"]["table"].numel() * params["embed"][
+        "table"].element_size()
+    nbytes += sum(t.numel() * t.element_size() for t in cache.values())
+    step_ms = 1e3 * st.decode_s / MOE_GEN
+    emit({"phase": "moe_generate", "arch": cfg.name, "batch": LM_BATCH,
+          "prompt": MOE_PROMPT, "new_tokens": MOE_GEN,
+          "launches": launches, "check_capacity_factor":
+          nodrop.capacity_factor,
+          "why_factor": "E / k makes the capacity at least a call's tokens, "
+                        "so neither generate nor the forward drops: a "
+                        "prefill and a decode step otherwise drop other "
+                        "entries than one forward over the same tokens",
+          "max_abs_err_last_logits_vs_forward": err, "max_abs_logit": scale,
+          "tolerance": f"{LM_TOL_FULL} * max|logit|, the forward replaying "
+                       f"the generate run's routing",
+          "max_abs_err_own_routing": free_err,
+          "routing_agreement_forward_own": agree,
+          "top1_agree": (out["logits"].argmax(-1) == want.argmax(-1))
+          .float().mean().item(),
+          "default_factor": cfg.capacity_factor,
+          "prefill_capacity": capacity(cfg, LM_BATCH * MOE_PROMPT),
+          "prefill_ms": 1e3 * st.prefill_s,
+          "decode_ms_per_step": step_ms,
+          "decode_tokens_per_s": st.decode_tok_per_s,
+          "decode_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+          "decode_bound_by": "bytes", "decode_bytes": nbytes,
+          "decode_ms_over_bound": step_ms / (1e3 * nbytes / HBM_BYTES_PER_S),
+          "profile_decode_step": prof,
+          "host_syncs_decode_step": {"reported": reported,
+                                     "blocking_calls": blocking,
+                                     "profiler_baseline": blocking_empty},
+          "card": smi})
+    return launches
+
+
+def moe_smoke_phase(torch, np, smi):
+    """One forward each of the other decoder configs at their JAX smoke
+    configs (bf16, 2 layers, d 64), the card (flash kernel, head dim 16)
+    against the CPU; internvl2 on stub [B, T, d] embeddings.  The CPU
+    replays the card's routing (maverick)."""
+    from repro_torch.api.build import to_device
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.api import get_model
+
+    total, lines = {k: 0 for k in counters()}, {}
+    for i, arch in enumerate(SMOKE_ARCHS):
+        cfg = get_smoke_config(arch).replace(attn_impl="flash")
+        api = get_model(cfg)
+        params = api.init(torch.Generator(device="cuda").manual_seed(
+            SEED + 20 + i))
+        if cfg.frontend == "patch_stub":
+            x = torch.from_numpy(np.random.default_rng(SEED + 3 + i)
+                                 .standard_normal((2, 64, cfg.d_model))
+                                 .astype(np.float32))
+        else:
+            x = torch.from_numpy(lm_tokens(np, cfg.vocab_size, 2, 64,
+                                           SEED + 3 + i))
+        ((got, aux), card), launches = counted(torch, lambda: route_tap(
+            lambda: api.forward(params, x.cuda())))
+        expect_launches(f"{arch} smoke", launches,
+                        {"flash_attention": cfg.n_layers})
+        cpu_params = to_device(params, "cpu")
+        (_, own) = route_tap(lambda: api.forward(cpu_params, x))
+        (want, want_aux), _ = route_tap(
+            lambda: api.forward(cpu_params, x),
+            replay=[e.cpu() for e in card["top_e"]] or None)
+        got = got.cpu()
+        err, scale = rel_err(got, want)
+        check(bool(torch.isfinite(got).all()) and err <= LM_TOL_2_LAYERS
+              * scale, f"{arch} smoke: card vs CPU max abs err {err} > "
+                       f"{LM_TOL_2_LAYERS} * {scale}")
+        lines[arch] = {"family": cfg.family, "launches": launches[
+            "flash_attention"], "max_abs_err_vs_cpu": err,
+            "max_abs_logit": scale, "aux": aux.item(),
+            "aux_cpu": want_aux.item()}
+        if card["top_e"]:
+            agree = routing_agreement(torch, card, own)
+            lines[arch]["routing_agreement_cpu_own"] = agree[
+                "share_all_layers"]
+        add_launches(total, launches)
+    emit({"phase": "moe_smoke_configs", "configs": lines,
+          "tolerance": f"{LM_TOL_2_LAYERS} * max|logit|, the CPU replaying "
+                       f"the card's routing", "card": smi})
+    return total
+
+
+def moe_phases(torch, np, smi):
+    """The MoE and remaining decoder phases: moonshot-v1-16b-a3b at full
+    width and depth (bf16, random weights from a seed), then the other
+    decoder configs at smoke size.  Returns (kernel rows, launches on
+    main paths, flash launches of the moonshot forward)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import active_param_count, param_count
+
+    rows = moe_kernel_phase(torch, smi)
+    cfg = get_config(MOE_ARCH)
+    total = dict(moe_cpu_phase(torch, np, cfg, smi))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    n = param_count(params)
+    check(n == MOE_PARAMS, f"moe init: {n} params, expected {MOE_PARAMS}")
+    emit({"phase": "moe_init", "arch": cfg.name, "params": n,
+          "active_params": active_param_count(params, cfg),
+          "seconds": time.perf_counter() - t0,
+          "memory_allocated": torch.cuda.memory_allocated(),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "card": smi})
+    fwd = moe_forward_phase(torch, np, params, cfg, smi)
+    add_launches(total, fwd)
+    add_launches(total, moe_generate_phase(torch, np, params, cfg, smi))
+    del params
+    torch.cuda.empty_cache()
+    add_launches(total, moe_smoke_phase(torch, np, smi))
+    return rows, total, fwd["flash_attention"]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -2901,6 +3421,10 @@ def main() -> int:
     rows.update(lm_rows)
     for k, v in got.items():
         total[k] += v
+    torch.cuda.empty_cache()
+    moe_rows, got, total["flash_moonshot"] = moe_phases(torch, np, smi)
+    rows.update(moe_rows)
+    add_launches(total, got)
 
     kernels = []
     for name in REPLACES:
@@ -2943,7 +3467,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": r["shape"], "events_ms": r["events_ms"],
             **{k: r[k] for k in ("filled_picks", "picks",
-                                 "inf_radius_equals_knn") if k in r}})
+                                 "inf_radius_equals_knn", "kernel_route",
+                                 "tflops", "timing") if k in r}})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -58,12 +58,12 @@ def register_pass(name: str, *, scope: str
 
 def _skip_modules() -> Dict[str, str]:
     """The LM config modules outside the point-cloud pipeline space: the
-    two the port serves, and the JAX package's archs it does not serve
-    yet (``repro_torch.configs._UNPORTED``, each with its ROADMAP.md
-    item)."""
+    decoder archs the port serves, and the JAX package's archs it does
+    not serve yet (``repro_torch.configs._UNPORTED``, each with its
+    ROADMAP.md item)."""
     from repro_torch import configs
-    out = {f"repro_torch.configs.{mod}": "LM config (dense decoder, "
-                                         "served by models/transformer.py)"
+    out = {f"repro_torch.configs.{mod}": "LM config (decoder, served by "
+                                         "models/transformer.py)"
            for mod in configs._ARCH_MODULES.values()}
     out.update({f"repro_torch.configs:{arch}": f"LM config not ported yet "
                                                f"({item})"

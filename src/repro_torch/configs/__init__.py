@@ -1,9 +1,9 @@
 """Architecture registry of the decoder LMs the port serves.
 
 ``get_config``/``get_smoke_config`` resolve an arch id as
-``repro.configs`` does; an arch of the JAX package that the port does
-not serve yet raises ``NotImplementedError`` naming the ROADMAP.md item
-that brings it.
+``repro.configs`` does, for the seven decoder archs (dense, MoE, VLM);
+an arch of the JAX package on another backbone raises
+``NotImplementedError`` naming the ROADMAP.md item that brings it.
 """
 from __future__ import annotations
 
@@ -13,17 +13,17 @@ from typing import Dict, List
 from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES: Dict[str, str] = {
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "yi-9b": "yi_9b",
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "minitron-8b": "minitron_8b",
     "llama3.2-1b": "llama3_2_1b",
+    "internvl2-26b": "internvl2_26b",
 }
 
 # The JAX package's other archs and the ROADMAP.md item that ports them.
 _UNPORTED: Dict[str, str] = {
-    "yi-9b": "Queue 1 item 7, the remaining dense configs",
-    "minitron-8b": "Queue 1 item 7, the remaining dense configs",
-    "moonshot-v1-16b-a3b": "Queue 1 item 7, MoE",
-    "llama4-maverick-400b-a17b": "Queue 1 item 7, MoE",
-    "internvl2-26b": "Queue 1 item 7, the VLM patch stub",
     "whisper-tiny": "Queue 1 item 7, encoder-decoder",
     "xlstm-1.3b": "Queue 1 item 7, xLSTM",
     "hymba-1.5b": "Queue 1 item 7, Hymba",

@@ -1,13 +1,17 @@
 """Model config of the decoder LMs the port serves, and the training recipe.
 
 A subset of ``repro.configs.base.ModelConfig``: the fields the port's
-dense LM reads, with the JAX names and defaults; ``quant`` is the port's
-own ``QuantConfig``.  The JAX fields for MoE routing, the encoder, SSMs,
-frontends, remat, layer unrolling and sharding profiles come with the
-slices that read them (ROADMAP.md, Queue 1 item 7).  ``n_experts > 0``
-and ``seq_parallel=True`` raise ``NotImplementedError`` in the model.
-:class:`TrainConfig` is ``repro.configs.base.TrainConfig``, field for
-field.
+decoder family (dense, MoE, VLM patch stub) reads or its configs set,
+with the JAX names, order and defaults; ``quant`` is the port's own
+``QuantConfig``.  ``remat`` and ``unroll_layers`` are carried for the
+configs' sake: no serving path reads them (JAX reads them when it
+trains and when it lowers the dry-run), and ``sharding_profile`` picks
+nothing on one device (``models/moe.py``).  Not ported: the
+encoder-decoder fields (``n_enc_layers``, ``enc_seq``) and the SSM and
+hybrid ones (``ssm_state``, ``conv_width``, ``slstm_every``), which come
+with their slices (ROADMAP.md, Queue 1 item 7); ``seq_parallel=True``
+raises ``NotImplementedError`` in the model.  :class:`TrainConfig` is
+``repro.configs.base.TrainConfig``, field for field.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ from repro_torch.core.quant import QuantConfig
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """One architecture. The port serves ``family="dense"``."""
+    """One architecture. The port serves the decoder family:
+    ``family`` dense, moe and vlm."""
     name: str
     family: str
     n_layers: int
@@ -28,15 +33,24 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0                # 0 -> d_model // n_heads
-    n_experts: int = 0               # > 0 (MoE) is not ported
+    # --- MoE ---
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
     # --- attention ---
     sliding_window: int = 0          # 0 = full attention
     rope_theta: float = 10000.0
+    # --- frontend stubs: none | patch_stub ([B, T, d] float inputs) ---
+    frontend: str = "none"
     # --- numerics ---
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    remat: bool = True               # read by no serving path
+    unroll_layers: bool = False      # read by no serving path
     quant: QuantConfig = QuantConfig(w_bits=32, a_bits=32)
+    # per-layer parallelism profile; picks nothing on one device
+    sharding_profile: str = "default"
     # attention: xla (dense) | xla_chunked | flash (the CUDA kernel)
     attn_impl: str = "xla"
     seq_parallel: bool = False       # True is not ported

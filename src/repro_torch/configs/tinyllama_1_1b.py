@@ -11,4 +11,5 @@ def config() -> ModelConfig:
 
 def smoke_config() -> ModelConfig:
     return config().replace(n_layers=2, d_model=64, n_heads=4,
-                            n_kv_heads=2, d_ff=128, vocab_size=512)
+                            n_kv_heads=2, d_ff=128, vocab_size=512,
+                            remat=False)

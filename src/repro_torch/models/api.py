@@ -1,8 +1,10 @@
 """Model API of the decoder LM: one dispatch surface, as ``repro.models.api``.
 
 ``get_model(cfg)`` -> :class:`ModelAPI` with ``init``, ``forward``,
-``init_cache``, ``prefill`` and ``decode_step``, for ``family="dense"``
-only.  ``loss_fn`` (LM training) waits for ROADMAP.md Queue 1 item 7;
+``init_cache``, ``prefill`` and ``decode_step``, for the decoder family
+(``family`` dense, moe and vlm; JAX's ``_decoder_lm``).  The encoder-
+decoder, SSM and hybrid families (``audio``, ``ssm``, ``hybrid``) and
+``loss_fn`` (LM training) wait for ROADMAP.md Queue 1 item 7;
 ``input_specs`` (JAX ``ShapeDtypeStruct`` stand-ins for the dry-run)
 has no counterpart.
 ``init`` and ``init_cache`` put their tensors on ``cuda`` unless given a
@@ -30,11 +32,16 @@ class ModelAPI:
     decode_step: Callable   # (params, batch, cache) -> (logits, cache)
 
 
+DECODER_FAMILIES = ("dense", "moe", "vlm")
+
+
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family != "dense":
+    if cfg.family in ("audio", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} waits for Queue 1 item 7 (the LM side) "
-            f"in ROADMAP.md; the port serves family='dense'")
+            f"in ROADMAP.md; the port serves {DECODER_FAMILIES}")
+    if cfg.family not in DECODER_FAMILIES:
+        raise ValueError(f"unknown family {cfg.family}")
 
     def init(generator: torch.Generator, device=None):
         dev = resolve_device(device)

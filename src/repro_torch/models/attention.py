@@ -4,11 +4,15 @@ The port of ``repro.models.attention`` for the decoder LM:
 
 * full sequence, no cache (the scoring forward): ``impl="flash"`` runs
   the flash-attention CUDA kernel (``kernels.ops.flash_attention``),
-  ``impl="xla"`` the plain einsum form ``_sdpa_xla``;
-* prefill and decode, with a cache: always ``_sdpa_xla`` over the dense
-  cache, or ``_rolling_sdpa`` over a rolling sliding-window cache, as in
-  JAX (the flash route is taken exactly where JAX takes it: ``impl ==
-  "flash"`` and no cache).
+  ``impl="xla"`` the plain einsum form ``_sdpa_xla``, and
+  ``impl="xla_chunked"`` the online-softmax form over key chunks,
+  ``_sdpa_xla_chunked`` (no [T, S] score matrix; plain torch ops, as
+  JAX's is plain XLA);
+* prefill and decode, with a cache: ``_sdpa_xla`` over the dense cache
+  (``xla_chunked`` too: JAX takes its chunked form only where no cache
+  length applies), or ``_rolling_sdpa`` over a rolling sliding-window
+  cache, as in JAX (the flash route is taken exactly where JAX takes it:
+  ``impl == "flash"`` and no cache).
 
 Layouts are JAX's: q [B, T, H, D], k/v and caches [B, S, Hkv, D].  The
 cache is updated in place (JAX's engine donates it), and the updated
@@ -82,6 +86,51 @@ def _sdpa_xla(q, k, v, causal: bool, window: int, q_offset: int,
     return _masked_softmax_av(qg, k, v, mask, (b, t, h, d), q.dtype)
 
 
+def _sdpa_xla_chunked(q, k, v, causal: bool, window: int, q_offset: int,
+                      chunk: int = 512) -> torch.Tensor:
+    """Online-softmax attention over key chunks of ``chunk`` (keys padded
+    to a multiple, the padding masked), all in f32: JAX's
+    ``_sdpa_xla_chunked``, op for op, its ``lax.scan`` a loop."""
+    b, t, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    pad = -s % chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    nc = (s + pad) // chunk
+    g = h // hkv
+    qg = q.reshape(b, t, hkv, g, d).float()
+    qg = qg / qg.new_full((), math.sqrt(d))
+    qpos = q_offset + torch.arange(t, device=q.device)[:, None]
+    neg = qg.new_full((), NEG)
+    m = torch.full((b, hkv, g, t, 1), NEG, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, g, t, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, t, d), dtype=torch.float32,
+                      device=q.device)
+    for j in range(nc):
+        kj = k[:, j * chunk:(j + 1) * chunk].float()
+        vj = v[:, j * chunk:(j + 1) * chunk].float()
+        logits = torch.einsum("bthgd,bchd->bhgtc", qg, kj)
+        kpos = j * chunk + torch.arange(chunk, device=q.device)[None, :]
+        mask = kpos < s                              # hide the padding
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window > 0:
+            mask = mask & (kpos > qpos - window)
+        logits = torch.where(mask, logits, neg)
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        p = torch.exp(logits - m_new)
+        p = torch.where(mask, p, p.new_zeros(()))
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("bhgtc,bchd->bhgtd", p, vj)
+        m = m_new
+    l = torch.where(l == 0.0, l.new_ones(()), l)
+    out = acc / l
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, d).to(q.dtype)
+
+
 def _rolling_sdpa(q, k, v, slot_pos: torch.Tensor, window: int,
                   q_offset: int) -> torch.Tensor:
     """Attention over a rolling window cache; slot_pos [W] absolute
@@ -109,13 +158,9 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     cache_pos: absolute position (int) of x[:, 0] when caching.
     """
     impl = impl or cfg.attn_impl
-    if impl == "xla_chunked":
-        raise NotImplementedError(
-            "attn_impl='xla_chunked' waits for Queue 1 item 7 (the LM side) "
-            "in ROADMAP.md; use 'xla' or 'flash'")
-    if impl not in ("xla", "flash"):
+    if impl not in ("xla", "xla_chunked", "flash"):
         raise ValueError(f"unknown attn_impl {impl!r}; the port serves "
-                         f"'xla' and 'flash'")
+                         f"'xla', 'xla_chunked' and 'flash'")
     h = cfg.n_heads
     quant = cfg.quant if cfg.quant.enabled else None
     b, t, _ = x.shape
@@ -174,6 +219,9 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal,
                                   window=window).transpose(1, 2)
+    elif impl == "xla_chunked" and t > 1 and kv_len is None:
+        out = _sdpa_xla_chunked(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset)
     else:
         out = _sdpa_xla(q, k, v, causal=causal, window=window,
                         q_offset=q_offset, kv_len=kv_len)

@@ -74,15 +74,17 @@ def _matmul(x: torch.Tensor, w, quant: Optional[QuantConfig]
 @contextlib.contextmanager
 def f32_sums():
     """Within the block, cuBLAS sums bf16 products in f32, as XLA's dot
-    does; PyTorch's default lets it reduce them in bf16.  The flag is
-    process-wide; it is restored on exit."""
+    does (PyTorch's default lets it reduce them in bf16), and multiplies
+    f32 operands in f32, not TF32 (the MoE router).  The flags are
+    process-wide; they are restored on exit."""
     m = torch.backends.cuda.matmul
-    saved = m.allow_bf16_reduced_precision_reduction
+    saved = m.allow_bf16_reduced_precision_reduction, m.allow_tf32
     m.allow_bf16_reduced_precision_reduction = False
+    m.allow_tf32 = False
     try:
         yield
     finally:
-        m.allow_bf16_reduced_precision_reduction = saved
+        m.allow_bf16_reduced_precision_reduction, m.allow_tf32 = saved
 
 
 def dense_apply(p: Dict, x: torch.Tensor,

@@ -1,18 +1,25 @@
-"""Decoder-only LM, dense family (``repro.models.transformer``'s port).
+"""Decoder-only LM: dense GQA and MoE blocks, and float [B, T, d] inputs
+for the VLM patch stub (``repro.models.transformer``'s port).
+
+Families served: yi-9b, tinyllama-1.1b, minitron-8b, llama3.2-1b (dense),
+moonshot-v1-16b-a3b, llama4-maverick-400b-a17b (moe), internvl2-26b
+(vlm: its patch embeddings enter the same backbone as floats).
 
 Parameters keep the JAX layout: per-layer leaves stacked ``[L, ...]`` (as
-the JAX ``lm_init`` makes them with ``vmap``), and the layer loop indexes
-them, where JAX scans.  Caches are stacked ``[L, B, S, Hkv, D]`` and
-updated in place.
+the JAX ``lm_init`` makes them with ``vmap``; an MoE layer's experts are
+``[L, E, d, f]``), and the layer loop indexes them, where JAX scans.
+``lm_init`` fills the stacks layer by layer, so a full-width model never
+holds two copies.  Caches are stacked ``[L, B, S, Hkv, D]`` and updated
+in place.
 
 The scoring forward and the serve steps run under ``layers.f32_sums``:
-their bf16 products are summed in f32 on the card, as in XLA, whatever
-PyTorch's process-wide cuBLAS setting.
+their bf16 products are summed in f32 on the card, and f32 products in
+f32 (no TF32), as in XLA, whatever PyTorch's process-wide settings.
 
-Not ported: MoE blocks (``n_experts > 0``) and the sequence-parallel
-residual stream (``seq_parallel``) raise ``NotImplementedError``.  JAX's
-``_seq_parallel``/``_gather_seq`` are sharding constraints, no-ops on one
-device, so the one-device port has nothing to carry over for them.
+Not ported: the sequence-parallel residual stream (``seq_parallel``)
+raises ``NotImplementedError``.  JAX's ``_seq_parallel``/``_gather_seq``
+are sharding constraints, no-ops on one device, so the one-device port
+has nothing to carry over for them.  ``remat`` only matters to training.
 """
 from __future__ import annotations
 
@@ -23,26 +30,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.tree import tree_map_with_path
+from repro_torch.models import moe as M
+from repro_torch.tree import tree_map, tree_map_with_path
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks wait for Queue 1 item 7 (MoE) in "
-            f"ROADMAP.md")
+def _check_supported(cfg: ModelConfig) -> None:
     if cfg.seq_parallel:
         raise NotImplementedError(
             f"{cfg.name}: seq_parallel waits for Queue 1 item 7 "
             f"(sharding/*) in ROADMAP.md")
-
-
-def _stack(trees) -> Any:
-    """Stack a list of same-shaped dict trees leaf by leaf into [L, ...]."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
 
 
 def layer_params(blocks: Dict, layer: int) -> Dict:
@@ -55,23 +51,41 @@ def layer_params(blocks: Dict, layer: int) -> Dict:
 def _block_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
     dt = A.torch_dtype(cfg)
     dev = generator.device
-    return {
+    blk = {
         "ln1": L.rmsnorm_init(cfg.d_model, dt, dev),
         "attn": A.attn_init(generator, cfg),
         "ln2": L.rmsnorm_init(cfg.d_model, dt, dev),
-        "mlp": L.swiglu_init(generator, cfg.d_model, cfg.d_ff, dt),
     }
+    if cfg.n_experts > 0:
+        blk["moe"] = M.moe_init(generator, cfg)
+    else:
+        blk["mlp"] = L.swiglu_init(generator, cfg.d_model, cfg.d_ff, dt)
+    return blk
+
+
+def _stacked_blocks(generator: torch.Generator, cfg: ModelConfig) -> Dict:
+    """``cfg.n_layers`` block inits stacked leaf by leaf into [L, ...],
+    each layer copied into place as it is drawn."""
+    first = _block_init(generator, cfg)
+    stacks = tree_map(lambda t: t.new_empty((cfg.n_layers,) + t.shape),
+                      first)
+    tree_map(lambda s, t: s[0].copy_(t), stacks, first)
+    del first
+    for i in range(1, cfg.n_layers):
+        tree_map(lambda s, t: s[i].copy_(t), stacks,
+                 _block_init(generator, cfg))
+    return stacks
 
 
 def lm_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
-    """Random params on the generator's device, in ``cfg.dtype``."""
-    _check_dense(cfg)
+    """Random params on the generator's device, in ``cfg.dtype`` (an MoE
+    router in f32, as JAX's)."""
+    _check_supported(cfg)
     dt = A.torch_dtype(cfg)
     params = {
         "embed": L.embedding_init(generator, cfg.vocab_size, cfg.d_model,
                                   dt),
-        "blocks": _stack([_block_init(generator, cfg)
-                          for _ in range(cfg.n_layers)]),
+        "blocks": _stacked_blocks(generator, cfg),
         "ln_f": L.rmsnorm_init(cfg.d_model, dt, generator.device),
     }
     if not cfg.tie_embeddings:
@@ -86,28 +100,39 @@ def lm_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
 def _block_apply(blk: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                  cache: Optional[Dict] = None,
                  cache_pos: Optional[int] = None, impl: Optional[str] = None
-                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+                 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """-> (x [B, T, d], the updated cache or None, the MoE aux loss: an
+    f32 scalar, 0 for a dense block)."""
     h = L.rmsnorm_apply(blk["ln1"], x, cfg.norm_eps)
     a, new_cache = A.attn_apply(
         blk["attn"], cfg, h, causal=True, cache=cache, cache_pos=cache_pos,
         window=cfg.sliding_window, impl=impl)
     x = x + a
     h = L.rmsnorm_apply(blk["ln2"], x, cfg.norm_eps)
-    f = L.swiglu_apply(blk["mlp"], h,
-                       cfg.quant if cfg.quant.enabled else None)
-    return x + f, new_cache
+    if "moe" in blk:
+        f, aux = M.moe_apply(blk["moe"], cfg, h)
+    else:
+        f = L.swiglu_apply(blk["mlp"], h,
+                           cfg.quant if cfg.quant.enabled else None)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + f, new_cache, aux
 
 
 def _layers(params: Dict, cfg: ModelConfig, x: torch.Tensor,
             cache: Optional[Dict] = None, cache_pos: Optional[int] = None,
-            impl: Optional[str] = None) -> torch.Tensor:
-    """The layer loop (JAX's scan), then the final norm."""
-    _check_dense(cfg)
+            impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer loop (JAX's scan), then the final norm: (x, the aux
+    losses summed over layers in layer order)."""
+    _check_supported(cfg)
+    auxs = []
     for i in range(cfg.n_layers):
         cache_l = None if cache is None else layer_params(cache, i)
-        x, _ = _block_apply(layer_params(params["blocks"], i), cfg, x,
-                            cache=cache_l, cache_pos=cache_pos, impl=impl)
-    return L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+        x, _, aux = _block_apply(layer_params(params["blocks"], i), cfg, x,
+                                 cache=cache_l, cache_pos=cache_pos,
+                                 impl=impl)
+        auxs.append(aux)
+    return (L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps),
+            torch.stack(auxs).sum())
 
 
 def _embed_in(params: Dict, cfg: ModelConfig, inputs: torch.Tensor
@@ -133,10 +158,9 @@ def lm_forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
                impl: Optional[str] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scoring forward: inputs [B,T] ids (or [B,T,d] stub embeddings) ->
-    (logits [B,T,V] f32, aux 0).  The aux term is the MoE loss of the
-    JAX forward, always 0 for a dense model."""
-    x = _layers(params, cfg, _embed_in(params, cfg, inputs), impl=impl)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    (logits [B,T,V] f32, the MoE aux loss summed over layers; 0 for a
+    dense model)."""
+    x, aux = _layers(params, cfg, _embed_in(params, cfg, inputs), impl=impl)
     return _unembed(params, cfg, x), aux
 
 
@@ -157,8 +181,8 @@ def lm_prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
                cache: Dict, impl: Optional[str] = None
                ) -> Tuple[torch.Tensor, Dict]:
     """Prefill: write the cache, return last-position logits [B, V]."""
-    x = _layers(params, cfg, _embed_in(params, cfg, inputs), cache=cache,
-                cache_pos=0, impl=impl)
+    x, _ = _layers(params, cfg, _embed_in(params, cfg, inputs), cache=cache,
+                   cache_pos=0, impl=impl)
     return _unembed(params, cfg, x[:, -1:])[:, 0], cache
 
 
@@ -169,8 +193,8 @@ def lm_decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
     """One token [B] (or stub embedding [B, d]) at absolute position
     ``pos`` -> (logits [B, V], the updated cache)."""
     inp = token[:, None] if token.ndim == 1 else token[:, None, :]
-    x = _layers(params, cfg, _embed_in(params, cfg, inp), cache=cache,
-                cache_pos=int(pos), impl=impl)
+    x, _ = _layers(params, cfg, _embed_in(params, cfg, inp), cache=cache,
+                   cache_pos=int(pos), impl=impl)
     return _unembed(params, cfg, x)[:, 0], cache
 
 
@@ -180,6 +204,25 @@ def param_count(params: Any) -> int:
     def add(_path, t):
         nonlocal total
         total += t.numel()
+        return t
+    tree_map_with_path(add, params)
+    return total
+
+
+def active_param_count(params: Any, cfg: ModelConfig) -> int:
+    """MoE-aware: expert weights count k/E of their size (the 6 * N_active
+    * D model-FLOPs convention), each leaf truncated as in JAX."""
+    if cfg.n_experts == 0:
+        return param_count(params)
+    total = 0
+    frac = cfg.experts_per_token / cfg.n_experts
+
+    def add(path, t):
+        nonlocal total
+        if any(k in ("gate_w", "up_w", "down_w") for k in path):
+            total += int(t.numel() * frac)
+        else:
+            total += t.numel()
         return t
     tree_map_with_path(add, params)
     return total

@@ -57,15 +57,17 @@ class Engine:
 
     def generate(self, batch: Dict[str, torch.Tensor], n_tokens: int
                  ) -> Dict[str, object]:
-        """batch: {"tokens": [B, S] ids}.  Returns the generated ids
-        [B, n_tokens], the last decode step's logits [B, V] and stats.
+        """batch: {"tokens": [B, S] ids, or [B, S, d] float stub
+        embeddings (the VLM patch stub; decode feeds ids)}.  Returns the
+        generated ids [B, n_tokens], the last decode step's logits [B, V]
+        and stats.
 
         The dense cache holds ``max_len`` positions; a prompt plus
         ``n_tokens`` decode steps that do not fit raise ``ValueError``
         (JAX would clamp the cache writes silently).
         """
         tokens = batch["tokens"].to(self.device)
-        b, prompt_len = tokens.shape
+        b, prompt_len = tokens.shape[:2]
         cfg = self.api.cfg
         if cfg.sliding_window == 0 and prompt_len + n_tokens > self.max_len:
             raise ValueError(f"a prompt of {prompt_len} and {n_tokens} decode "

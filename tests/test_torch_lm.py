@@ -107,17 +107,16 @@ def port(tree):
 class TestConfigs:
     def test_fields_mirror_jax(self):
         """The port's fields are JAX fields, in JAX's order and with its
-        defaults; the JAX fields it leaves out are ones no dense-LM code
-        reads."""
+        defaults; the JAX fields it leaves out are the encoder-decoder
+        and SSM ones, which no decoder code reads."""
         jf = {f.name: f.default for f in dataclasses.fields(JaxModelConfig)}
         tf = [(f.name, f.default) for f in dataclasses.fields(ModelConfig)
               if f.name != "quant"]
         assert tf == [(n, d) for n, d in jf.items()
                       if n in dict(tf)]
         assert set(jf) - {n for n, _ in tf} == {
-            "quant", "experts_per_token", "capacity_factor", "n_enc_layers",
-            "enc_seq", "ssm_state", "conv_width", "slstm_every", "frontend",
-            "remat", "unroll_layers", "sharding_profile"}
+            "quant", "n_enc_layers", "enc_seq", "ssm_state", "conv_width",
+            "slstm_every"}
         q = ModelConfig.__dataclass_fields__["quant"].default
         assert (q.w_bits, q.a_bits, q.enabled) == (32, 32, False)
 
@@ -130,7 +129,9 @@ class TestConfigs:
                 j_fn(arch))
             tc.pop("quant")
             assert tc == {n: jc[n] for n in tc}
-        assert list_archs() == ARCHS
+        assert list_archs() == [
+            "moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b", "yi-9b",
+            "tinyllama-1.1b", "minitron-8b", "llama3.2-1b", "internvl2-26b"]
 
     def test_tinyllama_full_shape(self):
         cfg = get_config("tinyllama-1.1b")
@@ -140,10 +141,13 @@ class TestConfigs:
         assert get_config("llama3.2-1b").tie_embeddings
 
     def test_unported_and_unknown_archs(self):
-        with pytest.raises(NotImplementedError, match="MoE.*ROADMAP"):
-            get_config("moonshot-v1-16b-a3b")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_smoke_config("yi-9b")
+        for arch, part in (("whisper-tiny", "encoder-decoder"),
+                           ("xlstm-1.3b", "xLSTM"), ("hymba-1.5b", "Hymba")):
+            with pytest.raises(NotImplementedError,
+                               match=f"Queue 1 item 7, {part}.*ROADMAP"):
+                get_config(arch)
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                get_smoke_config(arch)
         with pytest.raises(KeyError, match="tinyllama"):
             get_config("gpt-5")
 
@@ -201,9 +205,9 @@ class TestForward:
         x = JT._embed_in(params, jcfg, jnp.asarray(ids))
         want, _, _ = JT._block_apply(blk, jcfg, x)
         tp = port(params)
-        got, _ = TT._block_apply(TT.layer_params(tp["blocks"], 0), tcfg,
-                                 TT._embed_in(tp, tcfg,
-                                              torch.from_numpy(ids).long()))
+        got, _, _ = TT._block_apply(TT.layer_params(tp["blocks"], 0), tcfg,
+                                    TT._embed_in(tp, tcfg,
+                                                 torch.from_numpy(ids).long()))
         want = np.asarray(want.astype(jnp.float32))
         got = got.float().numpy()
         if dtype == "bfloat16":
@@ -408,14 +412,18 @@ class TestRejections:
         _, tcfg = configs("tinyllama-1.1b", dtype="float32")
         tp = port(jax_params("tinyllama-1.1b", "float32"))
         x = torch.from_numpy(ids).long()
-        with pytest.raises(NotImplementedError, match="xla_chunked.*ROADMAP"):
-            TT.lm_forward(tp, tcfg, x, impl="xla_chunked")
-        with pytest.raises(NotImplementedError, match="MoE.*ROADMAP"):
-            TT.lm_forward(tp, tcfg.replace(n_experts=4), x)
+        with pytest.raises(NotImplementedError, match="seq_parallel.*ROADMAP"):
+            TT.lm_forward(tp, tcfg.replace(seq_parallel=True), x)
         with pytest.raises(NotImplementedError, match="seq_parallel"):
             TT.lm_init(torch.Generator(), tcfg.replace(seq_parallel=True))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(tcfg.replace(family="moe"))
+        for family in ("ssm", "audio", "hybrid"):
+            with pytest.raises(NotImplementedError,
+                               match="Queue 1 item 7.*ROADMAP"):
+                get_model(tcfg.replace(family=family))
+        with pytest.raises(NotImplementedError, match="xLSTM.*ROADMAP"):
+            get_config("xlstm-1.3b")
+        with pytest.raises(ValueError, match="unknown attn_impl"):
+            TT.lm_forward(tp, tcfg, x, impl="pallas")
 
     def test_entry_points_default_to_cuda(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -436,6 +444,11 @@ class TestRejections:
         src = pathlib.Path(__file__).resolve().parents[1] / "src"
         mods = ["repro_torch.configs", "repro_torch.configs.tinyllama_1_1b",
                 "repro_torch.configs.llama3_2_1b",
+                "repro_torch.configs.moonshot_v1_16b_a3b",
+                "repro_torch.configs.llama4_maverick_400b_a17b",
+                "repro_torch.configs.internvl2_26b",
+                "repro_torch.configs.yi_9b", "repro_torch.configs.minitron_8b",
+                "repro_torch.models.moe",
                 "repro_torch.models.attention",
                 "repro_torch.models.transformer", "repro_torch.models.api",
                 "repro_torch.serve.engine",
