@@ -55,7 +55,17 @@ kernels against their plain versions at its shapes, a scoring forward of
 4 x 2048 tokens through the flash kernel held against the plain-attention
 route, a 2-layer cut held against the CPU, and ``Engine.generate``
 (prefill plus 32 greedy decode steps) whose last logits are held against
-the forward.  Then the MoE decoder moonshot-v1-16b-a3b at full width and
+the forward.  Then it trains the LM (bf16, AdamW, the xla route, which
+launches no hand kernel: JAX trains on plain products): a 2-layer cut's
+gradients and one ``build_train_step`` step against the CPU, remat on and
+off bitwise under deterministic algorithms; ``fit`` at full depth with
+remat for 20 steps at 4 x 2048 on the synthetic token stream (the loss
+must fall; ms a step, tokens/s, peak memory, a profiled step and the f32
+attention's share, one step at B1 with remat on and off); a checkpoint
+resume at the 2-layer cut, bitwise; moonshot at full width cut to 2
+layers for 5 steps and its smoke config's step against the CPU replaying
+the card's routing; and flash refusing a gradient before any launch.
+Then the MoE decoder moonshot-v1-16b-a3b at full width and
 depth (48 layers, 64 experts top-6, 28.06 B parameters in bf16): the
 flash kernel at its shape, a 2-layer cut against the CPU, a 4 x 2048
 scoring forward on the flash, xla and xla_chunked routes (entries dropped
@@ -81,6 +91,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import pathlib
 import statistics
@@ -2324,31 +2335,19 @@ def train_lite_phase(torch, smi, clouds):
     # the default mode gather's backward sums with atomics, and QAT
     # carries a last-bit difference into other codes, so two runs part.
     resume = {"default": resume_check(torch, cfg, p_card, batches, straight)}
-    saved_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            det_straight, _, det_ms = train_loop_on_card(
-                torch, cfg, p_card, batches, TRAIN_STEPS, SEED, timed=True)
-            resume["deterministic"] = resume_check(torch, cfg, p_card,
-                                                   batches, det_straight)
-        resume["deterministic"]["warnings"] = sorted(
-            {str(w.message)[:120] for w in caught})
-        check(resume["deterministic"]["bitwise"],
-              "train_lite: a resumed run differs from the straight one "
-              "under deterministic algorithms")
-        resume["deterministic"]["ms_per_step_median"] = statistics.median(
-            det_ms)
-        resume["deterministic_vs_default_max_abs_diff"] = params_diff(
-            det_straight, straight)
-    finally:
-        torch.use_deterministic_algorithms(False)
-        if saved_env is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved_env
+    with deterministic(torch) as det:
+        det_straight, _, det_ms = train_loop_on_card(
+            torch, cfg, p_card, batches, TRAIN_STEPS, SEED, timed=True)
+        resume["deterministic"] = resume_check(torch, cfg, p_card,
+                                               batches, det_straight)
+    resume["deterministic"]["warnings"] = det.warnings
+    check(resume["deterministic"]["bitwise"],
+          "train_lite: a resumed run differs from the straight one "
+          "under deterministic algorithms")
+    resume["deterministic"]["ms_per_step_median"] = statistics.median(
+        det_ms)
+    resume["deterministic_vs_default_max_abs_diff"] = params_diff(
+        det_straight, straight)
 
     # 5. compress the trained params and serve them
     deploy, _, report = compress(tree_cpu(straight), cfg)
@@ -3301,6 +3300,541 @@ def moe_phases(torch, np, smi):
     return rows, total, fwd["flash_attention"]
 
 
+# -------------------------------------------------------- LM training --
+
+LM_TRAIN_LR = 3e-4
+LM_TRAIN_STEPS = 20
+LM_TRAIN_CUT = dict(batch=2, seq=256)
+# bf16 gradients of two runs that round differently (the card against the
+# CPU), each leaf's max error as a fraction of the leaf's max|g|.  bf16
+# keeps 8 significant bits: where the two runs round an activation a
+# step (2**-8 relative) apart, every gradient that sums over it moves,
+# and a leaf's largest error lands where many such terms add up.  The CPU
+# tests measured up to 2.6e-2 of XLA against the port at smoke width
+# (tests/test_torch_lm_train.py, which holds 6e-2); the same bound here.
+LM_GRAD_TOL = 6e-2
+MOE_TRAIN_STEPS = 5
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 512
+
+
+class deterministic:
+    """``torch.use_deterministic_algorithms`` within the block (warnings
+    only, cuBLAS's workspace pinned); ``.warnings`` holds what it said."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.warnings = []
+
+    def __enter__(self):
+        self.saved_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        self.torch.use_deterministic_algorithms(True, warn_only=True)
+        self.caught = warnings.catch_warnings(record=True)
+        self.log = self.caught.__enter__()
+        warnings.simplefilter("always")
+        return self
+
+    def __exit__(self, *exc):
+        self.caught.__exit__(*exc)
+        self.warnings = sorted({str(w.message)[:120] for w in self.log})
+        self.torch.use_deterministic_algorithms(False)
+        if self.saved_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = self.saved_env
+        return False
+
+
+def grads_close(name, card, cpu, tol=LM_GRAD_TOL):
+    """Hold each gradient leaf of ``card`` to ``cpu``: max error within
+    ``tol`` of the leaf's max|g|.  Returns the worst leaf's error as a
+    fraction of its max|g| and the tree's relative L2 error."""
+    from repro_torch.tree import leaves_with_paths
+    gc, gh = dict(leaves_with_paths(card)), dict(leaves_with_paths(cpu))
+    worst, worst_at, err2, norm2 = 0.0, None, 0.0, 0.0
+    for path, h in gh.items():
+        h = h.float()
+        c = gc[path].float().cpu()
+        scale = float(h.abs().max())
+        err = float((c - h).abs().max())
+        check(err <= tol * scale, f"{name}: gradient of {path} differs by "
+                                  f"{err} > {tol} * {scale}")
+        if scale and err / scale > worst:
+            worst, worst_at = err / scale, "/".join(map(str, path))
+        err2 += float(((c - h).double() ** 2).sum())
+        norm2 += float((h.double() ** 2).sum())
+    return {"grad_leaf_worst_frac_of_max": worst, "grad_leaf_worst_at":
+            worst_at, "grad_tree_rel_l2": (err2 / norm2) ** 0.5,
+            "tolerance": f"{tol} of each leaf's max|g|"}
+
+
+def lm_train_step_phase(torch, cfg, smi):
+    """tinyllama cut to 2 layers at full width, B2 x T256 bf16 (remat, the
+    xla route): gradients and one ``build_train_step`` AdamW step on the
+    card against the CPU, and the card's gradients with remat on and off
+    bitwise under deterministic algorithms."""
+    from repro_torch.api.build import to_device
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import lm_data
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.tree import leaves_with_paths
+
+    cut = cfg.replace(n_layers=2)
+    api = get_model(cut)
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED + 30))
+    batch = lm_data.synth_batch(SEED, 0, LM_TRAIN_CUT["batch"],
+                                LM_TRAIN_CUT["seq"], cut.vocab_size,
+                                device="cpu")
+    batch_c = to_device(batch, "cuda")
+    ((loss_c, _), g_c), launches = counted(
+        torch, lambda: value_and_grad(api.loss_fn, params, batch_c))
+    expect_launches("lm_train 2 layers", launches, {})
+    cpu_params = to_device(params, "cpu")
+    t0 = time.perf_counter()
+    (loss_h, _), g_h = value_and_grad(api.loss_fn, cpu_params, batch)
+    cpu_s = time.perf_counter() - t0
+    loss_c, loss_h = float(loss_c), float(loss_h)
+    check(abs(loss_c - loss_h) <= 1e-3 * abs(loss_h),
+          f"lm_train 2 layers: loss {loss_c} on the card, {loss_h} on "
+          f"the CPU")
+    grads = grads_close("lm_train 2 layers", g_c, g_h)
+    del g_c, g_h
+
+    tc = TrainConfig(optimizer="adamw", lr=LM_TRAIN_LR,
+                     lr_min=LM_TRAIN_LR / 10, steps=LM_TRAIN_STEPS,
+                     batch_size=LM_TRAIN_CUT["batch"])
+    train_step, init_opt = build_train_step(api, tc)
+    (p_c, _, m_c), launches = counted(torch, lambda: train_step(
+        params, init_opt(params), batch_c, 0))
+    expect_launches("lm_train 2-layer step", launches, {})
+    p_h, _, m_h = train_step(cpu_params, init_opt(cpu_params), batch, 0)
+    check(abs(float(m_c["grad_norm"]) - float(m_h["grad_norm"]))
+          <= 1e-2 * float(m_h["grad_norm"]),
+          f"lm_train step: grad_norm {float(m_c['grad_norm'])} on the "
+          f"card, {float(m_h['grad_norm'])} on the CPU")
+    # a first AdamW step moves each weight by about lr * sign(g) (an
+    # element whose gradient is near 0 may move the other way), and the
+    # bf16 weight rounds it: a step below half a bf16 step of the weight
+    # (2**-8 of it) stays or moves a whole step on an ulp's difference
+    moved, total_el, worst = 0, 0, 0.0
+    hp = dict(leaves_with_paths(p_h))
+    for path, c in leaves_with_paths(p_c):
+        h = hp[path].float()
+        d = (c.float().cpu() - h).abs()
+        over = d - 2 * LM_TRAIN_LR - h.abs() * 2.0 ** -7
+        check(float(over.max()) <= 0, f"lm_train step: {path} moved "
+                                      f"{float(d.max())} apart")
+        moved += int((d > 0).sum())
+        total_el += d.numel()
+        worst = max(worst, float(d.max()))
+    del p_c, p_h, cpu_params
+
+    with deterministic(torch) as det:
+        runs = [value_and_grad(get_model(cut.replace(remat=r)).loss_fn,
+                               params, batch_c)[1] for r in (True, False)]
+        torch.cuda.synchronize()
+    on, off = (dict(leaves_with_paths(g)) for g in runs)
+    remat_bitwise = all(torch.equal(on[k], off[k]) for k in on)
+    check(remat_bitwise, "lm_train: gradients with remat on and off differ "
+                         "under deterministic algorithms")
+    emit({"phase": "lm_train_step", "arch": cfg.name, "layers": 2,
+          "batch": LM_TRAIN_CUT["batch"], "seq": LM_TRAIN_CUT["seq"],
+          "dtype": cut.dtype, "remat": cut.remat,
+          "attn_impl": cut.attn_impl, "launches": launches,
+          "loss_card": loss_c, "loss_cpu": loss_h,
+          "loss_rel_err": abs(loss_c - loss_h) / abs(loss_h), **grads,
+          "cpu_value_and_grad_s": cpu_s,
+          "step": {"grad_norm_card": float(m_c["grad_norm"]),
+                   "grad_norm_cpu": float(m_h["grad_norm"]),
+                   "lr": float(m_c["lr"]),
+                   "weights_that_differ": moved,
+                   "weights": total_el,
+                   "max_abs_weight_diff": worst},
+          "remat_on_off_bitwise_deterministic": remat_bitwise,
+          "deterministic_warnings": det.warnings, "card": smi})
+    return launches
+
+
+def attention_f32_ms(torch, cfg, b: int, t: int):
+    """Device ms of one layer's f32 attention (``_sdpa_xla`` at the
+    training shape, bf16 q, k, v) as a remat step runs it: a forward,
+    then the recompute's forward and the backward."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    hd = cfg.kv_head_dim
+
+    def rnd(h):
+        return (torch.randn(b, t, h, hd, generator=gen, device="cuda")
+                .to(torch.bfloat16).requires_grad_(True))
+    q, k, v = rnd(cfg.n_heads), rnd(cfg.n_kv_heads), rnd(cfg.n_kv_heads)
+    cot = torch.randn(b, t, cfg.n_heads, hd, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad(), L.f32_sums():
+            return A._sdpa_xla(q, k, v, True, 0, 0)
+
+    def fwd_bwd():
+        with L.f32_sums():
+            out = A._sdpa_xla(q, k, v, True, 0, 0)
+            return torch.autograd.grad(out, (q, k, v), cot)
+    return (median_ms(torch, fwd, reps=5, inner=2, warmup=1),
+            median_ms(torch, fwd_bwd, reps=5, inner=2, warmup=1))
+
+
+def lm_train_bound_ms(cfg, n_params: int, b: int, t: int):
+    """A remat training step's bound, ms by part, each part at its own
+    limit: the bf16 products (6 N per token, the embedding table's gather
+    left out, plus remat's second forward of the layers, 2 N_layers per
+    token) at the bf16 peak; the xla route's f32 attention (Q.K and P.V
+    over the full T x T square: a forward, the recompute and a backward
+    of twice the forward) at the f32 peak; AdamW's bytes (bf16 param and
+    gradient read, f32 m and v read and written, the param written: 22
+    bytes a param) at the memory rate."""
+    tokens = b * t
+    d, hd = cfg.d_model, cfg.kv_head_dim
+    embed = cfg.vocab_size * d
+    layers = n_params - embed * (1 if cfg.tie_embeddings else 2) - d
+    bf16 = (6 * (n_params - embed) + 2 * layers) * tokens
+    attn = cfg.n_layers * 4 * 4 * b * cfg.n_heads * t * t * hd
+    return {"bf16_products": 1e3 * bf16 / BF16_OPS_PER_S,
+            "f32_attention": 1e3 * attn / FP32_OPS_PER_S,
+            "adamw_bytes": 1e3 * 22 * n_params / HBM_BYTES_PER_S}
+
+
+def lm_train_fit_phase(torch, cfg, smi):
+    """tinyllama at full width and depth (remat, the xla route): ``fit``
+    with AdamW for LM_TRAIN_STEPS steps at LM_BATCH x LM_SEQ on the
+    synthetic stream, a profiled step, the f32 attention's share, and one
+    step at B1 with remat on and off (peak memory of each)."""
+    import tempfile
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import lm_data
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import param_count
+    from repro_torch.train.train_loop import fit
+
+    api = get_model(cfg)
+    events, losses, drop = [], [], {}
+
+    def on_step(step, params, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        losses.append(float(metrics["loss"]))
+
+    def data(start):
+        return lm_data.stream(SEED, LM_BATCH, LM_SEQ, cfg.vocab_size, start,
+                              device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        tc = TrainConfig(optimizer="adamw", lr=LM_TRAIN_LR,
+                         lr_min=LM_TRAIN_LR / 10, steps=LM_TRAIN_STEPS,
+                         batch_size=LM_BATCH, checkpoint_every=0,
+                         checkpoint_dir=d)
+        t0 = time.perf_counter()
+        result, launches = counted(torch, lambda: fit(
+            api, tc, data, hooks={"on_step": on_step}, device="cuda"))
+        fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches("lm_train fit", launches, {})
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    step_ms = statistics.median(ms)
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"lm_train fit: loss {losses[0]} -> {losses[-1]}, not down")
+    params, opt_state = result["params"], result["opt_state"]
+    n = param_count(params)
+    del result
+
+    train_step, _ = build_train_step(api, tc)
+    batch = lm_data.synth_batch(SEED, LM_TRAIN_STEPS, LM_BATCH, LM_SEQ,
+                                cfg.vocab_size, device="cuda")
+    prof = profile_summary(*profile_call(torch, lambda: train_step(
+        params, opt_state, batch, LM_TRAIN_STEPS)[2]["loss"].item()),
+        gemm_f32_ms=("sgemm", "f32f32"), softmax_ms=("softmax",))
+    fwd_ms, fwd_bwd_ms = attention_f32_ms(torch, cfg, LM_BATCH, LM_SEQ)
+    attn_ms = cfg.n_layers * (fwd_ms + fwd_bwd_ms)
+    if isinstance(prof["device_ms"], float):
+        prof["f32_attention_share_of_device"] = attn_ms / prof["device_ms"]
+    bound = lm_train_bound_ms(cfg, n, LM_BATCH, LM_SEQ)
+
+    peaks = {}
+    one = lm_data.synth_batch(SEED, 0, 1, LM_SEQ, cfg.vocab_size,
+                              device="cuda")
+    for remat in (True, False):
+        step_r, _ = build_train_step(get_model(cfg.replace(remat=remat)), tc)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resting = torch.cuda.memory_allocated()
+        out = step_r(params, opt_state, one, LM_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        peaks[f"remat_{remat}"] = {
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "above_params_and_opt_state":
+                torch.cuda.max_memory_allocated() - resting,
+            "loss": float(out[2]["loss"])}
+        del out
+    emit({"phase": "lm_train_fit", "arch": cfg.name, "params": n,
+          "layers": cfg.n_layers, "batch": LM_BATCH, "seq": LM_SEQ,
+          "dtype": cfg.dtype, "remat": cfg.remat, "attn_impl": cfg.attn_impl,
+          "optimizer": "adamw", "lr": LM_TRAIN_LR, "steps": LM_TRAIN_STEPS,
+          "launches": launches, "loss_step_0": losses[0],
+          "loss_last": losses[-1], "losses": losses,
+          "ms_per_step_median": step_ms, "ms_per_step": ms,
+          "tokens_per_s": LM_BATCH * LM_SEQ / (step_ms / 1e3),
+          "fit_seconds": fit_s, "max_memory_allocated": peak,
+          "bound_ms": bound, "bound_ms_total": sum(bound.values()),
+          "profile_one_step": prof,
+          "f32_attention_ms_per_layer": {"forward": fwd_ms,
+                                         "forward_and_backward": fwd_bwd_ms},
+          "f32_attention_ms_per_step": attn_ms,
+          "b1_step_peak_memory": peaks, "card": smi})
+    return launches
+
+
+def lm_train_resume_phase(torch, cfg, smi):
+    """``fit`` at the 2-layer cut with a checkpoint every 3 steps, under
+    deterministic algorithms: 6 steps straight, against a run stopped in
+    step 4 and a second ``fit`` that resumes from step 3's checkpoint;
+    final params bitwise, and the bf16 checkpoint bitwise the params it
+    saved."""
+    import tempfile
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import lm_data
+    from repro_torch.models.api import get_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_loop import fit
+    from repro_torch.tree import leaves_with_paths
+
+    api = get_model(cfg.replace(n_layers=2))
+
+    def data(start):
+        return lm_data.stream(SEED + 1, LM_TRAIN_CUT["batch"],
+                              LM_TRAIN_CUT["seq"], cfg.vocab_size, start,
+                              device="cuda")
+    saved = {}
+
+    def keep_step_3(step, params, metrics):
+        if step == 2:
+            saved.update(leaves_with_paths(tree_cpu(params)))
+
+    def die(step, params, metrics):
+        if step == 3:
+            for _ in range(3000):         # the step-3 saves are in flight
+                if ckpt.latest_step(f"{d}/b") == ckpt.latest_step(
+                        f"{d}/b/opt") == 3:
+                    break
+                time.sleep(0.01)
+            raise KeyboardInterrupt("preempted")
+
+    with tempfile.TemporaryDirectory() as d, deterministic(torch) as det:
+        def tc(sub):
+            return TrainConfig(optimizer="adamw", lr=LM_TRAIN_LR,
+                               lr_min=LM_TRAIN_LR / 10, steps=6,
+                               batch_size=LM_TRAIN_CUT["batch"],
+                               checkpoint_every=3,
+                               checkpoint_dir=f"{d}/{sub}")
+        (straight, l1) = counted(torch, lambda: fit(
+            api, tc("a"), data, hooks={"on_step": keep_step_3},
+            device="cuda"))
+        try:
+            fit(api, tc("b"), data, hooks={"on_step": die}, device="cuda")
+            check(False, "lm_train resume: the run was not stopped")
+        except KeyboardInterrupt:
+            pass
+        check(ckpt.latest_step(f"{d}/b") == 3, "lm_train resume: no "
+                                               "checkpoint at step 3")
+        back, _ = ckpt.restore(f"{d}/b", 3, straight["params"])
+        manifest = json.loads(pathlib.Path(
+            f"{d}/b/step_00000003/manifest.json").read_text())
+        round_trip = all(torch.equal(v.cpu(), saved[k])
+                         for k, v in leaves_with_paths(back))
+        resumed_steps = []
+        (resumed, l2) = counted(torch, lambda: fit(
+            api, tc("b"), data, hooks={"on_step": lambda step, p, m:
+                                       resumed_steps.append(step)},
+            device="cuda"))
+    expect_launches("lm_train resume", l1, {})
+    expect_launches("lm_train resume", l2, {})
+    check(round_trip, "lm_train resume: the bf16 checkpoint differs from "
+                      "the params it saved")
+    diff = params_diff(resumed["params"], straight["params"])
+    check(diff == 0.0, f"lm_train resume: resumed params differ from the "
+                       f"straight run's by {diff}")
+    emit({"phase": "lm_train_resume", "arch": cfg.name, "layers": 2,
+          "steps": 6, "checkpoint_every": 3, "stopped_in_step": 4,
+          "resumed_from": 3, "bitwise": True,
+          "checkpoint_round_trip_bitwise": round_trip,
+          "checkpoint_dtypes": sorted({v["dtype"] for v in
+                                       manifest["leaves"].values()}),
+          "resumed_steps": resumed_steps,
+          "deterministic_warnings": det.warnings, "card": smi})
+    add = dict(l1)
+    add_launches(add, l2)
+    return add
+
+
+def moe_train_phase(torch, np, smi):
+    """moonshot at full width cut to 2 layers (remat, the xla route):
+    MOE_TRAIN_STEPS AdamW steps at MOE_TRAIN_BATCH x MOE_TRAIN_SEQ (loss,
+    ms a step, peak memory, entries dropped); then one step of the smoke
+    config on the card against the CPU, the CPU replaying the card's
+    routing."""
+    from repro_torch.api.build import to_device
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import lm_data
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import param_count
+    from repro_torch.train.train_loop import value_and_grad
+
+    cfg = get_config(MOE_ARCH).replace(n_layers=2)
+    api = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED + 31))
+    n = param_count(params)
+    tc = TrainConfig(optimizer="adamw", lr=LM_TRAIN_LR,
+                     lr_min=LM_TRAIN_LR / 10, steps=MOE_TRAIN_STEPS,
+                     batch_size=MOE_TRAIN_BATCH)
+    train_step, init_opt = build_train_step(api, tc)
+    opt = init_opt(params)
+    losses, ms, dropped, calls = [], [], [], []
+
+    def run():
+        nonlocal params, opt
+        for s in range(MOE_TRAIN_STEPS):
+            batch = lm_data.synth_batch(SEED + 2, s, MOE_TRAIN_BATCH,
+                                        MOE_TRAIN_SEQ, cfg.vocab_size,
+                                        device="cuda")
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            t0.record()
+            (params, opt, m), rec = route_tap(lambda: train_step(
+                params, opt, batch, s))
+            t1.record()
+            t1.synchronize()
+            ms.append(t0.elapsed_time(t1))
+            losses.append(float(m["loss"]))
+            calls.append(len(rec["dropped"]))
+            dropped.append([int(x) for x in rec["dropped"][:cfg.n_layers]])
+    _, launches = counted(torch, run)
+    expect_launches("moe_train", launches, {})
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"moe_train: loss {losses[0]} -> {losses[-1]}, not down")
+    del params, opt
+    torch.cuda.empty_cache()
+    entries = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ * cfg.experts_per_token
+
+    scfg = get_smoke_config(MOE_ARCH)
+    sapi = get_model(scfg)
+    sp = sapi.init(torch.Generator().manual_seed(SEED + 32), device="cpu")
+    batch = lm_data.synth_batch(SEED + 3, 0, 2, 64, scfg.vocab_size,
+                                device="cpu")
+    (((loss_c, _), g_c), card), s_launches = counted(torch, lambda: route_tap(
+        lambda: value_and_grad(sapi.loss_fn, to_device(sp, "cuda"),
+                               to_device(batch, "cuda"))))
+    expect_launches("moe_train smoke", s_launches, {})
+    (_, own) = route_tap(lambda: value_and_grad(sapi.loss_fn, sp, batch))
+    agree = routing_agreement(torch, card, own)
+    check_first_layer_flips("moe_train smoke", agree)
+    ((loss_h, _), g_h), _ = route_tap(
+        lambda: value_and_grad(sapi.loss_fn, sp, batch),
+        replay=[e.cpu() for e in card["top_e"]])
+    loss_c, loss_h = float(loss_c), float(loss_h)
+    check(abs(loss_c - loss_h) <= 1e-3 * abs(loss_h),
+          f"moe_train smoke: loss {loss_c} on the card, {loss_h} on the "
+          f"CPU")
+    grads = grads_close("moe_train smoke", g_c, g_h)
+    emit({"phase": "moe_train", "arch": cfg.name, "layers": 2,
+          "params": n, "batch": MOE_TRAIN_BATCH, "seq": MOE_TRAIN_SEQ,
+          "dtype": cfg.dtype, "remat": cfg.remat, "attn_impl": cfg.attn_impl,
+          "capacity": capacity(cfg, MOE_TRAIN_BATCH * MOE_TRAIN_SEQ),
+          "launches": launches, "losses": losses,
+          "ms_per_step": ms, "ms_per_step_median": statistics.median(ms[1:]),
+          "tokens_per_s": MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+          / (statistics.median(ms[1:]) / 1e3),
+          "max_memory_allocated": peak,
+          "dispatch_calls_per_step": calls,
+          "entries_per_layer": entries,
+          "dropped_by_step_and_layer": dropped,
+          "smoke_step_vs_cpu": {
+              "arch": scfg.name, "dtype": scfg.dtype, "batch": 2, "seq": 64,
+              "launches": s_launches, "loss_card": loss_c,
+              "loss_cpu": loss_h, **grads,
+              "routing": "the CPU replays the card's routing",
+              "routing_agreement_cpu_own": agree,
+              "first_layer_gap_limit": MOE_GAP},
+          "card": smi})
+    add = dict(launches)
+    add_launches(add, s_launches)
+    return add
+
+
+def lm_refusal_phase(torch, smi):
+    """Flash under grad: ``loss_fn`` with ``attn_impl="flash"`` raises
+    on the card before any launch; the same forward without a gradient
+    launches the kernel once a layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import lm_data
+    from repro_torch.models.api import get_model
+    from repro_torch.train.train_loop import value_and_grad
+
+    cfg = get_smoke_config(LM_ARCH).replace(attn_impl="flash")
+    api = get_model(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED + 34))
+    batch = lm_data.synth_batch(SEED, 0, 2, 64, cfg.vocab_size,
+                                device="cuda")
+
+    def train():
+        try:
+            value_and_grad(api.loss_fn, params, batch)
+        except NotImplementedError as e:
+            return str(e)
+        return None
+    msg, refused = counted(torch, train)
+    check(msg is not None and "no backward" in msg,
+          "lm_train: flash under grad did not refuse")
+    expect_launches("flash refusal", refused, {})
+    with torch.no_grad():
+        _, served = counted(torch, lambda: api.forward(params,
+                                                       batch["tokens"]))
+    expect_launches("flash forward without grad", served,
+                    {"flash_attention": cfg.n_layers})
+    emit({"phase": "lm_train_flash_refusal", "refused": msg,
+          "launches_under_grad": refused["flash_attention"],
+          "launches_without_grad": served["flash_attention"], "card": smi})
+    return served
+
+
+def lm_train_phases(torch, np, smi):
+    """The LM training phases (no hand kernel: JAX trains on plain
+    products, and flash has no backward).  Returns the launches on the
+    paths they drive."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_ARCH)
+    total = {k: 0 for k in counters()}
+    add_launches(total, lm_train_step_phase(torch, cfg, smi))
+    add_launches(total, lm_train_fit_phase(torch, cfg, smi))
+    torch.cuda.empty_cache()
+    add_launches(total, lm_train_resume_phase(torch, cfg, smi))
+    add_launches(total, moe_train_phase(torch, np, smi))
+    add_launches(total, lm_refusal_phase(torch, smi))
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -3422,6 +3956,7 @@ def main() -> int:
     for k, v in got.items():
         total[k] += v
     torch.cuda.empty_cache()
+    add_launches(total, lm_train_phases(torch, np, smi))
     moe_rows, got, total["flash_moonshot"] = moe_phases(torch, np, smi)
     rows.update(moe_rows)
     add_launches(total, got)

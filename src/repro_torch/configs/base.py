@@ -1,11 +1,12 @@
-"""Model config of the decoder LMs the port serves, and the training recipe.
+"""Model config of the decoder LMs the port serves and trains, and the training recipe.
 
 A subset of ``repro.configs.base.ModelConfig``: the fields the port's
 decoder family (dense, MoE, VLM patch stub) reads or its configs set,
 with the JAX names, order and defaults; ``quant`` is the port's own
-``QuantConfig``.  ``remat`` and ``unroll_layers`` are carried for the
-configs' sake: no serving path reads them (JAX reads them when it
-trains and when it lowers the dry-run), and ``sharding_profile`` picks
+``QuantConfig``.  ``remat`` checkpoints each layer of a training
+forward (``models/transformer.py``); ``unroll_layers`` is carried for
+the configs' sake (JAX reads it only when it lowers the dry-run, and the
+port's layer loop is unrolled already), and ``sharding_profile`` picks
 nothing on one device (``models/moe.py``).  Not ported: the
 encoder-decoder fields (``n_enc_layers``, ``enc_seq``) and the SSM and
 hybrid ones (``ssm_state``, ``conv_width``, ``slstm_every``), which come
@@ -46,8 +47,8 @@ class ModelConfig:
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    remat: bool = True               # read by no serving path
-    unroll_layers: bool = False      # read by no serving path
+    remat: bool = True               # checkpoint each training layer
+    unroll_layers: bool = False      # read by no ported path
     quant: QuantConfig = QuantConfig(w_bits=32, a_bits=32)
     # per-layer parallelism profile; picks nothing on one device
     sharding_profile: str = "default"

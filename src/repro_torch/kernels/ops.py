@@ -136,7 +136,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (128, 128) the route's own tile; any other pair must be the tile of
     the route that q's dtype and head dim select (``ValueError``
     otherwise, on either device).  The plain version has no tiles.
+
+    Forward only: under grad with any of q, k, v taking a gradient it
+    raises ``NotImplementedError`` on either device, before any launch.
+    The kernel writes its output outside autograd, so a gradient would
+    come back as zeros without a word.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward, in the port or in the JAX "
+            "reference (its Pallas kernel has no VJP): train with "
+            "attn_impl='xla' or 'xla_chunked', or call it under "
+            "torch.no_grad()")
     kind = _device_kind(q, k, v)
     tile = (None if (tq, tk) == tuning.DEFAULT_TUNING.flash_attention
             else (tq, tk))

@@ -1,4 +1,7 @@
-"""Launch recipes: the environment a run of the port is brought up in
-(``profile``; the twin of ``repro.launch.profile``).  Nothing here
-imports torch, so a recipe can be applied before torch initialises
-CUDA."""
+"""Launch recipes and launchers.
+
+``profile`` is the environment a run of the port is brought up in (the
+twin of ``repro.launch.profile``); it imports nothing of torch, so a
+recipe can be applied before torch initialises CUDA.  ``steps`` builds
+the train, prefill and decode steps of a model API, and ``train`` is the
+LM training launcher (``python -m repro_torch.launch.train``)."""

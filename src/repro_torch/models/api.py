@@ -1,12 +1,14 @@
 """Model API of the decoder LM: one dispatch surface, as ``repro.models.api``.
 
-``get_model(cfg)`` -> :class:`ModelAPI` with ``init``, ``forward``,
-``init_cache``, ``prefill`` and ``decode_step``, for the decoder family
-(``family`` dense, moe and vlm; JAX's ``_decoder_lm``).  The encoder-
-decoder, SSM and hybrid families (``audio``, ``ssm``, ``hybrid``) and
-``loss_fn`` (LM training) wait for ROADMAP.md Queue 1 item 7;
-``input_specs`` (JAX ``ShapeDtypeStruct`` stand-ins for the dry-run)
-has no counterpart.
+``get_model(cfg)`` -> :class:`ModelAPI` with ``init``, ``loss_fn``,
+``forward``, ``init_cache``, ``prefill`` and ``decode_step``, for the
+decoder family (``family`` dense, moe and vlm; JAX's ``_decoder_lm``).
+``loss_fn(params, batch)`` is ``transformer.lm_loss``: ``batch`` holds
+``"tokens"`` ([B, T] ids, or for the VLM float [B, T, d] stub
+embeddings) and ``"labels"`` ([B, T] ids).  The encoder-decoder, SSM
+and hybrid families (``audio``, ``ssm``, ``hybrid``) wait for
+ROADMAP.md Queue 1 item 7; ``input_specs`` (JAX ``ShapeDtypeStruct``
+stand-ins for the dry-run) has no counterpart.
 ``init`` and ``init_cache`` put their tensors on ``cuda`` unless given a
 device, and raise without a GPU.
 """
@@ -26,6 +28,7 @@ from repro_torch.models import transformer as T
 class ModelAPI:
     cfg: ModelConfig
     init: Callable          # (generator, device=None) -> params
+    loss_fn: Callable       # (params, batch) -> (loss, metrics)
     forward: Callable       # (params, inputs) -> (logits, aux)
     init_cache: Callable    # (batch, max_len, device=None) -> cache
     prefill: Callable       # (params, batch, cache) -> (logits, cache)
@@ -54,6 +57,7 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         init=init,
+        loss_fn=lambda p, batch: T.lm_loss(p, cfg, batch),
         forward=lambda p, x: T.lm_forward(p, cfg, x),
         init_cache=init_cache,
         prefill=lambda p, batch, c: T.lm_prefill(p, cfg, batch["tokens"], c),

@@ -7,31 +7,46 @@ moonshot-v1-16b-a3b, llama4-maverick-400b-a17b (moe), internvl2-26b
 
 Parameters keep the JAX layout: per-layer leaves stacked ``[L, ...]`` (as
 the JAX ``lm_init`` makes them with ``vmap``; an MoE layer's experts are
-``[L, E, d, f]``), and the layer loop indexes them, where JAX scans.
+``[L, E, d, f]``).  The layer loop, where JAX scans, unbinds each stacked
+leaf once a call (:func:`unstack_layers`): under autograd the L slices'
+gradients come back as one ``[L, ...]`` stack, where indexing the stack
+layer by layer would send back L stack-sized gradients to be added.
 ``lm_init`` fills the stacks layer by layer, so a full-width model never
 holds two copies.  Caches are stacked ``[L, B, S, Hkv, D]`` and updated
 in place.
 
-The scoring forward and the serve steps run under ``layers.f32_sums``:
-their bf16 products are summed in f32 on the card, and f32 products in
-f32 (no TF32), as in XLA, whatever PyTorch's process-wide settings.
+Training: :func:`lm_loss` is JAX's (cross-entropy plus ``aux_weight``
+times the MoE aux loss).  With ``cfg.remat`` a training forward runs
+each layer under ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``):
+the backward recomputes the layer from its input in place of keeping
+its activations.  ``cfg.unroll_layers`` has no counterpart: it unrolls
+JAX's scan for the dry-run's cost analysis, and the port's loop is a
+Python loop already.
+
+The scoring forward, the serve steps and each recomputed layer run under
+``layers.f32_sums``: their bf16 products are summed in f32 on the card,
+and f32 products in f32 (no TF32), as in XLA, whatever PyTorch's
+process-wide settings.  The training step runs its backward under it too
+(``train.train_loop.value_and_grad``).
 
 Not ported: the sequence-parallel residual stream (``seq_parallel``)
 raises ``NotImplementedError``.  JAX's ``_seq_parallel``/``_gather_seq``
 are sharding constraints, no-ops on one device, so the one-device port
-has nothing to carry over for them.  ``remat`` only matters to training.
+has nothing to carry over for them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
-from repro_torch.tree import tree_map, tree_map_with_path
+from repro_torch.tree import (leaves_with_paths, tree_leaves, tree_map,
+                              tree_map_with_path)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -44,6 +59,15 @@ def _check_supported(cfg: ModelConfig) -> None:
 def layer_params(blocks: Dict, layer: int) -> Dict:
     """Layer ``layer``'s view of the stacked block params."""
     return tree_map_with_path(lambda _path, t: t[layer], blocks)
+
+
+def unstack_layers(blocks: Dict) -> List[Dict]:
+    """Every layer's view of the stacked block params, each leaf unbound
+    once (``torch.unbind``, whose backward stacks the L gradients)."""
+    slices = {path: t.unbind(0) for path, t in leaves_with_paths(blocks)}
+    n = len(next(iter(slices.values())))
+    return [tree_map_with_path(lambda path, _: slices[path][i], blocks)
+            for i in range(n)]
 
 
 # ------------------------------------------------------------- init -----
@@ -118,18 +142,40 @@ def _block_apply(blk: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     return x + f, new_cache, aux
 
 
+def _remat_layer(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
+                 impl: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer of a training forward under ``torch.utils.checkpoint``:
+    only its input is kept, and the backward runs it again.  The layer
+    sets ``f32_sums`` itself, so the recompute sums (and routes) as the
+    first pass did whatever the caller's flags; it draws nothing random,
+    so no RNG state is stashed."""
+    def layer(x):
+        with L.f32_sums():
+            y, _, aux = _block_apply(blk, cfg, x, impl=impl)
+        return y, aux
+    return torch.utils.checkpoint.checkpoint(
+        layer, x, use_reentrant=False, preserve_rng_state=False)
+
+
 def _layers(params: Dict, cfg: ModelConfig, x: torch.Tensor,
             cache: Optional[Dict] = None, cache_pos: Optional[int] = None,
-            impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            impl: Optional[str] = None, remat: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer loop (JAX's scan), then the final norm: (x, the aux
-    losses summed over layers in layer order)."""
+    losses summed over layers in layer order).  ``remat`` checkpoints
+    each layer of a forward without a cache whose params take a
+    gradient."""
     _check_supported(cfg)
     auxs = []
-    for i in range(cfg.n_layers):
-        cache_l = None if cache is None else layer_params(cache, i)
-        x, _, aux = _block_apply(layer_params(params["blocks"], i), cfg, x,
-                                 cache=cache_l, cache_pos=cache_pos,
-                                 impl=impl)
+    remat = (remat and cache is None and torch.is_grad_enabled()
+             and any(t.requires_grad for t in tree_leaves(params)))
+    for i, blk in enumerate(unstack_layers(params["blocks"])):
+        if remat:
+            x, aux = _remat_layer(blk, cfg, x, impl)
+        else:
+            cache_l = None if cache is None else layer_params(cache, i)
+            x, _, aux = _block_apply(blk, cfg, x, cache=cache_l,
+                                     cache_pos=cache_pos, impl=impl)
         auxs.append(aux)
     return (L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps),
             torch.stack(auxs).sum())
@@ -157,11 +203,25 @@ def _unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor
 def lm_forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
                impl: Optional[str] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scoring forward: inputs [B,T] ids (or [B,T,d] stub embeddings) ->
-    (logits [B,T,V] f32, the MoE aux loss summed over layers; 0 for a
-    dense model)."""
-    x, aux = _layers(params, cfg, _embed_in(params, cfg, inputs), impl=impl)
+    """Scoring and training forward: inputs [B,T] ids (or [B,T,d] stub
+    embeddings) -> (logits [B,T,V] f32, the MoE aux loss summed over
+    layers; 0 for a dense model).  Under grad with ``cfg.remat`` each
+    layer is checkpointed."""
+    x, aux = _layers(params, cfg, _embed_in(params, cfg, inputs), impl=impl,
+                     remat=cfg.remat)
     return _unembed(params, cfg, x), aux
+
+
+def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict,
+            aux_weight: float = 0.01) -> Tuple[torch.Tensor, Dict]:
+    """batch {"tokens": [B,T] ids or [B,T,d] stub embeddings, "labels":
+    [B,T] ids} -> (loss, {"loss", "ce", "moe_aux"}): the mean
+    cross-entropy plus ``aux_weight`` times the summed aux loss, as JAX's
+    ``lm_loss``."""
+    logits, aux = lm_forward(params, cfg, batch["tokens"])
+    ce = L.softmax_cross_entropy(logits, batch["labels"])
+    loss = ce + aux_weight * aux
+    return loss, {"loss": loss, "ce": ce, "moe_aux": aux}
 
 
 # ------------------------------------------------------ serve steps -----

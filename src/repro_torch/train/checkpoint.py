@@ -11,9 +11,13 @@ The port of ``repro.train.checkpoint``, one host.  A checkpoint is
   and :func:`latest_step` only sees finished checkpoints.
 
 The format is JAX's key for key, so each package restores the other's
-checkpoints.  :class:`AsyncCheckpointer` copies the tree to host memory
-on the caller's thread, writes on a thread of its own and keeps the
-newest ``keep`` checkpoints.
+checkpoints.  A bf16 leaf is stored as JAX stores it: its raw 2-byte
+payload, which the npz holds as the void type ``|V2`` (numpy has no
+bf16), with ``"bfloat16"`` in the manifest; :func:`restore` reads it
+back by the manifest's dtype, bit for bit.  (JAX's own ``restore``
+cannot read such a leaf back.)  :class:`AsyncCheckpointer` copies the
+tree to host memory on the caller's thread, writes on a thread of its
+own and keeps the newest ``keep`` checkpoints.
 """
 from __future__ import annotations
 
@@ -33,11 +37,31 @@ def _key(path: tuple) -> str:
     return "/".join(str(p) for p in path)
 
 
-def _host(leaf) -> np.ndarray:
-    """A host copy of a leaf (a copy, so later updates cannot reach it)."""
+def _host(leaf):
+    """A host copy of a leaf (a copy, so later updates cannot reach it):
+    a CPU tensor for a tensor, else a numpy array."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy().copy()
+        return leaf.detach().to("cpu", copy=True)
     return np.array(leaf)
+
+
+def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
+    """(the array the npz stores, the manifest's dtype name)."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return (leaf.contiguous().view(torch.uint16).numpy()
+                    .view(np.dtype("V2")), "bfloat16")
+        leaf = leaf.numpy()
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _from_numpy(arr: np.ndarray, dtype: Optional[str]) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def save(ckpt_dir: str, step: int, tree: Any,
@@ -47,10 +71,10 @@ def save(ckpt_dir: str, step: int, tree: Any,
     d.mkdir(parents=True, exist_ok=True)
     arrays, meta = {}, {}
     for path, leaf in leaves_with_paths(tree):
-        arr = _host(leaf)
+        arr, dtype = _to_numpy(leaf)
         key = _key(path)
         arrays[key.replace("/", "__")] = arr
-        meta[key] = {"shape": list(arr.shape), "dtype": str(arr.dtype)}
+        meta[key] = {"shape": list(arr.shape), "dtype": dtype}
     np.savez(d / f"shards_host{host_id}.npz", **arrays)
     manifest = {"step": step, "n_hosts": 1, "leaves": meta,
                 "extra": extra or {}}
@@ -78,7 +102,8 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def restore(ckpt_dir: str, step: int, template: Any) -> Tuple[Any, Dict]:
     """(tree, extra) of checkpoint ``step``.  ``template`` gives the tree
     structure, and each leaf goes to the device of the template's leaf
-    at its path (the saved dtype is kept)."""
+    at its path (the saved dtype is kept; a ``bfloat16`` leaf comes back
+    as its bits)."""
     d = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     flat: Dict[str, np.ndarray] = {}
@@ -92,7 +117,8 @@ def restore(ckpt_dir: str, step: int, template: Any) -> Tuple[Any, Dict]:
         if key not in flat:
             raise KeyError(f"checkpoint missing leaf {key}")
         dev = tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu"
-        return torch.from_numpy(flat[key]).to(dev)
+        dtype = manifest["leaves"].get(key, {}).get("dtype")
+        return _from_numpy(flat[key], dtype).to(dev)
     return tree_map_with_path(load, template), manifest.get("extra", {})
 
 

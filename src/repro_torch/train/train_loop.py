@@ -14,7 +14,12 @@ waits for ROADMAP.md Queue 1 items 4 and 7):
 
 An ``api`` is anything with ``init(generator, device=None) -> params``
 and ``loss_fn(params, batch) -> (loss, metrics)``, with ``batch`` a dict
-of tensors whose leading axis is the batch.
+of tensors whose leading axis is the batch: PointMLP's trainer, or a
+decoder LM's ``models.api.get_model(cfg)`` with ``data.lm_data.stream``.
+
+The loss and its backward both run under ``models.layers.f32_sums``, so
+the backward's bf16 products (and a remat layer's recompute) are summed
+in f32 and its f32 products take no TF32, as the forward's are.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 
 from repro_torch.api.build import resolve_device
 from repro_torch.configs.base import TrainConfig
+from repro_torch.models.layers import f32_sums
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.tree import tree_leaves, tree_map, unflatten_like
@@ -54,10 +60,12 @@ class StragglerMonitor:
 def value_and_grad(loss_fn: Callable, params, batch):
     """((loss, metrics), grads): ``loss_fn`` on leaves that require grad,
     then ``torch.autograd.grad`` over every leaf (a leaf that the loss
-    does not reach gets zeros, as ``jax.grad`` gives)."""
+    does not reach gets zeros, as ``jax.grad`` gives), both under
+    ``f32_sums``."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    loss, metrics = loss_fn(unflatten_like(params, leaves), batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with f32_sums():
+        loss, metrics = loss_fn(unflatten_like(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return ((loss.detach(), tree_map(torch.Tensor.detach, metrics)),

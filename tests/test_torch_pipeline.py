@@ -51,8 +51,10 @@ from repro_torch.api.spec import PipelineSpec, elite_spec, lite_spec, m2_spec
 from repro_torch.convert import from_numpy_tree
 from repro_torch.core import knn as tknn
 from repro_torch.core import sampling as tsampling
+from repro_torch.data import lm_data
 from repro_torch.data.pointclouds import make_batch
 from repro_torch.kernels.tuning import DEFAULT_TUNING, KernelTuning
+from repro_torch.launch import train as lm_train
 from repro_torch.models import pointmlp as TPM
 from repro_torch.serve.batching import pad_to_batch
 from repro_torch.serve.pointcloud import PointCloudEngine
@@ -476,6 +478,13 @@ class TestSpecAndDevice:
             train_eval(tiny(m2_spec).to_model_config(), steps=1)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_batch(0, 0, 128, 2)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lm_data.synth_batch(0, 0, 2, 8, 512)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            next(lm_data.stream(0, 2, 8, 512))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lm_train.main(["--arch", "tinyllama-1.1b", "--smoke",
+                           "--steps", "1"])
 
     def test_short_lfsr_state_rejected(self, raw_params, clouds):
         pipe = build(tiny(m2_spec), from_numpy_tree(raw_params),
@@ -500,7 +509,8 @@ class TestSpecAndDevice:
             " 'repro_torch.tune.search', 'repro_torch.tune.artifact',"
             " 'repro_torch.train.optimizer', 'repro_torch.train.checkpoint',"
             " 'repro_torch.train.train_loop', 'repro_torch.train.pointmlp',"
-            " 'repro_torch.data.pointclouds')\n"
+            " 'repro_torch.data.pointclouds', 'repro_torch.data.lm_data',"
+            " 'repro_torch.launch.steps', 'repro_torch.launch.train')\n"
             "assert all(n in sys.modules for n in new), new\n"
             "print(len([n for n in sys.modules"
             " if n.startswith('repro_torch')]))\n")
