@@ -76,7 +76,19 @@ internvl2 (stub embeddings), yi-9b and minitron-8b at their smoke configs
 against the CPU.  Two MoE runs that round differently may route a
 near-tied token differently, and then its output moves by a whole
 expert: the share of choices that agree is printed, and the held run
-replays the reference run's routing (``route_tap``).  Every path is
+replays the reference run's routing (``route_tap``).  Last, the
+families on other backbones at full width and depth (bf16, random
+weights from a seed): xlstm-1.3b (48 layers, 7 mLSTM to 1 sLSTM),
+hymba-1.5b (32 layers, attention with a 1024-token window beside SSM
+heads) and whisper-tiny (4 + 4 layers over 1500 stub frames): the flash
+kernel at their three shapes (Hymba's window over 25 query and 5 KV
+heads, Whisper's non-causal encoder over 1500 keys and its causal
+decoder at 448), a cut held against the CPU, the scoring forward (4 x
+2048 tokens; Whisper 4 x 448 after 1500 frames; Hymba and Whisper on the
+flash and xla routes; xLSTM's sLSTM time loop timed alone) and
+``Engine.generate`` (B4, 64 greedy steps; Hymba's 1536-token prompt
+wraps its rolling cache), each decode step held against a forward over
+the extended sequence.  Every path is
 driven with the kernels' launch counts set to 0 just before it and read
 just after.  Every phase prints one JSON line; a
 failed check raises and the script exits non-zero.  The line before the
@@ -141,9 +153,14 @@ SOURCES = {"knn": "knn.cu", "int8_matmul": "int8_matmul.cu",
            "flash_attention": "flash_attention.cu"}
 # Rows of a kernel that the final line reports beside its main row, and
 # the launch count each reports (a count the wrapper keeps per variant;
-# flash_moonshot: the flash launches of moonshot's scoring forward).
+# flash_moonshot: the flash launches of moonshot's scoring forward;
+# flash_hymba_window, flash_whisper_*: the flash launches at that row's
+# shape over the xLSTM, Hymba and Whisper phases' main paths).
 EXTRA_ROWS = {("knn", "ball"): "knn_ball", ("knn", "seg_upsample"): "knn_k1",
-              ("flash_attention", "moonshot_fwd"): "flash_moonshot"}
+              ("flash_attention", "moonshot_fwd"): "flash_moonshot",
+              ("flash_attention", "hymba_window"): "flash_hymba_window",
+              ("flash_attention", "whisper_enc"): "flash_whisper_enc",
+              ("flash_attention", "whisper_dec"): "flash_whisper_dec"}
 # The row of each kernel that the final line reports.
 MAIN_ROW = {"int8_matmul": "stage1_transfer",
             "fused_linear": "stage1_transfer", "w8_matmul": "decode",
@@ -749,10 +766,14 @@ def mapping_chain(torch, clouds, state, device, spec):
     return out
 
 
-def profile_call(torch, fn, reps: int = 1, sections=(), split=None):
+def profile_call(torch, fn, reps: int = 1, sections=(), split=None,
+                 cpu: bool = True):
     """Run ``fn`` once to warm up, then ``reps`` times under
     torch.profiler: per call, (host wall ms, device us per kernel name,
-    device events: kernel launches and copies).  Each of ``sections``
+    device events: kernel launches and copies).  ``cpu=False`` records
+    device activity only (for a call of some 10^5 kernels, whose host op
+    events would take the profiler longer than the call).  Each of
+    ``sections``
     (module, attribute, label) is wrapped in a ``record_function`` range
     for the profiled calls, and ``split`` gets each label's device ms a
     call (the kernels launched inside it); the ranges' own rows are left
@@ -771,8 +792,8 @@ def profile_call(torch, fn, reps: int = 1, sections=(), split=None):
         saved.append((mod, attr, orig))
         setattr(mod, attr, wrapped)
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU] * cpu
+                     + [ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
@@ -2513,6 +2534,14 @@ def flash_row(torch, label, q, k, v, causal: bool, win: int,
         # where Tq == Tk
         lib_ms = timer(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True))
+    elif tq == tk:
+        # a window: SDPA with the boolean mask (True = attend) spelled out
+        pos = torch.arange(tq, device=q.device)
+        keep = pos[None, :] > pos[:, None] - win
+        if causal:
+            keep &= pos[None, :] <= pos[:, None]
+        lib_ms = timer(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=keep, enable_gqa=True))
     pairs = b * nh * attention_pairs(tq, tk, causal, win)
     nops = 4 * pairs * d
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
@@ -3835,6 +3864,441 @@ def lm_train_phases(torch, np, smi):
     return total
 
 
+# ------------------------------------------- xLSTM, Hymba and Whisper --
+
+FAMILY_ARCHS = ("xlstm-1.3b", "hymba-1.5b", "whisper-tiny")
+# Engine.generate: greedy, FAMILY_GEN decode steps at LM_BATCH; Hymba's
+# prompt overruns its 1024-slot window, so prefill wraps the rolling
+# cache; Whisper's decoder context is 448 tokens (Radford et al. 2022).
+FAMILY_GEN = 64
+FAMILY_PROMPT = {"xlstm-1.3b": 512, "hymba-1.5b": 1536, "whisper-tiny": 4}
+WHISPER_CTX = 448
+# The dtype in which each family's cut is held against the CPU; bf16 is
+# measured and printed beside.  A random-weight xLSTM amplifies a rounding
+# difference by orders of magnitude (an mLSTM head whose q.k sum is near
+# 0 flips sign through the head norm), so its bf16 logits move by 9-48%
+# of max|logit| between two roundings, in the JAX reference as here (bf16
+# against f32 of one 8-layer group at width 256: 9.3% in JAX, 9.0% in the
+# port): xLSTM is held in f32, where only the sum order differs.
+FAMILY_HELD_DTYPE = {"ssm": "float32"}
+# Decode against the forward is held in f32 for all three (the params
+# cast): in bf16 the decode path (rolling cache, recurrent step, f32
+# state) and the forward (flash, chunk scan) round apart by 2-3% of
+# max|logit| over 32-48 layers, which flips the argmax wherever the top
+# two logits are closer (Hymba: 21 of 260 ids on an H100), and xLSTM's
+# by 58%.  A generated id may differ from the f32 forward's argmax only
+# where that forward's two largest logits are closer than FAMILY_TIE_GAP
+# of max|logit| (a near tie); each such position is reported.  bf16's
+# numbers are printed beside.
+FAMILY_GEN_HELD_DTYPE = "float32"
+FAMILY_TIE_GAP = 2e-3
+# The flash rows of these families: (label, H, Hkv, T, causal, window),
+# bf16, B4, head dim 64; and the shape under which flash_shapes counts
+# each row's launches on the main paths.
+FAMILY_FLASH = (("hymba_window", 25, 5, LM_SEQ, True, 1024),
+                ("whisper_enc", 6, 6, 1500, False, 0),
+                ("whisper_dec", 6, 6, WHISPER_CTX, True, 0))
+FAMILY_FLASH_SHAPE = {"hymba_window": f"causal T{LM_SEQ} window 1024",
+                      "whisper_enc": "noncausal T1500",
+                      "whisper_dec": f"causal T{WHISPER_CTX}"}
+
+
+def family_cut(cfg):
+    """The cut held against the CPU: full width, two layers (xLSTM: one
+    group of ``slstm_every`` layers, the depth that holds an sLSTM block;
+    Whisper: two encoder and two decoder layers)."""
+    if cfg.family == "ssm":
+        return cfg.replace(n_layers=cfg.slstm_every)
+    if cfg.family == "audio":
+        return cfg.replace(n_layers=2, n_enc_layers=2)
+    return cfg.replace(n_layers=2)
+
+
+def family_flash_calls(cfg) -> int:
+    """Flash launches of one forward on the flash route: one an attention
+    layer (Whisper: encoder and decoder self-attention; its
+    cross-attention is plain, as in JAX)."""
+    return {"ssm": 0, "hybrid": cfg.n_layers,
+            "audio": cfg.n_layers + cfg.n_enc_layers}[cfg.family]
+
+
+def family_inputs(torch, np, cfg, b: int, t: int, seed: int):
+    """The forward's input on the CPU: token ids [b, t], and for Whisper
+    the batch dict with stub frames [b, enc_seq, d] (standard normal, a
+    numpy seed)."""
+    ids = torch.from_numpy(lm_tokens(np, cfg.vocab_size, b, t, seed))
+    if cfg.family != "audio":
+        return ids
+    frames = np.random.default_rng(seed + 100).standard_normal(
+        (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return {"frames": torch.from_numpy(frames), "tokens": ids}
+
+
+def to_card(x):
+    return ({k: v.cuda() for k, v in x.items()} if isinstance(x, dict)
+            else x.cuda())
+
+
+def flash_shapes(fn):
+    """Run ``fn`` with ``ops.flash_attention`` wrapped to count its calls on
+    CUDA tensors by shape: (its result, {"causal T2048 window 1024" and
+    the like: calls})."""
+    from repro_torch.kernels import ops
+    seen = {}
+    orig = ops.flash_attention
+
+    def wrapped(q, k, v, causal=True, window=0, *a, **kw):
+        if q.is_cuda:
+            key = (f"{'causal' if causal else 'noncausal'} T{q.shape[2]}"
+                   + (f" window {window}" if window else ""))
+            seen[key] = seen.get(key, 0) + 1
+        return orig(q, k, v, causal, window, *a, **kw)
+    ops.flash_attention = wrapped
+    try:
+        out = fn()
+    finally:
+        ops.flash_attention = orig
+    return out, seen
+
+
+def add_counts(total, seen):
+    for k, v in seen.items():
+        total[k] = total.get(k, 0) + v
+
+
+def family_kernel_phase(torch, smi):
+    """The flash kernel at the shapes these families give it (bf16, B4,
+    head dim 64, CUDA-graph replays beside SDPA): Hymba's causal window of
+    1024 over 25 query heads and 5 KV heads at T 2048; Whisper's encoder,
+    non-causal over 1500 frames (not a multiple of the 128-row tile), and
+    its decoder's causal self-attention at its 448-token context."""
+    from repro_torch.kernels import flash_attention as fa_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    rows = {}
+    for label, nh, nkv, t, causal, win in FAMILY_FLASH:
+        q = torch.randn(LM_BATCH, nh, t, 64, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(LM_BATCH, nkv, t, 64, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        row = flash_row(torch, label, q, k, v, causal, win, timer=graph_ms)
+        row.update(timing="CUDA-graph replays (ms and library_ms)",
+                   card=smi, events_ms=median_ms(
+                       torch, lambda: fa_mod.flash_attention_cuda(
+                           q, k, v, causal, win)))
+        rows[("flash_attention", label)] = row
+        del q, k, v
+    return emit_rows(rows)
+
+
+def family_cpu_phase(torch, np, cfg, smi):
+    """The full-width cut (:func:`family_cut`), B2 T128 (Whisper: 1500
+    frames), on the card (the flash kernel on Hymba and Whisper) against
+    the CPU (plain versions), held in FAMILY_HELD_DTYPE (the same params
+    cast) with bf16 printed beside."""
+    from repro_torch.api.build import to_device
+    from repro_torch.models.api import get_model
+    from repro_torch.tree import tree_map
+
+    cut = family_cut(cfg).replace(attn_impl="flash")
+    params = get_model(cut).init(
+        torch.Generator(device="cuda").manual_seed(SEED + 5))
+    inp = family_inputs(torch, np, cut, 2, 128, SEED + 1)
+    held = FAMILY_HELD_DTYPE.get(cut.family, cut.dtype)
+    rec, total, seen = {}, None, None
+    for dtype in dict.fromkeys((cut.dtype, held)):
+        api = get_model(cut.replace(dtype=dtype))
+        p = tree_map(lambda a: a.to(getattr(torch, dtype)) if
+                     a.is_floating_point() and a.dtype != torch.float32
+                     else a, params)
+        ((got, _), seen), launches = counted(torch, lambda: flash_shapes(
+            lambda: api.forward(p, to_card(inp))))
+        expect_launches(f"{cfg.name} cut {dtype}", launches,
+                        {"flash_attention": family_flash_calls(cut)})
+        total = launches if total is None else {
+            k: total[k] + v for k, v in launches.items()}
+        cpu_p = to_device(p, "cpu")
+        del p
+        t0 = time.perf_counter()
+        want, _ = api.forward(cpu_p, inp)
+        cpu_s = time.perf_counter() - t0
+        del cpu_p
+        got = got.cpu()
+        check(bool(torch.isfinite(got).all()),
+              f"{cfg.name} cut {dtype}: not finite")
+        err, scale = rel_err(got, want)
+        rec[dtype] = {"max_abs_err_vs_cpu": err, "max_abs_logit": scale,
+                      "top1_agree": (got.argmax(-1) == want.argmax(-1))
+                      .float().mean().item(), "cpu_seconds": cpu_s}
+    del params
+    # the 8-layer xLSTM group is deeper than the others' two: the
+    # full-depth limit
+    tol = LM_TOL_FULL if cut.n_layers > 2 else LM_TOL_2_LAYERS
+    err, scale = (rec[held][k] for k in ("max_abs_err_vs_cpu",
+                                          "max_abs_logit"))
+    check(err <= tol * scale, f"{cfg.name} cut ({held}): card vs CPU max "
+                              f"abs err {err} > {tol} * {scale}")
+    emit({"phase": "family_card_vs_cpu", "arch": cfg.name,
+          "layers": cut.n_layers, "enc_layers": cut.n_enc_layers,
+          "batch": 2, "seq": 128, "launches": total, "flash_shapes": seen,
+          "held_dtype": held, "tolerance": f"{tol} * max|logit|, in {held}",
+          **rec, "card": smi})
+    return total, seen
+
+
+def wall_ms(torch, fn, reps: int = 3) -> float:
+    """Median host wall ms of ``reps`` synchronized calls."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def timed_calls(torch, mod, attr, fn):
+    """Run ``fn`` once with ``mod.attr`` wrapped to synchronize around
+    each of its calls: (the wrapped calls' wall ms summed, ``fn``'s wall
+    ms)."""
+    orig = getattr(mod, attr)
+    spent = [0.0]
+
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        spent[0] += 1e3 * (time.perf_counter() - t0)
+        return out
+    setattr(mod, attr, wrapped)
+    try:
+        total = wall_ms(torch, fn, reps=1)
+    finally:
+        setattr(mod, attr, orig)
+    return spent[0], total
+
+
+def family_forward_phase(torch, np, params, cfg, smi):
+    """The scoring forward at full width and depth: xLSTM and Hymba on 4 x
+    2048 ids, Whisper on frames [4, 1500, 384] and 4 x 448 tokens; Hymba
+    and Whisper on the flash and the xla route (held against each other),
+    xLSTM on its one route (it has no attention).  tokens/s from the
+    median of 3 wall times, a profiled forward (xLSTM's with device
+    activity only: its sLSTM loop makes about 200k kernels), and for
+    xLSTM the sLSTM blocks' share of a forward."""
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.api import get_model
+
+    t = WHISPER_CTX if cfg.family == "audio" else LM_SEQ
+    inp = to_card(family_inputs(torch, np, cfg, LM_BATCH, t, SEED))
+    impls = ("xla",) if cfg.family == "ssm" else ("flash", "xla")
+    apis = {impl: get_model(cfg.replace(attn_impl=impl)) for impl in impls}
+    out, launches, seen, tok_s, ms = {}, {}, {}, {}, {}
+    for impl, api in apis.items():
+        ((logits, aux), seen[impl]), launches[impl] = counted(
+            torch, lambda: flash_shapes(lambda: api.forward(params, inp)))
+        check(logits.shape == (LM_BATCH, t, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()) and aux.item() == 0,
+              f"{cfg.name} forward {impl}: logits not finite [{LM_BATCH}, "
+              f"{t}, {cfg.vocab_size}]")
+        out[impl] = logits
+        del logits
+        ms[impl] = wall_ms(torch, lambda: api.forward(params, inp))
+        tok_s[impl] = LM_BATCH * t / (ms[impl] / 1e3)
+    expect_launches(f"{cfg.name} forward xla", launches["xla"], {})
+    rec = {"phase": "family_forward", "arch": cfg.name,
+           "layers": cfg.n_layers, "batch": LM_BATCH, "seq": t,
+           "dtype": cfg.dtype, "tokens_per_s": tok_s, "wall_ms": ms,
+           "card": smi}
+    main = "xla"
+    if "flash" in apis:
+        main = "flash"
+        expect_launches(f"{cfg.name} forward flash", launches["flash"],
+                        {"flash_attention": family_flash_calls(cfg)})
+        err, scale = rel_err(out["flash"], out["xla"])
+        check(err <= LM_TOL_FULL * scale,
+              f"{cfg.name} forward: flash vs xla max abs err {err} > "
+              f"{LM_TOL_FULL} * {scale}")
+        rec.update(launches=launches["flash"], flash_shapes=seen["flash"],
+                   max_abs_err_flash_vs_xla=err, max_abs_logit=scale,
+                   tolerance=f"{LM_TOL_FULL} * max|logit|",
+                   top1_agree=(out["flash"].argmax(-1) == out["xla"]
+                               .argmax(-1)).float().mean().item())
+    del out
+    prof = profile_summary(*profile_call(
+        torch, lambda: apis[main].forward(params, inp),
+        cpu=cfg.family != "ssm"),
+        flash_ms=("flash_attention_wgmma_kernel",
+                  "flash_attention_ffma_kernel"))
+    rec["profile_" + main] = prof
+    if cfg.family == "ssm":
+        # the sLSTM time loop's share of a forward: each block's call
+        # synchronized and timed inside one forward; one block alone
+        # profiled (host-paced: about 17 small kernels a step)
+        s_ms, f_ms = timed_calls(torch, X, "slstm_block_apply",
+                                 lambda: apis[main].forward(params, inp))
+        x = torch.randn(LM_BATCH, t, cfg.d_model, device="cuda").to(
+            torch.bfloat16)
+        sp = X._at(params["sblocks"], 0)
+        rec.update(slstm_ms_in_forward=s_ms, forward_ms_timed=f_ms,
+                   slstm_share_of_forward=s_ms / f_ms,
+                   profile_slstm_block=profile_summary(*profile_call(
+                       torch, lambda: X.slstm_block_apply(sp, cfg, x),
+                       cpu=False)))
+        del x
+    emit(rec)
+    return launches[main], seen[main]
+
+
+def decode_vs_forward(torch, api, params, batch, out, prompt_len: int):
+    """The last decode logits of ``out`` (an ``Engine.generate`` result)
+    against ``api.forward`` over the prompt and the generated ids, and
+    every id chosen (the prefill's pick, each decode step's, the last
+    step's argmax) against the forward's argmax where it was chosen: (max
+    abs err, max|logit|, [[row, position, top-2 gap / max|logit|] of
+    each id that differs])."""
+    ids = out["ids"]
+    tokens = torch.cat([batch["tokens"].cuda(), ids], dim=1)
+    full_in = (dict(to_card(batch), tokens=tokens)
+               if "frames" in batch else tokens)
+    full, _ = api.forward(params, full_in)
+    err, scale = rel_err(out["logits"], full[:, -1])
+    chosen = torch.cat([ids, out["logits"].argmax(-1)[:, None]], dim=1)
+    fwd = full[:, prompt_len - 1:]
+    del full
+    top2 = fwd.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]) / scale
+    ties = [[b, p, gap[b, p].item()]
+            for b, p in (chosen != fwd.argmax(-1)).nonzero().tolist()]
+    return err, scale, ties
+
+
+def family_generate_phase(torch, np, params, cfg, smi):
+    """Engine.generate, B4, greedy, FAMILY_GEN steps (prompt
+    FAMILY_PROMPT; Whisper with its 1500 stub frames, max_len 448),
+    timed, a decode step profiled.  Held in FAMILY_GEN_HELD_DTYPE (a
+    second generate with the params cast to f32): the last decode logits
+    against the forward (flash route) over the prompt and the generated
+    ids, and every generated id against that forward's argmax at its
+    position (a disagreement allowed only at a near tie, FAMILY_TIE_GAP,
+    and reported); bf16's printed beside."""
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.tree import tree_map
+
+    prompt_len = FAMILY_PROMPT[cfg.name]
+    impl = "xla" if cfg.family == "ssm" else "flash"
+    api = get_model(cfg.replace(attn_impl=impl))
+    max_len = WHISPER_CTX if cfg.family == "audio" else \
+        prompt_len + FAMILY_GEN
+    eng = Engine(api, params, max_len=max_len, batch_size=LM_BATCH)
+    batch = family_inputs(torch, np, cfg, LM_BATCH, prompt_len, SEED + 2)
+    if not isinstance(batch, dict):
+        batch = {"tokens": batch}
+    n_flash = cfg.n_enc_layers if cfg.family == "audio" else 0
+    eng.generate(batch, 2)                                   # warm-up
+    (out, seen), launches = counted(torch, lambda: flash_shapes(
+        lambda: eng.generate(batch, FAMILY_GEN)))
+    expect_launches(f"{cfg.name} generate", launches,
+                    {"flash_attention": n_flash})
+    ids = out["ids"]
+    check(ids.shape == (LM_BATCH, FAMILY_GEN) and int(ids.min()) >= 0
+          and int(ids.max()) < cfg.vocab_size,
+          f"{cfg.name} generate: bad ids")
+    checks = {cfg.dtype: decode_vs_forward(torch, api, params, batch, out,
+                                           prompt_len)}
+    held = FAMILY_GEN_HELD_DTYPE
+    if held != cfg.dtype:
+        api_h = get_model(cfg.replace(attn_impl=impl, dtype=held))
+        p_h = tree_map(lambda a: a.to(getattr(torch, held)) if
+                       a.is_floating_point() else a, params)
+        (out_h, seen_h), launches_h = counted(torch, lambda: flash_shapes(
+            lambda: Engine(api_h, p_h, max_len=max_len,
+                           batch_size=LM_BATCH).generate(batch,
+                                                         FAMILY_GEN)))
+        expect_launches(f"{cfg.name} generate {held}", launches_h,
+                        {"flash_attention": n_flash})
+        add_counts(seen, seen_h)
+        launches = {k: v + launches_h[k] for k, v in launches.items()}
+        checks[held] = decode_vs_forward(torch, api_h, p_h, batch, out_h,
+                                         prompt_len)
+        del p_h, out_h
+    err, scale, ties = checks[held]
+    check(err <= LM_TOL_FULL * scale,
+          f"{cfg.name} generate ({held}): last decode logits vs forward "
+          f"max abs err {err} > {LM_TOL_FULL} * {scale}")
+    check(all(g < FAMILY_TIE_GAP for _, _, g in ties),
+          f"{cfg.name} generate ({held}): ids differ from the forward's "
+          f"argmax away from a near tie: {ties}")
+    cache = api.init_cache(LM_BATCH, max_len)
+    _, cache = api.prefill(params, to_card(batch), cache)
+    step = {"token": ids[:, 0], "pos": prompt_len}
+    prof = profile_summary(*profile_call(
+        torch, lambda: api.decode_step(params, step, cache)))
+    del cache
+    st = out["stats"]
+    emit({"phase": "family_generate", "arch": cfg.name, "batch": LM_BATCH,
+          "prompt": prompt_len, "new_tokens": FAMILY_GEN, "max_len": max_len,
+          "launches": launches, "flash_shapes": seen,
+          "prefill_ms": 1e3 * st.prefill_s,
+          "decode_ms_per_step": 1e3 * st.decode_s / FAMILY_GEN,
+          "decode_tokens_per_s": st.decode_tok_per_s,
+          "held_dtype": held,
+          "tolerance": f"{LM_TOL_FULL} * max|logit|, in {held}; an id may "
+                       f"differ only where the forward's top-2 gap is under "
+                       f"{FAMILY_TIE_GAP} * max|logit|",
+          **{dt: {"max_abs_err_last_logits_vs_forward": e,
+                  "max_abs_logit": sc, "positions": LM_BATCH * (
+                      FAMILY_GEN + 1), "ids_differ": len(tl),
+                  "near_ties": tl} for dt, (e, sc, tl) in checks.items()},
+          "profile_decode_step": prof, "card": smi})
+    return launches, seen
+
+
+def family_phases(torch, np, smi):
+    """xlstm-1.3b, hymba-1.5b and whisper-tiny at full width and depth
+    (bf16, random weights from a seed): the flash rows at their shapes, a
+    cut against the CPU, the scoring forward and Engine.generate.
+    Returns (kernel rows, launches on main paths, flash calls by shape on
+    main paths)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import param_count
+
+    rows = family_kernel_phase(torch, smi)
+    total, shapes = {k: 0 for k in counters()}, {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        t_arch = time.perf_counter()
+        launches, seen = family_cpu_phase(torch, np, cfg, smi)
+        add_launches(total, launches)
+        add_counts(shapes, seen)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = get_model(cfg).init(
+            torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        emit({"phase": "family_init", "arch": cfg.name,
+              "params": param_count(params),
+              "seconds": time.perf_counter() - t0,
+              "memory_allocated": torch.cuda.memory_allocated()})
+        for fn in (family_forward_phase, family_generate_phase):
+            launches, seen = fn(torch, np, params, cfg, smi)
+            add_launches(total, launches)
+            add_counts(shapes, seen)
+        del params
+        torch.cuda.empty_cache()
+        emit({"phase": "family_total", "arch": arch,
+              "seconds": time.perf_counter() - t_arch,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "card": smi})
+    return rows, total, shapes
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -3960,6 +4424,12 @@ def main() -> int:
     moe_rows, got, total["flash_moonshot"] = moe_phases(torch, np, smi)
     rows.update(moe_rows)
     add_launches(total, got)
+    torch.cuda.empty_cache()
+    fam_rows, got, shapes = family_phases(torch, np, smi)
+    rows.update(fam_rows)
+    add_launches(total, got)
+    for label, shape in FAMILY_FLASH_SHAPE.items():
+        total["flash_" + label] = shapes.get(shape, 0)
 
     kernels = []
     for name in REPLACES:

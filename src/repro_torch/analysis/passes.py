@@ -58,16 +58,17 @@ def register_pass(name: str, *, scope: str
 
 def _skip_modules() -> Dict[str, str]:
     """The LM config modules outside the point-cloud pipeline space: the
-    decoder archs the port serves, and the JAX package's archs it does
-    not serve yet (``repro_torch.configs._UNPORTED``, each with its
-    ROADMAP.md item)."""
+    ten archs of ``repro_torch.configs``, each with the model module that
+    serves it."""
     from repro_torch import configs
-    out = {f"repro_torch.configs.{mod}": "LM config (decoder, served by "
-                                         "models/transformer.py)"
-           for mod in configs._ARCH_MODULES.values()}
-    out.update({f"repro_torch.configs:{arch}": f"LM config not ported yet "
-                                               f"({item})"
-                for arch, item in configs._UNPORTED.items()})
+    served_by = {"audio": "models/encdec.py", "ssm": "models/xlstm.py",
+                 "hybrid": "models/hymba.py"}
+    out = {}
+    for arch, mod in configs._ARCH_MODULES.items():
+        family = configs.get_config(arch).family
+        out[f"repro_torch.configs.{mod}"] = (
+            f"LM config ({family}, served by "
+            f"{served_by.get(family, 'models/transformer.py')})")
     return out
 
 

@@ -1,9 +1,8 @@
-"""Architecture registry of the decoder LMs the port serves.
+"""Architecture registry: ``--arch <id>`` resolution, as ``repro.configs``.
 
-``get_config``/``get_smoke_config`` resolve an arch id as
-``repro.configs`` does, for the seven decoder archs (dense, MoE, VLM);
-an arch of the JAX package on another backbone raises
-``NotImplementedError`` naming the ROADMAP.md item that brings it.
+``get_config``/``get_smoke_config`` resolve each of the JAX package's
+ten archs (decoder, MoE and VLM; the Whisper encoder-decoder; xLSTM;
+Hymba) to the same values; an unknown id raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -13,6 +12,7 @@ from typing import Dict, List
 from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES: Dict[str, str] = {
+    "whisper-tiny": "whisper_tiny",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "yi-9b": "yi_9b",
@@ -20,13 +20,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "minitron-8b": "minitron_8b",
     "llama3.2-1b": "llama3_2_1b",
     "internvl2-26b": "internvl2_26b",
-}
-
-# The JAX package's other archs and the ROADMAP.md item that ports them.
-_UNPORTED: Dict[str, str] = {
-    "whisper-tiny": "Queue 1 item 7, encoder-decoder",
-    "xlstm-1.3b": "Queue 1 item 7, xLSTM",
-    "hymba-1.5b": "Queue 1 item 7, Hymba",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 
@@ -35,10 +30,6 @@ def list_archs() -> List[str]:
 
 
 def _module(name: str):
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet; it waits for "
-            f"{_UNPORTED[name]} in ROADMAP.md")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; choose from {list_archs()}")
     return importlib.import_module(

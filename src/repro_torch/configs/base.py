@@ -1,17 +1,14 @@
-"""Model config of the decoder LMs the port serves and trains, and the training recipe.
+"""Model config of the LMs the port serves and trains, and the training recipe.
 
-A subset of ``repro.configs.base.ModelConfig``: the fields the port's
-decoder family (dense, MoE, VLM patch stub) reads or its configs set,
-with the JAX names, order and defaults; ``quant`` is the port's own
-``QuantConfig``.  ``remat`` checkpoints each layer of a training
-forward (``models/transformer.py``); ``unroll_layers`` is carried for
-the configs' sake (JAX reads it only when it lowers the dry-run, and the
-port's layer loop is unrolled already), and ``sharding_profile`` picks
-nothing on one device (``models/moe.py``).  Not ported: the
-encoder-decoder fields (``n_enc_layers``, ``enc_seq``) and the SSM and
-hybrid ones (``ssm_state``, ``conv_width``, ``slstm_every``), which come
-with their slices (ROADMAP.md, Queue 1 item 7); ``seq_parallel=True``
-raises ``NotImplementedError`` in the model.  :class:`TrainConfig` is
+``repro.configs.base.ModelConfig``'s fields, with the JAX names, order
+and defaults; ``quant`` is the port's own ``QuantConfig``.  ``remat``
+checkpoints each layer of a training forward (``models/transformer.py``);
+``unroll_layers`` is carried for the configs' sake (JAX reads it only
+when it lowers the dry-run, and the port's layer loop is unrolled
+already), and ``sharding_profile`` picks nothing on one device
+(``models/moe.py``); ``seq_parallel=True`` raises
+``NotImplementedError`` in the model.  ``ShapeConfig`` (the dry-run's
+cells) is not ported.  :class:`TrainConfig` is
 ``repro.configs.base.TrainConfig``, field for field.
 """
 from __future__ import annotations
@@ -23,8 +20,8 @@ from repro_torch.core.quant import QuantConfig
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """One architecture. The port serves the decoder family:
-    ``family`` dense, moe and vlm."""
+    """One architecture.  Families: dense | moe | vlm (the decoder),
+    audio (the Whisper encoder-decoder), ssm (xLSTM), hybrid (Hymba)."""
     name: str
     family: str
     n_layers: int
@@ -38,10 +35,18 @@ class ModelConfig:
     n_experts: int = 0
     experts_per_token: int = 0
     capacity_factor: float = 1.25
+    # --- encoder-decoder (whisper) ---
+    n_enc_layers: int = 0
+    enc_seq: int = 0                 # encoder frames (stub frontend length)
+    # --- SSM / hybrid ---
+    ssm_state: int = 0
+    conv_width: int = 4              # mamba short conv
+    slstm_every: int = 0             # xLSTM: one sLSTM block every k layers
     # --- attention ---
     sliding_window: int = 0          # 0 = full attention
     rope_theta: float = 10000.0
-    # --- frontend stubs: none | patch_stub ([B, T, d] float inputs) ---
+    # --- frontend stubs: none | audio_stub ([B, enc_seq, d] float
+    # frames) | patch_stub ([B, T, d] float inputs) ---
     frontend: str = "none"
     # --- numerics ---
     dtype: str = "bfloat16"

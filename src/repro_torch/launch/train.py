@@ -11,7 +11,8 @@ synthetic token stream (``data.lm_data``).  It runs on ``cuda`` unless
 same command again after a crash: it resumes from the latest checkpoint
 with the data stream realigned.  ``--production-mesh``, a ``--profile``
 other than ``default`` and ``--grad-compress-bits`` above 0 wait for
-the sharded part of ROADMAP.md Queue 1 item 4.
+the sharded part of ROADMAP.md Queue 1 item 4; the xLSTM, Hymba and
+Whisper archs (served, not trained yet) wait for Queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data import lm_data
 from repro_torch.models.api import get_model
-from repro_torch.train.train_loop import fit
+from repro_torch.train.train_loop import check_trainable, fit
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -64,9 +65,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
     result."""
     args = parse_args(argv)
     _refuse_sharded(args)
-    dev = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     api = get_model(cfg)
+    check_trainable(api)
+    dev = resolve_device(args.device)
     tc = TrainConfig(optimizer="adamw", lr=args.lr, lr_min=args.lr / 10,
                      steps=args.steps, batch_size=args.batch,
                      microbatch=args.microbatch,

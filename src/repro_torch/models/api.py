@@ -1,16 +1,19 @@
-"""Model API of the decoder LM: one dispatch surface, as ``repro.models.api``.
+"""Model API: one dispatch surface over all families, as ``repro.models.api``.
 
 ``get_model(cfg)`` -> :class:`ModelAPI` with ``init``, ``loss_fn``,
-``forward``, ``init_cache``, ``prefill`` and ``decode_step``, for the
-decoder family (``family`` dense, moe and vlm; JAX's ``_decoder_lm``).
-``loss_fn(params, batch)`` is ``transformer.lm_loss``: ``batch`` holds
+``forward``, ``init_cache``, ``prefill`` and ``decode_step``, for every
+family: the decoder (``family`` dense, moe and vlm; JAX's
+``_decoder_lm``), the Whisper encoder-decoder (``audio``;
+``_encdec_lm``), xLSTM (``ssm``; ``_xlstm_lm``) and Hymba (``hybrid``;
+``_hymba_lm``).  ``loss_fn(params, batch)`` -> (loss, metrics): for the
+decoder ``transformer.lm_loss``; for the others the forward's mean
+cross-entropy (metrics ``loss``, ``ce``, ``moe_aux``).  ``batch`` holds
 ``"tokens"`` ([B, T] ids, or for the VLM float [B, T, d] stub
-embeddings) and ``"labels"`` ([B, T] ids).  The encoder-decoder, SSM
-and hybrid families (``audio``, ``ssm``, ``hybrid``) wait for
-ROADMAP.md Queue 1 item 7; ``input_specs`` (JAX ``ShapeDtypeStruct``
-stand-ins for the dry-run) has no counterpart.
-``init`` and ``init_cache`` put their tensors on ``cuda`` unless given a
-device, and raise without a GPU.
+embeddings) and ``"labels"``; for ``audio`` also ``"frames"`` (float [B,
+enc_seq, d] stub embeddings), and its ``forward`` takes that dict, as
+JAX's does.  ``input_specs`` (JAX ``ShapeDtypeStruct`` stand-ins for the
+dry-run) has no counterpart.  ``init`` and ``init_cache`` put their
+tensors on ``cuda`` unless given a device, and raise without a GPU.
 """
 from __future__ import annotations
 
@@ -21,7 +24,11 @@ import torch
 
 from repro_torch.api.build import resolve_device, to_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as E
+from repro_torch.models import hymba as HY
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models import xlstm as X
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,28 +45,62 @@ class ModelAPI:
 DECODER_FAMILIES = ("dense", "moe", "vlm")
 
 
-def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family in ("audio", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} waits for Queue 1 item 7 (the LM side) "
-            f"in ROADMAP.md; the port serves {DECODER_FAMILIES}")
-    if cfg.family not in DECODER_FAMILIES:
-        raise ValueError(f"unknown family {cfg.family}")
-
+def _api(cfg: ModelConfig, init_fn: Callable, cache_fn: Callable,
+         forward: Callable, prefill: Callable, decode: Callable,
+         loss_fn: Callable = None) -> ModelAPI:
+    """A ModelAPI from a family's functions: ``init_fn(generator, cfg)``,
+    ``cache_fn(cfg, batch, max_len, device=)``, ``forward(params,
+    inputs)``, ``prefill(params, batch, cache)``, ``decode(params, token,
+    pos, cache)``; without ``loss_fn``, the forward's mean
+    cross-entropy."""
     def init(generator: torch.Generator, device=None):
         dev = resolve_device(device)
-        return to_device(T.lm_init(generator, cfg), dev)
+        return to_device(init_fn(generator, cfg), dev)
 
     def init_cache(batch: int, max_len: int, device=None):
-        return T.lm_init_cache(cfg, batch, max_len,
-                               device=resolve_device(device))
+        return cache_fn(cfg, batch, max_len, device=resolve_device(device))
+
+    def ce_loss(params, batch):
+        logits, aux = forward(params, batch if cfg.family == "audio"
+                              else batch["tokens"])
+        ce = L.softmax_cross_entropy(logits, batch["labels"])
+        return ce, {"loss": ce, "ce": ce, "moe_aux": aux}
 
     return ModelAPI(
-        cfg=cfg,
-        init=init,
-        loss_fn=lambda p, batch: T.lm_loss(p, cfg, batch),
-        forward=lambda p, x: T.lm_forward(p, cfg, x),
-        init_cache=init_cache,
-        prefill=lambda p, batch, c: T.lm_prefill(p, cfg, batch["tokens"], c),
-        decode_step=lambda p, batch, c: T.lm_decode_step(
-            p, cfg, batch["token"], batch["pos"], c))
+        cfg=cfg, init=init, loss_fn=loss_fn or ce_loss, forward=forward,
+        init_cache=init_cache, prefill=prefill,
+        decode_step=lambda p, batch, c: decode(p, batch["token"],
+                                               batch["pos"], c))
+
+
+def get_model(cfg: ModelConfig) -> ModelAPI:
+    fam = cfg.family
+    if fam in DECODER_FAMILIES:
+        return _api(
+            cfg, T.lm_init, T.lm_init_cache,
+            lambda p, x: T.lm_forward(p, cfg, x),
+            lambda p, batch, c: T.lm_prefill(p, cfg, batch["tokens"], c),
+            lambda p, tok, pos, c: T.lm_decode_step(p, cfg, tok, pos, c),
+            loss_fn=lambda p, batch: T.lm_loss(p, cfg, batch))
+    if fam == "audio":
+        return _api(
+            cfg, E.encdec_init, E.encdec_init_cache,
+            lambda p, batch: E.encdec_forward(p, cfg, batch["frames"],
+                                              batch["tokens"]),
+            lambda p, batch, c: E.encdec_prefill(p, cfg, batch["frames"],
+                                                 batch["tokens"], c),
+            lambda p, tok, pos, c: E.encdec_decode_step(p, cfg, tok, pos, c))
+    if fam == "ssm":
+        return _api(
+            cfg, X.xlstm_init, X.xlstm_init_cache,
+            lambda p, x: X.xlstm_forward(p, cfg, x),
+            lambda p, batch, c: X.xlstm_prefill(p, cfg, batch["tokens"], c),
+            lambda p, tok, pos, c: X.xlstm_decode_step(p, cfg, tok, pos, c))
+    if fam == "hybrid":
+        return _api(
+            cfg, HY.hymba_init, HY.hymba_cache_init,
+            lambda p, x: HY.hymba_forward(p, cfg, x),
+            lambda p, batch, c: HY.hymba_prefill(p, cfg, batch["tokens"], c),
+            lambda p, tok, pos, c: HY.hymba_decode_step(p, cfg, tok, pos,
+                                                        c))
+    raise ValueError(f"unknown family {fam}")

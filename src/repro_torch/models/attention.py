@@ -1,6 +1,6 @@
-"""GQA attention with KV caches (full, causal, sliding-window).
+"""GQA attention with KV caches (full, causal, sliding-window, cross).
 
-The port of ``repro.models.attention`` for the decoder LM:
+The port of ``repro.models.attention``:
 
 * full sequence, no cache (the scoring forward): ``impl="flash"`` runs
   the flash-attention CUDA kernel (``kernels.ops.flash_attention``),
@@ -12,7 +12,10 @@ The port of ``repro.models.attention`` for the decoder LM:
   (``xla_chunked`` too: JAX takes its chunked form only where no cache
   length applies), or ``_rolling_sdpa`` over a rolling sliding-window
   cache, as in JAX (the flash route is taken exactly where JAX takes it:
-  ``impl == "flash"`` and no cache).
+  ``impl == "flash"`` and no cache);
+* cross-attention over given encoder K/V (``cross_kv``, Whisper's
+  decoder): ``_sdpa_xla``, non-causal, no RoPE and no cache, on every
+  route, as in JAX.
 
 Layouts are JAX's: q [B, T, H, D], k/v and caches [B, S, Hkv, D].  The
 cache is updated in place (JAX's engine donates it), and the updated
@@ -148,14 +151,18 @@ def _rolling_sdpa(q, k, v, slot_pos: torch.Tensor, window: int,
 def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                causal: bool = True, q_offset: int = 0,
                cache: Optional[Dict] = None,
-               cache_pos: Optional[int] = None, rope: bool = True,
-               window: int = 0, impl: Optional[str] = None
+               cache_pos: Optional[int] = None,
+               cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               rope: bool = True, window: int = 0,
+               impl: Optional[str] = None
                ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (out [B,T,d], updated cache or None).
 
     cache: {"k","v": [B, S_max, Hkv, D]}, dense, or rolling when
     ``window > 0`` and ``S_max == window`` (slot = absolute_pos % window).
     cache_pos: absolute position (int) of x[:, 0] when caching.
+    cross_kv: precomputed encoder (k, v) [B, S_enc, Hkv, D] for
+    cross-attention.
     """
     impl = impl or cfg.attn_impl
     if impl not in ("xla", "xla_chunked", "flash"):
@@ -167,6 +174,12 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     if cache is not None and cache_pos is not None:
         q_offset = cache_pos          # absolute positions for RoPE/masks
     q = _split_heads(L.dense_apply(p["wq"], x, quant), h)
+
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = _sdpa_xla(q, k, v, causal=False, window=0, q_offset=0)
+        return L.dense_apply(p["wo"], out.reshape(b, t, -1), quant), None
+
     k = _split_heads(L.dense_apply(p["wk"], x, quant), cfg.n_kv_heads)
     v = _split_heads(L.dense_apply(p["wv"], x, quant), cfg.n_kv_heads)
     if rope:

@@ -1,0 +1,229 @@
+"""Whisper-style encoder-decoder, arch ``whisper-tiny``
+(``repro.models.encdec``'s port).
+
+The conv audio frontend is a stub, as in JAX: ``forward`` and
+``prefill`` take precomputed frame embeddings ``[B, enc_seq, d_model]``
+(what the two-conv mel frontend would produce).  The frontend itself,
+``audio_frontend_{init,apply}`` (two k = 3 convs, the second at stride
+2, tanh-GELU), is ported but off the main path, as in JAX.
+
+Encoder: bidirectional MHA (no RoPE; on the flash route the non-causal
+flash kernel) + GELU MLP, sinusoidal positions, pre-LayerNorm.
+Decoder: causal self-attention with a dense KV cache (flash on the
+flash route without a cache) + cross-attention over the encoder output;
+the cross K/V are computed once at prefill and carried in the cache.
+The unembedding is tied to the token table (f32).  Params are stacked
+``[L, ...]`` and the self-attention cache is updated in place.
+``cfg.remat`` is not read: the family is served, not trained.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.tree import tree_map
+
+
+def _inv_timescales(channels: int, device=None) -> torch.Tensor:
+    log_timescale = math.log(10000.0) / (channels // 2 - 1)
+    i = torch.arange(channels // 2, dtype=torch.float32, device=device)
+    return torch.exp(i * i.new_full((), -log_timescale))
+
+
+def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
+    """Whisper's sinusoidal position embedding [length, channels], f32."""
+    inv = _inv_timescales(channels, device)
+    t = torch.arange(length, dtype=torch.float32, device=device)[:, None] \
+        * inv[None]
+    return torch.cat([torch.sin(t), torch.cos(t)], dim=1)
+
+
+def sinusoid_at(pos: int, channels: int, device=None) -> torch.Tensor:
+    """The sinusoid row [channels] of one absolute position."""
+    inv = _inv_timescales(channels, device)
+    t = inv.new_full((), float(pos)) * inv
+    return torch.cat([torch.sin(t), torch.cos(t)])
+
+
+def _mlp_init(generator: torch.Generator, d: int, d_ff: int, dt) -> Dict:
+    return {"fc1": L.dense_init(generator, d, d_ff, dtype=dt),
+            "fc2": L.dense_init(generator, d_ff, d, dtype=dt)}
+
+
+def _mlp_apply(p: Dict, x: torch.Tensor, quant=None) -> torch.Tensor:
+    return L.dense_apply(p["fc2"], L.gelu(L.dense_apply(p["fc1"], x, quant)),
+                         quant)
+
+
+# ---------------------------------------------------------- frontend ----
+
+def audio_frontend_init(generator: torch.Generator, cfg: ModelConfig,
+                        n_mels: int = 80) -> Dict:
+    dt = A.torch_dtype(cfg)
+    return {"conv1": L.conv1d_init(generator, n_mels, cfg.d_model, ksize=3,
+                                   dtype=dt),
+            "conv2": L.conv1d_init(generator, cfg.d_model, cfg.d_model,
+                                   ksize=3, dtype=dt)}
+
+
+def audio_frontend_apply(p: Dict, mel: torch.Tensor) -> torch.Tensor:
+    """mel [B, T_frames, n_mels] -> [B, ceil(T_frames / 2), d_model]."""
+    x = L.gelu(L.conv1d_apply(p["conv1"], mel))
+    return L.gelu(L.conv1d_apply(p["conv2"], x, stride=2))
+
+
+# ------------------------------------------------------------- init -----
+
+def _enc_block_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
+    dt, dev = A.torch_dtype(cfg), generator.device
+    return {"ln1": L.layernorm_init(cfg.d_model, dt, dev),
+            "attn": A.attn_init(generator, cfg),
+            "ln2": L.layernorm_init(cfg.d_model, dt, dev),
+            "mlp": _mlp_init(generator, cfg.d_model, cfg.d_ff, dt)}
+
+
+def _dec_block_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
+    dt, dev = A.torch_dtype(cfg), generator.device
+    return {"ln1": L.layernorm_init(cfg.d_model, dt, dev),
+            "self_attn": A.attn_init(generator, cfg),
+            "ln_x": L.layernorm_init(cfg.d_model, dt, dev),
+            "cross_attn": A.attn_init(generator, cfg),
+            "ln2": L.layernorm_init(cfg.d_model, dt, dev),
+            "mlp": _mlp_init(generator, cfg.d_model, cfg.d_ff, dt)}
+
+
+def encdec_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
+    """Random params on the generator's device, in ``cfg.dtype``."""
+    dt, dev = A.torch_dtype(cfg), generator.device
+    return {
+        "enc_blocks": T.stack_inits(lambda: _enc_block_init(generator, cfg),
+                                    cfg.n_enc_layers),
+        "enc_ln": L.layernorm_init(cfg.d_model, dt, dev),
+        "tok_embed": L.embedding_init(generator, cfg.vocab_size,
+                                      cfg.d_model, dt),
+        "dec_blocks": T.stack_inits(lambda: _dec_block_init(generator, cfg),
+                                    cfg.n_layers),
+        "dec_ln": L.layernorm_init(cfg.d_model, dt, dev),
+    }
+
+
+# ------------------------------------------------------------ apply -----
+
+def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """frames [B, S_enc, d] (stub embeddings) -> the encoder states."""
+    x = frames.to(A.torch_dtype(cfg))
+    x = x + sinusoids(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+    for i in range(cfg.n_enc_layers):
+        blk = T.layer_params(params["enc_blocks"], i)
+        h = L.layernorm_apply(blk["ln1"], x, cfg.norm_eps)
+        a, _ = A.attn_apply(blk["attn"], cfg, h, causal=False, rope=False)
+        x = x + a
+        h = L.layernorm_apply(blk["ln2"], x, cfg.norm_eps)
+        x = x + _mlp_apply(blk["mlp"], h)
+    return L.layernorm_apply(params["enc_ln"], x, cfg.norm_eps)
+
+
+def _dec_block(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
+               enc_out: Optional[torch.Tensor], *,
+               cache: Optional[Dict] = None, cache_pos: Optional[int] = None,
+               cross_kv=None) -> Tuple[torch.Tensor, tuple]:
+    """-> (x, the cross (k, v): computed from ``enc_out`` unless given)."""
+    quant = cfg.quant if cfg.quant.enabled else None
+    h = L.layernorm_apply(blk["ln1"], x, cfg.norm_eps)
+    a, _ = A.attn_apply(blk["self_attn"], cfg, h, causal=True, rope=False,
+                        cache=cache, cache_pos=cache_pos)
+    x = x + a
+    h = L.layernorm_apply(blk["ln_x"], x, cfg.norm_eps)
+    if cross_kv is None:
+        ca = blk["cross_attn"]
+        cross_kv = tuple(
+            A._split_heads(L.dense_apply(ca[w], enc_out, quant),
+                           cfg.n_kv_heads) for w in ("wk", "wv"))
+    c, _ = A.attn_apply(blk["cross_attn"], cfg, h, cross_kv=cross_kv)
+    x = x + c
+    h = L.layernorm_apply(blk["ln2"], x, cfg.norm_eps)
+    return x + _mlp_apply(blk["mlp"], h, quant), cross_kv
+
+
+def _embed_tokens(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
+                  ) -> torch.Tensor:
+    x = L.embedding_apply(params["tok_embed"], tokens)
+    return x + sinusoids(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+
+
+@L.f32_sums()
+def encdec_forward(params: Dict, cfg: ModelConfig, frames: torch.Tensor,
+                   tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(frames [B,S_enc,d], tokens [B,T]) -> (logits [B,T,V] f32, a zero
+    aux loss).  On ``attn_impl="flash"`` the flash kernel runs once an
+    encoder layer (non-causal) and once a decoder layer (causal
+    self-attention)."""
+    enc_out = encode(params, cfg, frames)
+    x = _embed_tokens(params, cfg, tokens)
+    for i in range(cfg.n_layers):
+        x, _ = _dec_block(T.layer_params(params["dec_blocks"], i), cfg, x,
+                          enc_out)
+    x = L.layernorm_apply(params["dec_ln"], x, cfg.norm_eps)
+    return (L.unembed_apply(params["tok_embed"], x),
+            x.new_zeros((), dtype=torch.float32))
+
+
+def encdec_init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      device=None) -> Dict:
+    """``self``: the decoder's dense caches [L, B, max_len, Hkv, D];
+    ``cross_k``/``cross_v``: [L, B, enc_seq, Hkv, D], filled at
+    prefill."""
+    one = A.init_cache(cfg, batch, max_len, device=device)
+    shape = (cfg.n_layers, batch, cfg.enc_seq, cfg.n_kv_heads,
+             cfg.kv_head_dim)
+    dt = A.torch_dtype(cfg)
+    return {"self": tree_map(lambda a: a.expand((cfg.n_layers,) + a.shape)
+                             .clone(), one),
+            "cross_k": torch.zeros(shape, dtype=dt, device=device),
+            "cross_v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+@L.f32_sums()
+def encdec_prefill(params: Dict, cfg: ModelConfig, frames: torch.Tensor,
+                   tokens: torch.Tensor, cache: Dict
+                   ) -> Tuple[torch.Tensor, Dict]:
+    """Encode, run the decoder over the prompt writing its self cache,
+    and carry each layer's cross K/V -> (last-position logits [B, V],
+    the cache; its cross K/V as long as the frames)."""
+    enc_out = encode(params, cfg, frames)
+    x = _embed_tokens(params, cfg, tokens)
+    cks, cvs = [], []
+    for i in range(cfg.n_layers):
+        x, (ck, cv) = _dec_block(T.layer_params(params["dec_blocks"], i),
+                                 cfg, x, enc_out,
+                                 cache=T.layer_params(cache["self"], i),
+                                 cache_pos=0)
+        cks.append(ck)
+        cvs.append(cv)
+    x = L.layernorm_apply(params["dec_ln"], x, cfg.norm_eps)
+    logits = L.unembed_apply(params["tok_embed"], x[:, -1:])[:, 0]
+    return logits, {"self": cache["self"], "cross_k": torch.stack(cks),
+                    "cross_v": torch.stack(cvs)}
+
+
+@L.f32_sums()
+def encdec_decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
+                       pos: int, cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    pos = int(pos)
+    x = L.embedding_apply(params["tok_embed"], token[:, None])
+    x = x + sinusoid_at(pos, cfg.d_model, x.device).to(x.dtype)[None, None]
+    for i in range(cfg.n_layers):
+        x, _ = _dec_block(T.layer_params(params["dec_blocks"], i), cfg, x,
+                          None, cache=T.layer_params(cache["self"], i),
+                          cache_pos=pos,
+                          cross_kv=(cache["cross_k"][i],
+                                    cache["cross_v"][i]))
+    x = L.layernorm_apply(params["dec_ln"], x, cfg.norm_eps)
+    return L.unembed_apply(params["tok_embed"], x)[:, 0], cache

@@ -1,7 +1,9 @@
 """Layers over plain parameter dicts (the JAX package's layout).
 
 PointMLP's pointwise layers (with the QAT fake-quant matmul and the
-training loss), and the decoder LM's norms, embeddings, RoPE and SwiGLU.
+training loss); the LMs' norms (RMSNorm, and Whisper's LayerNorm),
+embeddings, RoPE, SwiGLU and tanh-GELU; and the k > 1 conv1d of
+Whisper's audio frontend.
 
 Matmul weights are ``[d_in, d_out]`` under ``"w"``; a weight may have
 been replaced by an int8 export dict ``{"q", "scale"}``, and the apply
@@ -38,12 +40,16 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
 
 
 def conv1d_init(generator: torch.Generator, c_in: int, c_out: int,
-                bias: bool = True, bn: bool = False) -> Dict:
-    """A pointwise conv1d (PointMLP's only kind): weight [c_in, c_out],
-    N(0, 1/c_in) like ``repro.models.layers.conv1d_init`` with ksize=1."""
-    p = {"w": _normal(generator, (c_in, c_out), 1.0 / math.sqrt(c_in))}
+                ksize: int = 1, bias: bool = True, bn: bool = False,
+                dtype=torch.float32) -> Dict:
+    """A conv1d, N(0, 1/(c_in * ksize)) like ``repro.models.layers.
+    conv1d_init``: weight [c_in, c_out] when pointwise (PointMLP's
+    layers), else [ksize, c_in, c_out] (Whisper's frontend)."""
+    shape = (c_in, c_out) if ksize == 1 else (ksize, c_in, c_out)
+    p = {"w": _normal(generator, shape,
+                      1.0 / math.sqrt(c_in * ksize)).to(dtype)}
     if bias:
-        p["b"] = torch.zeros(c_out, device=generator.device)
+        p["b"] = torch.zeros(c_out, dtype=dtype, device=generator.device)
     if bn:
         p["bn"] = batchnorm_init(c_out, generator.device)
     return p
@@ -95,15 +101,28 @@ def dense_apply(p: Dict, x: torch.Tensor,
     return y
 
 
-def conv1d_apply(p: Dict, x: torch.Tensor,
+def conv1d_apply(p: Dict, x: torch.Tensor, stride: int = 1,
                  quant: Optional[QuantConfig] = None,
                  bn_eps: float = 1e-5) -> torch.Tensor:
-    """Pointwise conv: x [..., C_in] -> [..., C_out]; an unfused BN runs
+    """x [..., T, C_in] -> [..., T', C_out].  Pointwise: the (possibly
+    int8) product, every ``stride``-th row kept.  ksize > 1 (x [T, C_in]
+    or [B, T, C_in]): XLA's ``padding="SAME"``, which pads ``pad // 2``
+    before and the rest after (uneven at stride 2; ``F.conv1d``'s own
+    padding is even), x cast to the weight's dtype.  An unfused BN runs
     in inference mode after the conv."""
     w = p["w"]
-    if not isinstance(w, dict) and w.ndim != 2:
-        raise NotImplementedError("only pointwise (ksize=1) conv1d is ported")
-    y = _matmul(x, w, quant)
+    if isinstance(w, dict) or w.ndim == 2:
+        y = _matmul(x, w, quant)
+        if stride > 1:
+            y = y[..., ::stride, :]
+    else:
+        lhs = (x[None] if x.ndim == 2 else x).to(w.dtype).transpose(1, 2)
+        ksize, t = w.shape[0], lhs.shape[-1]
+        pad = max((-(-t // stride) - 1) * stride + ksize - t, 0)
+        lhs = F.pad(lhs, (pad // 2, pad - pad // 2))
+        y = F.conv1d(lhs, w.permute(2, 1, 0), stride=stride).transpose(1, 2)
+        if x.ndim == 2:
+            y = y[0]
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     if "bn" in p:
@@ -127,6 +146,22 @@ def rmsnorm_apply(p: Dict, x: torch.Tensor, eps: float = 1e-5
     x32 = x.float()
     inv = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
     return (x32 * inv).to(x.dtype) * p["g"].to(x.dtype)
+
+
+def layernorm_init(d: int, dtype=torch.float32, device=None) -> Dict:
+    return {"g": torch.ones(d, dtype=dtype, device=device),
+            "b": torch.zeros(d, dtype=dtype, device=device)}
+
+
+def layernorm_apply(p: Dict, x: torch.Tensor, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    """f32 mean, population variance (the mean of squared deviations) and
+    rsqrt, the normalized x cast to x.dtype, then the affine in x.dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    c = x32 - mu
+    y = c * torch.rsqrt((c * c).mean(dim=-1, keepdim=True) + eps)
+    return y.to(x.dtype) * p["g"].to(x.dtype) + p["b"].to(x.dtype)
 
 
 def embedding_init(generator: torch.Generator, vocab: int, d: int,
@@ -173,6 +208,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         return F.silu(x)
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (``F.gelu``'s
+    default is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor

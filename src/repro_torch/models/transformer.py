@@ -36,7 +36,7 @@ has nothing to carry over for them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -87,17 +87,16 @@ def _block_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
     return blk
 
 
-def _stacked_blocks(generator: torch.Generator, cfg: ModelConfig) -> Dict:
-    """``cfg.n_layers`` block inits stacked leaf by leaf into [L, ...],
-    each layer copied into place as it is drawn."""
-    first = _block_init(generator, cfg)
-    stacks = tree_map(lambda t: t.new_empty((cfg.n_layers,) + t.shape),
-                      first)
+def stack_inits(make: Callable[[], Dict], n: int) -> Dict:
+    """``n`` draws of ``make()`` stacked leaf by leaf into [n, ...], each
+    copied into place as it is drawn (so a full-width model never holds
+    two copies)."""
+    first = make()
+    stacks = tree_map(lambda t: t.new_empty((n,) + t.shape), first)
     tree_map(lambda s, t: s[0].copy_(t), stacks, first)
     del first
-    for i in range(1, cfg.n_layers):
-        tree_map(lambda s, t: s[i].copy_(t), stacks,
-                 _block_init(generator, cfg))
+    for i in range(1, n):
+        tree_map(lambda s, t: s[i].copy_(t), stacks, make())
     return stacks
 
 
@@ -109,7 +108,8 @@ def lm_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
     params = {
         "embed": L.embedding_init(generator, cfg.vocab_size, cfg.d_model,
                                   dt),
-        "blocks": _stacked_blocks(generator, cfg),
+        "blocks": stack_inits(lambda: _block_init(generator, cfg),
+                              cfg.n_layers),
         "ln_f": L.rmsnorm_init(cfg.d_model, dt, generator.device),
     }
     if not cfg.tie_embeddings:

@@ -19,6 +19,13 @@ from repro_torch.api.build import resolve_device
 from repro_torch.models.api import ModelAPI
 
 
+def holds_positions(cfg) -> bool:
+    """Whether the model's cache holds one slot per position (a dense KV
+    cache), so that ``max_len`` bounds a generation: not xLSTM's O(1)
+    state (``family`` ssm), not a rolling window cache."""
+    return cfg.family != "ssm" and cfg.sliding_window == 0
+
+
 @dataclasses.dataclass
 class ServeStats:
     prefill_s: float
@@ -57,27 +64,30 @@ class Engine:
 
     def generate(self, batch: Dict[str, torch.Tensor], n_tokens: int
                  ) -> Dict[str, object]:
-        """batch: {"tokens": [B, S] ids, or [B, S, d] float stub
-        embeddings (the VLM patch stub; decode feeds ids)}.  Returns the
+        """batch: the prefill inputs, passed whole to ``api.prefill`` (as
+        JAX's engine does): {"tokens": [B, S] ids, or [B, S, d] float
+        stub embeddings (the VLM patch stub; decode feeds ids)}, and for
+        the encoder-decoder "frames" [B, enc_seq, d].  Returns the
         generated ids [B, n_tokens], the last decode step's logits [B, V]
         and stats.
 
-        The dense cache holds ``max_len`` positions; a prompt plus
-        ``n_tokens`` decode steps that do not fit raise ``ValueError``
-        (JAX would clamp the cache writes silently).
+        Where the cache holds positions (a dense KV cache of ``max_len``),
+        a prompt plus ``n_tokens`` decode steps that do not fit raise
+        ``ValueError`` (JAX would clamp the cache writes silently).  A
+        rolling window cache and xLSTM's recurrent state hold no
+        positions, and generate past ``max_len``, as in JAX.
         """
-        tokens = batch["tokens"].to(self.device)
-        b, prompt_len = tokens.shape[:2]
-        cfg = self.api.cfg
-        if cfg.sliding_window == 0 and prompt_len + n_tokens > self.max_len:
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        b, prompt_len = batch["tokens"].shape[:2]
+        if holds_positions(self.api.cfg) and \
+                prompt_len + n_tokens > self.max_len:
             raise ValueError(f"a prompt of {prompt_len} and {n_tokens} decode "
                              f"steps need a cache of {prompt_len + n_tokens} "
                              f"positions; max_len is {self.max_len}")
         cache = self.api.init_cache(b, self.max_len, self.device)
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self.api.prefill(self.params, {"tokens": tokens},
-                                         cache)
+        logits, cache = self.api.prefill(self.params, batch, cache)
         self._sync()
         t_prefill = time.perf_counter() - t0
 

@@ -106,17 +106,16 @@ def port(tree):
 
 class TestConfigs:
     def test_fields_mirror_jax(self):
-        """The port's fields are JAX fields, in JAX's order and with its
-        defaults; the JAX fields it leaves out are the encoder-decoder
-        and SSM ones, which no decoder code reads."""
-        jf = {f.name: f.default for f in dataclasses.fields(JaxModelConfig)}
+        """The port's fields are JAX's, in JAX's order and with its
+        defaults (the encoder-decoder and SSM ones included); ``quant``
+        is the port's own QuantConfig."""
+        jf = [(f.name, f.default) for f in dataclasses.fields(JaxModelConfig)
+              if f.name != "quant"]
         tf = [(f.name, f.default) for f in dataclasses.fields(ModelConfig)
               if f.name != "quant"]
-        assert tf == [(n, d) for n, d in jf.items()
-                      if n in dict(tf)]
-        assert set(jf) - {n for n, _ in tf} == {
-            "quant", "n_enc_layers", "enc_seq", "ssm_state", "conv_width",
-            "slstm_every"}
+        assert tf == jf
+        assert [f.name for f in dataclasses.fields(ModelConfig)] == [
+            f.name for f in dataclasses.fields(JaxModelConfig)]
         q = ModelConfig.__dataclass_fields__["quant"].default
         assert (q.w_bits, q.a_bits, q.enabled) == (32, 32, False)
 
@@ -129,9 +128,8 @@ class TestConfigs:
                 j_fn(arch))
             tc.pop("quant")
             assert tc == {n: jc[n] for n in tc}
-        assert list_archs() == [
-            "moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b", "yi-9b",
-            "tinyllama-1.1b", "minitron-8b", "llama3.2-1b", "internvl2-26b"]
+        from repro.configs import list_archs as jax_list_archs
+        assert list_archs() == jax_list_archs()
 
     def test_tinyllama_full_shape(self):
         cfg = get_config("tinyllama-1.1b")
@@ -141,13 +139,21 @@ class TestConfigs:
         assert get_config("llama3.2-1b").tie_embeddings
 
     def test_unported_and_unknown_archs(self):
-        for arch, part in (("whisper-tiny", "encoder-decoder"),
-                           ("xlstm-1.3b", "xLSTM"), ("hymba-1.5b", "Hymba")):
-            with pytest.raises(NotImplementedError,
-                               match=f"Queue 1 item 7, {part}.*ROADMAP"):
-                get_config(arch)
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                get_smoke_config(arch)
+        """Every one of JAX's ten archs resolves, full and smoke, to JAX's
+        values (the shape fields ``tests/test_models.py`` pins among
+        them); an unknown arch raises ``KeyError``."""
+        from repro.configs import get_config as jax_get_config
+        shape = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+                 "vocab_size")
+        for arch in list_archs():
+            for t_fn, j_fn in ((get_config, jax_get_config),
+                               (get_smoke_config, jax_smoke)):
+                tc = dataclasses.asdict(t_fn(arch))
+                jc = dataclasses.asdict(j_fn(arch))
+                assert [tc[f] for f in shape] == [jc[f] for f in shape]
+                tc.pop("quant"), jc.pop("quant")
+                assert tc == jc, arch
+        assert len(list_archs()) == 10
         with pytest.raises(KeyError, match="tinyllama"):
             get_config("gpt-5")
 
@@ -416,12 +422,24 @@ class TestRejections:
             TT.lm_forward(tp, tcfg.replace(seq_parallel=True), x)
         with pytest.raises(NotImplementedError, match="seq_parallel"):
             TT.lm_init(torch.Generator(), tcfg.replace(seq_parallel=True))
-        for family in ("ssm", "audio", "hybrid"):
+        # the three families now serve; their training waits (trainer
+        # refusal, before any step)
+        from repro_torch.launch import train as lm_train
+        from repro_torch.train.train_loop import build_accumulating_step
+        from repro_torch.configs.base import TrainConfig
+        for arch in ("xlstm-1.3b", "hymba-1.5b", "whisper-tiny"):
+            api = get_model(get_smoke_config(arch))
+            assert api.cfg.family in ("ssm", "hybrid", "audio")
             with pytest.raises(NotImplementedError,
-                               match="Queue 1 item 7.*ROADMAP"):
-                get_model(tcfg.replace(family=family))
-        with pytest.raises(NotImplementedError, match="xLSTM.*ROADMAP"):
-            get_config("xlstm-1.3b")
+                               match="Queue 1 item 7, training of the xLSTM, "
+                                     "Hymba and enc-dec families.*ROADMAP"):
+                build_accumulating_step(api, TrainConfig())
+            with pytest.raises(NotImplementedError,
+                               match="Queue 1 item 7, training"):
+                lm_train.main(["--arch", arch, "--smoke", "--steps", "1",
+                               "--device", "cpu"])
+        with pytest.raises(ValueError, match="unknown family"):
+            get_model(tcfg.replace(family="pointcloud"))
         with pytest.raises(ValueError, match="unknown attn_impl"):
             TT.lm_forward(tp, tcfg, x, impl="pallas")
 
@@ -443,6 +461,11 @@ class TestRejections:
     def test_lm_modules_import_neither_jax_nor_repro(self):
         src = pathlib.Path(__file__).resolve().parents[1] / "src"
         mods = ["repro_torch.configs", "repro_torch.configs.tinyllama_1_1b",
+                "repro_torch.configs.xlstm_1_3b",
+                "repro_torch.configs.hymba_1_5b",
+                "repro_torch.configs.whisper_tiny",
+                "repro_torch.models.linear_scan", "repro_torch.models.xlstm",
+                "repro_torch.models.hymba", "repro_torch.models.encdec",
                 "repro_torch.configs.llama3_2_1b",
                 "repro_torch.configs.moonshot_v1_16b_a3b",
                 "repro_torch.configs.llama4_maverick_400b_a17b",

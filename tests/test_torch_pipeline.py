@@ -48,6 +48,7 @@ from repro.models import pointmlp as JPM
 from repro_torch.api import plan as tplan
 from repro_torch.api.build import build
 from repro_torch.api.spec import PipelineSpec, elite_spec, lite_spec, m2_spec
+from repro_torch.configs import get_smoke_config
 from repro_torch.convert import from_numpy_tree
 from repro_torch.core import knn as tknn
 from repro_torch.core import sampling as tsampling
@@ -56,7 +57,9 @@ from repro_torch.data.pointclouds import make_batch
 from repro_torch.kernels.tuning import DEFAULT_TUNING, KernelTuning
 from repro_torch.launch import train as lm_train
 from repro_torch.models import pointmlp as TPM
+from repro_torch.models.api import get_model
 from repro_torch.serve.batching import pad_to_batch
+from repro_torch.serve.engine import Engine as LMEngine
 from repro_torch.serve.pointcloud import PointCloudEngine
 from repro_torch.train.pointmlp import train_eval
 from test_torch_kernels import assert_knn_match, sqdist64
@@ -485,6 +488,14 @@ class TestSpecAndDevice:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             lm_train.main(["--arch", "tinyllama-1.1b", "--smoke",
                            "--steps", "1"])
+        for arch in ("xlstm-1.3b", "hymba-1.5b", "whisper-tiny"):
+            api = get_model(get_smoke_config(arch))
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                api.init(torch.Generator().manual_seed(0))
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                api.init_cache(1, 8)
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                LMEngine(api, {}, max_len=8, batch_size=1)
 
     def test_short_lfsr_state_rejected(self, raw_params, clouds):
         pipe = build(tiny(m2_spec), from_numpy_tree(raw_params),
@@ -510,7 +521,12 @@ class TestSpecAndDevice:
             " 'repro_torch.train.optimizer', 'repro_torch.train.checkpoint',"
             " 'repro_torch.train.train_loop', 'repro_torch.train.pointmlp',"
             " 'repro_torch.data.pointclouds', 'repro_torch.data.lm_data',"
-            " 'repro_torch.launch.steps', 'repro_torch.launch.train')\n"
+            " 'repro_torch.launch.steps', 'repro_torch.launch.train',"
+            " 'repro_torch.models.linear_scan', 'repro_torch.models.xlstm',"
+            " 'repro_torch.models.hymba', 'repro_torch.models.encdec',"
+            " 'repro_torch.configs.xlstm_1_3b',"
+            " 'repro_torch.configs.hymba_1_5b',"
+            " 'repro_torch.configs.whisper_tiny')\n"
             "assert all(n in sys.modules for n in new), new\n"
             "print(len([n for n in sys.modules"
             " if n.startswith('repro_torch')]))\n")
