@@ -767,10 +767,11 @@ def mapping_chain(torch, clouds, state, device, spec):
 
 
 def profile_call(torch, fn, reps: int = 1, sections=(), split=None,
-                 cpu: bool = True):
-    """Run ``fn`` once to warm up, then ``reps`` times under
-    torch.profiler: per call, (host wall ms, device us per kernel name,
-    device events: kernel launches and copies).  ``cpu=False`` records
+                 cpu: bool = True, warmup: bool = True):
+    """Run ``fn`` once to warm up (unless ``warmup`` is false: the caller
+    has run it already), then ``reps`` times under torch.profiler: per
+    call, (host wall ms, device us per kernel name, device events: kernel
+    launches and copies).  ``cpu=False`` records
     device activity only (for a call of some 10^5 kernels, whose host op
     events would take the profiler longer than the call).  Each of
     ``sections``
@@ -780,7 +781,8 @@ def profile_call(torch, fn, reps: int = 1, sections=(), split=None,
     out of the device total."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     saved = []
     for mod, attr, label in sections:
@@ -3374,27 +3376,62 @@ class deterministic:
         return False
 
 
-def grads_close(name, card, cpu, tol=LM_GRAD_TOL):
-    """Hold each gradient leaf of ``card`` to ``cpu``: max error within
-    ``tol`` of the leaf's max|g|.  Returns the worst leaf's error as a
-    fraction of its max|g| and the tree's relative L2 error."""
+def grad_stats(card, cpu):
+    """Each gradient leaf of ``card`` against ``cpu`` (the reference; the
+    sums run on its device): the worst leaf's max error as a fraction of
+    its max|g| (inf where a zero leaf differs), where it is, and the
+    tree's relative L2 error."""
     from repro_torch.tree import leaves_with_paths
     gc, gh = dict(leaves_with_paths(card)), dict(leaves_with_paths(cpu))
     worst, worst_at, err2, norm2 = 0.0, None, 0.0, 0.0
     for path, h in gh.items():
         h = h.float()
-        c = gc[path].float().cpu()
+        c = gc[path].float().to(h.device)
         scale = float(h.abs().max())
         err = float((c - h).abs().max())
-        check(err <= tol * scale, f"{name}: gradient of {path} differs by "
-                                  f"{err} > {tol} * {scale}")
-        if scale and err / scale > worst:
-            worst, worst_at = err / scale, "/".join(map(str, path))
+        frac = err / scale if scale else (math.inf if err else 0.0)
+        if frac > worst or worst_at is None:
+            worst, worst_at = frac, "/".join(map(str, path))
         err2 += float(((c - h).double() ** 2).sum())
         norm2 += float((h.double() ** 2).sum())
     return {"grad_leaf_worst_frac_of_max": worst, "grad_leaf_worst_at":
-            worst_at, "grad_tree_rel_l2": (err2 / norm2) ** 0.5,
-            "tolerance": f"{tol} of each leaf's max|g|"}
+            worst_at, "grad_tree_rel_l2": (err2 / norm2) ** 0.5}
+
+
+def grads_close(name, card, cpu, tol=LM_GRAD_TOL):
+    """Hold each gradient leaf of ``card`` to ``cpu``: max error within
+    ``tol`` of the leaf's max|g|.  Returns :func:`grad_stats`."""
+    stats = grad_stats(card, cpu)
+    check(stats["grad_leaf_worst_frac_of_max"] <= tol,
+          f"{name}: gradient of {stats['grad_leaf_worst_at']} differs by "
+          f"{stats['grad_leaf_worst_frac_of_max']} of its max|g| > {tol}")
+    return dict(stats, tolerance=f"{tol} of each leaf's max|g|")
+
+
+def weight_stats(card, cpu, lr: float):
+    """Weights after one AdamW step on the card against the CPU.  A first
+    step moves each weight by about lr * sign(g) (an element whose
+    gradient is near 0 may move the other way), and each side rounds its
+    weight to the grid once: at most half a step of its dtype, 2**-8 of
+    it in bf16, so the two roundings add at most 2**-7 of the larger
+    weight (the CPU's may land near 0 where the card's lands near 2 lr).
+    ``over_allowance`` is the largest excess over ``2 lr + max(|w_card|,
+    |w_cpu|) 2**-7`` (held at <= 0)."""
+    from repro_torch.tree import leaves_with_paths
+    moved, total_el, worst, over = 0, 0, 0.0, -math.inf
+    hp = dict(leaves_with_paths(cpu))
+    for path, c in leaves_with_paths(card):
+        h = hp[path].float()
+        c = c.float().cpu()
+        d = (c - h).abs()
+        room = h.abs().maximum(c.abs()) * 2.0 ** -7
+        over = max(over, float((d - 2 * lr - room).max()))
+        moved += int((d > 0).sum())
+        total_el += d.numel()
+        worst = max(worst, float(d.max()))
+    return {"weights_that_differ": moved, "weights": total_el,
+            "max_abs_weight_diff": worst, "over_allowance": over,
+            "allowance": "2 lr + max(|w_card|, |w_cpu|) 2**-7"}
 
 
 def lm_train_step_phase(torch, cfg, smi):
@@ -3443,21 +3480,10 @@ def lm_train_step_phase(torch, cfg, smi):
           <= 1e-2 * float(m_h["grad_norm"]),
           f"lm_train step: grad_norm {float(m_c['grad_norm'])} on the "
           f"card, {float(m_h['grad_norm'])} on the CPU")
-    # a first AdamW step moves each weight by about lr * sign(g) (an
-    # element whose gradient is near 0 may move the other way), and the
-    # bf16 weight rounds it: a step below half a bf16 step of the weight
-    # (2**-8 of it) stays or moves a whole step on an ulp's difference
-    moved, total_el, worst = 0, 0, 0.0
-    hp = dict(leaves_with_paths(p_h))
-    for path, c in leaves_with_paths(p_c):
-        h = hp[path].float()
-        d = (c.float().cpu() - h).abs()
-        over = d - 2 * LM_TRAIN_LR - h.abs() * 2.0 ** -7
-        check(float(over.max()) <= 0, f"lm_train step: {path} moved "
-                                      f"{float(d.max())} apart")
-        moved += int((d > 0).sum())
-        total_el += d.numel()
-        worst = max(worst, float(d.max()))
+    weights = weight_stats(p_c, p_h, LM_TRAIN_LR)
+    check(weights["over_allowance"] <= 0, f"lm_train step: weights moved "
+                                          f"{weights['max_abs_weight_diff']}"
+                                          f" apart")
     del p_c, p_h, cpu_params
 
     with deterministic(torch) as det:
@@ -3478,9 +3504,9 @@ def lm_train_step_phase(torch, cfg, smi):
           "step": {"grad_norm_card": float(m_c["grad_norm"]),
                    "grad_norm_cpu": float(m_h["grad_norm"]),
                    "lr": float(m_c["lr"]),
-                   "weights_that_differ": moved,
-                   "weights": total_el,
-                   "max_abs_weight_diff": worst},
+                   **{k: weights[k] for k in ("weights_that_differ",
+                                              "weights",
+                                              "max_abs_weight_diff")}},
           "remat_on_off_bitwise_deterministic": remat_bitwise,
           "deterministic_warnings": det.warnings, "card": smi})
     return launches
@@ -3628,27 +3654,19 @@ def lm_train_fit_phase(torch, cfg, smi):
     return launches
 
 
-def lm_train_resume_phase(torch, cfg, smi):
-    """``fit`` at the 2-layer cut with a checkpoint every 3 steps, under
-    deterministic algorithms: 6 steps straight, against a run stopped in
-    step 4 and a second ``fit`` that resumes from step 3's checkpoint;
-    final params bitwise, and the bf16 checkpoint bitwise the params it
-    saved."""
+def fit_resume(torch, api, data, batch_size: int, name: str):
+    """``fit`` with a checkpoint every 3 steps, under deterministic
+    algorithms: 6 steps straight, against a run stopped in step 4 and a
+    second ``fit`` that resumes from step 3's checkpoint.  Checks the
+    final params bitwise and the checkpoint bitwise the params it saved;
+    returns (a record of the run, the launches of both ``fit`` calls)."""
     import tempfile
 
     from repro_torch.configs.base import TrainConfig
-    from repro_torch.data import lm_data
-    from repro_torch.models.api import get_model
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.train_loop import fit
     from repro_torch.tree import leaves_with_paths
 
-    api = get_model(cfg.replace(n_layers=2))
-
-    def data(start):
-        return lm_data.stream(SEED + 1, LM_TRAIN_CUT["batch"],
-                              LM_TRAIN_CUT["seq"], cfg.vocab_size, start,
-                              device="cuda")
     saved = {}
 
     def keep_step_3(step, params, metrics):
@@ -3668,19 +3686,18 @@ def lm_train_resume_phase(torch, cfg, smi):
         def tc(sub):
             return TrainConfig(optimizer="adamw", lr=LM_TRAIN_LR,
                                lr_min=LM_TRAIN_LR / 10, steps=6,
-                               batch_size=LM_TRAIN_CUT["batch"],
-                               checkpoint_every=3,
+                               batch_size=batch_size, checkpoint_every=3,
                                checkpoint_dir=f"{d}/{sub}")
         (straight, l1) = counted(torch, lambda: fit(
             api, tc("a"), data, hooks={"on_step": keep_step_3},
             device="cuda"))
         try:
             fit(api, tc("b"), data, hooks={"on_step": die}, device="cuda")
-            check(False, "lm_train resume: the run was not stopped")
+            check(False, f"{name}: the run was not stopped")
         except KeyboardInterrupt:
             pass
-        check(ckpt.latest_step(f"{d}/b") == 3, "lm_train resume: no "
-                                               "checkpoint at step 3")
+        check(ckpt.latest_step(f"{d}/b") == 3, f"{name}: no checkpoint at "
+                                               f"step 3")
         back, _ = ckpt.restore(f"{d}/b", 3, straight["params"])
         manifest = json.loads(pathlib.Path(
             f"{d}/b/step_00000003/manifest.json").read_text())
@@ -3691,24 +3708,42 @@ def lm_train_resume_phase(torch, cfg, smi):
             api, tc("b"), data, hooks={"on_step": lambda step, p, m:
                                        resumed_steps.append(step)},
             device="cuda"))
-    expect_launches("lm_train resume", l1, {})
-    expect_launches("lm_train resume", l2, {})
-    check(round_trip, "lm_train resume: the bf16 checkpoint differs from "
-                      "the params it saved")
+    check(round_trip, f"{name}: the checkpoint differs from the params it "
+                      f"saved")
     diff = params_diff(resumed["params"], straight["params"])
-    check(diff == 0.0, f"lm_train resume: resumed params differ from the "
-                       f"straight run's by {diff}")
-    emit({"phase": "lm_train_resume", "arch": cfg.name, "layers": 2,
-          "steps": 6, "checkpoint_every": 3, "stopped_in_step": 4,
-          "resumed_from": 3, "bitwise": True,
-          "checkpoint_round_trip_bitwise": round_trip,
-          "checkpoint_dtypes": sorted({v["dtype"] for v in
-                                       manifest["leaves"].values()}),
-          "resumed_steps": resumed_steps,
-          "deterministic_warnings": det.warnings, "card": smi})
-    add = dict(l1)
-    add_launches(add, l2)
-    return add
+    check(diff == 0.0, f"{name}: resumed params differ from the straight "
+                       f"run's by {diff}")
+    launches = dict(l1)
+    add_launches(launches, l2)
+    return ({"steps": 6, "checkpoint_every": 3, "stopped_in_step": 4,
+             "resumed_from": 3, "bitwise": True,
+             "checkpoint_round_trip_bitwise": round_trip,
+             "checkpoint_dtypes": sorted({v["dtype"] for v in
+                                          manifest["leaves"].values()}),
+             "checkpoint_shapes": {k: v["shape"] for k, v in
+                                   manifest["leaves"].items()},
+             "resumed_steps": resumed_steps,
+             "deterministic_warnings": det.warnings}, launches)
+
+
+def lm_train_resume_phase(torch, cfg, smi):
+    """``fit`` at the 2-layer cut, stopped and resumed (:func:`fit_resume`):
+    final params bitwise, and the bf16 checkpoint bitwise the params it
+    saved."""
+    from repro_torch.data import lm_data
+    from repro_torch.models.api import get_model
+
+    def data(start):
+        return lm_data.stream(SEED + 1, LM_TRAIN_CUT["batch"],
+                              LM_TRAIN_CUT["seq"], cfg.vocab_size, start,
+                              device="cuda")
+    rec, launches = fit_resume(torch, get_model(cfg.replace(n_layers=2)),
+                               data, LM_TRAIN_CUT["batch"], "lm_train resume")
+    expect_launches("lm_train resume", launches, {})
+    del rec["checkpoint_shapes"]
+    emit({"phase": "lm_train_resume", "arch": cfg.name, "layers": 2, **rec,
+          "card": smi})
+    return launches
 
 
 def moe_train_phase(torch, np, smi):
@@ -3810,20 +3845,21 @@ def moe_train_phase(torch, np, smi):
     return add
 
 
-def lm_refusal_phase(torch, smi):
-    """Flash under grad: ``loss_fn`` with ``attn_impl="flash"`` raises
-    on the card before any launch; the same forward without a gradient
-    launches the kernel once a layer."""
+def lm_refusal_phase(torch, smi, arch: str = LM_ARCH):
+    """Flash under grad: ``loss_fn`` of ``arch``'s smoke config with
+    ``attn_impl="flash"`` raises on the card before any launch; the same
+    forward without a gradient launches the kernel once an attention
+    layer (Whisper: its encoder's and its decoder's self-attention)."""
+    import numpy as np
+
     from repro_torch.configs import get_smoke_config
-    from repro_torch.data import lm_data
     from repro_torch.models.api import get_model
     from repro_torch.train.train_loop import value_and_grad
 
-    cfg = get_smoke_config(LM_ARCH).replace(attn_impl="flash")
+    cfg = get_smoke_config(arch).replace(attn_impl="flash")
     api = get_model(cfg)
     params = api.init(torch.Generator(device="cuda").manual_seed(SEED + 34))
-    batch = lm_data.synth_batch(SEED, 0, 2, 64, cfg.vocab_size,
-                                device="cuda")
+    batch = family_batch(torch, np, cfg, 2, 64, SEED)
 
     def train():
         try:
@@ -3833,14 +3869,14 @@ def lm_refusal_phase(torch, smi):
         return None
     msg, refused = counted(torch, train)
     check(msg is not None and "no backward" in msg,
-          "lm_train: flash under grad did not refuse")
-    expect_launches("flash refusal", refused, {})
+          f"{arch}: flash under grad did not refuse")
+    expect_launches(f"{arch} flash refusal", refused, {})
+    inp = batch if cfg.family == "audio" else batch["tokens"]
     with torch.no_grad():
-        _, served = counted(torch, lambda: api.forward(params,
-                                                       batch["tokens"]))
-    expect_launches("flash forward without grad", served,
-                    {"flash_attention": cfg.n_layers})
-    emit({"phase": "lm_train_flash_refusal", "refused": msg,
+        _, served = counted(torch, lambda: api.forward(params, inp))
+    expect_launches(f"{arch} flash forward without grad", served,
+                    {"flash_attention": cfg.n_layers + cfg.n_enc_layers})
+    emit({"phase": "lm_train_flash_refusal", "arch": arch, "refused": msg,
           "launches_under_grad": refused["flash_attention"],
           "launches_without_grad": served["flash_attention"], "card": smi})
     return served
@@ -3999,7 +4035,6 @@ def family_cpu_phase(torch, np, cfg, smi):
     cast) with bf16 printed beside."""
     from repro_torch.api.build import to_device
     from repro_torch.models.api import get_model
-    from repro_torch.tree import tree_map
 
     cut = family_cut(cfg).replace(attn_impl="flash")
     params = get_model(cut).init(
@@ -4009,9 +4044,7 @@ def family_cpu_phase(torch, np, cfg, smi):
     rec, total, seen = {}, None, None
     for dtype in dict.fromkeys((cut.dtype, held)):
         api = get_model(cut.replace(dtype=dtype))
-        p = tree_map(lambda a: a.to(getattr(torch, dtype)) if
-                     a.is_floating_point() and a.dtype != torch.float32
-                     else a, params)
+        p = cast_floats(torch, params, dtype)
         ((got, _), seen), launches = counted(torch, lambda: flash_shapes(
             lambda: api.forward(p, to_card(inp))))
         expect_launches(f"{cfg.name} cut {dtype}", launches,
@@ -4187,7 +4220,6 @@ def family_generate_phase(torch, np, params, cfg, smi):
     and reported); bf16's printed beside."""
     from repro_torch.models.api import get_model
     from repro_torch.serve.engine import Engine
-    from repro_torch.tree import tree_map
 
     prompt_len = FAMILY_PROMPT[cfg.name]
     impl = "xla" if cfg.family == "ssm" else "flash"
@@ -4213,8 +4245,7 @@ def family_generate_phase(torch, np, params, cfg, smi):
     held = FAMILY_GEN_HELD_DTYPE
     if held != cfg.dtype:
         api_h = get_model(cfg.replace(attn_impl=impl, dtype=held))
-        p_h = tree_map(lambda a: a.to(getattr(torch, held)) if
-                       a.is_floating_point() else a, params)
+        p_h = cast_floats(torch, params, held)
         (out_h, seen_h), launches_h = counted(torch, lambda: flash_shapes(
             lambda: Engine(api_h, p_h, max_len=max_len,
                            batch_size=LM_BATCH).generate(batch,
@@ -4297,6 +4328,507 @@ def family_phases(torch, np, smi):
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
               "card": smi})
     return rows, total, shapes
+
+
+# ------------------------------ xLSTM, Hymba and Whisper training --
+
+# fit at full width and depth: (batch, seq, steps).  xLSTM at a multiple
+# of its 256-step chunk (512 sLSTM steps a block, 6 blocks); Hymba past
+# its 1024-token window; Whisper at its 448-token decoder context over
+# 1500 stub frames.
+FAMILY_FIT = {"xlstm-1.3b": (4, 512, 5), "hymba-1.5b": (4, LM_SEQ, 10),
+              "whisper-tiny": (4, WHISPER_CTX, 20)}
+# One step of each cut (family_cut) on the card against the CPU, its
+# gradients held to LM_GRAD_TOL of each leaf's max|g| in
+# FAMILY_HELD_DTYPE (xLSTM in f32).  Not tighter in f32: xLSTM's f32
+# gradient is ill-conditioned, not only its bf16 one: lowering about
+# half the params by one ulp moves it by 2.3e-4 to 4.0e-4 of max|g| at
+# widths 1024 and 512 (8 layers, B2 x T256, on the CPU; at 1024 no
+# normalizer clamp changes side), and ulp_floor prints that floor on the
+# card at full width beside the card-against-CPU error.
+FAMILY_STEP_CUT = dict(batch=2, seq=128)
+# The per-step latency xLSTM's bound charges the sLSTM recurrence: its T
+# steps depend on each other, forward and backward.  A step is at least
+# one grid-wide handoff of h (a launch, or a cooperative grid barrier:
+# about 2 us on an H100) before the next step's [B, dh] x [dh, 4 dh]
+# products of its heads can start.
+SLSTM_STEP_US = 2.0
+
+
+def family_batch(torch, np, cfg, b: int, t: int, seed: int, step: int = 0,
+                 device="cuda"):
+    """Batch ``step`` of a family's training stream: the synthetic tokens
+    and labels (``data.lm_data``), and for Whisper stub frames [b,
+    enc_seq, d] (standard normal, numpy-seeded by (seed, step))."""
+    from repro_torch.data import lm_data
+    batch = lm_data.synth_batch(seed, step, b, t, cfg.vocab_size,
+                                device=device)
+    if cfg.family == "audio":
+        frames = np.random.default_rng([seed, step, 7]).standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+        batch["frames"] = torch.from_numpy(frames).to(device)
+    return batch
+
+
+def grad_tap(fn):
+    """Run ``fn`` with ``train_loop.value_and_grad`` wrapped to keep what
+    each call returns: (``fn``'s result, [((loss, metrics), grads)])."""
+    from repro_torch.train import train_loop
+    orig = train_loop.value_and_grad
+    rec = []
+
+    def tapped(loss_fn, params, batch):
+        out = orig(loss_fn, params, batch)
+        rec.append(out)
+        return out
+    train_loop.value_and_grad = tapped
+    try:
+        return fn(), rec
+    finally:
+        train_loop.value_and_grad = orig
+
+
+def cast_floats(torch, params, dtype: str):
+    """The params with every float leaf not in f32 cast to ``dtype`` (an
+    f32 leaf, such as Hymba's D-skip, stays f32 in either config)."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda a: a.to(getattr(torch, dtype)) if
+                    a.is_floating_point() and a.dtype != torch.float32
+                    else a, params)
+
+
+def ulp_floor(torch, cfg, params, grads, batch):
+    """The conditioning floor of a gradient: the worst leaf's change, as a
+    fraction of its max|g|, when every float param moves by 2**-p of
+    itself, p its dtype's mantissa bits (one or two ulps: 2**-23 in f32,
+    2**-7 in bf16; a random sign from a seeded generator), on the same
+    device and code path."""
+    from repro_torch.models.api import get_model
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.tree import tree_map
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+
+    def nudge(t):
+        if not t.is_floating_point():
+            return t
+        sign = torch.randint(0, 2, t.shape, generator=gen,
+                             device=t.device) * 2 - 1
+        ulp = torch.finfo(t.dtype).eps
+        return (t.double() * (1 + sign * ulp)).to(t.dtype)
+    _, moved = value_and_grad(get_model(cfg).loss_fn,
+                              tree_map(nudge, params), batch)
+    return grad_stats(moved, grads)["grad_leaf_worst_frac_of_max"]
+
+
+def family_train_step_phase(torch, np, cfg, smi):
+    """(a) The full-width cut (:func:`family_cut`), FAMILY_STEP_CUT (Whisper
+    over its 1500 frames), remat, the xla route: one
+    ``build_accumulating_step`` AdamW step on the card and on the CPU from
+    the same params and batch, its gradients tapped.  Held in
+    FAMILY_HELD_DTYPE (xLSTM in f32; Hymba and Whisper in bf16): each
+    gradient leaf within LM_GRAD_TOL of its max|g|, the loss within rtol
+    1e-3, the weights within :func:`weight_stats`'s allowance, with the
+    floor (:func:`ulp_floor`, the held dtype's) beside; xLSTM's bf16
+    figures are printed beside."""
+    from repro_torch.api.build import to_device
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.api import get_model
+    from repro_torch.train.train_loop import build_accumulating_step
+
+    cut = family_cut(cfg)
+    held = FAMILY_HELD_DTYPE.get(cut.family, cut.dtype)
+    b, t = FAMILY_STEP_CUT["batch"], FAMILY_STEP_CUT["seq"]
+    params = get_model(cut).init(
+        torch.Generator(device="cuda").manual_seed(SEED + 40))
+    batch = family_batch(torch, np, cut, b, t, SEED + 4, device="cpu")
+    tc = TrainConfig(optimizer="adamw", lr=LM_TRAIN_LR,
+                     lr_min=LM_TRAIN_LR / 10, steps=LM_TRAIN_STEPS,
+                     batch_size=b)
+    rec, total = {}, {k: 0 for k in counters()}
+    for dtype in dict.fromkeys((cut.dtype, held)):
+        step, init_opt = build_accumulating_step(
+            get_model(cut.replace(dtype=dtype)), tc)
+        p_c_in = cast_floats(torch, params, dtype)
+        ((p_c, _, m_c), tap_c), launches = counted(torch, lambda: grad_tap(
+            lambda: step(p_c_in, init_opt(p_c_in), to_card(batch), 0)))
+        add_launches(total, launches)
+        cpu_p = to_device(p_c_in, "cpu")
+        t0 = time.perf_counter()
+        (p_h, _, m_h), tap_h = grad_tap(
+            lambda: step(cpu_p, init_opt(cpu_p), batch, 0))
+        cpu_s = time.perf_counter() - t0
+        ((loss_c, _), g_c), ((loss_h, _), g_h) = tap_c[0], tap_h[0]
+        loss_c, loss_h = float(loss_c), float(loss_h)
+        floor = (ulp_floor(torch, cut.replace(dtype=dtype), p_c_in, g_c,
+                           to_card(batch)) if dtype == held
+                 else "not measured")
+        rec[dtype] = {
+            "loss_card": loss_c, "loss_cpu": loss_h,
+            "loss_rel_err": abs(loss_c - loss_h) / abs(loss_h),
+            **grad_stats(g_c, g_h), "grad_tolerance": LM_GRAD_TOL,
+            "one_ulp_floor_on_card": floor,
+            "grad_norm_card": float(m_c["grad_norm"]),
+            "grad_norm_cpu": float(m_h["grad_norm"]),
+            **weight_stats(p_c, p_h, LM_TRAIN_LR), "cpu_step_s": cpu_s}
+        del p_c, p_h, g_c, g_h, cpu_p, tap_c, tap_h, p_c_in
+        torch.cuda.empty_cache()
+    del params
+    emit({"phase": "family_train_step", "arch": cfg.name,
+          "layers": cut.n_layers, "enc_layers": cut.n_enc_layers,
+          "batch": b, "seq": t, "remat": cut.remat,
+          "attn_impl": cut.attn_impl, "held_dtype": held,
+          "tolerance": "loss rtol 1e-3; each gradient leaf within "
+                       "grad_tolerance of its max|g|; weights within 2 lr "
+                       "+ max(|w_card|, |w_cpu|) 2**-7", "launches": total,
+          **rec, "card": smi})
+    r = rec[held]
+    check(r["loss_rel_err"] <= 1e-3, f"{cfg.name} train step ({held}): loss "
+                                     f"{r['loss_card']} on the card, "
+                                     f"{r['loss_cpu']} on the CPU")
+    check(r["grad_leaf_worst_frac_of_max"] <= r["grad_tolerance"],
+          f"{cfg.name} train step ({held}): gradient of "
+          f"{r['grad_leaf_worst_at']} differs by "
+          f"{r['grad_leaf_worst_frac_of_max']} of its max|g|")
+    check(r["over_allowance"] <= 0, f"{cfg.name} train step ({held}): "
+                                    f"weights moved "
+                                    f"{r['max_abs_weight_diff']} apart")
+    expect_launches(f"{cfg.name} train step", total, {})
+    return total
+
+
+def family_remat_phase(torch, np, cfg, smi):
+    """(b) The cut in bf16 under deterministic algorithms: gradients with
+    remat on and off bitwise equal; then at B1 and the fit's length, the
+    peak memory of a gradient with remat on and off."""
+    from repro_torch.models.api import get_model
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.tree import leaves_with_paths
+
+    cut = family_cut(cfg)
+    params = get_model(cut).init(
+        torch.Generator(device="cuda").manual_seed(SEED + 41))
+    batch = family_batch(torch, np, cut, FAMILY_STEP_CUT["batch"],
+                         FAMILY_STEP_CUT["seq"], SEED + 5)
+
+    def grads(remat, batch):
+        return value_and_grad(get_model(cut.replace(remat=remat)).loss_fn,
+                              params, batch)
+    with deterministic(torch) as det:
+        runs, launches = counted(torch, lambda: [grads(r, batch)[1]
+                                                 for r in (True, False)])
+    on, off = (dict(leaves_with_paths(g)) for g in runs)
+    bitwise = all(torch.equal(on[k], off[k]) for k in on)
+    del runs, on, off
+    _, t, _ = FAMILY_FIT[cfg.name]
+    one = family_batch(torch, np, cut, 1, t, SEED + 6)
+    peaks = {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resting = torch.cuda.memory_allocated()
+        (loss, _), g = grads(remat, one)
+        torch.cuda.synchronize()
+        peaks[f"remat_{remat}"] = {
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "above_params": torch.cuda.max_memory_allocated() - resting,
+            "loss": float(loss)}
+        del g
+    del params
+    emit({"phase": "family_train_remat", "arch": cfg.name,
+          "layers": cut.n_layers, "enc_layers": cut.n_enc_layers,
+          "batch": FAMILY_STEP_CUT["batch"], "seq": FAMILY_STEP_CUT["seq"],
+          "dtype": cut.dtype, "launches": launches,
+          "remat_on_off_bitwise_deterministic": bitwise,
+          "deterministic_warnings": det.warnings,
+          "b1_peak_memory": {"batch": 1, "seq": t, **peaks}, "card": smi})
+    check(bitwise, f"{cfg.name}: gradients with remat on and off differ "
+                   f"under deterministic algorithms")
+    expect_launches(f"{cfg.name} remat", launches, {})
+    return launches
+
+
+def dense_leaves(tree):
+    """(path, numel) of each dense product weight (a ``w`` leaf outside a
+    conv) of ``tree``."""
+    from repro_torch.tree import leaves_with_paths
+    return [(path, t.numel()) for path, t in leaves_with_paths(tree)
+            if path[-1] == "w" and "conv" not in path]
+
+
+def scan_f32_flops(b: int, t: int, h: int, dk: int, dv: int,
+                   chunk: int = 256) -> float:
+    """One forward of ``linear_scan.chunked_scan``'s f32 products (T
+    padded to the chunk): the decayed scores against v (L dv a token),
+    the chunk states' read-out and build (2 dk dv a token), 2 flops
+    each."""
+    t_pad = -(-t // chunk) * chunk
+    return 2.0 * b * h * t_pad * (chunk * dv + 2 * dk * dv)
+
+
+def attn_f32_flops(b: int, h: int, tq: int, tk: int, hd: int) -> float:
+    """One forward of the xla route's Q.K and P.V over the full tq x tk
+    square (the mask applied to the scores, not skipped)."""
+    return 4.0 * b * h * tq * tk * hd
+
+
+def family_train_bound_ms(cfg, params, b: int, t: int):
+    """A remat training step's bound, ms by part, each part at its own
+    limit: :func:`lm_train_bound_ms`'s parts, adapted to each family.
+
+    * bf16 products: 6 flops a dense weight and token (the forward and the
+      backward's two products) at the tokens it sees (Whisper's encoder
+      and its decoder's cross K and V at the 1500 frames), plus 2 a weight
+      and token for remat's second forward of the checkpointed layers
+      (xLSTM: the mLSTM layers only); xLSTM adds its sLSTM recurrent
+      product (h [dh, 4 dh] blocks a step, not rematerialized) and the
+      chunk scan's q.k (L dk a token); the embedding gather is left out.
+    * f32 products at the f32 peak: the chunk scan's (``scan_f32_flops``;
+      xLSTM's mLSTM and Hymba's SSD heads) and the xla route's attention
+      as it computes it (``attn_f32_flops``: Hymba's full T x T whatever
+      the 1024 window, masked after; Whisper's encoder 1500 x 1500, its
+      decoder's causal T x T and its cross T x 1500), each a forward, the
+      recompute and a backward of twice the forward; Whisper's tied
+      unembedding (f32, 6 a weight and token, not rematerialized).
+    * xLSTM's sLSTM recurrence as latency: T dependent steps a block
+      forward and T backward at SLSTM_STEP_US each (no product can start
+      before the step before it ends).
+    * AdamW's bytes (bf16 param and gradient read, f32 m and v read and
+      written, the param written: 22 bytes a param) at the memory rate."""
+    from repro_torch.models.transformer import param_count
+    tok = b * t
+    n = param_count(params)
+    bf16 = f32 = latency_s = 0.0
+    t_pad = -(-t // 256) * 256
+    if cfg.family == "ssm":
+        from repro_torch.models.xlstm import _dims, group_layout
+        _, h, dk, dv = _dims(cfg)
+        ng, mper = group_layout(cfg)
+        dense = sum(k for _, k in dense_leaves(params))
+        m = sum(k for _, k in dense_leaves(params["mblocks"]))
+        bf16 = (6 * dense + 2 * m) * tok
+        bf16 += 6.0 * tok * params["sblocks"]["r"].numel()
+        bf16 += 4 * ng * mper * 2.0 * b * h * t_pad * 256 * dk
+        f32 = 4 * ng * mper * scan_f32_flops(b, t, h, dk, dv)
+        latency_s = ng * 2 * t * SLSTM_STEP_US * 1e-6
+    elif cfg.family == "hybrid":
+        hd = cfg.kv_head_dim
+        dv = cfg.d_model // cfg.n_heads
+        blocks = sum(k for _, k in dense_leaves(params["blocks"]))
+        bf16 = (8 * blocks + 6 * cfg.d_model * cfg.vocab_size) * tok
+        bf16 += 4 * cfg.n_layers * 2.0 * b * cfg.n_heads * t_pad * 256 \
+            * cfg.ssm_state
+        f32 = 4 * cfg.n_layers * (
+            attn_f32_flops(b, cfg.n_heads, t, t, hd)
+            + scan_f32_flops(b, t, cfg.n_heads, cfg.ssm_state, dv))
+    else:
+        hd = cfg.kv_head_dim
+        te = b * cfg.enc_seq
+        enc = sum(k for _, k in dense_leaves(params["enc_blocks"]))
+        cross = sum(k for path, k in dense_leaves(params["dec_blocks"])
+                    if "cross_attn" in path and path[-2] in ("wk", "wv"))
+        dec = sum(k for _, k in dense_leaves(params["dec_blocks"])) - cross
+        bf16 = 8 * (enc * te + cross * te + dec * tok)
+        f32 = 6.0 * cfg.vocab_size * cfg.d_model * tok
+        f32 += 4 * (cfg.n_enc_layers * attn_f32_flops(
+            b, cfg.n_heads, cfg.enc_seq, cfg.enc_seq, hd)
+            + cfg.n_layers * (attn_f32_flops(b, cfg.n_heads, t, t, hd)
+                              + attn_f32_flops(b, cfg.n_heads, t,
+                                               cfg.enc_seq, hd)))
+    out = {"bf16_products": 1e3 * bf16 / BF16_OPS_PER_S,
+           "f32_products": 1e3 * f32 / FP32_OPS_PER_S,
+           "adamw_bytes": 1e3 * 22 * n / HBM_BYTES_PER_S}
+    if latency_s:
+        out["slstm_latency"] = 1e3 * latency_s
+    return out
+
+
+def slstm_timed_step(torch, X, fn):
+    """Run ``fn`` (a training step) once with each sLSTM block's forward
+    call synchronized and timed, and its backward too: a hook on the
+    block's output marks where autograd enters it, one on its input where
+    it leaves (the input's gradient is whole only after the block's
+    chain).  Returns (sLSTM forward ms, sLSTM backward ms, the step's
+    wall ms)."""
+    orig = X.slstm_block_apply
+    spent = {"forward": 0.0, "backward": 0.0}
+    entered = []
+
+    def mark(g):
+        torch.cuda.synchronize()
+        entered.append(time.perf_counter())
+
+    def leave(g):
+        torch.cuda.synchronize()
+        spent["backward"] += 1e3 * (time.perf_counter() - entered.pop())
+
+    def wrapped(p, cfg, x, state=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, st = orig(p, cfg, x, state)
+        torch.cuda.synchronize()
+        spent["forward"] += 1e3 * (time.perf_counter() - t0)
+        if y.requires_grad and x.requires_grad:
+            y.register_hook(mark)
+            x.register_hook(leave)
+        return y, st
+    X.slstm_block_apply = wrapped
+    try:
+        total = wall_ms(torch, fn, reps=1)
+    finally:
+        X.slstm_block_apply = orig
+    return spent["forward"], spent["backward"], total
+
+
+def family_fit_phase(torch, np, cfg, smi):
+    """(c) ``fit`` at full width and depth (bf16, remat, the xla route,
+    AdamW as ``launch.train`` sets it) for FAMILY_FIT's steps on the
+    synthetic stream (Whisper's stub frames drawn in bulk before the run):
+    every loss and gradient norm finite, the step's ms (CUDA events at
+    each step's end, the median of the steps after the first), tokens/s,
+    peak memory; a profiled step (xLSTM's with device activity only), its
+    bound by part (:func:`family_train_bound_ms`), and for xLSTM the sLSTM
+    blocks' share of a step (:func:`slstm_timed_step`)."""
+    import tempfile
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import lm_data
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import param_count
+    from repro_torch.train.train_loop import fit
+
+    b, t, steps = FAMILY_FIT[cfg.name]
+    api = get_model(cfg)
+    frames = None
+    if cfg.family == "audio":
+        frames = torch.from_numpy(np.random.default_rng(SEED + 7)
+                                  .standard_normal((steps + 1, b,
+                                                    cfg.enc_seq,
+                                                    cfg.d_model))
+                                  .astype(np.float32)).cuda()
+
+    def batch_at(step):
+        batch = lm_data.synth_batch(SEED + 8, step, b, t, cfg.vocab_size,
+                                    device="cuda")
+        if frames is not None:
+            batch["frames"] = frames[step]
+        return batch
+
+    def data(start):
+        step = start
+        while True:
+            yield batch_at(step)
+            step += 1
+    events, losses, norms = [], [], []
+
+    def on_step(step, params, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        tc = TrainConfig(optimizer="adamw", lr=LM_TRAIN_LR,
+                         lr_min=LM_TRAIN_LR / 10, steps=steps,
+                         batch_size=b, checkpoint_every=0,
+                         checkpoint_dir=d)
+        t0 = time.perf_counter()
+        result, launches = counted(torch, lambda: fit(
+            api, tc, data, hooks={"on_step": on_step}, device="cuda"))
+        fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ms = [a.elapsed_time(z) for a, z in zip(events, events[1:])]
+    step_ms = statistics.median(ms)
+    params, opt_state = result["params"], result["opt_state"]
+    n = param_count(params)
+    del result
+    train_step, _ = build_train_step(api, tc)
+    batch = batch_at(steps)
+    prof = profile_summary(*profile_call(torch, lambda: train_step(
+        params, opt_state, batch, steps)[2]["loss"].item(),
+        cpu=cfg.family != "ssm", warmup=False))
+    bound = family_train_bound_ms(cfg, params, b, t)
+    rec = {"phase": "family_train_fit", "arch": cfg.name, "params": n,
+           "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+           "batch": b, "seq": t, "dtype": cfg.dtype, "remat": cfg.remat,
+           "attn_impl": cfg.attn_impl, "optimizer": "adamw",
+           "lr": LM_TRAIN_LR, "steps": steps, "launches": launches,
+           "losses": losses, "grad_norms": norms,
+           "ms_per_step_median": step_ms, "ms_per_step": ms,
+           "tokens_per_s": b * t / (step_ms / 1e3), "fit_seconds": fit_s,
+           "max_memory_allocated": peak, "bound_ms": bound,
+           "bound_ms_total": sum(bound.values()),
+           "step_over_bound": step_ms / sum(bound.values()),
+           "profile_one_step": prof, "card": smi}
+    if cfg.family == "ssm":
+        fwd, bwd, wall = slstm_timed_step(torch, X, lambda: train_step(
+            params, opt_state, batch, steps)[2]["loss"].item())
+        rec.update(slstm_forward_ms=fwd, slstm_backward_ms=bwd,
+                   step_ms_timed=wall, slstm_share_of_step=(fwd + bwd) / wall)
+    del params, opt_state
+    emit(rec)
+    check(len(losses) == steps and all(map(math.isfinite, losses + norms)),
+          f"{cfg.name} fit: losses {losses}, gradient norms {norms}")
+    expect_launches(f"{cfg.name} fit", launches, {})
+    return launches
+
+
+def family_resume_phase(torch, np, smi):
+    """(d) The smoke xLSTM's ``fit`` on the card, stopped after its step-3
+    checkpoint and resumed (:func:`fit_resume`): the nested [groups,
+    per_group] stacks through ``train/checkpoint.py``, bitwise under
+    deterministic algorithms."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import lm_data
+    from repro_torch.models.api import get_model
+
+    cfg = get_smoke_config("xlstm-1.3b").replace(remat=True)
+
+    def data(start):
+        return lm_data.stream(SEED + 9, 2, 64, cfg.vocab_size, start,
+                              device="cuda")
+    rec, launches = fit_resume(torch, get_model(cfg), data, 2,
+                               "xlstm resume")
+    shapes = rec.pop("checkpoint_shapes")
+    nested = {k: v for k, v in shapes.items() if k.startswith("mblocks")}
+    emit({"phase": "family_train_resume", "arch": cfg.name, "smoke": True,
+          "layers": cfg.n_layers, "remat": cfg.remat, **rec,
+          "mblocks_checkpoint_shapes": nested, "launches": launches,
+          "card": smi})
+    check(all(v[:2] == [2, 1] for v in nested.values()) and nested,
+          f"xlstm resume: mblocks checkpointed as {nested}")
+    expect_launches("xlstm resume", launches, {})
+    return launches
+
+
+def family_train_phases(torch, np, smi):
+    """Training of xlstm-1.3b, hymba-1.5b and whisper-tiny (no hand kernel
+    on the path: JAX trains them on plain products, and flash has no
+    backward): per arch (a) a cut's step against the CPU, (b) remat
+    bitwise and its peak memory, (c) ``fit`` at full width and depth;
+    then (d) a resume and (e) the flash refusal of Hymba and Whisper.
+    Returns the launches on the paths they drive."""
+    from repro_torch.configs import get_config
+
+    total = {k: 0 for k in counters()}
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        for fn in (family_train_step_phase, family_remat_phase,
+                   family_fit_phase):
+            add_launches(total, fn(torch, np, cfg, smi))
+            torch.cuda.empty_cache()
+        emit({"phase": "family_train_total", "arch": arch,
+              "seconds": time.perf_counter() - t0, "card": smi})
+    add_launches(total, family_resume_phase(torch, np, smi))
+    for arch in ("hymba-1.5b", "whisper-tiny"):
+        add_launches(total, lm_refusal_phase(torch, smi, arch))
+    torch.cuda.empty_cache()
+    return total
 
 
 def main() -> int:
@@ -4430,6 +4962,7 @@ def main() -> int:
     add_launches(total, got)
     for label, shape in FAMILY_FLASH_SHAPE.items():
         total["flash_" + label] = shapes.get(shape, 0)
+    add_launches(total, family_train_phases(torch, np, smi))
 
     kernels = []
     for name in REPLACES:

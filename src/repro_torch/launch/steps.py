@@ -6,7 +6,9 @@ constraint that is a no-op on one device; the port's take no mesh.  A
 sharding ``profile`` other than ``"default"`` waits for the sharded part
 of ROADMAP.md Queue 1 item 4.  ``shape_trees`` and ``cell_shardings``
 (the abstract trees and shardings the dry-run lowers) wait for the
-dry-run bullet of Queue 1 item 7.
+dry-run bullet of Queue 1 item 7.  :func:`build_train_step` takes
+every family: the decoders, xLSTM, Hymba and Whisper (whose batches
+carry ``"frames"`` beside ``"tokens"`` and ``"labels"``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ def build_train_step(api, train_cfg: TrainConfig, profile: str = "default"):
     (``api.loss_fn``), the gradients clipped to global norm 1, then the
     optimizer's update at ``cosine_lr(step)``; the metrics are the
     loss's plus ``grad_norm`` and ``lr``.  It is
-    ``train.train_loop.build_accumulating_step`` without microbatches."""
+    ``train.train_loop.build_accumulating_step`` without microbatches,
+    and takes every family ``models.api.get_model`` serves."""
     _check_profile(profile)
     return build_accumulating_step(
         api, dataclasses.replace(train_cfg, microbatch=0))

@@ -1,4 +1,4 @@
-"""Training launcher for the decoder LMs, on one device.
+"""Training launcher for the LMs, on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --steps 1000 [--smoke] [--batch 8] [--seq 128] [--microbatch 4] \\
@@ -11,8 +11,12 @@ synthetic token stream (``data.lm_data``).  It runs on ``cuda`` unless
 same command again after a crash: it resumes from the latest checkpoint
 with the data stream realigned.  ``--production-mesh``, a ``--profile``
 other than ``default`` and ``--grad-compress-bits`` above 0 wait for
-the sharded part of ROADMAP.md Queue 1 item 4; the xLSTM, Hymba and
-Whisper archs (served, not trained yet) wait for Queue 1 item 7.
+the sharded part of ROADMAP.md Queue 1 item 4.  Every token arch
+trains, xLSTM and Hymba included.  ``--arch whisper-tiny`` raises
+``ValueError`` before the device is resolved: its ``loss_fn`` reads
+``"frames"`` (stub encoder inputs), which the token stream does not
+carry (nor does JAX's, whose launcher fails at the first step); train
+it with ``train.train_loop.fit`` on batches that hold them.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data import lm_data
 from repro_torch.models.api import get_model
-from repro_torch.train.train_loop import check_trainable, fit
+from repro_torch.train.train_loop import fit
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -67,7 +71,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
     _refuse_sharded(args)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     api = get_model(cfg)
-    check_trainable(api)
+    if cfg.family == "audio":
+        raise ValueError(
+            f"--arch {args.arch}: its loss reads batch['frames'] (the stub "
+            f"encoder's inputs), and the synthetic token stream "
+            f"(data.lm_data) carries no 'frames'; train it with "
+            f"train.train_loop.fit on batches holding 'frames', 'tokens' "
+            f"and 'labels'")
     dev = resolve_device(args.device)
     tc = TrainConfig(optimizer="adamw", lr=args.lr, lr_min=args.lr / 10,
                      steps=args.steps, batch_size=args.batch,

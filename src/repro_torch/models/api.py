@@ -6,8 +6,12 @@ family: the decoder (``family`` dense, moe and vlm; JAX's
 ``_decoder_lm``), the Whisper encoder-decoder (``audio``;
 ``_encdec_lm``), xLSTM (``ssm``; ``_xlstm_lm``) and Hymba (``hybrid``;
 ``_hymba_lm``).  ``loss_fn(params, batch)`` -> (loss, metrics): for the
-decoder ``transformer.lm_loss``; for the others the forward's mean
-cross-entropy (metrics ``loss``, ``ce``, ``moe_aux``).  ``batch`` holds
+decoder ``transformer.lm_loss``; for xLSTM, Hymba and Whisper the
+forward's mean cross-entropy over the f32 logits (metrics ``loss``,
+``ce``, ``moe_aux``; the aux is the forward's zero), as JAX's
+``_xlstm_lm``, ``_hymba_lm`` and ``_encdec_lm``; each trains through
+``train.train_loop``, with ``cfg.remat`` checkpointing the layers JAX
+checkpoints.  ``batch`` holds
 ``"tokens"`` ([B, T] ids, or for the VLM float [B, T, d] stub
 embeddings) and ``"labels"``; for ``audio`` also ``"frames"`` (float [B,
 enc_seq, d] stub embeddings), and its ``forward`` takes that dict, as

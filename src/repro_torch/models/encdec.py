@@ -14,10 +14,19 @@ flash route without a cache) + cross-attention over the encoder output;
 the cross K/V are computed once at prefill and carried in the cache.
 The unembedding is tied to the token table (f32).  Params are stacked
 ``[L, ...]`` and the self-attention cache is updated in place.
-``cfg.remat`` is not read: the family is served, not trained.
+
+Training: with ``cfg.remat`` each encoder layer and each decoder layer
+of a forward under grad runs under ``transformer.checkpointed``, as JAX
+checkpoints both scans' bodies; a decoder layer takes the encoder output
+as a checkpoint input, so the encoder's gradient comes back through
+every layer's cross K/V.  The stacks reach autograd through one
+``unbind`` a leaf.  The tied table takes its gradient from the gather
+and from the f32 unembedding.  It trains on ``attn_impl="xla"``: flash
+has no backward and raises under grad before any launch.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -120,14 +129,22 @@ def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor
     """frames [B, S_enc, d] (stub embeddings) -> the encoder states."""
     x = frames.to(A.torch_dtype(cfg))
     x = x + sinusoids(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
-    for i in range(cfg.n_enc_layers):
-        blk = T.layer_params(params["enc_blocks"], i)
-        h = L.layernorm_apply(blk["ln1"], x, cfg.norm_eps)
-        a, _ = A.attn_apply(blk["attn"], cfg, h, causal=False, rope=False)
-        x = x + a
-        h = L.layernorm_apply(blk["ln2"], x, cfg.norm_eps)
-        x = x + _mlp_apply(blk["mlp"], h)
+    remat = T.remat_wanted(cfg.remat, params)
+    for blk in T.unstack_layers(params["enc_blocks"]):
+        if remat:
+            x = T.checkpointed(functools.partial(_enc_layer, blk, cfg), x)
+        else:
+            x = _enc_layer(blk, cfg, x)
     return L.layernorm_apply(params["enc_ln"], x, cfg.norm_eps)
+
+
+def _enc_layer(blk: Dict, cfg: ModelConfig, x: torch.Tensor
+               ) -> torch.Tensor:
+    h = L.layernorm_apply(blk["ln1"], x, cfg.norm_eps)
+    a, _ = A.attn_apply(blk["attn"], cfg, h, causal=False, rope=False)
+    x = x + a
+    h = L.layernorm_apply(blk["ln2"], x, cfg.norm_eps)
+    return x + _mlp_apply(blk["mlp"], h)
 
 
 def _dec_block(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -152,6 +169,13 @@ def _dec_block(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
     return x + _mlp_apply(blk["mlp"], h, quant), cross_kv
 
 
+def _dec_layer(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
+               enc_out: torch.Tensor) -> torch.Tensor:
+    """A decoder layer of the training forward (cross K/V from
+    ``enc_out``)."""
+    return _dec_block(blk, cfg, x, enc_out)[0]
+
+
 def _embed_tokens(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
                   ) -> torch.Tensor:
     x = L.embedding_apply(params["tok_embed"], tokens)
@@ -164,12 +188,17 @@ def encdec_forward(params: Dict, cfg: ModelConfig, frames: torch.Tensor,
     """(frames [B,S_enc,d], tokens [B,T]) -> (logits [B,T,V] f32, a zero
     aux loss).  On ``attn_impl="flash"`` the flash kernel runs once an
     encoder layer (non-causal) and once a decoder layer (causal
-    self-attention)."""
+    self-attention).  Under grad with ``cfg.remat`` each encoder and
+    decoder layer is checkpointed."""
     enc_out = encode(params, cfg, frames)
     x = _embed_tokens(params, cfg, tokens)
-    for i in range(cfg.n_layers):
-        x, _ = _dec_block(T.layer_params(params["dec_blocks"], i), cfg, x,
-                          enc_out)
+    remat = T.remat_wanted(cfg.remat, params)
+    for blk in T.unstack_layers(params["dec_blocks"]):
+        if remat:
+            x = T.checkpointed(functools.partial(_dec_layer, blk, cfg), x,
+                               enc_out)
+        else:
+            x = _dec_layer(blk, cfg, x, enc_out)
     x = L.layernorm_apply(params["dec_ln"], x, cfg.norm_eps)
     return (L.unembed_apply(params["tok_embed"], x),
             x.new_zeros((), dtype=torch.float32))

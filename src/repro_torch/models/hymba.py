@@ -15,10 +15,16 @@ conv's trailing inputs), independent of the context length.  Params and
 caches are stacked ``[L, ...]``; caches are updated in place.  As in
 JAX, prefill and decode apply the FFN without ``cfg.quant``.  The key
 scale ``kb / sqrt(s)`` divides by a tensor (see ``models/xlstm.py``).
-``cfg.remat`` is not read: the family is served, not trained.
+
+Training: with ``cfg.remat`` each layer of a forward under grad runs
+under ``transformer.checkpointed`` (JAX's ``jax.checkpoint`` of the
+layer), and the stacked params reach autograd through one ``unbind`` a
+leaf.  It trains on ``attn_impl="xla"`` (the config's default): flash
+has no backward and raises under grad before any launch.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -213,10 +219,16 @@ def hymba_forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """inputs [B,T] ids (or [B,T,d] floats) -> (logits [B,T,V] f32, a
     zero aux loss).  On ``attn_impl="flash"`` the flash kernel runs once
-    a layer."""
+    a layer.  Under grad with ``cfg.remat`` each layer is
+    checkpointed."""
     x = T._embed_in(params, cfg, inputs)
-    for i in range(cfg.n_layers):
-        x = hymba_block_apply(T.layer_params(params["blocks"], i), cfg, x)
+    remat = T.remat_wanted(cfg.remat, params)
+    for blk in T.unstack_layers(params["blocks"]):
+        if remat:
+            x = T.checkpointed(functools.partial(hymba_block_apply, blk,
+                                                 cfg), x)
+        else:
+            x = hymba_block_apply(blk, cfg, x)
     return _logits(params, cfg, x), x.new_zeros((), dtype=torch.float32)
 
 

@@ -13,6 +13,11 @@ Forms:
   * :func:`recurrent_step`: the O(1) decode update.
   * :func:`reference_scan`: the O(T) sequential oracle (tests).
 
+Under autograd the masked upper triangle's ``exp`` sees 0, never its
+own log ratio (the inner ``where``): at a forget gate near exp(-80) that
+ratio overflows to ``inf``, and ``where``'s backward would multiply
+its zero by it into ``NaN``.
+
 Types follow JAX's promotion: where JAX multiplies a bf16 operand by an
 f32 one inside an ``einsum`` (the decayed scores against v, the f32 decay
 ``g`` against q and the bf16 chunk states), the product is f32, so the
@@ -68,16 +73,20 @@ def chunked_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kn_chunk = torch.einsum("bhnl,bhnld->bhnd", w, kf)
     del kf, vf
     gt = g_total.float()                                 # [B,H,nc,1]
+    # each chunk's start state, stacked once (no in-place writes: their
+    # backward would copy the whole history's gradient a chunk)
     s_prev = q.new_zeros((b, h, dk, dv), dtype=torch.float32)
     n_prev = q.new_zeros((b, h, dk), dtype=torch.float32)
-    s_hist = q.new_empty((b, h, nc, dk, dv))             # q's dtype
-    n_hist = q.new_empty((b, h, nc, dk))
+    s_list, n_list = [], []
     for n in range(nc):
-        s_hist[:, :, n] = s_prev
-        n_hist[:, :, n] = n_prev
+        s_list.append(s_prev)
+        n_list.append(n_prev)
         s_prev = gt[:, :, n, :, None] * s_prev + kv_chunk[:, :, n]
         n_prev = gt[:, :, n] * n_prev + kn_chunk[:, :, n]
     del kv_chunk, kn_chunk
+    s_hist = torch.stack(s_list, dim=2).to(q.dtype)      # q's dtype
+    n_hist = torch.stack(n_list, dim=2).to(q.dtype)
+    del s_list, n_list
 
     gq = g[..., None] * q_.to(g.dtype)                   # f32
     inter = gq @ s_hist.to(gq.dtype)

@@ -19,7 +19,9 @@ Training: :func:`lm_loss` is JAX's (cross-entropy plus ``aux_weight``
 times the MoE aux loss).  With ``cfg.remat`` a training forward runs
 each layer under ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``):
 the backward recomputes the layer from its input in place of keeping
-its activations.  ``cfg.unroll_layers`` has no counterpart: it unrolls
+its activations.  :func:`checkpointed`, :func:`remat_wanted` and
+:func:`unstack_layers` are the family-neutral forms that xLSTM, Hymba
+and the enc-dec call too.  ``cfg.unroll_layers`` has no counterpart: it unrolls
 JAX's scan for the dry-run's cost analysis, and the port's loop is a
 Python loop already.
 
@@ -36,6 +38,7 @@ has nothing to carry over for them.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -61,13 +64,41 @@ def layer_params(blocks: Dict, layer: int) -> Dict:
     return tree_map_with_path(lambda _path, t: t[layer], blocks)
 
 
-def unstack_layers(blocks: Dict) -> List[Dict]:
+def unstack_layers(blocks: Dict, ndim: int = 1) -> List[Dict]:
     """Every layer's view of the stacked block params, each leaf unbound
-    once (``torch.unbind``, whose backward stacks the L gradients)."""
-    slices = {path: t.unbind(0) for path, t in leaves_with_paths(blocks)}
+    once (``torch.unbind``, whose backward stacks the layers' gradients
+    into one tensor).  ``ndim`` leading axes index the layers (xLSTM's
+    ``[n_groups, per_group, ...]`` stacks take 2): they are merged by a
+    view first, and the layers come in row-major order."""
+    def unbind(t):
+        return (t.flatten(0, ndim - 1) if ndim > 1 else t).unbind(0)
+    slices = {path: unbind(t) for path, t in leaves_with_paths(blocks)}
     n = len(next(iter(slices.values())))
     return [tree_map_with_path(lambda path, _: slices[path][i], blocks)
             for i in range(n)]
+
+
+def remat_wanted(remat: bool, params: Any) -> bool:
+    """Whether a forward checkpoints its layers: ``cfg.remat`` asked,
+    grad mode on and some param taking a gradient (a scoring or serving
+    forward keeps nothing, so it has nothing to trade)."""
+    return (remat and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tree_leaves(params)))
+
+
+def checkpointed(layer: Callable, x: torch.Tensor, *rest: Any) -> Any:
+    """``layer(x, *rest)`` under ``torch.utils.checkpoint`` (JAX's
+    ``jax.checkpoint``): only the inputs are kept, and the backward runs
+    the layer again.  Bind a layer's params with ``functools.partial``
+    (a closure over a loop variable would recompute the last layer's).
+    The layer runs under ``f32_sums`` itself, so the recompute sums (and
+    routes) as the first pass did whatever the caller's flags; it draws
+    nothing random, so no RNG state is stashed."""
+    def run(*args):
+        with L.f32_sums():
+            return layer(*args)
+    return torch.utils.checkpoint.checkpoint(
+        run, x, *rest, use_reentrant=False, preserve_rng_state=False)
 
 
 # ------------------------------------------------------------- init -----
@@ -142,19 +173,11 @@ def _block_apply(blk: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     return x + f, new_cache, aux
 
 
-def _remat_layer(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
-                 impl: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer of a training forward under ``torch.utils.checkpoint``:
-    only its input is kept, and the backward runs it again.  The layer
-    sets ``f32_sums`` itself, so the recompute sums (and routes) as the
-    first pass did whatever the caller's flags; it draws nothing random,
-    so no RNG state is stashed."""
-    def layer(x):
-        with L.f32_sums():
-            y, _, aux = _block_apply(blk, cfg, x, impl=impl)
-        return y, aux
-    return torch.utils.checkpoint.checkpoint(
-        layer, x, use_reentrant=False, preserve_rng_state=False)
+def _remat_block(blk: Dict, cfg: ModelConfig, impl: Optional[str],
+                 x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer as :func:`checkpointed` runs it: (x, aux)."""
+    y, _, aux = _block_apply(blk, cfg, x, impl=impl)
+    return y, aux
 
 
 def _layers(params: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -167,11 +190,11 @@ def _layers(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     gradient."""
     _check_supported(cfg)
     auxs = []
-    remat = (remat and cache is None and torch.is_grad_enabled()
-             and any(t.requires_grad for t in tree_leaves(params)))
+    remat_on = cache is None and remat_wanted(remat, params)
     for i, blk in enumerate(unstack_layers(params["blocks"])):
-        if remat:
-            x, aux = _remat_layer(blk, cfg, x, impl)
+        if remat_on:
+            x, aux = checkpointed(
+                functools.partial(_remat_block, blk, cfg, impl), x)
         else:
             cache_l = None if cache is None else layer_params(cache, i)
             x, _, aux = _block_apply(blk, cfg, x, cache=cache_l,

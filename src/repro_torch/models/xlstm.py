@@ -19,11 +19,20 @@ ignores ``cache["s"]``; the gates are f32 (``log_sigmoid``,
 key scale ``k / sqrt(dk)`` divides by a tensor (PyTorch's CUDA division
 by a Python scalar multiplies by its rounded reciprocal, the CPU's
 divides).  The serve entry points run under ``layers.f32_sums``.
-``cfg.remat`` is not read: the family is served, not trained
-(``train.train_loop.check_trainable``).
+
+Training (JAX's ``xlstm_forward`` under ``jax.value_and_grad``): with
+``cfg.remat`` each mLSTM layer of a forward under grad runs under
+``transformer.checkpointed``, and only those: JAX checkpoints the
+mLSTM scan body, not the sLSTM in its group body.  The stacks reach
+autograd through one ``unbind`` a leaf (``transformer.unstack_layers``;
+``mblocks`` merged to ``[n_groups * per_group, ...]`` by a view first),
+and the sLSTM's time steps through one ``unbind`` of its input
+projection: an index a layer or a step would send back a zero gradient
+the size of the whole stack or sequence for each.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -219,8 +228,8 @@ def slstm_block_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     xproj = L.dense_apply(p["wx"], hn)                # [B,T,4d]
     st = state or slstm_state_init(cfg, b, x.device)
     hs = []
-    for s in range(t):
-        st, hh = _slstm_cell(p, cfg, xproj[:, s], st)
+    for xt in xproj.unbind(1):
+        st, hh = _slstm_cell(p, cfg, xt, st)
         hs.append(hh)
     y = torch.stack(hs, dim=1).to(x.dtype)
     return x + L.dense_apply(p["wo"], y), st
@@ -280,14 +289,23 @@ def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor
 def xlstm_forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """inputs [B,T] ids (or [B,T,d] floats) -> (logits [B,T,V] f32, a
-    zero aux loss)."""
+    zero aux loss).  Under grad with ``cfg.remat`` each mLSTM layer is
+    checkpointed."""
     x = T._embed_in(params, cfg, inputs)
     ng, mper = group_layout(cfg)
+    remat = T.remat_wanted(cfg.remat, params)
+    mblocks = T.unstack_layers(params["mblocks"], ndim=2)
+    sblocks = (T.unstack_layers(params["sblocks"]) if "sblocks" in params
+               else None)
     for gi in range(ng):
-        for j in range(mper):
-            x = mlstm_block_apply(_at(params["mblocks"], gi, j), cfg, x)
-        if "sblocks" in params:
-            x, _ = slstm_block_apply(_at(params["sblocks"], gi), cfg, x)
+        for blk in mblocks[gi * mper:(gi + 1) * mper]:
+            if remat:
+                x = T.checkpointed(
+                    functools.partial(mlstm_block_apply, blk, cfg), x)
+            else:
+                x = mlstm_block_apply(blk, cfg, x)
+        if sblocks is not None:
+            x, _ = slstm_block_apply(sblocks[gi], cfg, x)
     return _logits(params, cfg, x), x.new_zeros((), dtype=torch.float32)
 
 

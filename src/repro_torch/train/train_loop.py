@@ -14,11 +14,12 @@ waits for ROADMAP.md Queue 1 items 4 and 7):
 
 An ``api`` is anything with ``init(generator, device=None) -> params``
 and ``loss_fn(params, batch) -> (loss, metrics)``, with ``batch`` a dict
-of tensors whose leading axis is the batch: PointMLP's trainer, or a
-decoder LM's ``models.api.get_model(cfg)`` with ``data.lm_data.stream``.
-The xLSTM, Hymba and enc-dec families (``family`` ssm, hybrid, audio)
-are served but not trained yet: :func:`build_accumulating_step` and
-:func:`fit` refuse them (ROADMAP.md Queue 1 item 7).
+of tensors whose leading axis is the batch: PointMLP's trainer, or
+``models.api.get_model(cfg)`` of any LM family (decoder, MoE, VLM,
+xLSTM, Hymba, Whisper) with batches that carry what its ``loss_fn``
+reads: ``data.lm_data.stream`` for the token families; Whisper also
+reads ``"frames"``, which that stream does not carry, as JAX's does
+not.
 
 The loss and its backward both run under ``models.layers.f32_sums``, so
 the backward's bf16 products (and a remat layer's recompute) are summed
@@ -75,27 +76,12 @@ def value_and_grad(loss_fn: Callable, params, batch):
             unflatten_like(params, grads))
 
 
-UNTRAINED_FAMILIES = ("ssm", "hybrid", "audio")
-
-
-def check_trainable(api) -> None:
-    """Raise ``NotImplementedError`` for a model family the port serves
-    but does not train yet."""
-    family = getattr(getattr(api, "cfg", None), "family", None)
-    if family in UNTRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"family {family!r} waits for Queue 1 item 7, training of the "
-            f"xLSTM, Hymba and enc-dec families, in ROADMAP.md; the port "
-            f"serves it (forward, prefill, decode) but does not train it")
-
-
 def build_accumulating_step(api, tc: TrainConfig):
     """(train_step, init_opt).  ``train_step(params, opt_state, batch,
     step)`` returns (params, opt_state, metrics): gradients (averaged
     over ``tc.batch_size // tc.microbatch`` microbatches when
     ``tc.microbatch`` divides the batch more finely), clipped to global
     norm 1, then the optimizer's update at ``cosine_lr(step)``."""
-    check_trainable(api)
     init_opt, update = opt_lib.get_optimizer(tc)
 
     def train_step(params, opt_state, batch, step):
@@ -131,7 +117,6 @@ def fit(api, tc: TrainConfig, data,
     resume.  Saves params (and the optimizer state under ``/opt``)
     every ``tc.checkpoint_every`` steps.  Returns the final params and
     optimizer state, the logged history and the flagged stragglers."""
-    check_trainable(api)
     dev = resolve_device(device)
     hooks = hooks or {}
     train_step, init_opt = build_accumulating_step(api, tc)

@@ -422,22 +422,6 @@ class TestRejections:
             TT.lm_forward(tp, tcfg.replace(seq_parallel=True), x)
         with pytest.raises(NotImplementedError, match="seq_parallel"):
             TT.lm_init(torch.Generator(), tcfg.replace(seq_parallel=True))
-        # the three families now serve; their training waits (trainer
-        # refusal, before any step)
-        from repro_torch.launch import train as lm_train
-        from repro_torch.train.train_loop import build_accumulating_step
-        from repro_torch.configs.base import TrainConfig
-        for arch in ("xlstm-1.3b", "hymba-1.5b", "whisper-tiny"):
-            api = get_model(get_smoke_config(arch))
-            assert api.cfg.family in ("ssm", "hybrid", "audio")
-            with pytest.raises(NotImplementedError,
-                               match="Queue 1 item 7, training of the xLSTM, "
-                                     "Hymba and enc-dec families.*ROADMAP"):
-                build_accumulating_step(api, TrainConfig())
-            with pytest.raises(NotImplementedError,
-                               match="Queue 1 item 7, training"):
-                lm_train.main(["--arch", arch, "--smoke", "--steps", "1",
-                               "--device", "cpu"])
         with pytest.raises(ValueError, match="unknown family"):
             get_model(tcfg.replace(family="pointcloud"))
         with pytest.raises(ValueError, match="unknown attn_impl"):
