@@ -88,7 +88,15 @@ decoder at 448), a cut held against the CPU, the scoring forward (4 x
 flash and xla routes; xLSTM's sLSTM time loop timed alone) and
 ``Engine.generate`` (B4, 64 greedy steps; Hymba's 1536-token prompt
 wraps its rolling cache), each decode step held against a forward over
-the extended sequence.  Every path is
+the extended sequence.  Between the LM and its training come the
+dry-run phases: ``sp_flash`` (tinyllama's 4 x 2048 flash forward with
+``seq_parallel=True`` under the host mesh, bitwise the plain forward,
+the kernel once a layer), ``dryrun_card`` (the dry-run's fake prefill and
+2-layer AdamW step against the same steps run on the card: FLOPs equal,
+shapes and dtypes equal, the card's peak above its arguments within 10%
+of the dry-run's temp bytes) and ``dryrun_cli`` (``python -m
+repro_torch.launch.dryrun --fast`` over all 80 production cells, one
+full-cost cell and ``repro_torch.report``'s tables).  Every path is
 driven with the kernels' launch counts set to 0 just before it and read
 just after.  Every phase prints one JSON line; a
 failed check raises and the script exits non-zero.  The line before the
@@ -2858,6 +2866,243 @@ def lm_phases(torch, np):
     return rows, total
 
 
+# ------------------------------------------------------------- dry-run --
+
+# The dry-run CLI's cells: 10 archs x 4 shapes on each production mesh.
+DRYRUN_CELLS = 80
+# Where repro.launch.dryrun skips (configs.cell_is_runnable, as JAX's):
+# long_500k for every arch without recurrent state or a sliding window.
+DRYRUN_SKIPS = {(arch, "long_500k") for arch in (
+    "whisper-tiny", "moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b",
+    "yi-9b", "tinyllama-1.1b", "minitron-8b", "llama3.2-1b",
+    "internvl2-26b")}
+# The card's peak above its arguments against the dry-run's temp bytes.
+DRYRUN_TEMP_TOL = 0.10
+
+
+def sp_flash_phase(torch, np, params, cfg):
+    """tinyllama at full width and depth, B4 x T2048 on the flash route,
+    under the host mesh: ``seq_parallel=True`` logits bitwise the
+    ``seq_parallel=False`` ones, the kernel once a layer in each."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import get_model
+    from repro_torch.sharding.context import use_mesh
+
+    ids = torch.from_numpy(lm_tokens(np, cfg.vocab_size, LM_BATCH, LM_SEQ,
+                                     SEED + 11)).cuda()
+    mesh = make_host_mesh()
+    total = {k: 0 for k in counters()}
+    out = {}
+    t0 = time.perf_counter()
+    with use_mesh(mesh):
+        for sp in (False, True):
+            api = get_model(cfg.replace(attn_impl="flash", seq_parallel=sp))
+            (out[sp], _), got = counted(torch, lambda: api.forward(params,
+                                                                   ids))
+            expect_launches(f"sp_flash seq_parallel={sp}", got,
+                            {"flash_attention": cfg.n_layers})
+            add_launches(total, got)
+    check(torch.equal(out[True], out[False]),
+          "sp_flash: seq_parallel logits differ from the plain forward's")
+    emit({"phase": "sp_flash", "arch": cfg.name, "batch": LM_BATCH,
+          "seq": LM_SEQ, "mesh": mesh.shape, "bitwise": True,
+          "flash_launches_per_forward": cfg.n_layers,
+          "launches": total, "seconds": time.perf_counter() - t0})
+    return total
+
+
+def card_operands(torch, np, api, shape, tc):
+    """A cell's operands as real tensors on the card: random weights from
+    a seed, token ids from numpy, the optimizer state or the cache."""
+    from repro_torch.launch import steps as S
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 12)
+    inputs = {}
+    for k, spec in api.input_specs(shape).items():
+        if k == "pos":
+            inputs[k] = torch.tensor(shape.seq_len - 1, dtype=spec.dtype)
+        else:
+            inputs[k] = torch.from_numpy(rng.integers(
+                0, api.cfg.vocab_size, spec.shape).astype(np.int32)).cuda()
+    out = {"params": params, "inputs": inputs}
+    if shape.kind == "train":
+        out["opt"] = S.build_train_step(api, tc)[1](params)
+    else:
+        out["cache"] = api.init_cache(shape.global_batch, shape.seq_len)
+    return out
+
+
+def same_trees(name, real, fake):
+    from repro_torch.tree import leaves_with_paths
+    r, f = dict(leaves_with_paths(real)), dict(leaves_with_paths(fake))
+    check(sorted(r) == sorted(f), f"{name}: the real tree's paths differ "
+                                  f"from shape_trees'")
+    for path, t in r.items():
+        check(t.shape == f[path].shape and t.dtype == f[path].dtype,
+              f"{name}: {path} is {tuple(t.shape)} {t.dtype} on the card, "
+              f"{tuple(f[path].shape)} {f[path].dtype} in shape_trees")
+    return len(r)
+
+
+def dryrun_card_phase(torch, np, smi):
+    """The dry-run against the card on a one-device mesh (n_chips = 1, so
+    the ideal partition is exact): tinyllama at full width, a prefill
+    (B4 x T2048, 22 layers) and an AdamW train step on a 2-layer cut (B4 x
+    T2048, remat, xla route).  (a) FlopCounterMode over the real step
+    counts the fake step's FLOPs exactly; (b) the real operands' shapes
+    and dtypes are shape_trees', leaf for leaf; (c) the card's peak above
+    its arguments is within DRYRUN_TEMP_TOL of the dry-run's temp
+    bytes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import get_model
+    from repro_torch.sharding.context import use_mesh
+    from repro_torch.tree import tree_leaves
+
+    tc = TrainConfig(optimizer="adamw", lr=3e-4, lr_min=3e-5)
+    cfg = get_config(LM_ARCH)
+    mesh = make_host_mesh()
+    check(mesh.size == 1, f"dryrun_card: the host mesh spans {mesh.size} "
+                          f"devices, one expected")
+    cases = (("prefill", cfg,
+              ShapeConfig("card_prefill", "prefill", LM_SEQ, LM_BATCH)),
+             ("train", D._with_layers(cfg, 2),
+              ShapeConfig("card_train", "train", LM_SEQ, LM_BATCH)))
+    for name, c, shape in cases:
+        api = get_model(c)
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            fake = D.fake_step_cost(api, shape, tc)
+            fake_trees = S.shape_trees(api, shape, tc)
+        t_fake = time.perf_counter() - t0
+        real = card_operands(torch, np, api, shape, tc)
+        leaves = sum(same_trees(f"dryrun_card {name} {part}", real[part],
+                                fake_trees[part]) for part in real)
+        arg_bytes = sum(t.numel() * t.element_size()
+                        for t in tree_leaves(real) if t.is_cuda)
+        with use_mesh(mesh):
+            warm = D.run_step(api, shape, tc, real)     # cuBLAS workspaces
+            del warm
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with FlopCounterMode(display=False) as fc, D.Traffic() as tr:
+                out = D.run_step(api, shape, tc, real)
+                torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+        del out
+        flops = fc.get_total_flops()
+        check(flops == fake["flops"],
+              f"dryrun_card {name}: the card counts {flops} FLOPs, the "
+              f"fake step {fake['flops']}")
+        err = (peak - fake["temp_bytes"]) / fake["temp_bytes"]
+        emit({"phase": "dryrun_card", "case": name, "arch": c.name,
+              "layers": c.n_layers, "batch": shape.global_batch,
+              "seq": shape.seq_len, "card": smi, "n_chips": mesh.size,
+              "flops_card": flops, "flops_fake": fake["flops"],
+              "leaves_checked": leaves,
+              "argument_bytes_card": arg_bytes,
+              "allocated_before_step": base,
+              "temp_bytes_card": peak, "temp_bytes_fake": fake["temp_bytes"],
+              "temp_tracked_on_card": tr.peak, "temp_rel_err": err,
+              "tolerance": DRYRUN_TEMP_TOL,
+              "op_bytes_card": tr.op_bytes, "op_bytes_fake": fake["op_bytes"],
+              "fake_step_s": fake["seconds"], "fake_total_s": t_fake})
+        check(abs(err) <= DRYRUN_TEMP_TOL,
+              f"dryrun_card {name}: the card's peak above its arguments "
+              f"{peak} is {err:+.3f} of the dry-run's {fake['temp_bytes']}")
+        del real
+        torch.cuda.empty_cache()
+
+
+def dryrun_cli_phase(smi):
+    """``python -m repro_torch.launch.dryrun --fast`` over every arch and
+    shape on both production meshes (in process, its lines to a log),
+    then tinyllama train_4k on the single pod at full cost, and
+    ``repro_torch.report``'s tables from those records."""
+    import contextlib
+    import io
+
+    from repro_torch import report
+    from repro_torch.configs import LM_SHAPES, get_config, list_archs
+    from repro_torch.launch import dryrun as D
+
+    out = ROOT / "build" / "dryrun_torch"
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        try:
+            D.main(["--mesh", "both", "--fast", "--out", str(out)])
+        except SystemExit as e:          # "<n> cells failed"
+            print(f"[exit] FAILED {e}")
+    t_fast = time.perf_counter() - t0
+    lines = [ln for ln in log.getvalue().splitlines()
+             if ln.startswith("[") and ln.count("|") == 2]
+    cells = {}
+    for ln in lines:
+        mesh, arch, shape = ln[1:ln.index("]")].split("|")
+        cells[mesh, arch, shape] = ln
+    check(len(cells) == DRYRUN_CELLS and "FAILED" not in log.getvalue(),
+          f"dryrun_cli: {len(cells)} cells, {DRYRUN_CELLS} expected, or a "
+          f"failure:\n{log.getvalue()[-4000:]}")
+    skips = {(a, s) for (m, a, s), ln in cells.items() if "SKIPPED" in ln}
+    check(skips == DRYRUN_SKIPS and all(
+        ("SKIPPED" in ln) == ((a, s) in DRYRUN_SKIPS)
+        for (m, a, s), ln in cells.items()),
+        f"dryrun_cli: skipped {sorted(skips)}")
+    t1 = time.perf_counter()
+    full = D.run_cell(LM_ARCH, "train_4k", "pod", out_dir=str(out))
+    t_full = time.perf_counter() - t1
+    check(full["status"] == "ok" and full["roofline"]["t_compute"] > 0,
+          "dryrun_cli: the full-cost cell has no roofline")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        report.main(["--dir", str(out)])
+    tables = log.getvalue()
+    check(tables.count("| ok |") == DRYRUN_CELLS - 2 * len(DRYRUN_SKIPS)
+          and f"| {LM_ARCH} | train_4k | train | " in tables,
+          "dryrun_cli: the report's tables lack rows")
+    (out / "report.md").write_text(tables)
+    emit({"phase": "dryrun_cli", "card": smi, "cells": len(cells),
+          "failures": 0, "skipped": len(skips) * 2,
+          "fast_seconds": t_fast, "seconds_per_fast_cell": t_fast / len(cells),
+          "full_cell": f"{LM_ARCH} train_4k pod", "full_cell_seconds": t_full,
+          "full_step_seconds": full["compile_s"],
+          "bytes_per_device": full["bytes_per_device"],
+          "roofline": {k: full["roofline"][k] for k in (
+              "t_compute", "t_memory", "t_collective", "bottleneck")},
+          "useful_flops_ratio": full["useful_flops_ratio"],
+          "roofline_fraction": full["roofline_fraction"],
+          "deferred_without_slow_cells": [
+              f"{a} {s}" for a in list_archs() for s in LM_SHAPES
+              if D.slow_cell(get_config(a), LM_SHAPES[s])]})
+
+
+def dryrun_phases(torch, np, smi):
+    """The dry-run slice: ``sp_flash``, ``dryrun_card``, ``dryrun_cli``;
+    returns the flash launches of sp_flash's main path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    params = get_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    total = sp_flash_phase(torch, np, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    dryrun_card_phase(torch, np, smi)
+    dryrun_cli_phase(smi)
+    emit({"phase": "dryrun_total", "card": smi,
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
 # ----------------------------------------------------------------- MoE --
 
 MOE_ARCH = "moonshot-v1-16b-a3b"
@@ -4952,6 +5197,7 @@ def main() -> int:
     for k, v in got.items():
         total[k] += v
     torch.cuda.empty_cache()
+    add_launches(total, dryrun_phases(torch, np, smi))
     add_launches(total, lm_train_phases(torch, np, smi))
     moe_rows, got, total["flash_moonshot"] = moe_phases(torch, np, smi)
     rows.update(moe_rows)

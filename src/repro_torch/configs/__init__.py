@@ -3,13 +3,15 @@
 ``get_config``/``get_smoke_config`` resolve each of the JAX package's
 ten archs (decoder, MoE and VLM; the Whisper encoder-decoder; xLSTM;
 Hymba) to the same values; an unknown id raises ``KeyError``.
+``LM_SHAPES`` and ``cell_is_runnable`` are the dry-run's cells.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (LM_SHAPES, ModelConfig, ShapeConfig,
+                                      cell_is_runnable, shape_for)
 
 _ARCH_MODULES: Dict[str, str] = {
     "whisper-tiny": "whisper_tiny",
@@ -44,4 +46,5 @@ def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke_config()
 
 
-__all__ = ["ModelConfig", "get_config", "get_smoke_config", "list_archs"]
+__all__ = ["LM_SHAPES", "ModelConfig", "ShapeConfig", "cell_is_runnable",
+           "get_config", "get_smoke_config", "list_archs", "shape_for"]

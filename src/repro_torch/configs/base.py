@@ -1,19 +1,22 @@
-"""Model config of the LMs the port serves and trains, and the training recipe.
+"""Model config of the LMs, the dry-run's shape cells and the training recipe.
 
 ``repro.configs.base.ModelConfig``'s fields, with the JAX names, order
 and defaults; ``quant`` is the port's own ``QuantConfig``.  ``remat``
 checkpoints each layer of a training forward (``models/transformer.py``);
 ``unroll_layers`` is carried for the configs' sake (JAX reads it only
 when it lowers the dry-run, and the port's layer loop is unrolled
-already), and ``sharding_profile`` picks nothing on one device
-(``models/moe.py``); ``seq_parallel=True`` raises
-``NotImplementedError`` in the model.  ``ShapeConfig`` (the dry-run's
-cells) is not ported.  :class:`TrainConfig` is
+already).  ``sharding_profile`` picks the placement rules
+(``sharding/rules.py``) and, for ``moe_local*``, the MoE dispatch, which
+raises under a mesh with a ``model`` axis (``models/moe.py``);
+``seq_parallel`` constrains the residual stream (``models/transformer.
+py``).  :class:`ShapeConfig`, ``LM_SHAPES`` and :func:`cell_is_runnable`
+are the dry-run's (arch x shape) cells, and :class:`TrainConfig` is
 ``repro.configs.base.TrainConfig``, field for field.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional, Tuple
 
 from repro_torch.core.quant import QuantConfig
 
@@ -55,18 +58,42 @@ class ModelConfig:
     remat: bool = True               # checkpoint each training layer
     unroll_layers: bool = False      # read by no ported path
     quant: QuantConfig = QuantConfig(w_bits=32, a_bits=32)
-    # per-layer parallelism profile; picks nothing on one device
+    # per-layer parallelism profile (sharding rule name)
     sharding_profile: str = "default"
     # attention: xla (dense) | xla_chunked | flash (the CUDA kernel)
     attn_impl: str = "xla"
-    seq_parallel: bool = False       # True is not ported
+    # sequence-parallel residual stream (shard the seq dim over `model`
+    # between blocks)
+    seq_parallel: bool = False
 
     @property
     def kv_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """Eligible for long_500k (recurrent state or sliding window)."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell. kind: train | prefill | decode."""
+    name: str
+    kind: str
+    seq_len: int
+    global_batch: int
+
+
+LM_SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,3 +112,16 @@ class TrainConfig:
     grad_compress_bits: int = 0      # 0=off, 8=int8 all-reduce (unported)
     checkpoint_every: int = 100
     checkpoint_dir: str = "checkpoints"
+
+
+def shape_for(cfg: ModelConfig, shape_name: str) -> ShapeConfig:
+    return LM_SHAPES[shape_name]
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeConfig
+                     ) -> Tuple[bool, Optional[str]]:
+    """Whether an (arch x shape) cell runs, else the documented skip."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return False, ("full-attention arch: 500k dense decode skipped per "
+                       "assignment; see DESIGN.md §Arch-applicability")
+    return True, None

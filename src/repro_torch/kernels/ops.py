@@ -9,6 +9,7 @@ checked, then unused, on the CPU (``repro_torch.kernels.tuning``).
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core.quant import compute_scale, qrange
 from repro_torch.kernels import fps as fps_kernel
@@ -140,7 +141,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Forward only: under grad with any of q, k, v taking a gradient it
     raises ``NotImplementedError`` on either device, before any launch.
     The kernel writes its output outside autograd, so a gradient would
-    come back as zeros without a word.
+    come back as zeros without a word.  Fake and meta tensors (the
+    dry-run's) raise ``ValueError``: the launch hands the kernel raw
+    pointers, and they have no memory behind them.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
@@ -148,6 +151,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "reference (its Pallas kernel has no VJP): train with "
             "attn_impl='xla' or 'xla_chunked', or call it under "
             "torch.no_grad()")
+    if all(t.device.type == "meta" or is_fake(t) for t in (q, k, v)):
+        raise ValueError(
+            "flash_attention: fake or meta tensors have no memory for the "
+            "CUDA kernel to read; count a step with attn_impl='xla' or "
+            "'xla_chunked' (every JAX config and dry-run variant uses one "
+            "of them)")
     kind = _device_kind(q, k, v)
     tile = (None if (tq, tk) == tuning.DEFAULT_TUNING.flash_attention
             else (tq, tk))

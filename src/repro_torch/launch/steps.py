@@ -1,21 +1,49 @@
-"""The train, prefill and decode steps of a model API, on one device.
+"""The train, prefill and decode steps of a model API, and the dry-run's trees.
 
 The port of ``repro.launch.steps``.  JAX's step functions take a mesh and
-pass every batch leaf through ``rules.constrain_batch``, a sharding
-constraint that is a no-op on one device; the port's take no mesh.  A
-sharding ``profile`` other than ``"default"`` waits for the sharded part
-of ROADMAP.md Queue 1 item 4.  ``shape_trees`` and ``cell_shardings``
-(the abstract trees and shardings the dry-run lowers) wait for the
-dry-run bullet of Queue 1 item 7.  :func:`build_train_step` takes
-every family: the decoders, xLSTM, Hymba and Whisper (whose batches
-carry ``"frames"`` beside ``"tokens"`` and ``"labels"``).
+pass every batch leaf through ``rules.constrain_batch``; the port's read
+the current mesh (``sharding.context``) and do the same where one is
+set: on fake tensors, or batch axes of one device, that moves nothing,
+and a real batch it would split raises (the sharded part of ROADMAP.md
+Queue 1 item 4).  A sharding ``profile`` other than ``"default"`` waits
+for that item too on real devices; in the dry-run a profile changes
+only the placements, so it runs these steps with ``"default"``.
+:func:`build_train_step` takes every family: the decoders, xLSTM, Hymba
+and Whisper (whose batches carry ``"frames"`` beside ``"tokens"`` and
+``"labels"``).
+
+:func:`shape_trees` builds a cell's abstract operands (params, inputs,
+and the optimizer state or the cache) under ``FakeTensorMode``, with no
+allocation, at full size; :func:`cell_shardings` places them with the
+rules.  The fake tensors lie on the ``meta`` device: a fake ``cuda``
+tensor cannot take a backward under a PyTorch built without CUDA (the
+autograd engine aborts the process), and the port's one device-dependent
+choice in a step (``layers.silu``) takes the card's form on ``meta``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Dict
 
-from repro_torch.configs.base import TrainConfig
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro_torch.configs.base import ShapeConfig, TrainConfig
+from repro_torch.core.quant import quantize_tree
+from repro_torch.sharding import rules
+from repro_torch.sharding.context import current_mesh
+from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.train_loop import build_accumulating_step
+
+#: The device of the dry-run's fake tensors (see the module docstring).
+FAKE_DEVICE = "meta"
+
+
+def fake_mode() -> FakeTensorMode:
+    """The dry-run's mode.  It takes non-fake inputs: ``Tensor.new_tensor``
+    on a fake ``meta`` tensor makes a plain meta tensor, which the mode
+    then wraps."""
+    return FakeTensorMode(allow_non_fake_inputs=True)
 
 
 def _check_profile(profile: str) -> None:
@@ -23,6 +51,13 @@ def _check_profile(profile: str) -> None:
         raise NotImplementedError(
             f"sharding profile {profile!r} waits for Queue 1 item 4 (the "
             f"sharded part) in ROADMAP.md; one device takes 'default'")
+
+
+def _constrain(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    mesh = current_mesh()
+    if mesh is None:
+        return batch
+    return {k: rules.constrain_batch(v, mesh) for k, v in batch.items()}
 
 
 def build_train_step(api, train_cfg: TrainConfig, profile: str = "default"):
@@ -34,8 +69,12 @@ def build_train_step(api, train_cfg: TrainConfig, profile: str = "default"):
     ``train.train_loop.build_accumulating_step`` without microbatches,
     and takes every family ``models.api.get_model`` serves."""
     _check_profile(profile)
-    return build_accumulating_step(
+    step, init_opt = build_accumulating_step(
         api, dataclasses.replace(train_cfg, microbatch=0))
+
+    def train_step(params, opt_state, batch, step_no):
+        return step(params, opt_state, _constrain(batch), step_no)
+    return train_step, init_opt
 
 
 def build_prefill_step(api, profile: str = "default"):
@@ -44,7 +83,7 @@ def build_prefill_step(api, profile: str = "default"):
     _check_profile(profile)
 
     def prefill_step(params, batch, cache):
-        return api.prefill(params, batch, cache)
+        return api.prefill(params, _constrain(batch), cache)
     return prefill_step
 
 
@@ -54,3 +93,61 @@ def build_decode_step(api):
     def serve_step(params, batch, cache):
         return api.decode_step(params, batch, cache)
     return serve_step
+
+
+def _fake_inputs(specs: Dict[str, Any], shape: ShapeConfig
+                ) -> Dict[str, torch.Tensor]:
+    """Tensors of ``api.input_specs(shape)`` (call under a
+    ``FakeTensorMode``).  A decode step's ``pos`` is a 0-dim value the
+    step reads on the host: the cache's last slot (``seq_len - 1``); no
+    cost of the step depends on it."""
+    out = {}
+    for k, spec in specs.items():
+        if k == "pos":
+            out[k] = torch.tensor(shape.seq_len - 1, dtype=spec.dtype)
+        else:
+            out[k] = torch.empty(spec.shape, dtype=spec.dtype,
+                                 device=FAKE_DEVICE)
+    return out
+
+
+def shape_trees(api, shape: ShapeConfig, train_cfg: TrainConfig,
+                mode: FakeTensorMode = None) -> Dict[str, Any]:
+    """A cell's operands as fake tensors, no allocation: ``params``
+    (``api.init``; the int8 export of ``core.quant.quantize_tree`` for a
+    non-train cell of a W8 config, as JAX), ``inputs``
+    (``api.input_specs``), and ``opt`` (the optimizer's ``init``) to
+    train or ``cache`` (``api.init_cache`` at the global batch and
+    ``seq_len``) to serve.  Built in ``mode`` (a new :func:`fake_mode`
+    if None): run the step under the same mode."""
+    mode = mode or fake_mode()
+    cfg = api.cfg
+    with mode:
+        params = api.init(torch.Generator(), device=FAKE_DEVICE)
+        if (shape.kind != "train" and cfg.quant.enabled
+                and cfg.quant.w_bits <= 8):
+            params = quantize_tree(params, cfg.quant)
+        out: Dict[str, Any] = {
+            "inputs": _fake_inputs(api.input_specs(shape), shape),
+            "params": params}
+        if shape.kind == "train":
+            init_opt, _ = opt_lib.get_optimizer(train_cfg)
+            out["opt"] = init_opt(params)
+        else:
+            out["cache"] = api.init_cache(shape.global_batch, shape.seq_len,
+                                          device=FAKE_DEVICE)
+    return out
+
+
+def cell_shardings(api, shape: ShapeConfig, mesh, trees: Dict[str, Any],
+                   profile: str = "default") -> Dict[str, Any]:
+    """``rules.NamedSharding`` trees for every operand of the step."""
+    out = {
+        "params": rules.params_shardings(trees["params"], mesh, profile),
+        "inputs": rules.batch_shardings(trees["inputs"], mesh, profile),
+    }
+    if "opt" in trees:
+        out["opt"] = rules.params_shardings(trees["opt"], mesh, profile)
+    if "cache" in trees:
+        out["cache"] = rules.cache_shardings(trees["cache"], mesh, profile)
+    return out

@@ -15,19 +15,22 @@ checkpoints.  ``batch`` holds
 ``"tokens"`` ([B, T] ids, or for the VLM float [B, T, d] stub
 embeddings) and ``"labels"``; for ``audio`` also ``"frames"`` (float [B,
 enc_seq, d] stub embeddings), and its ``forward`` takes that dict, as
-JAX's does.  ``input_specs`` (JAX ``ShapeDtypeStruct`` stand-ins for the
-dry-run) has no counterpart.  ``init`` and ``init_cache`` put their
+JAX's does.  ``input_specs(shape)`` gives a cell's step inputs as
+:class:`TensorSpec` (shape, dtype) stand-ins, JAX's ``ShapeDtypeStruct``
+dtypes included (int32 tokens and labels, f32 ``frames`` and VLM
+embeddings; a decode step's ``token [B]`` and ``pos []``); the dry-run
+makes fake tensors of them.  ``init`` and ``init_cache`` put their
 tensors on ``cuda`` unless given a device, and raise without a GPU.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.api.build import resolve_device, to_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec as E
 from repro_torch.models import hymba as HY
 from repro_torch.models import layers as L
@@ -44,9 +47,37 @@ class ModelAPI:
     init_cache: Callable    # (batch, max_len, device=None) -> cache
     prefill: Callable       # (params, batch, cache) -> (logits, cache)
     decode_step: Callable   # (params, batch, cache) -> (logits, cache)
+    input_specs: Callable   # (shape_cfg) -> dict of TensorSpec
+
+
+class TensorSpec(NamedTuple):
+    """A tensor's shape and dtype, no values (``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 DECODER_FAMILIES = ("dense", "moe", "vlm")
+
+
+def _input_specs(cfg: ModelConfig, shape: ShapeConfig
+                 ) -> Dict[str, TensorSpec]:
+    """A cell's step inputs: ``tokens`` (f32 [B, T, d] stub embeddings
+    for the VLM) and, to train, ``labels``; Whisper's ``frames`` [B,
+    enc_seq, d] f32 beside them; a decode step's ``token`` [B] and
+    ``pos`` []."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"token": TensorSpec((b,), torch.int32),
+                "pos": TensorSpec((), torch.int32)}
+    tok = TensorSpec((b, s), torch.int32)
+    out = {"tokens": (TensorSpec((b, s, cfg.d_model), torch.float32)
+                      if cfg.frontend == "patch_stub" else tok)}
+    if cfg.family == "audio":
+        out = {"frames": TensorSpec((b, cfg.enc_seq, cfg.d_model),
+                                    torch.float32), **out}
+    if shape.kind == "train":
+        out["labels"] = tok
+    return out
 
 
 def _api(cfg: ModelConfig, init_fn: Callable, cache_fn: Callable,
@@ -74,7 +105,8 @@ def _api(cfg: ModelConfig, init_fn: Callable, cache_fn: Callable,
         cfg=cfg, init=init, loss_fn=loss_fn or ce_loss, forward=forward,
         init_cache=init_cache, prefill=prefill,
         decode_step=lambda p, batch, c: decode(p, batch["token"],
-                                               batch["pos"], c))
+                                               batch["pos"], c),
+        input_specs=lambda shape: _input_specs(cfg, shape))
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:

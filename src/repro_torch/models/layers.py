@@ -204,8 +204,10 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     which the CPU backend expands so (bitwise in bf16, where
     ``torch.sigmoid`` rounds once and differs in about a third of
     values).  On the card, where nothing is held bitwise against XLA, it
-    is one ``F.silu`` pass (f32 inside, rounded once) in place of five."""
-    if x.is_cuda:
+    is one ``F.silu`` pass (f32 inside, rounded once) in place of five;
+    meta tensors (the dry-run's) take the card's form, so a dry-run
+    counts the card's program."""
+    if x.device.type != "cpu":
         return F.silu(x)
     return x * (1 / (1 + torch.exp(-x)))
 

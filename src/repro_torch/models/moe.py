@@ -7,11 +7,13 @@ expert SwiGLU (one product per expert) -> gather back, weighted combine.
 Entries past an expert's capacity are dropped (the residual carries the
 token).
 
-``moe_apply`` is JAX's ``moe_apply_global``.  JAX takes that route
-whenever no mesh is current, and the port has no mesh, so a
-``moe_local*`` ``sharding_profile`` takes it too; ``moe_apply_local``
-(the shard_map dispatch and combine) waits for the sharded part of
-ROADMAP.md Queue 1 item 4.
+``moe_apply`` is JAX's ``moe_apply_global``, the route JAX takes unless
+the ``sharding_profile`` is ``moe_local*`` and the current mesh
+(``sharding.context``) has a ``model`` axis.  That pair takes JAX's
+``moe_apply_local`` (the shard_map dispatch and combine: a per-shard
+capacity and an f32 scatter-add), which waits for the sharded part of
+ROADMAP.md Queue 1 item 4: it raises ``NotImplementedError``, on fake
+tensors too (the dry-run), since its program differs.
 
 What holds the layer to JAX's results (ROADMAP.md Queue 3):
 
@@ -54,6 +56,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import matmul
 from repro_torch.models import layers as L
+from repro_torch.sharding.context import current_mesh
 
 
 def moe_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
@@ -163,6 +166,13 @@ def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor
     aux is the Switch load-balancing loss: E * sum over experts of the
     fraction of entries routed there times the mean router probability.
     """
+    mesh = current_mesh()
+    if cfg.sharding_profile.startswith("moe_local") and mesh is not None \
+            and "model" in mesh.axis_names:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.sharding_profile!r} dispatch over a mesh "
+            f"with a 'model' axis (JAX's moe_apply_local) waits for Queue "
+            f"1 item 4 (the sharded part) in ROADMAP.md")
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     n = b * t

@@ -31,10 +31,14 @@ and f32 products in f32 (no TF32), as in XLA, whatever PyTorch's
 process-wide settings.  The training step runs its backward under it too
 (``train.train_loop.value_and_grad``).
 
-Not ported: the sequence-parallel residual stream (``seq_parallel``)
-raises ``NotImplementedError``.  JAX's ``_seq_parallel``/``_gather_seq``
-are sharding constraints, no-ops on one device, so the one-device port
-has nothing to carry over for them.
+``cfg.seq_parallel`` places JAX's ``_seq_parallel``/``_gather_seq``
+constraints (:func:`_seq_constraint`): the residual stream's sequence
+dim sharded over the mesh's ``model`` axis between blocks, gathered
+before the column-parallel products.  They move no value where no mesh
+is current, where ``model`` spans one device, or on fake tensors (the
+dry-run), so the forward is the same bits as without them; a real
+tensor under a ``model`` axis of several devices raises (the sharded
+part of ROADMAP.md Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -48,15 +52,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.sharding import rules
+from repro_torch.sharding.context import current_mesh
 from repro_torch.tree import (leaves_with_paths, tree_leaves, tree_map,
                               tree_map_with_path)
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.seq_parallel:
-        raise NotImplementedError(
-            f"{cfg.name}: seq_parallel waits for Queue 1 item 7 "
-            f"(sharding/*) in ROADMAP.md")
 
 
 def layer_params(blocks: Dict, layer: int) -> Dict:
@@ -134,7 +133,6 @@ def stack_inits(make: Callable[[], Dict], n: int) -> Dict:
 def lm_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
     """Random params on the generator's device, in ``cfg.dtype`` (an MoE
     router in f32, as JAX's)."""
-    _check_supported(cfg)
     dt = A.torch_dtype(cfg)
     params = {
         "embed": L.embedding_init(generator, cfg.vocab_size, cfg.d_model,
@@ -152,18 +150,38 @@ def lm_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
 
 # ------------------------------------------------------------ apply -----
 
+def _seq_constraint(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """JAX's ``_seq_parallel`` (the [B, T, d] residual stream's T sharded
+    over ``model``) and ``_gather_seq`` (T gathered again): ``x`` itself
+    where the constraint moves no value (``seq_parallel`` off, not [B, T,
+    d], no current mesh, a ``model`` axis of one device, or a fake or
+    meta tensor); ``NotImplementedError`` on a real tensor it would
+    split."""
+    if not cfg.seq_parallel or x.ndim != 3:
+        return x
+    mesh = current_mesh()
+    if mesh is None or mesh.shape.get("model", 1) == 1 or \
+            rules.is_abstract(x):
+        return x
+    raise NotImplementedError(
+        f"{cfg.name}: seq_parallel over a 'model' axis of "
+        f"{mesh.shape['model']} devices waits for Queue 1 item 4 (the "
+        f"sharded part) in ROADMAP.md")
+
+
 def _block_apply(blk: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                  cache: Optional[Dict] = None,
                  cache_pos: Optional[int] = None, impl: Optional[str] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """-> (x [B, T, d], the updated cache or None, the MoE aux loss: an
     f32 scalar, 0 for a dense block)."""
-    h = L.rmsnorm_apply(blk["ln1"], x, cfg.norm_eps)
+    x = _seq_constraint(x, cfg)
+    h = _seq_constraint(L.rmsnorm_apply(blk["ln1"], x, cfg.norm_eps), cfg)
     a, new_cache = A.attn_apply(
         blk["attn"], cfg, h, causal=True, cache=cache, cache_pos=cache_pos,
         window=cfg.sliding_window, impl=impl)
-    x = x + a
-    h = L.rmsnorm_apply(blk["ln2"], x, cfg.norm_eps)
+    x = _seq_constraint(x + a, cfg)
+    h = _seq_constraint(L.rmsnorm_apply(blk["ln2"], x, cfg.norm_eps), cfg)
     if "moe" in blk:
         f, aux = M.moe_apply(blk["moe"], cfg, h)
     else:
@@ -188,7 +206,6 @@ def _layers(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     losses summed over layers in layer order).  ``remat`` checkpoints
     each layer of a forward without a cache whose params take a
     gradient."""
-    _check_supported(cfg)
     auxs = []
     remat_on = cache is None and remat_wanted(remat, params)
     for i, blk in enumerate(unstack_layers(params["blocks"])):

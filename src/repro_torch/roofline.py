@@ -1,4 +1,13 @@
-"""Static roofline estimate of a compiled stage plan (the tuner's ranking).
+"""Roofline terms: a dry-run cell's roofline and the tuner's plan estimate.
+
+:class:`Roofline` is ``repro.roofline.Roofline`` for the dry-run
+(``launch/dryrun.py``): a step's per-device FLOPs and memory bytes
+against a :class:`HardwareModel`'s peaks, ``t_compute``, ``t_memory``
+and the larger of them as the ``bottleneck``.  Its collective terms are
+optional: the port's dry-run models no collective yet (they come with
+the sharded part of ROADMAP.md Queue 1 item 4), so ``t_collective`` is
+None and ``bottleneck`` ranges over compute and memory.  The hardware
+is :data:`H100_SXM_BF16`, an LM's peaks on one H100.
 
 The plan-scope half of ``repro.roofline``: score a
 :class:`~repro_torch.api.plan.StagePlan` from its analytic
@@ -9,13 +18,14 @@ promising candidates.  Each op is compute- or memory-bound on its own;
 the estimate sums the per-op bounds.  Like JAX's, it counts no kNN or
 FPS work (``cost_breakdown`` has no row for them).
 
-The HLO half of ``repro.roofline`` (``parse_collectives``,
-``from_compiled``, ``Roofline``) reads XLA's output and is not ported.
+``parse_collectives`` and ``from_compiled`` read XLA's output and are
+not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Dict, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,10 +37,11 @@ class HardwareModel:
     work) so that tiny plans do not estimate as free.
     """
     name: str
-    peak_flops: float            # fp32 FLOP/s per device
+    peak_flops: float            # FLOP/s per device (its dtype: the name's)
     peak_int8_ops: float         # int8 OP/s per device
     hbm_bw: float                # device-memory bytes/s
     dispatch_overhead_s: float = 0.0
+    link_bw: float = 0.0         # interconnect bytes/s per device
 
 
 #: A rough single-socket CPU host (``repro.roofline.CPU_HOST``'s numbers):
@@ -49,6 +60,88 @@ CPU_HOST = HardwareModel("cpu_host", peak_flops=5e10, peak_int8_ops=1e11,
 H100_SXM = HardwareModel("h100_sxm", peak_flops=67e12,
                          peak_int8_ops=1979e12, hbm_bw=3.35e12,
                          dispatch_overhead_s=4.076e-4)
+
+#: An LM step on one NVIDIA H100 SXM (data sheet, dense, at the 700 W
+#: limit; the card the chip runs use is an NVIDIA H100 80GB HBM3 at
+#: 700.00 W): bf16 tensor cores at 989 TFLOP/s, int8 at 1979 TOP/s (2x),
+#: HBM3 at 3.35 TB/s, NVLink at 900 GB/s a GPU (for the collective term
+#: of the sharded part of ROADMAP.md Queue 1 item 4).
+H100_SXM_BF16 = HardwareModel("h100_sxm_bf16", peak_flops=989e12,
+                              peak_int8_ops=1979e12, hbm_bw=3.35e12,
+                              link_bw=900e9)
+
+
+@dataclasses.dataclass
+class Roofline:
+    """One step's roofline on one device of ``hw``."""
+    flops: float                 # per-device FLOPs
+    hbm_bytes: float             # per-device memory bytes
+    coll_bytes: Optional[float] = None       # per-device collective bytes
+    coll_wire_bytes: Optional[float] = None
+    coll_by_type: Optional[Dict[str, float]] = None
+    model_flops: Optional[float] = None   # 6·N·D (or 2·N·D fwd-only), global
+    hw: HardwareModel = H100_SXM_BF16
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops / self.hw.peak_flops
+
+    @property
+    def t_memory(self) -> float:
+        return self.hbm_bytes / self.hw.hbm_bw
+
+    @property
+    def t_collective(self) -> Optional[float]:
+        """None where no collective was modelled."""
+        if self.coll_wire_bytes is None:
+            return None
+        return self.coll_wire_bytes / self.hw.link_bw
+
+    def _terms(self) -> Dict[str, float]:
+        ts = {"compute": self.t_compute, "memory": self.t_memory,
+              "collective": self.t_collective}
+        return {k: v for k, v in ts.items() if v is not None}
+
+    @property
+    def bottleneck(self) -> str:
+        ts = self._terms()
+        return max(ts, key=ts.get)
+
+    @property
+    def t_bound(self) -> float:
+        return max(self._terms().values())
+
+    def useful_flops_ratio(self, n_chips: int) -> Optional[float]:
+        if not self.model_flops:
+            return None
+        return self.model_flops / (self.flops * n_chips)
+
+    def roofline_fraction(self, n_chips: int) -> Optional[float]:
+        """MODEL_FLOPS-achievable fraction: useful work at peak against
+        the modelled bound time."""
+        if not self.model_flops or self.t_bound == 0:
+            return None
+        t_useful = self.model_flops / n_chips / self.hw.peak_flops
+        return t_useful / self.t_bound
+
+    def to_dict(self) -> Dict:
+        return {
+            "flops": self.flops, "hbm_bytes": self.hbm_bytes,
+            "coll_bytes": self.coll_bytes,
+            "coll_wire_bytes": self.coll_wire_bytes,
+            "coll_by_type": self.coll_by_type,
+            "model_flops": self.model_flops,
+            "t_compute": self.t_compute, "t_memory": self.t_memory,
+            "t_collective": self.t_collective,
+            "bottleneck": self.bottleneck, "hardware": self.hw.name,
+        }
+
+
+def model_flops_estimate(n_active_params: int, tokens: int,
+                         kind: str) -> float:
+    """6·N·D for training, 2·N·D for forward-only (prefill/decode)."""
+    mult = 6.0 if kind == "train" else 2.0
+    return mult * n_active_params * tokens
 
 
 @dataclasses.dataclass(frozen=True)

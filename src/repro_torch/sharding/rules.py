@@ -1,0 +1,249 @@
+"""Logical-axis -> mesh-axis sharding rules (the TPU analogue of HLS4PC's
+per-layer PE-count parametrization), as ``repro.sharding.rules``.
+
+Parameter shardings come from param-tree key paths; activations are
+constrained only at step boundaries (inputs, caches).  ``profile``
+selects a ruleset: ``default``, ``replicated``, ``fsdp``, ``infer2d``,
+``cache_seq*`` and ``moe_local*`` (the last places like ``default``;
+its dispatch is what differs, ``models/moe.py``).  Dims are matched
+from the END of the shape so stacked layer dims ([L, ...] or [ng,
+mper, ...]) pass through unsharded.
+
+:class:`P` is ``jax.sharding.PartitionSpec``'s counterpart (a tuple, one
+entry a dim: None, an axis name or a tuple of names) and
+:class:`NamedSharding` pairs it with a ``launch.mesh.Mesh`` and gives a
+leaf's per-device ``shard_shape``.  Paths are ``repro_torch.tree``
+paths (dict keys and list indices); an element with a ``.key`` (a
+``jax.tree_util.DictKey``) is read through it, so one rule serves both
+packages' paths.  Nothing here moves a value: placing tensors on a
+multi-device mesh waits for the sharded part of ROADMAP.md Queue 1 item
+4, and :func:`constrain_batch` refuses a real tensor it would split.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+from torch._subclasses.fake_tensor import is_fake
+
+from repro_torch.tree import tree_map, tree_map_with_path
+
+
+class P(tuple):
+    """PartitionSpec: ``P(None, "model")`` shards dim 1 over ``model``;
+    dims past its length are unsharded."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    mesh: Any
+    spec: P
+
+    def shard_shape(self, shape) -> Tuple[int, ...]:
+        """Each device's block of a ``shape`` array (``ValueError`` where
+        a sharded dim does not divide)."""
+        out = list(shape)
+        for d, axis in enumerate(self.spec):
+            n = _axis_size(self.mesh, axis)
+            if out[d] % n:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not "
+                                 f"divide over {axis} ({n})")
+            out[d] //= n
+        return tuple(out)
+
+
+def is_abstract(x: torch.Tensor) -> bool:
+    """A fake (``FakeTensorMode``) or meta tensor: a shape and no values,
+    so a sharding constraint on it moves nothing."""
+    return x.device.type == "meta" or is_fake(x)
+
+
+def _axis_size(mesh, axis) -> int:
+    if axis is None:
+        return 1
+    if isinstance(axis, tuple):
+        out = 1
+        for a in axis:
+            out *= mesh.shape[a]
+        return out
+    return mesh.shape[axis]
+
+
+def _spec(ndim: int, assign: Dict[int, Any], shape, mesh) -> P:
+    """assign: {dim (negative ok): axis or tuple}; drops non-divisible."""
+    out = [None] * ndim
+    for dim, axis in assign.items():
+        d = dim % ndim
+        if axis is None:
+            continue
+        if shape[d] % _axis_size(mesh, axis) == 0:
+            if isinstance(axis, tuple) and len(axis) == 1:
+                axis = axis[0]
+            out[d] = axis
+    return P(*out)
+
+
+# Weight-name classification: which logical dim is "model-sharded".
+_OUT_SHARDED = {"wq", "wk", "wv", "gate", "up", "wz", "wu", "fc1",
+                "wb", "wc", "unembed"}
+_IN_SHARDED = {"wo", "down", "fc2"}
+_EXPERT_SHARDED = {"gate_w", "up_w", "down_w"}
+_REPLICATED = {"router", "wdt", "wgate", "conv", "r", "dskip", "bn",
+               "alpha", "beta"}
+
+
+def path_keys(path) -> list:
+    """A path's elements as strings (a ``DictKey`` through its key)."""
+    return [str(getattr(p, "key", p)) for p in path]
+
+
+def param_pspec(path: Tuple, shape: Tuple[int, ...], mesh,
+                profile: str = "default") -> P:
+    keys = path_keys(path)
+    ndim = len(shape)
+    model = "model" if "model" in mesh.axis_names else None
+    if model is None or ndim == 0:
+        return P()
+    name = keys[-1]
+    if name in ("q", "scale") and len(keys) >= 2:
+        # int8 export dict {q, scale} replaces the weight array: derive
+        # the spec from the enclosing weight name ("w"/"*_w")
+        keys = keys[:-1]
+        name = keys[-1]
+    parents = set(keys[:-1])
+
+    if profile == "replicated":
+        return P()
+
+    if profile in ("fsdp", "infer2d"):
+        # ZeRO-3 / 2D inference: every big tensor fully sharded over all
+        # mesh axes on its largest-divisible dim, the penultimate (input/
+        # vocab/expert) dim first, then the last
+        axes = full_axes(mesh)
+        if ndim >= 2:
+            for dim in (-2, -1):
+                sp = _spec(ndim, {dim: axes}, shape, mesh)
+                if any(a is not None for a in sp):
+                    return sp
+            return P()
+        return _spec(ndim, {-1: axes}, shape, mesh)
+
+    # embedding / unembedding: shard the vocab dim
+    if name == "table":
+        return _spec(ndim, {-2: model}, shape, mesh)
+    if parents & _EXPERT_SHARDED or name in _EXPERT_SHARDED:
+        return _spec(ndim, {-3: model}, shape, mesh)    # [.., E, in, out]
+    if parents & _REPLICATED or name in _REPLICATED:
+        return P()
+    if name in ("w", "b") or name.endswith("_w"):
+        owner = keys[-2] if len(keys) >= 2 else ""
+        if owner in _OUT_SHARDED:
+            return _spec(ndim, {-1: model}, shape, mesh)
+        if owner in _IN_SHARDED:
+            if name == "b":
+                return P()
+            return _spec(ndim, {-2: model}, shape, mesh)
+    return P()
+
+
+def params_shardings(params_or_shapes: Any, mesh,
+                     profile: str = "default") -> Any:
+    """Tree of NamedSharding matching a param (shape) tree."""
+    return tree_map_with_path(
+        lambda path, leaf: NamedSharding(
+            mesh, param_pspec(path, tuple(leaf.shape), mesh, profile)),
+        params_or_shapes)
+
+
+def batch_pspec(mesh) -> Tuple:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def full_axes(mesh) -> Tuple:
+    return tuple(a for a in ("pod", "data", "model")
+                 if a in mesh.axis_names)
+
+
+def _batch_axes(mesh, profile: str) -> Tuple:
+    return full_axes(mesh) if profile in ("fsdp", "infer2d") \
+        else batch_pspec(mesh)
+
+
+def batch_shardings(batch_specs: Any, mesh, profile: str = "default"
+                    ) -> Any:
+    """Shard the leading (global-batch) dim of every input leaf; drop the
+    assignment when not divisible (e.g. long_500k batch=1)."""
+    baxes = _batch_axes(mesh, profile)
+
+    def one(leaf):
+        shape = tuple(leaf.shape)
+        if len(shape) == 0:
+            return NamedSharding(mesh, P())
+        return NamedSharding(mesh, _spec(len(shape), {0: baxes}, shape,
+                                         mesh))
+    return tree_map(one, batch_specs)
+
+
+def cache_pspec(path: Tuple, shape: Tuple[int, ...], mesh,
+                profile: str = "default") -> P:
+    """KV caches [L, B, S, Hkv, D]; recurrent states [L(, g), B, ...].
+    Shard batch over (pod, data) and the head dim over model when
+    divisible.  ``cache_seq`` profiles shard the SEQUENCE dim over model
+    instead (distributed-softmax attention reads)."""
+    ndim = len(shape)
+    assign: Dict[int, Any] = {}
+    baxes = batch_pspec(mesh)
+    if ndim >= 4:
+        assign[-4] = baxes           # batch dim of [L,B,S,H,D]
+        if "cache_seq" in profile:
+            assign[-3] = "model"     # sequence dim
+        else:
+            assign[-2] = "model"     # kv heads
+    elif ndim >= 2:
+        assign[1] = baxes
+    return _spec(ndim, assign, shape, mesh)
+
+
+def cache_shardings(cache_tree: Any, mesh, profile: str = "default"
+                    ) -> Any:
+    return tree_map_with_path(
+        lambda path, leaf: NamedSharding(
+            mesh, cache_pspec(path, tuple(leaf.shape), mesh, profile)),
+        cache_tree)
+
+
+def shard_bytes(tree: Any, shardings: Any) -> int:
+    """Per-device bytes of a tree of tensors (or ``TensorSpec``s) under a
+    matching tree of :class:`NamedSharding`."""
+    total = 0
+
+    def add(leaf, sh):
+        nonlocal total
+        total += math.prod(sh.shard_shape(tuple(leaf.shape))) * \
+            leaf.dtype.itemsize
+        return leaf
+    tree_map(add, tree, shardings)
+    return total
+
+
+def constrain_batch(x: torch.Tensor, mesh, profile: str = "default"
+                    ) -> torch.Tensor:
+    """``x`` itself where the constraint moves no value: a fake or meta
+    tensor, or batch axes of one device.  A real tensor whose batch
+    would split over several devices raises ``NotImplementedError``."""
+    baxes = _batch_axes(mesh, profile)
+    n = _axis_size(mesh, baxes)
+    if n == 1 or is_abstract(x):
+        return x
+    raise NotImplementedError(
+        f"constrain_batch: splitting a batch over mesh axes {baxes} ({n} "
+        f"devices) waits for Queue 1 item 4 (the sharded part) in "
+        f"ROADMAP.md")

@@ -1,7 +1,7 @@
 """Training loop: checkpoint and resume, straggler monitor, gradient accumulation.
 
 The port of ``repro.train.train_loop``, on one device (the sharded loop
-waits for ROADMAP.md Queue 1 items 4 and 7):
+waits for the sharded part of ROADMAP.md Queue 1 item 4):
 
 * resume = :func:`~repro_torch.train.checkpoint.latest_step` plus
   deterministic data: a data factory ``data(start_step)`` is realigned

@@ -43,10 +43,12 @@ from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import from_numpy_tree
 from repro_torch.core.quant import QuantConfig
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import attention as TA
 from repro_torch.models import transformer as TT
 from repro_torch.models.api import get_model
 from repro_torch.serve.engine import Engine
+from repro_torch.sharding.context import use_mesh
 
 ARCHS = ["tinyllama-1.1b", "llama3.2-1b"]
 B, T = 2, 24
@@ -418,10 +420,15 @@ class TestRejections:
         _, tcfg = configs("tinyllama-1.1b", dtype="float32")
         tp = port(jax_params("tinyllama-1.1b", "float32"))
         x = torch.from_numpy(ids).long()
-        with pytest.raises(NotImplementedError, match="seq_parallel.*ROADMAP"):
-            TT.lm_forward(tp, tcfg.replace(seq_parallel=True), x)
-        with pytest.raises(NotImplementedError, match="seq_parallel"):
-            TT.lm_init(torch.Generator(), tcfg.replace(seq_parallel=True))
+        # seq_parallel runs where its constraint moves nothing, and raises
+        # on real tensors a 'model' axis would split
+        sp = tcfg.replace(seq_parallel=True)
+        assert torch.equal(TT.lm_forward(tp, sp, x)[0],
+                           TT.lm_forward(tp, tcfg, x)[0])
+        with use_mesh(Mesh(("data", "model"), (1, 2))):
+            with pytest.raises(NotImplementedError,
+                               match="seq_parallel.*ROADMAP"):
+                TT.lm_forward(tp, sp, x)
         with pytest.raises(ValueError, match="unknown family"):
             get_model(tcfg.replace(family="pointcloud"))
         with pytest.raises(ValueError, match="unknown attn_impl"):
