@@ -31,7 +31,15 @@ Lite's seg head, Elite unfused with an eviction age: bitwise against
 hit, Lite bitwise again through the async engine), and README.md's fleet
 of a Lite and an Elite tier (a burst that sheds, every admitted future
 bitwise against its tier's solo dispatch, and a stream session through
-the fleet).  The ``tiles`` phase pins the kernels' templates through
+the fleet).  The ``shard`` phase splits each dispatch over a
+``("data",)`` mesh that repeats the card (``serve.sharding``): Lite at
+2 and 4 shards bitwise the unsharded logits and LFSR state through
+``infer``, both engines and a stream session, a 2 replica x 2 shard
+fleet bitwise the unsharded fleet, M-2 with per-lane URS at 4 shards
+(Lite's W8A8 split refused), M-2 and Elite at 2, each path's
+launches n times the unsharded; the default mesh refused on one card
+(run on ``cuda:0, cuda:1`` where there are two), and one Lite dispatch
+timed at 1, 2 and 4 shards.  The ``tiles`` phase pins the kernels' templates through
 ``KernelTuning``: every template of every tunable kernel at Lite's, M-2's
 and Elite's ``plan_shapes`` (and the head's fc1, and flash attention at a
 tinyllama shape) held bitwise against the wrapper's own pick and against
@@ -2073,6 +2081,241 @@ def fleet_phase(torch, np, params_by_name, clouds, elite_clouds,
           "lidar_stream_hits": sess.stats.hits,
           "seconds": time.perf_counter() - t_phase})
     return launches
+
+
+# ------------------------------------------------------------- shards --
+
+SHARD_COUNTS = (2, 4)
+SHARD_TIMING_REPS = 15
+SHARD_STREAM_FRAMES = 3           # a miss, then two hits
+
+
+def shard_mesh(n: int):
+    """An n-way ``("data",)`` mesh that repeats the first card: the split
+    runs its shards one after another on it, the real kernels on each."""
+    from repro_torch.serve.sharding import make_mesh
+    return make_mesh(n, devices=["cuda:0"] * n)
+
+
+def shard_phase(torch, np, params, elite_params, clouds, elite_clouds, smi):
+    """The sharded dispatch (``repro_torch.serve.sharding``) on the card.
+
+    Lite (int8, 512 points, MAX_BATCH) at 2 and 4 shards on a mesh that
+    repeats the card, bitwise the unsharded logits and LFSR state through
+    ``infer``, ``PointCloudEngine.classify`` (the queue), the async engine
+    and a stream session (a miss, then hits); a 2 replica x 2 shard fleet
+    bitwise the unsharded fleet; per-lane URS at 4 shards (Lite's W8A8
+    takes one activation scale a dispatch, and its split must be refused;
+    M-2, Lite's topology in fp32, splits bitwise); M-2 and Elite (fused
+    group, per-sample sigma) at 2.  Every path's launches
+    are counted and checked: n shards launch each kernel n times as often
+    (a shard is a dispatch of MAX_BATCH / n lanes).  On one card the
+    default mesh (``make_mesh(2)``) must refuse with the ``devices=``
+    recipe; with two or more cards Lite also runs on the default mesh, its
+    second shard on ``cuda:1``.  Last, the device and wall ms and the host
+    syncs of one Lite dispatch at 1, 2 and 4 shards: the split's own cost
+    on one card, not a multi-card rate.  Returns the launches."""
+    from repro_torch.api.build import build
+    from repro_torch.api.spec import (FleetSpec, TenantSpec, elite_spec,
+                                      lite_spec, m2_spec)
+    from repro_torch.serve.async_engine import AsyncPointCloudEngine
+    from repro_torch.serve.fleet import PipelineFleet
+    from repro_torch.serve.pointcloud import PointCloudEngine
+    from repro_torch.serve.sharding import make_mesh, make_mesh2d
+    from repro_torch.serve.streaming import StreamSession
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in counters()}
+    paths = {}
+    n_dev = torch.cuda.device_count()
+    lite = lite_spec(N_CLASSES).serving().replace(backend="cuda")
+    lite_expect = {"knn": 4, "int8_matmul": 28}
+    chunk = torch.from_numpy(clouds[:MAX_BATCH]).cuda()
+    pipes = {1: build(lite, params)}
+    state0 = pipes[1].seed_state(SEED, MAX_BATCH)
+    ref = pipes[1].infer(chunk, state0.clone())
+
+    def times(expect, n):
+        return {k: v * n for k, v in expect.items()}
+
+    def record(name, launches, expect, dispatches=1):
+        expect_launches(f"shard {name}", launches, expect, dispatches)
+        add_launches(total, launches)
+        paths[name] = {k: v for k, v in launches.items() if v}
+
+    def dispatch(name, pipe, n, expect, want, pts=chunk):
+        got, launches = counted(torch, lambda: pipe.infer(pts, state0.clone()))
+        check(got[0].device == pts.device,
+              f"shard {name}: logits left the card")
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"shard {name}: logits or LFSR state differ from the "
+              f"unsharded dispatch")
+        record(name, launches, times(expect, n))
+
+    def serve_async(eng):
+        futs = [eng.submit(c) for c in clouds]
+        eng.flush()
+        return [f.result() for f in futs]
+
+    # The unsharded references of the serving paths.
+    eng1 = PointCloudEngine(params, lite, max_batch=MAX_BATCH, seed=SEED)
+    queue_ref, queue_state = eng1.classify(clouds), eng1.lfsr_state
+    async_ref = serve_async(AsyncPointCloudEngine(
+        pipes[1], max_batch=MAX_BATCH, policy="fixed", seed=SEED))
+    stream = lite.replace(stream=True,
+                          stream_drift_threshold=STREAM_THRESHOLD)
+    frames = rigid_frames(np, np.random.default_rng(SEED + 11),
+                          512)[:SHARD_STREAM_FRAMES]
+    sess1 = StreamSession(build(stream, params), seed=SEED)
+    stream_ref = [sess1.infer(f) for f in frames]
+    check(sess1.stats.hits == SHARD_STREAM_FRAMES - 1,
+          f"shard: the unsharded stream hit {sess1.stats.hits} times")
+
+    for n in SHARD_COUNTS:
+        mesh = shard_mesh(n)
+        spec = lite.replace(data_shards=n)
+        pipes[n] = pipe = build(spec, params, mesh=mesh)
+        check(pipe.device == torch.device("cuda", 0)
+              and pipe.mesh.shape == {"data": n}
+              and list(pipe.shard_params) == [torch.device("cuda", 0)],
+              f"shard: lite_{n} is not one params copy on cuda:0")
+        dispatch(f"lite_{n}", pipe, n, lite_expect, ref)
+
+        eng = PointCloudEngine(params, spec, max_batch=MAX_BATCH, seed=SEED,
+                               mesh=mesh)
+        got, launches = counted(torch, lambda: eng.classify(clouds))
+        check(torch.equal(got, queue_ref)
+              and torch.equal(eng.lfsr_state, queue_state),
+              f"shard: lite_{n} engine's queue differs from unsharded")
+        record(f"lite_{n}_engine", launches, times(lite_expect, n),
+               eng.stats.batches)
+
+        aeng = AsyncPointCloudEngine(pipe, max_batch=MAX_BATCH,
+                                     policy="fixed", seed=SEED)
+        got, launches = counted(torch, lambda: serve_async(aeng))
+        check(all(torch.equal(a, b) for a, b in zip(got, async_ref)),
+              f"shard: lite_{n} async futures differ from unsharded")
+        record(f"lite_{n}_async", launches, times(lite_expect, n),
+               aeng.stats.batches)
+
+        sess = StreamSession(build(stream.replace(data_shards=n), params,
+                                   mesh=mesh), seed=SEED)
+        got, launches = counted(torch, lambda: [sess.infer(f)
+                                                for f in frames])
+        check(all(torch.equal(a, b) for a, b in zip(got, stream_ref))
+              and sess.stats.hits == sess1.stats.hits,
+              f"shard: lite_{n} stream frames differ from unsharded")
+        # the miss maps; the hits replay the cache (no kNN)
+        record(f"lite_{n}_stream", launches,
+               {"knn": 4 * n, "int8_matmul": 28 * n * len(frames)})
+
+    # A 2 replica x 2 shard fleet against the unsharded fleet.
+    fl = lite.replace(name="lite-shard")
+
+    def fleet_run(n, mesh):
+        fspec = FleetSpec(
+            pipelines=(fl.replace(data_shards=n),),
+            tenants=tuple(TenantSpec(t, fl.name, slo_ms=0.0,
+                                     max_inflight=4 * N_QUEUE)
+                          for t in ("rt", "bulk")),
+            replicas=2, max_batch=MAX_BATCH)
+        fleet = PipelineFleet.from_specs(fspec, {fl.name: params},
+                                         seed=SEED, mesh=mesh)
+
+        def burst():
+            futs = [fleet.submit(t, c) for c in clouds for t in ("rt", "bulk")]
+            fleet.flush()
+            return [f.result() for f in futs]
+        return fleet, counted(torch, burst)
+    _, (fleet_ref, _) = fleet_run(1, None)
+    fleet, (got, launches) = fleet_run(2, make_mesh2d(
+        2, 2, devices=["cuda:0"] * 4))
+    check(all(torch.equal(a, b) for a, b in zip(got, fleet_ref)),
+          "shard: the 2 x 2 fleet differs from the unsharded fleet")
+    check("devices ['cuda:0', 'cuda:0']" in fleet.describe(),
+          "shard: the fleet does not name its replicas' devices")
+    record("fleet_2x2", launches, times(lite_expect, 2),
+           sum(rep.engine.stats.batches for rep in fleet.replicas))
+
+    # Per-lane URS: Lite's W8A8 takes one activation scale a dispatch, so
+    # its split is refused; Lite's topology in fp32 (M-2) splits bitwise.
+    # (The ref backend is no yardstick on the card: its cuBLAS products
+    # change kernel with the rows, so a lane's bits follow the width.)
+    w8a8_refusal = None
+    try:
+        build(lite.replace(shared_urs=False, data_shards=4), params,
+              mesh=shard_mesh(4))
+    except ValueError as exc:
+        w8a8_refusal = str(exc)
+    check(w8a8_refusal is not None
+          and "one scale per dispatch" in w8a8_refusal,
+          "shard: per-lane URS with W8A8 was not refused")
+    m2 = m2_spec(N_CLASSES).serving().replace(backend="cuda")
+    per_lane = m2.replace(shared_urs=False)
+    want = build(per_lane, params).infer(chunk, state0.clone())
+    check(not torch.equal(want[1], want[1][:1].expand_as(want[1])),
+          "shard: per-lane URS states do not differ by lane")
+    dispatch("m2_per_lane_4", build(per_lane.replace(data_shards=4), params,
+                                    mesh=shard_mesh(4)),
+             4, {"knn": 4, "fused_linear": 28}, want)
+    dispatch("m2_2", build(m2.replace(data_shards=2), params,
+                           mesh=shard_mesh(2)),
+             2, {"knn": 4, "fused_linear": 28},
+             build(m2, params).infer(chunk, state0.clone()))
+    elite = elite_spec(N_CLASSES).serving().replace(
+        backend="cuda", fused_group="grouped_transfer")
+    echunk = torch.from_numpy(elite_clouds[:MAX_BATCH]).cuda()
+    dispatch("elite_2", build(elite.replace(data_shards=2), elite_params,
+                              mesh=shard_mesh(2)),
+             2, {"fps": 4, "knn": 4, "grouped_transfer_stats": 4,
+                 "fused_linear": 24},
+             build(elite, elite_params).infer(echunk, state0.clone()),
+             pts=echunk)
+
+    # The default mesh: the first CUDA devices.
+    refusal = None
+    if n_dev < 2:
+        try:
+            make_mesh(2)
+        except ValueError as exc:
+            refusal = str(exc)
+        check(refusal is not None and "devices=" in refusal,
+              f"shard: make_mesh(2) on {n_dev} card(s) did not refuse with "
+              f"the devices= recipe: {refusal!r}")
+    else:
+        pipe = build(lite.replace(data_shards=2), params)
+        check([str(d) for d in pipe.mesh.devices.flat]
+              == ["cuda:0", "cuda:1"], "shard: the default mesh is not "
+                                       "cuda:0, cuda:1")
+        dispatch("lite_default_mesh", pipe, 2, lite_expect, ref)
+
+    # One Lite dispatch at 1, 2 and 4 shards on one card: device ms (the
+    # profiler's kernel time), wall ms (ended by a sync) and host syncs.
+    timing = {}
+    for n in (1,) + SHARD_COUNTS:
+        def run(pipe=pipes[n]):
+            return pipe.infer(chunk, state0.clone())
+        prof = profile_summary(*profile_call(torch, run, reps=5))
+        walls = []
+        for _ in range(SHARD_TIMING_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        reported, blocking = host_syncs(torch, run)
+        timing[n] = {"wall_ms": statistics.median(walls),
+                     "device_ms": prof["device_ms"],
+                     "idle_share": prof["idle_share"],
+                     "host_syncs_reported": reported,
+                     "blocking_runtime_calls": blocking}
+    emit({"phase": "shard", "card": smi, "cuda_device_count": n_dev,
+          "max_batch": MAX_BATCH, "shard_counts": list(SHARD_COUNTS),
+          "mesh": "make_mesh(n, devices=['cuda:0'] * n)",
+          "bitwise_vs_unsharded": True, "launches_by_path": paths,
+          "default_mesh_refusal": refusal,
+          "per_lane_w8a8_refusal": w8a8_refusal, "lite_dispatch": timing,
+          "launches": total, "seconds": time.perf_counter() - t_phase})
+    return total
 
 
 # ---------------------------------------------------------------- LM ---
@@ -5190,6 +5433,8 @@ def main() -> int:
                                     lite_frames, lite_outs, smi))
     emit({"phase": "engines_total", "card": smi,
           "seconds": time.perf_counter() - t_engines})
+    add_launches(total, shard_phase(torch, np, params, elite_params, clouds,
+                                    elite_clouds, smi))
     add_launches(total, train_phases(torch, smi, clouds))
     del elite_params, params, seg_params, by_name
     lm_rows, got = lm_phases(torch, np)

@@ -14,7 +14,11 @@ built from the same params hold bit-identical weights.
 
 A ``stream=True`` spec adds :meth:`FrozenPipeline.infer_collect` and
 :meth:`FrozenPipeline.infer_cached`, the two passes of a stream session.
-:func:`build_pool` builds a fleet's pool, one pipeline per replica.
+A spec with ``data_shards > 1`` dispatches every pass through
+``repro_torch.serve.sharding.shard_forward`` over a ``("data",)`` mesh
+(the first CUDA devices, or the ``mesh`` passed), bit for bit the
+unsharded pipeline.  :func:`build_pool` builds a fleet's pool, one
+pipeline per replica.
 """
 from __future__ import annotations
 
@@ -76,7 +80,7 @@ def _freeze(spec: PipelineSpec, params: Dict) -> Tuple[Dict, Any, Any]:
     return frozen, cfg, plan
 
 
-def build(spec: PipelineSpec, params: Dict, *, device=None
+def build(spec: PipelineSpec, params: Dict, *, device=None, mesh=None
           ) -> "FrozenPipeline":
     """Compile a spec + trained params into a frozen pipeline on
     ``device`` (default ``cuda``; raises without a GPU).
@@ -84,37 +88,107 @@ def build(spec: PipelineSpec, params: Dict, *, device=None
     ``params`` is the port's tree (``repro_torch.convert.
     from_numpy_tree`` carries a JAX tree across); a tree that is already
     frozen (int8 export dicts, no BN) passes through the freeze
-    unchanged.  Spec values this slice does not run raise
-    ``NotImplementedError`` naming their ROADMAP.md item.
+    unchanged.
+
+    A sharded spec (``data_shards > 1``) dispatches over ``mesh``, a 1-D
+    ``("data",)`` :class:`~repro_torch.serve.sharding.LocalMesh` of
+    ``data_shards`` devices (fleet placement passes each replica's
+    ``replica_submesh`` row), or by default over the first
+    ``data_shards`` CUDA devices; the params are copied once to each
+    distinct device of the mesh, and the pipeline's ``device`` (where
+    its logits land) is the mesh's first.  ``device``, if given, must be
+    that device.  A mesh for an unsharded spec raises ``ValueError``.
     """
-    dev = resolve_device(device)
+    _enforce_placement(spec)           # RPA020, before the freeze
     frozen, cfg, plan = _freeze(spec, params)       # lower() validates
+    return _place(spec, frozen, cfg, plan, device, mesh)
+
+
+def _place(spec: PipelineSpec, frozen: Dict, cfg, plan, device, mesh
+           ) -> "FrozenPipeline":
+    """Put a frozen tree on its device (each device of its mesh) and
+    resolve the walk."""
     sampler, grouper, _ = registry.resolve(spec.sampler, spec.grouper,
                                            spec.backend)
-    return FrozenPipeline(spec=spec, params=to_device(frozen, dev),
-                          model_config=cfg, plan=plan, device=dev,
-                          sampler=sampler, grouper=grouper)
+    shard_params = None
+    if spec.data_shards > 1:
+        from repro_torch.serve.sharding import make_mesh
+        if mesh is None:
+            mesh = make_mesh(spec.data_shards)
+        dev = mesh.devices.flat[0]
+        if device is not None and not _same_device(torch.device(device),
+                                                   dev):
+            raise ValueError(
+                f"build() was given device={device!r} and a mesh whose "
+                f"first device is {dev}: a sharded pipeline's logits land "
+                f"on its mesh's first device (pass device=None)")
+        shard_params = {d: to_device(frozen, d)
+                        for d in mesh.distinct_devices()}
+        placed = shard_params[dev]
+    elif mesh is not None:
+        raise ValueError(
+            "build() was given a placement mesh but spec.data_shards "
+            "== 1 — an unsharded pipeline has no mesh to place on "
+            "(set spec.data_shards to the mesh's data axis)")
+    else:
+        dev = resolve_device(device)
+        placed = to_device(frozen, dev)
+    return FrozenPipeline(spec=spec, params=placed, model_config=cfg,
+                          plan=plan, device=dev, sampler=sampler,
+                          grouper=grouper, mesh=mesh,
+                          shard_params=shard_params)
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``a`` names ``b`` (a CUDA device without an index names any)."""
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)
 
 
 def build_pool(specs: Sequence[PipelineSpec],
-               params_by_name: Mapping[str, Dict], *, device=None
-               ) -> List["FrozenPipeline"]:
+               params_by_name: Mapping[str, Dict], *, device=None,
+               mesh=None) -> List["FrozenPipeline"]:
     """A fleet's pool: one :class:`FrozenPipeline` per spec of ``specs``
     (``FleetSpec.pool_specs()``), on ``device`` (default ``cuda``).
 
     Replicas of one (:func:`~repro_torch.api.plan.spec_fingerprint`,
-    params) pair share one frozen pipeline: on one card they are
-    interchangeable.  ``params_by_name`` maps each ``spec.name`` to its
-    parameter tree; a missing name raises ``KeyError`` listing what was
-    given.  A pool with ``data_shards > 1`` raises the
-    ``NotImplementedError`` of :meth:`PipelineSpec.validate` (the sharded
-    dispatch, ROADMAP.md).
+    params) pair share one freeze; unsharded ones share the whole
+    pipeline object (on one device they are interchangeable).
+    ``params_by_name`` maps each ``spec.name`` to its parameter tree; a
+    missing name raises ``KeyError`` listing what was given.
+
+    The specs must agree on ``data_shards``.  A sharded pool places
+    replica ``i`` on row ``i`` of ``mesh``, a ``("replica", "data")``
+    :class:`~repro_torch.serve.sharding.LocalMesh` with one row per
+    spec (by default :func:`~repro_torch.serve.sharding.make_mesh2d`
+    over the first CUDA devices), each replica with its own pipeline.
+    A mesh for an unsharded pool raises ``ValueError``.
     """
     from repro_torch.api import plan as stage_plan
-    dev = resolve_device(device)
+    specs = list(specs)
+    shards = {s.data_shards for s in specs}
+    if len(shards) > 1:
+        raise ValueError(f"pool specs must agree on data_shards (the "
+                         f"replica x data mesh is rectangular), got "
+                         f"{sorted(shards)}")
+    data_shards = shards.pop() if specs else 1
+    if data_shards > 1:
+        from repro_torch.serve.sharding import make_mesh2d, replica_submesh
+        if mesh is None:
+            mesh = make_mesh2d(len(specs), data_shards)
+        if tuple(mesh.axis_names) != ("replica", "data") \
+                or mesh.devices.shape[0] != len(specs):
+            raise ValueError(
+                f"build_pool needs a ('replica', 'data') mesh with one "
+                f"row per pool spec ({len(specs)}); got axes "
+                f"{tuple(mesh.axis_names)} shape {mesh.devices.shape}")
+    elif mesh is not None:
+        raise ValueError("build_pool was given a mesh but the pool is "
+                         "unsharded (data_shards == 1)")
+    frozen: Dict[Tuple[str, int], Tuple] = {}
     shared: Dict[Tuple[str, int], FrozenPipeline] = {}
     pool: List[FrozenPipeline] = []
-    for spec in specs:
+    for i, spec in enumerate(specs):
         try:
             params = params_by_name[spec.name]
         except KeyError:
@@ -123,16 +197,34 @@ def build_pool(specs: Sequence[PipelineSpec],
                 f"params_by_name has "
                 f"{', '.join(map(repr, params_by_name))}") from None
         key = (stage_plan.spec_fingerprint(spec), id(params))
+        if key not in frozen:
+            _enforce_placement(spec)
+            frozen[key] = _freeze(spec, params)
+        if data_shards > 1:
+            pool.append(_place(spec, *frozen[key], device,
+                               replica_submesh(mesh, i)))
+            continue
         if key not in shared:
-            shared[key] = build(spec, params, device=dev)
+            shared[key] = _place(spec, *frozen[key], device, None)
         pool.append(shared[key])
     return pool
 
 
+def _enforce_placement(spec: PipelineSpec) -> None:
+    """The ``placement`` scope of ``repro_torch.analysis`` (RPA020)."""
+    from repro_torch.analysis.passes import enforce_spec
+    enforce_spec(spec, scopes=("placement",))
+
+
 @dataclasses.dataclass(frozen=True)
 class FrozenPipeline:
-    """Frozen params + the resolved walk on one device (from
-    :func:`build`)."""
+    """Frozen params + the resolved walk on one device, or split over a
+    ``("data",)`` mesh (from :func:`build`).
+
+    ``mesh`` is None for an unsharded spec.  A sharded pipeline keeps
+    one params copy per distinct mesh device in ``shard_params``
+    (``params`` is the first device's) and dispatches every pass through
+    ``repro_torch.serve.sharding.shard_forward``."""
     spec: PipelineSpec
     params: Dict
     model_config: Any
@@ -140,6 +232,26 @@ class FrozenPipeline:
     device: torch.device
     sampler: Any = dataclasses.field(repr=False, default=None)
     grouper: Any = dataclasses.field(repr=False, default=None)
+    mesh: Any = None
+    shard_params: Optional[Dict] = dataclasses.field(repr=False,
+                                                     default=None)
+    _dispatch: Dict = dataclasses.field(init=False, repr=False,
+                                        default=None)
+
+    def __post_init__(self):
+        if self.mesh is None:
+            return
+        from repro_torch.serve.sharding import shard_forward
+        walk, spec, mesh = self._walk, self.spec, self.mesh
+        dispatch = {None: shard_forward(walk, spec, mesh)[0]}
+        if self.plan.stream:
+            dispatch["collect_cache"] = shard_forward(
+                lambda p, x, s: walk(p, x, s, collect_cache=True), spec,
+                mesh, cache_out=True)[0]
+            dispatch["mapping_cache"] = shard_forward(
+                lambda p, x, s, c: walk(p, x, s, mapping_cache=c), spec,
+                mesh, cache_in=True)[0]
+        object.__setattr__(self, "_dispatch", dispatch)
 
     def infer(self, pts, lfsr_state: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -153,18 +265,34 @@ class FrozenPipeline:
         return self._run(pts, lfsr_state)
 
     def _run(self, pts, lfsr_state, **cache_kw):
-        from repro_torch.models import pointmlp as PM
         if isinstance(pts, np.ndarray):
             pts = torch.from_numpy(pts)
-        pts = pts.to(self.device, torch.float32)
         if (lfsr_state is not None and pts.ndim >= 1
                 and lfsr_state.shape[0] < pts.shape[0]):
             raise ValueError(
                 f"LFSR state has {lfsr_state.shape[0]} streams for a batch "
                 f"of {pts.shape[0]}; size it from the dispatch batch, e.g. "
                 f"pipeline.seed_state(seed, max_batch)")
+        if self.mesh is None:
+            if "mapping_cache" in cache_kw:
+                cache_kw["mapping_cache"] = to_device(
+                    cache_kw["mapping_cache"], self.device)
+            return self._walk(self.params, pts.to(self.device,
+                                                  torch.float32),
+                              lfsr_state, **cache_kw)
+        # each shard moves its own lanes (and cache rows) to its device
+        pts = pts.to(dtype=torch.float32)
+        if "mapping_cache" in cache_kw:
+            return self._dispatch["mapping_cache"](
+                self.shard_params, pts, lfsr_state,
+                cache_kw["mapping_cache"])
+        kind = "collect_cache" if cache_kw.get("collect_cache") else None
+        return self._dispatch[kind](self.shard_params, pts, lfsr_state)
+
+    def _walk(self, params, pts, lfsr_state, **cache_kw):
+        from repro_torch.models import pointmlp as PM
         return PM.pointmlp_infer_with(
-            self.params, self.model_config, pts, lfsr_state,
+            params, self.model_config, pts, lfsr_state,
             sampler=self.sampler, grouper=self.grouper, plan=self.plan,
             shared_urs=self.spec.shared_urs,
             per_sample_norm=self.spec.per_sample_norm, **cache_kw)
@@ -203,8 +331,7 @@ class FrozenPipeline:
         Returns (logits, advanced LFSR state).
         """
         self._require_streaming("infer_cached")
-        return self._run(pts, lfsr_state,
-                         mapping_cache=to_device(cache, self.device))
+        return self._run(pts, lfsr_state, mapping_cache=cache)
 
     def seed_state(self, seed: int, n_streams: int = 64) -> torch.Tensor:
         """Fresh LFSR streams (the paper's "same starting states"); size
@@ -251,6 +378,10 @@ class FrozenPipeline:
             f"  fusion    : {'BN folded into (w, b)' if s.fuse else 'off'}",
             f"  backend   : {s.backend}",
             f"  device    : {self.device}",
+            f"  sharding  : " + (
+                f"{s.data_shards}-way data-parallel over mesh axis 'data' "
+                f"({', '.join(map(str, self.mesh.devices.flat))})"
+                if self.mesh is not None else "single-device"),
             f"  flops     : {self.flops() / 1e6:.1f} MFLOP/sample",
             f"  params    : {tree_size_bytes(self.params)} bytes",
             f"  plan      : {len(self.plan.ops)} ops; {self.plan.describe()}",

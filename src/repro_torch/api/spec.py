@@ -13,10 +13,9 @@ Backend keys: ``ref`` (plain PyTorch) and ``cuda`` (the hand-written
 kernels; the port's counterpart of ``pallas``).  ``fused_group=
 "grouped_transfer"`` lowers each stage's group + transfer pair to one
 fused kernel; ``stream=True`` lowers the cache-aware mapping ops that
-``repro_torch.serve.streaming`` replays.  Spec values the port does not
-run yet are rejected by :meth:`PipelineSpec.validate` with a
-``NotImplementedError`` naming the ROADMAP.md item they wait for; a
-spec that breaks a rule of ``repro_torch.analysis`` (the port's twin of
+``repro_torch.serve.streaming`` replays; ``data_shards > 1`` splits each
+dispatch over a device mesh (``repro_torch.serve.sharding``).  A spec
+that breaks a rule of ``repro_torch.analysis`` (the port's twin of
 ``repro.analysis``) raises with that rule's code.
 
 :class:`TenantSpec` and :class:`FleetSpec` describe a whole deployment
@@ -48,8 +47,8 @@ class PipelineSpec:
     ``per_sample_norm`` are the serving batch semantics (see
     :meth:`serving`); ``stream`` / ``stream_drift_threshold`` configure
     stream sessions and ``policy`` / ``slo_ms`` / ``dispatch_ms`` the
-    async engine's batching.  ``data_shards > 1`` waits for the sharded
-    dispatch (ROADMAP.md).
+    async engine's batching.  ``data_shards`` splits every dispatch
+    over that many devices (``repro_torch.serve.sharding``).
     """
     name: str = "pointmlp-elite"
     # ---- topology (PointMLP walk) ----
@@ -160,14 +159,12 @@ class PipelineSpec:
         return self.replace(**kw)
 
     def validate(self) -> "PipelineSpec":
-        """Refuse what the port does not run yet (``NotImplementedError``
-        naming the ROADMAP.md item), then run every ``repro_torch.
-        analysis`` pass scope over this spec and enforce the findings:
-        unknown registry keys raise :class:`UnknownKeyError` listing the
-        registered names (RPA001-005), broken lowering / placement rules
-        raise ``ValueError`` with their ``RPAxxx`` code, soft
-        misconfigurations warn (RPA1xx).  Returns self."""
-        _check_supported(self)
+        """Run every ``repro_torch.analysis`` pass scope over this spec
+        and enforce the findings: unknown registry keys raise
+        :class:`UnknownKeyError` listing the registered names
+        (RPA001-005), broken lowering / placement rules raise
+        ``ValueError`` with their ``RPAxxx`` code, soft misconfigurations
+        warn (RPA1xx).  Returns self."""
         from repro_torch.analysis.passes import enforce_spec
         enforce_spec(self)
         return self
@@ -226,31 +223,12 @@ class UnknownKeyError(KeyError, ValueError):
 
 
 def check_lowering(spec: PipelineSpec) -> None:
-    """What ``plan.lower`` needs: values the port runs
-    (``NotImplementedError`` naming the ROADMAP.md item), then the
-    ``lowering`` scope of ``repro_torch.analysis``: registered sampler,
-    grouper, backend and fused-op keys (RPA001-004), the fused group's
-    preconditions (RPA010-012) and the stream-cache contract
-    (RPA013-015)."""
-    _check_supported(spec)
+    """What ``plan.lower`` needs: the ``lowering`` scope of
+    ``repro_torch.analysis``: registered sampler, grouper, backend and
+    fused-op keys (RPA001-004), the fused group's preconditions
+    (RPA010-012) and the stream-cache contract (RPA013-015)."""
     from repro_torch.analysis.passes import enforce_spec
     enforce_spec(spec, scopes=("lowering",))
-
-
-#: Spec values the port does not run yet, and the ROADMAP.md item each
-#: waits for.
-_WAITS = (
-    (lambda s: s.data_shards > 1, "data_shards > 1",
-     "the async/stream/fleet engines (sharded dispatch)"),
-)
-
-
-def _check_supported(spec: PipelineSpec) -> None:
-    for test, what, item in _WAITS:
-        if test(spec):
-            raise NotImplementedError(
-                f"{what} is not ported yet: it waits for '{item}' in "
-                f"ROADMAP.md (Queue 1)")
 
 
 # ------------------------------------------------- fleet serving --------
@@ -368,13 +346,11 @@ class FleetSpec:
         return dataclasses.replace(self, **kw)
 
     def validate(self) -> "FleetSpec":
-        """Refuse pool pipelines the port does not run yet, then enforce
-        the fleet-level ``repro_torch.analysis`` findings: every pool
-        pipeline through every pass scope, and the router key (RPA006:
-        an :class:`UnknownKeyError` listing the registered routers).
-        Tenant tiers are checked at construction.  Returns self."""
-        for p in self.pipelines:
-            _check_supported(p)
+        """Enforce the fleet-level ``repro_torch.analysis`` findings:
+        every pool pipeline through every pass scope, and the router key
+        (RPA006: an :class:`UnknownKeyError` listing the registered
+        routers).  Tenant tiers are checked at construction.  Returns
+        self."""
         from repro_torch.analysis import enforce
         from repro_torch.analysis.passes import analyze_fleet_spec
         enforce(analyze_fleet_spec(self))

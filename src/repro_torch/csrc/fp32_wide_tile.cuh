@@ -32,6 +32,9 @@
 namespace fp32_wide {
 
 constexpr int THREADS = 256;
+// Devices a process may launch on: a kernel's shared-memory attribute is
+// set once per device (it is a setting of the device's context).
+constexpr int MAX_DEVICES = 64;
 constexpr int BK = 16;                 // k a step
 
 // A thread's rows are (i / 4) * (BM / MH) + ty * 4 + i % 4, its columns

@@ -209,12 +209,17 @@ int launch(const void* x, const void* w, const void* b, void* out, int M,
   using T = std::conditional_t<SMALL, Small<BN>, Wide<BN>>;
   auto kernel = fused_linear_wide_kernel<BN, VEC>;
   if constexpr (SMALL) kernel = fused_linear_small_kernel<BN, VEC>;
-  static bool sized = false;        // per template: the smem attribute set
-  if (!sized) {
-    cudaError_t err = cudaFuncSetAttribute(
+  // per template and device: the smem attribute set
+  static bool sized[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!sized[dev]) {
+    err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (err != cudaSuccess) return (int)err;
-    sized = true;
+    sized[dev] = true;
   }
   dim3 grid((N + BN - 1) / BN, (M + T::BM - 1) / T::BM);
   kernel<<<grid, THREADS, T::SMEM, stream>>>(

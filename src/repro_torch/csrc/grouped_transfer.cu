@@ -279,19 +279,24 @@ template <int BN, bool VEC>
 int launch(const Args& a, int B, cudaStream_t stream) {
   using T = Wide<BN>;
   auto kernel = grouped_transfer_wide_kernel<BN, VEC>;
-  static bool sized = false;        // per template: the smem attribute set
-  if (!sized) {
-    cudaError_t err = cudaFuncSetAttribute(
+  // per template and device: the smem attribute set
+  static bool sized[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!sized[dev]) {
+    err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (err != cudaSuccess) return (int)err;
-    sized = true;
+    sized[dev] = true;
   }
   if (a.mode == MODE_STATS) {
     dim3 sgrid(a.n_tiles, B);
     grouped_transfer_stats_kernel<<<sgrid, STATS_THREADS, 0, stream>>>(
         a.feats, a.nidx, a.centers, const_cast<double*>(a.partials), a.N,
         a.S, a.k, a.C, (int)VEC);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((a.C_out + BN - 1) / BN, (a.S * a.k + T::BM - 1) / T::BM, B);

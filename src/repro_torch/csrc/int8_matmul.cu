@@ -56,6 +56,8 @@
 namespace {
 
 constexpr int THREADS = 256, NSTAGE = 3;
+// Devices a process may launch on (the launch state below is per device).
+constexpr int MAX_DEVICES = 64;
 constexpr int BK = 64;                // bytes of k in one ring stage
 constexpr int LDA = BK + 16;          // ring row stride: 16-byte aligned,
                                       // ldmatrix rows on distinct banks
@@ -363,29 +365,36 @@ int launch_kernel(const void* x, const void* w, const void* a_scale,
   const int KC = K > 0 ? (K + BK - 1) / BK : 1;
   const int smem = BN * ((SLICED ? SLICE_CHUNKS : KC) * BK + 16) +
                    NSTAGE * T::BM * LDA;
-  // Per template: the largest dynamic shared memory granted so far, and
-  // the resident blocks an SM takes at the last size asked.
-  static int granted = 48 * 1024, sized = -1, per_sm = 1, sms = 0;
-  cudaError_t err;
-  if (smem > granted) {
+  // Per template and device (the attribute is a setting of the device's
+  // context): the largest dynamic shared memory granted so far, the
+  // device's SMs, and the resident blocks an SM takes at the last size
+  // asked.
+  struct State { int granted = 48 * 1024, sized = -1, per_sm = 1, sms = 0; };
+  static State states[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  State& st = states[dev];
+  if (smem > st.granted) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    granted = smem;
+    st.granted = smem;
   }
-  if (sms == 0) {
-    int dev = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (st.sms == 0) {
+    err = cudaDeviceGetAttribute(&st.sms, cudaDevAttrMultiProcessorCount,
+                                 dev);
     if (err != cudaSuccess) return (int)err;
   }
-  if (smem != sized) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+  if (smem != st.sized) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&st.per_sm, kernel,
                                                         THREADS, smem);
     if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) per_sm = 1;
-    sized = smem;
+    if (st.per_sm < 1) st.per_sm = 1;
+    st.sized = smem;
   }
+  const int sms = st.sms, per_sm = st.per_sm;
   // Spread the M tiles evenly over the blocks the card holds at once.
   const int n_tiles = (N + BN - 1) / BN, m_tiles = (M + T::BM - 1) / T::BM;
   const int slots = sms * per_sm / n_tiles > 0 ? sms * per_sm / n_tiles : 1;

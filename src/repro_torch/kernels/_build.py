@@ -163,6 +163,19 @@ def launcher(name: str):
     return getattr(lib, SIGNATURES[name][0])
 
 
+def launch(name: str, device, *args) -> None:
+    """Call kernel ``name``'s C launch function with ``args`` and the
+    current stream of ``device`` (a CUDA ``torch.device``), with
+    ``device`` made the calling thread's current device for the call:
+    the runtime launches on the current device whatever stream it is
+    given.  Raises on a CUDA error code."""
+    import torch
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = launcher(name)(*args, stream)
+    check(name, code)
+
+
 def check(name: str, code: int) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if code != 0:

@@ -64,12 +64,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     sm_scale = 1.0 / d ** 0.5          # rounded to f32 by ctypes
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = _build.launcher("flash_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv,
-        tq, tk, d, int(causal), int(window), int(q.dtype == torch.bfloat16),
-        sm_scale, stream)
-    _build.check("flash_attention", code)
+    _build.launch(
+        "flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), b, h, hkv, tq, tk, d, int(causal),
+        int(window), int(q.dtype == torch.bfloat16), sm_scale)
     flash_attention_cuda.launches += 1
     flash_attention_cuda.templates[f"{rt}_{bq}x{bkv}"] += 1
     return out

@@ -67,13 +67,10 @@ def fps_cuda(points: torch.Tensor, n_samples: int,
         return out
     scratch = (torch.empty(b * n, dtype=torch.float32, device=points.device)
                if name.endswith("_tail") else None)
-    stream = torch.cuda.current_stream(points.device).cuda_stream
-    code = _build.launcher("fps")(
-        points.data_ptr(), out.data_ptr(),
+    _build.launch(
+        "fps", points.device, points.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        0 if scratch is None else scratch.numel(), b, n, n_samples, threads,
-        stream)
-    _build.check("fps", code)
+        0 if scratch is None else scratch.numel(), b, n, n_samples, threads)
     fps_cuda.launches += 1
     fps_cuda.templates[name] += 1
     return out

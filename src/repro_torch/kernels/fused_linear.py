@@ -77,11 +77,9 @@ def fused_linear_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         return out
     tmpl = template(m, k, n, _build.aligned16(x, w),
                     _sm_count(x.device.index), tile)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = _build.launcher("fused_linear")(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n,
-        _ACT_CODE[activation], tmpl.code, stream)
-    _build.check("fused_linear", code)
+    _build.launch("fused_linear", x.device, x.data_ptr(), w.data_ptr(),
+                  b.data_ptr(), out.data_ptr(), m, k, n,
+                  _ACT_CODE[activation], tmpl.code)
     fused_linear_cuda.launches += 1
     fused_linear_cuda.templates[tmpl.name] += 1
     return out

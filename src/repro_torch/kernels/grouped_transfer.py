@@ -109,14 +109,12 @@ def _launch(feats, nidx, centers, sigma, alpha, beta, w, b, *, mode: int,
     partials = (torch.empty((bsz, -(-s // _STATS_SAMPLES)),
                             dtype=torch.float64, device=dev)
                 if mode == _MODE_STATS else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = _build.launcher("grouped_transfer")(
-        feats.data_ptr(), nidx.data_ptr(), centers.data_ptr(),
-        None if sigma is None else sigma.data_ptr(), alpha.data_ptr(),
-        beta.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        None if partials is None else partials.data_ptr(), bsz, n, s, k, c,
-        c_out, mode, int(affine), int(act), tmpl.code, stream)
-    _build.check("grouped_transfer", code)
+    _build.launch(
+        "grouped_transfer", dev, feats.data_ptr(), nidx.data_ptr(),
+        centers.data_ptr(), None if sigma is None else sigma.data_ptr(),
+        alpha.data_ptr(), beta.data_ptr(), w.data_ptr(), b.data_ptr(),
+        out.data_ptr(), None if partials is None else partials.data_ptr(),
+        bsz, n, s, k, c, c_out, mode, int(affine), int(act), tmpl.code)
     # the small codes run the wide tile of the same BN
     counter[_build.GemmTemplate(tmpl.bn, tmpl.vec).name] += 1
     return out

@@ -79,12 +79,9 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
     if m * n == 0:
         return out
     tmpl = template(k, n, _build.aligned16(x_q, w_q), tile)
-    stream = torch.cuda.current_stream(x_q.device).cuda_stream
-    code = _build.launcher("int8_matmul")(
-        x_q.data_ptr(), w_q.data_ptr(), a_scale.data_ptr(),
-        w_scale.data_ptr(), out.data_ptr(), m, k, n, rows_per_lane,
-        tmpl.code, stream)
-    _build.check("int8_matmul", code)
+    _build.launch("int8_matmul", x_q.device, x_q.data_ptr(), w_q.data_ptr(),
+                  a_scale.data_ptr(), w_scale.data_ptr(), out.data_ptr(), m,
+                  k, n, rows_per_lane, tmpl.code)
     int8_matmul_cuda.launches += 1
     int8_matmul_cuda.templates[tmpl.name] += 1
     return out
@@ -181,12 +178,10 @@ def w8_matmul_cuda(x: torch.Tensor, w_q: torch.Tensor,
     scratch = (torch.empty((route.splits(k), m, n), dtype=torch.float32,
                            device=x.device)
                if route.name == "stream" else None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = _build.launcher("w8_matmul")(
-        x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-        0 if scratch is None else scratch.data_ptr(), m, k, n,
-        int(x.dtype == torch.bfloat16), route.code, route.ks, stream)
-    _build.check("w8_matmul", code)
+    _build.launch("w8_matmul", x.device, x.data_ptr(), w_q.data_ptr(),
+                  w_scale.data_ptr(), out.data_ptr(),
+                  0 if scratch is None else scratch.data_ptr(), m, k, n,
+                  int(x.dtype == torch.bfloat16), route.code, route.ks)
     w8_matmul_cuda.launches += 1
     return out
 

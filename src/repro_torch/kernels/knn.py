@@ -95,13 +95,10 @@ def knn_cuda(samples: torch.Tensor, points: torch.Tensor, k: int,
     scratch = (torch.empty(_ROUND_ROWS * n, dtype=torch.float32,
                            device=samples.device)
                if n > _SMEM_ROW_FLOATS else None)
-    stream = torch.cuda.current_stream(samples.device).cuda_stream
-    code = _build.launcher("knn")(
-        samples.data_ptr(), points.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        0 if scratch is None else scratch.numel(), b, s, n, c, k, r2, qpw,
-        stream)
-    _build.check("knn", code)
+    _build.launch(
+        "knn", samples.device, samples.data_ptr(), points.data_ptr(),
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        0 if scratch is None else scratch.numel(), b, s, n, c, k, r2, qpw)
     knn_cuda.launches += 1
     knn_cuda.templates[name] += 1
     knn_cuda.radius_launches += int(radius is not None)

@@ -201,12 +201,13 @@ class AsyncPointCloudEngine:
         self._closed = False
 
     @classmethod
-    def from_params(cls, params, spec, *, device=None,
+    def from_params(cls, params, spec, *, device=None, mesh=None,
                     **kwargs) -> "AsyncPointCloudEngine":
         """Validate ``spec``, build its pipeline on ``device`` (default
-        ``cuda``; raises without a GPU) and wrap it."""
+        ``cuda``; raises without a GPU), or over ``mesh`` for a sharded
+        spec (see ``build``), and wrap it."""
         spec.validate()
-        return cls(build(spec, params, device=device), **kwargs)
+        return cls(build(spec, params, device=device, mesh=mesh), **kwargs)
 
     # ------------------------------------------------------ sans-IO ----
 
@@ -403,6 +404,8 @@ class AsyncPointCloudEngine:
             logits, _ = self.pipeline.infer(batch, self._lfsr0.clone())
         event = None
         if self.device.type == "cuda":
+            # after the logits' gather, on the first device of a sharded
+            # pipeline's mesh: the gather waits for every shard
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
         self.stats.serve_s += time.perf_counter() - t0

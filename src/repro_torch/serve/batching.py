@@ -71,8 +71,9 @@ def as_point_queue(points, n_points: int, device=None) -> torch.Tensor:
 
 def check_shard_batch(max_batch: int, data_shards: int) -> None:
     """Reject a dispatch shape that ``data_shards`` devices cannot split
-    evenly (``data_shards == 1`` always can; more waits for the sharded
-    dispatch, which ``PipelineSpec.validate`` refuses)."""
+    evenly, at engine construction, before any mesh is made (the sharded
+    dispatch, ``repro_torch.serve.sharding``, splits every fixed-shape
+    dispatch into ``max_batch // data_shards`` lanes a device)."""
     if max_batch % data_shards:
         raise ValueError(
             f"data_shards={data_shards} must divide max_batch evenly: got "

@@ -1,15 +1,17 @@
 """Fleet serving: a multi-tenant, SLO-aware router over a pipeline pool.
 
-The twin of ``repro.serve.fleet`` for an unsharded pool on one device.
-:class:`PipelineFleet` serves the paper's accuracy/throughput ladder
-behind one front door:
+The twin of ``repro.serve.fleet``.  :class:`PipelineFleet` serves the
+paper's accuracy/throughput ladder behind one front door:
 
 * **Pool**: one built pipeline per replica (``api.build.build_pool``;
-  replicas of one spec and params share one pipeline), each with its own
+  unsharded replicas of one spec and params share one pipeline), each
+  with its own
   :class:`~repro_torch.serve.async_engine.AsyncPointCloudEngine` on a
-  shared clock and seed.  On one card the replicas share the card's
-  default stream, as the JAX package's unsharded replicas share one
-  device.
+  shared clock and seed.  Unsharded replicas share one device and its
+  default stream, as the JAX package's share one device.  A sharded pool
+  (``data_shards > 1``) places replica ``r`` on row ``r`` of a
+  ``("replica", "data")`` mesh (``serve.sharding.make_mesh2d``), each
+  replica's dispatch split over its row.
 * **Routing**: ``submit(tenant, cloud)``; the tenant's
   :class:`~repro_torch.api.spec.TenantSpec` names its tier and the
   fleet's router (``serve.router.ROUTERS``) picks a replica of that tier.
@@ -130,12 +132,15 @@ class PipelineFleet:
     @classmethod
     def from_specs(cls, fleet_spec: FleetSpec,
                    params_by_name: Mapping[str, dict], *, device=None,
-                   **kwargs) -> "PipelineFleet":
+                   mesh=None, **kwargs) -> "PipelineFleet":
         """Validate the spec, build its pool on ``device`` (default
-        ``cuda``; raises without a GPU) and the fleet over it."""
+        ``cuda``; raises without a GPU) and the fleet over it.  A sharded
+        pool is placed on ``mesh``, a ``("replica", "data")`` mesh with
+        one row per replica (None: ``make_mesh2d`` over the first CUDA
+        devices)."""
         fleet_spec.validate()
         pool = build_pool(fleet_spec.pool_specs(), params_by_name,
-                          device=device)
+                          device=device, mesh=mesh)
         return cls(pool, fleet_spec, **kwargs)
 
     # ------------------------------------------------------ sans-IO ----
@@ -286,8 +291,11 @@ class PipelineFleet:
                  f"max_batch={self.spec.max_batch}, "
                  f"data_shards={self.spec.data_shards}"]
         for rep in self.replicas:
+            mesh = rep.engine.pipeline.mesh
+            where = (f"devices {[str(d) for d in mesh.devices.flat]}"
+                     if mesh is not None else f"device {rep.engine.device}")
             lines.append(f"  replica {rep.replica_id}: tier={rep.tier} "
-                         f"(device {rep.engine.device}); "
+                         f"({where}); "
                          f"policy={rep.engine.policy.describe()}")
         for t in self.spec.tenants:
             lines.append(f"  tenant {t.name}: tier={t.tier} "

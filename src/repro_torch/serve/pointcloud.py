@@ -15,7 +15,7 @@ from typing import Dict, List
 
 import torch
 
-from repro_torch.api.build import build, resolve_device
+from repro_torch.api.build import build
 from repro_torch.api.spec import PipelineSpec
 from repro_torch.serve import batching
 from repro_torch.serve.batching import PointCloudStats
@@ -40,17 +40,22 @@ class PointCloudEngine:
       seed: LFSR seed (the paper's "same starting states").
       device: ``None`` serves on ``cuda`` (raising without a GPU);
         ``"cpu"`` runs the plain versions.
+      mesh: for a spec with ``data_shards > 1``, the ``("data",)`` mesh
+        each dispatch is split over (``repro_torch.serve.sharding.
+        make_mesh``; None: the first CUDA devices).  The engine's device
+        is then the mesh's first, where the logits land.
     """
 
     def __init__(self, params: Dict, spec: PipelineSpec, max_batch: int = 8,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, mesh=None):
         if not isinstance(spec, PipelineSpec):
             raise TypeError(f"PointCloudEngine takes a repro_torch "
                             f"PipelineSpec, got {type(spec).__name__}")
         spec.validate()
-        self.device = resolve_device(device)
         self.max_batch = int(max_batch)
-        self.pipeline = build(spec, params, device=self.device)
+        batching.check_shard_batch(self.max_batch, spec.data_shards)
+        self.pipeline = build(spec, params, device=device, mesh=mesh)
+        self.device = self.pipeline.device
         self.spec = self.pipeline.spec
         self.cfg = self.pipeline.model_config
         self.params = self.pipeline.params

@@ -29,7 +29,9 @@ Transports::
     sess = fleet.open_stream("lidar")           # routed and admitted
 
 The drift and the cache decisions are host code (numpy), as in the JAX
-package; the caches are tensors on the pipeline's device.
+package; the caches are tensors on the pipeline's device (a sharded
+pipeline's first mesh device: each dispatch sends a shard's cache rows
+to that shard's device).
 """
 from __future__ import annotations
 
@@ -169,7 +171,8 @@ class StreamSession:
         alone decides).
       batch: dispatch width: the frame is repeated over the lanes and lane
         0 returned, the same bits at any width.  Defaults to
-        ``spec.data_shards`` (1).
+        ``spec.data_shards``, the smallest batch a sharded dispatch
+        splits (one lane a shard).
     """
 
     def __init__(self, pipeline, *, seed: int = 0,

@@ -50,15 +50,17 @@ class Candidate:
 
 def quick_space(base) -> List[Any]:
     """The quick search space around ``base``: the precision ladder x
-    {``ref``, ``cuda``} x {unfused, fused group->transfer} x the static
-    tile candidates (``tune.kernels.tuning_candidates(quick=True)``: the
-    defaults and the card's small tiles), on one device
-    (``data_shards=1``), as ``repro.tune.quick_space`` on one host."""
+    {``ref``, ``cuda``} x {unfused, fused group->transfer} x {1, N}-way
+    sharding (N = min(8, CUDA devices), only on a host with two or more)
+    x the static tile candidates (``tune.kernels.tuning_candidates(
+    quick=True)``: the defaults and the card's small tiles), as
+    ``repro.tune.quick_space``."""
+    n_dev = torch.cuda.device_count()
     return stage_plan.enumerate_plan_space(
         base,
         stage_backends=(("ref",) * 4, ("cuda",) * 4),
         fused_groups=("none", "grouped_transfer"),
-        data_shards=(1,),
+        data_shards=(1,) if n_dev < 2 else (1, min(8, n_dev)),
         kernel_tunings=tuning_candidates(quick=True))
 
 

@@ -285,13 +285,22 @@ class TestEnforcement:
             t.validate()
 
     def test_unported_values_refused_before_the_passes(self):
-        """``data_shards=2`` without per-sample norm: ``NotImplementedError``
-        at validate and lower, and RPA020 as a finding."""
-        t, _ = tiny_pair(data_shards=2, per_sample_norm=False)
-        with pytest.raises(NotImplementedError, match="sharded"):
+        """``data_shards=2`` without per-sample norm (the sharded dispatch
+        is ported): RPA020's ``ValueError`` at validate, as JAX's, and at
+        build, while ``plan.lower`` (the lowering scope) takes it, as
+        JAX's does; RPA020 is the one finding."""
+        t, j = tiny_pair(data_shards=2, per_sample_norm=False)
+        rule = "RPA020: data_shards > 1 requires per-sample normalization"
+        with pytest.raises(ValueError, match=rule):
             t.validate()
-        with pytest.raises(NotImplementedError, match="sharded"):
-            tplan.lower(t, t.to_model_config())
+        with pytest.raises(ValueError, match=rule):
+            j.validate()
+        assert tplan.lower(t, t.to_model_config()).ops
+        from repro.api import plan as jplan
+        assert jplan.lower(j, j.to_model_config()).ops
+        from repro_torch.api.build import build
+        with pytest.raises(ValueError, match="RPA020"):
+            build(t, {}, device="cpu")
         assert [f.code for f in P.analyze_spec(t)] == ["RPA020"]
 
     def test_lower_enforces_the_lowering_scope_only(self):

@@ -360,10 +360,15 @@ class TestSpecAndDevice:
     ])
     def test_unported_values_name_their_roadmap_item(self, raw_params, over,
                                                      item):
-        """A value the port does not run names its ROADMAP item; tiles are
-        ported, so a tile the card lacks (kNN's query tile is a multiple
-        of 8) is refused as a ValueError naming the tiles it has."""
-        want = {"sharded": (NotImplementedError, "(?s)sharded.*ROADMAP"),
+        """Both values are ported, so each refusal names what to pass
+        instead: a sharded spec's default mesh needs as many CUDA devices
+        as shards, and the refusal gives the ``devices=`` recipe (a CPU
+        mesh repeats the CPU); a tile the card lacks (kNN's query tile is
+        a multiple of 8) is a ValueError naming the tiles it has."""
+        want = {"sharded": (ValueError, r"data_shards=2 needs 2 CUDA "
+                                        r"devices but only \d+ are "
+                                        r"available.*devices=\('cpu',\) "
+                                        r"\* 2"),
                 "Tuning": (ValueError, "knn: the card has no tile 12; it "
                                        "has queries a block in multiples "
                                        "of 8")}[item]

@@ -50,6 +50,7 @@ from repro_torch.serve.async_engine import (AsyncPointCloudEngine,  # noqa
 from repro_torch.serve.batching import (check_shard_batch,  # noqa: E402
                                         pad_to_batch, stack_requests)
 from repro_torch.serve.fleet import PipelineFleet  # noqa: E402
+from repro_torch.serve.sharding import make_mesh2d  # noqa: E402
 from test_torch_streaming import (SEED, bitwise, jax_spec,  # noqa: E402
                                   jax_tree, mapping_matches,
                                   perturbed_params, port_spec)
@@ -558,11 +559,17 @@ class TestFleet:
         assert pool[0] is not pool[1]
         with pytest.raises(KeyError, match="no params"):
             build_pool(fleet_specs()[0].pool_specs(), {}, device="cpu")
+        # a sharded pool: its default mesh needs CUDA devices; on a mesh,
+        # each replica gets its own pipeline on its own row
         sharded = serving_port(data_shards=2)
-        with pytest.raises(NotImplementedError,
-                           match=r"async/stream/fleet engines \(sharded"):
-            build_pool([sharded], {sharded.name: from_numpy_tree(params_np)},
-                       device="cpu")
+        by_name = {sharded.name: from_numpy_tree(params_np)}
+        with pytest.raises(ValueError, match=r"2 x 2 replica x data mesh "
+                                             r"needs 4 CUDA devices"):
+            build_pool([sharded] * 2, by_name, device="cpu")
+        spool = build_pool([sharded] * 2, by_name, mesh=make_mesh2d(
+            2, 2, devices=("cpu",) * 4))
+        assert spool[0] is not spool[1]
+        assert [p.mesh.shape for p in spool] == [{"data": 2}] * 2
         fs = fleet_specs()[0]
         with pytest.raises(ValueError, match="pool order"):
             PipelineFleet(list(reversed(pool)), fs)
