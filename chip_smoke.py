@@ -104,9 +104,20 @@ the kernel once a layer), ``dryrun_card`` (the dry-run's fake prefill and
 shapes and dtypes equal, the card's peak above its arguments within 10%
 of the dry-run's temp bytes) and ``dryrun_cli`` (``python -m
 repro_torch.launch.dryrun --fast`` over all 80 production cells, one
-full-cost cell and ``repro_torch.report``'s tables).  Every path is
-driven with the kernels' launch counts set to 0 just before it and read
-just after.  Every phase prints one JSON line; a
+full-cost cell and ``repro_torch.report``'s tables).  Last, the
+``dp_train`` phases train data-parallel over a ``torch.distributed``
+process group (no hand kernel on that path): one NCCL rank at
+tinyllama's full size (4 x 2048, remat), each step on
+``make_host_mesh()`` bitwise the same step without a mesh, with the
+step's and the gradient all-reduce's times and bytes; two gloo ranks
+sharing the card (NCCL takes one rank a device) at full width cut to 2
+layers in f32, held against one process on the whole batch, their params
+bitwise equal, and the int8 compressed psum of their gradients bitwise
+against the same function on the CPU; and ``python -m
+torch.distributed.run --nproc-per-node 1 -m repro_torch.launch.train``
+through a checkpoint and a bitwise resume.  Every path is driven with
+the kernels' launch counts set to 0 just before it and read just
+after.  Every phase prints one JSON line; a
 failed check raises and the script exits non-zero.  The line before the
 last lists every ported kernel with its numbers, and the last line is
 ``{"ok": true, "device": {...}}``.
@@ -5319,6 +5330,518 @@ def family_train_phases(torch, np, smi):
     return total
 
 
+# ------------------------------------------- data-parallel training --
+
+DP_STEPS = 3
+# (b): tinyllama at full width cut to 2 layers, f32 (the CPU test's
+# dtype, whose tolerance it keeps), global batch 4 x 512 over 2 ranks
+DP_CUT = dict(layers=2, batch=4, seq=512, steps=2, ranks=2)
+# the CPU test's tolerance (tests/test_torch_dp_train.py): f32 sums over
+# the two ranks' blocks against one sum over the whole batch
+DP_RTOL = 1e-5
+DP_LEAF_ATOL = 1e-5
+
+
+class TimedMean:
+    """Wraps ``train.train_loop.group_mean``: CUDA events around each
+    call on a mesh and the bytes of the gradients it reduces."""
+
+    def __init__(self, torch, loop):
+        self.torch, self.loop, self.orig = torch, loop, loop.group_mean
+        self.events, self.nbytes = [], []
+
+    def __enter__(self):
+        def timed(grads, mesh):
+            from repro_torch.tree import tree_leaves
+            if mesh is None:
+                return self.orig(grads, mesh)
+            a = self.torch.cuda.Event(enable_timing=True)
+            b = self.torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = self.orig(grads, mesh)
+            b.record()
+            self.events.append((a, b))
+            self.nbytes.append(sum(x.numel() * x.element_size()
+                                   for x in tree_leaves(grads)))
+            return out
+        self.loop.group_mean = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.group_mean = self.orig
+        return False
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def dp_nccl_phase(torch, smi):
+    """(a) One NCCL rank at full size: ``train_loop.fit(..., mesh=
+    make_host_mesh())`` over a process group of one, tinyllama-1.1b (22
+    layers, bf16, remat, the xla route) at LM_BATCH x LM_SEQ for DP_STEPS
+    steps (no checkpoints), each step's params and metrics bitwise those
+    of ``fit`` without a mesh (both under deterministic algorithms); the
+    step ms of each (``fit``'s own ``dt``, a synchronize after each step)
+    and the gradient all-reduce's ms and bytes."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import lm_data
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.models.api import get_model
+    from repro_torch.train import train_loop as loop
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(LM_ARCH)
+    api = get_model(cfg)
+    saved = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE",
+                                             "LOCAL_RANK")}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    t0 = time.perf_counter()
+    snaps, bitwise = [], []
+
+    def keep(step, params, metrics):
+        snaps.append(([x.clone() for x in tree_leaves(params)],
+                      {k: v.clone() for k, v in metrics.items()}))
+
+    def same(step, params, metrics):
+        want_p, want_m = snaps[step]
+        bitwise.append(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(params), want_p)) and sorted(metrics) ==
+            sorted(want_m) and all(torch.equal(metrics[k], want_m[k])
+                                   for k in want_m))
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            dev = init_distributed(init_method=f"file://{d}/store")
+            init_s = time.perf_counter() - t0
+            mesh = make_host_mesh()
+            check(dist.get_backend() == "nccl" and mesh.shape ==
+                  {"data": 1} and mesh.device_mesh is not None,
+                  f"dp_train nccl: backend {dist.get_backend()}, mesh "
+                  f"{mesh.shape}")
+            tc = TrainConfig(optimizer="adamw", lr=LM_TRAIN_LR,
+                             lr_min=LM_TRAIN_LR / 10, steps=DP_STEPS,
+                             batch_size=LM_BATCH, seed=SEED + 40,
+                             checkpoint_every=0,
+                             checkpoint_dir=f"{d}/ckpt")
+
+            def data(start):
+                return lm_data.stream(seed=SEED, batch=LM_BATCH,
+                                      seq_len=LM_SEQ, vocab=cfg.vocab_size,
+                                      start_step=start, device=dev)
+            log = io.StringIO()
+            with deterministic(torch) as det, TimedMean(torch, loop) as tm, \
+                    contextlib.redirect_stdout(log):
+                got, launches = counted(torch, lambda: loop.fit(
+                    api, tc, data, hooks={"on_step": keep}, log_every=1,
+                    device=dev, mesh=mesh))
+                reduce_ms = tm.ms()
+                del got["params"], got["opt_state"]
+                want = loop.fit(api, tc, data, hooks={"on_step": same},
+                                log_every=1, device=dev)
+                del want["params"], want["opt_state"]
+            expect_launches("dp_train nccl", launches, {})
+            check(len(bitwise) == DP_STEPS and all(bitwise),
+                  f"dp_train nccl: fit on the mesh is not bitwise fit "
+                  f"without it: {bitwise}")
+            dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    del snaps
+    torch.cuda.empty_cache()
+    ms = {"mesh": [h["dt"] * 1e3 for h in got["history"]],
+          "plain": [h["dt"] * 1e3 for h in want["history"]]}
+    emit({"phase": "dp_train_nccl", "entry": "train_loop.fit(mesh=)",
+          "arch": cfg.name, "layers": cfg.n_layers,
+          "batch": LM_BATCH, "seq": LM_SEQ, "dtype": cfg.dtype,
+          "remat": cfg.remat, "attn_impl": cfg.attn_impl, "ranks": 1,
+          "backend": "nccl", "steps": DP_STEPS, "launches": launches,
+          "bitwise_each_step": bitwise,
+          "losses": [h["loss"] for h in got["history"]],
+          "step_ms_mesh": ms["mesh"], "step_ms_plain": ms["plain"],
+          "step_ms_mesh_median_after_first": statistics.median(
+              ms["mesh"][1:]),
+          "step_ms_plain_median_after_first": statistics.median(
+              ms["plain"][1:]),
+          "allreduce_ms": reduce_ms, "allreduce_bytes": tm.nbytes[0],
+          "allreduce_calls": len(reduce_ms), "init_distributed_s": init_s,
+          "deterministic_algorithms": True,
+          "deterministic_warnings": det.warnings,
+          "seconds": time.perf_counter() - t0, "card": smi})
+    return launches
+
+
+def dp_gloo_probe(torch, dist):
+    """gloo all-reduces of CUDA tensors, SUM and MAX, f32 and int32: the
+    results (and their device) as a rank sees them."""
+    r = dist.get_rank()
+    out = {}
+    for dtype in (torch.float32, torch.int32):
+        for op in ("SUM", "MAX"):
+            x = torch.arange(4, device="cuda", dtype=dtype) + 10 * r
+            dist.all_reduce(x, op=getattr(dist.ReduceOp, op))
+            out[f"{op}_{str(dtype)[6:]}"] = (x.cpu().tolist(), x.device.type)
+    return out
+
+
+def dp_gloo_rank(rank: int, work: str, seed: int) -> None:
+    """(b)'s rank: gloo on ``cuda:0`` beside the other rank; writes what
+    the parent checks to ``<work>/rank<r>.pt``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import lm_data
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.models.api import get_model
+    from repro_torch.sharding import rules
+    from repro_torch.train import grad_compress as GC
+    from repro_torch.train import train_loop as loop
+    from repro_torch.tree import tree_leaves, tree_map, unflatten_like
+
+    torch.set_num_threads(4)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_CUT["ranks"]),
+                      LOCAL_RANK="0")
+    dev = init_distributed("cuda:0", backend="gloo",
+                           init_method=f"file://{work}/store")
+    torch.zeros(1, device=dev)
+    mesh = make_host_mesh(dev)
+    out = {"probe": dp_gloo_probe(torch, dist), "rank": rank,
+           "coordinate": mesh.coordinate("data"), "device": str(dev)}
+    cfg = get_config(LM_ARCH).replace(n_layers=DP_CUT["layers"],
+                                      dtype="float32")
+    api = get_model(cfg)
+    tc = TrainConfig(optimizer="adamw", lr=LM_TRAIN_LR,
+                     lr_min=LM_TRAIN_LR / 10, steps=LM_TRAIN_STEPS,
+                     batch_size=DP_CUT["batch"])
+    params = api.init(torch.Generator().manual_seed(seed), device=dev)
+    batch = lm_data.synth_batch(SEED, 0, DP_CUT["batch"], DP_CUT["seq"],
+                                cfg.vocab_size, device=dev)
+    _, g = loop.value_and_grad(api.loss_fn, params, {
+        k: rules.constrain_batch(v, mesh) for k, v in batch.items()})
+    # the compressed psum of this rank's block gradients, on the card and
+    # on the CPU, with the same bits (a CPU generator seeded by the rank)
+    gen = torch.Generator().manual_seed(seed + 100 + rank)
+    bits = unflatten_like(g, [torch.randint(0, 2 ** 32, x.shape,
+                                            generator=gen)
+                              for x in tree_leaves(g)])
+    psum = GC.make_compressed_psum(("data",), mesh)
+    errs = GC.init_error_state(g)
+    t0 = time.perf_counter()
+    red_c, err_c = psum(g, errs, tree_map(lambda b: b.to(dev), bits))
+    torch.cuda.synchronize()
+    psum_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    red_h, err_h = psum(tree_map(lambda x: x.cpu(), g),
+                        tree_map(lambda x: x.cpu(), errs), bits)
+    psum_cpu_s = time.perf_counter() - t0
+    diff = []
+    for name, a, b in (("reduced", red_c, red_h), ("error", err_c, err_h)):
+        for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b))):
+            x = x.cpu()
+            bad = (x.view(torch.int32) != y.view(torch.int32)).nonzero()
+            for j in bad[:20].tolist():
+                diff.append((name, i, tuple(j), float(x[tuple(j)]),
+                             float(y[tuple(j)])))
+            if len(bad) > 20:
+                diff.append((name, i, "more", len(bad), None))
+    del red_c, err_c, red_h, err_h, bits, errs
+    out["psum"] = {"differ": diff, "card_s": psum_card_s,
+                   "cpu_s": psum_cpu_s}
+    out["grads"] = tree_map(lambda x: x.cpu(),
+                            loop.group_mean(g, mesh))
+    del g
+    step, init_opt = loop.build_accumulating_step(api, tc, mesh)
+    opt = init_opt(params)
+    out["steps"] = []
+
+    def steps(params, opt):
+        for i in range(DP_CUT["steps"]):
+            b = lm_data.synth_batch(SEED, i, DP_CUT["batch"], DP_CUT["seq"],
+                                    cfg.vocab_size, device=dev)
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, b, i)
+            torch.cuda.synchronize()
+            out["steps"].append({
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "params": tree_map(lambda x: x.cpu(), params)})
+    # the data-parallel steps are this phase's path: their launches
+    _, out["launches"] = counted(torch, lambda: steps(params, opt))
+    torch.save(out, f"{work}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def dp_gloo_reference(torch, api, cfg, seed: int):
+    """(b)'s one-process run on the whole batch, the yardstick (its
+    launches are not the path's): (per-step metrics and params on the
+    host, the loss, the gradients on the host)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import lm_data
+    from repro_torch.train import train_loop as loop
+
+    tc = TrainConfig(optimizer="adamw", lr=LM_TRAIN_LR,
+                     lr_min=LM_TRAIN_LR / 10, steps=LM_TRAIN_STEPS,
+                     batch_size=DP_CUT["batch"])
+    params = api.init(torch.Generator().manual_seed(seed), device="cuda")
+    batch = lm_data.synth_batch(SEED, 0, DP_CUT["batch"], DP_CUT["seq"],
+                                cfg.vocab_size, device="cuda")
+    (loss, _), grads = loop.value_and_grad(api.loss_fn, params, batch)
+    grads = tree_cpu(grads)
+    step, init_opt = loop.build_accumulating_step(api, tc)
+    opt = init_opt(params)
+    ref = []
+    for i in range(DP_CUT["steps"]):
+        b = lm_data.synth_batch(SEED, i, DP_CUT["batch"], DP_CUT["seq"],
+                                cfg.vocab_size, device="cuda")
+        params, opt, metrics = step(params, opt, b, i)
+        ref.append({"metrics": {k: float(v) for k, v in metrics.items()},
+                    "params": tree_cpu(params)})
+    return ref, float(loss), grads
+
+
+def dp_gloo_phase(torch, smi):
+    """(b) Two gloo ranks sharing ``cuda:0`` (NCCL refuses two ranks on
+    one device): tinyllama-1.1b at full width cut to DP_CUT["layers"]
+    layers, f32, global batch DP_CUT["batch"] x DP_CUT["seq"].  The
+    ranks' averaged gradients and each step's loss are held against one
+    process's on the whole batch (rtol DP_RTOL, and DP_LEAF_ATOL of each
+    gradient leaf's max|g|), the ranks' params are bitwise equal after
+    each of DP_CUT["steps"] steps (their distance from the one-process
+    params is printed), and the compressed psum of the rank gradients on
+    the card is bitwise the same function on the CPU with the same bits.
+    Each rank counts the launches of its steps, which are the phase's.
+    First each rank checks that gloo all-reduces CUDA tensors (SUM and
+    MAX, f32 and int32) in place on the card."""
+    import multiprocessing
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+    from repro_torch.tree import leaves_with_paths
+
+    seed = SEED + 41
+    cfg = get_config(LM_ARCH).replace(n_layers=DP_CUT["layers"],
+                                      dtype="float32")
+    api = get_model(cfg)
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        procs = [ctx.Process(target=dp_gloo_rank, args=(r, work, seed))
+                 for r in range(DP_CUT["ranks"])]
+        try:
+            for pr in procs:
+                pr.start()
+            # the one-process run on the whole batch meanwhile
+            ref, loss, grads = dp_gloo_reference(torch, api, cfg, seed)
+            for pr in procs:
+                pr.join(timeout=600)
+        finally:
+            for pr in procs:
+                if pr.is_alive():
+                    pr.kill()
+                    pr.join()
+        check(all(pr.exitcode == 0 for pr in procs),
+              f"dp_train gloo: rank exit codes "
+              f"{[pr.exitcode for pr in procs]}")
+        ranks = [torch.load(f"{work}/rank{r}.pt")
+                 for r in range(DP_CUT["ranks"])]
+    phase_s = time.perf_counter() - t0
+    n = DP_CUT["ranks"]
+    launches = {k: 0 for k in counters()}
+    for r, out in enumerate(ranks):
+        expect_launches(f"dp_train gloo rank {r}", out["launches"], {})
+        add_launches(launches, out["launches"])
+        check(out["coordinate"] == r, f"dp_train gloo: rank {r} at "
+                                      f"{out['coordinate']}")
+        want_sum = [sum(10 * q + i for q in range(n)) for i in range(4)]
+        want_max = [10 * (n - 1) + i for i in range(4)]
+        for key, (vals, where) in out["probe"].items():
+            want = want_sum if key.startswith("SUM") else want_max
+            check(where == "cuda" and [int(v) for v in vals] == want,
+                  f"dp_train gloo: all_reduce {key} of CUDA tensors gave "
+                  f"{vals} on {where}, expected {want} on cuda")
+
+    def worst(got, want):
+        w = dict(leaves_with_paths(want))
+        frac, at = 0.0, None
+        for path, x in leaves_with_paths(got):
+            y = w[path].float()
+            scale = float(y.abs().max())
+            excess = float(((x.float() - y).abs() - DP_RTOL * y.abs())
+                           .max())
+            f = excess / scale if scale else (math.inf if excess > 0
+                                              else 0.0)
+            if f > frac or at is None:
+                frac, at = f, "/".join(map(str, path))
+        return frac, at
+
+    rec = {"ranks_params_bitwise_each_step": [], "grads_worst": [],
+           "params_worst": []}
+    for out in ranks:
+        f, at = worst(out["grads"], grads)
+        rec["grads_worst"].append({"atol_frac_of_max": f, "at": at})
+        check(f <= DP_LEAF_ATOL, f"dp_train gloo: rank {out['rank']}'s "
+                                 f"gradient {at} off by {f} of its max|g|")
+        check(not out["psum"]["differ"],
+              f"dp_train gloo: the compressed psum on the card differs from "
+              f"the CPU's: {out['psum']['differ'][:10]}")
+    for i in range(DP_CUT["steps"]):
+        a = dict(leaves_with_paths(ranks[0]["steps"][i]["params"]))
+        same = all(torch.equal(a[p], x) for out in ranks[1:]
+                   for p, x in leaves_with_paths(out["steps"][i]["params"]))
+        rec["ranks_params_bitwise_each_step"].append(same)
+        check(same, f"dp_train gloo: ranks' params differ after step {i}")
+        f, at = worst(ranks[0]["steps"][i]["params"], ref[i]["params"])
+        rec["params_worst"].append({"atol_frac_of_max": f, "at": at})
+        lw, lg = ref[i]["metrics"]["loss"], ranks[0]["steps"][i]["metrics"][
+            "loss"]
+        check(abs(lg - lw) <= DP_RTOL * abs(lw),
+              f"dp_train gloo: step {i} loss {lg} against {lw}")
+    emit({"phase": "dp_train_gloo", "arch": cfg.name,
+          "layers": DP_CUT["layers"], "cut": "n_layers 22 -> 2",
+          "batch": DP_CUT["batch"], "seq": DP_CUT["seq"],
+          "dtype": cfg.dtype, "ranks": n, "backend": "gloo",
+          "device": ranks[0]["device"],
+          "gloo_cuda_allreduce": ranks[0]["probe"],
+          "loss_one_process": float(loss), **rec,
+          "step_ms_ranks": [[s["ms"] for s in out["steps"]]
+                            for out in ranks],
+          "step_metrics": [s["metrics"] for s in ranks[0]["steps"]],
+          "one_process_metrics": [s["metrics"] for s in ref],
+          "launches_by_rank": [out["launches"] for out in ranks],
+          "psum_bitwise_card_cpu": True,
+          "psum_card_s": [out["psum"]["card_s"] for out in ranks],
+          "psum_cpu_s": [out["psum"]["cpu_s"] for out in ranks],
+          "tolerance": f"rtol {DP_RTOL}, atol {DP_LEAF_ATOL} of each "
+                       f"leaf's max", "seconds": phase_s, "card": smi})
+    return launches
+
+
+def run_session(cmd, env, timeout: float):
+    """(exit code, stdout, stderr) of ``cmd`` run in a session of its
+    own; on a timeout the whole session (``torchrun`` and its workers) is
+    killed and the timeout raised."""
+    import signal
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return proc.returncode, out, err
+
+
+def dp_launch_rank(counts_path: str, argv) -> int:
+    """(c)'s rank under ``torch.distributed.run``: the launcher's own
+    entry, ``repro_torch.launch.train.main(argv)``, as ``-m
+    repro_torch.launch.train`` runs it, with every launch count set to 0
+    just before it; rank 0 writes the counts to ``counts_path``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    from repro_torch.launch import train
+    _, launches = counted(torch, lambda: train.main(argv))
+    if os.environ.get("RANK", "0") == "0":
+        pathlib.Path(counts_path).write_text(json.dumps(launches))
+    return 0
+
+
+def dp_launch_phase(torch, smi):
+    """(c) ``launch.train`` under ``python -m torch.distributed.run
+    --standalone --nproc-per-node 1`` on the card at the smoke config
+    (its rank runs ``launch.train.main`` through :func:`dp_launch_rank`,
+    which counts its launches): 3 steps with a checkpoint a step, then
+    the same command after a crash that lost step 3's checkpoints
+    resumes from step 2 and writes step 3 bitwise the uninterrupted
+    run's."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    launches = {k: 0 for k in counters()}
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = pathlib.Path(d) / "ckpt"
+        counts = pathlib.Path(d) / "launches.json"
+        argv = ["--arch", LM_ARCH, "--smoke", "--steps", "3", "--batch", "4",
+                "--seq", "64", "--ckpt-dir", str(ckpt)]
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", str(ROOT / "chip_smoke.py"),
+               "--dp-launch-rank", str(counts), *argv]
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        runs = []
+        for what in ("straight", "resumed"):
+            t1 = time.perf_counter()
+            counts.unlink(missing_ok=True)
+            rc, stdout, stderr = run_session(cmd, env, timeout=300)
+            check(rc == 0, f"dp_train launch ({what}): exit {rc}\n"
+                           f"{stdout[-2000:]}\n{stderr[-2000:]}")
+            done = [ln for ln in stdout.splitlines()
+                    if ln.startswith("done:")]
+            check(len(done) == 1, f"dp_train launch ({what}): {done}")
+            got = json.loads(counts.read_text())
+            expect_launches(f"dp_train launch ({what})", got, {})
+            add_launches(launches, got)
+            runs.append({"run": what, "done": done[0], "launches": got,
+                         "seconds": time.perf_counter() - t1})
+            if what == "straight":
+                shutil.copytree(ckpt / "step_00000003",
+                                pathlib.Path(d) / "kept")
+                for sub in (ckpt, ckpt / "opt"):
+                    shutil.rmtree(sub / "step_00000003")
+        check("(step 2)" in runs[1]["done"] and "(step 0)" not in
+              runs[1]["done"], f"dp_train launch: resumed {runs[1]}")
+        with np.load(pathlib.Path(d) / "kept" / "shards_host0.npz") as a, \
+                np.load(ckpt / "step_00000003" / "shards_host0.npz") as b:
+            same = sorted(a.files) == sorted(b.files) and all(
+                np.array_equal(a[k], b[k]) for k in a.files)
+    check(same, "dp_train launch: the resumed step 3 differs from the "
+                "uninterrupted one")
+    emit({"phase": "dp_train_launch", "entry": "repro_torch.launch.train."
+          "main under torch.distributed.run", "argv": " ".join(argv),
+          "runs": runs, "resumed_bitwise": same,
+          "seconds": time.perf_counter() - t0, "card": smi})
+    return launches
+
+
+def dp_train_phases(torch, np, smi):
+    """Data-parallel training over a process group (no hand kernel on the
+    path: the xla route, since flash refuses a gradient): (a) one NCCL
+    rank at full size, (b) two gloo ranks sharing the card, (c)
+    ``launch.train`` under ``torch.distributed.run``.  Returns the
+    launches on the paths they drive."""
+    t0 = time.perf_counter()
+    total = {k: 0 for k in counters()}
+    add_launches(total, dp_nccl_phase(torch, smi))
+    add_launches(total, dp_gloo_phase(torch, smi))
+    add_launches(total, dp_launch_phase(torch, smi))
+    torch.cuda.empty_cache()
+    emit({"phase": "dp_train_total", "seconds": time.perf_counter() - t0,
+          "card": smi})
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -5454,6 +5977,7 @@ def main() -> int:
     for label, shape in FAMILY_FLASH_SHAPE.items():
         total["flash_" + label] = shapes.get(shape, 0)
     add_launches(total, family_train_phases(torch, np, smi))
+    add_launches(total, dp_train_phases(torch, np, smi))
 
     kernels = []
     for name in REPLACES:
@@ -5507,4 +6031,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-launch-rank"]:
+        sys.exit(dp_launch_rank(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -109,7 +109,9 @@ class TrainConfig:
     batch_size: int = 256
     microbatch: int = 0              # 0 = no grad accumulation
     seed: int = 0
-    grad_compress_bits: int = 0      # 0=off, 8=int8 all-reduce (unported)
+    # 0=off, 8=int8 all-reduce (train/grad_compress.py); neither package's
+    # fit reads it
+    grad_compress_bits: int = 0
     checkpoint_every: int = 100
     checkpoint_dir: str = "checkpoints"
 

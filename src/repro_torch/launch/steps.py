@@ -2,12 +2,16 @@
 
 The port of ``repro.launch.steps``.  JAX's step functions take a mesh and
 pass every batch leaf through ``rules.constrain_batch``; the port's read
-the current mesh (``sharding.context``) and do the same where one is
-set: on fake tensors, or batch axes of one device, that moves nothing,
-and a real batch it would split raises (the sharded part of ROADMAP.md
-Queue 1 item 4).  A sharding ``profile`` other than ``"default"`` waits
-for that item too on real devices; in the dry-run a profile changes
-only the placements, so it runs these steps with ``"default"``.
+the current mesh (``sharding.context``) at each call and do the same
+where one is set: on fake tensors, or batch axes of one device, that
+moves nothing; on a process-group mesh (``launch.mesh.make_host_mesh``
+under ``init_distributed``) each rank keeps its block of the batch, and
+the train step averages the gradients over the group as ``fit`` does
+(``train.train_loop.build_accumulating_step``); a real batch that an
+abstract mesh would split raises (ROADMAP.md Queue 1 item 4, 4b).  A
+sharding ``profile`` other than ``"default"`` waits for that item too on
+real devices; in the dry-run a profile changes only the placements, so
+it runs these steps with ``"default"``.
 :func:`build_train_step` takes every family: the decoders, xLSTM, Hymba
 and Whisper (whose batches carry ``"frames"`` beside ``"tokens"`` and
 ``"labels"``).
@@ -33,7 +37,8 @@ from repro_torch.core.quant import quantize_tree
 from repro_torch.sharding import rules
 from repro_torch.sharding.context import current_mesh
 from repro_torch.train import optimizer as opt_lib
-from repro_torch.train.train_loop import build_accumulating_step
+from repro_torch.train.train_loop import (build_accumulating_step,
+                                         refuse_coupled_batches)
 
 #: The device of the dry-run's fake tensors (see the module docstring).
 FAKE_DEVICE = "meta"
@@ -67,13 +72,16 @@ def build_train_step(api, train_cfg: TrainConfig, profile: str = "default"):
     optimizer's update at ``cosine_lr(step)``; the metrics are the
     loss's plus ``grad_norm`` and ``lr``.  It is
     ``train.train_loop.build_accumulating_step`` without microbatches,
-    and takes every family ``models.api.get_model`` serves."""
+    under the mesh current at the call, and takes every family
+    ``models.api.get_model`` serves."""
     _check_profile(profile)
     step, init_opt = build_accumulating_step(
         api, dataclasses.replace(train_cfg, microbatch=0))
 
     def train_step(params, opt_state, batch, step_no):
-        return step(params, opt_state, _constrain(batch), step_no)
+        mesh = current_mesh()
+        refuse_coupled_batches(api, mesh)
+        return step(params, opt_state, batch, step_no, mesh=mesh)
     return train_step, init_opt
 
 

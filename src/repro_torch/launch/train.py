@@ -1,33 +1,47 @@
-"""Training launcher for the LMs, on one device.
+"""Training launcher for the LMs: one device, or data-parallel under ``torchrun``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --steps 1000 [--smoke] [--batch 8] [--seq 128] [--microbatch 4] \\
-        [--ckpt-dir ...] [--device cpu]
+        [--grad-compress-bits 8] [--ckpt-dir ...] [--device cpu]
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 2 -m repro_torch.launch.train ... [--device cpu]
 
 The port of ``repro.launch.train``: AdamW with a cosine schedule from
 ``--lr`` to a tenth of it, a checkpoint every tenth of the run, on the
 synthetic token stream (``data.lm_data``).  It runs on ``cuda`` unless
-``--device`` names another device, and raises without a GPU.  Run the
+``--device`` names another device, and raises without a GPU.  Under
+``torch.distributed.run`` it joins the process group
+(``launch.mesh.init_distributed``: NCCL on ``cuda:LOCAL_RANK``, gloo with
+``--device cpu``), makes ``make_host_mesh()`` (``("data", world_size)``)
+the current mesh and trains data-parallel: every rank draws the node's
+global batch (``host_id`` is ``GROUP_RANK``, the node's index, as JAX's
+is ``jax.process_index()``; 0 on one host) and keeps its block, and
+rank 0 writes the checkpoints and prints the ``done:`` line.  Run the
 same command again after a crash: it resumes from the latest checkpoint
-with the data stream realigned.  ``--production-mesh``, a ``--profile``
-other than ``default`` and ``--grad-compress-bits`` above 0 wait for
-the sharded part of ROADMAP.md Queue 1 item 4.  Every token arch
-trains, xLSTM and Hymba included.  ``--arch whisper-tiny`` raises
-``ValueError`` before the device is resolved: its ``loss_fn`` reads
-``"frames"`` (stub encoder inputs), which the token stream does not
-carry (nor does JAX's, whose launcher fails at the first step); train
-it with ``train.train_loop.fit`` on batches that hold them.
+with the data stream realigned.  ``--grad-compress-bits`` reaches
+``TrainConfig`` as JAX's does, and, as in JAX, ``fit`` does not read it.
+``--production-mesh`` and a ``--profile`` other than ``default`` wait for
+ROADMAP.md Queue 1 item 4 (4b).  Every token arch trains, xLSTM and
+Hymba included; the MoE archs on one rank only (``fit`` refuses them
+over more).  ``--arch whisper-tiny`` raises ``ValueError`` before the
+device is resolved: its ``loss_fn`` reads ``"frames"`` (stub encoder
+inputs), which the token stream does not carry (nor does JAX's, whose
+launcher fails at the first step); train it with
+``train.train_loop.fit`` on batches that hold them.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 from typing import List, Optional
 
-from repro_torch.api.build import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data import lm_data
+from repro_torch.launch.mesh import init_distributed, make_host_mesh
 from repro_torch.models.api import get_model
+from repro_torch.sharding.context import use_mesh
 from repro_torch.train.train_loop import fit
 
 
@@ -42,31 +56,37 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config (CPU-scale)")
     ap.add_argument("--profile", default="default",
-                    help="sharding profile; one device takes 'default'")
-    ap.add_argument("--grad-compress-bits", type=int, default=0)
+                    help="sharding profile; the data mesh takes 'default'")
+    ap.add_argument("--grad-compress-bits", type=int, default=0,
+                    help="recorded in TrainConfig, as JAX's launcher does; "
+                         "neither package's fit reads it, so the gradients "
+                         "are all-reduced uncompressed")
     ap.add_argument("--ckpt-dir", default="checkpoints/launch")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the 256-device mesh (not on one device)")
+                    help="the 256-device mesh (not ported)")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda)")
+                    help="torch device (default: cuda; cuda:LOCAL_RANK "
+                         "under torchrun)")
     return ap.parse_args(argv)
 
 
 def _refuse_sharded(args: argparse.Namespace) -> None:
     for flag, asked in (("--production-mesh", args.production_mesh),
                         (f"--profile {args.profile}",
-                         args.profile != "default"),
-                        (f"--grad-compress-bits {args.grad_compress_bits}",
-                         args.grad_compress_bits > 0)):
+                         args.profile != "default")):
         if asked:
             raise NotImplementedError(
-                f"{flag} waits for Queue 1 item 4 (the sharded part) in "
-                f"ROADMAP.md; the port trains on one device")
+                f"{flag} waits for Queue 1 item 4 (the sharded part, 4b) in "
+                f"ROADMAP.md; the port trains data-parallel on the host "
+                f"mesh")
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
     """Train (or resume) as the command line says; returns ``fit``'s
-    result."""
+    result.  Under ``torchrun`` it joins the process group and leaves it
+    when training ends."""
+    import torch.distributed as dist
+
     args = parse_args(argv)
     _refuse_sharded(args)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
@@ -78,23 +98,46 @@ def main(argv: Optional[List[str]] = None) -> dict:
             f"(data.lm_data) carries no 'frames'; train it with "
             f"train.train_loop.fit on batches holding 'frames', 'tokens' "
             f"and 'labels'")
-    dev = resolve_device(args.device)
+    joined = not dist.is_initialized()
+    dev = init_distributed(args.device)
+    joined = joined and dist.is_initialized()
+    try:
+        mesh = make_host_mesh(dev) if dist.is_initialized() else None
+        with use_mesh(mesh):
+            return _train(args, cfg, api, dev, mesh)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, api, dev, mesh) -> dict:
     tc = TrainConfig(optimizer="adamw", lr=args.lr, lr_min=args.lr / 10,
                      steps=args.steps, batch_size=args.batch,
                      microbatch=args.microbatch,
+                     grad_compress_bits=args.grad_compress_bits,
                      checkpoint_every=max(args.steps // 10, 1),
                      checkpoint_dir=args.ckpt_dir)
+    host_id = int(os.environ.get("GROUP_RANK", 0))
+    lead = mesh is None or mesh.coordinate("data") == 0
+    if tc.grad_compress_bits and lead:
+        print(f"note: --grad-compress-bits {tc.grad_compress_bits} is "
+              f"recorded in TrainConfig; fit does not read it (nor does "
+              f"JAX's): the gradients are all-reduced uncompressed",
+              file=sys.stderr, flush=True)
 
     def data(start):
         return lm_data.stream(seed=tc.seed, batch=args.batch,
                               seq_len=args.seq, vocab=cfg.vocab_size,
-                              start_step=start, device=dev)
+                              start_step=start, host_id=host_id, device=dev)
 
     losses = {}
 
     def on_step(step, _params, metrics):
         losses[step] = float(metrics["loss"])
-    result = fit(api, tc, data, hooks={"on_step": on_step}, device=dev)
+    result = fit(api, tc, data, hooks={"on_step": on_step}, device=dev,
+                 mesh=mesh)
+    if not lead:
+        return result
     if losses:
         first, last = min(losses), max(losses)
         print(f"done: loss {losses[first]:.4f} (step {first}) -> "

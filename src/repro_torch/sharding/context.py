@@ -5,8 +5,11 @@ mesh-agnostic except where a mesh changes what they compute or must
 move values: ``seq_parallel`` (``models/transformer.py``) and the
 ``moe_local*`` dispatch (``models/moe.py``).  ``current_mesh()`` is
 None on a bare host, and those paths then run their one-device form.
-The meshes are ``repro_torch.launch.mesh.Mesh`` values (axis names and
-sizes, no devices).
+The meshes are ``repro_torch.launch.mesh.Mesh`` values: the abstract
+production meshes of the dry-run (axis names and sizes, no devices), or
+the host's ``("data", world_size)`` mesh over a ``torch.distributed``
+process group (``make_host_mesh`` under ``init_distributed``), whose
+``DeviceMesh`` the data-parallel training step reduces over.
 """
 from __future__ import annotations
 

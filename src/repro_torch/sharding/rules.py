@@ -15,9 +15,14 @@ entry a dim: None, an axis name or a tuple of names) and
 leaf's per-device ``shard_shape``.  Paths are ``repro_torch.tree``
 paths (dict keys and list indices); an element with a ``.key`` (a
 ``jax.tree_util.DictKey``) is read through it, so one rule serves both
-packages' paths.  Nothing here moves a value: placing tensors on a
-multi-device mesh waits for the sharded part of ROADMAP.md Queue 1 item
-4, and :func:`constrain_batch` refuses a real tensor it would split.
+packages' paths.  One rule moves a value: on a mesh over a process
+group (``launch.mesh.make_host_mesh`` under ``init_distributed``),
+:func:`constrain_batch` gives each rank its block of a batch, as JAX's
+``P("data")`` gives each device.  Placing parameters or caches over
+processes (DTensor placements from these specs) waits for ROADMAP.md
+Queue 1 item 4b, and :func:`constrain_batch` refuses a real tensor that
+an abstract mesh, a ``model`` axis or a fully sharded profile would
+split.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Any, Dict, Tuple
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch.launch.mesh import process_group
 from repro_torch.tree import tree_map, tree_map_with_path
 
 
@@ -236,14 +242,29 @@ def shard_bytes(tree: Any, shardings: Any) -> int:
 
 def constrain_batch(x: torch.Tensor, mesh, profile: str = "default"
                     ) -> torch.Tensor:
-    """``x`` itself where the constraint moves no value: a fake or meta
-    tensor, or batch axes of one device.  A real tensor whose batch
-    would split over several devices raises ``NotImplementedError``."""
+    """JAX's ``with_sharding_constraint`` of a batch leaf.  ``x`` itself
+    where the constraint moves no value: a fake or meta tensor, batch
+    axes of one device, or a dim 0 that does not divide over them (JAX's
+    spec then drops the axis).  On a mesh over a process group whose
+    batch axes span the group, this rank's contiguous block of dim 0
+    (block r on rank r, the block ``P("data")`` gives device r).  A real
+    tensor that an abstract mesh, a ``model`` axis of several devices or
+    a fully sharded profile would split raises ``NotImplementedError``."""
     baxes = _batch_axes(mesh, profile)
     n = _axis_size(mesh, baxes)
     if n == 1 or is_abstract(x):
         return x
+    if process_group(mesh, baxes[0]) is not None and \
+            profile not in ("fsdp", "infer2d") and mesh.size == n:
+        if x.ndim == 0 or x.shape[0] % n:
+            return x
+        rank = 0
+        for a in baxes:                     # row-major over the axes
+            rank = rank * mesh.shape[a] + mesh.coordinate(a)
+        block = x.shape[0] // n
+        return x[rank * block:(rank + 1) * block]
     raise NotImplementedError(
         f"constrain_batch: splitting a batch over mesh axes {baxes} ({n} "
-        f"devices) waits for Queue 1 item 4 (the sharded part) in "
-        f"ROADMAP.md")
+        f"devices) of a mesh {mesh.shape} without a process group, or "
+        f"beside a 'model' axis, or under profile {profile!r}, waits for "
+        f"Queue 1 item 4 (the sharded part, 4b) in ROADMAP.md")

@@ -539,8 +539,7 @@ def test_launch_train_runs_and_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--production-mesh"],
-                                  ["--profile", "fsdp"],
-                                  ["--grad-compress-bits", "8"]])
+                                  ["--profile", "fsdp"]])
 def test_launch_refuses_sharded_flags(flag, tmp_path):
     with pytest.raises(NotImplementedError,
                        match="Queue 1 item 4.*ROADMAP"):
@@ -548,6 +547,28 @@ def test_launch_refuses_sharded_flags(flag, tmp_path):
                       "cpu", "--steps", "1", "--ckpt-dir", str(tmp_path)]
                      + flag)
     assert tckpt.latest_step(str(tmp_path)) is None
+
+
+def test_launch_grad_compress_bits_reaches_train_config(tmp_path,
+                                                        monkeypatch, capsys):
+    """``--grad-compress-bits 8`` trains and lands in ``TrainConfig``, as
+    JAX's launcher passes it (whose ``fit`` does not read it either), and
+    the launcher says that nothing reads it."""
+    seen = []
+    real_fit = tlaunch.fit
+
+    def spy(api, tc, *a, **kw):
+        seen.append(tc)
+        return real_fit(api, tc, *a, **kw)
+    monkeypatch.setattr(tlaunch, "fit", spy)
+    out = tlaunch.main(["--arch", "tinyllama-1.1b", "--smoke", "--batch",
+                        "2", "--seq", "16", "--device", "cpu", "--steps",
+                        "2", "--grad-compress-bits", "8", "--ckpt-dir",
+                        str(tmp_path)])
+    assert [tc.grad_compress_bits for tc in seen] == [8]
+    assert "fit does not read it" in capsys.readouterr().err
+    assert np.isfinite(out["history"][0]["loss"])
+    assert tckpt.latest_step(str(tmp_path)) == 2
 
 
 # ------------------------------------------------------------ data --

@@ -525,6 +525,7 @@ class TestSpecAndDevice:
             " 'repro_torch.tune.search', 'repro_torch.tune.artifact',"
             " 'repro_torch.train.optimizer', 'repro_torch.train.checkpoint',"
             " 'repro_torch.train.train_loop', 'repro_torch.train.pointmlp',"
+            " 'repro_torch.train.grad_compress',"
             " 'repro_torch.data.pointclouds', 'repro_torch.data.lm_data',"
             " 'repro_torch.launch.steps', 'repro_torch.launch.train',"
             " 'repro_torch.models.linear_scan', 'repro_torch.models.xlstm',"
