@@ -86,7 +86,8 @@ near-tied token differently, and then its output moves by a whole
 expert: the share of choices that agree is printed, and the held run
 replays the reference run's routing (``route_tap``).  Last, the
 families on other backbones at full width and depth (bf16, random
-weights from a seed): xlstm-1.3b (48 layers, 7 mLSTM to 1 sLSTM),
+weights from a seed): xlstm-1.3b (cut to one group of 8 of its 48
+layers, 7 mLSTM to 1 sLSTM: ``FAMILY_DEPTH``),
 hymba-1.5b (32 layers, attention with a 1024-token window beside SSM
 heads) and whisper-tiny (4 + 4 layers over 1500 stub frames): the flash
 kernel at their three shapes (Hymba's window over 25 query and 5 KV
@@ -2826,7 +2827,8 @@ def flash_row(torch, label, q, k, v, causal: bool, win: int,
 def lm_kernel_phase(torch):
     """The flash-attention and W8A16 kernels against their plain versions
     at the LM's shapes (tinyllama: 32 query heads over 4 KV heads, head
-    dim 64, 2048 tokens)."""
+    dim 64, 2048 tokens; and the half of them a ``model_axis`` rank
+    holds, at that phase's 512 tokens)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     rows = {}
@@ -2838,7 +2840,10 @@ def lm_kernel_phase(torch):
              ("noncausal_200", h, hkv, 200, 200, 64, torch.bfloat16, False,
               0),
              ("fp32", h, hkv, 512, 512, 64, torch.float32, True, 0),
-             ("d16_window8", 8, 2, 256, 256, 16, torch.bfloat16, True, 8))
+             ("d16_window8", 8, 2, 256, 256, 16, torch.bfloat16, True, 8),
+             # a model_axis rank's heads: 16 of 32, 2 of 4 kv heads
+             ("model_axis_rank", h // 2, hkv // 2, MA_CUT["seq"],
+              MA_CUT["seq"], 64, torch.bfloat16, True, 0))
     for label, nh, nkv, tq, tk, d, dt, causal, win in cases:
         q = torch.randn(b, nh, tq, d, generator=gen, device=dev).to(dt)
         k = torch.randn(b, nkv, tk, d, generator=gen, device=dev).to(dt)
@@ -4438,6 +4443,31 @@ FAMILY_FLASH_SHAPE = {"hymba_window": f"causal T{LM_SEQ} window 1024",
                       "whisper_dec": f"causal T{WHISPER_CTX}"}
 
 
+# xLSTM's card phases run at full width cut in depth to one group of
+# slstm_every layers (7 mLSTM, 1 sLSTM): at its 48 layers its serving
+# phases took 140.56 s and its training 190.48 s of a 1031.44 s run;
+# the cut is named in each of its lines ("depth_cut").  Hymba and
+# Whisper keep their depth.
+FAMILY_DEPTH = {"xlstm-1.3b": 8}
+
+
+def family_config(arch: str):
+    """``get_config(arch)`` cut to FAMILY_DEPTH's layers where it names
+    the arch."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.replace(n_layers=FAMILY_DEPTH[arch]) \
+        if arch in FAMILY_DEPTH else cfg
+
+
+def depth_cut(cfg) -> str:
+    """The phase line's note of :func:`family_config`'s cut."""
+    from repro_torch.configs import get_config
+    full = get_config(cfg.name).n_layers
+    return f"n_layers {full} -> {cfg.n_layers}" if full != cfg.n_layers \
+        else "none"
+
+
 def family_cut(cfg):
     """The cut held against the CPU: full width, two layers (xLSTM: one
     group of ``slstm_every`` layers, the depth that holds an sLSTM block;
@@ -4794,14 +4824,13 @@ def family_phases(torch, np, smi):
     cut against the CPU, the scoring forward and Engine.generate.
     Returns (kernel rows, launches on main paths, flash calls by shape on
     main paths)."""
-    from repro_torch.configs import get_config
     from repro_torch.models.api import get_model
     from repro_torch.models.transformer import param_count
 
     rows = family_kernel_phase(torch, smi)
     total, shapes = {k: 0 for k in counters()}, {}
     for arch in FAMILY_ARCHS:
-        cfg = get_config(arch)
+        cfg = family_config(arch)
         t_arch = time.perf_counter()
         launches, seen = family_cpu_phase(torch, np, cfg, smi)
         add_launches(total, launches)
@@ -4823,6 +4852,7 @@ def family_phases(torch, np, smi):
         del params
         torch.cuda.empty_cache()
         emit({"phase": "family_total", "arch": arch,
+              "depth_cut": depth_cut(cfg),
               "seconds": time.perf_counter() - t_arch,
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
               "card": smi})
@@ -5311,17 +5341,16 @@ def family_train_phases(torch, np, smi):
     bitwise and its peak memory, (c) ``fit`` at full width and depth;
     then (d) a resume and (e) the flash refusal of Hymba and Whisper.
     Returns the launches on the paths they drive."""
-    from repro_torch.configs import get_config
-
     total = {k: 0 for k in counters()}
     for arch in FAMILY_ARCHS:
-        cfg = get_config(arch)
+        cfg = family_config(arch)
         t0 = time.perf_counter()
         for fn in (family_train_step_phase, family_remat_phase,
                    family_fit_phase):
             add_launches(total, fn(torch, np, cfg, smi))
             torch.cuda.empty_cache()
         emit({"phase": "family_train_total", "arch": arch,
+              "depth_cut": depth_cut(cfg),
               "seconds": time.perf_counter() - t0, "card": smi})
     add_launches(total, family_resume_phase(torch, np, smi))
     for arch in ("hymba-1.5b", "whisper-tiny"):
@@ -5351,14 +5380,14 @@ class TimedMean:
         self.events, self.nbytes = [], []
 
     def __enter__(self):
-        def timed(grads, mesh):
+        def timed(grads, mesh, *rest):
             from repro_torch.tree import tree_leaves
             if mesh is None:
-                return self.orig(grads, mesh)
+                return self.orig(grads, mesh, *rest)
             a = self.torch.cuda.Event(enable_timing=True)
             b = self.torch.cuda.Event(enable_timing=True)
             a.record()
-            out = self.orig(grads, mesh)
+            out = self.orig(grads, mesh, *rest)
             b.record()
             self.events.append((a, b))
             self.nbytes.append(sum(x.numel() * x.element_size()
@@ -5616,6 +5645,34 @@ def dp_gloo_reference(torch, api, cfg, seed: int):
     return ref, float(loss), grads
 
 
+def run_ranks(torch, target, n: int, work: str, seed: int, what: str,
+              during=None, timeout: float = 600):
+    """Start ``n`` spawned ranks ``target(r, work, seed)``, call
+    ``during()`` meanwhile, join them (killing any still alive after
+    ``timeout`` s), check their exit codes and load each
+    ``<work>/rank<r>.pt``: (the ranks' records, ``during()``'s
+    result)."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, work, seed))
+             for r in range(n)]
+    try:
+        for pr in procs:
+            pr.start()
+        got = during() if during is not None else None
+        for pr in procs:
+            pr.join(timeout=timeout)
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+    check(all(pr.exitcode == 0 for pr in procs),
+          f"{what}: rank exit codes {[pr.exitcode for pr in procs]}")
+    return [torch.load(f"{work}/rank{r}.pt", weights_only=False)
+            for r in range(n)], got
+
+
 def dp_gloo_phase(torch, smi):
     """(b) Two gloo ranks sharing ``cuda:0`` (NCCL refuses two ranks on
     one device): tinyllama-1.1b at full width cut to DP_CUT["layers"]
@@ -5629,7 +5686,6 @@ def dp_gloo_phase(torch, smi):
     Each rank counts the launches of its steps, which are the phase's.
     First each rank checks that gloo all-reduces CUDA tensors (SUM and
     MAX, f32 and int32) in place on the card."""
-    import multiprocessing
     import tempfile
 
     from repro_torch.configs import get_config
@@ -5640,28 +5696,13 @@ def dp_gloo_phase(torch, smi):
     cfg = get_config(LM_ARCH).replace(n_layers=DP_CUT["layers"],
                                       dtype="float32")
     api = get_model(cfg)
-    ctx = multiprocessing.get_context("spawn")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
-        procs = [ctx.Process(target=dp_gloo_rank, args=(r, work, seed))
-                 for r in range(DP_CUT["ranks"])]
-        try:
-            for pr in procs:
-                pr.start()
-            # the one-process run on the whole batch meanwhile
-            ref, loss, grads = dp_gloo_reference(torch, api, cfg, seed)
-            for pr in procs:
-                pr.join(timeout=600)
-        finally:
-            for pr in procs:
-                if pr.is_alive():
-                    pr.kill()
-                    pr.join()
-        check(all(pr.exitcode == 0 for pr in procs),
-              f"dp_train gloo: rank exit codes "
-              f"{[pr.exitcode for pr in procs]}")
-        ranks = [torch.load(f"{work}/rank{r}.pt")
-                 for r in range(DP_CUT["ranks"])]
+        # the one-process run on the whole batch meanwhile
+        ranks, (ref, loss, grads) = run_ranks(
+            torch, dp_gloo_rank, DP_CUT["ranks"], work, seed,
+            "dp_train gloo",
+            during=lambda: dp_gloo_reference(torch, api, cfg, seed))
     phase_s = time.perf_counter() - t0
     n = DP_CUT["ranks"]
     launches = {k: 0 for k in counters()}
@@ -5679,18 +5720,7 @@ def dp_gloo_phase(torch, smi):
                   f"{vals} on {where}, expected {want} on cuda")
 
     def worst(got, want):
-        w = dict(leaves_with_paths(want))
-        frac, at = 0.0, None
-        for path, x in leaves_with_paths(got):
-            y = w[path].float()
-            scale = float(y.abs().max())
-            excess = float(((x.float() - y).abs() - DP_RTOL * y.abs())
-                           .max())
-            f = excess / scale if scale else (math.inf if excess > 0
-                                              else 0.0)
-            if f > frac or at is None:
-                frac, at = f, "/".join(map(str, path))
-        return frac, at
+        return excess_frac(torch, got, want, DP_RTOL)
 
     rec = {"ranks_params_bitwise_each_step": [], "grads_worst": [],
            "params_worst": []}
@@ -5842,6 +5872,568 @@ def dp_train_phases(torch, np, smi):
     return total
 
 
+# ------------------------------------- a model axis over processes --
+
+# Two gloo ranks sharing cuda:0 as (data=1, model=2) (NCCL refuses two
+# ranks on one device): each holds its blocks of the params, the AdamW
+# state and the KV cache.  Full width, cut to 2 layers (the phase line
+# names the cut); (a) tinyllama f32, B4 x T512, one default and one fsdp
+# AdamW step; (b) tinyllama bf16, the flash forward B4 x T512, then
+# prefill and MA_DECODE decode steps; (c) moonshot bf16 under moe_local,
+# B2 x T256.
+MA_AXES = (("data", 1), ("model", 2))
+MA_CUT = dict(layers=2, batch=4, seq=512, moe_batch=2, moe_seq=256)
+MA_DECODE = 8
+# (a): f32 sums over two ranks' blocks against one process's, as the CPU
+# test holds them (tests/test_torch_model_axis.py)
+MA_GRAD_RTOL, MA_GRAD_ATOL = 1e-5, 1e-5
+# (b): bf16 logits over the model axis against one process on the card,
+# whose forward takes the plain attention route: the row blocks' partial
+# products round to bf16 before their f32 sum, and flash sums in another
+# order than the plain softmax (1.05e-2 of max|logit| at 22 layers in
+# PERF.md's flash row)
+MA_LOGIT_TOL = 2e-2
+# (c): moe_local adds y * w in f32 and casts once, the global route in
+# bf16 slot by slot; with the reference's routing replayed the logits
+# differ by those roundings and the attention's partial sums
+MA_MOE_TOL = 2e-2
+
+
+class TimedCollectives:
+    """Wraps ``sharding.collectives``' all-reduce (``all_reduce_``, which
+    every sum of the model, the gradient and metric means and the clip's
+    norm go through) and all-gather: each call synchronized and timed on
+    the host clock (gloo stages CUDA tensors through the host), its bytes
+    counted."""
+
+    def __init__(self, torch):
+        from repro_torch.sharding import collectives as C
+        self.torch, self.C = torch, C
+        self.orig = {"all_reduce": C.all_reduce_, "all_gather": C._gather}
+        self.ms = {k: 0.0 for k in self.orig}
+        self.calls = {k: 0 for k in self.orig}
+        self.nbytes = {k: 0 for k in self.orig}
+
+    def _wrap(self, kind):
+        fn = self.orig[kind]
+
+        def timed(x, *rest):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x, *rest)
+            self.torch.cuda.synchronize()
+            self.ms[kind] += (time.perf_counter() - t0) * 1e3
+            self.calls[kind] += 1
+            self.nbytes[kind] += out.numel() * out.element_size()
+            return out
+        return timed
+
+    def __enter__(self):
+        self.C.all_reduce_ = self._wrap("all_reduce")
+        self.C._gather = self._wrap("all_gather")
+        return self
+
+    def __exit__(self, *exc):
+        self.C.all_reduce_ = self.orig["all_reduce"]
+        self.C._gather = self.orig["all_gather"]
+        return False
+
+    def record(self):
+        return {"ms": self.ms, "calls": self.calls, "bytes": self.nbytes}
+
+
+def excess_frac(torch, got, want, rtol: float):
+    """The worst leaf of ``got`` against ``want`` (trees on any device):
+    its largest excess over ``rtol * |want|`` as a fraction of the leaf's
+    max|want|, and where it is."""
+    from repro_torch.tree import leaves_with_paths
+    w = dict(leaves_with_paths(want))
+    frac, at = 0.0, None
+    for path, x in leaves_with_paths(got):
+        y = w[path].float().to(x.device)
+        scale = float(y.abs().max())
+        excess = float(((x.float() - y).abs() - rtol * y.abs()).max())
+        f = excess / scale if scale else (math.inf if excess > 0 else 0.0)
+        if f > frac or at is None:
+            frac, at = f, "/".join(map(str, path))
+    return frac, at
+
+
+def adam_step_excess(torch, got, want, g_got, g_want, norms, lr: float,
+                     wd: float, rtol: float):
+    """Params after one AdamW step (``got``, whole) against the
+    one-process step's (``want``), as ``tests/test_torch_model_axis.py``
+    holds them: each element may differ by ``rtol * |want|``, plus what
+    the two gradients change in the step, ``lr * |d_got - d_want|``
+    (``d = g / (|g| + 1e-8)`` the first step's direction of the gradient
+    ``g`` clipped by its norm in ``norms``), plus ``1e-6 * lr``.  The
+    worst leaf's largest excess over that allowance as a fraction of its
+    max|want| (<= 0 where every element is within it), and where it is."""
+    from repro_torch.tree import leaves_with_paths
+    w, gg, gw = (dict(leaves_with_paths(t)) for t in (want, g_got, g_want))
+    clip = [min(1.0, 1.0 / (n + 1e-9)) for n in norms]
+
+    def direction(g, c):
+        g = g.double() * c
+        return g / (g.abs() + 1e-8)
+    frac, at = -math.inf, None
+    for path, x in leaves_with_paths(got):
+        y = w[path].double().to(x.device)
+        allowed = rtol * y.abs() + lr * (
+            direction(gg[path].to(x.device), clip[0]) -
+            direction(gw[path].to(x.device), clip[1])).abs() + 1e-6 * lr
+        excess = float(((x.double() - y).abs() - allowed).max())
+        f = excess / max(float(y.abs().max()), 1e-30)
+        if f > frac:
+            frac, at = f, "/".join(map(str, path))
+    return frac, at
+
+
+def nbytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def ma_configs():
+    """(a)'s, (b)'s and (c)'s configs at full width and MA_CUT's depth."""
+    from repro_torch.configs import get_config
+    dense = get_config(LM_ARCH).replace(n_layers=MA_CUT["layers"])
+    moe = get_config(MOE_ARCH).replace(n_layers=MA_CUT["layers"])
+    return {"a": dense.replace(dtype="float32"),
+            "b": dense.replace(attn_impl="flash"),
+            "c": moe.replace(capacity_factor=moe.n_experts /
+                             moe.experts_per_token,
+                             sharding_profile="moe_local")}
+
+
+def ma_inputs(torch, np, cfgs, device):
+    """Every part's inputs, drawn alike in each process."""
+    from repro_torch.data import lm_data
+    b, t = MA_CUT["batch"], MA_CUT["seq"]
+    mb, mt = MA_CUT["moe_batch"], MA_CUT["moe_seq"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    return {"batch": lm_data.synth_batch(SEED, 0, b, t,
+                                         cfgs["a"].vocab_size, device=device),
+            "ids": torch.from_numpy(lm_tokens(
+                np, cfgs["b"].vocab_size, b, t + MA_DECODE,
+                SEED + 50)).to(device),
+            "moe_ids": torch.from_numpy(lm_tokens(
+                np, cfgs["c"].vocab_size, mb, mt, SEED + 51)).to(device),
+            "moe_x": torch.randn(mb, mt, cfgs["c"].d_model, device="cuda",
+                                 generator=gen).to(torch.bfloat16)}
+
+
+def ma_params(torch, api, seed: int, device="cuda"):
+    return api.init(torch.Generator(device="cuda").manual_seed(seed),
+                    device=device)
+
+
+def ma_train_config():
+    from repro_torch.configs.base import TrainConfig
+    return TrainConfig(optimizer="adamw", lr=LM_TRAIN_LR,
+                       lr_min=LM_TRAIN_LR / 10, steps=LM_TRAIN_STEPS,
+                       batch_size=MA_CUT["batch"])
+
+
+def ma_decode(api, params, ids, cache, prefill, decode):
+    """Prefill on the first MA_CUT["seq"] ids, then MA_DECODE steps fed
+    the ids after them: each step's logits."""
+    t = MA_CUT["seq"]
+    logits, cache = prefill(params, {"tokens": ids[:, :t]}, cache)
+    out = [logits]
+    for i in range(MA_DECODE):
+        logits, cache = decode(params, {"token": ids[:, t + i],
+                                        "pos": t + i}, cache)
+        out.append(logits)
+    return out, cache
+
+
+def model_axis_reference(torch, np, work: str, seed: int):
+    """One process on the card, no mesh: (a)'s gradients, params and
+    grad norm after the first step, and step ms; (b)'s forward (on the
+    plain attention route) and decode logits, (c)'s MoE layer, forward and routing
+    (the routing replayed by the ranks), and (c)'s drops at the config's
+    capacity factor.  Saved to ``<work>/ref_<part>.pt``."""
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models import moe as M
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.train import train_loop as loop
+
+    cfgs = ma_configs()
+    inp = ma_inputs(torch, np, cfgs, "cuda")
+    out = {}
+    api = get_model(cfgs["a"])
+    params = ma_params(torch, api, seed)
+    _, grads = loop.value_and_grad(api.loss_fn, params, inp["batch"])
+    step, init_opt = loop.build_accumulating_step(api, ma_train_config())
+    opt = init_opt(params)
+    ms = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p1, o1, m1 = step(params, opt, inp["batch"], i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first = {"p1": p1, "grad_norm": float(m1["grad_norm"])}
+        del p1, o1
+    torch.save({"grads": grads, **first}, f"{work}/ref_a.pt")
+    out["a_step_ms"] = ms
+    del params, grads, opt, first
+
+    # the plain attention route: each rank's flash forward is held
+    # against it (prefill and decode take the plain route on both sides)
+    api = get_model(cfgs["b"].replace(attn_impl="xla"))
+    params = ma_params(torch, api, seed + 1)
+    with torch.no_grad():
+        logits, _ = api.forward(params, inp["ids"][:, :MA_CUT["seq"]])
+        cache = api.init_cache(MA_CUT["batch"], MA_CUT["seq"] + MA_DECODE)
+        seq, _ = ma_decode(api, params, inp["ids"], cache,
+                           build_prefill_step(api), build_decode_step(api))
+    torch.save({"logits": logits, "decode": seq}, f"{work}/ref_b.pt")
+    del params, logits, cache, seq
+
+    glob = cfgs["c"].replace(sharding_profile="default")
+    api = get_model(glob)
+    params = ma_params(torch, api, seed + 2)
+    with torch.no_grad():
+        p0 = layer_params(params["blocks"], 0)["moe"]
+        (y, aux), rec_l = route_tap(lambda: M.moe_apply(p0, glob,
+                                                        inp["moe_x"]))
+        (logits, _), rec_f = route_tap(lambda: api.forward(
+            params, inp["moe_ids"]))
+        conf = glob.replace(capacity_factor=get_config_cf(MOE_ARCH))
+        _, rec_d = route_tap(lambda: get_model(conf).forward(
+            params, inp["moe_ids"]))
+    torch.save({"y": y, "aux": aux, "top_e": rec_l["top_e"][0],
+                "logits": logits, "routing": rec_f["top_e"],
+                "dropped_global": [int(d) for d in rec_d["dropped"]]},
+               f"{work}/ref_c.pt")
+    return out
+
+
+def get_config_cf(arch: str) -> float:
+    from repro_torch.configs import get_config
+    return get_config(arch).capacity_factor
+
+
+def model_axis_rank(rank: int, work: str, seed: int) -> None:
+    """One rank of the phase on ``cuda:0``: (a), (b), (c) on its blocks,
+    each held against the reference on the card; writes what the parent
+    checks and prints to ``<work>/rank<r>.pt``."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_group_mesh
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models import moe as M
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.context import use_mesh, use_placement
+    from repro_torch.train import train_loop as loop
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    torch.set_num_threads(4)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
+    dev = init_distributed("cuda:0", backend="gloo",
+                           init_method=f"file://{work}/store")
+    torch.zeros(1, device=dev)
+    mesh = make_group_mesh(MA_AXES, dev)
+    cfgs = ma_configs()
+    inp = ma_inputs(torch, np, cfgs, dev)
+    out = {"rank": rank, "coords": {a: mesh.coordinate(a)
+                                    for a in mesh.axis_names},
+           "launches": {k: 0 for k in counters()}}
+
+    # (a) a default and an fsdp AdamW step, f32
+    api = get_model(cfgs["a"])
+    params = ma_params(torch, api, seed, dev)
+    ref = torch.load(f"{work}/ref_a.pt", map_location=dev)
+    meta = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), params)
+    out["a"] = {}
+    for profile in ("default", "fsdp"):
+        step, init_opt = loop.build_accumulating_step(
+            api, ma_train_config(), mesh, profile)
+        pl = step.placement(mesh)
+        local = rules.place(params, pl.params)
+        rec = {"param_bytes": nbytes(local),
+               "param_bytes_shard": rules.shard_bytes(params, pl.params),
+               "param_bytes_whole": nbytes(params)}
+        with use_placement(pl):
+            _, g = loop.value_and_grad(api.loss_fn, local, {
+                k: rules.constrain_batch(v, mesh, profile)
+                for k, v in inp["batch"].items()})
+        g = rules.gather(loop.group_mean(g, mesh, pl), pl.params)
+        rec["grad_worst_frac"], rec["grad_worst_at"] = excess_frac(
+            torch, g, ref["grads"], MA_GRAD_RTOL)
+        opt = init_opt(local)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (p1, o1, m1), launches = counted(
+            torch, lambda: step(local, opt, inp["batch"], 0))
+        rec["step_ms"] = [(time.perf_counter() - t0) * 1e3]
+        add_launches(out["launches"], launches)
+        rec["launches"] = launches
+        # the counted step's outputs: its norm (the clip's all-reduce over
+        # the placement's axes) and its params gathered whole
+        rec["grad_norm"] = [float(m1["grad_norm"]), ref["grad_norm"]]
+        rec["p1_excess_frac"], rec["p1_at"] = adam_step_excess(
+            torch, rules.gather(p1, pl.params), ref["p1"], g, ref["grads"],
+            rec["grad_norm"], float(m1["lr"]),
+            ma_train_config().weight_decay, MA_GRAD_RTOL)
+        del g
+        with TimedCollectives(torch) as tc:
+            t0 = time.perf_counter()
+            p2, _, m2 = step(p1, o1, inp["batch"], 1)
+            torch.cuda.synchronize()
+            rec["step_ms_collectives_timed"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        step(p1, o1, inp["batch"], 1)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["collectives"] = tc.record()
+        rec["opt_bytes"] = nbytes(o1)
+        rec["opt_bytes_shard"] = rules.shard_bytes(init_opt(meta), pl.opt)
+        rec["loss"] = [float(m1["loss"]), float(m2["loss"])]
+        sh = dict(leaves_with_paths(pl.params))
+        rec["whole_leaves"] = {
+            "/".join(map(str, p)): x.cpu() for p, x in leaves_with_paths(p2)
+            if all(a is None for a in sh[p].spec)}
+        rec["blocks"] = {"/".join(map(str, p)): tuple(x.shape)
+                         for p, x in leaves_with_paths(p1)}
+        out["a"][profile] = rec
+        del local, opt, p1, o1, p2
+        torch.cuda.empty_cache()
+    del params, ref, meta
+
+    # (b) bf16: the flash forward, prefill and decode steps
+    api = get_model(cfgs["b"])
+    params = ma_params(torch, api, seed + 1, dev)
+    local = rules.place(params, rules.params_shardings(params, mesh))
+    del params
+    ref = torch.load(f"{work}/ref_b.pt", map_location=dev)
+    rec = {}
+    with use_mesh(mesh), torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (logits, _), launches = counted(torch, lambda: api.forward(
+            local, inp["ids"][:, :MA_CUT["seq"]]))
+        rec["forward_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["forward_launches"] = launches
+        add_launches(out["launches"], launches)
+        rec["forward_err"], rec["forward_scale"] = rel_err(logits,
+                                                           ref["logits"])
+        del logits
+        cache = api.init_cache(MA_CUT["batch"], MA_CUT["seq"] + MA_DECODE)
+        csh = rules.cache_shardings(cache, mesh)
+        cache = rules.place(cache, csh)
+        rec["cache_block"] = tuple(cache["k"].shape)
+        prefill, decode = build_prefill_step(api), build_decode_step(api)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (seq, cache), launches = counted(torch, lambda: ma_decode(
+            api, local, inp["ids"], cache, prefill, decode))
+        rec["prefill_decode_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["decode_launches"] = launches
+        add_launches(out["launches"], launches)
+        rec["decode_errs"] = [rel_err(a, b) for a, b in
+                              zip(seq, ref["decode"])]
+        with TimedCollectives(torch) as tc:
+            t0 = time.perf_counter()
+            decode(local, {"token": inp["ids"][:, -1],
+                           "pos": MA_CUT["seq"] + MA_DECODE - 1}, cache)
+            torch.cuda.synchronize()
+            rec["decode_step_ms_collectives_timed"] = (
+                time.perf_counter() - t0) * 1e3
+        rec["decode_collectives"] = tc.record()
+    out["b"] = rec
+    del local, cache, ref, seq
+    torch.cuda.empty_cache()
+
+    # (c) moonshot bf16 under moe_local
+    api = get_model(cfgs["c"])
+    params = ma_params(torch, api, seed + 2, dev)
+    local = rules.place(params, rules.params_shardings(params, mesh,
+                                                       "moe_local"))
+    del params
+    ref = torch.load(f"{work}/ref_c.pt", map_location=dev)
+    rec = {"experts_held": int(local["blocks"]["moe"]["gate_w"].shape[1])}
+    dropped = []
+    dispatch_local = M.dispatch_local
+
+    def tapped(xf, top_e, e_lo, e_local, cap):
+        d = dispatch_local(xf, top_e, e_lo, e_local, cap)
+        mine = ((top_e >= e_lo) & (top_e < e_lo + e_local)).sum()
+        dropped.append(mine - d.keep.sum())
+        return d
+    with use_mesh(mesh), torch.no_grad():
+        p0 = layer_params(local["blocks"], 0)["moe"]
+        (y, aux), tap = route_tap(lambda: M.moe_apply(p0, cfgs["c"],
+                                                      inp["moe_x"]))
+        rec["layer_routing_bitwise"] = bool(torch.equal(tap["top_e"][0],
+                                                        ref["top_e"]))
+        rec["layer_aux_bitwise"] = bool(torch.equal(aux, ref["aux"]))
+        rec["layer_err"], rec["layer_scale"] = rel_err(y, ref["y"])
+        (logits, _), launches = counted(torch, lambda: route_tap(
+            lambda: api.forward(local, inp["moe_ids"]),
+            replay=ref["routing"])[0])
+        add_launches(out["launches"], launches)
+        rec["launches"] = launches
+        rec["forward_err"], rec["forward_scale"] = rel_err(logits,
+                                                           ref["logits"])
+        # without the replay: the share of the reference's choices made
+        _, tap = route_tap(lambda: api.forward(local, inp["moe_ids"]))
+        rec["forward_routing_share"] = [
+            float((a[:, :, None] == b[:, None, :]).any(-1).float().mean())
+            for a, b in zip(ref["routing"], tap["top_e"])]
+        conf = cfgs["c"].replace(capacity_factor=get_config_cf(MOE_ARCH))
+        M.dispatch_local = tapped
+        try:
+            get_model(conf).forward(local, inp["moe_ids"])
+        finally:
+            M.dispatch_local = dispatch_local
+        rec["dropped_local"] = [int(d) for d in dropped]
+    out["c"] = rec
+    torch.save(out, f"{work}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def model_axis_phases(torch, np, smi):
+    """``model_axis``: a ``model`` axis over two gloo ranks sharing the
+    card, as (data=1, model=2) (module comment above MA_AXES): (a)
+    gradients within MA_GRAD_ATOL of each leaf's max|g| of one process's,
+    the counted step's grad norm and params (gathered) against one
+    process's step (``adam_step_excess``), whole leaves bitwise on both
+    ranks after a step, each rank's param and AdamW bytes
+    ``rules.shard_bytes``'s; (b) the flash forward on each rank's heads
+    (``flash_attention`` launched on both ranks) against one process's
+    plain attention route, and each prefill and decode step's logits,
+    within MA_LOGIT_TOL of max|logit|; (c) the MoE layer's routing and aux bitwise one
+    process's, the forward within MA_MOE_TOL with its routing replayed,
+    and the entries dropped at the config's capacity factor, local
+    against global.  Step, forward and collective ms beside the card.
+    Returns the launches on the paths they drive (both ranks')."""
+    import tempfile
+
+    seed = SEED + 60
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        ref = model_axis_reference(torch, np, work, seed)
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t0
+        ranks, _ = run_ranks(torch, model_axis_rank, 2, work, seed,
+                             "model_axis")
+        ref_c = torch.load(f"{work}/ref_c.pt", map_location="cpu")
+    launches = {k: 0 for k in counters()}
+    for r, out in enumerate(ranks):
+        add_launches(launches, out["launches"])
+        for profile, rec in out["a"].items():
+            where = f"model_axis (a) {profile} rank {r}"
+            check(rec["grad_worst_frac"] <= MA_GRAD_ATOL,
+                  f"{where}: gradient {rec['grad_worst_at']} off by "
+                  f"{rec['grad_worst_frac']} of its max|g|")
+            got_n, want_n = rec["grad_norm"]
+            check(abs(got_n - want_n) <= MA_GRAD_RTOL * abs(want_n),
+                  f"{where}: the step's grad norm {got_n} against one "
+                  f"process's {want_n}")
+            check(rec["p1_excess_frac"] <= 0,
+                  f"{where}: params after the step, {rec['p1_at']} beyond "
+                  f"its allowance by {rec['p1_excess_frac']} of its max")
+            check(rec["param_bytes"] == rec["param_bytes_shard"] <
+                  rec["param_bytes_whole"] and rec["opt_bytes"] ==
+                  rec["opt_bytes_shard"],
+                  f"{where}: bytes {rec['param_bytes']} (shard_bytes "
+                  f"{rec['param_bytes_shard']}), AdamW {rec['opt_bytes']} "
+                  f"({rec['opt_bytes_shard']})")
+            expect_launches(where, rec["launches"], {})
+        b = out["b"]
+        check(b["forward_launches"]["flash_attention"] ==
+              MA_CUT["layers"], f"model_axis (b) rank {r}: flash launched "
+                                f"{b['forward_launches']} times")
+        expect_launches(f"model_axis (b) decode rank {r}",
+                        b["decode_launches"], {})
+        for i, (err, scale) in enumerate([(b["forward_err"],
+                                           b["forward_scale"])] +
+                                         b["decode_errs"]):
+            check(err <= MA_LOGIT_TOL * scale,
+                  f"model_axis (b) rank {r} step {i}: logits off by {err} > "
+                  f"{MA_LOGIT_TOL} * {scale}")
+        c = out["c"]
+        check(c["layer_routing_bitwise"] and c["layer_aux_bitwise"],
+              f"model_axis (c) rank {r}: the MoE layer's routing or aux is "
+              f"not one process's")
+        check(c["forward_err"] <= MA_MOE_TOL * c["forward_scale"],
+              f"model_axis (c) rank {r}: logits off by {c['forward_err']} > "
+              f"{MA_MOE_TOL} * {c['forward_scale']}")
+        expect_launches(f"model_axis (c) rank {r}", c["launches"], {})
+    for profile in ("default", "fsdp"):
+        a0, a1 = (out["a"][profile] for out in ranks)
+        same = sorted(a0["whole_leaves"]) == sorted(a1["whole_leaves"]) and \
+            all(torch.equal(a0["whole_leaves"][k], a1["whole_leaves"][k])
+                for k in a0["whole_leaves"])
+        check(same, f"model_axis (a) {profile}: the leaves both ranks hold "
+                    f"differ after a step")
+    local_drops = [sum(x) for x in zip(*(out["c"]["dropped_local"]
+                                         for out in ranks))]
+    emit({"phase": "model_axis", "mesh": dict(MA_AXES), "backend": "gloo",
+          "device": "cuda:0 (both ranks)",
+          "cut": f"n_layers -> {MA_CUT['layers']} (tinyllama 22, moonshot "
+                 f"48), full width",
+          "a": {"arch": LM_ARCH, "dtype": "float32", "batch": MA_CUT["batch"],
+                "seq": MA_CUT["seq"], "one_process_step_ms":
+                    ref["a_step_ms"],
+                **{p: {k: [out["a"][p][k] for out in ranks] for k in (
+                    "grad_worst_frac", "grad_worst_at", "grad_norm",
+                    "p1_excess_frac", "p1_at", "param_bytes",
+                    "param_bytes_whole", "opt_bytes", "step_ms",
+                    "step_ms_collectives_timed", "collectives", "loss")}
+                   for p in ("default", "fsdp")},
+                "whole_leaves_bitwise": {
+                    p: sorted(ranks[0]["a"][p]["whole_leaves"]) for p in (
+                        "default", "fsdp")},
+                "tolerance": f"gradients rtol {MA_GRAD_RTOL}, atol "
+                             f"{MA_GRAD_ATOL} of each leaf's max|g|; grad "
+                             f"norm rtol {MA_GRAD_RTOL}; params after the "
+                             f"step rtol {MA_GRAD_RTOL} plus lr * the "
+                             f"gradients' change of the Adam direction"},
+          "b": {"arch": LM_ARCH, "dtype": "bfloat16", "attn_impl": "flash",
+                "prompt": MA_CUT["seq"], "decode_steps": MA_DECODE,
+                "note": "prefill and decode attend over the cache on the "
+                        "plain path, as JAX's do; the flash launches are "
+                        "the scoring forward's, on each rank's heads, held "
+                        "against one process's plain attention route",
+                **{k: [out["b"][k] for out in ranks] for k in (
+                    "forward_launches", "forward_ms", "forward_err",
+                    "forward_scale", "decode_errs", "cache_block",
+                    "prefill_decode_ms", "decode_step_ms_collectives_timed",
+                    "decode_collectives")},
+                "tolerance": f"{MA_LOGIT_TOL} of max|logit|"},
+          "c": {"arch": MOE_ARCH, "dtype": "bfloat16",
+                "profile": "moe_local", "batch": MA_CUT["moe_batch"],
+                "seq": MA_CUT["moe_seq"],
+                "capacity_factor": ma_configs()["c"].capacity_factor,
+                **{k: [out["c"][k] for out in ranks] for k in (
+                    "experts_held", "layer_routing_bitwise",
+                    "layer_aux_bitwise", "layer_err", "layer_scale",
+                    "forward_err", "forward_scale",
+                    "forward_routing_share")},
+                "dropped_per_layer_at_cf": get_config_cf(MOE_ARCH),
+                "dropped_local": local_drops,
+                "dropped_global": ref_c["dropped_global"],
+                "tolerance": f"{MA_MOE_TOL} of max|logit|, routing "
+                             f"replayed"},
+          "reference_s": t_ref, "launches": launches,
+          "seconds": time.perf_counter() - t0, "card": smi})
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -5978,6 +6570,7 @@ def main() -> int:
         total["flash_" + label] = shapes.get(shape, 0)
     add_launches(total, family_train_phases(torch, np, smi))
     add_launches(total, dp_train_phases(torch, np, smi))
+    add_launches(total, model_axis_phases(torch, np, smi))
 
     kernels = []
     for name in REPLACES:

@@ -6,8 +6,9 @@ checkpoints each layer of a training forward (``models/transformer.py``);
 ``unroll_layers`` is carried for the configs' sake (JAX reads it only
 when it lowers the dry-run, and the port's layer loop is unrolled
 already).  ``sharding_profile`` picks the placement rules
-(``sharding/rules.py``) and, for ``moe_local*``, the MoE dispatch, which
-raises under a mesh with a ``model`` axis (``models/moe.py``);
+(``sharding/rules.py``) and, for ``moe_local*``, the MoE dispatch under a
+mesh with a ``model`` axis (JAX's ``moe_apply_local``, ``models/moe.py``;
+it raises on the dry-run's abstract meshes);
 ``seq_parallel`` constrains the residual stream (``models/transformer.
 py``).  :class:`ShapeConfig`, ``LM_SHAPES`` and :func:`cell_is_runnable`
 are the dry-run's (arch x shape) cells, and :class:`TrainConfig` is

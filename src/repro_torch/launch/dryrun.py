@@ -40,8 +40,8 @@ FLOPs, HBM bytes and temp bytes are global counts divided by the device
 count: they assume an ideal partition, each device doing 1/n of the
 work.  Collectives are not modelled: ``roofline.t_collective`` is None
 and ``bottleneck`` ranges over compute and memory; the collective term
-comes with the sharded part of ROADMAP.md Queue 1 item 4 (DTensor
-placements over a ``DeviceMesh``).  The fake program does not depend on
+(from the placements ``sharding.rules`` gives a process-group mesh)
+waits for ROADMAP.md Queue 1 item 4.  The fake program does not depend on
 which production mesh is current (a constraint on a fake tensor is the
 identity), so both meshes of a cell share one count in a process.
 
@@ -59,7 +59,8 @@ with ``--slow-cells``; without it their record says ``status:
 extrapolating is not exact: the op bytes of a training step and the
 temp peak are not affine in T.)  ``--fast`` writes the shardings'
 argument bytes only, with no fake step.  A ``moe_local*`` profile
-raises on an MoE arch (its dispatch is the sharded part of item 4), and
+raises on an MoE arch (its dispatch on an abstract mesh waits for Queue
+1 item 4; on a process-group mesh ``models/moe.py`` runs it), and
 the flash route raises on fake tensors; every JAX config and variant
 takes ``xla`` or ``xla_chunked``.
 """

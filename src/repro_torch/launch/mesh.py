@@ -13,10 +13,15 @@ Under ``torch.distributed`` the host's mesh is a process group:
 ``jax.distributed.initialize()`` (it reads ``torchrun``'s ``RANK``,
 ``WORLD_SIZE`` and ``LOCAL_RANK``), and :func:`make_host_mesh` then gives
 ``("data", world_size)`` with a ``torch.distributed.device_mesh.
-DeviceMesh`` behind it, one process a device.  That mesh moves values:
-``rules.constrain_batch`` gives each rank its block of a batch, and the
-training loop all-reduces gradients over its group.  A ``model`` axis
-over processes waits for ROADMAP.md Queue 1 item 4b.
+DeviceMesh`` behind it, one process a device, as JAX's host mesh is 1-D.
+:func:`make_group_mesh` lays any ordered axes over the group (``(("data",
+2), ("model", 2))``: the counterpart of ``jax.sharding.Mesh`` over a
+device array, rank ``r`` at the row-major coordinate of ``r``), and
+:func:`make_production_mesh` does so at 256 (512) ranks.  Such a mesh
+moves values: ``sharding.rules.place`` gives each rank its block of
+every parameter, optimizer leaf and cache, ``rules.constrain_batch`` its
+block of a batch, and the model and the training loop reduce over the
+groups ``sharding.collectives.process_group`` names (re-exported here).
 """
 from __future__ import annotations
 
@@ -24,6 +29,9 @@ import dataclasses
 import math
 import os
 from typing import Any, Dict, Tuple
+
+from repro_torch.sharding.collectives import (  # noqa: F401 (re-exported)
+    process_group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,19 +69,45 @@ class Mesh:
         return self.device_mesh.get_local_rank(axis)
 
 
-def process_group(mesh, axis: str):
-    """The process group along ``axis`` of a :class:`Mesh` over
-    ``torch.distributed``, or None where no value moves between
-    processes: no mesh, an abstract one, or a mesh of another kind
-    (``serve.sharding.LocalMesh``)."""
-    device_mesh = getattr(mesh, "device_mesh", None)
-    return None if device_mesh is None else device_mesh.get_group(axis)
+def make_group_mesh(axes, device=None) -> Mesh:
+    """A mesh of ordered ``(name, size)`` axes over the initialised process
+    group, e.g. ``(("data", 2), ("model", 2))``: rank r sits at the
+    row-major coordinate of r, as device r of ``jax.sharding.Mesh(
+    np.array(devices).reshape(sizes), names)``.  A ``DeviceMesh`` of
+    ``device``'s type (``cuda`` by default) is behind it.  The sizes'
+    product must be the world size (``ValueError``); without a group it
+    raises ``RuntimeError``."""
+    import torch
+    import torch.distributed as dist
+    names = tuple(a for a, _ in axes)
+    sizes = tuple(int(n) for _, n in axes)
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(f"a mesh {dict(zip(names, sizes))} over "
+                           f"processes needs an initialised process group "
+                           f"(launch.mesh.init_distributed)")
+    world = dist.get_world_size()
+    if math.prod(sizes) != world:
+        raise ValueError(f"mesh {dict(zip(names, sizes))} spans "
+                         f"{math.prod(sizes)} devices; the process group "
+                         f"has {world}")
+    from torch.distributed.device_mesh import init_device_mesh
+    kind = "cuda" if device is None else torch.device(device).type
+    return Mesh(names, sizes, init_device_mesh(kind, sizes,
+                                               mesh_dim_names=names))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    if multi_pod:
-        return Mesh(("pod", "data", "model"), (2, 16, 16))
-    return Mesh(("data", "model"), (16, 16))
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """Single pod ``(data=16, model=16)``, multi pod ``(pod=2, data=16,
+    model=16)``.  Abstract without a process group; over an initialised
+    group of exactly 256 (512) ranks it has a ``DeviceMesh`` behind it
+    (:func:`make_group_mesh`), and with a group of another size it raises
+    ``ValueError``, as ``jax.make_mesh`` does with too few devices."""
+    import torch.distributed as dist
+    axes = ((("pod", 2),) if multi_pod else ()) + (("data", 16),
+                                                   ("model", 16))
+    if dist.is_available() and dist.is_initialized():
+        return make_group_mesh(axes, device)
+    return Mesh(tuple(a for a, _ in axes), tuple(n for _, n in axes))
 
 
 def init_distributed(device=None, backend=None,

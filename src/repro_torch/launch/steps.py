@@ -5,13 +5,19 @@ pass every batch leaf through ``rules.constrain_batch``; the port's read
 the current mesh (``sharding.context``) at each call and do the same
 where one is set: on fake tensors, or batch axes of one device, that
 moves nothing; on a process-group mesh (``launch.mesh.make_host_mesh``
-under ``init_distributed``) each rank keeps its block of the batch, and
-the train step averages the gradients over the group as ``fit`` does
-(``train.train_loop.build_accumulating_step``); a real batch that an
-abstract mesh would split raises (ROADMAP.md Queue 1 item 4, 4b).  A
-sharding ``profile`` other than ``"default"`` waits for that item too on
-real devices; in the dry-run a profile changes only the placements, so
-it runs these steps with ``"default"``.
+or ``make_group_mesh`` under ``init_distributed``) each rank keeps its
+block of the batch and computes on its blocks of the params and caches
+(``rules.place`` by ``params_shardings``/``cache_shardings``); the train
+step reduces the gradients as ``fit`` does (``train.train_loop.
+build_accumulating_step``).  A real batch that an abstract mesh would
+split raises ``ValueError``.  The profiles ``default``, ``replicated``,
+``fsdp`` and ``moe_local*`` run on real tensors (the ``moe_local*``
+dispatch is ``cfg.sharding_profile``'s, as in JAX); ``infer2d`` and
+``cache_seq*``, and a serve step under ``fsdp`` over a ``model`` axis
+of several processes (its cache and its batch blocks differ), raise
+``NotImplementedError`` (ROADMAP.md Queue 1 item 4).  In the dry-run a
+profile changes only the placements, so it runs these steps with
+``"default"``.
 :func:`build_train_step` takes every family: the decoders, xLSTM, Hymba
 and Whisper (whose batches carry ``"frames"`` beside ``"tokens"`` and
 ``"labels"``).
@@ -38,7 +44,8 @@ from repro_torch.sharding import rules
 from repro_torch.sharding.context import current_mesh
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.train_loop import (build_accumulating_step,
-                                         refuse_coupled_batches)
+                                         refuse_coupled_batches,
+                                         refuse_model_split)
 
 #: The device of the dry-run's fake tensors (see the module docstring).
 FAKE_DEVICE = "meta"
@@ -51,18 +58,31 @@ def fake_mode() -> FakeTensorMode:
     return FakeTensorMode(allow_non_fake_inputs=True)
 
 
-def _check_profile(profile: str) -> None:
-    if profile != "default":
+def _refuse_real(profile: str, batch: Dict[str, torch.Tensor],
+                 serve: bool = False) -> None:
+    """A profile ``rules.moves_values`` refuses on real tensors raises,
+    and so does a serve step under ``fsdp`` over a ``model`` axis of
+    several processes."""
+    if all(rules.is_abstract(v) for v in batch.values()):
+        return
+    rules.refuse_unmoved(profile)
+    mesh = current_mesh()
+    if serve and profile == "fsdp" and \
+            getattr(mesh, "device_mesh", None) is not None and \
+            mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(
-            f"sharding profile {profile!r} waits for Queue 1 item 4 (the "
-            f"sharded part) in ROADMAP.md; one device takes 'default'")
+            "a serve step under 'fsdp' over a 'model' axis (its batch "
+            "blocks span every axis, its cache's only (pod, data)) waits "
+            "for Queue 1 item 4 (the sharded part) in ROADMAP.md")
 
 
-def _constrain(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def _constrain(batch: Dict[str, torch.Tensor], profile: str = "default"
+               ) -> Dict[str, torch.Tensor]:
     mesh = current_mesh()
     if mesh is None:
         return batch
-    return {k: rules.constrain_batch(v, mesh) for k, v in batch.items()}
+    return {k: rules.constrain_batch(v, mesh, profile)
+            for k, v in batch.items()}
 
 
 def build_train_step(api, train_cfg: TrainConfig, profile: str = "default"):
@@ -72,35 +92,43 @@ def build_train_step(api, train_cfg: TrainConfig, profile: str = "default"):
     optimizer's update at ``cosine_lr(step)``; the metrics are the
     loss's plus ``grad_norm`` and ``lr``.  It is
     ``train.train_loop.build_accumulating_step`` without microbatches,
-    under the mesh current at the call, and takes every family
-    ``models.api.get_model`` serves."""
-    _check_profile(profile)
+    under the mesh current at the call, with ``params`` and
+    ``opt_state`` placed by ``profile``'s rules there, and takes every
+    family ``models.api.get_model`` serves."""
+    rules.moves_values(profile)       # an unknown name raises
     step, init_opt = build_accumulating_step(
-        api, dataclasses.replace(train_cfg, microbatch=0))
+        api, dataclasses.replace(train_cfg, microbatch=0), profile=profile)
 
     def train_step(params, opt_state, batch, step_no):
-        mesh = current_mesh()
-        refuse_coupled_batches(api, mesh)
-        return step(params, opt_state, batch, step_no, mesh=mesh)
+        _refuse_real(profile, batch)
+        return step(params, opt_state, batch, step_no, mesh=current_mesh())
     return train_step, init_opt
+
+
+def _serve_step(api, profile: str, fn):
+    def serve_step(params, batch, cache):
+        _refuse_real(profile, batch, serve=True)
+        mesh = current_mesh()
+        refuse_model_split(api, mesh, profile)
+        refuse_coupled_batches(api, mesh, profile)
+        return fn(params, _constrain(batch, profile), cache)
+    return serve_step
 
 
 def build_prefill_step(api, profile: str = "default"):
     """``prefill_step(params, batch, cache)`` -> (last-position logits,
-    cache): ``api.prefill``."""
-    _check_profile(profile)
-
-    def prefill_step(params, batch, cache):
-        return api.prefill(params, _constrain(batch), cache)
-    return prefill_step
+    cache): ``api.prefill`` under the current mesh, on this rank's blocks
+    of the params, the batch and the cache (``rules.cache_shardings``)
+    where it spans processes; the logits are whole over ``model``."""
+    rules.moves_values(profile)       # an unknown name raises
+    return _serve_step(api, profile, api.prefill)
 
 
 def build_decode_step(api):
     """``serve_step(params, batch, cache)`` -> (logits, cache):
-    ``api.decode_step``."""
-    def serve_step(params, batch, cache):
-        return api.decode_step(params, batch, cache)
-    return serve_step
+    ``api.decode_step``, placed as :func:`build_prefill_step` places it
+    (the token's batch block too, as the cache's)."""
+    return _serve_step(api, "default", api.decode_step)
 
 
 def _fake_inputs(specs: Dict[str, Any], shape: ShapeConfig

@@ -20,10 +20,17 @@ rank 0 writes the checkpoints and prints the ``done:`` line.  Run the
 same command again after a crash: it resumes from the latest checkpoint
 with the data stream realigned.  ``--grad-compress-bits`` reaches
 ``TrainConfig`` as JAX's does, and, as in JAX, ``fit`` does not read it.
-``--production-mesh`` and a ``--profile`` other than ``default`` wait for
-ROADMAP.md Queue 1 item 4 (4b).  Every token arch trains, xLSTM and
-Hymba included; the MoE archs on one rank only (``fit`` refuses them
-over more).  ``--arch whisper-tiny`` raises ``ValueError`` before the
+``--profile`` sets ``cfg.sharding_profile`` as JAX's does: ``default``,
+``replicated``, ``fsdp`` and ``moe_local*`` train (on the host mesh, which
+has no ``model`` axis, all of them place every leaf whole and split the
+batch over ``data``); ``infer2d`` and ``cache_seq*`` raise
+``NotImplementedError`` (ROADMAP.md Queue 1 item 4).
+``--production-mesh`` trains on ``make_production_mesh()`` under
+``torchrun`` with 256 ranks (``(data=16, model=16)``, the profile's
+placements) and raises ``ValueError`` with any other world size.  Every
+token arch trains, xLSTM and Hymba included (not split over ``model``);
+the MoE archs on one rank, or over several under ``moe_local`` with a
+``model`` axis (``fit`` refuses the global route over more).  ``--arch whisper-tiny`` raises ``ValueError`` before the
 device is resolved: its ``loss_fn`` reads ``"frames"`` (stub encoder
 inputs), which the token stream does not carry (nor does JAX's, whose
 launcher fails at the first step); train it with
@@ -39,8 +46,10 @@ from typing import List, Optional
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data import lm_data
-from repro_torch.launch.mesh import init_distributed, make_host_mesh
+from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
+                                     make_production_mesh)
 from repro_torch.models.api import get_model
+from repro_torch.sharding import rules
 from repro_torch.sharding.context import use_mesh
 from repro_torch.train.train_loop import fit
 
@@ -56,29 +65,34 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config (CPU-scale)")
     ap.add_argument("--profile", default="default",
-                    help="sharding profile; the data mesh takes 'default'")
+                    help="sharding profile: default|replicated|fsdp|"
+                         "moe_local")
     ap.add_argument("--grad-compress-bits", type=int, default=0,
                     help="recorded in TrainConfig, as JAX's launcher does; "
                          "neither package's fit reads it, so the gradients "
                          "are all-reduced uncompressed")
     ap.add_argument("--ckpt-dir", default="checkpoints/launch")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the 256-device mesh (not ported)")
+                    help="the (data=16, model=16) mesh over 256 torchrun "
+                         "ranks")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cuda:LOCAL_RANK "
                          "under torchrun)")
     return ap.parse_args(argv)
 
 
-def _refuse_sharded(args: argparse.Namespace) -> None:
-    for flag, asked in (("--production-mesh", args.production_mesh),
-                        (f"--profile {args.profile}",
-                         args.profile != "default")):
-        if asked:
-            raise NotImplementedError(
-                f"{flag} waits for Queue 1 item 4 (the sharded part, 4b) in "
-                f"ROADMAP.md; the port trains data-parallel on the host "
-                f"mesh")
+def _mesh(args, dev):
+    """The run's mesh: None without a process group; the production mesh
+    (256 ranks, else ``ValueError``) or the host's ``("data", n)``."""
+    import torch.distributed as dist
+    if args.production_mesh:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world != 256:
+            raise ValueError(f"--production-mesh spans 256 devices (data=16, "
+                             f"model=16); this run has {world} rank(s): "
+                             f"launch 256 with torch.distributed.run")
+        return make_production_mesh(device=dev)
+    return make_host_mesh(dev) if dist.is_initialized() else None
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -88,8 +102,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     import torch.distributed as dist
 
     args = parse_args(argv)
-    _refuse_sharded(args)
+    rules.refuse_unmoved(args.profile, f"--profile {args.profile}")
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    cfg = cfg.replace(sharding_profile=args.profile)
     api = get_model(cfg)
     if cfg.family == "audio":
         raise ValueError(
@@ -102,7 +117,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     dev = init_distributed(args.device)
     joined = joined and dist.is_initialized()
     try:
-        mesh = make_host_mesh(dev) if dist.is_initialized() else None
+        mesh = _mesh(args, dev)
         with use_mesh(mesh):
             return _train(args, cfg, api, dev, mesh)
     finally:
@@ -118,7 +133,8 @@ def _train(args, cfg, api, dev, mesh) -> dict:
                      checkpoint_every=max(args.steps // 10, 1),
                      checkpoint_dir=args.ckpt_dir)
     host_id = int(os.environ.get("GROUP_RANK", 0))
-    lead = mesh is None or mesh.coordinate("data") == 0
+    lead = mesh is None or all(mesh.coordinate(a) == 0
+                               for a in mesh.axis_names)
     if tc.grad_compress_bits and lead:
         print(f"note: --grad-compress-bits {tc.grad_compress_bits} is "
               f"recorded in TrainConfig; fit does not read it (nor does "

@@ -20,6 +20,20 @@ The port of ``repro.models.attention``:
 Layouts are JAX's: q [B, T, H, D], k/v and caches [B, S, Hkv, D].  The
 cache is updated in place (JAX's engine donates it), and the updated
 cache is returned as JAX returns it.
+
+Tensor parallelism (``sharding.rules``' ``default`` profile over a
+``model`` axis of processes): a rank holding column blocks of
+``wq``/``wk``/``wv`` computes its own heads, attends over them (the flash
+kernel too) and its cache holds its ``Hkv`` block; ``wo`` is a row block
+whose partial products one all-reduce sums.  Where ``H`` divides over
+``model`` and ``Hkv`` does not, the rules still split ``wk``/``wv`` by
+columns when ``Hkv * D`` divides (cutting a head) and leave them whole
+when it does not; either way every rank then holds the whole k/v (its
+column blocks all-gathered), the cache stays whole on every rank, as
+``cache_pspec`` leaves it, and each rank's query head ``h`` reads kv
+head ``h // (H / Hkv)``.  Where ``H`` itself does not divide but ``H *
+D`` does, every rank gathers every query head and feeds ``wo`` its own
+column block.  The layer finds its split from its weights' shapes.
 """
 from __future__ import annotations
 
@@ -30,6 +44,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding import collectives as C
 
 NEG = -1e30
 
@@ -49,6 +64,11 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
                            dtype=dt),
         "wo": L.dense_init(generator, h * hd, d, bias=False, dtype=dt),
     }
+
+
+def _out_features(p: Dict) -> int:
+    w = p["w"]
+    return (w["q"] if isinstance(w, dict) else w).shape[-1]
 
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -168,20 +188,62 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     if impl not in ("xla", "xla_chunked", "flash"):
         raise ValueError(f"unknown attn_impl {impl!r}; the port serves "
                          f"'xla', 'xla_chunked' and 'flash'")
-    h = cfg.n_heads
+    hd = cfg.kv_head_dim
+    q_cols = _out_features(p["wq"])
+    group = C.split_group(q_cols, cfg.n_heads * hd, "attention queries")
+    m, rank = C.group_size(group), C.group_rank(group)
+    heads_split = group is not None and cfg.n_heads % m == 0
     quant = cfg.quant if cfg.quant.enabled else None
     b, t, _ = x.shape
     if cache is not None and cache_pos is not None:
         q_offset = cache_pos          # absolute positions for RoPE/masks
-    q = _split_heads(L.dense_apply(p["wq"], x, quant), h)
+    xq = C.copy_to(x, group)
+    q = L.dense_apply(p["wq"], xq, quant)
+    if group is not None and not heads_split:
+        # a column block that cuts a head: every rank takes every head
+        q = C.gather_shards(q, -1, group)
+    h = q.shape[-1] // hd
+    q = _split_heads(q, h)
+
+    def out_proj(out):
+        out = out.reshape(b, t, -1)
+        if group is not None and not heads_split:
+            out = out.narrow(-1, rank * q_cols, q_cols)
+        return L.row_apply(p["wo"], out, quant, group)
 
     if cross_kv is not None:
         k, v = cross_kv
         out = _sdpa_xla(q, k, v, causal=False, window=0, q_offset=0)
-        return L.dense_apply(p["wo"], out.reshape(b, t, -1), quant), None
+        return out_proj(out), None
 
-    k = _split_heads(L.dense_apply(p["wk"], x, quant), cfg.n_kv_heads)
-    v = _split_heads(L.dense_apply(p["wv"], x, quant), cfg.n_kv_heads)
+    kv_cols, kv_whole = _out_features(p["wk"]), cfg.n_kv_heads * hd
+    if heads_split and kv_cols < kv_whole and cfg.n_kv_heads % m == 0:
+        # this rank's kv heads, the ones its query heads read
+        k = L.dense_apply(p["wk"], xq, quant)
+        v = L.dense_apply(p["wv"], xq, quant)
+
+        def pick(t):
+            return t
+    else:
+        if kv_cols < kv_whole:
+            # a column block that cuts a head: whole k/v on every rank
+            C.split_group(kv_cols, kv_whole, "attention kv columns")
+            k = C.gather_shards(L.dense_apply(p["wk"], xq, quant), -1, group)
+            v = C.gather_shards(L.dense_apply(p["wv"], xq, quant), -1, group)
+        else:
+            # whole weights: every rank computes the whole k/v, whose
+            # gradient its query heads' share of is summed over the group
+            k = C.copy_to(L.dense_apply(p["wk"], x, quant), group)
+            v = C.copy_to(L.dense_apply(p["wv"], x, quant), group)
+        kv_of = None
+        if heads_split:
+            kv_of = (rank * h + torch.arange(h, device=x.device)) // (
+                cfg.n_heads // cfg.n_kv_heads)
+
+        def pick(t):
+            return t if kv_of is None else t.index_select(2, kv_of)
+    k = _split_heads(k, k.shape[-1] // hd)
+    v = _split_heads(v, v.shape[-1] // hd)
     if rope:
         pos = q_offset + torch.arange(t, device=x.device)
         q = L.apply_rope(q.transpose(1, 2), pos,
@@ -204,18 +266,17 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
             cv[:, slots] = v[:, t - w_eff:].to(cv.dtype)
             if t > 1:
                 # prefill: windowed attention over the in-sequence keys
-                out = _sdpa_xla(q, k, v, causal=True, window=window,
-                                q_offset=0)
+                out = _sdpa_xla(q, pick(k), pick(v), causal=True,
+                                window=window, q_offset=0)
             else:
                 # decode: the rolling cache with reconstructed absolute
                 # slot positions
                 pos_now = cache_pos + t - 1
                 slot_ids = torch.arange(window, device=x.device)
                 slot_pos = pos_now - ((pos_now - slot_ids) % window)
-                out = _rolling_sdpa(q, ck, cv, slot_pos, window,
+                out = _rolling_sdpa(q, pick(ck), pick(cv), slot_pos, window,
                                     q_offset=cache_pos)
-            return (L.dense_apply(p["wo"], out.reshape(b, t, -1), quant),
-                    {"k": ck, "v": cv})
+            return out_proj(out), {"k": ck, "v": cv}
         if cache_pos < 0 or cache_pos + t > s_max:
             # JAX's dynamic_update_slice would clamp the start silently
             raise ValueError(f"cache write of {t} tokens at position "
@@ -226,6 +287,7 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
         k, v = ck, cv
         kv_len = cache_pos + t
         q_offset = cache_pos
+    k, v = pick(k), pick(v)
 
     if impl == "flash" and cache is None:
         from repro_torch.kernels import ops
@@ -238,8 +300,7 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     else:
         out = _sdpa_xla(q, k, v, causal=causal, window=window,
                         q_offset=q_offset, kv_len=kv_len)
-    return (L.dense_apply(p["wo"], out.reshape(b, t, -1), quant),
-            new_cache)
+    return out_proj(out), new_cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,

@@ -8,6 +8,14 @@ Whisper's audio frontend.
 Matmul weights are ``[d_in, d_out]`` under ``"w"``; a weight may have
 been replaced by an int8 export dict ``{"q", "scale"}``, and the apply
 functions dispatch on that.
+
+Under a ``model`` axis over processes a rank holds blocks of the LM's
+weights (``sharding.rules``' ``default`` profile): ``gate``/``up`` are
+column blocks and ``down`` a row block, whose partial products one
+all-reduce sums (:func:`row_apply`, its bias added once after); the
+embedding table is a vocab block, looked up masked and summed
+(:func:`embedding_apply`).  ``group`` is that model group, None where
+the rank holds the whole weight.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ from repro_torch.core.fusion import batchnorm_apply, batchnorm_init
 from repro_torch.core.quant import (QuantConfig, fake_quant_act,
                                     fake_quant_weight)
 from repro_torch.kernels.ref import matmul
+from repro_torch.sharding import collectives as C
 
 
 def _normal(generator: torch.Generator, shape, std: float) -> torch.Tensor:
@@ -169,8 +178,23 @@ def embedding_init(generator: torch.Generator, vocab: int, d: int,
     return {"table": _normal(generator, (vocab, d), 0.02).to(dtype)}
 
 
-def embedding_apply(p: Dict, ids: torch.Tensor) -> torch.Tensor:
-    return p["table"][ids]
+def embedding_apply(p: Dict, ids: torch.Tensor, vocab: int = 0
+                    ) -> torch.Tensor:
+    """The rows of ``ids``.  Where this rank holds a vocab block of a
+    ``vocab``-row table, the rows in its block (zeros elsewhere), summed
+    over the model group: exactly one rank adds each row, so it is the
+    whole table's lookup bit for bit."""
+    table = p["table"]
+    group = C.split_group(table.shape[0], vocab or table.shape[0],
+                          "embedding table")
+    if group is None:
+        return table[ids]
+    n = table.shape[0]
+    local = ids - C.group_rank(group) * n
+    hit = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return C.reduce_from(torch.where(hit[..., None], rows,
+                                     rows.new_zeros(())), group)
 
 
 def unembed_apply(p: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -236,8 +260,25 @@ def swiglu_init(generator: torch.Generator, d: int, d_ff: int,
             "down": dense_init(generator, d_ff, d, bias=False, dtype=dtype)}
 
 
+def row_apply(p: Dict, x: torch.Tensor, quant: Optional[QuantConfig] = None,
+              group=None) -> torch.Tensor:
+    """:func:`dense_apply` of a row block (``x`` holds the matching
+    columns): the partial products summed over ``group`` (in f32 for a
+    16-bit dtype, rounded once), then the bias, once."""
+    if group is None:
+        return dense_apply(p, x, quant)
+    y = C.reduce_from(_matmul(x, p["w"], quant), group)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
 def swiglu_apply(p: Dict, x: torch.Tensor,
-                 quant: Optional[QuantConfig] = None) -> torch.Tensor:
+                 quant: Optional[QuantConfig] = None, group=None
+                 ) -> torch.Tensor:
+    """SwiGLU; ``group`` the model group ``gate``/``up`` (column blocks)
+    and ``down`` (a row block) are split over."""
+    x = C.copy_to(x, group)
     g = dense_apply(p["gate"], x, quant)
     u = dense_apply(p["up"], x, quant)
-    return dense_apply(p["down"], silu(g) * u, quant)
+    return row_apply(p["down"], silu(g) * u, quant, group)

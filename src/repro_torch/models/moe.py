@@ -7,13 +7,30 @@ expert SwiGLU (one product per expert) -> gather back, weighted combine.
 Entries past an expert's capacity are dropped (the residual carries the
 token).
 
-``moe_apply`` is JAX's ``moe_apply_global``, the route JAX takes unless
-the ``sharding_profile`` is ``moe_local*`` and the current mesh
-(``sharding.context``) has a ``model`` axis.  That pair takes JAX's
-``moe_apply_local`` (the shard_map dispatch and combine: a per-shard
-capacity and an f32 scatter-add), which waits for the sharded part of
-ROADMAP.md Queue 1 item 4: it raises ``NotImplementedError``, on fake
-tensors too (the dry-run), since its program differs.
+``moe_apply`` takes JAX's route: ``moe_apply_global`` unless the
+``sharding_profile`` is ``moe_local*`` and the current mesh
+(``sharding.context``) has a ``model`` axis, where it takes
+:func:`moe_apply_local`.  On a mesh over processes:
+
+* **Expert parallel, the global route.**  A rank holding ``E/m`` experts
+  (``gate_w``/``up_w``/``down_w`` split on their expert dim over
+  ``model``) computes the dispatch of its tokens, the products of its
+  experts, then all-gathers the expert outputs over ``model`` and runs
+  the ordered combine below.  Its capacity counts the tokens it holds,
+  so over more than one data rank the global route (whose capacity and
+  aux couple the whole batch) raises ``NotImplementedError``
+  (ROADMAP.md Queue 3).
+* **:func:`moe_apply_local`** (JAX's ``shard_map`` MoE).  Routing stays
+  on each data block, with a capacity of its own that truncates first
+  (``int(t_loc * k / E * cf)``, unlike the global ``ceil``); a rank keeps
+  only its own experts' entries, in a stable order by local expert; the
+  combine adds each entry's ``y * w`` in f32, sums the ranks' partial
+  outputs over ``model`` and casts to ``x.dtype``.  Tokens never move.
+  The aux loss is the product of two global means: the data group
+  all-reduces ``frac`` and ``mean(probs)`` before the product.
+* On an abstract mesh (the dry-run's production meshes) the
+  ``moe_local*`` route raises ``NotImplementedError``, on fake tensors
+  too, since its program differs (ROADMAP.md Queue 1 item 4).
 
 What holds the layer to JAX's results (ROADMAP.md Queue 3):
 
@@ -56,7 +73,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import matmul
 from repro_torch.models import layers as L
-from repro_torch.sharding.context import current_mesh
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import batch_pspec
+from repro_torch.sharding.context import current_mesh, current_placement
 
 
 def moe_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
@@ -159,6 +178,37 @@ def combine(yb: torch.Tensor, disp: Dispatch, top_p: torch.Tensor
     return out
 
 
+def _aux(cfg: ModelConfig, counts: torch.Tensor, n_entries: int,
+         probs: torch.Tensor, data_group) -> torch.Tensor:
+    """``E * sum(frac * mean(probs))``, both means over the whole batch:
+    over a data group the entry counts and the probability sums are
+    summed across it first (the probabilities' gradient summed back)."""
+    n = probs.shape[0]
+    if data_group is not None:
+        ranks = C.dist.get_world_size(data_group)
+        counts = C.all_sum(counts, data_group)
+        n_entries, n = n_entries * ranks, n * ranks
+        prob_sum = C.sum_both(probs.sum(dim=0), data_group)
+        mean_prob = prob_sum / prob_sum.new_full((), n)
+    else:
+        mean_prob = probs.mean(dim=0)
+    frac = counts.float() / probs.new_full((), n_entries)
+    return cfg.n_experts * torch.sum(frac * mean_prob)
+
+
+def _counts(top_e: torch.Tensor, e: int) -> torch.Tensor:
+    """Entries routed to each of ``e`` experts (no host sync)."""
+    s = top_e.reshape(-1).sort().values
+    starts = torch.searchsorted(
+        s, torch.arange(e, device=s.device, dtype=s.dtype))
+    return torch.diff(starts, append=starts.new_full((1,), s.numel()))
+
+
+def _routes_locally(cfg: ModelConfig, mesh) -> bool:
+    return cfg.sharding_profile.startswith("moe_local") and \
+        mesh is not None and "model" in mesh.axis_names
+
+
 def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, T, d] -> (out [B, T, d], aux loss, f32 scalar).
@@ -167,19 +217,138 @@ def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor
     fraction of entries routed there times the mean router probability.
     """
     mesh = current_mesh()
-    if cfg.sharding_profile.startswith("moe_local") and mesh is not None \
-            and "model" in mesh.axis_names:
+    if _routes_locally(cfg, mesh):
+        if C.process_group(mesh, "model") is None:
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.sharding_profile!r} dispatch on the "
+                f"abstract mesh {mesh.shape} (the dry-run's moe_local "
+                f"programs) waits for Queue 1 item 4 (the sharded part) in "
+                f"ROADMAP.md")
+        return moe_apply_local(p, cfg, x, mesh)
+    pl = current_placement()
+    split = pl.batch_axes if pl is not None else \
+        batch_pspec(mesh) if mesh is not None else ()
+    if C.process_group(mesh, split) is not None and \
+            math.prod(mesh.shape[a] for a in split) > 1:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.sharding_profile!r} dispatch over a mesh "
-            f"with a 'model' axis (JAX's moe_apply_local) waits for Queue "
-            f"1 item 4 (the sharded part) in ROADMAP.md")
+            f"{cfg.name}: the global MoE route with its batch split over "
+            f"{dict((a, mesh.shape[a]) for a in split)}: its capacity and "
+            f"aux loss couple the whole batch, so a "
+            f"rank's block does not compute its share (ROADMAP.md Queue 3); "
+            f"sharding_profile='moe_local' on a mesh with a 'model' axis "
+            f"routes each data block on its own, as JAX's moe_apply_local")
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     n = b * t
     xf = x.reshape(n, d)
     probs, top_p, top_e = route(p, cfg, xf)
-    disp = dispatch(cfg, xf, top_e, capacity(cfg, n))
-    frac_routed = disp.counts.float() / probs.new_full((), n * k)
-    aux = e * torch.sum(frac_routed * probs.mean(dim=0))
-    out = combine(experts(p, disp.hb), disp, top_p)
+    group = C.split_group(p["gate_w"].shape[-3], e, "MoE experts")
+    disp = dispatch(cfg, C.copy_to(xf, group), top_e, capacity(cfg, n))
+    aux = _aux(cfg, disp.counts, n * k, probs, None)
+    hb = disp.hb
+    if group is not None:
+        e_loc = p["gate_w"].shape[-3]
+        hb = hb.narrow(0, C.group_rank(group) * e_loc, e_loc)
+    yb = C.gather_from(experts(p, hb), 0, group)
+    out = combine(yb, disp, top_p)
     return out.reshape(b, t, d), aux
+
+
+def local_capacity(cfg: ModelConfig, t_loc: int) -> int:
+    """JAX's ``moe_apply_local`` capacity: the share truncated by
+    ``int()`` first, then padded to a multiple of 8, at least 8."""
+    c = int(t_loc * cfg.experts_per_token / cfg.n_experts *
+            cfg.capacity_factor)
+    return max(8, -(-c // 8) * 8)
+
+
+class LocalDispatch(NamedTuple):
+    buf: torch.Tensor       # [E_loc, cap, d] this rank's expert inputs
+    order: torch.Tensor     # [T_loc*k] sorted position -> entry
+    dest: torch.Tensor      # [T_loc*k] sorted position -> slot (E_loc*cap)
+    keep: torch.Tensor      # [T_loc*k] bool: this rank's expert, in capacity
+
+
+def dispatch_local(xf: torch.Tensor, top_e: torch.Tensor, e_lo: int,
+                   e_local: int, cap: int) -> LocalDispatch:
+    """JAX's ``_dispatch_local``: the entries routed to experts
+    ``[e_lo, e_lo + e_local)`` sorted stably by local expert (the others
+    after them, dropped), each kept one scattered into its expert's next
+    free slot of ``cap``."""
+    t_loc, d = xf.shape
+    k = top_e.shape[-1]
+    flat_e = top_e.reshape(t_loc * k)
+    mine = (flat_e >= e_lo) & (flat_e < e_lo + e_local)
+    e_loc = torch.where(mine, flat_e - e_lo, e_local)
+    order = torch.argsort(e_loc, stable=True)
+    sorted_e = e_loc[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(
+        e_local + 1, device=xf.device, dtype=sorted_e.dtype))
+    rank = torch.arange(t_loc * k, device=xf.device) - starts[sorted_e]
+    keep = (sorted_e < e_local) & (rank < cap)
+    dest = torch.where(keep, sorted_e * cap + rank, e_local * cap)
+    buf = xf.new_zeros((e_local * cap + 1, d))
+    buf[dest] = xf[order // k] * keep[:, None].to(xf.dtype)
+    return LocalDispatch(buf[:-1].reshape(e_local, cap, d), order, dest,
+                         keep)
+
+
+def combine_local(y_buf: torch.Tensor, disp: LocalDispatch,
+                  top_p: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_combine_local`` before its ``psum``: each kept entry's
+    ``y * w`` in f32 (``w`` the f32 router weight), added into its token
+    from zero in ascending expert order: [E_loc, cap, d] -> [T_loc, d]
+    f32."""
+    e_local, cap, d = y_buf.shape
+    t_loc, k = top_p.shape
+    y_flat = y_buf.reshape(e_local * cap, d)
+    w = top_p.reshape(t_loc * k).float()[disp.order]
+    y_sorted = torch.where(
+        disp.keep[:, None],
+        y_flat[disp.dest.clamp(max=e_local * cap - 1)].float() *
+        (w * disp.keep.float())[:, None], 0.0)
+    pos = torch.empty_like(disp.order)
+    pos[disp.order] = torch.arange(t_loc * k, device=y_buf.device)
+    vals = y_sorted[pos.reshape(t_loc, k).sort(dim=-1).values]
+    out = y_buf.new_zeros((t_loc, d), dtype=torch.float32)
+    for j in range(k):
+        out = out + vals[:, j]
+    return out
+
+
+def moe_apply_local(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's ``moe_apply_local`` on this rank: ``x`` is its data block,
+    and ``gate_w``/``up_w``/``down_w`` hold its ``E / m`` experts (``m``
+    the ``model`` axis's size; all ``E`` where it is 1)."""
+    b, t, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    m = mesh.shape["model"]
+    if e % m:
+        raise ValueError(f"{cfg.name}: {e} experts do not divide over the "
+                         f"'model' axis ({m})")
+    e_local = e // m
+    if p["gate_w"].shape[-3] != e_local:
+        raise ValueError(f"{cfg.name}: moe_local needs this rank's "
+                         f"{e_local} experts; it holds "
+                         f"{p['gate_w'].shape[-3]}")
+    pl = current_placement()
+    if m > 1 and pl is not None and "model" in pl.batch_axes:
+        raise NotImplementedError(
+            f"{cfg.name}: the moe_local dispatch under profile "
+            f"{pl.profile!r}, whose batch blocks split over 'model' too: "
+            f"JAX gathers each data block over 'model' first, which waits "
+            f"for Queue 1 item 4 (the sharded part) in ROADMAP.md")
+    group = C.process_group(mesh, "model") if m > 1 else None
+    data = batch_pspec(mesh)
+    data_group = C.process_group(mesh, data) if math.prod(
+        mesh.shape[a] for a in data) > 1 else None
+    t_loc = b * t
+    xf = x.reshape(t_loc, d)
+    probs, top_p, top_e = route(p, cfg, xf)
+    aux = _aux(cfg, _counts(top_e, e), t_loc * k, probs, data_group)
+    disp = dispatch_local(C.copy_to(xf, group), top_e,
+                          C.block_index(mesh, "model") * e_local, e_local,
+                          local_capacity(cfg, t_loc))
+    y = combine_local(experts(p, disp.buf), disp, C.copy_to(top_p, group))
+    return C.reduce_from(y, group).to(x.dtype).reshape(b, t, d), aux

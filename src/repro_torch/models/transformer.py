@@ -39,6 +39,19 @@ is current, where ``model`` spans one device, or on fake tensors (the
 dry-run), so the forward is the same bits as without them; a real
 tensor under a ``model`` axis of several devices raises (the sharded
 part of ROADMAP.md Queue 1 item 4).
+
+On a mesh over processes the params are each rank's blocks
+(``sharding.rules.place``).  Under the ``default`` profile the layers
+split themselves by their weights' shapes: attention by heads and the
+MLP by ``d_ff`` (``models/attention.py``, ``layers.swiglu_apply``), the
+MoE by experts (``models/moe.py``), the embedding by vocab rows, and the
+unembedding gives vocab blocks of the logits, gathered over ``model``
+before they leave (JAX's logits are global).  Under ``fsdp`` (the
+current ``rules.Placement``) each block is all-gathered where a layer
+uses it and its gradient reduce-scattered back: a layer's leaves inside
+the layer (so a remat layer frees them and gathers again in its
+recompute), a stack split along its layer dim before the loop, the
+embedding, final norm and unembedding where they are read.
 """
 from __future__ import annotations
 
@@ -52,8 +65,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.sharding import collectives as C
 from repro_torch.sharding import rules
-from repro_torch.sharding.context import current_mesh
+from repro_torch.sharding.context import current_mesh, current_placement
 from repro_torch.tree import (leaves_with_paths, tree_leaves, tree_map,
                               tree_map_with_path)
 
@@ -185,16 +199,59 @@ def _block_apply(blk: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     if "moe" in blk:
         f, aux = M.moe_apply(blk["moe"], cfg, h)
     else:
-        f = L.swiglu_apply(blk["mlp"], h,
-                           cfg.quant if cfg.quant.enabled else None)
+        mlp = blk["mlp"]
+        f = L.swiglu_apply(mlp, h, cfg.quant if cfg.quant.enabled else None,
+                           C.split_group(A._out_features(mlp["gate"]),
+                                         cfg.d_ff, "mlp"))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + f, new_cache, aux
 
 
+def _fsdp_shardings(key: str):
+    """The current ``fsdp`` placement's shardings of ``params[key]``, or
+    None (no placement, or one that gathers nothing)."""
+    pl = current_placement()
+    return pl.params[key] if pl is not None and pl.fsdp else None
+
+
+def _whole(params: Dict, key: str) -> Any:
+    """``params[key]`` as a layer reads it: under ``fsdp`` gathered from
+    its blocks (the gradient reduce-scattered back), else itself."""
+    sh = _fsdp_shardings(key)
+    if sh is None:
+        return params[key]
+    return tree_map(rules.gather_shards, params[key], sh)
+
+
+def _fsdp_blocks(blocks: Dict) -> Tuple[Dict, Any]:
+    """(blocks, each layer's shardings or None).  Under ``fsdp`` a stack
+    split along its layer dim (a leaf whose trailing dims do not divide)
+    is gathered whole here; the other leaves keep their blocks, and each
+    layer's shardings are theirs less the layer dim."""
+    sh = _fsdp_shardings("blocks")
+    if sh is None:
+        return blocks, None
+
+    def by_layer(s):
+        return bool(s.spec) and s.spec[0] is not None
+    blocks = tree_map(lambda t, s: rules.gather_shards(t, s) if by_layer(s)
+                      else t, blocks, sh)
+    return blocks, tree_map(lambda s: rules.NamedSharding(
+        s.mesh, rules.P() if by_layer(s) else rules.P(*s.spec[1:])), sh)
+
+
+def _gather_layer(blk: Dict, shardings: Any) -> Dict:
+    if shardings is None:
+        return blk
+    return tree_map(rules.gather_shards, blk, shardings)
+
+
 def _remat_block(blk: Dict, cfg: ModelConfig, impl: Optional[str],
-                 x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                 shardings: Any, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder layer as :func:`checkpointed` runs it: (x, aux)."""
-    y, _, aux = _block_apply(blk, cfg, x, impl=impl)
+    y, _, aux = _block_apply(_gather_layer(blk, shardings), cfg, x,
+                             impl=impl)
     return y, aux
 
 
@@ -208,16 +265,18 @@ def _layers(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     gradient."""
     auxs = []
     remat_on = cache is None and remat_wanted(remat, params)
-    for i, blk in enumerate(unstack_layers(params["blocks"])):
+    blocks, layer_sh = _fsdp_blocks(params["blocks"])
+    for i, blk in enumerate(unstack_layers(blocks)):
         if remat_on:
             x, aux = checkpointed(
-                functools.partial(_remat_block, blk, cfg, impl), x)
+                functools.partial(_remat_block, blk, cfg, impl, layer_sh), x)
         else:
             cache_l = None if cache is None else layer_params(cache, i)
-            x, _, aux = _block_apply(blk, cfg, x, cache=cache_l,
-                                     cache_pos=cache_pos, impl=impl)
+            x, _, aux = _block_apply(_gather_layer(blk, layer_sh), cfg, x,
+                                     cache=cache_l, cache_pos=cache_pos,
+                                     impl=impl)
         auxs.append(aux)
-    return (L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps),
+    return (L.rmsnorm_apply(_whole(params, "ln_f"), x, cfg.norm_eps),
             torch.stack(auxs).sum())
 
 
@@ -227,16 +286,24 @@ def _embed_in(params: Dict, cfg: ModelConfig, inputs: torch.Tensor
     pass straight through, cast to ``cfg.dtype``."""
     if inputs.dtype.is_floating_point:
         return inputs.to(A.torch_dtype(cfg))
-    return L.embedding_apply(params["embed"], inputs)
+    return L.embedding_apply(_whole(params, "embed"), inputs,
+                             cfg.vocab_size)
 
 
 def _unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor
              ) -> torch.Tensor:
     """Tied: an f32 product with the embedding table.  Untied: the dense
-    product in ``cfg.dtype``, rounded there, then cast to f32."""
-    if cfg.tie_embeddings or "unembed" not in params:
-        return L.unembed_apply(params["embed"], x)
-    return L.dense_apply(params["unembed"], x).float()
+    product in ``cfg.dtype``, rounded there, then cast to f32.  A rank
+    holding a vocab block computes that block of the logits, and the
+    blocks are gathered over the model group."""
+    tied = cfg.tie_embeddings or "unembed" not in params
+    p = _whole(params, "embed" if tied else "unembed")
+    group = C.split_group(p["table"].shape[0] if tied
+                          else A._out_features(p), cfg.vocab_size,
+                          "unembedding")
+    x = C.copy_to(x, group)
+    logits = L.unembed_apply(p, x) if tied else L.dense_apply(p, x).float()
+    return C.gather_from(logits, -1, group)
 
 
 @L.f32_sums()

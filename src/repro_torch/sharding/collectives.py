@@ -1,0 +1,246 @@
+"""Collectives over a mesh's process groups, with the gradients a sharded step needs.
+
+GSPMD places JAX's collectives itself; the port's model code computes on
+each rank's local blocks and calls these where GSPMD puts one.  Each is
+an autograd function, so a step's backward moves what its forward
+moved, transposed (Megatron-LM's ``f`` and ``g``):
+
+* :func:`copy_to` -- identity forward, sum backward: the replicated input
+  of a column-parallel product (each rank's gradient covers its columns
+  only);
+* :func:`reduce_from` -- sum forward, identity backward: the partial
+  outputs of a row-parallel product, of a vocab-sharded lookup or of the
+  local MoE combine (every rank's loss downstream is the same);
+* :func:`sum_both` -- sum forward and backward: a mean over the data
+  group that every rank's loss then reads (the MoE aux loss);
+* :func:`gather_from` -- all-gather forward, this rank's block backward:
+  vocab blocks of the logits, expert blocks of the MoE outputs;
+* :func:`gather_shards` -- all-gather forward, reduce-scatter backward:
+  an ``fsdp`` parameter gathered where a layer uses it (every rank's
+  gradient of the whole leaf differs, since each saw its own batch block).
+
+A ``group`` of None is no group: each function is then the identity.
+Gathers order the blocks by group rank, which runs row-major over the
+group's mesh axes (:func:`process_group`), as JAX lays a dim sharded
+over a tuple of axes.  The reduce-scatter is an all-reduce and a slice:
+gloo reduces CUDA tensors only by all-reduce (its ranks share one card
+in ``chip_smoke.py``).
+
+Every value that moves between processes moves here: the training
+loop's gradient and metric means and the clip's norm go through
+:func:`all_reduce_`, which the functions above use too.  The groups come
+from a ``launch.mesh.Mesh`` over a process group (:func:`process_group`,
+:func:`block_index`), so the model code reads them without the launch
+layer.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.distributed as dist
+
+
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def all_reduce_(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``x`` reduced over ``group`` in place, in its own dtype (``op``
+    ``"sum"`` or ``"max"``), no gradient; ``x`` itself.  For a tensor
+    the caller owns (a step's gradients, metrics, norms), none aliased."""
+    if group is not None:
+        dist.all_reduce(x, op=getattr(dist.ReduceOp, op.upper()),
+                        group=group)
+    return x
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Summed in f32 for a 16-bit float (then rounded once), in place on
+    a copy."""
+    y = x.float().contiguous().clone() if x.dtype in _HALF else \
+        x.contiguous().clone()
+    return all_reduce_(y, group).to(x.dtype)
+
+
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Blocks concatenated in group-rank order; a 16-bit float moves as
+    its bits (an int16 view)."""
+    half = x.dtype in _HALF
+    y = x.contiguous().view(torch.int16) if half else x.contiguous()
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, y, group=group)
+    out = torch.cat(parts, dim=dim)
+    return out.view(x.dtype) if half else out
+
+
+def _block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    size = x.shape[dim] // n
+    return x.narrow(dim, dist.get_rank(group) * size, size).contiguous()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.dim, ctx.group), None, None
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(_sum(g, ctx.group), ctx.dim, ctx.group), None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def sum_both(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _SumBoth.apply(x, group)
+
+
+def gather_from(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return x if group is None else _GatherFrom.apply(x, dim % x.ndim, group)
+
+
+def gather_shards(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return x if group is None else _GatherShards.apply(x, dim % x.ndim,
+                                                        group)
+
+
+def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The whole of a tensor sharded along ``dim`` over ``group``, no
+    gradient (checkpoints, tests)."""
+    return x if group is None else _gather(x, dim % x.ndim, group)
+
+
+def all_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (a new tensor), no gradient."""
+    return x if group is None else _sum(x, group)
+
+
+def group_size(group) -> int:
+    """Processes in ``group`` (1 for no group)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This process's rank in ``group`` (0 for no group)."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+_FLAT_GROUPS: Dict[Tuple[int, Tuple[str, ...]], Any] = {}
+
+
+def process_group(mesh, axis):
+    """The process group along ``axis`` (a name, or a tuple of names whose
+    group ranks run row-major over them) of a ``launch.mesh.Mesh`` over
+    ``torch.distributed``, or None where no value moves between
+    processes: no mesh, an abstract one, a mesh of another kind
+    (``serve.sharding.LocalMesh``), or no axis (``()``)."""
+    device_mesh = getattr(mesh, "device_mesh", None)
+    if device_mesh is None:
+        return None
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return device_mesh.get_group(axes[0])
+    key = (id(device_mesh), axes)
+    if key not in _FLAT_GROUPS:         # made once: a new group is collective
+        sub = device_mesh if axes == tuple(mesh.axis_names) else \
+            device_mesh[axes]
+        _FLAT_GROUPS[key] = sub._flatten("_".join(axes)).get_group()
+    return _FLAT_GROUPS[key]
+
+
+def block_index(mesh, axes) -> int:
+    """This process's row-major coordinate over ``axes`` (a name or a
+    tuple): the index of its block of a dim sharded over them."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    out = 0
+    for a in axes:
+        out = out * mesh.shape[a] + mesh.coordinate(a)
+    return out
+
+
+def axes_size(mesh, axes) -> int:
+    """Processes along ``axes`` (a name or a tuple) of ``mesh``: 1 where
+    :func:`process_group` has no group."""
+    if process_group(mesh, axes) is None:
+        return 1
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def mesh_group(axis):
+    """The current mesh's (``sharding.context``) process group along
+    ``axis``, or None: no mesh, an abstract one, or no such axis."""
+    from repro_torch.sharding.context import current_mesh
+    mesh = current_mesh()
+    if mesh is None or axis not in mesh.axis_names:
+        return None
+    return process_group(mesh, axis)
+
+
+def split_group(local: int, whole: int, what: str):
+    """The ``model`` group a dim of ``whole`` is split over when a rank
+    holds ``local`` of it, None where it holds the whole dim (no model
+    axis, or the rules left the leaf whole because the dim does not
+    divide).  A block without a current process-group mesh raises."""
+    if local == whole:
+        return None
+    group = mesh_group("model")
+    if group is None or whole != local * dist.get_world_size(group):
+        raise ValueError(f"{what}: this rank holds {local} of {whole}, and "
+                         f"the current mesh has no 'model' process group "
+                         f"of {whole // max(local, 1)} ranks to split it "
+                         f"over (sharding.context.use_mesh)")
+    return group

@@ -2,20 +2,28 @@
 
 The port of ``repro.sharding.context``.  Model modules are
 mesh-agnostic except where a mesh changes what they compute or must
-move values: ``seq_parallel`` (``models/transformer.py``) and the
-``moe_local*`` dispatch (``models/moe.py``).  ``current_mesh()`` is
-None on a bare host, and those paths then run their one-device form.
-The meshes are ``repro_torch.launch.mesh.Mesh`` values: the abstract
-production meshes of the dry-run (axis names and sizes, no devices), or
-the host's ``("data", world_size)`` mesh over a ``torch.distributed``
-process group (``make_host_mesh`` under ``init_distributed``), whose
-``DeviceMesh`` the data-parallel training step reduces over.
+move values: ``seq_parallel`` (``models/transformer.py``), the
+``moe_local*`` dispatch (``models/moe.py``), and, on a mesh over
+processes, the collectives of a layer whose parameters each rank holds
+a block of (``sharding.collectives``).  ``current_mesh()`` is None on a
+bare host, and those paths then run their one-device form.  The meshes
+are ``repro_torch.launch.mesh.Mesh`` values: the abstract production
+meshes of the dry-run (axis names and sizes, no devices), or a mesh over
+a ``torch.distributed`` process group (``make_host_mesh``,
+``make_group_mesh``), whose ``DeviceMesh`` groups the steps reduce over.
+
+``current_placement()`` is the port's own addition: the
+``sharding.rules.Placement`` of the step running (its profile and
+parameter shardings), which JAX's GSPMD reads from the jitted
+function's shardings.  The decoder reads it to gather ``fsdp`` blocks
+where a layer uses them.
 """
 from __future__ import annotations
 
 import contextlib
 
 _MESH = None
+_PLACEMENT = None
 
 
 def set_mesh(mesh) -> None:
@@ -38,3 +46,22 @@ def use_mesh(mesh):
         yield
     finally:
         _MESH = prev
+
+
+def current_placement():
+    return _PLACEMENT
+
+
+@contextlib.contextmanager
+def use_placement(placement):
+    """``placement`` (a ``rules.Placement`` or None) is current inside
+    the block, and its mesh the current mesh (None keeps the mesh)."""
+    global _PLACEMENT
+    prev = _PLACEMENT
+    _PLACEMENT = placement
+    try:
+        with use_mesh(current_mesh() if placement is None
+                      else placement.mesh):
+            yield
+    finally:
+        _PLACEMENT = prev

@@ -15,14 +15,23 @@ entry a dim: None, an axis name or a tuple of names) and
 leaf's per-device ``shard_shape``.  Paths are ``repro_torch.tree``
 paths (dict keys and list indices); an element with a ``.key`` (a
 ``jax.tree_util.DictKey``) is read through it, so one rule serves both
-packages' paths.  One rule moves a value: on a mesh over a process
-group (``launch.mesh.make_host_mesh`` under ``init_distributed``),
-:func:`constrain_batch` gives each rank its block of a batch, as JAX's
-``P("data")`` gives each device.  Placing parameters or caches over
-processes (DTensor placements from these specs) waits for ROADMAP.md
-Queue 1 item 4b, and :func:`constrain_batch` refuses a real tensor that
-an abstract mesh, a ``model`` axis or a fully sharded profile would
-split.
+packages' paths.
+
+On a mesh over a process group (``launch.mesh.make_group_mesh`` or
+``make_host_mesh`` under ``init_distributed``) these specs move values.
+:func:`place` is ``jax.device_put(tree, shardings)``: each rank keeps
+its block of every leaf (``NamedSharding.shard_shape``; a leaf whose
+axis ``_spec`` dropped stays whole on every rank, as in JAX), and
+:func:`gather` is its inverse, the whole tree on every rank.
+:func:`constrain_batch` gives each rank its block of a batch: every rank
+of a ``model`` group keeps the same ``(pod, data)`` block, and under
+``fsdp`` the batch splits over all axes, as :func:`batch_shardings`
+says.  :class:`Placement` carries a step's mesh, profile and parameter
+shardings to the model code (``sharding.context.use_placement``), which
+computes on local blocks with the collectives of
+``sharding.collectives``.  A real tensor on an abstract mesh has no
+process to hold a block: :func:`constrain_batch` and :func:`place`
+raise ``ValueError`` there.
 """
 from __future__ import annotations
 
@@ -33,7 +42,8 @@ from typing import Any, Dict, Tuple
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
-from repro_torch.launch.mesh import process_group
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.collectives import block_index, process_group
 from repro_torch.tree import tree_map, tree_map_with_path
 
 
@@ -178,6 +188,30 @@ def full_axes(mesh) -> Tuple:
                  if a in mesh.axis_names)
 
 
+def moves_values(profile: str) -> bool:
+    """Whether the port places real tensors under ``profile`` on a
+    process-group mesh: ``default``, ``replicated``, ``fsdp`` and
+    ``moe_local*`` yes; ``infer2d`` and ``cache_seq*`` place only the
+    dry-run's fake tensors.  An unknown name raises ``ValueError``."""
+    if profile in ("default", "replicated", "fsdp") or \
+            profile.startswith("moe_local"):
+        return True
+    if profile == "infer2d" or "cache_seq" in profile:
+        return False
+    raise ValueError(f"unknown sharding profile {profile!r}")
+
+
+def refuse_unmoved(profile: str, what: str = "") -> None:
+    """``NotImplementedError`` citing ROADMAP.md Queue 1 item 4 where
+    :func:`moves_values` says no (``what`` names the caller's part)."""
+    if not moves_values(profile):
+        raise NotImplementedError(
+            f"{what or f'sharding profile {profile!r}'} on real tensors "
+            f"waits for Queue 1 item 4 (the sharded part, 4b: infer2d and "
+            f"cache_seq) in ROADMAP.md; the port places default, "
+            f"replicated, fsdp and moe_local")
+
+
 def _batch_axes(mesh, profile: str) -> Tuple:
     return full_axes(mesh) if profile in ("fsdp", "infer2d") \
         else batch_pspec(mesh)
@@ -240,31 +274,111 @@ def shard_bytes(tree: Any, shardings: Any) -> int:
     return total
 
 
+def _sharded_dims(sharding):
+    """(dim, axis) of each dim the spec shards over more than one
+    device."""
+    return [(d, a) for d, a in enumerate(sharding.spec)
+            if a is not None and _axis_size(sharding.mesh, a) > 1]
+
+
+def _need_group(mesh, axis, what: str) -> None:
+    if process_group(mesh, axis) is None:
+        raise ValueError(
+            f"{what}: mesh {mesh.shape} is abstract, so no process holds "
+            f"a block over {axis}; make the mesh over a process group "
+            f"(launch.mesh.make_group_mesh under init_distributed)")
+
+
+def shard(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This process's block of the whole tensor ``x``: a copy of its own,
+    so the whole can be freed; ``x`` itself where nothing is split."""
+    dims = _sharded_dims(sharding)
+    for d, axis in dims:
+        _need_group(sharding.mesh, axis, "place")
+        n = _axis_size(sharding.mesh, axis)
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not divide "
+                             f"over {axis} ({n})")
+        size = x.shape[d] // n
+        x = x.narrow(d, block_index(sharding.mesh, axis) * size, size)
+    return x.clone() if dims else x
+
+
+def unshard(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """The whole tensor of which ``x`` is this process's block (every
+    rank of the mesh calls it)."""
+    for d, axis in _sharded_dims(sharding):
+        x = C.gather(x, d, process_group(sharding.mesh, axis))
+    return x
+
+
+def place(tree: Any, shardings: Any) -> Any:
+    """``jax.device_put(tree, shardings)`` on a process-group mesh: each
+    leaf of ``tree`` (whole, as ``convert.from_numpy_tree`` or an init
+    gives it) cut to this process's block."""
+    return tree_map(shard, tree, shardings)
+
+
+def gather(tree: Any, shardings: Any) -> Any:
+    """The inverse of :func:`place`: every leaf whole on every rank (a
+    collective: every rank of the mesh calls it)."""
+    return tree_map(unshard, tree, shardings)
+
+
+def gather_shards(x: torch.Tensor, sharding: NamedSharding
+                  ) -> torch.Tensor:
+    """An ``fsdp`` block gathered whole where a layer uses it; its
+    gradient is reduce-scattered back to the block."""
+    for d, axis in _sharded_dims(sharding):
+        x = C.gather_shards(x, d, process_group(sharding.mesh, axis))
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A step's placement on a process-group mesh: ``profile``'s rules
+    applied to the parameter (``params``) and optimizer (``opt``) trees
+    of the whole model, as trees of :class:`NamedSharding`; None where
+    every leaf stays whole (a mesh without ``model``)."""
+    mesh: Any
+    profile: str = "default"
+    params: Any = None
+    opt: Any = None
+
+    @property
+    def fsdp(self) -> bool:
+        """Blocks gathered where a layer uses them (``fsdp``)."""
+        return self.profile in ("fsdp", "infer2d") and self.params is not None
+
+    @property
+    def batch_axes(self) -> Tuple:
+        return _batch_axes(self.mesh, self.profile)
+
+    def sharded_axes(self, sharding: NamedSharding) -> Tuple[str, ...]:
+        """The mesh axes a leaf's spec splits it over (several devices
+        only), in mesh order."""
+        used = set()
+        for _, a in _sharded_dims(sharding):
+            used.update((a,) if isinstance(a, str) else a)
+        return tuple(a for a in self.mesh.axis_names if a in used)
+
+
 def constrain_batch(x: torch.Tensor, mesh, profile: str = "default"
                     ) -> torch.Tensor:
     """JAX's ``with_sharding_constraint`` of a batch leaf.  ``x`` itself
     where the constraint moves no value: a fake or meta tensor, batch
     axes of one device, or a dim 0 that does not divide over them (JAX's
-    spec then drops the axis).  On a mesh over a process group whose
-    batch axes span the group, this rank's contiguous block of dim 0
-    (block r on rank r, the block ``P("data")`` gives device r).  A real
-    tensor that an abstract mesh, a ``model`` axis of several devices or
-    a fully sharded profile would split raises ``NotImplementedError``."""
+    spec then drops the axis).  On a process-group mesh, this rank's
+    contiguous block of dim 0: block ``i`` at the row-major coordinate
+    ``i`` over the batch axes (``(pod, data)``; every axis under
+    ``fsdp``/``infer2d``), so every rank of a ``model`` group holds the
+    same block.  A real tensor an abstract mesh would split raises
+    ``ValueError``."""
     baxes = _batch_axes(mesh, profile)
     n = _axis_size(mesh, baxes)
-    if n == 1 or is_abstract(x):
+    if n == 1 or is_abstract(x) or x.ndim == 0 or x.shape[0] % n:
         return x
-    if process_group(mesh, baxes[0]) is not None and \
-            profile not in ("fsdp", "infer2d") and mesh.size == n:
-        if x.ndim == 0 or x.shape[0] % n:
-            return x
-        rank = 0
-        for a in baxes:                     # row-major over the axes
-            rank = rank * mesh.shape[a] + mesh.coordinate(a)
-        block = x.shape[0] // n
-        return x[rank * block:(rank + 1) * block]
-    raise NotImplementedError(
-        f"constrain_batch: splitting a batch over mesh axes {baxes} ({n} "
-        f"devices) of a mesh {mesh.shape} without a process group, or "
-        f"beside a 'model' axis, or under profile {profile!r}, waits for "
-        f"Queue 1 item 4 (the sharded part, 4b) in ROADMAP.md")
+    _need_group(mesh, baxes, "constrain_batch")
+    block = x.shape[0] // n
+    i = block_index(mesh, baxes)
+    return x[i * block:(i + 1) * block]

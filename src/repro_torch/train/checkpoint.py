@@ -15,7 +15,10 @@ checkpoints.  A bf16 leaf is stored as JAX stores it: its raw 2-byte
 payload, which the npz holds as the void type ``|V2`` (numpy has no
 bf16), with ``"bfloat16"`` in the manifest; :func:`restore` reads it
 back by the manifest's dtype, bit for bit.  (JAX's own ``restore``
-cannot read such a leaf back.)  :class:`AsyncCheckpointer` copies the
+cannot read such a leaf back.)  A run whose ranks hold blocks of a leaf
+(a ``model`` axis, ``train.train_loop.fit``) gathers whole leaves before
+:func:`save` and places its blocks again after :func:`restore`, so the
+files are the same whatever the mesh.  :class:`AsyncCheckpointer` copies the
 tree to host memory on the caller's thread, writes on a thread of its
 own and keeps the newest ``keep`` checkpoints.
 """

@@ -14,9 +14,9 @@ sum of 512 ranks' |q| <= 127 from overflowing.  JAX's "1 byte/param"
 (:func:`compression_wire_bytes`) is JAX's own accounting of an int8
 body, kept as JAX states it; neither package sends int8 today.
 
-The collectives are ``torch.distributed``'s over the axes' groups of a
-``launch.mesh.Mesh`` on a process group (NCCL on the card, gloo on the
-CPU).  With no mesh, or axes of one device, they are the identity, as
+The collectives are ``sharding.collectives.all_reduce_`` over the axes'
+groups of a ``launch.mesh.Mesh`` on a process group (NCCL on the card,
+gloo on the CPU).  With no mesh, or axes of one device, they are the identity, as
 JAX's are over an axis of size 1.  The rounding bits are an argument:
 one integer tensor a leaf holding uniform values below 2**32 (a
 ``torch.Generator``'s draws on the card; JAX's own ``jax.random.bits``
@@ -29,7 +29,7 @@ from typing import Any, Sequence, Tuple
 import torch
 
 from repro_torch.core.quant import stochastic_round_int8
-from repro_torch.launch.mesh import process_group
+from repro_torch.sharding import collectives as C
 from repro_torch.sharding.context import current_mesh
 from repro_torch.tree import tree_leaves, tree_map, unflatten_like
 
@@ -41,7 +41,7 @@ def _groups(axis_names: Sequence[str], mesh) -> Tuple[list, int]:
     for ax in axis_names:
         size = 1 if mesh is None else mesh.shape.get(ax, 1)
         if size > 1:
-            group = process_group(mesh, ax)
+            group = C.process_group(mesh, ax)
             if group is None:
                 raise NotImplementedError(
                     f"compressed psum over axis {ax!r} ({size} devices) of "
@@ -63,8 +63,6 @@ def make_compressed_psum(axis_names: Tuple[str, ...], mesh=None):
     roundings as XLA compiles them: the two divisions by constants are
     products with float32 reciprocals, and the new error is one
     multiply-add."""
-    from torch import distributed as dist
-
     def psum_int8(grads: Any, errs: Any, bits: Any) -> Tuple[Any, Any]:
         groups, n = _groups(axis_names, mesh if mesh is not None
                             else current_mesh())
@@ -78,7 +76,7 @@ def make_compressed_psum(axis_names: Tuple[str, ...], mesh=None):
             scale = torch.clamp(gf.abs().max(), min=1e-12) * \
                 gf.new_tensor(1.0 / 127.0)
             for grp in groups:                 # scalar max all-reduce
-                dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=grp)
+                C.all_reduce_(scale, grp, "max")
             q = stochastic_round_int8(gf, scale, b)
             # rounded once, as XLA fuses it into a multiply-add: q * scale
             # is exact in float64, and so (all but always) is the sum
@@ -86,7 +84,7 @@ def make_compressed_psum(axis_names: Tuple[str, ...], mesh=None):
                             .float())
             total = q.to(torch.int32)
             for grp in groups:                 # int32-payload sum
-                dist.all_reduce(total, op=dist.ReduceOp.SUM, group=grp)
+                C.all_reduce_(total, grp)
             outs.append(total.float() * scale * gf.new_tensor(1.0 / n))
         return unflatten_like(grads, outs), unflatten_like(grads, new_errs)
     return psum_int8

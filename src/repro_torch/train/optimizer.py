@@ -16,6 +16,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.sharding import collectives as C
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -93,18 +94,36 @@ def get_optimizer(cfg: TrainConfig):
     raise ValueError(cfg.optimizer)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, placement=None) -> torch.Tensor:
     """``sqrt(sum of squares)`` over every leaf, in f32, the leaves' sums
-    added in tree order."""
+    added in tree order.  With a ``sharding.rules.Placement`` whose
+    shardings split leaves (each rank holding its block), a split leaf's
+    sum is summed over the ranks that split it (one all-reduce for each
+    set of mesh axes) and a leaf whole on every rank is counted once, so
+    every rank gets the whole tree's norm."""
+    sums = [(x.float() ** 2).sum() for x in tree_leaves(tree)]
+    shardings = None if placement is None else placement.params
+    if shardings is not None:
+        by_axes = {}
+        for i, sh in enumerate(tree_leaves(shardings)):
+            axes = placement.sharded_axes(sh)
+            if axes:
+                by_axes.setdefault(axes, []).append(i)
+        for axes, idx in sorted(by_axes.items()):
+            part = torch.stack([sums[i] for i in idx])
+            C.all_reduce_(part, C.process_group(placement.mesh, axes))
+            for j, i in enumerate(idx):
+                sums[i] = part[j]
     total = 0
-    for x in tree_leaves(tree):
-        total = total + (x.float() ** 2).sum()
+    for s in sums:
+        total = total + s
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled by ``min(1, max_norm / (norm + 1e-9))``, norm)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, placement=None):
+    """(grads scaled by ``min(1, max_norm / (norm + 1e-9))``, norm); the
+    norm as :func:`global_norm` takes it under ``placement``."""
+    norm = global_norm(grads, placement)
     # a true division: ``float / tensor`` multiplies by a reciprocal
     scale = torch.clamp(norm.new_tensor(max_norm) / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm

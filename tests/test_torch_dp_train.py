@@ -508,21 +508,27 @@ def test_microbatch_metrics_are_the_last_global_microbatch(dp, mb):
 
 
 def test_moe_data_parallel_is_refused(monkeypatch):
-    """Capacity and the aux loss couple a batch's tokens, so an MoE step
-    over several ranks is refused (a one-rank group is not)."""
+    """Capacity and the aux loss couple a batch's tokens, so the global
+    MoE route over several data ranks is refused (one data rank is not);
+    ``moe_local`` on a mesh with a ``model`` axis routes each data block
+    on its own (JAX's ``moe_apply_local``) and is taken."""
     api = get_model(get_smoke_config("moonshot-v1-16b-a3b"))
 
     class DeviceMesh:
         def get_group(self, axis):
             return object()
-    mesh = mesh_lib.Mesh(("data",), (2,), device_mesh=DeviceMesh())
-    monkeypatch.setattr(torch.distributed, "get_world_size",
-                        lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tloop.build_accumulating_step(api, _tc(), mesh)
-    monkeypatch.setattr(torch.distributed, "get_world_size",
-                        lambda group=None: 1)
-    tloop.build_accumulating_step(api, _tc(), mesh)
+
+    def mesh(names, sizes):
+        return mesh_lib.Mesh(names, sizes, device_mesh=DeviceMesh())
+    with pytest.raises(NotImplementedError, match="Queue 3"):
+        tloop.build_accumulating_step(api, _tc(), mesh(("data",), (2,)))
+    tloop.build_accumulating_step(api, _tc(), mesh(("data",), (1,)))
+    local = get_model(api.cfg.replace(sharding_profile="moe_local"))
+    with pytest.raises(NotImplementedError, match="Queue 3"):
+        tloop.build_accumulating_step(local, _tc(), mesh(("data",), (2,)))
+    step, _ = tloop.build_accumulating_step(
+        local, _tc(), mesh(("data", "model"), (2, 2)))
+    assert step.placement is not None
 
 
 def test_nccl_without_a_gpu_raises(monkeypatch):

@@ -484,18 +484,33 @@ def test_flash_refuses_a_gradient_and_serves_without():
 
 
 def test_step_functions_and_profiles(runs):
+    """Without a mesh ``fsdp`` and ``moe_local`` place every leaf whole:
+    their train and prefill steps are the ``default`` ones bitwise, as
+    JAX's are on one device; ``infer2d`` on real tensors raises."""
     r = runs["tinyllama-1.1b", "float32"]
     api = get_model(r["tcfg"])
     tc = TrainConfig(optimizer="adamw")
-    for build in (lambda: tsteps.build_train_step(api, tc, profile="fsdp"),
-                  lambda: tsteps.build_prefill_step(api, "moe_local")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            build()
     params = from_numpy_tree(r["params"])
     ids = torch.from_numpy(r["toks"]).long()
+    batch = port_batch(r["toks"], r["labels"])
+    step, init_opt = tsteps.build_train_step(api, tc)
+    want = step(params, init_opt(params), batch, 0)
+    for profile in ("fsdp", "moe_local", "replicated"):
+        step, _ = tsteps.build_train_step(api, tc, profile=profile)
+        got = step(params, init_opt(params), batch, 0)
+        for (p, a), (_, b) in zip(leaves_with_paths(got[0]),
+                                  leaves_with_paths(want[0])):
+            assert torch.equal(a, b), (profile, p)
+        assert torch.equal(got[2]["loss"], want[2]["loss"])
+    step, _ = tsteps.build_train_step(api, tc, profile="infer2d")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        step(params, init_opt(params), batch, 0)
     cache = api.init_cache(B, T + 1, device="cpu")
     logits, cache = tsteps.build_prefill_step(api)(params, {"tokens": ids},
                                                    cache)
+    local, _ = tsteps.build_prefill_step(api, "moe_local")(
+        params, {"tokens": ids}, api.init_cache(B, T + 1, device="cpu"))
+    assert torch.equal(local, logits)
     full, _ = api.forward(params, ids)
     torch.testing.assert_close(logits, full[:, -1], rtol=1e-4, atol=1e-4)
     nxt = logits.argmax(-1)
@@ -539,13 +554,28 @@ def test_launch_train_runs_and_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--production-mesh"],
-                                  ["--profile", "fsdp"]])
+                                  ["--profile", "fsdp"],
+                                  ["--profile", "infer2d"]])
 def test_launch_refuses_sharded_flags(flag, tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 item 4.*ROADMAP"):
-        tlaunch.main(["--arch", "tinyllama-1.1b", "--smoke", "--device",
-                      "cpu", "--steps", "1", "--ckpt-dir", str(tmp_path)]
-                     + flag)
+    """``--production-mesh`` in one process raises ``ValueError`` (its
+    mesh spans 256 ranks) and ``--profile infer2d`` waits for Queue 1
+    item 4, both before writing anything; ``--profile fsdp`` on the host
+    (no ``model`` axis: every leaf whole, the batch over ``data``) trains
+    bitwise as ``default`` does."""
+    argv = ["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu",
+            "--steps", "1", "--batch", "2", "--seq", "16"]
+    if flag[-1] == "fsdp":
+        got = tlaunch.main(argv + flag + ["--ckpt-dir", str(tmp_path / "a")])
+        want = tlaunch.main(argv + ["--ckpt-dir", str(tmp_path / "b")])
+        for (p, a), (_, b) in zip(leaves_with_paths(got["params"]),
+                                  leaves_with_paths(want["params"])):
+            assert torch.equal(a, b), p
+        return
+    error, match = ((ValueError, "256 devices") if flag[0] ==
+                    "--production-mesh" else
+                    (NotImplementedError, "Queue 1 item 4.*ROADMAP"))
+    with pytest.raises(error, match=match):
+        tlaunch.main(argv + ["--ckpt-dir", str(tmp_path)] + flag)
     assert tckpt.latest_step(str(tmp_path)) is None
 
 
