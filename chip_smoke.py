@@ -5880,10 +5880,15 @@ def dp_train_phases(torch, np, smi):
 # names the cut); (a) tinyllama f32, B4 x T512, one default and one fsdp
 # AdamW step; (b) tinyllama bf16, the flash forward B4 x T512, then
 # prefill and MA_DECODE decode steps; (c) moonshot bf16 under moe_local,
-# B2 x T256.
+# B2 x T256; (d) (b)'s model served under cache_seq: a prompt of
+# MA_SERVE["prompt"] into a cache of MA_SERVE["max_len"] slots (a block
+# of 512 a rank), MA_DECODE decodes that cross slot 512; (e) the same
+# under infer2d; (f) (c)'s model under infer2d (its rows split over
+# model, each rank gathering its data block's rows for moe_local).
 MA_AXES = (("data", 1), ("model", 2))
 MA_CUT = dict(layers=2, batch=4, seq=512, moe_batch=2, moe_seq=256)
 MA_DECODE = 8
+MA_SERVE = dict(prompt=508, max_len=1024)
 # (a): f32 sums over two ranks' blocks against one process's, as the CPU
 # test holds them (tests/test_torch_model_axis.py)
 MA_GRAD_RTOL, MA_GRAD_ATOL = 1e-5, 1e-5
@@ -5902,14 +5907,15 @@ MA_MOE_TOL = 2e-2
 class TimedCollectives:
     """Wraps ``sharding.collectives``' all-reduce (``all_reduce_``, which
     every sum of the model, the gradient and metric means and the clip's
-    norm go through) and all-gather: each call synchronized and timed on
-    the host clock (gloo stages CUDA tensors through the host), its bytes
-    counted."""
+    norm go through), all-gather and all-to-all: each call synchronized
+    and timed on the host clock (gloo stages CUDA tensors through the
+    host), the bytes it hands back counted."""
 
     def __init__(self, torch):
         from repro_torch.sharding import collectives as C
         self.torch, self.C = torch, C
-        self.orig = {"all_reduce": C.all_reduce_, "all_gather": C._gather}
+        self.orig = {"all_reduce": C.all_reduce_, "all_gather": C._gather,
+                     "all_to_all": C._all_to_all}
         self.ms = {k: 0.0 for k in self.orig}
         self.calls = {k: 0 for k in self.orig}
         self.nbytes = {k: 0 for k in self.orig}
@@ -5931,11 +5937,13 @@ class TimedCollectives:
     def __enter__(self):
         self.C.all_reduce_ = self._wrap("all_reduce")
         self.C._gather = self._wrap("all_gather")
+        self.C._all_to_all = self._wrap("all_to_all")
         return self
 
     def __exit__(self, *exc):
         self.C.all_reduce_ = self.orig["all_reduce"]
         self.C._gather = self.orig["all_gather"]
+        self.C._all_to_all = self.orig["all_to_all"]
         return False
 
     def record(self):
@@ -6035,10 +6043,9 @@ def ma_train_config():
                        batch_size=MA_CUT["batch"])
 
 
-def ma_decode(api, params, ids, cache, prefill, decode):
-    """Prefill on the first MA_CUT["seq"] ids, then MA_DECODE steps fed
-    the ids after them: each step's logits."""
-    t = MA_CUT["seq"]
+def ma_decode(api, params, ids, cache, prefill, decode, t=MA_CUT["seq"]):
+    """Prefill on the first ``t`` ids, then MA_DECODE steps fed the ids
+    after them: each step's logits."""
     logits, cache = prefill(params, {"tokens": ids[:, :t]}, cache)
     out = [logits]
     for i in range(MA_DECODE):
@@ -6091,8 +6098,15 @@ def model_axis_reference(torch, np, work: str, seed: int):
         cache = api.init_cache(MA_CUT["batch"], MA_CUT["seq"] + MA_DECODE)
         seq, _ = ma_decode(api, params, inp["ids"], cache,
                            build_prefill_step(api), build_decode_step(api))
+        # (d) and (e): the prompt into the long cache
+        cache = api.init_cache(MA_CUT["batch"], MA_SERVE["max_len"])
+        served, cache = ma_decode(api, params, inp["ids"], cache,
+                                  build_prefill_step(api),
+                                  build_decode_step(api),
+                                  MA_SERVE["prompt"])
     torch.save({"logits": logits, "decode": seq}, f"{work}/ref_b.pt")
-    del params, logits, cache, seq
+    torch.save({"decode": served, "cache": cache}, f"{work}/ref_d.pt")
+    del params, logits, cache, seq, served
 
     glob = cfgs["c"].replace(sharding_profile="default")
     api = get_model(glob)
@@ -6217,7 +6231,6 @@ def model_axis_rank(rank: int, work: str, seed: int) -> None:
     api = get_model(cfgs["b"])
     params = ma_params(torch, api, seed + 1, dev)
     local = rules.place(params, rules.params_shardings(params, mesh))
-    del params
     ref = torch.load(f"{work}/ref_b.pt", map_location=dev)
     rec = {}
     with use_mesh(mesh), torch.no_grad():
@@ -6257,12 +6270,65 @@ def model_axis_rank(rank: int, work: str, seed: int) -> None:
     del local, cache, ref, seq
     torch.cuda.empty_cache()
 
+    # (d) cache_seq and (e) infer2d: (b)'s model served from its blocks
+    ref = torch.load(f"{work}/ref_d.pt", map_location=dev)
+    for part, profile in (("d", "cache_seq"), ("e", "infer2d")):
+        api = get_model(cfgs["b"].replace(sharding_profile=profile))
+        pl = loop.placement(api, mesh, profile)
+        local = rules.place(params, pl.params)
+        rec = {"profile": profile, "param_bytes": nbytes(local),
+               "param_bytes_shard": rules.shard_bytes(params, pl.params),
+               "param_bytes_whole": nbytes(params)}
+        with use_mesh(mesh), torch.no_grad():
+            cache = api.init_cache(MA_CUT["batch"], MA_SERVE["max_len"])
+            whole = tuple(cache["k"].shape)
+            csh = rules.cache_shardings(cache, mesh, profile)
+            cache = rules.place(cache, csh)
+            rec.update(cache_block=tuple(cache["k"].shape),
+                       cache_whole=whole,
+                       cache_block_rule=csh["k"].shard_shape(whole),
+                       cache_block_bytes=nbytes(cache))
+            prefill, decode = (build_prefill_step(api, profile),
+                               build_decode_step(api))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (seq, cache), launches = counted(torch, lambda: ma_decode(
+                api, local, inp["ids"], cache, prefill, decode,
+                MA_SERVE["prompt"]))
+            rec["prefill_decode_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["launches"] = launches
+            add_launches(out["launches"], launches)
+            rec["decode_errs"] = [rel_err(a, b) for a, b in
+                                  zip(seq, ref["decode"])]
+            got = rules.gather(cache, csh)
+            rec["cache_errs"] = [rel_err(got[k], ref["cache"][k])
+                                 for k in ("k", "v")]
+            del got
+            pos = MA_SERVE["prompt"] + MA_DECODE
+            with TimedCollectives(torch) as tc:
+                t0 = time.perf_counter()
+                decode(local, {"token": inp["ids"][:, pos], "pos": pos},
+                       cache)
+                torch.cuda.synchronize()
+                rec["decode_step_ms_collectives_timed"] = (
+                    time.perf_counter() - t0) * 1e3
+            rec["decode_collectives"] = tc.record()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode(local, {"token": inp["ids"][:, pos + 1], "pos": pos + 1},
+                   cache)
+            torch.cuda.synchronize()
+            rec["decode_step_ms"] = (time.perf_counter() - t0) * 1e3
+        out[part] = rec
+        del local, cache, seq
+        torch.cuda.empty_cache()
+    del params, ref
+
     # (c) moonshot bf16 under moe_local
     api = get_model(cfgs["c"])
     params = ma_params(torch, api, seed + 2, dev)
     local = rules.place(params, rules.params_shardings(params, mesh,
                                                        "moe_local"))
-    del params
     ref = torch.load(f"{work}/ref_c.pt", map_location=dev)
     rec = {"experts_held": int(local["blocks"]["moe"]["gate_w"].shape[1])}
     dropped = []
@@ -6301,6 +6367,33 @@ def model_axis_rank(rank: int, work: str, seed: int) -> None:
             M.dispatch_local = dispatch_local
         rec["dropped_local"] = [int(d) for d in dropped]
     out["c"] = rec
+    del local
+    torch.cuda.empty_cache()
+
+    # (f) the same under infer2d: each rank's row, its data block's rows
+    # gathered for the moe_local dispatch, its experts cut from the
+    # gathered layer
+    pl = loop.placement(api, mesh, "infer2d")
+    local = rules.place(params, pl.params)
+    rec = {"param_bytes": nbytes(local),
+           "param_bytes_shard": rules.shard_bytes(params, pl.params),
+           "param_bytes_whole": nbytes(params)}
+    del params
+    ids = rules.constrain_batch(inp["moe_ids"], mesh, "infer2d")
+    rows = rules.block_index(mesh, ("data", "model")) * ids.shape[0]
+    with use_placement(pl), torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (logits, _), launches = counted(torch, lambda: route_tap(
+            lambda: api.forward(local, ids), replay=ref["routing"])[0])
+        rec["forward_ms"] = (time.perf_counter() - t0) * 1e3
+    add_launches(out["launches"], launches)
+    rec["launches"] = launches
+    rec["rows"] = [rows, rows + ids.shape[0]]
+    rec["forward_err"], rec["forward_scale"] = rel_err(
+        logits, ref["logits"][rows:rows + ids.shape[0]])
+    out["f"] = rec
+    del local, logits
     torch.save(out, f"{work}/rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -6318,8 +6411,13 @@ def model_axis_phases(torch, np, smi):
     within MA_LOGIT_TOL of max|logit|; (c) the MoE layer's routing and aux bitwise one
     process's, the forward within MA_MOE_TOL with its routing replayed,
     and the entries dropped at the config's capacity factor, local
-    against global.  Step, forward and collective ms beside the card.
-    Returns the launches on the paths they drive (both ranks')."""
+    against global; (d) ``cache_seq`` and (e) ``infer2d`` serving (b)'s
+    model from each rank's blocks, every step's logits and the gathered
+    cache within MA_LOGIT_TOL of one process's, each cache block the
+    rules' (never the whole cache) and its bytes, a decode step's
+    collectives; (f) (c)'s model under ``infer2d`` within MA_MOE_TOL with
+    its routing replayed.  Step, forward and collective ms beside the
+    card.  Returns the launches on the paths they drive (both ranks')."""
     import tempfile
 
     seed = SEED + 60
@@ -6373,6 +6471,34 @@ def model_axis_phases(torch, np, smi):
               f"model_axis (c) rank {r}: logits off by {c['forward_err']} > "
               f"{MA_MOE_TOL} * {c['forward_scale']}")
         expect_launches(f"model_axis (c) rank {r}", c["launches"], {})
+        for part in ("d", "e"):
+            d = out[part]
+            where = f"model_axis ({part}) {d['profile']} rank {r}"
+            expect_launches(where, d["launches"], {})
+            for i, (err, scale) in enumerate(d["decode_errs"]):
+                check(err <= MA_LOGIT_TOL * scale,
+                      f"{where} step {i}: logits off by {err} > "
+                      f"{MA_LOGIT_TOL} * {scale}")
+            for k, (err, scale) in zip("kv", d["cache_errs"]):
+                check(err <= MA_LOGIT_TOL * scale,
+                      f"{where}: the gathered cache's {k} off by {err} > "
+                      f"{MA_LOGIT_TOL} * {scale}")
+            check(d["cache_block"] == d["cache_block_rule"] and
+                  d["cache_block"] != d["cache_whole"],
+                  f"{where}: cache block {d['cache_block']} (the rules' "
+                  f"{d['cache_block_rule']}, whole {d['cache_whole']})")
+        for part in ("d", "e", "f"):
+            d = out[part]
+            check(d["param_bytes"] == d["param_bytes_shard"] <
+                  d["param_bytes_whole"],
+                  f"model_axis ({part}) rank {r}: param bytes "
+                  f"{d['param_bytes']} (shard_bytes "
+                  f"{d['param_bytes_shard']})")
+        f = out["f"]
+        check(f["forward_err"] <= MA_MOE_TOL * f["forward_scale"],
+              f"model_axis (f) rank {r}: logits off by {f['forward_err']} > "
+              f"{MA_MOE_TOL} * {f['forward_scale']}")
+        expect_launches(f"model_axis (f) rank {r}", f["launches"], {})
     for profile in ("default", "fsdp"):
         a0, a1 = (out["a"][profile] for out in ranks)
         same = sorted(a0["whole_leaves"]) == sorted(a1["whole_leaves"]) and \
@@ -6427,6 +6553,32 @@ def model_axis_phases(torch, np, smi):
                 "dropped_per_layer_at_cf": get_config_cf(MOE_ARCH),
                 "dropped_local": local_drops,
                 "dropped_global": ref_c["dropped_global"],
+                "tolerance": f"{MA_MOE_TOL} of max|logit|, routing "
+                             f"replayed"},
+          **{part: {"arch": LM_ARCH, "dtype": "bfloat16",
+                    "profile": ranks[0][part]["profile"],
+                    "prompt": MA_SERVE["prompt"],
+                    "max_len": MA_SERVE["max_len"],
+                    "decode_steps": MA_DECODE,
+                    **{k: [out[part][k] for out in ranks] for k in (
+                        "cache_block", "cache_whole", "cache_block_bytes",
+                        "param_bytes", "param_bytes_whole", "decode_errs",
+                        "cache_errs", "prefill_decode_ms", "decode_step_ms",
+                        "decode_step_ms_collectives_timed",
+                        "decode_collectives")},
+                    "note": "decode_collectives: one decode step's calls and "
+                            "the bytes each kind hands back on the rank; "
+                            "gloo stages CUDA tensors through the host, so "
+                            "the ms are no multi-card rate",
+                    "tolerance": f"{MA_LOGIT_TOL} of max|x|, logits and "
+                                 f"the gathered cache"}
+             for part in ("d", "e")},
+          "f": {"arch": MOE_ARCH, "dtype": "bfloat16",
+                "profile": "infer2d (moe_local dispatch)",
+                "batch": MA_CUT["moe_batch"], "seq": MA_CUT["moe_seq"],
+                **{k: [out["f"][k] for out in ranks] for k in (
+                    "rows", "param_bytes", "param_bytes_whole",
+                    "forward_ms", "forward_err", "forward_scale")},
                 "tolerance": f"{MA_MOE_TOL} of max|logit|, routing "
                              f"replayed"},
           "reference_s": t_ref, "launches": launches,

@@ -62,7 +62,12 @@ argument bytes only, with no fake step.  A ``moe_local*`` profile
 raises on an MoE arch (its dispatch on an abstract mesh waits for Queue
 1 item 4; on a process-group mesh ``models/moe.py`` runs it), and
 the flash route raises on fake tensors; every JAX config and variant
-takes ``xla`` or ``xla_chunked``.
+takes ``xla`` or ``xla_chunked``.  The serving variants ``w8_2d``,
+``infer2d``, ``cache_seq`` and ``w8_cache_seq`` change the placements
+here (argument bytes) and not the fake program; on a process-group mesh
+the port serves them on real tensors (``launch.steps.serve_placement``:
+``cache_seq``'s distributed softmax over position blocks, ``infer2d``'s
+gathered layers).
 """
 from __future__ import annotations
 

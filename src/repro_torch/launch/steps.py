@@ -10,14 +10,14 @@ block of the batch and computes on its blocks of the params and caches
 (``rules.place`` by ``params_shardings``/``cache_shardings``); the train
 step reduces the gradients as ``fit`` does (``train.train_loop.
 build_accumulating_step``).  A real batch that an abstract mesh would
-split raises ``ValueError``.  The profiles ``default``, ``replicated``,
-``fsdp`` and ``moe_local*`` run on real tensors (the ``moe_local*``
-dispatch is ``cfg.sharding_profile``'s, as in JAX); ``infer2d`` and
-``cache_seq*``, and a serve step under ``fsdp`` over a ``model`` axis
-of several processes (its cache and its batch blocks differ), raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 4).  In the dry-run a
-profile changes only the placements, so it runs these steps with
-``"default"``.
+split raises ``ValueError``.  Every profile runs on real tensors (the
+``moe_local*`` dispatch is ``cfg.sharding_profile``'s, as in JAX): a
+serve step runs under its :func:`serve_placement`, which tells the
+model code how its cache and its rows are split (``cache_seq``'s
+positions over ``model``; ``fsdp``/``infer2d``'s prefill rows over every
+axis, its cache's rows over ``(pod, data)`` and kv heads over
+``model``).  In the dry-run a profile changes only the placements, so
+it runs these steps with ``"default"``.
 :func:`build_train_step` takes every family: the decoders, xLSTM, Hymba
 and Whisper (whose batches carry ``"frames"`` beside ``"tokens"`` and
 ``"labels"``).
@@ -33,6 +33,7 @@ choice in a step (``layers.silu``) takes the card's form on ``meta``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict
 
 import torch
@@ -41,11 +42,12 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.configs.base import ShapeConfig, TrainConfig
 from repro_torch.core.quant import quantize_tree
 from repro_torch.sharding import rules
-from repro_torch.sharding.context import current_mesh
+from repro_torch.sharding.context import current_mesh, use_placement
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.train_loop import (build_accumulating_step,
-                                         refuse_coupled_batches,
+                                         placement, refuse_coupled_batches,
                                          refuse_model_split)
+from repro_torch.tree import leaves_with_paths
 
 #: The device of the dry-run's fake tensors (see the module docstring).
 FAKE_DEVICE = "meta"
@@ -58,31 +60,21 @@ def fake_mode() -> FakeTensorMode:
     return FakeTensorMode(allow_non_fake_inputs=True)
 
 
-def _refuse_real(profile: str, batch: Dict[str, torch.Tensor],
-                 serve: bool = False) -> None:
-    """A profile ``rules.moves_values`` refuses on real tensors raises,
-    and so does a serve step under ``fsdp`` over a ``model`` axis of
-    several processes."""
-    if all(rules.is_abstract(v) for v in batch.values()):
+def _refuse_real(profile: str, batch: Dict[str, torch.Tensor]) -> None:
+    """A profile ``rules.moves_values`` refuses on real tensors raises."""
+    if all(rules.is_abstract(v) for v in batch.values()
+           if isinstance(v, torch.Tensor)):
         return
     rules.refuse_unmoved(profile)
-    mesh = current_mesh()
-    if serve and profile == "fsdp" and \
-            getattr(mesh, "device_mesh", None) is not None and \
-            mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            "a serve step under 'fsdp' over a 'model' axis (its batch "
-            "blocks span every axis, its cache's only (pod, data)) waits "
-            "for Queue 1 item 4 (the sharded part) in ROADMAP.md")
 
 
-def _constrain(batch: Dict[str, torch.Tensor], profile: str = "default"
-               ) -> Dict[str, torch.Tensor]:
+def _constrain(batch: Dict[str, torch.Tensor], profile: str = "default",
+               axes=None) -> Dict[str, torch.Tensor]:
     mesh = current_mesh()
     if mesh is None:
         return batch
-    return {k: rules.constrain_batch(v, mesh, profile)
-            for k, v in batch.items()}
+    return {k: rules.constrain_batch(v, mesh, profile, axes)
+            if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
 
 
 def build_train_step(api, train_cfg: TrainConfig, profile: str = "default"):
@@ -105,13 +97,61 @@ def build_train_step(api, train_cfg: TrainConfig, profile: str = "default"):
     return train_step, init_opt
 
 
-def _serve_step(api, profile: str, fn):
+def _quantized(params) -> bool:
+    return any(str(path[-1]) == "q" for path, _ in leaves_with_paths(params))
+
+
+def serve_placement(base, batch, cache, decode: bool):
+    """A serve step's ``rules.Placement``: ``base``, the step's
+    ``train.train_loop.placement`` (None without a process group, and
+    then so is this), with the rows its batch splits over (``rows``: the
+    profile's batch axes for a prefill whose batch divides over them,
+    else ``(pod, data)``: a decode step's token block is the cache's)
+    and, under ``cache_seq*``, the whole sequence length of a cache whose
+    blocks split it over ``model`` (``cache_len``; the cache placed by
+    ``rules.place``, whose blocks remember their whole shape: a block
+    made another way reads as whole, and one that divides raises)."""
+    if base is None:
+        return None
+    mesh, profile = base.mesh, base.profile
+    rows = rules.batch_pspec(mesh)
+    lead = [v for v in batch.values()
+            if isinstance(v, torch.Tensor) and v.ndim]
+    if not decode and lead and not lead[0].shape[0] % math.prod(
+            mesh.shape[a] for a in base.batch_axes):
+        rows = base.batch_axes
+    cache_len = 0
+    m = mesh.shape.get("model", 1)
+    if "cache_seq" in profile and m > 1 and "k" in cache:
+        s_loc = cache["k"].shape[-3]
+        whole = rules.whole_shape(cache["k"])[-3]
+        if whole != s_loc:
+            cache_len = whole
+        elif not s_loc % m:
+            raise ValueError(
+                f"under {profile!r} a cache of {s_loc} positions splits "
+                f"over 'model' ({m}); place it with rules.place(cache, "
+                f"rules.cache_shardings(cache, mesh, {profile!r}))")
+    return dataclasses.replace(base, rows=tuple(rows), cache_len=cache_len)
+
+
+def _serve_step(api, profile: str, fn, decode: bool):
+    placed = {}         # the parameter shardings, once a mesh and tree kind
+
     def serve_step(params, batch, cache):
-        _refuse_real(profile, batch, serve=True)
+        _refuse_real(profile, batch)
         mesh = current_mesh()
         refuse_model_split(api, mesh, profile)
         refuse_coupled_batches(api, mesh, profile)
-        return fn(params, _constrain(batch, profile), cache)
+        key = (id(mesh), _quantized(params))
+        if key not in placed:
+            placed[key] = (mesh, placement(api, mesh, profile,
+                                           quantized=key[1]))
+        pl = serve_placement(placed[key][1], batch, cache, decode)
+        with use_placement(pl):
+            return fn(params, _constrain(batch, profile,
+                                         None if pl is None else pl.rows),
+                      cache)
     return serve_step
 
 
@@ -119,16 +159,20 @@ def build_prefill_step(api, profile: str = "default"):
     """``prefill_step(params, batch, cache)`` -> (last-position logits,
     cache): ``api.prefill`` under the current mesh, on this rank's blocks
     of the params, the batch and the cache (``rules.cache_shardings``)
-    where it spans processes; the logits are whole over ``model``."""
+    where it spans processes (:func:`serve_placement`); the logits are
+    the ``(pod, data)`` block's, whole over ``model``."""
     rules.moves_values(profile)       # an unknown name raises
-    return _serve_step(api, profile, api.prefill)
+    return _serve_step(api, profile, api.prefill, decode=False)
 
 
 def build_decode_step(api):
     """``serve_step(params, batch, cache)`` -> (logits, cache):
-    ``api.decode_step``, placed as :func:`build_prefill_step` places it
-    (the token's batch block too, as the cache's)."""
-    return _serve_step(api, "default", api.decode_step)
+    ``api.decode_step``, placed as :func:`build_prefill_step` places it,
+    under ``api.cfg.sharding_profile`` (JAX's decode step takes no
+    profile; its dry-run places by the config's), the token's batch
+    block the cache's ``(pod, data)`` block."""
+    return _serve_step(api, api.cfg.sharding_profile, api.decode_step,
+                       decode=True)
 
 
 def _fake_inputs(specs: Dict[str, Any], shape: ShapeConfig

@@ -20,11 +20,13 @@ rank 0 writes the checkpoints and prints the ``done:`` line.  Run the
 same command again after a crash: it resumes from the latest checkpoint
 with the data stream realigned.  ``--grad-compress-bits`` reaches
 ``TrainConfig`` as JAX's does, and, as in JAX, ``fit`` does not read it.
-``--profile`` sets ``cfg.sharding_profile`` as JAX's does: ``default``,
-``replicated``, ``fsdp`` and ``moe_local*`` train (on the host mesh, which
-has no ``model`` axis, all of them place every leaf whole and split the
-batch over ``data``); ``infer2d`` and ``cache_seq*`` raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 4).
+``--profile`` sets ``cfg.sharding_profile`` as JAX's does: every
+profile trains (``default``, ``replicated``, ``fsdp``, ``infer2d``,
+``cache_seq*``, ``moe_local*``; on the host mesh, which has no ``model``
+axis, all of them place every leaf whole and split the batch over
+``data``; ``infer2d`` places as ``fsdp`` and ``cache_seq`` as
+``default`` does, so their steps are those bitwise); an unknown name
+raises ``ValueError``.
 ``--production-mesh`` trains on ``make_production_mesh()`` under
 ``torchrun`` with 256 ranks (``(data=16, model=16)``, the profile's
 placements) and raises ``ValueError`` with any other world size.  Every
@@ -66,7 +68,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="the reduced config (CPU-scale)")
     ap.add_argument("--profile", default="default",
                     help="sharding profile: default|replicated|fsdp|"
-                         "moe_local")
+                         "infer2d|cache_seq|moe_local")
     ap.add_argument("--grad-compress-bits", type=int, default=0,
                     help="recorded in TrainConfig, as JAX's launcher does; "
                          "neither package's fit reads it, so the gradients "
@@ -102,7 +104,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     import torch.distributed as dist
 
     args = parse_args(argv)
-    rules.refuse_unmoved(args.profile, f"--profile {args.profile}")
+    rules.moves_values(args.profile)      # an unknown name raises
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     cfg = cfg.replace(sharding_profile=args.profile)
     api = get_model(cfg)

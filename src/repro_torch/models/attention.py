@@ -45,6 +45,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.sharding import collectives as C
+from repro_torch.sharding.context import current_placement
 
 NEG = -1e30
 
@@ -168,6 +169,30 @@ def _rolling_sdpa(q, k, v, slot_pos: torch.Tensor, window: int,
     return _masked_softmax_av(qg, k, v, mask, (b, t, h, d), q.dtype)
 
 
+def _cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor,
+                 cache_pos: int, window: int) -> bool:
+    """k/v [B, t, Hkv, D] of positions ``cache_pos``.. written into the
+    cache in place; True for a rolling cache (``window > 0`` and ``S_max
+    == window``: only the last min(t, window) tokens survive a multi-token
+    write, so slots never collide)."""
+    ck, cv = cache["k"], cache["v"]
+    t, s_max = k.shape[1], ck.shape[1]
+    if window > 0 and s_max == window:
+        w_eff = min(t, window)
+        slots = (cache_pos + t - w_eff
+                 + torch.arange(w_eff, device=k.device)) % window
+        ck[:, slots] = k[:, t - w_eff:].to(ck.dtype)
+        cv[:, slots] = v[:, t - w_eff:].to(cv.dtype)
+        return True
+    if cache_pos < 0 or cache_pos + t > s_max:
+        # JAX's dynamic_update_slice would clamp the start silently
+        raise ValueError(f"cache write of {t} tokens at position "
+                         f"{cache_pos} does not fit a cache of {s_max}")
+    ck[:, cache_pos:cache_pos + t] = k.to(ck.dtype)
+    cv[:, cache_pos:cache_pos + t] = v.to(cv.dtype)
+    return False
+
+
 def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                causal: bool = True, q_offset: int = 0,
                cache: Optional[Dict] = None,
@@ -188,6 +213,17 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     if impl not in ("xla", "xla_chunked", "flash"):
         raise ValueError(f"unknown attn_impl {impl!r}; the port serves "
                          f"'xla', 'xla_chunked' and 'flash'")
+    pl = current_placement()
+    if cache is not None and pl is not None and cross_kv is None:
+        if pl.cache_len:
+            return _seq_block_attn(p, cfg, x, cache, cache_pos, rope,
+                                   window, pl.cache_len)
+        group = C.mesh_group("model")
+        if pl.fsdp and group is not None:
+            if x.shape[0] != cache["k"].shape[0]:
+                return _rows_prefill(p, cfg, x, cache, cache_pos, rope,
+                                     window, group)
+            p = _head_blocks(p, cfg, cache, group)
     hd = cfg.kv_head_dim
     q_cols = _out_features(p["wq"])
     group = C.split_group(q_cols, cfg.n_heads * hd, "attention queries")
@@ -217,7 +253,8 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
         return out_proj(out), None
 
     kv_cols, kv_whole = _out_features(p["wk"]), cfg.n_kv_heads * hd
-    if heads_split and kv_cols < kv_whole and cfg.n_kv_heads % m == 0:
+    if heads_split and kv_cols < kv_whole and cfg.n_kv_heads % m == 0 and (
+            cache is None or cache["k"].shape[2] * hd == kv_cols):
         # this rank's kv heads, the ones its query heads read
         k = L.dense_apply(p["wk"], xq, quant)
         v = L.dense_apply(p["wv"], xq, quant)
@@ -226,7 +263,8 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
             return t
     else:
         if kv_cols < kv_whole:
-            # a column block that cuts a head: whole k/v on every rank
+            # a column block that cuts a head, or a cache that holds every
+            # head: whole k/v on every rank
             C.split_group(kv_cols, kv_whole, "attention kv columns")
             k = C.gather_shards(L.dense_apply(p["wk"], xq, quant), -1, group)
             v = C.gather_shards(L.dense_apply(p["wv"], xq, quant), -1, group)
@@ -245,25 +283,14 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     k = _split_heads(k, k.shape[-1] // hd)
     v = _split_heads(v, v.shape[-1] // hd)
     if rope:
-        pos = q_offset + torch.arange(t, device=x.device)
-        q = L.apply_rope(q.transpose(1, 2), pos,
-                         cfg.rope_theta).transpose(1, 2)
-        k = L.apply_rope(k.transpose(1, 2), pos,
-                         cfg.rope_theta).transpose(1, 2)
+        q, k = _rope(q, k, q_offset, cfg)
 
     new_cache = None
     kv_len = None
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
-        s_max = ck.shape[1]
-        if window > 0 and s_max == window:
-            # rolling cache: only the last min(t, window) tokens survive a
-            # multi-token (prefill) write, so slots never collide
-            w_eff = min(t, window)
-            slots = (cache_pos + t - w_eff
-                     + torch.arange(w_eff, device=x.device)) % window
-            ck[:, slots] = k[:, t - w_eff:].to(ck.dtype)
-            cv[:, slots] = v[:, t - w_eff:].to(cv.dtype)
+        new_cache = {"k": ck, "v": cv}
+        if _cache_write(cache, k, v, cache_pos, window):
             if t > 1:
                 # prefill: windowed attention over the in-sequence keys
                 out = _sdpa_xla(q, pick(k), pick(v), causal=True,
@@ -276,14 +303,7 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                 slot_pos = pos_now - ((pos_now - slot_ids) % window)
                 out = _rolling_sdpa(q, pick(ck), pick(cv), slot_pos, window,
                                     q_offset=cache_pos)
-            return out_proj(out), {"k": ck, "v": cv}
-        if cache_pos < 0 or cache_pos + t > s_max:
-            # JAX's dynamic_update_slice would clamp the start silently
-            raise ValueError(f"cache write of {t} tokens at position "
-                             f"{cache_pos} does not fit a cache of {s_max}")
-        ck[:, cache_pos:cache_pos + t] = k.to(ck.dtype)
-        cv[:, cache_pos:cache_pos + t] = v.to(cv.dtype)
-        new_cache = {"k": ck, "v": cv}
+            return out_proj(out), new_cache
         k, v = ck, cv
         kv_len = cache_pos + t
         q_offset = cache_pos
@@ -301,6 +321,166 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
         out = _sdpa_xla(q, k, v, causal=causal, window=window,
                         q_offset=q_offset, kv_len=kv_len)
     return out_proj(out), new_cache
+
+
+def _rope(q: torch.Tensor, k: torch.Tensor, offset: int, cfg: ModelConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RoPE on q and k [B, T, H, D] at absolute positions ``offset``.."""
+    pos = offset + torch.arange(q.shape[1], device=q.device)
+    return (L.apply_rope(q.transpose(1, 2), pos,
+                         cfg.rope_theta).transpose(1, 2),
+            L.apply_rope(k.transpose(1, 2), pos,
+                         cfg.rope_theta).transpose(1, 2))
+
+
+# ------------------------------------------- serving over a model axis --
+
+def _seq_block_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lo: int, q_offset: int, kv_len: int, window: int,
+                    group) -> torch.Tensor:
+    """Causal attention of q [B, T, H, D] over a cache split by position
+    over ``group``: this rank holds slots [lo, lo + S_loc) (k/v [B, S_loc,
+    Hkv, D]).  Its partial softmax in f32 over its valid slots (the row
+    max ``m``, ``l = sum(p)`` and ``acc = p . v`` with ``p = where(mask,
+    exp(logits - m), 0)``, so a block with no valid slot adds exactly
+    zero), combined over the group (``collectives.softmax_combine``),
+    then ``acc / l`` with ``l == 0 -> 1`` as ``_sdpa_xla_chunked``."""
+    b, t, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, t, hkv, h // hkv, d)
+    logits = torch.einsum("bthgd,bshd->bhgts", qg.float(), k.float())
+    logits = logits / logits.new_full((), math.sqrt(d))
+    qpos = q_offset + torch.arange(t, device=q.device)[:, None]
+    kpos = lo + torch.arange(s, device=q.device)[None, :]
+    mask = (kpos <= qpos) & (kpos < kv_len)
+    if window > 0:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, logits.new_full((), NEG))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(logits - m), logits.new_zeros(()))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhgts,bshd->bhgtd", p, v.float())
+    l, acc = C.softmax_combine(m, l, acc, group)
+    l = torch.where(l == 0.0, l.new_ones(()), l)
+    out = acc / l
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, d).to(q.dtype)
+
+
+def _seq_block_attn(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    cache: Dict, cache_pos: int, rope: bool, window: int,
+                    cache_len: int) -> Tuple[torch.Tensor, Dict]:
+    """``cache_seq``: the cache's positions split over ``model`` (this
+    rank's block [B, S/m, Hkv, D], every kv head, slots [r S/m, (r+1)
+    S/m)), the weights by ``default``'s rules.  The new tokens' k/v go to
+    the blocks that hold their positions: a rank computing its own kv
+    heads sends each block its share by one all-to-all (split by
+    position, joined by heads); whole k/v (a kv column block that cuts a
+    head, gathered, or whole weights) are written where they fall.  The
+    read is a distributed softmax (:func:`_seq_block_sdpa`) over every
+    query head (q's heads gathered over ``model``); each rank then feeds
+    ``wo`` its own heads' columns.  No rank gathers the cache: only q,
+    the partials and the new tokens' k/v cross ranks."""
+    group = C.mesh_group("model")
+    m, r = C.group_size(group), C.group_rank(group)
+    hd = cfg.kv_head_dim
+    b, t, _ = x.shape
+    ck, cv = cache["k"], cache["v"]
+    s_loc = ck.shape[1]
+    lo = r * s_loc
+    if window > 0 and cache_len == window:
+        raise NotImplementedError(
+            f"{cfg.name}: a rolling (sliding-window) cache split by "
+            f"position over 'model' waits for Queue 1 item 4 (Hymba's "
+            f"split, part 3) in ROADMAP.md")
+    if cache_pos < 0 or cache_pos + t > cache_len:
+        raise ValueError(f"cache write of {t} tokens at position "
+                         f"{cache_pos} does not fit a cache of {cache_len}")
+    quant = cfg.quant if cfg.quant.enabled else None
+    q_cols = _out_features(p["wq"])
+    wgroup = C.split_group(q_cols, cfg.n_heads * hd, "attention queries")
+    xq = C.copy_to(x, wgroup)
+    q = C.gather_shards(L.dense_apply(p["wq"], xq, quant), -1, wgroup)
+    k = L.dense_apply(p["wk"], xq, quant)
+    v = L.dense_apply(p["wv"], xq, quant)
+    kv_cols, kv_whole = k.shape[-1], cfg.n_kv_heads * hd
+    kv_block = kv_cols < kv_whole and cfg.n_kv_heads % m == 0
+    if kv_cols < kv_whole and not kv_block:
+        kgroup = C.split_group(kv_cols, kv_whole, "attention kv columns")
+        k = C.gather_shards(k, -1, kgroup)
+        v = C.gather_shards(v, -1, kgroup)
+    q = _split_heads(q, cfg.n_heads)
+    k = _split_heads(k, k.shape[-1] // hd)
+    v = _split_heads(v, v.shape[-1] // hd)
+    if rope:
+        q, k = _rope(q, k, cache_pos, cfg)
+    # each block's share of positions [cache_pos, cache_pos + t)
+    share = [max(0, min(cache_pos + t, (j + 1) * s_loc) -
+                 max(cache_pos, j * s_loc)) for j in range(m)]
+    start = max(cache_pos, lo)
+    if kv_block:
+        k = C.all_to_all(k, 1, 2, group, share)
+        v = C.all_to_all(v, 1, 2, group, share)
+    else:
+        k = k[:, start - cache_pos:start - cache_pos + share[r]]
+        v = v[:, start - cache_pos:start - cache_pos + share[r]]
+    if share[r]:
+        ck[:, start - lo:start - lo + share[r]] = k.to(ck.dtype)
+        cv[:, start - lo:start - lo + share[r]] = v.to(cv.dtype)
+    out = _seq_block_sdpa(q, ck, cv, lo, cache_pos, cache_pos + t, window,
+                          group).reshape(b, t, -1)
+    if wgroup is not None:
+        out = out.narrow(-1, C.group_rank(wgroup) * q_cols, q_cols)
+    return L.row_apply(p["wo"], out, quant, wgroup), {"k": ck, "v": cv}
+
+
+def _head_blocks(p: Dict, cfg: ModelConfig, cache: Dict, group) -> Dict:
+    """An ``fsdp``/``infer2d`` layer (gathered whole) cut to the
+    ``default`` blocks of the rank's cache heads (``wq``/``wk``/``wv``
+    columns, ``wo`` rows), where its cache holds a block of the kv heads:
+    the tensor-parallel layer that serves a decode step's token block;
+    the layer itself where the cache holds every head."""
+    hk = cache["k"].shape[2]
+    if hk == cfg.n_kv_heads:
+        return p
+    m, r = C.group_size(group), C.group_rank(group)
+    hd = cfg.kv_head_dim
+    qn, kn = cfg.n_heads * hd // m, hk * hd
+    return {**p, "wq": L.dense_block(p["wq"], -1, r * qn, qn),
+            "wk": L.dense_block(p["wk"], -1, r * kn, kn),
+            "wv": L.dense_block(p["wv"], -1, r * kn, kn),
+            "wo": L.dense_block(p["wo"], -2, r * qn, qn)}
+
+
+def _rows_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
+                  cache_pos: int, rope: bool, window: int, group
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """An ``fsdp``/``infer2d`` prefill whose rows split over ``model``
+    (the layer gathered whole; this rank's rows of the ``(pod, data)``
+    block): every head of its rows, attention over the in-sequence keys
+    local to them, and their k/v carried to the cache's layout (every row
+    of the data block, this rank's kv heads) by one all-to-all over
+    ``model`` (an all-gather of rows where the cache holds every
+    head)."""
+    b, t, _ = x.shape
+    if cache_pos != 0:
+        raise ValueError(f"{cfg.name}: a step whose rows split over 'model' "
+                         f"is a prefill from position 0; this one writes at "
+                         f"{cache_pos}")
+    hd = cfg.kv_head_dim
+    quant = cfg.quant if cfg.quant.enabled else None
+    q = _split_heads(L.dense_apply(p["wq"], x, quant), cfg.n_heads)
+    k = _split_heads(L.dense_apply(p["wk"], x, quant), cfg.n_kv_heads)
+    v = _split_heads(L.dense_apply(p["wv"], x, quant), cfg.n_kv_heads)
+    if rope:
+        q, k = _rope(q, k, 0, cfg)
+    if cache["k"].shape[2] < cfg.n_kv_heads:
+        kc, vc = (C.all_to_all(y, 2, 0, group) for y in (k, v))
+    else:
+        kc, vc = (C.gather(y, 0, group) for y in (k, v))
+    _cache_write(cache, kc, vc, 0, window)
+    out = _sdpa_xla(q, k, v, causal=True, window=window, q_offset=0)
+    return (L.dense_apply(p["wo"], out.reshape(b, t, -1), quant),
+            {"k": cache["k"], "v": cache["v"]})
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,

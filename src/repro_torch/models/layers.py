@@ -260,6 +260,24 @@ def swiglu_init(generator: torch.Generator, d: int, d_ff: int,
             "down": dense_init(generator, d_ff, d, bias=False, dtype=dtype)}
 
 
+def dense_block(p: Dict, dim: int, start: int, size: int) -> Dict:
+    """A block of a dense layer's weight (a float ``w`` or its int8 export
+    ``{q, scale}``): columns for ``dim`` -1 (the scale's and bias's too),
+    rows for -2 (the scale and bias whole, as :func:`row_apply` adds the
+    bias once)."""
+    def cols(t):
+        return t.narrow(-1, start, size) if dim == -1 else t
+    w = p["w"]
+    if isinstance(w, dict):
+        w = {"q": w["q"].narrow(dim, start, size), "scale": cols(w["scale"])}
+    else:
+        w = w.narrow(dim, start, size)
+    out = dict(p, w=w)
+    if "b" in p:
+        out["b"] = cols(p["b"])
+    return out
+
+
 def row_apply(p: Dict, x: torch.Tensor, quant: Optional[QuantConfig] = None,
               group=None) -> torch.Tensor:
     """:func:`dense_apply` of a row block (``x`` holds the matching

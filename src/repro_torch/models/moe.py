@@ -27,7 +27,11 @@ token).
   combine adds each entry's ``y * w`` in f32, sums the ranks' partial
   outputs over ``model`` and casts to ``x.dtype``.  Tokens never move.
   The aux loss is the product of two global means: the data group
-  all-reduces ``frac`` and ``mean(probs)`` before the product.
+  all-reduces ``frac`` and ``mean(probs)`` before the product.  Under a
+  step profile whose rows split over ``model`` too (``fsdp``,
+  ``infer2d``) a rank gathers its data block's rows over ``model``, cuts
+  its experts from the gathered layer, and keeps its own rows of the
+  summed outputs (a reduce-scatter).
 * On an abstract mesh (the dry-run's production meshes) the
   ``moe_local*`` route raises ``NotImplementedError``, on fake tensors
   too, since its program differs (ROADMAP.md Queue 1 item 4).
@@ -318,9 +322,12 @@ def combine_local(y_buf: torch.Tensor, disp: LocalDispatch,
 
 def moe_apply_local(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """JAX's ``moe_apply_local`` on this rank: ``x`` is its data block,
-    and ``gate_w``/``up_w``/``down_w`` hold its ``E / m`` experts (``m``
-    the ``model`` axis's size; all ``E`` where it is 1)."""
+    """JAX's ``moe_apply_local`` on this rank: ``x`` is its data block
+    (or, where the step's rows split over ``model`` too, its rows of it,
+    gathered here and given back), and ``gate_w``/``up_w``/``down_w``
+    hold its ``E / m`` experts (``m`` the ``model`` axis's size; all
+    ``E`` where it is 1), or all ``E`` of an ``fsdp`` layer gathered
+    whole, which it cuts."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     m = mesh.shape["model"]
@@ -328,18 +335,24 @@ def moe_apply_local(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
         raise ValueError(f"{cfg.name}: {e} experts do not divide over the "
                          f"'model' axis ({m})")
     e_local = e // m
-    if p["gate_w"].shape[-3] != e_local:
-        raise ValueError(f"{cfg.name}: moe_local needs this rank's "
-                         f"{e_local} experts; it holds "
-                         f"{p['gate_w'].shape[-3]}")
-    pl = current_placement()
-    if m > 1 and pl is not None and "model" in pl.batch_axes:
-        raise NotImplementedError(
-            f"{cfg.name}: the moe_local dispatch under profile "
-            f"{pl.profile!r}, whose batch blocks split over 'model' too: "
-            f"JAX gathers each data block over 'model' first, which waits "
-            f"for Queue 1 item 4 (the sharded part) in ROADMAP.md")
     group = C.process_group(mesh, "model") if m > 1 else None
+    held = p["gate_w"].shape[-3]
+    if held == e and m > 1:
+        # an fsdp layer gathered whole: this rank cuts its experts
+        lo = C.block_index(mesh, "model") * e_local
+        p = dict(p, **{name: p[name].narrow(-3, lo, e_local)
+                       for name in ("gate_w", "up_w", "down_w")})
+    elif held != e_local:
+        raise ValueError(f"{cfg.name}: moe_local needs this rank's "
+                         f"{e_local} experts; it holds {held}")
+    pl = current_placement()
+    rows = group is not None and pl is not None and \
+        "model" in pl.batch_axes
+    if rows:
+        # JAX's shard_map takes each data block whole: its rows gathered
+        # over model (the gradient reduce-scattered back)
+        x = C.gather_shards(x, 0, group)
+        b = x.shape[0]
     data = batch_pspec(mesh)
     data_group = C.process_group(mesh, data) if math.prod(
         mesh.shape[a] for a in data) > 1 else None
@@ -347,8 +360,13 @@ def moe_apply_local(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
     xf = x.reshape(t_loc, d)
     probs, top_p, top_e = route(p, cfg, xf)
     aux = _aux(cfg, _counts(top_e, e), t_loc * k, probs, data_group)
-    disp = dispatch_local(C.copy_to(xf, group), top_e,
+    # the replicated routing's gradient: summed by copy_to where x is the
+    # same on every model rank, by the rows' gather where it was gathered
+    rep = None if rows else group
+    disp = dispatch_local(C.copy_to(xf, rep), top_e,
                           C.block_index(mesh, "model") * e_local, e_local,
                           local_capacity(cfg, t_loc))
-    y = combine_local(experts(p, disp.buf), disp, C.copy_to(top_p, group))
-    return C.reduce_from(y, group).to(x.dtype).reshape(b, t, d), aux
+    y = combine_local(experts(p, disp.buf), disp, C.copy_to(top_p, rep))
+    y = C.scatter_sum(y.reshape(b, t, d), 0, group) if rows else \
+        C.reduce_from(y, group).reshape(b, t, d)
+    return y.to(x.dtype), aux

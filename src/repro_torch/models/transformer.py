@@ -350,7 +350,17 @@ def lm_prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
     """Prefill: write the cache, return last-position logits [B, V]."""
     x, _ = _layers(params, cfg, _embed_in(params, cfg, inputs), cache=cache,
                    cache_pos=0, impl=impl)
-    return _unembed(params, cfg, x[:, -1:])[:, 0], cache
+    return _data_block_rows(_unembed(params, cfg, x[:, -1:])[:, 0]), cache
+
+
+def _data_block_rows(logits: torch.Tensor) -> torch.Tensor:
+    """A prefill's logits whose rows split over ``model`` too (``fsdp``,
+    ``infer2d``) gathered to the ``(pod, data)`` block's, the rows a
+    decode step takes; the logits themselves otherwise."""
+    pl = current_placement()
+    if pl is None or "model" not in pl.batch_axes:
+        return logits
+    return C.gather(logits, 0, C.process_group(pl.mesh, "model"))
 
 
 @L.f32_sums()

@@ -17,7 +17,17 @@ moved, transposed (Megatron-LM's ``f`` and ``g``):
   vocab blocks of the logits, expert blocks of the MoE outputs;
 * :func:`gather_shards` -- all-gather forward, reduce-scatter backward:
   an ``fsdp`` parameter gathered where a layer uses it (every rank's
-  gradient of the whole leaf differs, since each saw its own batch block).
+  gradient of the whole leaf differs, since each saw its own batch block),
+  or the rows of a batch block gathered where a layer routes them whole
+  (the ``moe_local`` dispatch under ``fsdp``);
+* :func:`scatter_sum` -- reduce-scatter forward, all-gather backward:
+  the partial outputs of such a layer summed, each rank keeping its rows.
+
+Serving moves values with no gradient: :func:`all_to_all` (a tensor
+split by one dim into a block a rank, received blocks joined along
+another: the new tokens' k/v from a split by heads to the cache's split
+by rows or positions) and :func:`softmax_combine` (the partial softmaxes
+of key blocks held by different ranks, ``cache_seq``'s attention read).
 
 A ``group`` of None is no group: each function is then the identity.
 Gathers order the blocks by group rank, which runs row-major over the
@@ -25,6 +35,11 @@ group's mesh axes (:func:`process_group`), as JAX lays a dim sharded
 over a tuple of axes.  The reduce-scatter is an all-reduce and a slice:
 gloo reduces CUDA tensors only by all-reduce (its ranks share one card
 in ``chip_smoke.py``).
+
+gloo's list form of the all-to-all raises on the CPU and on the card
+("does not support alltoall"), and its ``all_to_all_single`` takes CUDA
+tensors, bf16 and int8 included, with uneven splits (a probe of two
+ranks on one H100): :func:`all_to_all` is that one call.
 
 Every value that moves between processes moves here: the training
 loop's gradient and metric means and the clip's norm go through
@@ -64,14 +79,13 @@ def _sum(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """Blocks concatenated in group-rank order; a 16-bit float moves as
-    its bits (an int16 view)."""
-    half = x.dtype in _HALF
-    y = x.contiguous().view(torch.int16) if half else x.contiguous()
+    """Blocks concatenated in group-rank order, in ``x``'s own dtype (a
+    gather copies bits; gloo refuses int16, so a 16-bit float is not
+    moved as an int16 view)."""
+    y = x.contiguous()
     parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, y, group=group)
-    out = torch.cat(parts, dim=dim)
-    return out.view(x.dtype) if half else out
+    return torch.cat(parts, dim=dim)
 
 
 def _block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -134,6 +148,17 @@ class _GatherShards(torch.autograd.Function):
         return _block(_sum(g, ctx.group), ctx.dim, ctx.group), None, None
 
 
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _block(_sum(x, group), dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.group), None, None
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _CopyTo.apply(x, group)
 
@@ -153,6 +178,70 @@ def gather_from(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 def gather_shards(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return x if group is None else _GatherShards.apply(x, dim % x.ndim,
                                                         group)
+
+
+def scatter_sum(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (in f32 for a 16-bit float), this
+    rank's block of ``dim`` kept; the gradient all-gathered back."""
+    return x if group is None else _ScatterSum.apply(x, dim % x.ndim, group)
+
+
+def _all_to_all(x: torch.Tensor, out_rows: int, in_splits, out_splits,
+                group) -> torch.Tensor:
+    """``dist.all_to_all_single`` over dim 0 of a contiguous ``x``."""
+    out = x.new_empty((out_rows,) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x, out_splits, in_splits, group=group)
+    return out
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, cat_dim: int, group,
+               splits=None) -> torch.Tensor:
+    """``x`` cut along ``split_dim`` into one block a rank of ``group``
+    (in group-rank order; ``splits`` their sizes, the same list on every
+    rank, equal blocks by default), each block sent to its rank, and the
+    blocks this rank receives joined along ``cat_dim`` in group-rank
+    order (every rank's other dims alike).  No gradient (serving).  One
+    ``all_to_all_single``: each byte crosses once."""
+    if group is None:
+        return x
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    split_dim, cat_dim = split_dim % x.ndim, cat_dim % x.ndim
+    if splits is None:
+        if x.shape[split_dim] % n:
+            raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
+                             f"split over {n} ranks")
+        splits = [x.shape[split_dim] // n] * n
+    if len(splits) != n or sum(splits) != x.shape[split_dim]:
+        raise ValueError(f"splits {list(splits)} of dim {split_dim} of "
+                         f"{tuple(x.shape)} over {n} ranks")
+    size = splits[me]
+    if any(splits):
+        y = x.movedim(split_dim, 0).contiguous()
+        got = _all_to_all(y, n * size, list(splits), [size] * n, group)
+    else:           # nothing to send: every rank skips the call alike
+        got = x.movedim(split_dim, 0)[:0]
+    return torch.cat([got.narrow(0, i * size, size).movedim(0, split_dim)
+                      for i in range(n)], dim=cat_dim)
+
+
+def softmax_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                    group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Partial softmaxes over key blocks held by the ranks of ``group``,
+    combined: ``m`` each row's block max of the logits ([..., 1]), ``l``
+    the sum of ``p = exp(logits - m)`` over the block's valid keys
+    ([..., 1]) and ``acc`` that of ``p * v`` ([..., D]), all f32.  With
+    ``M`` the max of ``m`` over the group, returns ``(l, acc)`` as the
+    sums over the group of ``l * exp(m - M)`` and ``acc * exp(m - M)``:
+    one all-reduce of the max, one of the sums.  A block with no valid key
+    (``m`` = -1e30, ``l`` = ``acc`` = 0) adds exactly zero.  No
+    gradient."""
+    if group is None:
+        return l, acc
+    big = all_reduce_(m.clone(), group, "max")
+    w = torch.exp(m - big)
+    both = all_reduce_(torch.cat([l * w, acc * w], dim=-1).contiguous(),
+                       group)
+    return both[..., :1], both[..., 1:]
 
 
 def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:

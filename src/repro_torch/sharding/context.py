@@ -16,7 +16,11 @@ a ``torch.distributed`` process group (``make_host_mesh``,
 ``sharding.rules.Placement`` of the step running (its profile and
 parameter shardings), which JAX's GSPMD reads from the jitted
 function's shardings.  The decoder reads it to gather ``fsdp`` blocks
-where a layer uses them.
+where a layer uses them.  A serve step's placement
+(``launch.steps.serve_placement``, under ``cfg.sharding_profile`` for a
+decode step, as JAX's dry-run places it) also says which axes its rows
+split over and, under ``cache_seq``, the whole length of a cache whose
+positions split over ``model``: the attention reads both.
 """
 from __future__ import annotations
 

@@ -18,7 +18,8 @@ paths (dict keys and list indices); an element with a ``.key`` (a
 packages' paths.
 
 On a mesh over a process group (``launch.mesh.make_group_mesh`` or
-``make_host_mesh`` under ``init_distributed``) these specs move values.
+``make_host_mesh`` under ``init_distributed``) these specs move values,
+under every profile (:func:`moves_values`).
 :func:`place` is ``jax.device_put(tree, shardings)``: each rank keeps
 its block of every leaf (``NamedSharding.shard_shape``; a leaf whose
 axis ``_spec`` dropped stays whole on every rank, as in JAX), and
@@ -190,26 +191,26 @@ def full_axes(mesh) -> Tuple:
 
 def moves_values(profile: str) -> bool:
     """Whether the port places real tensors under ``profile`` on a
-    process-group mesh: ``default``, ``replicated``, ``fsdp`` and
-    ``moe_local*`` yes; ``infer2d`` and ``cache_seq*`` place only the
-    dry-run's fake tensors.  An unknown name raises ``ValueError``."""
-    if profile in ("default", "replicated", "fsdp") or \
-            profile.startswith("moe_local"):
+    process-group mesh: every known profile does (``default``,
+    ``replicated``, ``fsdp``, ``infer2d``, ``cache_seq*`` and
+    ``moe_local*``).  An unknown name raises ``ValueError``."""
+    if profile in ("default", "replicated", "fsdp", "infer2d") or \
+            profile.startswith("moe_local") or "cache_seq" in profile:
         return True
-    if profile == "infer2d" or "cache_seq" in profile:
-        return False
     raise ValueError(f"unknown sharding profile {profile!r}")
 
 
 def refuse_unmoved(profile: str, what: str = "") -> None:
     """``NotImplementedError`` citing ROADMAP.md Queue 1 item 4 where
-    :func:`moves_values` says no (``what`` names the caller's part)."""
+    :func:`moves_values` says no (``what`` names the caller's part); an
+    unknown profile raises ``ValueError``.  What waits there is not a
+    profile: ``seq_parallel`` moving values, tensor parallelism for
+    xLSTM, Hymba and Whisper, and the dry-run's ``moe_local`` programs
+    raise where they are computed."""
     if not moves_values(profile):
         raise NotImplementedError(
             f"{what or f'sharding profile {profile!r}'} on real tensors "
-            f"waits for Queue 1 item 4 (the sharded part, 4b: infer2d and "
-            f"cache_seq) in ROADMAP.md; the port places default, "
-            f"replicated, fsdp and moe_local")
+            f"waits for Queue 1 item 4 (the sharded part) in ROADMAP.md")
 
 
 def _batch_axes(mesh, profile: str) -> Tuple:
@@ -291,8 +292,11 @@ def _need_group(mesh, axis, what: str) -> None:
 
 def shard(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     """This process's block of the whole tensor ``x``: a copy of its own,
-    so the whole can be freed; ``x`` itself where nothing is split."""
+    so the whole can be freed, that remembers the whole shape
+    (:func:`whole_shape`, as a ``jax.Array`` knows its global shape);
+    ``x`` itself where nothing is split."""
     dims = _sharded_dims(sharding)
+    whole = tuple(x.shape)
     for d, axis in dims:
         _need_group(sharding.mesh, axis, "place")
         n = _axis_size(sharding.mesh, axis)
@@ -301,7 +305,18 @@ def shard(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
                              f"over {axis} ({n})")
         size = x.shape[d] // n
         x = x.narrow(d, block_index(sharding.mesh, axis) * size, size)
-    return x.clone() if dims else x
+    if not dims:
+        return x
+    x = x.clone()
+    x.whole_shape = whole
+    return x
+
+
+def whole_shape(x: torch.Tensor) -> Tuple[int, ...]:
+    """The shape of the tensor :func:`place` cut the block ``x`` from
+    (the block is updated in place, so a cache keeps it across steps);
+    ``x``'s own shape for a tensor it did not cut."""
+    return getattr(x, "whole_shape", tuple(x.shape))
 
 
 def unshard(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
@@ -339,20 +354,30 @@ class Placement:
     """A step's placement on a process-group mesh: ``profile``'s rules
     applied to the parameter (``params``) and optimizer (``opt``) trees
     of the whole model, as trees of :class:`NamedSharding`; None where
-    every leaf stays whole (a mesh without ``model``)."""
+    every leaf stays whole (a mesh without ``model``).  A serve step
+    adds ``rows`` (:attr:`batch_axes`) and ``cache_len``: the whole
+    sequence length of a KV cache whose blocks split it over ``model``
+    (``cache_seq``; 0 where each rank holds every position)."""
     mesh: Any
     profile: str = "default"
     params: Any = None
     opt: Any = None
+    rows: Any = None
+    cache_len: int = 0
 
     @property
     def fsdp(self) -> bool:
-        """Blocks gathered where a layer uses them (``fsdp``)."""
+        """Blocks gathered where a layer uses them (``fsdp``,
+        ``infer2d``)."""
         return self.profile in ("fsdp", "infer2d") and self.params is not None
 
     @property
     def batch_axes(self) -> Tuple:
-        return _batch_axes(self.mesh, self.profile)
+        """The axes the step's batch rows split over: ``rows`` where the
+        step set them (a serve step: a decode step's token block is the
+        ``(pod, data)`` block under every profile), else the profile's."""
+        return self.rows if self.rows is not None else \
+            _batch_axes(self.mesh, self.profile)
 
     def sharded_axes(self, sharding: NamedSharding) -> Tuple[str, ...]:
         """The mesh axes a leaf's spec splits it over (several devices
@@ -363,8 +388,8 @@ class Placement:
         return tuple(a for a in self.mesh.axis_names if a in used)
 
 
-def constrain_batch(x: torch.Tensor, mesh, profile: str = "default"
-                    ) -> torch.Tensor:
+def constrain_batch(x: torch.Tensor, mesh, profile: str = "default",
+                    axes: Tuple = None) -> torch.Tensor:
     """JAX's ``with_sharding_constraint`` of a batch leaf.  ``x`` itself
     where the constraint moves no value: a fake or meta tensor, batch
     axes of one device, or a dim 0 that does not divide over them (JAX's
@@ -372,9 +397,9 @@ def constrain_batch(x: torch.Tensor, mesh, profile: str = "default"
     contiguous block of dim 0: block ``i`` at the row-major coordinate
     ``i`` over the batch axes (``(pod, data)``; every axis under
     ``fsdp``/``infer2d``), so every rank of a ``model`` group holds the
-    same block.  A real tensor an abstract mesh would split raises
-    ``ValueError``."""
-    baxes = _batch_axes(mesh, profile)
+    same block; ``axes`` names other batch axes (a serve step's rows).
+    A real tensor an abstract mesh would split raises ``ValueError``."""
+    baxes = _batch_axes(mesh, profile) if axes is None else tuple(axes)
     n = _axis_size(mesh, baxes)
     if n == 1 or is_abstract(x) or x.ndim == 0 or x.shape[0] % n:
         return x

@@ -187,12 +187,14 @@ def refuse_coupled_batches(api, mesh, profile=None) -> None:
             f"moe_apply_local)")
 
 
-def placement(api, mesh, profile=None, init_opt=None):
+def placement(api, mesh, profile=None, init_opt=None, quantized=False):
     """The :class:`sharding.rules.Placement` of a step of ``api`` on
     ``mesh`` under ``profile`` (``api.cfg.sharding_profile`` by default):
     None without a process group; on a mesh with a ``model`` axis, the
-    rules' shardings of the whole parameter tree and of ``init_opt``'s
-    state, built from shapes on fake tensors (no allocation)."""
+    rules' shardings of the whole parameter tree (its int8 export,
+    ``core.quant.quantize_tree``, where ``quantized``) and of
+    ``init_opt``'s state, built from shapes on fake tensors (no
+    allocation)."""
     if getattr(mesh, "device_mesh", None) is None:
         return None
     profile = _profile(api, profile)
@@ -202,6 +204,9 @@ def placement(api, mesh, profile=None, init_opt=None):
     from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode(allow_non_fake_inputs=True):
         shapes = api.init(torch.Generator(), device="meta")
+        if quantized:
+            from repro_torch.core.quant import quantize_tree
+            shapes = quantize_tree(shapes, api.cfg.quant)
         opt = init_opt(shapes) if init_opt is not None else None
     return rules.Placement(
         mesh, profile, rules.params_shardings(shapes, mesh, profile),

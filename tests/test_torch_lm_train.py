@@ -484,9 +484,10 @@ def test_flash_refuses_a_gradient_and_serves_without():
 
 
 def test_step_functions_and_profiles(runs):
-    """Without a mesh ``fsdp`` and ``moe_local`` place every leaf whole:
-    their train and prefill steps are the ``default`` ones bitwise, as
-    JAX's are on one device; ``infer2d`` on real tensors raises."""
+    """Without a mesh ``fsdp``, ``infer2d``, ``cache_seq`` and
+    ``moe_local`` place every leaf whole: their train and prefill steps
+    are the ``default`` ones bitwise, as JAX's are on one device;
+    ``infer2d``'s step is ``fsdp``'s bitwise."""
     r = runs["tinyllama-1.1b", "float32"]
     api = get_model(r["tcfg"])
     tc = TrainConfig(optimizer="adamw")
@@ -495,16 +496,21 @@ def test_step_functions_and_profiles(runs):
     batch = port_batch(r["toks"], r["labels"])
     step, init_opt = tsteps.build_train_step(api, tc)
     want = step(params, init_opt(params), batch, 0)
-    for profile in ("fsdp", "moe_local", "replicated"):
+    for profile in ("fsdp", "moe_local", "replicated", "cache_seq"):
         step, _ = tsteps.build_train_step(api, tc, profile=profile)
         got = step(params, init_opt(params), batch, 0)
         for (p, a), (_, b) in zip(leaves_with_paths(got[0]),
                                   leaves_with_paths(want[0])):
             assert torch.equal(a, b), (profile, p)
         assert torch.equal(got[2]["loss"], want[2]["loss"])
+    fsdp = tsteps.build_train_step(api, tc, profile="fsdp")[0](
+        params, init_opt(params), batch, 0)
     step, _ = tsteps.build_train_step(api, tc, profile="infer2d")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        step(params, init_opt(params), batch, 0)
+    got = step(params, init_opt(params), batch, 0)
+    for (p, a), (_, b) in zip(leaves_with_paths(got[0]),
+                              leaves_with_paths(fsdp[0])):
+        assert torch.equal(a, b), ("infer2d", p)
+    assert torch.equal(got[2]["loss"], fsdp[2]["loss"])
     cache = api.init_cache(B, T + 1, device="cpu")
     logits, cache = tsteps.build_prefill_step(api)(params, {"tokens": ids},
                                                    cache)
@@ -558,23 +564,21 @@ def test_launch_train_runs_and_resumes(tmp_path, capsys):
                                   ["--profile", "infer2d"]])
 def test_launch_refuses_sharded_flags(flag, tmp_path):
     """``--production-mesh`` in one process raises ``ValueError`` (its
-    mesh spans 256 ranks) and ``--profile infer2d`` waits for Queue 1
-    item 4, both before writing anything; ``--profile fsdp`` on the host
-    (no ``model`` axis: every leaf whole, the batch over ``data``) trains
-    bitwise as ``default`` does."""
+    mesh spans 256 ranks) before writing anything; ``--profile fsdp`` on
+    the host (no ``model`` axis: every leaf whole, the batch over
+    ``data``) trains bitwise as ``default`` does, and ``--profile
+    infer2d`` (``fsdp``'s rules) bitwise as ``fsdp`` does."""
     argv = ["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu",
             "--steps", "1", "--batch", "2", "--seq", "16"]
-    if flag[-1] == "fsdp":
+    if flag[0] == "--profile":
+        want = ["--profile", "fsdp"] if flag[-1] == "infer2d" else []
         got = tlaunch.main(argv + flag + ["--ckpt-dir", str(tmp_path / "a")])
-        want = tlaunch.main(argv + ["--ckpt-dir", str(tmp_path / "b")])
+        want = tlaunch.main(argv + want + ["--ckpt-dir", str(tmp_path / "b")])
         for (p, a), (_, b) in zip(leaves_with_paths(got["params"]),
                                   leaves_with_paths(want["params"])):
             assert torch.equal(a, b), p
         return
-    error, match = ((ValueError, "256 devices") if flag[0] ==
-                    "--production-mesh" else
-                    (NotImplementedError, "Queue 1 item 4.*ROADMAP"))
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match="256 devices"):
         tlaunch.main(argv + ["--ckpt-dir", str(tmp_path)] + flag)
     assert tckpt.latest_step(str(tmp_path)) is None
 

@@ -47,7 +47,9 @@ package's Adam direction), as ``tests/test_torch_dp_train.py`` does.
   and feeds ``wo`` its column block) and one kv head of width 6 (``Hkv *
   D`` does not divide: ``wk``/``wv`` whole on every rank), against JAX's
   jitted forward and gradients under ``params_shardings``.
-* (vi) the refusals that stay, on real process meshes.
+* (vi) the refusals that stay, on real process meshes (the serve
+  profiles ``infer2d``, ``cache_seq`` and ``fsdp`` over ``model`` are
+  ``tests/test_torch_serve_axis.py``'s).
 * (vii) ``launch.train --profile fsdp`` under ``torch.distributed.run
   --nproc-per-node 2 --device cpu`` resumes bitwise; ``--production-mesh``
   with 2 ranks raises.
@@ -184,14 +186,15 @@ def _refusals(inp, mesh):
     out["xlstm"] = _raises(lambda: tloop.build_accumulating_step(
         get_model(get_smoke_config("xlstm-1.3b")), _tc(), mesh))
     with use_mesh(mesh):
-        step, init_opt = tsteps.build_train_step(dense, _tc(), "infer2d")
-        out["infer2d"] = _raises(lambda: step(params, init_opt(params), b0,
-                                              0))
-        cache = dense.init_cache(GB, T, device="cpu")
-        for prof in ("cache_seq", "fsdp"):
-            out[f"prefill_{prof}"] = _raises(
-                lambda: tsteps.build_prefill_step(dense, prof)(
-                    params, {"tokens": b0["tokens"]}, cache))
+        rolling = get_model(cfgs["dense"].replace(sliding_window=T // 2))
+        cache = rolling.init_cache(GB, T, device="cpu")
+        cache = rules.place(cache, rules.cache_shardings(cache, mesh,
+                                                         "cache_seq"))
+        local = rules.place(params, rules.params_shardings(params, mesh,
+                                                           "cache_seq"))
+        out["rolling_cache_seq"] = _raises(
+            lambda: tsteps.build_prefill_step(rolling, "cache_seq")(
+                local, {"tokens": b0["tokens"]}, cache))
         sp = get_model(cfgs["dense"].replace(seq_parallel=True))
         out["seq_parallel"] = _raises(lambda: sp.forward(params,
                                                           b0["tokens"]))
@@ -831,18 +834,17 @@ def test_moe_expert_parallel_matches_jax(runs):
 
 REFUSED = {"moe_global": ("NotImplementedError", "Queue 3"),
            "xlstm": ("NotImplementedError", "Queue 1 item 4"),
-           "infer2d": ("NotImplementedError", "Queue 1 item 4"),
-           "prefill_cache_seq": ("NotImplementedError", "Queue 1 item 4"),
-           "prefill_fsdp": ("NotImplementedError", "Queue 1 item 4"),
+           "rolling_cache_seq": ("NotImplementedError", "Queue 1 item 4"),
            "seq_parallel": ("NotImplementedError", "Queue 1 item 4")}
 
 
 @pytest.mark.parametrize("what", list(REFUSED))
 def test_refusals_that_stay(runs, what):
     """(vi) on a real (data=2, model=2) mesh: the global MoE route over
-    two data ranks, xLSTM split over ``model``, ``infer2d`` and
-    ``cache_seq`` on real tensors, a serve step under ``fsdp`` over
-    ``model``, and ``seq_parallel``."""
+    two data ranks, xLSTM split over ``model``, a rolling (sliding-window)
+    cache split by position under ``cache_seq``, and ``seq_parallel``
+    (``infer2d``, ``cache_seq`` and ``fsdp`` serve steps run since:
+    ``tests/test_torch_serve_axis.py``)."""
     kind, cite = REFUSED[what]
     for out in runs["four"]:
         msg = out["refusals"][what]
