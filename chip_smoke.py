@@ -4926,16 +4926,16 @@ def cast_floats(torch, params, dtype: str):
                     else a, params)
 
 
-def ulp_floor(torch, cfg, params, grads, batch):
+def ulp_floor(torch, cfg, params, grads, batch, seed: int = SEED + 42):
     """The conditioning floor of a gradient: the worst leaf's change, as a
     fraction of its max|g|, when every float param moves by 2**-p of
     itself, p its dtype's mantissa bits (one or two ulps: 2**-23 in f32,
-    2**-7 in bf16; a random sign from a seeded generator), on the same
-    device and code path."""
+    2**-7 in bf16; a random sign from a generator seeded with ``seed``),
+    on the same device and code path."""
     from repro_torch.models.api import get_model
     from repro_torch.train.train_loop import value_and_grad
     from repro_torch.tree import tree_map
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def nudge(t):
         if not t.is_floating_point():
@@ -5884,7 +5884,13 @@ def dp_train_phases(torch, np, smi):
 # MA_SERVE["prompt"] into a cache of MA_SERVE["max_len"] slots (a block
 # of 512 a rank), MA_DECODE decodes that cross slot 512; (e) the same
 # under infer2d; (f) (c)'s model under infer2d (its rows split over
-# model, each rank gathering its data block's rows for moe_local).
+# model, each rank gathering its data block's rows for moe_local); (g)
+# (a)'s model under seq_parallel (a remat step, the residual stream a
+# rank's half of T), then (b)'s flash forward, prefill and decodes under
+# seq_parallel; (h) (c)'s model under moe_local_sp (xla_chunked
+# attention); (i) xLSTM (FAMILY_DEPTH's 8 layers), Hymba and Whisper (2
+# layers) at full width, f32, trained tensor-parallel under default at
+# MA_FAMILY_CUT.
 MA_AXES = (("data", 1), ("model", 2))
 MA_CUT = dict(layers=2, batch=4, seq=512, moe_batch=2, moe_seq=256)
 MA_DECODE = 8
@@ -5902,6 +5908,16 @@ MA_LOGIT_TOL = 2e-2
 # bf16 slot by slot; with the reference's routing replayed the logits
 # differ by those roundings and the attention's partial sums
 MA_MOE_TOL = 2e-2
+# (i): the families' training step at full width
+MA_FAMILY_CUT = dict(batch=2, seq=256)
+# (i): xLSTM's f32 gradient moves by about 3e-5 of max|g| when its
+# params move by one ulp (``ulp_floor`` at MA_FAMILY_CUT on one process,
+# 2.97e-5 on an H100), past MA_GRAD_ATOL: a split that sums in another
+# order cannot hold it there.  Its gradients are held to MA_XLSTM_FLOORS
+# times the largest floor of MA_FLOOR_DRAWS seeded nudges measured in
+# the same run on one process; Hymba's and Whisper's to MA_GRAD_ATOL.
+MA_XLSTM_FLOORS = 2.0
+MA_FLOOR_DRAWS = 3
 
 
 class TimedCollectives:
@@ -6003,15 +6019,41 @@ def nbytes(tree) -> int:
 
 
 def ma_configs():
-    """(a)'s, (b)'s and (c)'s configs at full width and MA_CUT's depth."""
+    """(a)'s, (b)'s and (c)'s configs at full width and MA_CUT's depth,
+    (g)'s and (h)'s (theirs under seq_parallel), and (i)'s
+    (:func:`family_cut` of each family, f32)."""
     from repro_torch.configs import get_config
     dense = get_config(LM_ARCH).replace(n_layers=MA_CUT["layers"])
     moe = get_config(MOE_ARCH).replace(n_layers=MA_CUT["layers"])
-    return {"a": dense.replace(dtype="float32"),
-            "b": dense.replace(attn_impl="flash"),
-            "c": moe.replace(capacity_factor=moe.n_experts /
-                             moe.experts_per_token,
-                             sharding_profile="moe_local")}
+    out = {"a": dense.replace(dtype="float32"),
+           "b": dense.replace(attn_impl="flash"),
+           "c": moe.replace(capacity_factor=moe.n_experts /
+                            moe.experts_per_token,
+                            sharding_profile="moe_local")}
+    out["g"] = out["a"].replace(seq_parallel=True, remat=True)
+    out["g_flash"] = out["b"].replace(seq_parallel=True)
+    out["h"] = out["c"].replace(seq_parallel=True, attn_impl="xla_chunked")
+    for arch in FAMILY_ARCHS:
+        out["i_" + arch] = family_cut(get_config(arch)).replace(
+            dtype="float32")
+    return out
+
+
+def ckpt_inputs(fn):
+    """Run ``fn`` with ``transformer.checkpointed`` wrapped: (its result,
+    the bytes of each checkpointed layer's input, the tensor that layer
+    keeps for its recompute)."""
+    from repro_torch.models import transformer as T
+    real, seen = T.checkpointed, []
+
+    def spy(layer, x, *rest):
+        seen.append(x.numel() * x.element_size())
+        return real(layer, x, *rest)
+    T.checkpointed = spy
+    try:
+        return fn(), seen
+    finally:
+        T.checkpointed = real
 
 
 def ma_inputs(torch, np, cfgs, device):
@@ -6124,6 +6166,29 @@ def model_axis_reference(torch, np, work: str, seed: int):
                 "logits": logits, "routing": rec_f["top_e"],
                 "dropped_global": [int(d) for d in rec_d["dropped"]]},
                f"{work}/ref_c.pt")
+    del params, logits, y
+
+    # (i) each family's gradients on one process (xLSTM's one-ulp floor,
+    # the largest of MA_FLOOR_DRAWS nudges)
+    for arch in FAMILY_ARCHS:
+        cut = cfgs["i_" + arch]
+        api = get_model(cut)
+        params = ma_params(torch, api, seed + 3)
+        batch = family_batch(torch, np, cut, MA_FAMILY_CUT["batch"],
+                             MA_FAMILY_CUT["seq"], SEED + 53)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (loss, _), grads = loop.value_and_grad(api.loss_fn, params, batch)
+        torch.cuda.synchronize()
+        out[f"i_{arch}_grad_ms"] = (time.perf_counter() - t0) * 1e3
+        floors = [ulp_floor(torch, cut, params, grads, batch, SEED + 42 + i)
+                  for i in range(MA_FLOOR_DRAWS)] \
+            if cut.family == "ssm" else None
+        torch.save({"grads": grads, "loss": float(loss), "floors": floors,
+                    "floor": max(floors) if floors else None},
+                   f"{work}/ref_i_{arch}.pt")
+        del params, grads
+        torch.cuda.empty_cache()
     return out
 
 
@@ -6181,9 +6246,10 @@ def model_axis_rank(rank: int, work: str, seed: int) -> None:
                "param_bytes_shard": rules.shard_bytes(params, pl.params),
                "param_bytes_whole": nbytes(params)}
         with use_placement(pl):
-            _, g = loop.value_and_grad(api.loss_fn, local, {
-                k: rules.constrain_batch(v, mesh, profile)
-                for k, v in inp["batch"].items()})
+            (_, g), rec["ckpt_input_bytes"] = ckpt_inputs(
+                lambda: loop.value_and_grad(api.loss_fn, local, {
+                    k: rules.constrain_batch(v, mesh, profile)
+                    for k, v in inp["batch"].items()}))
         g = rules.gather(loop.group_mean(g, mesh, pl), pl.params)
         rec["grad_worst_frac"], rec["grad_worst_at"] = excess_frac(
             torch, g, ref["grads"], MA_GRAD_RTOL)
@@ -6225,6 +6291,47 @@ def model_axis_rank(rank: int, work: str, seed: int) -> None:
         out["a"][profile] = rec
         del local, opt, p1, o1, p2
         torch.cuda.empty_cache()
+
+    # (g) the same model under seq_parallel: a remat step on each rank's
+    # half of the sequence
+    api = get_model(cfgs["g"])
+    step, init_opt = loop.build_accumulating_step(api, ma_train_config(),
+                                                  mesh)
+    pl = step.placement(mesh)
+    local = rules.place(params, pl.params)
+    rec = {"param_bytes": nbytes(local),
+           "param_bytes_shard": rules.shard_bytes(params, pl.params)}
+    with use_placement(pl):
+        (_, g), rec["ckpt_input_bytes"] = ckpt_inputs(
+            lambda: loop.value_and_grad(api.loss_fn, local, inp["batch"]))
+    g = rules.gather(loop.group_mean(g, mesh, pl), pl.params)
+    rec["grad_worst_frac"], rec["grad_worst_at"] = excess_frac(
+        torch, g, ref["grads"], MA_GRAD_RTOL)
+    del g
+    opt = init_opt(local)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (p1, o1, m1), launches = counted(
+        torch, lambda: step(local, opt, inp["batch"], 0))
+    rec["step_ms"] = [(time.perf_counter() - t0) * 1e3]
+    add_launches(out["launches"], launches)
+    rec["launches"] = launches
+    rec["grad_norm"] = [float(m1["grad_norm"]), ref["grad_norm"]]
+    with TimedCollectives(torch) as tc:
+        t0 = time.perf_counter()
+        p2, _, _ = step(p1, o1, inp["batch"], 1)
+        torch.cuda.synchronize()
+        rec["step_ms_collectives_timed"] = (time.perf_counter() - t0) * 1e3
+    rec["collectives"] = tc.record()
+    t0 = time.perf_counter()
+    step(p1, o1, inp["batch"], 1)
+    torch.cuda.synchronize()
+    rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    rec["norm_gains"] = {k: p2["blocks"][k]["g"].cpu()
+                         for k in ("ln1", "ln2")}
+    out["g"] = rec
+    del local, opt, p1, o1, p2
+    torch.cuda.empty_cache()
     del params, ref, meta
 
     # (b) bf16: the flash forward, prefill and decode steps
@@ -6267,6 +6374,32 @@ def model_axis_rank(rank: int, work: str, seed: int) -> None:
                 time.perf_counter() - t0) * 1e3
         rec["decode_collectives"] = tc.record()
     out["b"] = rec
+    del cache, seq
+
+    # (g) the flash forward, prefill and decodes under seq_parallel
+    api = get_model(cfgs["g_flash"])
+    rec = {}
+    with use_mesh(mesh), torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (logits, _), launches = counted(torch, lambda: api.forward(
+            local, inp["ids"][:, :MA_CUT["seq"]]))
+        rec["forward_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["forward_launches"] = launches
+        add_launches(out["launches"], launches)
+        rec["forward_err"], rec["forward_scale"] = rel_err(logits,
+                                                           ref["logits"])
+        del logits
+        cache = rules.place(api.init_cache(MA_CUT["batch"],
+                                           MA_CUT["seq"] + MA_DECODE), csh)
+        (seq, cache), launches = counted(torch, lambda: ma_decode(
+            api, local, inp["ids"], cache, build_prefill_step(api),
+            build_decode_step(api)))
+        rec["decode_launches"] = launches
+        add_launches(out["launches"], launches)
+        rec["decode_errs"] = [rel_err(a, b) for a, b in
+                              zip(seq, ref["decode"])]
+    out["g_flash"] = rec
     del local, cache, ref, seq
     torch.cuda.empty_cache()
 
@@ -6367,7 +6500,21 @@ def model_axis_rank(rank: int, work: str, seed: int) -> None:
             M.dispatch_local = dispatch_local
         rec["dropped_local"] = [int(d) for d in dropped]
     out["c"] = rec
-    del local
+
+    # (h) the same under moe_local_sp, routing replayed
+    rec = {}
+    with use_mesh(mesh), torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (logits, _), launches = counted(torch, lambda: route_tap(
+            lambda: get_model(cfgs["h"]).forward(local, inp["moe_ids"]),
+            replay=ref["routing"])[0])
+        rec["forward_ms"] = (time.perf_counter() - t0) * 1e3
+    add_launches(out["launches"], launches)
+    rec["launches"] = launches
+    rec["forward_err"], rec["forward_scale"] = rel_err(logits, ref["logits"])
+    out["h"] = rec
+    del local, logits
     torch.cuda.empty_cache()
 
     # (f) the same under infer2d: each rank's row, its data block's rows
@@ -6394,6 +6541,51 @@ def model_axis_rank(rank: int, work: str, seed: int) -> None:
         logits, ref["logits"][rows:rows + ids.shape[0]])
     out["f"] = rec
     del local, logits
+
+    # (i) xLSTM, Hymba and Whisper: a training step split over model
+    out["i"] = {}
+    for arch in FAMILY_ARCHS:
+        api = get_model(cfgs["i_" + arch])
+        params = ma_params(torch, api, seed + 3, dev)
+        ref = torch.load(f"{work}/ref_i_{arch}.pt", map_location=dev)
+        batch = family_batch(torch, np, api.cfg, MA_FAMILY_CUT["batch"],
+                             MA_FAMILY_CUT["seq"], SEED + 53, device=dev)
+        step, init_opt = loop.build_accumulating_step(
+            api, ma_train_config(), mesh)
+        pl = step.placement(mesh)
+        local = rules.place(params, pl.params)
+        rec = {"param_bytes": nbytes(local),
+               "param_bytes_shard": rules.shard_bytes(params, pl.params),
+               "param_bytes_whole": nbytes(params), "floor": ref["floor"],
+               "floors": ref["floors"]}
+        del params
+        opt = init_opt(local)
+        # one step, counted and timed; its gradients tapped and checked
+        with TimedCollectives(torch) as tc:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ((p1, _, _), tap), launches = counted(torch, lambda: grad_tap(
+                lambda: step(local, opt, batch, 0)))
+            rec["step_ms_collectives_timed"] = (time.perf_counter() -
+                                                t0) * 1e3
+        add_launches(out["launches"], launches)
+        rec["launches"] = launches
+        rec["collectives"] = tc.record()
+        # the step's mean over a data axis of one rank left them as they
+        # were
+        (loss, _), g = tap[0]
+        g = rules.gather(loop.group_mean(g, mesh, pl), pl.params)
+        rec["loss"] = [float(loss), ref["loss"]]
+        rec["grad_worst_frac"], rec["grad_worst_at"] = excess_frac(
+            torch, g, ref["grads"], MA_GRAD_RTOL)
+        del g, ref, tap
+        sh = dict(leaves_with_paths(pl.params))
+        rec["whole_leaves"] = {
+            "/".join(map(str, p)): x.cpu() for p, x in leaves_with_paths(p1)
+            if all(a is None for a in sh[p].spec)}
+        out["i"][arch] = rec
+        del local, opt, p1
+        torch.cuda.empty_cache()
     torch.save(out, f"{work}/rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -6416,8 +6608,18 @@ def model_axis_phases(torch, np, smi):
     cache within MA_LOGIT_TOL of one process's, each cache block the
     rules' (never the whole cache) and its bytes, a decode step's
     collectives; (f) (c)'s model under ``infer2d`` within MA_MOE_TOL with
-    its routing replayed.  Step, forward and collective ms beside the
-    card.  Returns the launches on the paths they drive (both ranks')."""
+    its routing replayed; (g) (a)'s model under ``seq_parallel``, its
+    gradients and grad norm as (a)'s, each checkpointed layer input half
+    (a) ``default``'s bytes, the norm gains bitwise on both ranks after
+    a step, and (b)'s flash forward (flash launched on both ranks),
+    prefill and decodes under ``seq_parallel`` within MA_LOGIT_TOL; (h)
+    (c)'s model under ``moe_local_sp`` within MA_MOE_TOL, routing
+    replayed; (i) xLSTM, Hymba and Whisper trained under ``default``,
+    the gradients within MA_GRAD_ATOL of one process's (xLSTM within
+    MA_XLSTM_FLOORS of the largest of its MA_FLOOR_DRAWS one-ulp
+    floors), the loss within MA_GRAD_RTOL, whole leaves bitwise on both
+    ranks after the step, bytes ``shard_bytes``'s.  Step, forward and
+    collective ms beside the card.  Returns the launches on the paths they drive (both ranks')."""
     import tempfile
 
     seed = SEED + 60
@@ -6499,6 +6701,56 @@ def model_axis_phases(torch, np, smi):
               f"model_axis (f) rank {r}: logits off by {f['forward_err']} > "
               f"{MA_MOE_TOL} * {f['forward_scale']}")
         expect_launches(f"model_axis (f) rank {r}", f["launches"], {})
+        g = out["g"]
+        where = f"model_axis (g) seq_parallel rank {r}"
+        check(g["grad_worst_frac"] <= MA_GRAD_ATOL,
+              f"{where}: gradient {g['grad_worst_at']} off by "
+              f"{g['grad_worst_frac']} of its max|g|")
+        got_n, want_n = g["grad_norm"]
+        check(abs(got_n - want_n) <= MA_GRAD_RTOL * abs(want_n),
+              f"{where}: the step's grad norm {got_n} against one "
+              f"process's {want_n}")
+        check(g["param_bytes"] == g["param_bytes_shard"],
+              f"{where}: param bytes {g['param_bytes']} (shard_bytes "
+              f"{g['param_bytes_shard']})")
+        full = out["a"]["default"]["ckpt_input_bytes"]
+        check(len(g["ckpt_input_bytes"]) == len(full) == MA_CUT["layers"]
+              and all(2 * a == b for a, b in zip(g["ckpt_input_bytes"],
+                                                 full)),
+              f"{where}: checkpointed inputs {g['ckpt_input_bytes']} B, "
+              f"default's {full} B (half expected)")
+        expect_launches(where, g["launches"], {})
+        gf = out["g_flash"]
+        check(gf["forward_launches"]["flash_attention"] == MA_CUT["layers"],
+              f"{where}: flash launched {gf['forward_launches']} times")
+        expect_launches(f"{where} decode", gf["decode_launches"], {})
+        for i, (err, scale) in enumerate([(gf["forward_err"],
+                                           gf["forward_scale"])] +
+                                         gf["decode_errs"]):
+            check(err <= MA_LOGIT_TOL * scale,
+                  f"{where} bf16 step {i}: logits off by {err} > "
+                  f"{MA_LOGIT_TOL} * {scale}")
+        h = out["h"]
+        check(h["forward_err"] <= MA_MOE_TOL * h["forward_scale"],
+              f"model_axis (h) moe_local_sp rank {r}: logits off by "
+              f"{h['forward_err']} > {MA_MOE_TOL} * {h['forward_scale']}")
+        expect_launches(f"model_axis (h) rank {r}", h["launches"], {})
+        for arch, fam in out["i"].items():
+            where = f"model_axis (i) {arch} rank {r}"
+            tol = MA_GRAD_ATOL if fam["floor"] is None else \
+                MA_XLSTM_FLOORS * fam["floor"]
+            check(fam["grad_worst_frac"] <= tol,
+                  f"{where}: gradient {fam['grad_worst_at']} off by "
+                  f"{fam['grad_worst_frac']} of its max|g| > {tol}")
+            got_l, want_l = fam["loss"]
+            check(abs(got_l - want_l) <= MA_GRAD_RTOL * abs(want_l),
+                  f"{where}: loss {got_l} against one process's {want_l}")
+            check(fam["param_bytes"] == fam["param_bytes_shard"] <
+                  fam["param_bytes_whole"],
+                  f"{where}: param bytes {fam['param_bytes']} (shard_bytes "
+                  f"{fam['param_bytes_shard']}, whole "
+                  f"{fam['param_bytes_whole']})")
+            expect_launches(where, fam["launches"], {})
     for profile in ("default", "fsdp"):
         a0, a1 = (out["a"][profile] for out in ranks)
         same = sorted(a0["whole_leaves"]) == sorted(a1["whole_leaves"]) and \
@@ -6506,6 +6758,16 @@ def model_axis_phases(torch, np, smi):
                 for k in a0["whole_leaves"])
         check(same, f"model_axis (a) {profile}: the leaves both ranks hold "
                     f"differ after a step")
+    g0, g1 = (out["g"]["norm_gains"] for out in ranks)
+    check(all(torch.equal(g0[k], g1[k]) for k in g0),
+          "model_axis (g): the norm gains differ between the ranks after a "
+          "seq_parallel step")
+    for arch in FAMILY_ARCHS:
+        w0, w1 = (out["i"][arch]["whole_leaves"] for out in ranks)
+        check(sorted(w0) == sorted(w1) and
+              all(torch.equal(w0[k], w1[k]) for k in w0),
+              f"model_axis (i) {arch}: the leaves both ranks hold differ "
+              f"after a step")
     local_drops = [sum(x) for x in zip(*(out["c"]["dropped_local"]
                                          for out in ranks))]
     emit({"phase": "model_axis", "mesh": dict(MA_AXES), "backend": "gloo",
@@ -6581,6 +6843,59 @@ def model_axis_phases(torch, np, smi):
                     "forward_ms", "forward_err", "forward_scale")},
                 "tolerance": f"{MA_MOE_TOL} of max|logit|, routing "
                              f"replayed"},
+          "g": {"arch": LM_ARCH, "seq_parallel": True,
+                "f32": {"batch": MA_CUT["batch"], "seq": MA_CUT["seq"],
+                        "remat": True,
+                        **{k: [out["g"][k] for out in ranks] for k in (
+                            "grad_worst_frac", "grad_worst_at", "grad_norm",
+                            "param_bytes", "ckpt_input_bytes", "step_ms",
+                            "step_ms_collectives_timed", "collectives")},
+                        "default_ckpt_input_bytes": [
+                            out["a"]["default"]["ckpt_input_bytes"]
+                            for out in ranks],
+                        "tolerance": f"gradients rtol {MA_GRAD_RTOL}, atol "
+                                     f"{MA_GRAD_ATOL} of each leaf's "
+                                     f"max|g|, against one process"},
+                "bf16_flash": {
+                    **{k: [out["g_flash"][k] for out in ranks] for k in (
+                        "forward_launches", "forward_ms", "forward_err",
+                        "forward_scale", "decode_errs")},
+                    "note": "the flash forward gathers T before attention "
+                            "and runs on each rank's heads; the prompt of "
+                            f"{MA_CUT['seq']} splits over model, the "
+                            "decode steps (T = 1) stay whole",
+                    "tolerance": f"{MA_LOGIT_TOL} of max|logit| against "
+                                 f"one process's plain attention route"}},
+          "h": {"arch": MOE_ARCH, "dtype": "bfloat16",
+                "profile": "moe_local_sp (moe_local, seq_parallel, "
+                           "xla_chunked)",
+                "batch": MA_CUT["moe_batch"], "seq": MA_CUT["moe_seq"],
+                **{k: [out["h"][k] for out in ranks] for k in (
+                    "forward_ms", "forward_err", "forward_scale")},
+                "tolerance": f"{MA_MOE_TOL} of max|logit|, routing "
+                             f"replayed, against one process's global "
+                             f"route on the plain attention"},
+          "i": {"dtype": "float32", "profile": "default",
+                "batch": MA_FAMILY_CUT["batch"], "seq": MA_FAMILY_CUT["seq"],
+                **{arch: {"layers": ma_configs()["i_" + arch].n_layers,
+                          "one_process_grad_ms": ref[f"i_{arch}_grad_ms"],
+                          **{k: [out["i"][arch][k] for out in ranks]
+                             for k in ("grad_worst_frac", "grad_worst_at",
+                                       "loss", "floor", "floors",
+                                       "param_bytes",
+                                       "param_bytes_whole",
+                                       "step_ms_collectives_timed",
+                                       "collectives")}}
+                   for arch in FAMILY_ARCHS},
+                "tolerance": f"gradients rtol {MA_GRAD_RTOL}, atol "
+                             f"{MA_GRAD_ATOL} of each leaf's max|g| "
+                             f"(xLSTM: {MA_XLSTM_FLOORS} times the largest "
+                             f"of {MA_FLOOR_DRAWS} one-ulp floors on one "
+                             f"process), loss rtol "
+                             f"{MA_GRAD_RTOL}"},
+          "note": "collectives: calls, ms and the bytes each kind hands "
+                  "back on the rank over one step; gloo stages CUDA tensors "
+                  "through the host, so the ms are no multi-card rate",
           "reference_s": t_ref, "launches": launches,
           "seconds": time.perf_counter() - t0, "card": smi})
     return launches

@@ -18,9 +18,12 @@ positions over ``model``; ``fsdp``/``infer2d``'s prefill rows over every
 axis, its cache's rows over ``(pod, data)`` and kv heads over
 ``model``).  In the dry-run a profile changes only the placements, so
 it runs these steps with ``"default"``.
-:func:`build_train_step` takes every family: the decoders, xLSTM, Hymba
-and Whisper (whose batches carry ``"frames"`` beside ``"tokens"`` and
-``"labels"``).
+:func:`build_train_step` takes every family, over a ``model`` axis too:
+the decoders, xLSTM, Hymba and Whisper (whose batches carry ``"frames"``
+beside ``"tokens"`` and ``"labels"``); a serve step of the last three
+over a ``model`` axis of several processes raises
+(``train_loop.refuse_model_split``: their recurrent states' split,
+ROADMAP.md Queue 1 item 4b part 3b).
 
 :func:`shape_trees` builds a cell's abstract operands (params, inputs,
 and the optimizer state or the cache) under ``FakeTensorMode``, with no

@@ -32,8 +32,14 @@ when it does not; either way every rank then holds the whole k/v (its
 column blocks all-gathered), the cache stays whole on every rank, as
 ``cache_pspec`` leaves it, and each rank's query head ``h`` reads kv
 head ``h // (H / Hkv)``.  Where ``H`` itself does not divide but ``H *
-D`` does, every rank gathers every query head and feeds ``wo`` its own
-column block.  The layer finds its split from its weights' shapes.
+D`` does, every rank gathers every query head, computes every head
+alike and feeds ``wo`` its own column block, the k/v then gathered
+whole with no sum of their gradient (``layers.HeadSplit``, the one rule
+of both splits).  The layer finds its split from its weights' shapes.
+:func:`cross_kv` computes a cross-attention's encoder k/v by the same
+split (Whisper).  Under ``seq_parallel`` the caller gathers the sequence
+before the layer (``transformer._block_apply``), so a prefill writes
+the cache it writes without it.
 """
 from __future__ import annotations
 
@@ -65,11 +71,6 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
                            dtype=dt),
         "wo": L.dense_init(generator, h * hd, d, bias=False, dtype=dt),
     }
-
-
-def _out_features(p: Dict) -> int:
-    w = p["w"]
-    return (w["q"] if isinstance(w, dict) else w).shape[-1]
 
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -193,6 +194,62 @@ def _cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor,
     return False
 
 
+def _kv(p: Dict, cfg: ModelConfig, x: torch.Tensor, xq: torch.Tensor,
+        hs: L.HeadSplit, n_cache_heads: Optional[int]):
+    """(k, v [B, S, d_kv] as this rank computes them, ``pick``: the kv
+    heads of its query heads out of them).  ``hs`` is the query heads'
+    split; ``xq`` is ``x`` as the column blocks read it (``copy_to``);
+    ``n_cache_heads`` the kv heads a cache holds (None: no cache)."""
+    hd = cfg.kv_head_dim
+    m = C.group_size(hs.group)
+    quant = cfg.quant if cfg.quant.enabled else None
+    kv_cols, kv_whole = L.out_features(p["wk"]), cfg.n_kv_heads * hd
+    if hs.even and kv_cols < kv_whole and cfg.n_kv_heads % m == 0 and (
+            n_cache_heads is None or n_cache_heads * hd == kv_cols):
+        # this rank's kv heads, the ones its query heads read
+        return (L.dense_apply(p["wk"], xq, quant),
+                L.dense_apply(p["wv"], xq, quant), lambda t: t)
+    # whole k/v on every rank.  Where the query heads split evenly its
+    # heads' share of their gradient is summed over the group; where
+    # every rank computes every head alike it is whole already.
+    part = hs.group if hs.even else None
+    if kv_cols < kv_whole:
+        # a column block that cuts a head, or a cache that holds every
+        # head: the blocks gathered
+        C.split_group(kv_cols, kv_whole, "attention kv columns")
+        k = C.gather_from(L.dense_apply(p["wk"], xq, quant), -1, hs.group)
+        v = C.gather_from(L.dense_apply(p["wv"], xq, quant), -1, hs.group)
+    else:
+        k = L.dense_apply(p["wk"], x, quant)
+        v = L.dense_apply(p["wv"], x, quant)
+    k, v = C.copy_to(k, part), C.copy_to(v, part)
+    if not hs.even:
+        return k, v, lambda t: t
+    kv_of = (hs.lo + torch.arange(hs.n, device=x.device)) // (
+        cfg.n_heads // cfg.n_kv_heads)
+    return k, v, lambda t: t.index_select(2, kv_of)
+
+
+def _head_split(p: Dict, cfg: ModelConfig) -> L.HeadSplit:
+    """The query heads' split, found from ``wq``'s columns."""
+    return L.HeadSplit(cfg.n_heads, C.split_group(
+        L.out_features(p["wq"]), cfg.n_heads * cfg.kv_head_dim,
+        "attention queries"))
+
+
+def cross_kv(p: Dict, cfg: ModelConfig, enc: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder states' k/v [B, S_enc, Hkv', D] for :func:`attn_apply`'s
+    ``cross_kv``: the kv heads this rank's query heads read, by the
+    split :func:`attn_apply` takes for its own k/v (every head on one
+    process)."""
+    hd = cfg.kv_head_dim
+    hs = _head_split(p, cfg)
+    k, v, pick = _kv(p, cfg, enc, hs.input(enc), hs, None)
+    return (pick(_split_heads(k, k.shape[-1] // hd)),
+            pick(_split_heads(v, v.shape[-1] // hd)))
+
+
 def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                causal: bool = True, q_offset: int = 0,
                cache: Optional[Dict] = None,
@@ -207,7 +264,7 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     ``window > 0`` and ``S_max == window`` (slot = absolute_pos % window).
     cache_pos: absolute position (int) of x[:, 0] when caching.
     cross_kv: precomputed encoder (k, v) [B, S_enc, Hkv, D] for
-    cross-attention.
+    cross-attention (:func:`cross_kv` on a model axis).
     """
     impl = impl or cfg.attn_impl
     if impl not in ("xla", "xla_chunked", "flash"):
@@ -225,61 +282,24 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                                      window, group)
             p = _head_blocks(p, cfg, cache, group)
     hd = cfg.kv_head_dim
-    q_cols = _out_features(p["wq"])
-    group = C.split_group(q_cols, cfg.n_heads * hd, "attention queries")
-    m, rank = C.group_size(group), C.group_rank(group)
-    heads_split = group is not None and cfg.n_heads % m == 0
+    hs = _head_split(p, cfg)
     quant = cfg.quant if cfg.quant.enabled else None
     b, t, _ = x.shape
     if cache is not None and cache_pos is not None:
         q_offset = cache_pos          # absolute positions for RoPE/masks
-    xq = C.copy_to(x, group)
-    q = L.dense_apply(p["wq"], xq, quant)
-    if group is not None and not heads_split:
-        # a column block that cuts a head: every rank takes every head
-        q = C.gather_shards(q, -1, group)
-    h = q.shape[-1] // hd
-    q = _split_heads(q, h)
+    xq = hs.input(x)
+    q = _split_heads(hs.cols(p["wq"], x, xq, hd, quant), hs.n)
 
     def out_proj(out):
-        out = out.reshape(b, t, -1)
-        if group is not None and not heads_split:
-            out = out.narrow(-1, rank * q_cols, q_cols)
-        return L.row_apply(p["wo"], out, quant, group)
+        return hs.out(p["wo"], out.reshape(b, t, -1), quant)
 
     if cross_kv is not None:
         k, v = cross_kv
         out = _sdpa_xla(q, k, v, causal=False, window=0, q_offset=0)
         return out_proj(out), None
 
-    kv_cols, kv_whole = _out_features(p["wk"]), cfg.n_kv_heads * hd
-    if heads_split and kv_cols < kv_whole and cfg.n_kv_heads % m == 0 and (
-            cache is None or cache["k"].shape[2] * hd == kv_cols):
-        # this rank's kv heads, the ones its query heads read
-        k = L.dense_apply(p["wk"], xq, quant)
-        v = L.dense_apply(p["wv"], xq, quant)
-
-        def pick(t):
-            return t
-    else:
-        if kv_cols < kv_whole:
-            # a column block that cuts a head, or a cache that holds every
-            # head: whole k/v on every rank
-            C.split_group(kv_cols, kv_whole, "attention kv columns")
-            k = C.gather_shards(L.dense_apply(p["wk"], xq, quant), -1, group)
-            v = C.gather_shards(L.dense_apply(p["wv"], xq, quant), -1, group)
-        else:
-            # whole weights: every rank computes the whole k/v, whose
-            # gradient its query heads' share of is summed over the group
-            k = C.copy_to(L.dense_apply(p["wk"], x, quant), group)
-            v = C.copy_to(L.dense_apply(p["wv"], x, quant), group)
-        kv_of = None
-        if heads_split:
-            kv_of = (rank * h + torch.arange(h, device=x.device)) // (
-                cfg.n_heads // cfg.n_kv_heads)
-
-        def pick(t):
-            return t if kv_of is None else t.index_select(2, kv_of)
+    k, v, pick = _kv(p, cfg, x, xq, hs,
+                     None if cache is None else cache["k"].shape[2])
     k = _split_heads(k, k.shape[-1] // hd)
     v = _split_heads(v, v.shape[-1] // hd)
     if rope:
@@ -396,7 +416,7 @@ def _seq_block_attn(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         raise ValueError(f"cache write of {t} tokens at position "
                          f"{cache_pos} does not fit a cache of {cache_len}")
     quant = cfg.quant if cfg.quant.enabled else None
-    q_cols = _out_features(p["wq"])
+    q_cols = L.out_features(p["wq"])
     wgroup = C.split_group(q_cols, cfg.n_heads * hd, "attention queries")
     xq = C.copy_to(x, wgroup)
     q = C.gather_shards(L.dense_apply(p["wq"], xq, quant), -1, wgroup)

@@ -23,6 +23,17 @@ every layer's cross K/V.  The stacks reach autograd through one
 ``unbind`` a leaf.  The tied table takes its gradient from the gather
 and from the f32 unembedding.  It trains on ``attn_impl="xla"``: flash
 has no backward and raises under grad before any launch.
+
+Over a ``model`` axis of processes (``sharding.rules``' ``default``
+profile) the encoder's and decoder's self-attention and the
+cross-attention split by heads as the decoder's (``attention.attn_apply``
+and ``attention.cross_kv``), the MLP's ``fc1`` by columns (its bias
+too) and ``fc2`` by rows (its bias added once); the layernorms stay
+whole, and the tied ``tok_embed`` splits by vocab where the vocabulary
+divides (whisper-tiny's 51865 over 2 does not: the table stays whole
+and the logits need no gather).  Under ``fsdp`` each layer's leaves are
+gathered where the layer runs.  Serving over ``model`` waits for
+ROADMAP.md Queue 1 item 4b part 3b.
 """
 from __future__ import annotations
 
@@ -36,6 +47,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import collectives as C
 from repro_torch.tree import tree_map
 
 
@@ -65,9 +77,13 @@ def _mlp_init(generator: torch.Generator, d: int, d_ff: int, dt) -> Dict:
             "fc2": L.dense_init(generator, d_ff, d, dtype=dt)}
 
 
-def _mlp_apply(p: Dict, x: torch.Tensor, quant=None) -> torch.Tensor:
-    return L.dense_apply(p["fc2"], L.gelu(L.dense_apply(p["fc1"], x, quant)),
-                         quant)
+def _mlp_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, quant=None
+               ) -> torch.Tensor:
+    """fc2(gelu(fc1(x))); ``fc1`` a column block (with its bias's) and
+    ``fc2`` a row block over the model group, or both whole."""
+    group = C.split_group(L.out_features(p["fc1"]), cfg.d_ff, "mlp")
+    h = L.gelu(L.dense_apply(p["fc1"], C.copy_to(x, group), quant))
+    return L.row_apply(p["fc2"], h, quant, group)
 
 
 # ---------------------------------------------------------- frontend ----
@@ -130,21 +146,25 @@ def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor
     x = frames.to(A.torch_dtype(cfg))
     x = x + sinusoids(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
     remat = T.remat_wanted(cfg.remat, params)
-    for blk in T.unstack_layers(params["enc_blocks"]):
+    blocks, sh = T.fsdp_blocks(params, "enc_blocks")
+    for blk in T.unstack_layers(blocks):
         if remat:
-            x = T.checkpointed(functools.partial(_enc_layer, blk, cfg), x)
+            x = T.checkpointed(functools.partial(_enc_layer, blk, cfg,
+                                                 shardings=sh), x)
         else:
-            x = _enc_layer(blk, cfg, x)
-    return L.layernorm_apply(params["enc_ln"], x, cfg.norm_eps)
+            x = _enc_layer(blk, cfg, x, sh)
+    return L.layernorm_apply(T.whole(params, "enc_ln"), x, cfg.norm_eps)
 
 
-def _enc_layer(blk: Dict, cfg: ModelConfig, x: torch.Tensor
-               ) -> torch.Tensor:
+def _enc_layer(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
+               shardings=None) -> torch.Tensor:
+    """An encoder layer (its leaves gathered under ``fsdp``)."""
+    blk = T.gather_layer(blk, shardings)
     h = L.layernorm_apply(blk["ln1"], x, cfg.norm_eps)
     a, _ = A.attn_apply(blk["attn"], cfg, h, causal=False, rope=False)
     x = x + a
     h = L.layernorm_apply(blk["ln2"], x, cfg.norm_eps)
-    return x + _mlp_apply(blk["mlp"], h)
+    return x + _mlp_apply(blk["mlp"], cfg, h)
 
 
 def _dec_block(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -159,26 +179,24 @@ def _dec_block(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
     x = x + a
     h = L.layernorm_apply(blk["ln_x"], x, cfg.norm_eps)
     if cross_kv is None:
-        ca = blk["cross_attn"]
-        cross_kv = tuple(
-            A._split_heads(L.dense_apply(ca[w], enc_out, quant),
-                           cfg.n_kv_heads) for w in ("wk", "wv"))
+        cross_kv = A.cross_kv(blk["cross_attn"], cfg, enc_out)
     c, _ = A.attn_apply(blk["cross_attn"], cfg, h, cross_kv=cross_kv)
     x = x + c
     h = L.layernorm_apply(blk["ln2"], x, cfg.norm_eps)
-    return x + _mlp_apply(blk["mlp"], h, quant), cross_kv
+    return x + _mlp_apply(blk["mlp"], cfg, h, quant), cross_kv
 
 
 def _dec_layer(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
-               enc_out: torch.Tensor) -> torch.Tensor:
+               enc_out: torch.Tensor, shardings=None) -> torch.Tensor:
     """A decoder layer of the training forward (cross K/V from
-    ``enc_out``)."""
-    return _dec_block(blk, cfg, x, enc_out)[0]
+    ``enc_out``; its leaves gathered under ``fsdp``)."""
+    return _dec_block(T.gather_layer(blk, shardings), cfg, x, enc_out)[0]
 
 
 def _embed_tokens(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
                   ) -> torch.Tensor:
-    x = L.embedding_apply(params["tok_embed"], tokens)
+    x = L.embedding_apply(T.whole(params, "tok_embed"), tokens,
+                          cfg.vocab_size)
     return x + sinusoids(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
 
 
@@ -193,14 +211,15 @@ def encdec_forward(params: Dict, cfg: ModelConfig, frames: torch.Tensor,
     enc_out = encode(params, cfg, frames)
     x = _embed_tokens(params, cfg, tokens)
     remat = T.remat_wanted(cfg.remat, params)
-    for blk in T.unstack_layers(params["dec_blocks"]):
+    blocks, sh = T.fsdp_blocks(params, "dec_blocks")
+    for blk in T.unstack_layers(blocks):
         if remat:
-            x = T.checkpointed(functools.partial(_dec_layer, blk, cfg), x,
-                               enc_out)
+            x = T.checkpointed(functools.partial(_dec_layer, blk, cfg,
+                                                 shardings=sh), x, enc_out)
         else:
-            x = _dec_layer(blk, cfg, x, enc_out)
-    x = L.layernorm_apply(params["dec_ln"], x, cfg.norm_eps)
-    return (L.unembed_apply(params["tok_embed"], x),
+            x = _dec_layer(blk, cfg, x, enc_out, sh)
+    x = L.layernorm_apply(T.whole(params, "dec_ln"), x, cfg.norm_eps)
+    return (T.unembed(params, cfg, x, "tok_embed"),
             x.new_zeros((), dtype=torch.float32))
 
 

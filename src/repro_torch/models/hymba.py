@@ -21,6 +21,17 @@ under ``transformer.checkpointed`` (JAX's ``jax.checkpoint`` of the
 layer), and the stacked params reach autograd through one ``unbind`` a
 leaf.  It trains on ``attn_impl="xla"`` (the config's default): flash
 has no backward and raises under grad before any launch.
+
+Over a ``model`` axis of processes (``sharding.rules``' ``default``
+profile) the attention splits as the decoder's (``attn_apply``, the
+window on the rank's heads; Hymba's 25 query and 5 kv heads over 2 take
+its uneven branch), the SSM by heads (``layers.HeadSplit``: ``wv``,
+``wb``, ``wc`` column blocks, the whole ``wdt``, ``conv`` and ``dskip``
+read in the rank's heads, ``wo``'s row blocks summed; where the heads do
+not divide, every rank runs every head) and the FFN as the decoder's
+SwiGLU.  Under ``fsdp`` each layer's leaves are gathered where the layer
+runs.  Serving over ``model`` waits for ROADMAP.md Queue 1 item 4b part
+3b.
 """
 from __future__ import annotations
 
@@ -37,6 +48,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.linear_scan import chunked_scan, recurrent_step
 from repro_torch.models.xlstm import (_CHUNK, _causal_conv, _logits,
                                       _pad_time, _store)
+from repro_torch.sharding import collectives as C
 from repro_torch.tree import tree_map
 
 
@@ -71,16 +83,30 @@ def hymba_block_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
     }
 
 
-def _ssm_proj(p: Dict, cfg: ModelConfig, hn: torch.Tensor, conv_state=None):
+def _ssm_split(p: Dict, cfg: ModelConfig) -> L.HeadSplit:
     h, s, dv = _ssm_dims(cfg)
+    return L.HeadSplit(h, L.layer_group(
+        (L.out_features(p["wv"]), h * dv), (L.out_features(p["wb"]), h * s),
+        (L.in_features(p["wo"]), h * dv), what="Hymba SSM"))
+
+
+def _ssm_proj(p: Dict, cfg: ModelConfig, hn: torch.Tensor, conv_state=None,
+              hs: L.HeadSplit = None):
+    """(q, k / sqrt(s), v, the decay f, conv state) of this rank's heads
+    (``hs``; every head on one process)."""
+    h, s, dv = _ssm_dims(cfg)
+    hs = hs or L.HeadSplit(h, None)
+    n = hs.n
     b, t, _ = hn.shape
-    v = L.dense_apply(p["wv"], hn)
-    v, conv_state = _causal_conv(v, p["conv"]["w"], conv_state)
-    vh = v.reshape(b, t, h, dv).transpose(1, 2)                # [B,H,T,dv]
-    kb = L.dense_apply(p["wb"], hn).reshape(b, t, h, s).transpose(1, 2)
-    qc = L.dense_apply(p["wc"], hn).reshape(b, t, h, s).transpose(1, 2)
-    dt_pre = L.dense_apply(p["wdt"], hn).float()               # [B,T,H]
-    f = torch.sigmoid(dt_pre + 3.0).transpose(1, 2)            # [B,H,T]
+    hc = hs.input(hn)
+    v = hs.cols(p["wv"], hn, hc, dv)
+    v, conv_state = _causal_conv(v, hs.take(p["conv"]["w"], -1, dv),
+                                 conv_state)
+    vh = v.reshape(b, t, n, dv).transpose(1, 2)                # [B,n,T,dv]
+    kb = hs.cols(p["wb"], hn, hc, s).reshape(b, t, n, s).transpose(1, 2)
+    qc = hs.cols(p["wc"], hn, hc, s).reshape(b, t, n, s).transpose(1, 2)
+    dt_pre = hs.cols(p["wdt"], hn, hc, 1).float()              # [B,T,n]
+    f = torch.sigmoid(dt_pre + 3.0).transpose(1, 2)            # [B,n,T]
     return qc, kb / kb.new_full((), math.sqrt(s)), vh, f, conv_state
 
 
@@ -88,15 +114,16 @@ def _ssm_apply(p: Dict, cfg: ModelConfig, hn: torch.Tensor) -> torch.Tensor:
     """Full-sequence SSD branch. hn [B,T,d] -> [B,T,d]."""
     h, s, dv = _ssm_dims(cfg)
     b, t, _ = hn.shape
-    q, k, v, f, _ = _ssm_proj(p, cfg, hn)
+    hs = _ssm_split(p, cfg)
+    q, k, v, f, _ = _ssm_proj(p, cfg, hn, hs=hs)
     logf = torch.log(f)
     ig = 1.0 - f                                               # leaky pair
     q, k, v, logf, ig = _pad_time(q, k, v, logf, ig)
     y = chunked_scan(q, k, v, logf, ig, chunk=min(_CHUNK, q.shape[2]),
                      normalize=False)[:, :, :t]
-    y = y + p["dskip"] * v[:, :, :t]                           # D-skip, f32
-    y = y.transpose(1, 2).reshape(b, t, h * dv)
-    return L.dense_apply(p["wo"], y.to(hn.dtype))
+    y = y + hs.take(p["dskip"], 0, 1) * v[:, :, :t]            # D-skip, f32
+    y = y.transpose(1, 2).reshape(b, t, hs.n * dv)
+    return hs.out(p["wo"], y.to(hn.dtype))
 
 
 def _fuse(blk: Dict, cfg: ModelConfig, a: torch.Tensor, m: torch.Tensor
@@ -105,16 +132,25 @@ def _fuse(blk: Dict, cfg: ModelConfig, a: torch.Tensor, m: torch.Tensor
                   L.rmsnorm_apply(blk["norm_ssm"], m, cfg.norm_eps))
 
 
-def hymba_block_apply(blk: Dict, cfg: ModelConfig, x: torch.Tensor
-                      ) -> torch.Tensor:
-    """The full-sequence form (no cache)."""
+def _mlp(blk: Dict, cfg: ModelConfig, hn: torch.Tensor, quant=None
+         ) -> torch.Tensor:
+    mlp = blk["mlp"]
+    return L.swiglu_apply(mlp, hn, quant, C.split_group(
+        L.out_features(mlp["gate"]), cfg.d_ff, "mlp"))
+
+
+def hymba_block_apply(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
+                      shardings=None) -> torch.Tensor:
+    """The full-sequence form (no cache); the layer's leaves gathered
+    first under ``fsdp`` (``shardings``)."""
+    blk = T.gather_layer(blk, shardings)
     hn = L.rmsnorm_apply(blk["ln1"], x, cfg.norm_eps)
     a, _ = A.attn_apply(blk["attn"], cfg, hn, causal=True,
                         window=cfg.sliding_window)
     x = x + _fuse(blk, cfg, a, _ssm_apply(blk["ssm"], cfg, hn))
     hn = L.rmsnorm_apply(blk["ln2"], x, cfg.norm_eps)
-    return x + L.swiglu_apply(blk["mlp"], hn,
-                              cfg.quant if cfg.quant.enabled else None)
+    return x + _mlp(blk, cfg, hn, cfg.quant if cfg.quant.enabled else None)
+
 
 
 # Stateful (prefill/decode) paths -----------------------------------------
@@ -170,7 +206,7 @@ def hymba_block_prefill(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
     _store(cache["ssm"], new)
     x = x + _fuse(blk, cfg, a, m)
     hn2 = L.rmsnorm_apply(blk["ln2"], x, cfg.norm_eps)
-    return x + L.swiglu_apply(blk["mlp"], hn2)
+    return x + _mlp(blk, cfg, hn2)
 
 
 def hymba_block_step(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -194,7 +230,7 @@ def hymba_block_step(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
                       y.reshape(b, 1, h * dv).to(x.dtype))
     x = x + _fuse(blk, cfg, a, m)
     hn2 = L.rmsnorm_apply(blk["ln2"], x, cfg.norm_eps)
-    return x + L.swiglu_apply(blk["mlp"], hn2)
+    return x + _mlp(blk, cfg, hn2)
 
 
 # ---------------------------------------------------------- full LM -----
@@ -223,12 +259,13 @@ def hymba_forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor
     checkpointed."""
     x = T._embed_in(params, cfg, inputs)
     remat = T.remat_wanted(cfg.remat, params)
-    for blk in T.unstack_layers(params["blocks"]):
+    blocks, sh = T.fsdp_blocks(params)
+    for blk in T.unstack_layers(blocks):
         if remat:
-            x = T.checkpointed(functools.partial(hymba_block_apply, blk,
-                                                 cfg), x)
+            x = T.checkpointed(functools.partial(
+                hymba_block_apply, blk, cfg, shardings=sh), x)
         else:
-            x = hymba_block_apply(blk, cfg, x)
+            x = hymba_block_apply(blk, cfg, x, sh)
     return _logits(params, cfg, x), x.new_zeros((), dtype=torch.float32)
 
 

@@ -15,7 +15,8 @@ column blocks and ``down`` a row block, whose partial products one
 all-reduce sums (:func:`row_apply`, its bias added once after); the
 embedding table is a vocab block, looked up masked and summed
 (:func:`embedding_apply`).  ``group`` is that model group, None where
-the rank holds the whole weight.
+the rank holds the whole weight.  :class:`HeadSplit` splits a head-wise
+layer (the attention's queries, the mLSTM, Hymba's SSM) by its heads.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from repro_torch.core.quant import (QuantConfig, fake_quant_act,
                                     fake_quant_weight)
 from repro_torch.kernels.ref import matmul
 from repro_torch.sharding import collectives as C
+from repro_torch.tree import tree_map
 
 
 def _normal(generator: torch.Generator, shape, std: float) -> torch.Tensor:
@@ -260,6 +262,26 @@ def swiglu_init(generator: torch.Generator, d: int, d_ff: int,
             "down": dense_init(generator, d_ff, d, bias=False, dtype=dtype)}
 
 
+def out_features(p: Dict) -> int:
+    """A dense layer's output width as this rank holds it (a float ``w``
+    or its int8 export)."""
+    w = p["w"]
+    return (w["q"] if isinstance(w, dict) else w).shape[-1]
+
+
+def in_features(p: Dict) -> int:
+    w = p["w"]
+    return (w["q"] if isinstance(w, dict) else w).shape[-2]
+
+
+def whole_grad(p, group):
+    """A whole leaf (or tree of them) that this rank reads only in part
+    (its heads' slice, its sequence block): itself, its gradient summed
+    over ``group``."""
+    return tree_map(lambda t: C.copy_to(t, group), p) if group is not None \
+        else p
+
+
 def dense_block(p: Dict, dim: int, start: int, size: int) -> Dict:
     """A block of a dense layer's weight (a float ``w`` or its int8 export
     ``{q, scale}``): columns for ``dim`` -1 (the scale's and bias's too),
@@ -300,3 +322,75 @@ def swiglu_apply(p: Dict, x: torch.Tensor,
     g = dense_apply(p["gate"], x, quant)
     u = dense_apply(p["up"], x, quant)
     return row_apply(p["down"], silu(g) * u, quant, group)
+
+
+def layer_group(*held, what: str):
+    """The ``model`` group a layer's weights split over: the first of
+    ``held``'s ``(local, whole)`` widths that a rank holds a block of
+    (``collectives.split_group``), None where it holds every one
+    whole."""
+    for local, whole in held:
+        group = C.split_group(local, whole, what)
+        if group is not None:
+            return group
+    return None
+
+
+class HeadSplit:
+    """This rank's share of a head-wise layer of ``heads`` heads whose
+    column weights (``[d_in, heads * width]``) and row weight (``[heads *
+    width, d_out]``) are blocks over ``group`` (None: a whole layer).
+
+    Where the heads divide over the group (``even``) the rank computes
+    its own heads ``[lo, lo + n)``: a column block is its heads'
+    columns; a whole leaf (a gate or decay projection, a depthwise conv,
+    a per-head norm or skip) is read in its heads' slice, its gradient
+    summed over the group (:func:`whole_grad`); the row product's
+    partial outputs are summed.  Where they do not (a column block cuts
+    a head), every rank gathers every head and computes the whole layer
+    alike (``n`` = ``heads``), then feeds the row weight its own rows
+    (``collectives.split_to``, whose backward gathers the gradient, so
+    the whole leaves' gradients are whole on every rank).  The layer's
+    input is read through :meth:`input` for the column products."""
+
+    def __init__(self, heads: int, group):
+        m, r = C.group_size(group), C.group_rank(group)
+        self.group, self.heads = group, heads
+        self.even = group is not None and heads % m == 0
+        self.lo, self.n = (r * heads // m, heads // m) if self.even \
+            else (0, heads)
+
+    def input(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as the column blocks read it (their gradients summed)."""
+        return C.copy_to(x, self.group)
+
+    def cols(self, p: Dict, x: torch.Tensor, xc: torch.Tensor, width: int,
+             quant: Optional[QuantConfig] = None) -> torch.Tensor:
+        """The columns of ``x @ w (+ b)`` of this rank's heads (every head
+        where they split unevenly), each head ``width`` wide; ``xc`` is
+        :meth:`input` of ``x``."""
+        if out_features(p) == self.heads * width:          # a whole leaf
+            if not self.even:
+                return dense_apply(p, x, quant)
+            y = dense_apply(whole_grad(p, self.group), xc, quant)
+            return y.narrow(-1, self.lo * width, self.n * width)
+        y = dense_apply(p, xc, quant)
+        return y if self.even else C.gather_from(y, -1, self.group)
+
+    def take(self, t: torch.Tensor, dim: int, width: int) -> torch.Tensor:
+        """A whole leaf's slice of this rank's heads along ``dim``."""
+        if not self.even:
+            return t
+        return whole_grad(t, self.group).narrow(dim, self.lo * width,
+                                                self.n * width)
+
+    def out(self, p: Dict, y: torch.Tensor,
+            quant: Optional[QuantConfig] = None) -> torch.Tensor:
+        """The row product of ``y`` (this rank's heads' columns, or every
+        head's), whole on every rank."""
+        if self.even:
+            return row_apply(p, y, quant, self.group)
+        if in_features(p) == y.shape[-1]:                  # a whole leaf
+            return dense_apply(p, y, quant)
+        return row_apply(p, C.split_to(y, -1, self.group), quant,
+                         self.group)

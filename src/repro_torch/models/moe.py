@@ -32,6 +32,10 @@ token).
   ``infer2d``) a rank gathers its data block's rows over ``model``, cuts
   its experts from the gathered layer, and keeps its own rows of the
   summed outputs (a reduce-scatter).
+* **Under ``seq_parallel``** the caller gathers the sequence whole
+  before the layer and cuts the output back to its block
+  (``transformer._block_apply``), so routing, capacity and aux see every
+  token of the data block, as JAX's.
 * On an abstract mesh (the dry-run's production meshes) the
   ``moe_local*`` route raises ``NotImplementedError``, on fake tensors
   too, since its program differs (ROADMAP.md Queue 1 item 4).

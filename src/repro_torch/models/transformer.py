@@ -31,14 +31,21 @@ and f32 products in f32 (no TF32), as in XLA, whatever PyTorch's
 process-wide settings.  The training step runs its backward under it too
 (``train.train_loop.value_and_grad``).
 
-``cfg.seq_parallel`` places JAX's ``_seq_parallel``/``_gather_seq``
-constraints (:func:`_seq_constraint`): the residual stream's sequence
-dim sharded over the mesh's ``model`` axis between blocks, gathered
-before the column-parallel products.  They move no value where no mesh
-is current, where ``model`` spans one device, or on fake tensors (the
-dry-run), so the forward is the same bits as without them; a real
-tensor under a ``model`` axis of several devices raises (the sharded
-part of ROADMAP.md Queue 1 item 4).
+``cfg.seq_parallel`` is JAX's ``_seq_parallel``/``_gather_seq``
+constraints (Megatron-SP, :func:`seq_group`): on a ``model`` axis of
+processes the residual stream between blocks is each rank's block of
+the sequence, the norms run on it, each layer gathers it before its
+column products and its row products' sum is cut back to it (an
+all-reduce and a slice: ``collectives.reduce_from`` then ``split_to``),
+and the stream is gathered whole after the last layer (before
+``ln_f``).  A remat layer keeps only the rank's block.  The constraint
+moves no value where no mesh is current, ``model`` spans one device,
+the tensor is fake or meta (the dry-run), ``T`` does not divide over
+``model`` (a decode step, an odd prompt: JAX's constraint then leaves it
+whole) or the step's rows split over ``model`` already (``fsdp``,
+``infer2d``), so those forwards are the same bits as without it; a real
+tensor on an abstract mesh raises ``ValueError``.  The norm gains (whole
+leaves read on a block) take their gradient summed over the group.
 
 On a mesh over processes the params are each rank's blocks
 (``sharding.rules.place``).  Under the ``default`` profile the layers
@@ -164,47 +171,56 @@ def lm_init(generator: torch.Generator, cfg: ModelConfig) -> Dict:
 
 # ------------------------------------------------------------ apply -----
 
-def _seq_constraint(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """JAX's ``_seq_parallel`` (the [B, T, d] residual stream's T sharded
-    over ``model``) and ``_gather_seq`` (T gathered again): ``x`` itself
-    where the constraint moves no value (``seq_parallel`` off, not [B, T,
-    d], no current mesh, a ``model`` axis of one device, or a fake or
-    meta tensor); ``NotImplementedError`` on a real tensor it would
-    split."""
+def seq_group(cfg: ModelConfig, x: torch.Tensor):
+    """The ``model`` group the [B, T, d] stream ``x``'s T splits over
+    under ``cfg.seq_parallel`` (JAX's ``_seq_parallel``), or None where
+    the constraint moves no value (module docstring)."""
     if not cfg.seq_parallel or x.ndim != 3:
-        return x
+        return None
     mesh = current_mesh()
-    if mesh is None or mesh.shape.get("model", 1) == 1 or \
-            rules.is_abstract(x):
-        return x
-    raise NotImplementedError(
-        f"{cfg.name}: seq_parallel over a 'model' axis of "
-        f"{mesh.shape['model']} devices waits for Queue 1 item 4 (the "
-        f"sharded part) in ROADMAP.md")
+    m = 1 if mesh is None else mesh.shape.get("model", 1)
+    if m == 1 or rules.is_abstract(x) or x.shape[1] % m:
+        return None
+    pl = current_placement()
+    if pl is not None and "model" in pl.batch_axes:
+        return None             # the rows split over model: nothing moves
+    group = C.process_group(mesh, "model")
+    if group is None:
+        raise ValueError(
+            f"{cfg.name}: seq_parallel splits T={x.shape[1]} over the "
+            f"'model' axis of the abstract mesh {mesh.shape}, where no "
+            f"process holds a block; make the mesh over a process group "
+            f"(launch.mesh.make_group_mesh under init_distributed)")
+    return group
 
 
 def _block_apply(blk: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                  cache: Optional[Dict] = None,
-                 cache_pos: Optional[int] = None, impl: Optional[str] = None
+                 cache_pos: Optional[int] = None, impl: Optional[str] = None,
+                 seq=None
                  ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """-> (x [B, T, d], the updated cache or None, the MoE aux loss: an
-    f32 scalar, 0 for a dense block)."""
-    x = _seq_constraint(x, cfg)
-    h = _seq_constraint(L.rmsnorm_apply(blk["ln1"], x, cfg.norm_eps), cfg)
+    f32 scalar, 0 for a dense block).  ``seq``: the ``seq_parallel``
+    group whose sequence block ``x`` (and the result) is: the norms run
+    on the block, attention and the MLP read it gathered whole, and each
+    one's summed output is cut back to it."""
+    h = C.gather_from(L.rmsnorm_apply(L.whole_grad(blk["ln1"], seq), x,
+                                      cfg.norm_eps), 1, seq)
     a, new_cache = A.attn_apply(
         blk["attn"], cfg, h, causal=True, cache=cache, cache_pos=cache_pos,
         window=cfg.sliding_window, impl=impl)
-    x = _seq_constraint(x + a, cfg)
-    h = _seq_constraint(L.rmsnorm_apply(blk["ln2"], x, cfg.norm_eps), cfg)
+    x = x + C.split_to(a, 1, seq)
+    h = C.gather_from(L.rmsnorm_apply(L.whole_grad(blk["ln2"], seq), x,
+                                      cfg.norm_eps), 1, seq)
     if "moe" in blk:
         f, aux = M.moe_apply(blk["moe"], cfg, h)
     else:
         mlp = blk["mlp"]
         f = L.swiglu_apply(mlp, h, cfg.quant if cfg.quant.enabled else None,
-                           C.split_group(A._out_features(mlp["gate"]),
+                           C.split_group(L.out_features(mlp["gate"]),
                                          cfg.d_ff, "mlp"))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + f, new_cache, aux
+    return x + C.split_to(f, 1, seq), new_cache, aux
 
 
 def _fsdp_shardings(key: str):
@@ -214,7 +230,7 @@ def _fsdp_shardings(key: str):
     return pl.params[key] if pl is not None and pl.fsdp else None
 
 
-def _whole(params: Dict, key: str) -> Any:
+def whole(params: Dict, key: str) -> Any:
     """``params[key]`` as a layer reads it: under ``fsdp`` gathered from
     its blocks (the gradient reduce-scattered back), else itself."""
     sh = _fsdp_shardings(key)
@@ -223,35 +239,40 @@ def _whole(params: Dict, key: str) -> Any:
     return tree_map(rules.gather_shards, params[key], sh)
 
 
-def _fsdp_blocks(blocks: Dict) -> Tuple[Dict, Any]:
-    """(blocks, each layer's shardings or None).  Under ``fsdp`` a stack
-    split along its layer dim (a leaf whose trailing dims do not divide)
-    is gathered whole here; the other leaves keep their blocks, and each
-    layer's shardings are theirs less the layer dim."""
-    sh = _fsdp_shardings("blocks")
+def fsdp_blocks(params: Dict, key: str = "blocks", ndim: int = 1
+                ) -> Tuple[Dict, Any]:
+    """(``params[key]``, each layer's shardings or None).  Under ``fsdp``
+    a stack split along one of its ``ndim`` layer dims (a leaf whose
+    trailing dims do not divide) is gathered whole here; the other
+    leaves keep their blocks, and each layer's shardings are theirs less
+    the layer dims."""
+    blocks = params[key]
+    sh = _fsdp_shardings(key)
     if sh is None:
         return blocks, None
 
     def by_layer(s):
-        return bool(s.spec) and s.spec[0] is not None
+        return any(a is not None for a in s.spec[:ndim])
     blocks = tree_map(lambda t, s: rules.gather_shards(t, s) if by_layer(s)
                       else t, blocks, sh)
     return blocks, tree_map(lambda s: rules.NamedSharding(
-        s.mesh, rules.P() if by_layer(s) else rules.P(*s.spec[1:])), sh)
+        s.mesh, rules.P() if by_layer(s) else rules.P(*s.spec[ndim:])), sh)
 
 
-def _gather_layer(blk: Dict, shardings: Any) -> Dict:
+def gather_layer(blk: Dict, shardings: Any) -> Dict:
+    """A layer's leaves gathered whole under ``fsdp`` (``shardings`` from
+    :func:`fsdp_blocks`; None: ``blk`` itself)."""
     if shardings is None:
         return blk
     return tree_map(rules.gather_shards, blk, shardings)
 
 
 def _remat_block(blk: Dict, cfg: ModelConfig, impl: Optional[str],
-                 shardings: Any, x: torch.Tensor
+                 shardings: Any, seq, x: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder layer as :func:`checkpointed` runs it: (x, aux)."""
-    y, _, aux = _block_apply(_gather_layer(blk, shardings), cfg, x,
-                             impl=impl)
+    y, _, aux = _block_apply(gather_layer(blk, shardings), cfg, x,
+                             impl=impl, seq=seq)
     return y, aux
 
 
@@ -262,21 +283,25 @@ def _layers(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     """The layer loop (JAX's scan), then the final norm: (x, the aux
     losses summed over layers in layer order).  ``remat`` checkpoints
     each layer of a forward without a cache whose params take a
-    gradient."""
+    gradient.  Under ``seq_parallel`` the loop runs on this rank's
+    sequence block (:func:`seq_group`), gathered whole after it."""
     auxs = []
     remat_on = cache is None and remat_wanted(remat, params)
-    blocks, layer_sh = _fsdp_blocks(params["blocks"])
+    blocks, layer_sh = fsdp_blocks(params)
+    seq = seq_group(cfg, x)
+    x = C.split_to(x, 1, seq)
     for i, blk in enumerate(unstack_layers(blocks)):
         if remat_on:
-            x, aux = checkpointed(
-                functools.partial(_remat_block, blk, cfg, impl, layer_sh), x)
+            x, aux = checkpointed(functools.partial(
+                _remat_block, blk, cfg, impl, layer_sh, seq), x)
         else:
             cache_l = None if cache is None else layer_params(cache, i)
-            x, _, aux = _block_apply(_gather_layer(blk, layer_sh), cfg, x,
+            x, _, aux = _block_apply(gather_layer(blk, layer_sh), cfg, x,
                                      cache=cache_l, cache_pos=cache_pos,
-                                     impl=impl)
+                                     impl=impl, seq=seq)
         auxs.append(aux)
-    return (L.rmsnorm_apply(_whole(params, "ln_f"), x, cfg.norm_eps),
+    x = C.gather_from(x, 1, seq)
+    return (L.rmsnorm_apply(whole(params, "ln_f"), x, cfg.norm_eps),
             torch.stack(auxs).sum())
 
 
@@ -286,20 +311,20 @@ def _embed_in(params: Dict, cfg: ModelConfig, inputs: torch.Tensor
     pass straight through, cast to ``cfg.dtype``."""
     if inputs.dtype.is_floating_point:
         return inputs.to(A.torch_dtype(cfg))
-    return L.embedding_apply(_whole(params, "embed"), inputs,
+    return L.embedding_apply(whole(params, "embed"), inputs,
                              cfg.vocab_size)
 
 
-def _unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor
-             ) -> torch.Tensor:
-    """Tied: an f32 product with the embedding table.  Untied: the dense
-    product in ``cfg.dtype``, rounded there, then cast to f32.  A rank
-    holding a vocab block computes that block of the logits, and the
-    blocks are gathered over the model group."""
+def unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+            table: str = "embed") -> torch.Tensor:
+    """Tied (to ``params[table]``): an f32 product with the embedding
+    table.  Untied: the dense product in ``cfg.dtype``, rounded there,
+    then cast to f32.  A rank holding a vocab block computes that block
+    of the logits, and the blocks are gathered over the model group."""
     tied = cfg.tie_embeddings or "unembed" not in params
-    p = _whole(params, "embed" if tied else "unembed")
+    p = whole(params, table if tied else "unembed")
     group = C.split_group(p["table"].shape[0] if tied
-                          else A._out_features(p), cfg.vocab_size,
+                          else L.out_features(p), cfg.vocab_size,
                           "unembedding")
     x = C.copy_to(x, group)
     logits = L.unembed_apply(p, x) if tied else L.dense_apply(p, x).float()
@@ -316,7 +341,7 @@ def lm_forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
     layer is checkpointed."""
     x, aux = _layers(params, cfg, _embed_in(params, cfg, inputs), impl=impl,
                      remat=cfg.remat)
-    return _unembed(params, cfg, x), aux
+    return unembed(params, cfg, x), aux
 
 
 def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict,
@@ -350,7 +375,7 @@ def lm_prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
     """Prefill: write the cache, return last-position logits [B, V]."""
     x, _ = _layers(params, cfg, _embed_in(params, cfg, inputs), cache=cache,
                    cache_pos=0, impl=impl)
-    return _data_block_rows(_unembed(params, cfg, x[:, -1:])[:, 0]), cache
+    return _data_block_rows(unembed(params, cfg, x[:, -1:])[:, 0]), cache
 
 
 def _data_block_rows(logits: torch.Tensor) -> torch.Tensor:
@@ -372,7 +397,7 @@ def lm_decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
     inp = token[:, None] if token.ndim == 1 else token[:, None, :]
     x, _ = _layers(params, cfg, _embed_in(params, cfg, inp), cache=cache,
                    cache_pos=int(pos), impl=impl)
-    return _unembed(params, cfg, x)[:, 0], cache
+    return unembed(params, cfg, x)[:, 0], cache
 
 
 def param_count(params: Any) -> int:

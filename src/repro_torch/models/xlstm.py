@@ -29,6 +29,22 @@ autograd through one ``unbind`` a leaf (``transformer.unstack_layers``;
 and the sLSTM's time steps through one ``unbind`` of its input
 projection: an index a layer or a step would send back a zero gradient
 the size of the whole stack or sequence for each.
+
+Over a ``model`` axis of processes (``sharding.rules``' ``default``
+profile) the mLSTM splits by heads (``layers.HeadSplit``): ``wz``/``wu``
+are column blocks (``v = u`` by heads, so the rank's ``di`` block is its
+heads' values), the depthwise conv is cut to those columns, the
+convolved ``c`` is gathered over ``di`` for ``wq``/``wk`` (its heads'
+columns) and the whole ``wgate`` (its heads' gates), the chunk scan,
+``headnorm`` and the ``silu(z)`` gate run on its heads, and ``wo``'s row
+blocks are summed; where the heads do not divide (2 over 4) every rank
+gathers and runs every head.  The sLSTM's ``wx``, ``r`` and ``ln`` are
+whole: every rank runs the whole time loop and feeds ``wo``'s row block
+its columns of ``y`` (``collectives.split_to``, whose backward gathers
+the gradient whole).  The embedding and unembedding split by vocab as
+the decoder's.  Under ``fsdp`` each layer's leaves are gathered where
+the layer runs (``mblocks`` with its two layer dims).  Serving over
+``model`` waits for ROADMAP.md Queue 1 item 4b part 3b.
 """
 from __future__ import annotations
 
@@ -43,6 +59,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import torch_dtype
 from repro_torch.models.linear_scan import chunked_scan, recurrent_step
+from repro_torch.sharding import collectives as C
 from repro_torch.tree import tree_map
 
 _CHUNK = 256
@@ -96,20 +113,42 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return L.silu(out), xp[:, -(wd - 1):]
 
 
-def _mlstm_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor, conv_state=None):
+def _mlstm_split(p: Dict, cfg: ModelConfig) -> L.HeadSplit:
+    di, h, dk, _ = _dims(cfg)
+    return L.HeadSplit(h, L.layer_group(
+        (L.out_features(p["wz"]), di), (L.out_features(p["wq"]), h * dk),
+        (L.in_features(p["wo"]), di), what="mLSTM"))
+
+
+def _mlstm_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor, conv_state=None,
+               hs: L.HeadSplit = None):
+    """(z, q, k, v, input gate, log forget gate, conv state) of this
+    rank's heads (``hs``; every head on one process)."""
     di, h, dk, dv = _dims(cfg)
+    hs = hs or L.HeadSplit(h, None)
+    n = hs.n
     b, t, _ = x.shape
     hn = L.rmsnorm_apply(p["ln"], x, cfg.norm_eps)
-    z = L.dense_apply(p["wz"], hn)                    # output gate branch
-    u = L.dense_apply(p["wu"], hn)                    # value branch
-    c, conv_state = _causal_conv(u, p["conv"]["w"], conv_state)
-    q = L.dense_apply(p["wq"], c).reshape(b, t, h, dk).transpose(1, 2)
-    k = L.dense_apply(p["wk"], c).reshape(b, t, h, dk).transpose(1, 2)
+    hc = hs.input(hn)
+    z = hs.cols(p["wz"], hn, hc, dv)                  # output gate branch
+    u = hs.cols(p["wu"], hn, hc, dv)                  # value branch
+    c, conv_state = _causal_conv(u, hs.take(p["conv"]["w"], -1, dv),
+                                 conv_state)
+    if hs.even:
+        # wq, wk and wgate read every column of c: the rank's block
+        # gathered, their partial gradients summed (hs.input) back to it
+        c = C.gather_from(c, -1, hs.group)
+    cc = hs.input(c)
+    q = hs.cols(p["wq"], c, cc, dk).reshape(b, t, n, dk).transpose(1, 2)
+    k = hs.cols(p["wk"], c, cc, dk).reshape(b, t, n, dk).transpose(1, 2)
     k = k / k.new_full((), math.sqrt(dk))
-    v = u.reshape(b, t, h, dv).transpose(1, 2)
-    gates = L.dense_apply(p["wgate"], c).float()      # [B,T,2H]
-    i_g = torch.sigmoid(gates[..., :h]).transpose(1, 2)          # [B,H,T]
-    logf = torch.nn.functional.logsigmoid(gates[..., h:]).transpose(1, 2)
+    v = u.reshape(b, t, n, dv).transpose(1, 2)
+    gates = (L.dense_apply(L.whole_grad(p["wgate"], hs.group), cc)
+             if hs.even else L.dense_apply(p["wgate"], c)).float()
+    # gates [B,T,2H]: this rank's heads' input and forget gates
+    i_g = torch.sigmoid(gates[..., hs.lo:hs.lo + n]).transpose(1, 2)
+    logf = torch.nn.functional.logsigmoid(
+        gates[..., h + hs.lo:h + hs.lo + n]).transpose(1, 2)  # [B,n,T]
     return z, q, k, v, i_g, logf, conv_state
 
 
@@ -125,18 +164,22 @@ def _pad_time(q, k, v, *gates):
         f(g, (0, pad)) for g in gates)
 
 
-def mlstm_block_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor
-                      ) -> torch.Tensor:
-    """Full-sequence (prefill, scoring) form. x [B,T,d]."""
+def mlstm_block_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                      shardings=None) -> torch.Tensor:
+    """Full-sequence (prefill, scoring) form. x [B,T,d]; the layer's
+    leaves gathered first under ``fsdp`` (``shardings``)."""
+    p = T.gather_layer(p, shardings)
     di, h, dk, dv = _dims(cfg)
     b, t, _ = x.shape
-    z, q, k, v, i_g, logf, _ = _mlstm_qkv(p, cfg, x)
+    hs = _mlstm_split(p, cfg)
+    z, q, k, v, i_g, logf, _ = _mlstm_qkv(p, cfg, x, hs=hs)
     q, k, v, logf, i_g = _pad_time(q, k, v, logf, i_g)
     y = chunked_scan(q, k, v, logf, i_g, chunk=min(_CHUNK, q.shape[2]))
-    y = y[:, :, :t].transpose(1, 2)                   # [B,T,H,dv]
-    y = L.rmsnorm_apply(p["headnorm"], y, cfg.norm_eps)
-    y = y.reshape(b, t, di) * L.silu(z)
-    return x + L.dense_apply(p["wo"], y.to(x.dtype))
+    y = y[:, :, :t].transpose(1, 2)                   # [B,T,n,dv]
+    y = L.rmsnorm_apply(L.whole_grad(p["headnorm"], hs.group) if hs.even
+                        else p["headnorm"], y, cfg.norm_eps)
+    y = y.reshape(b, t, hs.n * dv) * L.silu(z)
+    return x + hs.out(p["wo"], y.to(x.dtype))
 
 
 def mlstm_state_init(cfg: ModelConfig, batch: int, device=None) -> Dict:
@@ -232,7 +275,14 @@ def slstm_block_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         st, hh = _slstm_cell(p, cfg, xt, st)
         hs.append(hh)
     y = torch.stack(hs, dim=1).to(x.dtype)
-    return x + L.dense_apply(p["wo"], y), st
+    return x + _slstm_out(p["wo"], cfg, y), st
+
+
+def _slstm_out(p: Dict, cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
+    """``y @ wo``: a row block's product of this rank's columns of the
+    whole ``y`` every rank computed, summed over the group."""
+    group = C.split_group(L.in_features(p), cfg.d_model, "sLSTM wo")
+    return L.row_apply(p, C.split_to(y, -1, group), None, group)
 
 
 # ---------------------------------------------------------- full LM -----
@@ -281,8 +331,8 @@ def _store(dst: Dict, src: Dict) -> None:
 
 def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor
             ) -> torch.Tensor:
-    x = L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
-    return L.dense_apply(params["unembed"], x).float()
+    x = L.rmsnorm_apply(T.whole(params, "ln_f"), x, cfg.norm_eps)
+    return T.unembed(params, cfg, x)
 
 
 @L.f32_sums()
@@ -294,18 +344,22 @@ def xlstm_forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor
     x = T._embed_in(params, cfg, inputs)
     ng, mper = group_layout(cfg)
     remat = T.remat_wanted(cfg.remat, params)
-    mblocks = T.unstack_layers(params["mblocks"], ndim=2)
-    sblocks = (T.unstack_layers(params["sblocks"]) if "sblocks" in params
-               else None)
+    mblocks, msh = T.fsdp_blocks(params, "mblocks", ndim=2)
+    mblocks = T.unstack_layers(mblocks, ndim=2)
+    sblocks = None
+    if "sblocks" in params:
+        sblocks, ssh = T.fsdp_blocks(params, "sblocks")
+        sblocks = T.unstack_layers(sblocks)
     for gi in range(ng):
         for blk in mblocks[gi * mper:(gi + 1) * mper]:
             if remat:
-                x = T.checkpointed(
-                    functools.partial(mlstm_block_apply, blk, cfg), x)
+                x = T.checkpointed(functools.partial(
+                    mlstm_block_apply, blk, cfg, shardings=msh), x)
             else:
-                x = mlstm_block_apply(blk, cfg, x)
+                x = mlstm_block_apply(blk, cfg, x, msh)
         if sblocks is not None:
-            x, _ = slstm_block_apply(sblocks[gi], cfg, x)
+            x, _ = slstm_block_apply(T.gather_layer(sblocks[gi], ssh), cfg,
+                                     x)
     return _logits(params, cfg, x), x.new_zeros((), dtype=torch.float32)
 
 
@@ -365,6 +419,6 @@ def xlstm_decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
             hn = L.rmsnorm_apply(sp["ln"], x, cfg.norm_eps)
             xproj = L.dense_apply(sp["wx"], hn)[:, 0]
             new, hh = _slstm_cell(sp, cfg, xproj, st)
-            x = x + L.dense_apply(sp["wo"], hh.to(x.dtype))[:, None]
+            x = x + _slstm_out(sp["wo"], cfg, hh.to(x.dtype))[:, None]
             _store(st, new)
     return _logits(params, cfg, x)[:, 0], cache

@@ -15,13 +15,26 @@ moved, transposed (Megatron-LM's ``f`` and ``g``):
   group that every rank's loss then reads (the MoE aux loss);
 * :func:`gather_from` -- all-gather forward, this rank's block backward:
   vocab blocks of the logits, expert blocks of the MoE outputs;
+* :func:`split_to` -- this rank's block forward, all-gather backward
+  (the transpose of :func:`gather_from`): ``seq_parallel``'s residual
+  stream cut to the rank's sequence block from a tensor every rank holds
+  whole, or a replicated layer's output cut to the rows of a row-parallel
+  product (the sLSTM's ``wo``);
 * :func:`gather_shards` -- all-gather forward, reduce-scatter backward:
   an ``fsdp`` parameter gathered where a layer uses it (every rank's
   gradient of the whole leaf differs, since each saw its own batch block),
-  or the rows of a batch block gathered where a layer routes them whole
-  (the ``moe_local`` dispatch under ``fsdp``);
+  the rows of a batch block gathered where a layer routes them whole
+  (the ``moe_local`` dispatch under ``fsdp``), or a column block of an
+  activation gathered for products that each rank reads in part (the
+  mLSTM's convolved input); it is :func:`copy_to` of :func:`gather_from`;
 * :func:`scatter_sum` -- reduce-scatter forward, all-gather backward:
   the partial outputs of such a layer summed, each rank keeping its rows.
+
+``seq_parallel`` gathers a layer's input from the ranks' sequence blocks
+with :func:`gather_from`, whose backward and the layer's own
+:func:`copy_to` make Megatron-SP's reduce-scatter of the gradient, and
+cuts the layer's summed output back to the block with :func:`split_to`
+(:func:`reduce_from` then :func:`split_to` is :func:`scatter_sum`).
 
 Serving moves values with no gradient: :func:`all_to_all` (a tensor
 split by one dim into a block a rank, received blocks joined along
@@ -148,6 +161,17 @@ class _GatherShards(torch.autograd.Function):
         return _block(_sum(g, ctx.group), ctx.dim, ctx.group), None, None
 
 
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _block(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.group), None, None
+
+
 class _ScatterSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
@@ -173,6 +197,12 @@ def sum_both(x: torch.Tensor, group) -> torch.Tensor:
 
 def gather_from(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return x if group is None else _GatherFrom.apply(x, dim % x.ndim, group)
+
+
+def split_to(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of ``dim`` of a tensor every rank of ``group``
+    holds whole and alike; the gradient all-gathered back."""
+    return x if group is None else _SplitTo.apply(x, dim % x.ndim, group)
 
 
 def gather_shards(x: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -204,9 +204,9 @@ def refuse_unmoved(profile: str, what: str = "") -> None:
     """``NotImplementedError`` citing ROADMAP.md Queue 1 item 4 where
     :func:`moves_values` says no (``what`` names the caller's part); an
     unknown profile raises ``ValueError``.  What waits there is not a
-    profile: ``seq_parallel`` moving values, tensor parallelism for
-    xLSTM, Hymba and Whisper, and the dry-run's ``moe_local`` programs
-    raise where they are computed."""
+    profile: serving xLSTM, Hymba and Whisper over ``model``
+    (``launch/steps.py``) and the dry-run's ``moe_local`` programs raise
+    where they are computed."""
     if not moves_values(profile):
         raise NotImplementedError(
             f"{what or f'sharding profile {profile!r}'} on real tensors "

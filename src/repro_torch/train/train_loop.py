@@ -29,8 +29,13 @@ under ``init_distributed``):
   rank already.  The clip's norm sums a split leaf over its ranks and
   counts a whole one once (``optimizer.global_norm``).  Checkpoints stay
   in JAX's format: gathered to whole leaves on save, placed again on
-  restore.  Only the decoders (dense, MoE, VLM) split over ``model``;
-  xLSTM, Hymba and Whisper raise there (ROADMAP.md Queue 1 item 4).
+  restore.  Every family trains over ``model``; the serve steps of
+  xLSTM, Hymba and Whisper raise there (their recurrent states' split,
+  ROADMAP.md Queue 1 item 4b part 3b: ``launch/steps.py``).  Under
+  ``seq_parallel`` a whole leaf that each rank reads on its sequence
+  block only (the norm gains) takes its gradient summed over the
+  ``model`` group inside the backward (``layers.whole_grad``), before
+  this loop's mean, so the ranks' copies stay equal.
 
 An ``api`` is anything with ``init(generator, device=None) -> params``
 and ``loss_fn(params, batch) -> (loss, metrics)``, with ``batch`` a dict
@@ -137,7 +142,8 @@ def _metrics_mean(metrics, mesh, placement=None):
     return {k: vals[i].to(metrics[k].dtype) for i, k in enumerate(keys)}
 
 
-#: The families whose layers split over a ``model`` axis of processes.
+#: The families whose serve steps split over a ``model`` axis of
+#: processes.
 SPLIT_FAMILIES = ("dense", "moe", "vlm")
 
 
@@ -148,8 +154,9 @@ def _profile(api, profile=None) -> str:
 
 
 def refuse_model_split(api, mesh, profile=None) -> None:
-    """xLSTM, Hymba and Whisper raise where a profile would split them
-    over a ``model`` axis of several processes."""
+    """A serve step of xLSTM, Hymba or Whisper raises where a profile
+    would split it over a ``model`` axis of several processes (they
+    train over one)."""
     cfg = getattr(api, "cfg", None)
     if cfg is None or cfg.family in SPLIT_FAMILIES or \
             getattr(mesh, "device_mesh", None) is None or \
@@ -157,11 +164,12 @@ def refuse_model_split(api, mesh, profile=None) -> None:
             _profile(api, profile) == "replicated":
         return
     raise NotImplementedError(
-        f"{cfg.name}: splitting the {cfg.family} family over a 'model' "
-        f"axis of {mesh.shape['model']} processes (profile "
-        f"{_profile(api, profile)!r}) waits for Queue 1 item 4 (tensor "
-        f"parallelism for xLSTM, Hymba and Whisper) in ROADMAP.md; "
-        f"profile 'replicated' or a mesh without 'model' trains it")
+        f"{cfg.name}: serving the {cfg.family} family over a 'model' axis "
+        f"of {mesh.shape['model']} processes (profile "
+        f"{_profile(api, profile)!r}) waits for Queue 1 item 4b part 3b "
+        f"(its recurrent states and caches split over 'model') in "
+        f"ROADMAP.md; it trains over one, and profile 'replicated' or a "
+        f"mesh without 'model' serves it")
 
 
 def refuse_coupled_batches(api, mesh, profile=None) -> None:
@@ -198,7 +206,6 @@ def placement(api, mesh, profile=None, init_opt=None, quantized=False):
     if getattr(mesh, "device_mesh", None) is None:
         return None
     profile = _profile(api, profile)
-    refuse_model_split(api, mesh, profile)
     if "model" not in mesh.axis_names:
         return rules.Placement(mesh, profile)
     from torch._subclasses.fake_tensor import FakeTensorMode

@@ -421,13 +421,14 @@ class TestRejections:
         tp = port(jax_params("tinyllama-1.1b", "float32"))
         x = torch.from_numpy(ids).long()
         # seq_parallel runs where its constraint moves nothing, and raises
-        # on real tensors a 'model' axis would split
+        # on real tensors an abstract 'model' axis would split (no process
+        # holds a block there)
         sp = tcfg.replace(seq_parallel=True)
         assert torch.equal(TT.lm_forward(tp, sp, x)[0],
                            TT.lm_forward(tp, tcfg, x)[0])
         with use_mesh(Mesh(("data", "model"), (1, 2))):
-            with pytest.raises(NotImplementedError,
-                               match="seq_parallel.*ROADMAP"):
+            with pytest.raises(ValueError,
+                               match="seq_parallel.*abstract mesh"):
                 TT.lm_forward(tp, sp, x)
         with pytest.raises(ValueError, match="unknown family"):
             get_model(tcfg.replace(family="pointcloud"))

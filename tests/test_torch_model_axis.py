@@ -49,7 +49,8 @@ package's Adam direction), as ``tests/test_torch_dp_train.py`` does.
   jitted forward and gradients under ``params_shardings``.
 * (vi) the refusals that stay, on real process meshes (the serve
   profiles ``infer2d``, ``cache_seq`` and ``fsdp`` over ``model`` are
-  ``tests/test_torch_serve_axis.py``'s).
+  ``tests/test_torch_serve_axis.py``'s), and ``seq_parallel``'s forward
+  there, bitwise ``default``'s.
 * (vii) ``launch.train --profile fsdp`` under ``torch.distributed.run
   --nproc-per-node 2 --device cpu`` resumes bitwise; ``--production-mesh``
   with 2 ranks raises.
@@ -183,9 +184,14 @@ def _refusals(inp, mesh):
     out = {}
     out["moe_global"] = _raises(lambda: tloop.build_accumulating_step(
         get_model(cfgs["moe"]), _tc(), mesh))
-    out["xlstm"] = _raises(lambda: tloop.build_accumulating_step(
-        get_model(get_smoke_config("xlstm-1.3b")), _tc(), mesh))
+    xlstm = get_model(get_smoke_config("xlstm-1.3b"))
+    xlstm_params = xlstm.init(torch.Generator().manual_seed(0),
+                              device="cpu")
     with use_mesh(mesh):
+        out["xlstm"] = _raises(lambda: tsteps.build_prefill_step(xlstm)(
+            rules.place(xlstm_params, rules.params_shardings(
+                xlstm_params, mesh)), {"tokens": b0["tokens"]},
+            xlstm.init_cache(GB, T, device="cpu")))
         rolling = get_model(cfgs["dense"].replace(sliding_window=T // 2))
         cache = rolling.init_cache(GB, T, device="cpu")
         cache = rules.place(cache, rules.cache_shardings(cache, mesh,
@@ -195,9 +201,13 @@ def _refusals(inp, mesh):
         out["rolling_cache_seq"] = _raises(
             lambda: tsteps.build_prefill_step(rolling, "cache_seq")(
                 local, {"tokens": b0["tokens"]}, cache))
+        # seq_parallel moves values since: the forward on the placed
+        # blocks is default's bit for bit
+        local = rules.place(params, rules.params_shardings(params, mesh))
         sp = get_model(cfgs["dense"].replace(seq_parallel=True))
-        out["seq_parallel"] = _raises(lambda: sp.forward(params,
-                                                          b0["tokens"]))
+        out["seq_parallel_bitwise"] = torch.equal(
+            sp.forward(local, b0["tokens"])[0],
+            dense.forward(local, b0["tokens"])[0])
     return out
 
 
@@ -834,15 +844,15 @@ def test_moe_expert_parallel_matches_jax(runs):
 
 REFUSED = {"moe_global": ("NotImplementedError", "Queue 3"),
            "xlstm": ("NotImplementedError", "Queue 1 item 4"),
-           "rolling_cache_seq": ("NotImplementedError", "Queue 1 item 4"),
-           "seq_parallel": ("NotImplementedError", "Queue 1 item 4")}
+           "rolling_cache_seq": ("NotImplementedError", "Queue 1 item 4")}
 
 
 @pytest.mark.parametrize("what", list(REFUSED))
 def test_refusals_that_stay(runs, what):
     """(vi) on a real (data=2, model=2) mesh: the global MoE route over
-    two data ranks, xLSTM split over ``model``, a rolling (sliding-window)
-    cache split by position under ``cache_seq``, and ``seq_parallel``
+    two data ranks, an xLSTM serve step split over ``model`` (it trains
+    over one since: ``tests/test_torch_family_axis.py``), and a rolling
+    (sliding-window) cache split by position under ``cache_seq``
     (``infer2d``, ``cache_seq`` and ``fsdp`` serve steps run since:
     ``tests/test_torch_serve_axis.py``)."""
     kind, cite = REFUSED[what]
@@ -850,6 +860,15 @@ def test_refusals_that_stay(runs, what):
         msg = out["refusals"][what]
         assert msg is not None and msg.startswith(kind) and cite in msg, \
             (what, msg)
+
+
+def test_seq_parallel_forward_is_default_bitwise(runs):
+    """(vi) ``seq_parallel`` on a real (data=2, model=2) mesh, which it
+    refused before: the forward on the placed blocks is ``default``'s
+    bit for bit (``tests/test_torch_sp_axis.py`` holds it against
+    JAX)."""
+    assert all(out["refusals"]["seq_parallel_bitwise"]
+               for out in runs["four"])
 
 
 def test_fit_on_a_model_axis_resumes_bitwise(runs):
