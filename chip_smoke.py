@@ -5890,7 +5890,8 @@ def dp_train_phases(torch, np, smi):
 # seq_parallel; (h) (c)'s model under moe_local_sp (xla_chunked
 # attention); (i) xLSTM (FAMILY_DEPTH's 8 layers), Hymba and Whisper (2
 # layers) at full width, f32, trained tensor-parallel under default at
-# MA_FAMILY_CUT.
+# MA_FAMILY_CUT; (j) the same three served at full width on the flash
+# route under default and cache_seq (MA_FAMILY_SERVE).
 MA_AXES = (("data", 1), ("model", 2))
 MA_CUT = dict(layers=2, batch=4, seq=512, moe_batch=2, moe_seq=256)
 MA_DECODE = 8
@@ -5918,6 +5919,34 @@ MA_FAMILY_CUT = dict(batch=2, seq=256)
 # the same run on one process; Hymba's and Whisper's to MA_GRAD_ATOL.
 MA_XLSTM_FLOORS = 2.0
 MA_FLOOR_DRAWS = 3
+# (j): B2, a prompt into a cache of max_len slots, then MA_DECODE decodes,
+# under each of MA_FAMILY_PROFILES.  xLSTM at FAMILY_DEPTH's 8 layers (no
+# attention: its state the cache); Hymba at 2 layers, as (i), its prompt
+# of 1020 into its 1024-slot window (512 slots a rank under cache_seq),
+# the decodes wrapping from slot 1023, rank 1's block, to slot 0, rank
+# 0's; Whisper whole (4 encoder and 4 decoder layers) on its 1500
+# encoder frames (750 a rank under cache_seq), its prompt crossing the
+# self cache's block boundary at 224 of WHISPER_CTX's 448 slots.  bf16
+# on the flash route (flash runs in Whisper's encoder; a prefill or
+# decode with a cache attends on the plain path, as JAX's), xLSTM in the
+# dtype its cuts are held in (FAMILY_HELD_DTYPE: a random-weight xLSTM
+# amplifies one bf16 rounding by orders of magnitude).
+# (j): xLSTM's f32 logits and cache against one process's f32 run:
+# 1.510e-5-1.899e-5 of max|x| on an H100 (the split sums in another
+# order), where a bf16 case's roundings take MA_LOGIT_TOL
+MA_F32_SERVE_TOL = 1e-4
+MA_FAMILY_SERVE = {"xlstm-1.3b": dict(prompt=256, max_len=512),
+                   "hymba-1.5b": dict(prompt=1020, max_len=1024),
+                   "whisper-tiny": dict(prompt=220, max_len=WHISPER_CTX)}
+MA_FAMILY_SERVE_BATCH = 2
+MA_FAMILY_PROFILES = ("default", "cache_seq")
+
+
+def ma_serve_tol(cfg):
+    """(j)'s limit, a fraction of max|x|, for a family's serve case: by
+    the dtype its cuts are held in (FAMILY_HELD_DTYPE)."""
+    held = FAMILY_HELD_DTYPE.get(cfg.family, cfg.dtype)
+    return MA_F32_SERVE_TOL if held == "float32" else MA_LOGIT_TOL
 
 
 class TimedCollectives:
@@ -6036,7 +6065,27 @@ def ma_configs():
     for arch in FAMILY_ARCHS:
         out["i_" + arch] = family_cut(get_config(arch)).replace(
             dtype="float32")
+        cfg = family_config(arch)
+        if cfg.family == "hybrid":
+            cfg = cfg.replace(n_layers=2)
+        out["j_" + arch] = cfg.replace(
+            attn_impl="flash",
+            dtype=FAMILY_HELD_DTYPE.get(cfg.family, cfg.dtype))
     return out
+
+
+def ma_serve_inputs(torch, np, cfg, device):
+    """(j)'s prompt and decode tokens [B, prompt + MA_DECODE] and, for
+    Whisper, its stub frames [B, enc_seq, d] (else None), drawn alike in
+    each process."""
+    b, n = MA_FAMILY_SERVE_BATCH, MA_FAMILY_SERVE[cfg.name]["prompt"]
+    ids = torch.from_numpy(lm_tokens(np, cfg.vocab_size, b, n + MA_DECODE,
+                                     SEED + 54)).to(device)
+    if cfg.family != "audio":
+        return ids, None
+    return ids, torch.from_numpy(np.random.default_rng(
+        SEED + 55).standard_normal((b, cfg.enc_seq, cfg.d_model))
+        .astype(np.float32)).to(device)
 
 
 def ckpt_inputs(fn):
@@ -6085,10 +6134,15 @@ def ma_train_config():
                        batch_size=MA_CUT["batch"])
 
 
-def ma_decode(api, params, ids, cache, prefill, decode, t=MA_CUT["seq"]):
-    """Prefill on the first ``t`` ids, then MA_DECODE steps fed the ids
-    after them: each step's logits."""
-    logits, cache = prefill(params, {"tokens": ids[:, :t]}, cache)
+def ma_decode(api, params, ids, cache, prefill, decode, t=MA_CUT["seq"],
+              frames=None):
+    """Prefill on the first ``t`` ids (and Whisper's ``frames``), then
+    MA_DECODE steps fed the ids after them: (each step's logits, the
+    cache)."""
+    first = {"tokens": ids[:, :t]}
+    if frames is not None:
+        first["frames"] = frames
+    logits, cache = prefill(params, first, cache)
     out = [logits]
     for i in range(MA_DECODE):
         logits, cache = decode(params, {"token": ids[:, t + i],
@@ -6188,6 +6242,26 @@ def model_axis_reference(torch, np, work: str, seed: int):
                     "floor": max(floors) if floors else None},
                    f"{work}/ref_i_{arch}.pt")
         del params, grads
+        torch.cuda.empty_cache()
+
+    # (j) each family served on one process, the plain attention route
+    for arch in FAMILY_ARCHS:
+        api = get_model(cfgs["j_" + arch].replace(attn_impl="xla"))
+        params = ma_params(torch, api, seed + 4)
+        ids, frames = ma_serve_inputs(torch, np, api.cfg, "cuda")
+        with torch.no_grad():
+            cache = api.init_cache(MA_FAMILY_SERVE_BATCH,
+                                   MA_FAMILY_SERVE[arch]["max_len"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seq, cache = ma_decode(api, params, ids, cache,
+                                   build_prefill_step(api),
+                                   build_decode_step(api),
+                                   MA_FAMILY_SERVE[arch]["prompt"], frames)
+            torch.cuda.synchronize()
+            out[f"j_{arch}_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.save({"logits": seq, "cache": cache}, f"{work}/ref_j_{arch}.pt")
+        del params, cache, seq
         torch.cuda.empty_cache()
     return out
 
@@ -6586,8 +6660,92 @@ def model_axis_rank(rank: int, work: str, seed: int) -> None:
         out["i"][arch] = rec
         del local, opt, p1
         torch.cuda.empty_cache()
+
+    # (j) xLSTM, Hymba and Whisper served from each rank's blocks
+    out["j"] = {}
+    for arch in FAMILY_ARCHS:
+        ref = torch.load(f"{work}/ref_j_{arch}.pt", map_location=dev)
+        for profile in MA_FAMILY_PROFILES:
+            out["j"][arch, profile] = ma_serve_case(
+                torch, np, cfgs["j_" + arch], profile, mesh, dev, seed + 4,
+                ref, out["launches"])
+        del ref
+        torch.cuda.empty_cache()
     torch.save(out, f"{work}/rank{rank}.pt")
     dist.destroy_process_group()
+
+
+def ma_serve_case(torch, np, cfg, profile, mesh, dev, seed, ref, total):
+    """(j) one family under ``profile`` on this rank: the prefill and
+    decode steps on its blocks of the weights and the cache, counted;
+    each step's logits and the gathered cache against one process's
+    (``ref``); each cache block's shape and bytes beside the rules'; a
+    decode step timed with its collectives, and one without."""
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models.api import get_model
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.context import use_mesh
+    from repro_torch.train import train_loop as loop
+    from repro_torch.tree import leaves_with_paths
+
+    api = get_model(cfg.replace(sharding_profile=profile))
+    params = ma_params(torch, api, seed, dev)
+    pl = loop.placement(api, mesh, profile)
+    local = rules.place(params, pl.params)
+    rec = {"param_bytes": nbytes(local),
+           "param_bytes_shard": rules.shard_bytes(params, pl.params),
+           "param_bytes_whole": nbytes(params)}
+    del params
+    ids, frames = ma_serve_inputs(torch, np, cfg, dev)
+    n = MA_FAMILY_SERVE[cfg.name]["prompt"]
+    with use_mesh(mesh), torch.no_grad():
+        whole = api.init_cache(MA_FAMILY_SERVE_BATCH,
+                               MA_FAMILY_SERVE[cfg.name]["max_len"])
+        csh = rules.cache_shardings(whole, mesh, profile)
+        cache = rules.place(whole, csh)
+        sh = dict(leaves_with_paths(csh))
+        rec["cache_blocks"] = {
+            "/".join(map(str, p)): [tuple(x.shape),
+                                    sh[p].shard_shape(tuple(w.shape)),
+                                    tuple(w.shape)]
+            for (p, x), (_, w) in zip(leaves_with_paths(cache),
+                                      leaves_with_paths(whole))}
+        rec.update(cache_bytes=nbytes(cache),
+                   cache_bytes_shard=rules.shard_bytes(whole, csh),
+                   cache_bytes_whole=nbytes(whole))
+        del whole
+        prefill, decode = (build_prefill_step(api, profile),
+                           build_decode_step(api))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (seq, cache), launches = counted(torch, lambda: ma_decode(
+            api, local, ids, cache, prefill, decode, n, frames))
+        rec["prefill_decode_ms"] = (time.perf_counter() - t0) * 1e3
+        add_launches(total, launches)
+        rec["launches"] = launches
+        rec["decode_errs"] = [rel_err(a, b) for a, b in
+                              zip(seq, ref["logits"])]
+        rec["cache_blocks_after"] = {
+            "/".join(map(str, p)): tuple(x.shape)
+            for p, x in leaves_with_paths(cache)}
+        got = dict(leaves_with_paths(rules.gather(cache, csh)))
+        rec["cache_errs"] = {"/".join(map(str, p)): rel_err(got[p], w)
+                             for p, w in leaves_with_paths(ref["cache"])}
+        del got
+        pos = n + MA_DECODE
+        with TimedCollectives(torch) as tc:
+            t0 = time.perf_counter()
+            decode(local, {"token": ids[:, -1], "pos": pos}, cache)
+            torch.cuda.synchronize()
+            rec["decode_step_ms_collectives_timed"] = (
+                time.perf_counter() - t0) * 1e3
+        rec["decode_collectives"] = tc.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(local, {"token": ids[:, -1], "pos": pos + 1}, cache)
+        torch.cuda.synchronize()
+        rec["decode_step_ms"] = (time.perf_counter() - t0) * 1e3
+    return rec
 
 
 def model_axis_phases(torch, np, smi):
@@ -6618,8 +6776,14 @@ def model_axis_phases(torch, np, smi):
     the gradients within MA_GRAD_ATOL of one process's (xLSTM within
     MA_XLSTM_FLOORS of the largest of its MA_FLOOR_DRAWS one-ulp
     floors), the loss within MA_GRAD_RTOL, whole leaves bitwise on both
-    ranks after the step, bytes ``shard_bytes``'s.  Step, forward and
-    collective ms beside the card.  Returns the launches on the paths they drive (both ranks')."""
+    ranks after the step, bytes ``shard_bytes``'s; (j) xLSTM, Hymba and Whisper served under
+    ``default`` and ``cache_seq`` from each rank's blocks, every step's
+    logits and each leaf of the gathered cache within ma_serve_tol of one
+    process's, each cache block the rules' before and after the steps,
+    the cache's and params' bytes ``shard_bytes``'s, flash launched on
+    both ranks in Whisper's encoder, a decode step's collectives.  Step,
+    forward and collective ms beside the card.  Returns the launches on
+    the paths they drive (both ranks')."""
     import tempfile
 
     seed = SEED + 60
@@ -6751,6 +6915,33 @@ def model_axis_phases(torch, np, smi):
                   f"{fam['param_bytes_shard']}, whole "
                   f"{fam['param_bytes_whole']})")
             expect_launches(where, fam["launches"], {})
+        for (arch, profile), j in out["j"].items():
+            where = f"model_axis (j) {arch} {profile} rank {r}"
+            cfg = ma_configs()["j_" + arch]
+            expect_launches(where, j["launches"], {
+                "flash_attention": cfg.n_enc_layers}
+                if cfg.family == "audio" else {})
+            tol = ma_serve_tol(cfg)
+            for i, (err, scale) in enumerate(j["decode_errs"]):
+                check(err <= tol * scale,
+                      f"{where} step {i}: logits off by {err} > "
+                      f"{tol} * {scale}")
+            for leaf, (err, scale) in j["cache_errs"].items():
+                check(err <= tol * scale,
+                      f"{where}: the gathered cache's {leaf} off by {err} "
+                      f"> {tol} * {scale}")
+            for leaf, (got, rule, whole) in j["cache_blocks"].items():
+                check(got == rule == j["cache_blocks_after"][leaf],
+                      f"{where}: cache block {leaf} {got}, after the steps "
+                      f"{j['cache_blocks_after'][leaf]} (the rules' {rule},"
+                      f" whole {whole})")
+            check(j["cache_bytes"] == j["cache_bytes_shard"] <
+                  j["cache_bytes_whole"] and j["param_bytes"] ==
+                  j["param_bytes_shard"] < j["param_bytes_whole"],
+                  f"{where}: cache bytes {j['cache_bytes']} (shard_bytes "
+                  f"{j['cache_bytes_shard']}, whole {j['cache_bytes_whole']})"
+                  f", param bytes {j['param_bytes']} (shard_bytes "
+                  f"{j['param_bytes_shard']})")
     for profile in ("default", "fsdp"):
         a0, a1 = (out["a"][profile] for out in ranks)
         same = sorted(a0["whole_leaves"]) == sorted(a1["whole_leaves"]) and \
@@ -6893,6 +7084,26 @@ def model_axis_phases(torch, np, smi):
                              f"of {MA_FLOOR_DRAWS} one-ulp floors on one "
                              f"process), loss rtol "
                              f"{MA_GRAD_RTOL}"},
+          "j": {arch: {"layers": ma_configs()["j_" + arch].n_layers,
+                       "dtype": ma_configs()["j_" + arch].dtype,
+                       "batch": MA_FAMILY_SERVE_BATCH, **MA_FAMILY_SERVE[arch],
+                       "decode_steps": MA_DECODE,
+                       "one_process_ms": ref[f"j_{arch}_ms"],
+                       **{profile: {k: [out["j"][arch, profile][k]
+                                        for out in ranks] for k in (
+                           "launches", "decode_errs", "cache_errs",
+                           "cache_blocks", "cache_bytes", "cache_bytes_whole",
+                           "param_bytes", "param_bytes_whole",
+                           "prefill_decode_ms", "decode_step_ms",
+                           "decode_step_ms_collectives_timed",
+                           "decode_collectives")}
+                          for profile in MA_FAMILY_PROFILES}}
+                for arch in FAMILY_ARCHS},
+          "j_tolerance": f"{MA_F32_SERVE_TOL} (xLSTM, f32) and "
+                         f"{MA_LOGIT_TOL} (Hymba and Whisper, bf16) of "
+                         f"max|x|, every step's logits and each leaf of "
+                         f"the gathered cache, against one process's plain "
+                         f"attention route",
           "note": "collectives: calls, ms and the bytes each kind hands "
                   "back on the rank over one step; gloo stages CUDA tensors "
                   "through the host, so the ms are no multi-card rate",

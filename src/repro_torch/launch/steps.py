@@ -18,12 +18,15 @@ positions over ``model``; ``fsdp``/``infer2d``'s prefill rows over every
 axis, its cache's rows over ``(pod, data)`` and kv heads over
 ``model``).  In the dry-run a profile changes only the placements, so
 it runs these steps with ``"default"``.
-:func:`build_train_step` takes every family, over a ``model`` axis too:
-the decoders, xLSTM, Hymba and Whisper (whose batches carry ``"frames"``
-beside ``"tokens"`` and ``"labels"``); a serve step of the last three
-over a ``model`` axis of several processes raises
-(``train_loop.refuse_model_split``: their recurrent states' split,
-ROADMAP.md Queue 1 item 4b part 3b).
+Every step takes every family, over a ``model`` axis too: the decoders,
+xLSTM, Hymba and Whisper (whose batches carry ``"frames"`` beside
+``"tokens"`` and ``"labels"``).  The serve steps of the last three read
+their recurrent states in place where they split (``models/
+linear_scan.py``: a block of the heads or of the key dim), move the
+small leaves the rules place oddly to the layout the layers compute on
+and back (``rules.cache_views``), write Hymba's rolling window cache by
+slot under ``cache_seq`` and read Whisper's cross cache by heads or by
+encoder position.
 
 :func:`shape_trees` builds a cell's abstract operands (params, inputs,
 and the optimizer state or the cache) under ``FakeTensorMode``, with no
@@ -48,8 +51,7 @@ from repro_torch.sharding import rules
 from repro_torch.sharding.context import current_mesh, use_placement
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.train_loop import (build_accumulating_step,
-                                         placement, refuse_coupled_batches,
-                                         refuse_model_split)
+                                         placement, refuse_coupled_batches)
 from repro_torch.tree import leaves_with_paths
 
 #: The device of the dry-run's fake tensors (see the module docstring).
@@ -100,8 +102,12 @@ def build_train_step(api, train_cfg: TrainConfig, profile: str = "default"):
     return train_step, init_opt
 
 
-def _quantized(params) -> bool:
-    return any(str(path[-1]) == "q" for path, _ in leaves_with_paths(params))
+def _quantized(params) -> frozenset:
+    """The paths of the weights ``params`` holds as int8 exports (``{q,
+    scale}``; ``core.quant.quantize_tree``), empty for a float tree."""
+    return frozenset(tuple(map(str, path[:-1]))
+                     for path, _ in leaves_with_paths(params)
+                     if str(path[-1]) == "q")
 
 
 def serve_placement(base, batch, cache, decode: bool):
@@ -110,10 +116,16 @@ def serve_placement(base, batch, cache, decode: bool):
     then so is this), with the rows its batch splits over (``rows``: the
     profile's batch axes for a prefill whose batch divides over them,
     else ``(pod, data)``: a decode step's token block is the cache's)
-    and, under ``cache_seq*``, the whole sequence length of a cache whose
-    blocks split it over ``model`` (``cache_len``; the cache placed by
-    ``rules.place``, whose blocks remember their whole shape: a block
-    made another way reads as whole, and one that divides raises)."""
+    and, under ``cache_seq*``, the whole slot count of a self-attention
+    cache (a leaf ``k``; a cross cache is ``cross_k``) whose blocks split
+    its positions over ``model`` (``cache_len``).  On a mesh with a
+    ``model`` axis every leaf of the cache tree (any family's) must be
+    the block ``rules.cache_pspec`` gives this rank of the whole tensor
+    it remembers (``rules.check_placed``: ``rules.place``'s blocks
+    remember their whole shape; a leaf made another way reads as whole,
+    and one whose rules split it raises); without one the rules place
+    no cache (as JAX's), and a step takes the cache of its rows as
+    given."""
     if base is None:
         return None
     mesh, profile = base.mesh, base.profile
@@ -123,18 +135,14 @@ def serve_placement(base, batch, cache, decode: bool):
     if not decode and lead and not lead[0].shape[0] % math.prod(
             mesh.shape[a] for a in base.batch_axes):
         rows = base.batch_axes
+    if "model" in mesh.axis_names:      # the rules place caches on one
+        rules.check_placed(cache, mesh, profile)
     cache_len = 0
-    m = mesh.shape.get("model", 1)
-    if "cache_seq" in profile and m > 1 and "k" in cache:
-        s_loc = cache["k"].shape[-3]
-        whole = rules.whole_shape(cache["k"])[-3]
-        if whole != s_loc:
-            cache_len = whole
-        elif not s_loc % m:
-            raise ValueError(
-                f"under {profile!r} a cache of {s_loc} positions splits "
-                f"over 'model' ({m}); place it with rules.place(cache, "
-                f"rules.cache_shardings(cache, mesh, {profile!r}))")
+    if "cache_seq" in profile and mesh.shape.get("model", 1) > 1:
+        k = next((leaf for path, leaf in leaves_with_paths(cache)
+                  if str(path[-1]) == "k"), None)
+        if k is not None and rules.whole_shape(k)[-3] != k.shape[-3]:
+            cache_len = rules.whole_shape(k)[-3]
     return dataclasses.replace(base, rows=tuple(rows), cache_len=cache_len)
 
 
@@ -144,7 +152,6 @@ def _serve_step(api, profile: str, fn, decode: bool):
     def serve_step(params, batch, cache):
         _refuse_real(profile, batch)
         mesh = current_mesh()
-        refuse_model_split(api, mesh, profile)
         refuse_coupled_batches(api, mesh, profile)
         key = (id(mesh), _quantized(params))
         if key not in placed:

@@ -40,6 +40,15 @@ of both splits).  The layer finds its split from its weights' shapes.
 split (Whisper).  Under ``seq_parallel`` the caller gathers the sequence
 before the layer (``transformer._block_apply``), so a prefill writes
 the cache it writes without it.
+
+A serve step's placement (``launch.steps.serve_placement``) splits the
+caches as ``sharding.rules.cache_pspec`` does: under ``cache_seq`` a
+self-attention cache by slot (:func:`_seq_block_attn`, a dense cache's
+slot its position, a rolling one's the position mod the window) and a
+cross cache by encoder position (:func:`_seq_block_cross`), each read by
+a distributed softmax; under ``fsdp``/``infer2d`` a prefill's rows over
+``model`` (:func:`_rows_prefill`) and a decode step's layer cut to the
+rank's cache heads (:func:`_head_blocks`, a cross cache's too).
 """
 from __future__ import annotations
 
@@ -256,7 +265,7 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                cache_pos: Optional[int] = None,
                cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                rope: bool = True, window: int = 0,
-               impl: Optional[str] = None
+               impl: Optional[str] = None, cross_len: int = 0
                ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (out [B,T,d], updated cache or None).
 
@@ -264,13 +273,23 @@ def attn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     ``window > 0`` and ``S_max == window`` (slot = absolute_pos % window).
     cache_pos: absolute position (int) of x[:, 0] when caching.
     cross_kv: precomputed encoder (k, v) [B, S_enc, Hkv, D] for
-    cross-attention (:func:`cross_kv` on a model axis).
+    cross-attention (:func:`cross_kv` on a model axis; a serve step's
+    placed cache: this rank's block of the kv heads, or under
+    ``cache_seq`` of the encoder positions, ``cross_len`` then their
+    whole count).
     """
     impl = impl or cfg.attn_impl
     if impl not in ("xla", "xla_chunked", "flash"):
         raise ValueError(f"unknown attn_impl {impl!r}; the port serves "
                          f"'xla', 'xla_chunked' and 'flash'")
     pl = current_placement()
+    if cross_kv is not None and pl is not None:
+        if cross_len:
+            return _seq_block_cross(p, cfg, x, cross_kv, cross_len), None
+        group = C.mesh_group("model")
+        if pl.fsdp and group is not None and \
+                cross_kv[0].shape[2] < cfg.n_kv_heads:
+            p = _head_blocks(p, cfg, {"k": cross_kv[0]}, group)
     if cache is not None and pl is not None and cross_kv is None:
         if pl.cache_len:
             return _seq_block_attn(p, cfg, x, cache, cache_pos, rope,
@@ -356,25 +375,31 @@ def _rope(q: torch.Tensor, k: torch.Tensor, offset: int, cfg: ModelConfig
 # ------------------------------------------- serving over a model axis --
 
 def _seq_block_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    lo: int, q_offset: int, kv_len: int, window: int,
-                    group) -> torch.Tensor:
-    """Causal attention of q [B, T, H, D] over a cache split by position
-    over ``group``: this rank holds slots [lo, lo + S_loc) (k/v [B, S_loc,
-    Hkv, D]).  Its partial softmax in f32 over its valid slots (the row
-    max ``m``, ``l = sum(p)`` and ``acc = p . v`` with ``p = where(mask,
-    exp(logits - m), 0)``, so a block with no valid slot adds exactly
-    zero), combined over the group (``collectives.softmax_combine``),
-    then ``acc / l`` with ``l == 0 -> 1`` as ``_sdpa_xla_chunked``."""
+                    kpos: torch.Tensor, q_offset: int, kv_len: int,
+                    window: int, group, causal: bool = True
+                    ) -> torch.Tensor:
+    """Attention of q [B, T, H, D] over keys split by position over
+    ``group``: this rank holds k/v [B, S_loc, Hkv, D], their absolute
+    positions ``kpos`` [S_loc] (a rolling slot's the one it holds now,
+    negative for one never written).  Its partial softmax in f32 over
+    its valid keys (``0 <= kpos < kv_len``, and ``kpos <= qpos`` and
+    within ``window`` where those apply: the row max ``m``, ``l =
+    sum(p)`` and ``acc = p . v`` with ``p = where(mask, exp(logits - m),
+    0)``, so a block with no valid key adds exactly zero), combined over
+    the group (``collectives.softmax_combine``), then ``acc / l`` with
+    ``l == 0 -> 1`` as ``_sdpa_xla_chunked``."""
     b, t, h, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
+    hkv = k.shape[2]
     qg = q.reshape(b, t, hkv, h // hkv, d)
     logits = torch.einsum("bthgd,bshd->bhgts", qg.float(), k.float())
     logits = logits / logits.new_full((), math.sqrt(d))
     qpos = q_offset + torch.arange(t, device=q.device)[:, None]
-    kpos = lo + torch.arange(s, device=q.device)[None, :]
-    mask = (kpos <= qpos) & (kpos < kv_len)
+    kp = kpos[None, :]
+    mask = (kp >= 0) & (kp < kv_len)
+    if causal:
+        mask = mask & (kp <= qpos)
     if window > 0:
-        mask &= kpos > qpos - window
+        mask = mask & (kp > qpos - window)
     logits = torch.where(mask, logits, logits.new_full((), NEG))
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(logits - m), logits.new_zeros(()))
@@ -386,20 +411,49 @@ def _seq_block_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, d).to(q.dtype)
 
 
+def _all_queries(p: Dict, cfg: ModelConfig, x: torch.Tensor):
+    """(q [B, T, H, D] of every head, the group ``wq``'s columns split
+    over, the rank's columns, its quant): ``cache_seq``'s reads hold
+    every head of their positions, so each rank gathers every query."""
+    quant = cfg.quant if cfg.quant.enabled else None
+    q_cols = L.out_features(p["wq"])
+    wgroup = C.split_group(q_cols, cfg.n_heads * cfg.kv_head_dim,
+                           "attention queries")
+    q = C.gather_shards(L.dense_apply(p["wq"], C.copy_to(x, wgroup), quant),
+                        -1, wgroup)
+    return _split_heads(q, cfg.n_heads), wgroup, q_cols, quant
+
+
+def _own_heads_out(p: Dict, out: torch.Tensor, wgroup, q_cols: int,
+                   quant) -> torch.Tensor:
+    """Every head's attention output [B, T, H * D] into ``wo``: the
+    rank's own columns into its row block, summed over ``wgroup``."""
+    if wgroup is not None:
+        out = out.narrow(-1, C.group_rank(wgroup) * q_cols, q_cols)
+    return L.row_apply(p["wo"], out, quant, wgroup)
+
+
 def _seq_block_attn(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                     cache: Dict, cache_pos: int, rope: bool, window: int,
                     cache_len: int) -> Tuple[torch.Tensor, Dict]:
-    """``cache_seq``: the cache's positions split over ``model`` (this
-    rank's block [B, S/m, Hkv, D], every kv head, slots [r S/m, (r+1)
-    S/m)), the weights by ``default``'s rules.  The new tokens' k/v go to
-    the blocks that hold their positions: a rank computing its own kv
-    heads sends each block its share by one all-to-all (split by
-    position, joined by heads); whole k/v (a kv column block that cuts a
-    head, gathered, or whole weights) are written where they fall.  The
-    read is a distributed softmax (:func:`_seq_block_sdpa`) over every
-    query head (q's heads gathered over ``model``); each rank then feeds
+    """``cache_seq``: the cache's slots split over ``model`` (this rank's
+    block [B, S/m, Hkv, D], every kv head, slots [r S/m, (r+1) S/m)),
+    the weights by ``default``'s rules.  A dense cache's slot is the
+    position; a rolling one's (``window`` slots, ``cache_len ==
+    window``) is the position mod ``window``, so its writes wrap from the
+    last block to the first, and of a long write only the last
+    ``window`` tokens stay.  The new tokens' k/v go to the blocks that
+    hold their slots: a rank computing its own kv heads sends each block
+    its tokens by one all-to-all (grouped by block, joined by heads);
+    whole k/v (a kv column block that cuts a head, gathered, or whole
+    weights) are written where they fall.  The read is a distributed
+    softmax (:func:`_seq_block_sdpa`) over every query head (q's heads
+    gathered over ``model``), each slot masked by the absolute position
+    it holds, as the rolling mask of one process; each rank then feeds
     ``wo`` its own heads' columns.  No rank gathers the cache: only q,
-    the partials and the new tokens' k/v cross ranks."""
+    the partials and the new tokens' k/v cross ranks.  A rolling
+    prefill (more than one token) attends over its own tokens' keys in
+    the window, as on one process, every head on every rank."""
     group = C.mesh_group("model")
     m, r = C.group_size(group), C.group_rank(group)
     hd = cfg.kv_head_dim
@@ -407,19 +461,12 @@ def _seq_block_attn(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     ck, cv = cache["k"], cache["v"]
     s_loc = ck.shape[1]
     lo = r * s_loc
-    if window > 0 and cache_len == window:
-        raise NotImplementedError(
-            f"{cfg.name}: a rolling (sliding-window) cache split by "
-            f"position over 'model' waits for Queue 1 item 4 (Hymba's "
-            f"split, part 3) in ROADMAP.md")
-    if cache_pos < 0 or cache_pos + t > cache_len:
+    rolling = window > 0 and cache_len == window
+    if not rolling and (cache_pos < 0 or cache_pos + t > cache_len):
         raise ValueError(f"cache write of {t} tokens at position "
                          f"{cache_pos} does not fit a cache of {cache_len}")
-    quant = cfg.quant if cfg.quant.enabled else None
-    q_cols = L.out_features(p["wq"])
-    wgroup = C.split_group(q_cols, cfg.n_heads * hd, "attention queries")
+    q, wgroup, q_cols, quant = _all_queries(p, cfg, x)
     xq = C.copy_to(x, wgroup)
-    q = C.gather_shards(L.dense_apply(p["wq"], xq, quant), -1, wgroup)
     k = L.dense_apply(p["wk"], xq, quant)
     v = L.dense_apply(p["wv"], xq, quant)
     kv_cols, kv_whole = k.shape[-1], cfg.n_kv_heads * hd
@@ -428,29 +475,75 @@ def _seq_block_attn(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         kgroup = C.split_group(kv_cols, kv_whole, "attention kv columns")
         k = C.gather_shards(k, -1, kgroup)
         v = C.gather_shards(v, -1, kgroup)
-    q = _split_heads(q, cfg.n_heads)
     k = _split_heads(k, k.shape[-1] // hd)
     v = _split_heads(v, v.shape[-1] // hd)
     if rope:
         q, k = _rope(q, k, cache_pos, cfg)
-    # each block's share of positions [cache_pos, cache_pos + t)
-    share = [max(0, min(cache_pos + t, (j + 1) * s_loc) -
-                 max(cache_pos, j * s_loc)) for j in range(m)]
-    start = max(cache_pos, lo)
-    if kv_block:
-        k = C.all_to_all(k, 1, 2, group, share)
-        v = C.all_to_all(v, 1, 2, group, share)
+    dev = x.device
+    if rolling:
+        # the tokens that stay (the last `window`), in the order of the
+        # blocks holding their slots, each written to its slot by index
+        keep = min(t, window)
+        slot = [(cache_pos + j) % window for j in range(t - keep, t)]
+        owner = [sl // s_loc for sl in slot]
+        order = sorted(range(keep), key=owner.__getitem__)
+        share = [owner.count(j) for j in range(m)]
+        src = torch.tensor([t - keep + j for j in order
+                            if kv_block or owner[j] == r],
+                           dtype=torch.long, device=dev)
+        kw, vw = k.index_select(1, src), v.index_select(1, src)
+        at = torch.tensor([slot[j] - lo for j in order if owner[j] == r],
+                          dtype=torch.long, device=dev)
     else:
-        k = k[:, start - cache_pos:start - cache_pos + share[r]]
-        v = v[:, start - cache_pos:start - cache_pos + share[r]]
+        # each block's share of positions [cache_pos, cache_pos + t): a
+        # run of its slots
+        share = [max(0, min(cache_pos + t, (j + 1) * s_loc) -
+                     max(cache_pos, j * s_loc)) for j in range(m)]
+        start = max(cache_pos, lo)
+        kw, vw = (k, v) if kv_block else (
+            k[:, start - cache_pos:start - cache_pos + share[r]],
+            v[:, start - cache_pos:start - cache_pos + share[r]])
+        at = slice(start - lo, start - lo + share[r])
+    if kv_block:
+        kw = C.all_to_all(kw, 1, 2, group, share)
+        vw = C.all_to_all(vw, 1, 2, group, share)
     if share[r]:
-        ck[:, start - lo:start - lo + share[r]] = k.to(ck.dtype)
-        cv[:, start - lo:start - lo + share[r]] = v.to(cv.dtype)
-    out = _seq_block_sdpa(q, ck, cv, lo, cache_pos, cache_pos + t, window,
-                          group).reshape(b, t, -1)
-    if wgroup is not None:
-        out = out.narrow(-1, C.group_rank(wgroup) * q_cols, q_cols)
-    return L.row_apply(p["wo"], out, quant, wgroup), {"k": ck, "v": cv}
+        ck[:, at] = kw.to(ck.dtype)
+        cv[:, at] = vw.to(cv.dtype)
+    if rolling and t > 1:
+        if kv_block:
+            k, v = C.gather(k, 2, group), C.gather(v, 2, group)
+        out = _sdpa_xla(q, k, v, causal=True, window=window, q_offset=0)
+    else:
+        kpos = lo + torch.arange(s_loc, device=dev)
+        if rolling:
+            now = cache_pos + t - 1
+            kpos = now - ((now - kpos) % window)
+        out = _seq_block_sdpa(q, ck, cv, kpos, cache_pos, cache_pos + t,
+                              window, group)
+    return (_own_heads_out(p, out.reshape(b, t, -1), wgroup, q_cols, quant),
+            {"k": ck, "v": cv})
+
+
+def _seq_block_cross(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                     cross_kv: Tuple[torch.Tensor, torch.Tensor],
+                     cross_len: int) -> torch.Tensor:
+    """Cross-attention over encoder k/v split by position over ``model``
+    (``cache_seq``'s placed cross cache: this rank's block [B,
+    cross_len/m, Hkv, D] of every kv head): every query head (gathered)
+    reads the rank's positions, the partial softmaxes are combined
+    (:func:`_seq_block_sdpa`, no causal mask), and the rank feeds ``wo``
+    its own heads' columns."""
+    k, v = cross_kv
+    group = C.mesh_group("model")
+    s_loc = k.shape[1]
+    q, wgroup, q_cols, quant = _all_queries(p, cfg, x)
+    kpos = C.group_rank(group) * s_loc + torch.arange(s_loc,
+                                                      device=x.device)
+    out = _seq_block_sdpa(q, k, v, kpos, 0, cross_len, 0, group,
+                          causal=False)
+    return _own_heads_out(p, out.reshape(x.shape[0], x.shape[1], -1), wgroup,
+                          q_cols, quant)
 
 
 def _head_blocks(p: Dict, cfg: ModelConfig, cache: Dict, group) -> Dict:

@@ -32,8 +32,14 @@ too) and ``fc2`` by rows (its bias added once); the layernorms stay
 whole, and the tied ``tok_embed`` splits by vocab where the vocabulary
 divides (whisper-tiny's 51865 over 2 does not: the table stays whole
 and the logits need no gather).  Under ``fsdp`` each layer's leaves are
-gathered where the layer runs.  Serving over ``model`` waits for
-ROADMAP.md Queue 1 item 4b part 3b.
+gathered where the layer runs.  Serving over ``model``
+(``launch/steps.py``'s steps, the cache placed by
+``sharding.rules.cache_pspec``): the self-attention cache as the
+decoder's, and the cross K/V, computed at prefill on the rank's rows and
+heads, moved to their placed block (``_held_cross``): the rank's kv heads,
+or under ``cache_seq`` its encoder positions, which a decode step reads by
+a distributed softmax with no causal mask
+(``attention._seq_block_cross``).
 """
 from __future__ import annotations
 
@@ -48,6 +54,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.sharding import collectives as C
+from repro_torch.sharding import rules
+from repro_torch.sharding.context import current_placement
 from repro_torch.tree import tree_map
 
 
@@ -170,8 +178,11 @@ def _enc_layer(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
 def _dec_block(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
                enc_out: Optional[torch.Tensor], *,
                cache: Optional[Dict] = None, cache_pos: Optional[int] = None,
-               cross_kv=None) -> Tuple[torch.Tensor, tuple]:
-    """-> (x, the cross (k, v): computed from ``enc_out`` unless given)."""
+               cross_kv=None, cross_len: int = 0
+               ) -> Tuple[torch.Tensor, tuple]:
+    """-> (x, the cross (k, v): computed from ``enc_out`` unless given;
+    ``cross_len``: ``attention.attn_apply``'s, for a cross cache split by
+    position)."""
     quant = cfg.quant if cfg.quant.enabled else None
     h = L.layernorm_apply(blk["ln1"], x, cfg.norm_eps)
     a, _ = A.attn_apply(blk["self_attn"], cfg, h, causal=True, rope=False,
@@ -180,7 +191,8 @@ def _dec_block(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
     h = L.layernorm_apply(blk["ln_x"], x, cfg.norm_eps)
     if cross_kv is None:
         cross_kv = A.cross_kv(blk["cross_attn"], cfg, enc_out)
-    c, _ = A.attn_apply(blk["cross_attn"], cfg, h, cross_kv=cross_kv)
+    c, _ = A.attn_apply(blk["cross_attn"], cfg, h, cross_kv=cross_kv,
+                        cross_len=cross_len)
     x = x + c
     h = L.layernorm_apply(blk["ln2"], x, cfg.norm_eps)
     return x + _mlp_apply(blk["mlp"], cfg, h, quant), cross_kv
@@ -238,40 +250,74 @@ def encdec_init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "cross_v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+def _held_cross(cfg: ModelConfig, x: torch.Tensor, held: torch.Tensor
+                ) -> torch.Tensor:
+    """A prefill's stacked cross k/v [L, B, S_enc, Hkv', D] (the step's
+    rows; the kv heads its query heads read, a block over ``model`` or
+    every one) moved to its block of the placed cache, ``held``'s layout
+    (``rules.cache_pspec``), and tagged with its whole shape as
+    ``rules.place`` tags a block; ``x`` itself without a placement or a
+    ``model`` axis (the rules place caches on one)."""
+    pl = current_placement()
+    if pl is None or "model" not in pl.mesh.axis_names:
+        return x
+    whole = (x.shape[0], rules.whole_shape(held)[1], x.shape[2],
+             cfg.n_kv_heads, x.shape[4])
+    comp = rules.spec_of(whole, {1: tuple(pl.batch_axes), 3: "model"
+                                 if x.shape[3] < cfg.n_kv_heads else None},
+                         pl.mesh)
+    return rules.held_like(rules.relayout(
+        x, comp, rules.cache_pspec(("cross_k",), whole, pl.mesh, pl.profile),
+        pl.mesh), whole)
+
+
 @L.f32_sums()
 def encdec_prefill(params: Dict, cfg: ModelConfig, frames: torch.Tensor,
                    tokens: torch.Tensor, cache: Dict
                    ) -> Tuple[torch.Tensor, Dict]:
     """Encode, run the decoder over the prompt writing its self cache,
     and carry each layer's cross K/V -> (last-position logits [B, V],
-    the cache; its cross K/V as long as the frames)."""
+    the cache; its cross K/V as long as the frames).  On a serve step's
+    placement the layers run on the rank's heads and rows (gathered
+    first under ``fsdp``) and the cross K/V go to their placed blocks
+    (``_held_cross``)."""
     enc_out = encode(params, cfg, frames)
     x = _embed_tokens(params, cfg, tokens)
+    blocks, sh = T.fsdp_blocks(params, "dec_blocks")
     cks, cvs = [], []
     for i in range(cfg.n_layers):
-        x, (ck, cv) = _dec_block(T.layer_params(params["dec_blocks"], i),
-                                 cfg, x, enc_out,
-                                 cache=T.layer_params(cache["self"], i),
-                                 cache_pos=0)
+        x, (ck, cv) = _dec_block(
+            T.gather_layer(T.layer_params(blocks, i), sh), cfg, x, enc_out,
+            cache=T.layer_params(cache["self"], i), cache_pos=0)
         cks.append(ck)
         cvs.append(cv)
-    x = L.layernorm_apply(params["dec_ln"], x, cfg.norm_eps)
-    logits = L.unembed_apply(params["tok_embed"], x[:, -1:])[:, 0]
-    return logits, {"self": cache["self"], "cross_k": torch.stack(cks),
-                    "cross_v": torch.stack(cvs)}
+    x = L.layernorm_apply(T.whole(params, "dec_ln"), x, cfg.norm_eps)
+    logits = T.unembed(params, cfg, x[:, -1:], "tok_embed")[:, 0]
+    return T._data_block_rows(logits), {
+        "self": cache["self"],
+        "cross_k": _held_cross(cfg, torch.stack(cks), cache["cross_k"]),
+        "cross_v": _held_cross(cfg, torch.stack(cvs), cache["cross_v"])}
 
 
 @L.f32_sums()
 def encdec_decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
                        pos: int, cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """One token [B] at ``pos`` -> (logits [B, V], the cache).  A cross
+    cache whose placed blocks split the encoder positions over ``model``
+    (``cache_seq``) is read by a distributed softmax
+    (``attention.attn_apply``'s ``cross_len``)."""
     pos = int(pos)
-    x = L.embedding_apply(params["tok_embed"], token[:, None])
+    x = L.embedding_apply(T.whole(params, "tok_embed"), token[:, None],
+                          cfg.vocab_size)
     x = x + sinusoid_at(pos, cfg.d_model, x.device).to(x.dtype)[None, None]
+    blocks, sh = T.fsdp_blocks(params, "dec_blocks")
+    ck, cv = cache["cross_k"], cache["cross_v"]
+    enc_len = rules.whole_shape(ck)[2]
+    cross_len = enc_len if enc_len != ck.shape[2] else 0
     for i in range(cfg.n_layers):
-        x, _ = _dec_block(T.layer_params(params["dec_blocks"], i), cfg, x,
-                          None, cache=T.layer_params(cache["self"], i),
-                          cache_pos=pos,
-                          cross_kv=(cache["cross_k"][i],
-                                    cache["cross_v"][i]))
-    x = L.layernorm_apply(params["dec_ln"], x, cfg.norm_eps)
-    return L.unembed_apply(params["tok_embed"], x)[:, 0], cache
+        x, _ = _dec_block(T.gather_layer(T.layer_params(blocks, i), sh), cfg,
+                          x, None, cache=T.layer_params(cache["self"], i),
+                          cache_pos=pos, cross_kv=(ck[i], cv[i]),
+                          cross_len=cross_len)
+    x = L.layernorm_apply(T.whole(params, "dec_ln"), x, cfg.norm_eps)
+    return T.unembed(params, cfg, x, "tok_embed")[:, 0], cache

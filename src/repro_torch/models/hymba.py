@@ -30,8 +30,18 @@ its uneven branch), the SSM by heads (``layers.HeadSplit``: ``wv``,
 read in the rank's heads, ``wo``'s row blocks summed; where the heads do
 not divide, every rank runs every head) and the FFN as the decoder's
 SwiGLU.  Under ``fsdp`` each layer's leaves are gathered where the layer
-runs.  Serving over ``model`` waits for ROADMAP.md Queue 1 item 4b part
-3b.
+runs.
+
+Serving over ``model`` (``launch/steps.py``'s steps, the cache placed by
+``sharding.rules.cache_pspec``): the SSM state ``S`` stays the rank's
+block (of the state dim ``s`` under ``default``, ``fsdp`` and
+``infer2d``, of the heads under ``cache_seq`` where 25 heads do not
+divide over 2 and it stays whole), read in place
+(``linear_scan.recurrent_step``); ``n`` and the conv state are gathered
+to the layout the layers compute on and written back
+(``linear_scan.serve_views``); the rolling window cache splits its kv
+heads (``default``) or its slots (``cache_seq``: a write goes to the
+rank holding slot ``pos % window``, ``attention._seq_block_attn``).
 """
 from __future__ import annotations
 
@@ -45,10 +55,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.linear_scan import chunked_scan, recurrent_step
+from repro_torch.models.linear_scan import (chunked_scan, end_state,
+                                           recurrent_step, serve_views)
 from repro_torch.models.xlstm import (_CHUNK, _causal_conv, _logits,
                                       _pad_time, _store)
 from repro_torch.sharding import collectives as C
+from repro_torch.sharding import rules
+from repro_torch.sharding.context import current_placement
 from repro_torch.tree import tree_map
 
 
@@ -178,31 +191,31 @@ def hymba_cache_init(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _ssm_state_update(p: Dict, cfg: ModelConfig, hn: torch.Tensor,
-                      prev: Dict) -> Dict:
+                      prev: Dict, to_state=None) -> Dict:
     """The exact end-of-sequence state from a full-sequence input
-    (prefill)."""
-    q, k, v, f, conv_state = _ssm_proj(p, cfg, hn, prev["conv"])
+    (prefill), of the rank's heads (``_ssm_split``) and rows;
+    ``to_state`` moves the new terms to the state's block
+    (``linear_scan.end_state``)."""
+    q, k, v, f, conv_state = _ssm_proj(p, cfg, hn, prev["conv"],
+                                       _ssm_split(p, cfg))
     logf = torch.log(f)
     ig = (1.0 - f).float()
     csum = torch.cumsum(logf, dim=-1)
     decay_out = torch.exp(csum[..., -1:] - csum)
     wk = (decay_out * ig)[..., None] * k.float()
     g_tot = torch.exp(csum[..., -1])
-    s = g_tot[..., None, None] * prev["S"] + \
-        wk.transpose(-1, -2) @ v.float()
-    n = g_tot[..., None] * prev["n"] + wk.sum(dim=2)
-    return {"S": s, "n": n, "conv": conv_state}
+    return {**end_state(prev, wk, v, g_tot, to_state), "conv": conv_state}
 
 
 def hymba_block_prefill(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
-                        cache: Dict) -> torch.Tensor:
+                        cache: Dict, to_state=None) -> torch.Tensor:
     """The full-sequence form, writing the layer's cache in place."""
     hn = L.rmsnorm_apply(blk["ln1"], x, cfg.norm_eps)
     a, _ = A.attn_apply(blk["attn"], cfg, hn, causal=True,
                         cache=cache["attn"], cache_pos=0,
                         window=cfg.sliding_window)
     m = _ssm_apply(blk["ssm"], cfg, hn)
-    new = _ssm_state_update(blk["ssm"], cfg, hn, cache["ssm"])
+    new = _ssm_state_update(blk["ssm"], cfg, hn, cache["ssm"], to_state)
     _store(cache["ssm"], new)
     x = x + _fuse(blk, cfg, a, m)
     hn2 = L.rmsnorm_apply(blk["ln2"], x, cfg.norm_eps)
@@ -211,7 +224,9 @@ def hymba_block_prefill(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 def hymba_block_step(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
                      cache: Dict, pos: int) -> torch.Tensor:
-    """One decode step, x [B,1,d], writing the layer's cache in place."""
+    """One decode step, x [B,1,d], writing the layer's cache in place.
+    Over a ``model`` axis the SSM runs the rank's heads on its block of
+    the state (``linear_scan.recurrent_step``)."""
     h, s, dv = _ssm_dims(cfg)
     b = x.shape[0]
     hn = L.rmsnorm_apply(blk["ln1"], x, cfg.norm_eps)
@@ -219,18 +234,31 @@ def hymba_block_step(blk: Dict, cfg: ModelConfig, x: torch.Tensor,
                         cache=cache["attn"], cache_pos=pos,
                         window=cfg.sliding_window)
     st = cache["ssm"]
-    q, k, v, f, conv_state = _ssm_proj(blk["ssm"], cfg, hn, st["conv"])
+    hs = _ssm_split(blk["ssm"], cfg)
+    q, k, v, f, conv_state = _ssm_proj(blk["ssm"], cfg, hn, st["conv"], hs)
     qs, ks, vs = (t[:, :, 0].float() for t in (q, k, v))
     fs = f[..., 0]
     (s_new, n_new), y = recurrent_step((st["S"], st["n"]), qs, ks, vs, fs,
-                                       1.0 - fs, normalize=False)
-    y = y + blk["ssm"]["dskip"][:, 0] * vs
+                                       1.0 - fs, normalize=False,
+                                       heads=(hs.lo, hs.n, h),
+                                       group=C.mesh_group("model"))
+    y = y + hs.take(blk["ssm"]["dskip"], 0, 1)[:, 0] * vs
     _store(st, {"S": s_new, "n": n_new, "conv": conv_state})
-    m = L.dense_apply(blk["ssm"]["wo"],
-                      y.reshape(b, 1, h * dv).to(x.dtype))
+    m = hs.out(blk["ssm"]["wo"], y.reshape(b, 1, hs.n * dv).to(x.dtype))
     x = x + _fuse(blk, cfg, a, m)
     hn2 = L.rmsnorm_apply(blk["ln2"], x, cfg.norm_eps)
     return x + _mlp(blk, cfg, hn2)
+
+
+def _serve_layout(cfg: ModelConfig, cache: Dict, blocks: Dict, sh):
+    """(the cache's views, the state mover) of a serve step on the
+    current placement (``linear_scan.serve_views``): ``ssm.n`` split as
+    ``ssm.S``, ``ssm.conv`` the rank's rows and its heads' columns (every
+    head under ``fsdp``: ``sh``, whose layers are gathered whole).  The
+    attention's rolling cache stays its held block (``attn_apply``)."""
+    even = sh is None and _ssm_split(
+        T.layer_params(blocks, 0)["ssm"], cfg).even
+    return serve_views(cache["ssm"], "ssm", 1, even)
 
 
 # ---------------------------------------------------------- full LM -----
@@ -272,11 +300,20 @@ def hymba_forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor
 @L.f32_sums()
 def hymba_prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
                   cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """The full-sequence forward writing each layer's cache -> (the
+    last-position logits [B, V], the cache).  On a serve step's placement
+    each layer runs on the rank's heads and rows (gathered first under
+    ``fsdp``) and its states go to their placed blocks
+    (``_serve_layout``)."""
     x = T._embed_in(params, cfg, inputs)
-    for i in range(cfg.n_layers):
-        x = hymba_block_prefill(T.layer_params(params["blocks"], i), cfg, x,
-                                T.layer_params(cache, i))
-    return _logits(params, cfg, x[:, -1:])[:, 0], cache
+    blocks, sh = T.fsdp_blocks(params)
+    views, to_state = _serve_layout(cfg, cache, blocks, sh)
+    with rules.cache_views(cache, views, current_placement()) as view:
+        for i in range(cfg.n_layers):
+            x = hymba_block_prefill(
+                T.gather_layer(T.layer_params(blocks, i), sh), cfg, x,
+                T.layer_params(view, i), to_state)
+    return T._data_block_rows(_logits(params, cfg, x[:, -1:])[:, 0]), cache
 
 
 @L.f32_sums()
@@ -284,7 +321,11 @@ def hymba_decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
                       pos: int, cache: Dict) -> Tuple[torch.Tensor, Dict]:
     inp = token[:, None] if token.ndim == 1 else token[:, None, :]
     x = T._embed_in(params, cfg, inp)
-    for i in range(cfg.n_layers):
-        x = hymba_block_step(T.layer_params(params["blocks"], i), cfg, x,
-                             T.layer_params(cache, i), int(pos))
+    blocks, sh = T.fsdp_blocks(params)
+    views, _ = _serve_layout(cfg, cache, blocks, sh)
+    with rules.cache_views(cache, views, current_placement()) as view:
+        for i in range(cfg.n_layers):
+            x = hymba_block_step(
+                T.gather_layer(T.layer_params(blocks, i), sh), cfg, x,
+                T.layer_params(view, i), int(pos))
     return _logits(params, cfg, x)[:, 0], cache

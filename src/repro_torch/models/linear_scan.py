@@ -25,9 +25,13 @@ port casts the bf16 operand up to f32, never the f32 one down.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import rules
+from repro_torch.sharding.context import current_placement
 
 
 def chunked_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -101,20 +105,113 @@ def chunked_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def recurrent_step(state: Tuple[torch.Tensor, torch.Tensor],
                    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   f: torch.Tensor, i: torch.Tensor, normalize: bool = True
+                   f: torch.Tensor, i: torch.Tensor, normalize: bool = True,
+                   heads: Optional[Tuple[int, int, int]] = None, group=None
                    ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
                               torch.Tensor]:
     """One decode step.  state = (S [B,H,dk,dv], n [B,H,dk]); q, k
-    [B,H,dk], v [B,H,dv], f, i [B,H] -> (new state, h [B,H,dv])."""
+    [B,H,dk], v [B,H,dv], f, i [B,H] -> (new state, h [B,H,dv]).
+
+    Over a ``model`` group (``group``; a serve step's cache placed by
+    ``sharding.rules.cache_pspec``) the state may be this rank's block of
+    its heads ([B, H/m, dk, dv]) or of its key dim ([B, H, dk/m, dv]),
+    ``n`` split alike, and q, k, v, f, i are the heads ``heads`` =
+    ``(lo, count, total)`` this rank computes (its own block or every
+    head).  The inputs (one dtype) are gathered over the group where the
+    state holds heads this rank does not compute; the state's block is updated in
+    place of the whole (its own rows of ``k vᵀ``); a key-dim block reads
+    its partial ``qᵀS`` and ``qᵀn``, summed over the group in one
+    all-reduce, so the whole state never crosses ranks; h comes back for
+    ``heads``."""
     s, nrm = state
+    lo0, n0 = (0, q.shape[1]) if heads is None else heads[:2]
+    total = n0 if heads is None else heads[2]
+    m, r = C.group_size(group), C.group_rank(group)
+    hs, dks, dk = s.shape[1], s.shape[2], q.shape[-1]
+    s_lo = r * hs if hs < total else 0
+    if (s_lo, hs) != (lo0, n0):
+        lo = lo0
+        if s_lo < lo0 or s_lo + hs > lo0 + n0:
+            # every head's inputs, in one gather
+            dv = v.shape[-1]
+            q, k, v, f, i = C.gather(torch.cat(
+                [q, k, v, f[..., None], i[..., None]], dim=-1), 1,
+                group).split([dk, dk, dv, 1, 1], dim=-1)
+            f, i = f[..., 0], i[..., 0]
+            lo = 0
+        q, k, v, f, i = (t.narrow(1, s_lo - lo, hs) for t in (q, k, v, f, i))
+    if dks < dk:
+        q, k = (t.narrow(-1, r * dks, dks) for t in (q, k))
     s_new = f[..., None, None] * s + \
         i[..., None, None] * (k[..., :, None] * v[..., None, :])
     n_new = f[..., None] * nrm + i[..., None] * k
     num = (q[..., None, :] @ s_new)[..., 0, :]
+    den = (q * n_new).sum(dim=-1) if normalize else None
+    if dks < dk and m > 1:
+        if normalize:
+            both = C.all_sum(torch.cat([num, den[..., None]], dim=-1), group)
+            num, den = both[..., :-1], both[..., -1]
+        else:
+            num = C.all_sum(num, group)
     if normalize:
-        den = torch.clamp_min((q * n_new).sum(dim=-1).abs(), 1.0)
-        num = num / den[..., None]
+        num = num / torch.clamp_min(den.abs(), 1.0)[..., None]
+    if (s_lo, hs) != (lo0, n0):
+        if hs < total:
+            num = C.gather(num, 1, group)
+        num = num.narrow(1, lo0, n0)
     return (s_new, n_new), num
+
+
+def end_state(state: Dict, wk: torch.Tensor, v: torch.Tensor,
+              g: torch.Tensor, to_state: Optional[Callable] = None) -> Dict:
+    """The (S, n) state after a chunk of T steps, the chunk's keys
+    weighted by their decay to its end and their gate (``wk`` [B,H,T,dk],
+    f32), its values ``v`` [B,H,T,dv] and its whole decay ``g`` [B,H]:
+    ``S' = g S + wkᵀ v`` and ``n' = g n + Σ_t wk``.  ``to_state`` moves
+    ``g`` and the new terms from the layout the layer computes them in
+    to the state's block (:func:`serve_views`)."""
+    move = to_state or (lambda t: t)
+    g = move(g)
+    return {"S": g[..., None, None] * state["S"] +
+            move(wk.transpose(-1, -2) @ v.float()),
+            "n": g[..., None] * state["n"] + move(wk.sum(dim=2))}
+
+
+def serve_views(state: Dict, key: str, lead: int, heads_split: bool):
+    """How a serve step on the current placement holds a recurrent state
+    ``cache[key]`` = {``S`` [*layers, B, H, dk, dv], ``n`` [*layers, B,
+    H, dk], ``conv`` [*layers, B, w-1, C]} (``lead`` stacked layer dims),
+    each leaf placed by ``sharding.rules.cache_pspec``: (views,
+    to_state).
+
+    ``S`` stays its held block (batch rows over ``(pod, data)``, and its
+    heads or its key dim over ``model``), read in place by
+    :func:`recurrent_step`.  ``views`` (``rules.cache_views``) gives
+    ``n`` the split of ``S`` and ``conv`` the step's rows and, where the
+    rank computes a block of the heads (``heads_split``), their columns:
+    the rules place those two oddly (the batch axes on a layer dim,
+    ``model`` on a head or the batch dim), so the step gathers them to
+    these layouts and writes its block back.  ``to_state`` moves a
+    tensor led by [B, H, dk, dv] from the layer's layout (the step's
+    rows, the rank's heads) to the state's block (:func:`end_state`).
+    None, None without a placement or a ``model`` axis (the rules place
+    caches on one)."""
+    pl = current_placement()
+    if pl is None or "model" not in pl.mesh.axis_names:
+        return None, None
+    mesh = pl.mesh
+    whole = rules.whole_shape(state["S"])
+    held = rules.cache_pspec((key, "S"), whole, mesh, pl.profile)
+    rows = tuple(pl.batch_axes)
+    model = "model" if heads_split else None
+    views = {(key, "n"): dict(enumerate(held[:-1])),
+             (key, "conv"): {lead: rows, lead + 2: model}}
+    comp = rules.spec_of(whole[lead:], {0: rows, 1: model}, mesh)
+    st = held[lead:]
+
+    def to_state(t):
+        return rules.relayout(t, comp[:t.ndim], st[:t.ndim], mesh)
+    return views, to_state
 
 
 def reference_scan(q, k, v, log_f, i_gate, normalize: bool = True

@@ -43,8 +43,18 @@ whole: every rank runs the whole time loop and feeds ``wo``'s row block
 its columns of ``y`` (``collectives.split_to``, whose backward gathers
 the gradient whole).  The embedding and unembedding split by vocab as
 the decoder's.  Under ``fsdp`` each layer's leaves are gathered where
-the layer runs (``mblocks`` with its two layer dims).  Serving over
-``model`` waits for ROADMAP.md Queue 1 item 4b part 3b.
+the layer runs (``mblocks`` with its two layer dims).
+
+Serving over ``model`` (``launch/steps.py``'s steps, the cache placed by
+``sharding.rules.cache_pspec``): the layers split as in training, each
+rank on its rows; the mLSTM state ``S`` stays the rank's block (of
+``dk`` under ``default``, ``fsdp`` and ``infer2d``, of the heads under
+``cache_seq``) and is read in place (``linear_scan.recurrent_step``: a
+``dk`` block's partial reads summed over the group), a prefill moving
+its new terms to that block (``linear_scan.end_state``); ``n``, the
+conv's trailing inputs and the sLSTM's states, which the rules place
+oddly, are gathered to the layout the layers compute on for the step and
+written back to their blocks (``linear_scan.serve_views``).
 """
 from __future__ import annotations
 
@@ -58,8 +68,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import torch_dtype
-from repro_torch.models.linear_scan import chunked_scan, recurrent_step
+from repro_torch.models.linear_scan import (chunked_scan, end_state,
+                                           recurrent_step, serve_views)
 from repro_torch.sharding import collectives as C
+from repro_torch.sharding import rules
+from repro_torch.sharding.context import current_placement
 from repro_torch.tree import tree_map
 
 _CHUNK = 256
@@ -194,33 +207,41 @@ def mlstm_state_init(cfg: ModelConfig, batch: int, device=None) -> Dict:
 
 def mlstm_block_step(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                      state: Dict) -> Tuple[torch.Tensor, Dict]:
-    """One decode step. x [B,1,d]."""
+    """One decode step. x [B,1,d].  Over a ``model`` axis the rank runs
+    its heads (``_mlstm_split``) and its block of the state
+    (``linear_scan.recurrent_step``: a block of the heads or of ``dk``);
+    ``state["n"]`` is split as ``S`` and ``state["conv"]`` holds the
+    rank's heads' columns (``serve_views``)."""
     di, h, dk, dv = _dims(cfg)
     b = x.shape[0]
+    hs = _mlstm_split(p, cfg)
     z, q, k, v, i_g, logf, conv_state = _mlstm_qkv(p, cfg, x,
-                                                   state["conv"])
+                                                   state["conv"], hs)
     qs, ks, vs = (a[:, :, 0].float() for a in (q, k, v))
     (s, n), y = recurrent_step((state["S"], state["n"]), qs, ks, vs,
-                               torch.exp(logf[..., 0]), i_g[..., 0])
+                               torch.exp(logf[..., 0]), i_g[..., 0],
+                               heads=(hs.lo, hs.n, h),
+                               group=C.mesh_group("model"))
     y = L.rmsnorm_apply(p["headnorm"], y.to(x.dtype)[:, :, None, :]
                         .transpose(1, 2), cfg.norm_eps)
-    y = y.reshape(b, 1, di) * L.silu(z)
-    out = x + L.dense_apply(p["wo"], y)
+    y = y.reshape(b, 1, hs.n * dv) * L.silu(z)
+    out = x + hs.out(p["wo"], y)
     return out, {"S": s, "n": n, "conv": conv_state}
 
 
 def _mlstm_final_state(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                       st: Dict) -> Dict:
+                       st: Dict, to_state=None) -> Dict:
     """The exact end-of-sequence (S, n, conv) state from the whole
-    sequence at once (no O(T^2) work)."""
-    z, q, k, v, i_g, logf, conv_state = _mlstm_qkv(p, cfg, x, st["conv"])
+    sequence at once (no O(T^2) work), of the rank's heads
+    (``_mlstm_split``) and rows; ``to_state`` moves the new terms to the
+    state's block (``linear_scan.end_state``)."""
+    z, q, k, v, i_g, logf, conv_state = _mlstm_qkv(p, cfg, x, st["conv"],
+                                                   _mlstm_split(p, cfg))
     csum = torch.cumsum(logf, dim=-1)
     decay_out = torch.exp(csum[..., -1:] - csum)
     wk = (decay_out * i_g).float()[..., None] * k.float()
     g_tot = torch.exp(csum[..., -1])
-    s = g_tot[..., None, None] * st["S"] + wk.transpose(-1, -2) @ v.float()
-    n = g_tot[..., None] * st["n"] + wk.sum(dim=2)
-    return {"S": s, "n": n, "conv": conv_state}
+    return {**end_state(st, wk, v, g_tot, to_state), "conv": conv_state}
 
 
 # ------------------------------------------------------------ sLSTM -----
@@ -379,25 +400,48 @@ def xlstm_init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def _serve_layout(cfg: ModelConfig, cache: Dict, mblocks: Dict, msh):
+    """(the cache's views, the state mover) of a serve step on the
+    current placement (``linear_scan.serve_views``): ``m.n`` split as
+    ``m.S``, ``m.conv`` the rank's rows and its heads' columns (every
+    head under ``fsdp``: ``msh``, whose layers are gathered whole), the
+    sLSTM's states its rows."""
+    even = msh is None and _mlstm_split(_at(mblocks, 0, 0), cfg).even
+    views, to_state = serve_views(cache["m"], "m", 2, even)
+    if views is not None:
+        rows = tuple(current_placement().batch_axes)
+        views.update({("s", k): {1: rows} for k in cache.get("s", {})})
+    return views, to_state
+
+
 @L.f32_sums()
 def xlstm_prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
                   cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """The full-sequence forward, writing each block's final state into
     the cache -> (last-position logits [B, V], the cache).  Each sLSTM
-    starts from a zero state, as in JAX."""
+    starts from a zero state, as in JAX.  On a serve step's placement
+    the layers run on the rank's heads and rows (under ``fsdp`` each
+    layer gathered first) and the states go to their placed blocks
+    (``_serve_layout``)."""
     x = T._embed_in(params, cfg, inputs)
     ng, mper = group_layout(cfg)
-    for gi in range(ng):
-        for j in range(mper):
-            blk = _at(params["mblocks"], gi, j)
-            st = _at(cache["m"], gi, j)
-            new = _mlstm_final_state(blk, cfg, x, st)
-            x = mlstm_block_apply(blk, cfg, x)
-            _store(st, new)
-        if "sblocks" in params:
-            x, new = slstm_block_apply(_at(params["sblocks"], gi), cfg, x)
-            _store(_at(cache["s"], gi), new)
-    return _logits(params, cfg, x[:, -1:])[:, 0], cache
+    mblocks, msh = T.fsdp_blocks(params, "mblocks", ndim=2)
+    sblocks, ssh = T.fsdp_blocks(params, "sblocks") if "sblocks" in params \
+        else (None, None)
+    views, to_state = _serve_layout(cfg, cache, mblocks, msh)
+    with rules.cache_views(cache, views, current_placement()) as view:
+        for gi in range(ng):
+            for j in range(mper):
+                blk = T.gather_layer(_at(mblocks, gi, j), msh)
+                st = _at(view["m"], gi, j)
+                new = _mlstm_final_state(blk, cfg, x, st, to_state)
+                x = mlstm_block_apply(blk, cfg, x)
+                _store(st, new)
+            if sblocks is not None:
+                x, new = slstm_block_apply(
+                    T.gather_layer(_at(sblocks, gi), ssh), cfg, x)
+                _store(_at(view["s"], gi), new)
+    return T._data_block_rows(_logits(params, cfg, x[:, -1:])[:, 0]), cache
 
 
 @L.f32_sums()
@@ -408,17 +452,23 @@ def xlstm_decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
     inp = token[:, None] if token.ndim == 1 else token[:, None, :]
     x = T._embed_in(params, cfg, inp)
     ng, mper = group_layout(cfg)
-    for gi in range(ng):
-        for j in range(mper):
-            st = _at(cache["m"], gi, j)
-            x, new = mlstm_block_step(_at(params["mblocks"], gi, j), cfg, x,
-                                      st)
-            _store(st, new)
-        if "sblocks" in params:
-            sp, st = _at(params["sblocks"], gi), _at(cache["s"], gi)
-            hn = L.rmsnorm_apply(sp["ln"], x, cfg.norm_eps)
-            xproj = L.dense_apply(sp["wx"], hn)[:, 0]
-            new, hh = _slstm_cell(sp, cfg, xproj, st)
-            x = x + _slstm_out(sp["wo"], cfg, hh.to(x.dtype))[:, None]
-            _store(st, new)
+    mblocks, msh = T.fsdp_blocks(params, "mblocks", ndim=2)
+    sblocks, ssh = T.fsdp_blocks(params, "sblocks") if "sblocks" in params \
+        else (None, None)
+    views, _ = _serve_layout(cfg, cache, mblocks, msh)
+    with rules.cache_views(cache, views, current_placement()) as view:
+        for gi in range(ng):
+            for j in range(mper):
+                st = _at(view["m"], gi, j)
+                x, new = mlstm_block_step(
+                    T.gather_layer(_at(mblocks, gi, j), msh), cfg, x, st)
+                _store(st, new)
+            if sblocks is not None:
+                sp = T.gather_layer(_at(sblocks, gi), ssh)
+                st = _at(view["s"], gi)
+                hn = L.rmsnorm_apply(sp["ln"], x, cfg.norm_eps)
+                xproj = L.dense_apply(sp["wx"], hn)[:, 0]
+                new, hh = _slstm_cell(sp, cfg, xproj, st)
+                x = x + _slstm_out(sp["wo"], cfg, hh.to(x.dtype))[:, None]
+                _store(st, new)
     return _logits(params, cfg, x)[:, 0], cache

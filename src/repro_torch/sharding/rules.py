@@ -32,10 +32,16 @@ shardings to the model code (``sharding.context.use_placement``), which
 computes on local blocks with the collectives of
 ``sharding.collectives``.  A real tensor on an abstract mesh has no
 process to hold a block: :func:`constrain_batch` and :func:`place`
-raise ``ValueError`` there.
+raise ``ValueError`` there.  :func:`relayout` moves a block from one
+spec to another (an all-to-all where an axis changes dims), and
+:func:`cache_views` gives a serve step's cache leaves the layouts its
+layers compute on where the rules place them otherwise (xLSTM's and
+Hymba's recurrent states); :func:`check_placed` refuses a cache leaf
+that is not its placed block.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Tuple
@@ -340,6 +346,119 @@ def gather(tree: Any, shardings: Any) -> Any:
     return tree_map(unshard, tree, shardings)
 
 
+def spec_of(shape, assign: Dict[int, Any], mesh) -> P:
+    """The spec of a ``shape`` tensor that splits each dim of ``assign``
+    (``{dim: axis or tuple}``) over its axes, a dim that does not divide
+    left whole, as :func:`cache_pspec` builds its specs."""
+    return _spec(len(shape), assign, tuple(shape), mesh)
+
+
+def _axes(mesh, entry) -> list:
+    """A spec entry as its axes of more than one device, major first."""
+    axes = () if entry is None else (entry,) if isinstance(entry, str) \
+        else tuple(entry)
+    return [a for a in axes if mesh.shape[a] > 1]
+
+
+def relayout(x: torch.Tensor, src: P, dst: P, mesh) -> torch.Tensor:
+    """``x``, this rank's block of a whole tensor under spec ``src``, as
+    its block under ``dst`` (no gradient; serving).  Per mesh axis: an
+    axis that leaves one dim for another moves by one all-to-all
+    (``collectives.all_to_all``: each byte crosses once), one that only
+    leaves is all-gathered, one that only arrives is a slice.  A dim's
+    axes leave minor first and arrive major first (its blocks run
+    row-major over a tuple of axes); an axis whose new dim still waits
+    for another axis is gathered, then sliced.  ``x`` itself where the
+    two specs agree; every rank of the mesh calls it alike."""
+    s = [_axes(mesh, src[d] if d < len(src) else None)
+         for d in range(x.ndim)]
+    t = [_axes(mesh, dst[d] if d < len(dst) else None)
+         for d in range(x.ndim)]
+    if s == t:
+        return x
+    for a in {a for ax in s + t for a in ax}:
+        _need_group(mesh, a, "relayout")
+    leaving = [d for d in range(x.ndim) if s[d] != t[d][:len(s[d])]]
+    for d in leaving:
+        while s[d] != t[d][:len(s[d])]:
+            a = s[d].pop()
+            group = process_group(mesh, a)
+            to = [j for j in range(x.ndim) if j not in leaving and
+                  len(t[j]) > len(s[j]) and t[j][len(s[j])] == a]
+            if to:
+                x = C.all_to_all(x, to[0], d, group)
+                s[to[0]].append(a)
+            else:
+                x = C.gather(x, d, group)
+    whole = x
+    for d in range(x.ndim):
+        for a in t[d][len(s[d]):]:
+            size = x.shape[d] // mesh.shape[a]
+            x = x.narrow(d, mesh.coordinate(a) * size, size)
+    # a block of its own, never a view of the caller's tensor
+    return x.contiguous() if x is whole else \
+        x.clone(memory_format=torch.contiguous_format)
+
+
+def held_like(x: torch.Tensor, whole) -> torch.Tensor:
+    """``x`` tagged as a block of a ``whole``-shaped tensor (as
+    :func:`place` tags its blocks, :func:`whole_shape`) where it is one:
+    a serve step's cache leaf made anew in its placed layout."""
+    if tuple(x.shape) != tuple(whole):
+        x.whole_shape = tuple(whole)
+    return x
+
+
+@contextlib.contextmanager
+def cache_views(cache: Any, views: Dict[Tuple[str, ...], Dict[int, Any]],
+                placement: "Placement"):
+    """A serve step's cache as its layers compute on it: each leaf whose
+    path ``views`` names (a tuple of keys) relayouted (:func:`relayout`)
+    from its held block (:func:`cache_pspec` of its whole shape under
+    ``placement.profile``) to the spec ``views`` assigns it
+    (:func:`spec_of`); every other leaf is its held block itself.  When
+    the block ends, each relayouted leaf is moved back into its held
+    block in place.  ``cache`` itself without a placement."""
+    if placement is None or not views:
+        yield cache
+        return
+    mesh, moved = placement.mesh, []
+
+    def one(path, leaf):
+        assign = views.get(tuple(map(str, path)))
+        if assign is None:
+            return leaf
+        whole = whole_shape(leaf)
+        held = cache_pspec(path, whole, mesh, placement.profile)
+        spec = spec_of(whole, assign, mesh)
+        view = relayout(leaf, held, spec, mesh)
+        if view is not leaf:
+            moved.append((leaf, view, spec, held))
+        return view
+    yield tree_map_with_path(one, cache)
+    for leaf, view, spec, held in moved:
+        leaf.copy_(relayout(view, spec, held, mesh))
+
+
+def check_placed(tree: Any, mesh, profile: str) -> None:
+    """``ValueError`` unless every leaf of ``tree`` (a cache) is the
+    block :func:`cache_pspec` gives this rank of the whole tensor it
+    remembers (:func:`whole_shape`): a leaf made another way reads as
+    whole, and one whose rules split it is refused."""
+    def one(path, leaf):
+        whole = whole_shape(leaf)
+        block = NamedSharding(mesh, cache_pspec(path, whole, mesh, profile)
+                              ).shard_shape(whole)
+        if block != tuple(leaf.shape):
+            raise ValueError(
+                f"cache leaf {'/'.join(map(str, path))} {tuple(leaf.shape)} "
+                f"is not its block {block} under {profile!r} on {mesh.shape}"
+                f"; place it with rules.place(cache, rules.cache_shardings("
+                f"cache, mesh, {profile!r}))")
+        return leaf
+    tree_map_with_path(one, tree)
+
+
 def gather_shards(x: torch.Tensor, sharding: NamedSharding
                   ) -> torch.Tensor:
     """An ``fsdp`` block gathered whole where a layer uses it; its
@@ -355,9 +474,9 @@ class Placement:
     applied to the parameter (``params``) and optimizer (``opt``) trees
     of the whole model, as trees of :class:`NamedSharding`; None where
     every leaf stays whole (a mesh without ``model``).  A serve step
-    adds ``rows`` (:attr:`batch_axes`) and ``cache_len``: the whole
-    sequence length of a KV cache whose blocks split it over ``model``
-    (``cache_seq``; 0 where each rank holds every position)."""
+    adds ``rows`` (:attr:`batch_axes`) and ``cache_len``: the whole slot
+    count of a self-attention cache whose blocks split its slots over
+    ``model`` (``cache_seq``; 0 where each rank holds every slot)."""
     mesh: Any
     profile: str = "default"
     params: Any = None

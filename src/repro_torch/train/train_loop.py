@@ -29,9 +29,8 @@ under ``init_distributed``):
   rank already.  The clip's norm sums a split leaf over its ranks and
   counts a whole one once (``optimizer.global_norm``).  Checkpoints stay
   in JAX's format: gathered to whole leaves on save, placed again on
-  restore.  Every family trains over ``model``; the serve steps of
-  xLSTM, Hymba and Whisper raise there (their recurrent states' split,
-  ROADMAP.md Queue 1 item 4b part 3b: ``launch/steps.py``).  Under
+  restore.  Every family trains and serves over ``model``
+  (``launch/steps.py``).  Under
   ``seq_parallel`` a whole leaf that each rank reads on its sequence
   block only (the norm gains) takes its gradient summed over the
   ``model`` group inside the backward (``layers.whole_grad``), before
@@ -142,34 +141,10 @@ def _metrics_mean(metrics, mesh, placement=None):
     return {k: vals[i].to(metrics[k].dtype) for i, k in enumerate(keys)}
 
 
-#: The families whose serve steps split over a ``model`` axis of
-#: processes.
-SPLIT_FAMILIES = ("dense", "moe", "vlm")
-
-
 def _profile(api, profile=None) -> str:
     cfg = getattr(api, "cfg", None)
     return profile or (cfg.sharding_profile if cfg is not None
                        else "default")
-
-
-def refuse_model_split(api, mesh, profile=None) -> None:
-    """A serve step of xLSTM, Hymba or Whisper raises where a profile
-    would split it over a ``model`` axis of several processes (they
-    train over one)."""
-    cfg = getattr(api, "cfg", None)
-    if cfg is None or cfg.family in SPLIT_FAMILIES or \
-            getattr(mesh, "device_mesh", None) is None or \
-            mesh.shape.get("model", 1) == 1 or \
-            _profile(api, profile) == "replicated":
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: serving the {cfg.family} family over a 'model' axis "
-        f"of {mesh.shape['model']} processes (profile "
-        f"{_profile(api, profile)!r}) waits for Queue 1 item 4b part 3b "
-        f"(its recurrent states and caches split over 'model') in "
-        f"ROADMAP.md; it trains over one, and profile 'replicated' or a "
-        f"mesh without 'model' serves it")
 
 
 def refuse_coupled_batches(api, mesh, profile=None) -> None:
@@ -195,12 +170,14 @@ def refuse_coupled_batches(api, mesh, profile=None) -> None:
             f"moe_apply_local)")
 
 
-def placement(api, mesh, profile=None, init_opt=None, quantized=False):
+def placement(api, mesh, profile=None, init_opt=None,
+              quantized=frozenset()):
     """The :class:`sharding.rules.Placement` of a step of ``api`` on
     ``mesh`` under ``profile`` (``api.cfg.sharding_profile`` by default):
     None without a process group; on a mesh with a ``model`` axis, the
     rules' shardings of the whole parameter tree (its int8 export,
-    ``core.quant.quantize_tree``, where ``quantized``) and of
+    ``core.quant.quantize_tree``, of the weights whose paths
+    ``quantized`` holds; ``launch.steps._quantized``) and of
     ``init_opt``'s state, built from shapes on fake tensors (no
     allocation)."""
     if getattr(mesh, "device_mesh", None) is None:
@@ -213,7 +190,9 @@ def placement(api, mesh, profile=None, init_opt=None, quantized=False):
         shapes = api.init(torch.Generator(), device="meta")
         if quantized:
             from repro_torch.core.quant import quantize_tree
-            shapes = quantize_tree(shapes, api.cfg.quant)
+            shapes = quantize_tree(
+                shapes, api.cfg.quant,
+                lambda path, _: tuple(map(str, path)) in quantized)
         opt = init_opt(shapes) if init_opt is not None else None
     return rules.Placement(
         mesh, profile, rules.params_shardings(shapes, mesh, profile),

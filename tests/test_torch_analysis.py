@@ -29,6 +29,7 @@ import warnings
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from repro.analysis import AnalysisWarning as JaxAnalysisWarning
 from repro.analysis import CODES as JAX_CODES

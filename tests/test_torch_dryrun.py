@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro import report as jreport

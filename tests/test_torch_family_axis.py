@@ -24,8 +24,10 @@ and the batch splits over every axis.
 * Each rank's leaves have the rules' block shapes, its parameter bytes
   are ``rules.shard_bytes``'s, and the leaves every rank holds whole are
   the same bits on every rank after an AdamW step.
-* A serve step of each over ``model`` still raises
-  ``NotImplementedError`` (ROADMAP.md Queue 1 item 4b part 3b).
+* A prefill step of each over ``model`` on (2, 2), from the placed
+  weights and cache, returns each rank's rows of one process's logits
+  (their parity with JAX's sharded serve steps is
+  ``tests/test_torch_family_serve_axis.py``'s).
 
 Ranks: four gloo processes on the CPU, spawned once, this file run as a
 script (no JAX import), meeting through a ``FileStore``.  JAX runs once,
@@ -43,6 +45,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import TrainConfig
@@ -137,19 +140,23 @@ def _train_case(inp, mesh, arch, profile):
                       _nbytes(params))}
 
 
-def _serve_refusal(inp, mesh, arch):
+def _serve_run(inp, mesh, arch):
+    """A prefill of the first 4 tokens on this rank's blocks of the
+    weights and the cache (its data block's rows), and the same prefill
+    on one process."""
     api = get_model(_cfg(arch))
     params = from_numpy_tree(inp["params"][arch])
     local = rules.place(params, rules.params_shardings(params, mesh))
     batch = {k: v[:, :4] if k == "tokens" else v
              for k, v in _batch(inp, arch).items() if k != "labels"}
-    cache = api.init_cache(GB, T, device="cpu")
-    try:
-        with use_mesh(mesh):
-            tsteps.build_prefill_step(api)(local, batch, cache)
-    except NotImplementedError as e:
-        return str(e)
-    return None
+    whole = api.init_cache(GB, T, device="cpu")
+    want, _ = api.prefill(params, batch, api.init_cache(GB, T, device="cpu"))
+    cache = rules.place(whole, rules.cache_shardings(whole, mesh))
+    with use_mesh(mesh):
+        got, _ = tsteps.build_prefill_step(api)(local, batch, cache)
+    rows = got.shape[0]
+    d = rules.block_index(mesh, "data")
+    return got, want[d * rows:(d + 1) * rows]
 
 
 def _rank_main(work: pathlib.Path) -> None:
@@ -161,7 +168,7 @@ def _rank_main(work: pathlib.Path) -> None:
     out = {"rank": torch.distributed.get_rank()}
     for key, (arch, profile, m, _) in CASES.items():
         out[key] = _train_case(inp, meshes[m], arch, profile)
-    out["serve"] = {a: _serve_refusal(inp, meshes["m22"], a) for a in ARCHS}
+    out["serve"] = {a: _serve_run(inp, meshes["m22"], a) for a in ARCHS}
     torch.save(out, work / f"rank{out['rank']}.pt")
     torch.distributed.destroy_process_group()
 
@@ -346,13 +353,13 @@ def test_each_rank_holds_the_rules_blocks(runs, key):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_serving_over_model_still_raises(runs, arch):
-    """A prefill step of each family over (2, 2) raises
-    ``NotImplementedError`` naming Queue 1 item 4b part 3b: its
-    recurrent states' split is not ported yet."""
+def test_serving_over_model_runs(runs, arch):
+    """A prefill step of each family over (2, 2) from the placed weights
+    and cache: each rank's logits, its data block's rows, within rtol
+    1e-5 and atol 1e-5 of max|logit| of one process's prefill."""
     for r in runs["ranks"]:
-        msg = r["serve"][arch]
-        assert msg is not None and "Queue 1 item 4b part 3b" in msg, msg
+        got, want = r["serve"][arch]
+        _close(got.numpy(), want.numpy(), f"{arch} prefill rank {r['rank']}")
 
 
 if __name__ == "__main__":

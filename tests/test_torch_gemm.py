@@ -28,6 +28,7 @@ import re
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from repro_torch.api.build import build
 from repro_torch.api.spec import elite_spec, lite_spec, m2_spec

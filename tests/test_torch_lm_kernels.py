@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas

@@ -50,6 +50,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from repro.configs import get_smoke_config as jax_smoke
 from repro.configs.base import TrainConfig as JaxTrainConfig

@@ -28,6 +28,10 @@ import numpy as np
 import pytest
 import torch
 
+# by path: the import check below runs this file with src/ alone on the path
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
+
 from repro_torch.core import knn as tknn
 from repro_torch.core.knn import knn_select
 from repro_torch.kernels import _build, ref

@@ -49,8 +49,9 @@ package's Adam direction), as ``tests/test_torch_dp_train.py`` does.
   jitted forward and gradients under ``params_shardings``.
 * (vi) the refusals that stay, on real process meshes (the serve
   profiles ``infer2d``, ``cache_seq`` and ``fsdp`` over ``model`` are
-  ``tests/test_torch_serve_axis.py``'s), and ``seq_parallel``'s forward
-  there, bitwise ``default``'s.
+  ``tests/test_torch_serve_axis.py``'s, the xLSTM, Hymba and Whisper serve
+  steps ``tests/test_torch_family_serve_axis.py``'s), and
+  ``seq_parallel``'s forward there, bitwise ``default``'s.
 * (vii) ``launch.train --profile fsdp`` under ``torch.distributed.run
   --nproc-per-node 2 --device cpu`` resumes bitwise; ``--production-mesh``
   with 2 ranks raises.
@@ -65,6 +66,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import TrainConfig
@@ -842,22 +844,28 @@ def test_moe_expert_parallel_matches_jax(runs):
             _close(grads[p], w, f"moe_ep grad {p}")
 
 
+# what: (the error's kind, what it cites), or None where it serves now
 REFUSED = {"moe_global": ("NotImplementedError", "Queue 3"),
-           "xlstm": ("NotImplementedError", "Queue 1 item 4"),
-           "rolling_cache_seq": ("NotImplementedError", "Queue 1 item 4")}
+           "xlstm": ("ValueError", "rules.place"),
+           "rolling_cache_seq": None}
 
 
 @pytest.mark.parametrize("what", list(REFUSED))
 def test_refusals_that_stay(runs, what):
     """(vi) on a real (data=2, model=2) mesh: the global MoE route over
-    two data ranks, an xLSTM serve step split over ``model`` (it trains
-    over one since: ``tests/test_torch_family_axis.py``), and a rolling
-    (sliding-window) cache split by position under ``cache_seq``
-    (``infer2d``, ``cache_seq`` and ``fsdp`` serve steps run since:
-    ``tests/test_torch_serve_axis.py``)."""
-    kind, cite = REFUSED[what]
+    two data ranks raises; an xLSTM serve step split over ``model`` with a
+    cache made whole by hand (not placed by ``rules.place``, whose rules
+    split its state) raises ``ValueError`` naming ``rules.place`` (the
+    step itself serves: ``tests/test_torch_family_serve_axis.py``); and a
+    rolling (sliding-window) cache split by position under ``cache_seq``,
+    which raised before, serves (``infer2d``, ``cache_seq`` and ``fsdp``
+    serve steps: ``tests/test_torch_serve_axis.py``)."""
     for out in runs["four"]:
         msg = out["refusals"][what]
+        if REFUSED[what] is None:
+            assert msg is None, (what, msg)
+            continue
+        kind, cite = REFUSED[what]
         assert msg is not None and msg.startswith(kind) and cite in msg, \
             (what, msg)
 

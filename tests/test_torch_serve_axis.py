@@ -53,6 +53,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import TrainConfig
@@ -142,7 +143,8 @@ def _serve_case(inp, mesh, arch, profile, prompt, max_len):
     and the parameter bytes against ``shard_bytes``."""
     api = get_model(_cfg(arch, profile))
     params = from_numpy_tree(inp["params"][arch])
-    pl = tloop.placement(api, mesh, profile, quantized=arch == "w8")
+    pl = tloop.placement(api, mesh, profile,
+                         quantized=tsteps._quantized(params))
     local = rules.place(params, pl.params)
     seq = inp["toks"][arch]
     cache = api.init_cache(B, max_len, device="cpu")

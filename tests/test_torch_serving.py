@@ -23,6 +23,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "serving"))
 from harness import (TINY, Arrival, VirtualClock,  # noqa: E402

@@ -17,6 +17,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 from jax.sharding import AbstractMesh
 from jax.sharding import NamedSharding as JaxNamedSharding
 

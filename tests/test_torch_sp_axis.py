@@ -46,6 +46,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import TrainConfig

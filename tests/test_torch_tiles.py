@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from repro.api.build import build as jax_build
 from repro.api.spec import elite_spec as jax_elite_spec

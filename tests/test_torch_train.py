@@ -67,6 +67,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from benchmarks._pointmlp_train import _merge_bn as jax_merge_bn
 from repro.configs.base import TrainConfig as JaxTrainConfig

@@ -29,6 +29,7 @@ import random
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from repro import roofline as jroof
 from repro.api import plan as jplan
