@@ -3282,8 +3282,10 @@ def dryrun_card_phase(torch, np, smi):
 def dryrun_cli_phase(smi):
     """``python -m repro_torch.launch.dryrun --fast`` over every arch and
     shape on both production meshes (in process, its lines to a log),
-    then tinyllama train_4k on the single pod at full cost, and
-    ``repro_torch.report``'s tables from those records."""
+    then tinyllama train_4k and moonshot's decode_32k under ``moe_local``
+    on the single pod at full cost, each with its collective term (rank
+    0's count), and ``repro_torch.report``'s tables from those
+    records."""
     import contextlib
     import io
 
@@ -3317,8 +3319,23 @@ def dryrun_cli_phase(smi):
     t1 = time.perf_counter()
     full = D.run_cell(LM_ARCH, "train_4k", "pod", out_dir=str(out))
     t_full = time.perf_counter() - t1
-    check(full["status"] == "ok" and full["roofline"]["t_compute"] > 0,
-          "dryrun_cli: the full-cost cell has no roofline")
+    check(full["status"] == "ok" and full["roofline"]["t_compute"] > 0
+          and full["roofline"]["t_collective"] > 0,
+          "dryrun_cli: the full-cost cell has no roofline or no collective "
+          "term")
+    # moonshot's moe_local decode cell: the whole view counted, and rank
+    # 0's per-rank dispatch for the collective term
+    t2 = time.perf_counter()
+    moe = D.run_cell(MOE_ARCH, "decode_32k", "pod", out_dir=str(out),
+                     variant="moe_local")
+    t_moe = time.perf_counter() - t2
+    mrl = moe["roofline"]
+    check(moe["status"] == "ok" and mrl["t_collective"] is not None and
+          mrl["t_collective"] > 0 and mrl["coll_by_type"] and
+          set(mrl["coll_by_type"]) <= {"all-reduce", "all-gather",
+                                       "all-to-all"},
+          f"dryrun_cli: {MOE_ARCH} decode_32k moe_local has no collective "
+          f"term: {mrl}")
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
         report.main(["--dir", str(out)])
@@ -3334,7 +3351,14 @@ def dryrun_cli_phase(smi):
           "full_step_seconds": full["compile_s"],
           "bytes_per_device": full["bytes_per_device"],
           "roofline": {k: full["roofline"][k] for k in (
-              "t_compute", "t_memory", "t_collective", "bottleneck")},
+              "t_compute", "t_memory", "t_collective", "bottleneck",
+              "coll_by_type")},
+          "rank_cost": full["rank_cost"],
+          "moe_local_cell": f"{MOE_ARCH} decode_32k pod moe_local",
+          "moe_local_cell_seconds": t_moe,
+          "moe_local_roofline": {k: mrl[k] for k in (
+              "t_compute", "t_memory", "t_collective", "bottleneck",
+              "coll_by_type")},
           "useful_flops_ratio": full["useful_flops_ratio"],
           "roofline_fraction": full["roofline_fraction"],
           "deferred_without_slow_cells": [
@@ -5950,49 +5974,38 @@ def ma_serve_tol(cfg):
 
 
 class TimedCollectives:
-    """Wraps ``sharding.collectives``' all-reduce (``all_reduce_``, which
-    every sum of the model, the gradient and metric means and the clip's
-    norm go through), all-gather and all-to-all: each call synchronized
-    and timed on the host clock (gloo stages CUDA tensors through the
-    host), the bytes it hands back counted."""
+    """``sharding.collectives.record``'s log of the collectives issued
+    inside the block, the card synchronized around each call (gloo
+    stages CUDA tensors through the host): :meth:`record` gives each
+    kind's calls, host ms and bytes (JAX's convention: an all-reduce's
+    or all-to-all's operand, an all-gather's result); ``log`` holds the
+    ``Collective``s, which :func:`ma_counted`'s counting runs are held
+    to."""
 
     def __init__(self, torch):
         from repro_torch.sharding import collectives as C
-        self.torch, self.C = torch, C
-        self.orig = {"all_reduce": C.all_reduce_, "all_gather": C._gather,
-                     "all_to_all": C._all_to_all}
-        self.ms = {k: 0.0 for k in self.orig}
-        self.calls = {k: 0 for k in self.orig}
-        self.nbytes = {k: 0 for k in self.orig}
-
-    def _wrap(self, kind):
-        fn = self.orig[kind]
-
-        def timed(x, *rest):
-            self.torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(x, *rest)
-            self.torch.cuda.synchronize()
-            self.ms[kind] += (time.perf_counter() - t0) * 1e3
-            self.calls[kind] += 1
-            self.nbytes[kind] += out.numel() * out.element_size()
-            return out
-        return timed
+        self._ctx = C.record(sync=torch.cuda.synchronize)
+        self.log = []
 
     def __enter__(self):
-        self.C.all_reduce_ = self._wrap("all_reduce")
-        self.C._gather = self._wrap("all_gather")
-        self.C._all_to_all = self._wrap("all_to_all")
+        self.log = self._ctx.__enter__()
         return self
 
     def __exit__(self, *exc):
-        self.C.all_reduce_ = self.orig["all_reduce"]
-        self.C._gather = self.orig["all_gather"]
-        self.C._all_to_all = self.orig["all_to_all"]
-        return False
+        return self._ctx.__exit__(*exc)
 
     def record(self):
-        return {"ms": self.ms, "calls": self.calls, "bytes": self.nbytes}
+        return by_kind(self.log)
+
+
+def by_kind(log):
+    """A collective log's calls, host ms and bytes by op."""
+    out = {"ms": {}, "calls": {}, "bytes": {}}
+    for c in log:
+        out["ms"][c.op] = out["ms"].get(c.op, 0.0) + c.seconds * 1e3
+        out["calls"][c.op] = out["calls"].get(c.op, 0) + 1
+        out["bytes"][c.op] = out["bytes"].get(c.op, 0) + c.bytes
+    return out
 
 
 def excess_frac(torch, got, want, rtol: float):
@@ -6271,6 +6284,63 @@ def get_config_cf(arch: str) -> float:
     return get_config(arch).capacity_factor
 
 
+def ma_counted(torch):
+    """What each rank of MA_AXES sends in (a)'s ``default`` step, (c)'s
+    ``moe_local`` forward and (d)'s ``cache_seq`` decode step, counted as
+    the dry-run counts it: rank 0's program on fake tensors on the
+    counting mesh (``launch.mesh.counting_mesh``: no process group, no
+    card) under ``collectives.record``.  Returns ({case: its log of
+    ``Collective``s}, the seconds it took)."""
+    from repro_torch.launch.mesh import Mesh, counting_mesh
+    from repro_torch.launch.steps import build_decode_step, fake_mode
+    from repro_torch.models.api import get_model
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.context import use_mesh
+    from repro_torch.train import train_loop as loop
+
+    t0 = time.perf_counter()
+    mesh = counting_mesh(Mesh(*zip(*MA_AXES)))
+    cfgs = ma_configs()
+    b, t = MA_CUT["batch"], MA_CUT["seq"]
+    out = {}
+
+    def meta(shape):
+        return torch.empty(shape, dtype=torch.int64, device="meta")
+    with fake_mode():
+        api = get_model(cfgs["a"])
+        step, init_opt = loop.build_accumulating_step(
+            api, ma_train_config(), mesh, "default")
+        local = rules.place(api.init(torch.Generator(), device="meta"),
+                            step.placement(mesh).params)
+        opt = init_opt(local)
+        with C.record() as log:
+            step(local, opt, {"tokens": meta((b, t)),
+                              "labels": meta((b, t))}, 1)
+        out["a"] = log
+        api = get_model(cfgs["c"])
+        params = api.init(torch.Generator(), device="meta")
+        local = rules.place(params, rules.params_shardings(params, mesh,
+                                                           "moe_local"))
+        with use_mesh(mesh), torch.no_grad(), C.record() as log:
+            api.forward(local, meta((MA_CUT["moe_batch"],
+                                     MA_CUT["moe_seq"])))
+        out["c"] = log
+        api = get_model(cfgs["b"].replace(sharding_profile="cache_seq"))
+        params = api.init(torch.Generator(), device="meta")
+        local = rules.place(params, loop.placement(api, mesh,
+                                                   "cache_seq").params)
+        cache = api.init_cache(b, MA_SERVE["max_len"], device="meta")
+        cache = rules.place(cache, rules.cache_shardings(cache, mesh,
+                                                         "cache_seq"))
+        pos = MA_SERVE["prompt"] + MA_DECODE
+        with use_mesh(mesh), torch.no_grad(), C.record() as log:
+            build_decode_step(api)(local, {"token": meta((b,)), "pos": pos},
+                                   cache)
+        out["d"] = log
+    return out, time.perf_counter() - t0
+
+
 def model_axis_rank(rank: int, work: str, seed: int) -> None:
     """One rank of the phase on ``cuda:0``: (a), (b), (c) on its blocks,
     each held against the reference on the card; writes what the parent
@@ -6353,6 +6423,7 @@ def model_axis_rank(rank: int, work: str, seed: int) -> None:
         torch.cuda.synchronize()
         rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
         rec["collectives"] = tc.record()
+        rec["collective_log"] = list(tc.log)
         rec["opt_bytes"] = nbytes(o1)
         rec["opt_bytes_shard"] = rules.shard_bytes(init_opt(meta), pl.opt)
         rec["loss"] = [float(m1["loss"]), float(m2["loss"])]
@@ -6520,6 +6591,7 @@ def model_axis_rank(rank: int, work: str, seed: int) -> None:
                 rec["decode_step_ms_collectives_timed"] = (
                     time.perf_counter() - t0) * 1e3
             rec["decode_collectives"] = tc.record()
+            rec["decode_collective_log"] = list(tc.log)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             decode(local, {"token": inp["ids"][:, pos + 1], "pos": pos + 1},
@@ -6561,8 +6633,12 @@ def model_axis_rank(rank: int, work: str, seed: int) -> None:
         rec["launches"] = launches
         rec["forward_err"], rec["forward_scale"] = rel_err(logits,
                                                            ref["logits"])
-        # without the replay: the share of the reference's choices made
-        _, tap = route_tap(lambda: api.forward(local, inp["moe_ids"]))
+        # without the replay: the share of the reference's choices made,
+        # the forward's collectives logged
+        with TimedCollectives(torch) as tc:
+            _, tap = route_tap(lambda: api.forward(local, inp["moe_ids"]))
+        rec["collectives"] = tc.record()
+        rec["collective_log"] = list(tc.log)
         rec["forward_routing_share"] = [
             float((a[:, :, None] == b[:, None, :]).any(-1).float().mean())
             for a, b in zip(ref["routing"], tap["top_e"])]
@@ -6792,8 +6868,9 @@ def model_axis_phases(torch, np, smi):
         ref = model_axis_reference(torch, np, work, seed)
         torch.cuda.empty_cache()
         t_ref = time.perf_counter() - t0
-        ranks, _ = run_ranks(torch, model_axis_rank, 2, work, seed,
-                             "model_axis")
+        ranks, (counted, t_counted) = run_ranks(
+            torch, model_axis_rank, 2, work, seed, "model_axis",
+            during=lambda: ma_counted(torch))
         ref_c = torch.load(f"{work}/ref_c.pt", map_location="cpu")
     launches = {k: 0 for k in counters()}
     for r, out in enumerate(ranks):
@@ -6959,6 +7036,18 @@ def model_axis_phases(torch, np, smi):
               all(torch.equal(w0[k], w1[k]) for k in w0),
               f"model_axis (i) {arch}: the leaves both ranks hold differ "
               f"after a step")
+    sent = {"a": [out["a"]["default"]["collective_log"] for out in ranks],
+            "c": [out["c"]["collective_log"] for out in ranks],
+            "d": [out["d"]["decode_collective_log"] for out in ranks]}
+    for case, logs in sent.items():
+        want = by_kind(counted[case])["bytes"]
+        for r, got in enumerate(logs):
+            # Collective's equality: op, bytes, dtype and group size
+            check(got == counted[case] and by_kind(got)["bytes"] == want,
+                  f"model_axis ({case}): rank {r} sent "
+                  f"{by_kind(got)['bytes']} in {len(got)} collectives; the "
+                  f"counting run on fake tensors counts {want} in "
+                  f"{len(counted[case])}")
     local_drops = [sum(x) for x in zip(*(out["c"]["dropped_local"]
                                          for out in ranks))]
     emit({"phase": "model_axis", "mesh": dict(MA_AXES), "backend": "gloo",
@@ -7002,7 +7091,7 @@ def model_axis_phases(torch, np, smi):
                     "experts_held", "layer_routing_bitwise",
                     "layer_aux_bitwise", "layer_err", "layer_scale",
                     "forward_err", "forward_scale",
-                    "forward_routing_share")},
+                    "forward_routing_share", "collectives")},
                 "dropped_per_layer_at_cf": get_config_cf(MOE_ARCH),
                 "dropped_local": local_drops,
                 "dropped_global": ref_c["dropped_global"],
@@ -7020,7 +7109,8 @@ def model_axis_phases(torch, np, smi):
                         "decode_step_ms_collectives_timed",
                         "decode_collectives")},
                     "note": "decode_collectives: one decode step's calls and "
-                            "the bytes each kind hands back on the rank; "
+                            "bytes by kind on the rank (an all-reduce's or "
+                            "all-to-all's operand, an all-gather's result); "
                             "gloo stages CUDA tensors through the host, so "
                             "the ms are no multi-card rate",
                     "tolerance": f"{MA_LOGIT_TOL} of max|x|, logits and "
@@ -7104,9 +7194,19 @@ def model_axis_phases(torch, np, smi):
                          f"max|x|, every step's logits and each leaf of "
                          f"the gathered cache, against one process's plain "
                          f"attention route",
-          "note": "collectives: calls, ms and the bytes each kind hands "
-                  "back on the rank over one step; gloo stages CUDA tensors "
+          "note": "collectives: calls, ms and bytes by kind on the rank "
+                  "over one step (an all-reduce's or all-to-all's operand, "
+                  "an all-gather's result); gloo stages CUDA tensors "
                   "through the host, so the ms are no multi-card rate",
+          "counted": {
+              "note": "rank 0's program on fake tensors on the counting "
+                      "mesh (the dry-run's count), against what each "
+                      "rank sent: (a) default step, (c) moe_local "
+                      "forward, (d) cache_seq decode step, equal entry "
+                      "by entry",
+              **{case: {k: v for k, v in by_kind(log).items() if k != "ms"}
+                 for case, log in counted.items()},
+              "seconds": t_counted},
           "reference_s": t_ref, "launches": launches,
           "seconds": time.perf_counter() - t0, "card": smi})
     return launches

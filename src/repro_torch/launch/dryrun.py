@@ -38,12 +38,30 @@ on the ``meta`` device: nothing is allocated; ``launch.steps`` says why
 
 FLOPs, HBM bytes and temp bytes are global counts divided by the device
 count: they assume an ideal partition, each device doing 1/n of the
-work.  Collectives are not modelled: ``roofline.t_collective`` is None
-and ``bottleneck`` ranges over compute and memory; the collective term
-(from the placements ``sharding.rules`` gives a process-group mesh)
-waits for ROADMAP.md Queue 1 item 4.  The fake program does not depend on
-which production mesh is current (a constraint on a fake tensor is the
-identity), so both meshes of a cell share one count in a process.
+work.  The fake program does not depend on which production mesh is
+current (a constraint on a fake tensor is the identity on an abstract
+mesh), so both meshes of a cell share one count in a process.
+
+The collective term comes from a second run of the step (:func:`
+rank_step_cost`): rank 0's own program, on the cell's counting mesh
+(``launch.mesh.make_production_mesh(counting=True)``: the abstract mesh
+acting as rank 0 of a process group), on fake tensors cut to rank 0's
+blocks by the profile's rules (``rules.place``), under
+``sharding.collectives.record``.  It is the program a rank of a
+process-group mesh runs (``train_loop.placement``,
+``launch.steps.serve_placement``, every collective of the models, the
+backward's and the data group's gradient mean), so its log is what each
+rank sends: the programs are SPMD, so rank 0 stands for every rank.
+``roofline.Roofline.from_log`` prices it (JAX's ring model; a group
+within one node of 8 GPUs at NVLink's rate, any other at the network's:
+every group of both production meshes spans nodes).  The record keeps
+rank 0's own FLOPs and op bytes from that run as ``rank_cost``, beside
+the ideal partition's.  This run differs by mesh (the data group has 16
+or 32 ranks), so it is counted once a mesh.  A step whose per-rank
+program raises the global MoE route's refusal over a split batch
+(ROADMAP.md Queue 3: the MoE archs under ``default`` and ``fsdp``) gets
+``"collectives": null``, the refusal as ``collective_reason``, and a
+roofline of compute and memory only.
 
 Eager counting visits every layer, so JAX's unrolled lowerings and their
 extrapolation over the depth have no counterpart: JAX's
@@ -58,16 +76,16 @@ with ``--slow-cells``; without it their record says ``status:
 "deferred"`` and why.  (Counting them at two sequence lengths and
 extrapolating is not exact: the op bytes of a training step and the
 temp peak are not affine in T.)  ``--fast`` writes the shardings'
-argument bytes only, with no fake step.  A ``moe_local*`` profile
-raises on an MoE arch (its dispatch on an abstract mesh waits for Queue
-1 item 4; on a process-group mesh ``models/moe.py`` runs it), and
-the flash route raises on fake tensors; every JAX config and variant
-takes ``xla`` or ``xla_chunked``.  The serving variants ``w8_2d``,
+argument bytes only, with no fake step and no collective term.  A
+``moe_local*`` profile on an MoE arch takes JAX's ``moe_apply_local``:
+in the ideal partition's run its whole view (``models.moe.
+moe_apply_whole``), in rank 0's run the per-rank dispatch.  The flash
+route raises on fake tensors; every JAX config and variant takes
+``xla`` or ``xla_chunked``.  The serving variants ``w8_2d``,
 ``infer2d``, ``cache_seq`` and ``w8_cache_seq`` change the placements
-here (argument bytes) and not the fake program; on a process-group mesh
-the port serves them on real tensors (``launch.steps.serve_placement``:
-``cache_seq``'s distributed softmax over position blocks, ``infer2d``'s
-gathered layers).
+(argument bytes) and rank 0's program (``launch.steps.
+serve_placement``: ``cache_seq``'s distributed softmax over position
+blocks, ``infer2d``'s gathered layers), not the ideal partition's.
 """
 from __future__ import annotations
 
@@ -95,6 +113,7 @@ from repro_torch.configs.base import ShapeConfig, TrainConfig
 from repro_torch.launch import steps as S
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.api import get_model
+from repro_torch.sharding import collectives as C
 from repro_torch.sharding import rules
 from repro_torch.sharding.context import use_mesh
 from repro_torch.tree import leaves_with_paths
@@ -240,32 +259,79 @@ class Traffic(TorchDispatchMode):
         return out
 
 
-def run_step(api, shape: ShapeConfig, tc: TrainConfig, trees: Dict[str, Any]):
-    """The cell's step on its operands (``launch.steps``)."""
+def run_step(api, shape: ShapeConfig, tc: TrainConfig, trees: Dict[str, Any],
+             profile: str = "default"):
+    """The cell's step on its operands (``launch.steps``), its train or
+    prefill step placed by ``profile``'s rules (a decode step by
+    ``api.cfg.sharding_profile``'s, as JAX's)."""
     if shape.kind == "train":
-        step, _ = S.build_train_step(api, tc)
+        step, _ = S.build_train_step(api, tc, profile)
         return step(trees["params"], trees["opt"], trees["inputs"], 0)
     if shape.kind == "prefill":
-        return S.build_prefill_step(api)(trees["params"], trees["inputs"],
-                                         trees["cache"])
+        return S.build_prefill_step(api, profile)(
+            trees["params"], trees["inputs"], trees["cache"])
     return S.build_decode_step(api)(trees["params"], trees["inputs"],
                                     trees["cache"])
 
 
-def fake_step_cost(api, shape: ShapeConfig, tc: TrainConfig
+def _operands(api, shape: ShapeConfig, tc: TrainConfig, operands):
+    if operands is not None:
+        return operands
+    mode = S.fake_mode()
+    return mode, S.shape_trees(api, shape, tc, mode)
+
+
+def fake_step_cost(api, shape: ShapeConfig, tc: TrainConfig, operands=None
                    ) -> Dict[str, float]:
     """Global counts of the cell's step on fake tensors (under whatever
     mesh is current): FLOPs, op bytes, the peak of live bytes above the
     arguments (the step's results live at the end) and the seconds the
-    count took."""
-    mode = S.fake_mode()
-    trees = S.shape_trees(api, shape, tc, mode)
+    count took.  ``operands``: (a fake mode, :func:`launch.steps.
+    shape_trees` made in it), new ones if None."""
+    mode, trees = _operands(api, shape, tc, operands)
     t0 = time.perf_counter()
     with mode, FlopCounterMode(display=False) as fc, Traffic() as tr:
         run_step(api, shape, tc, trees)
     return {"flops": float(fc.get_total_flops()),
             "op_bytes": float(tr.op_bytes), "temp_bytes": float(tr.peak),
             "seconds": time.perf_counter() - t0}
+
+
+def place_cell(api, shape: ShapeConfig, mesh, trees: Dict[str, Any]
+               ) -> Dict[str, Any]:
+    """A cell's operands (whole, as :func:`launch.steps.shape_trees` or an
+    init gives them) with the params, the optimizer state and the cache
+    cut to this rank's blocks of ``mesh`` by ``api.cfg.sharding_profile``'s
+    rules (``rules.place``); the inputs stay whole: the step cuts its
+    batch block itself."""
+    shards = S.cell_shardings(api, shape, mesh, trees,
+                              api.cfg.sharding_profile)
+    return dict(trees, **{k: rules.place(trees[k], shards[k])
+                          for k in ("params", "opt", "cache") if k in trees})
+
+
+def rank_step_cost(api, shape: ShapeConfig, tc: TrainConfig, mesh,
+                   operands=None) -> Dict[str, Any]:
+    """Rank 0's program of the cell's step on ``mesh``, a counting mesh
+    (``launch.mesh.counting_mesh``), on fake tensors: the operands of
+    :func:`launch.steps.shape_trees` cut to rank 0's blocks by
+    ``api.cfg.sharding_profile``'s rules (the batch is cut by the step,
+    as on a process-group mesh), then the step placed by the same
+    profile.  Returns rank 0's FLOPs, op bytes and temp peak, the
+    seconds the run took and ``log``, the collectives it issued
+    (``sharding.collectives.record``).  ``operands`` as
+    :func:`fake_step_cost`'s."""
+    profile = api.cfg.sharding_profile
+    mode, trees = _operands(api, shape, tc, operands)
+    with mode, use_mesh(mesh):
+        placed = place_cell(api, shape, mesh, trees)
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc, Traffic() as tr, \
+                C.record() as log:
+            run_step(api, shape, tc, placed, profile)
+    return {"flops": float(fc.get_total_flops()),
+            "op_bytes": float(tr.op_bytes), "temp_bytes": float(tr.peak),
+            "seconds": time.perf_counter() - t0, "log": tuple(log)}
 
 
 def slow_cell(cfg, shape: ShapeConfig) -> bool:
@@ -278,12 +344,15 @@ _TRAIN = TrainConfig(optimizer="adamw", lr=3e-4, lr_min=3e-5)
 
 
 @functools.lru_cache(maxsize=None)
-def _cell_trees(arch: str, shape_name: str, profile: str,
-                variant: Optional[str]) -> Dict[str, Any]:
-    """``launch.steps.shape_trees`` of a cell, shared by both meshes (read
-    only)."""
+def _cell_operands(arch: str, shape_name: str, profile: str,
+                   variant: Optional[str]):
+    """A fake mode and ``launch.steps.shape_trees`` of a cell made in it,
+    shared by both meshes and every count (fake tensors hold no values,
+    so a step that writes into them leaves them as they were)."""
     cfg = _cell_config(arch, profile, variant)
-    return S.shape_trees(get_model(cfg), LM_SHAPES[shape_name], _TRAIN)
+    mode = S.fake_mode()
+    return mode, S.shape_trees(get_model(cfg), LM_SHAPES[shape_name],
+                               _TRAIN, mode)
 
 
 @functools.lru_cache(maxsize=None)
@@ -293,8 +362,37 @@ def _cached_cell_cost(arch: str, shape_name: str, profile: str,
     the multi-pod mesh shares (module docstring)."""
     cfg = _cell_config(arch, profile, variant)
     with use_mesh(make_production_mesh()):
-        cost = fake_step_cost(get_model(cfg), LM_SHAPES[shape_name], _TRAIN)
+        cost = fake_step_cost(
+            get_model(cfg), LM_SHAPES[shape_name], _TRAIN,
+            _cell_operands(arch, shape_name, profile, variant))
     return tuple(cost.items())
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_rank_cost(arch: str, shape_name: str, profile: str,
+                      variant: Optional[str], mesh_kind: str
+                      ) -> Tuple[Tuple[str, Any], ...]:
+    """:func:`rank_step_cost` of a cell on the counting mesh of
+    ``mesh_kind``."""
+    cfg = _cell_config(arch, profile, variant)
+    mesh = make_production_mesh(multi_pod=(mesh_kind == "multipod"),
+                                counting=True)
+    cost = rank_step_cost(get_model(cfg), LM_SHAPES[shape_name], _TRAIN,
+                          mesh, _cell_operands(arch, shape_name, profile,
+                                               variant))
+    return tuple(cost.items())
+
+
+def collective_summary(log) -> Dict[str, Any]:
+    """A rank's collectives (``sharding.collectives.Collective``s) by
+    op: calls, bytes, and the group sizes and dtypes they ran at."""
+    out: Dict[str, Any] = {"calls": len(log), "calls_by_type": {},
+                           "by_group": {}}
+    for c in log:
+        out["calls_by_type"][c.op] = out["calls_by_type"].get(c.op, 0) + 1
+        key = f"{c.op} {c.dtype} x{c.group_size}"
+        out["by_group"][key] = out["by_group"].get(key, 0) + c.bytes
+    return out
 
 
 def _cell_config(arch: str, profile: str, variant: Optional[str]):
@@ -336,7 +434,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     n_chips = mesh.size
     api = get_model(cfg)
     t0 = time.perf_counter()
-    trees = _cell_trees(*key)
+    trees = _cell_operands(*key)[1]
     shards = S.cell_shardings(api, shape, mesh, trees, cfg.sharding_profile)
     arg_bytes = sum(rules.shard_bytes(trees[k], shards[k]) for k in shards)
     t_trees = time.perf_counter() - t0
@@ -365,9 +463,29 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     temp = cost["temp_bytes"] / n_chips
     mem = {"argument_size_in_bytes": arg_bytes,
            "temp_size_in_bytes": int(temp), "alias_size_in_bytes": 0}
-    rl = RL.Roofline(flops=cost["flops"] / n_chips,
-                     hbm_bytes=cost["op_bytes"] / n_chips,
-                     model_flops=model_flops)
+    flops, hbm = cost["flops"] / n_chips, cost["op_bytes"] / n_chips
+    try:
+        rank = dict(_cached_rank_cost(*key, mesh_kind))
+    except NotImplementedError as e:
+        # the global MoE route's refusal of a batch split over several
+        # ranks (train_loop.refuse_coupled_batches, models.moe.moe_apply)
+        if "Queue 3" not in str(e):
+            raise
+        rl = RL.Roofline(flops=flops, hbm_bytes=hbm, model_flops=model_flops)
+        rec.update(collectives=None, collective_reason=str(e),
+                   rank_cost=None)
+    else:
+        rl = RL.Roofline.from_log(flops, hbm, rank["log"], model_flops)
+        rec.update(
+            collectives=collective_summary(rank["log"]),
+            collective_method=(
+                "rank 0's step on the counting mesh, fake tensors cut to "
+                "its blocks, every collective logged "
+                "(sharding.collectives.record); ring model, NVLink "
+                f"{rl.hw.link_bw / 1e9:g} GB/s sent within a node of "
+                f"{rl.hw.node_size}, {rl.hw.net_bw / 1e9:g} GB/s across"),
+            rank_cost={k: rank[k] for k in ("flops", "op_bytes",
+                                            "temp_bytes", "seconds")})
     rec.update(
         status="ok", n_chips=n_chips, compile_s=round(cost["seconds"], 2),
         cost_method=("fake_eager: FlopCounterMode FLOPs and op bytes "

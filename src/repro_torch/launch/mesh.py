@@ -22,6 +22,16 @@ moves values: ``sharding.rules.place`` gives each rank its block of
 every parameter, optimizer leaf and cache, ``rules.constrain_batch`` its
 block of a batch, and the model and the training loop reduce over the
 groups ``sharding.collectives.process_group`` names (re-exported here).
+
+:func:`counting_mesh` makes an abstract mesh act as rank 0 of its
+process group, with no ``torch.distributed`` group behind it: its
+``device_mesh`` is a :class:`RankZero` stand-in, so ``coordinate`` is 0
+on every axis (``rules.shard``, ``rules.relayout`` and
+``collectives.block_index`` cut rank 0's blocks, of fake tensors too),
+and ``collectives.process_group`` gives ``collectives.CountingGroup``s
+holding the global ranks of rank 0's group (row-major, as
+:func:`make_group_mesh` lays ranks).  The dry-run runs a cell's step on
+such a mesh under ``collectives.record`` to count what each rank sends.
 """
 from __future__ import annotations
 
@@ -31,7 +41,7 @@ import os
 from typing import Any, Dict, Tuple
 
 from repro_torch.sharding.collectives import (  # noqa: F401 (re-exported)
-    process_group)
+    CountingGroup, process_group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +79,39 @@ class Mesh:
         return self.device_mesh.get_local_rank(axis)
 
 
+class RankZero:
+    """The ``device_mesh`` of a counting mesh (:func:`counting_mesh`):
+    this process is rank 0 of a group laid row-major over the axes."""
+
+    def __init__(self, axis_names, axis_sizes):
+        self.axis_names, self.axis_sizes = tuple(axis_names), tuple(axis_sizes)
+        self._groups: Dict[Tuple[str, ...], CountingGroup] = {}
+
+    def get_local_rank(self, axis: str) -> int:
+        return 0
+
+    def counting_group(self, axes: Tuple[str, ...]) -> CountingGroup:
+        """Rank 0's group along ``axes``: the ranks whose coordinates are
+        0 off ``axes``, in row-major order over ``axes``."""
+        if axes not in self._groups:
+            shape = dict(zip(self.axis_names, self.axis_sizes))
+            stride = {a: math.prod(self.axis_sizes[i + 1:])
+                      for i, a in enumerate(self.axis_names)}
+            ranks = [0]
+            for a in axes:
+                ranks = [r + c * stride[a] for r in ranks
+                         for c in range(shape[a])]
+            self._groups[axes] = CountingGroup(tuple(ranks))
+        return self._groups[axes]
+
+
+def counting_mesh(mesh: Mesh) -> Mesh:
+    """``mesh``'s axes acting as rank 0 of a process group over them (a
+    :class:`RankZero` behind it; module docstring)."""
+    return Mesh(mesh.axis_names, mesh.axis_sizes,
+                RankZero(mesh.axis_names, mesh.axis_sizes))
+
+
 def make_group_mesh(axes, device=None) -> Mesh:
     """A mesh of ordered ``(name, size)`` axes over the initialised process
     group, e.g. ``(("data", 2), ("model", 2))``: rank r sits at the
@@ -96,18 +139,24 @@ def make_group_mesh(axes, device=None) -> Mesh:
                                                mesh_dim_names=names))
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         counting: bool = False) -> Mesh:
     """Single pod ``(data=16, model=16)``, multi pod ``(pod=2, data=16,
     model=16)``.  Abstract without a process group; over an initialised
     group of exactly 256 (512) ranks it has a ``DeviceMesh`` behind it
     (:func:`make_group_mesh`), and with a group of another size it raises
-    ``ValueError``, as ``jax.make_mesh`` does with too few devices."""
+    ``ValueError``, as ``jax.make_mesh`` does with too few devices.
+    ``counting`` gives the abstract mesh acting as rank 0
+    (:func:`counting_mesh`), group or not."""
     import torch.distributed as dist
     axes = ((("pod", 2),) if multi_pod else ()) + (("data", 16),
                                                    ("model", 16))
+    mesh = Mesh(tuple(a for a, _ in axes), tuple(n for _, n in axes))
+    if counting:
+        return counting_mesh(mesh)
     if dist.is_available() and dist.is_initialized():
         return make_group_mesh(axes, device)
-    return Mesh(tuple(a for a, _ in axes), tuple(n for _, n in axes))
+    return mesh
 
 
 def init_distributed(device=None, backend=None,

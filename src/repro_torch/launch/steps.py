@@ -3,10 +3,12 @@
 The port of ``repro.launch.steps``.  JAX's step functions take a mesh and
 pass every batch leaf through ``rules.constrain_batch``; the port's read
 the current mesh (``sharding.context``) at each call and do the same
-where one is set: on fake tensors, or batch axes of one device, that
-moves nothing; on a process-group mesh (``launch.mesh.make_host_mesh``
-or ``make_group_mesh`` under ``init_distributed``) each rank keeps its
-block of the batch and computes on its blocks of the params and caches
+where one is set: on fake tensors on an abstract mesh, or batch axes of
+one device, that moves nothing; on a process-group mesh
+(``launch.mesh.make_host_mesh`` or ``make_group_mesh`` under
+``init_distributed``; or a counting mesh, ``launch.mesh.counting_mesh``,
+where rank 0's blocks of fake tensors are cut and its collectives
+logged, moving nothing) each rank keeps its block of the batch and computes on its blocks of the params and caches
 (``rules.place`` by ``params_shardings``/``cache_shardings``); the train
 step reduces the gradients as ``fit`` does (``train.train_loop.
 build_accumulating_step``).  A real batch that an abstract mesh would
@@ -16,10 +18,11 @@ serve step runs under its :func:`serve_placement`, which tells the
 model code how its cache and its rows are split (``cache_seq``'s
 positions over ``model``; ``fsdp``/``infer2d``'s prefill rows over every
 axis, its cache's rows over ``(pod, data)`` and kv heads over
-``model``).  In the dry-run a profile changes only the placements, so
-it runs these steps with ``"default"``.
-Every step takes every family, over a ``model`` axis too: the decoders,
-xLSTM, Hymba and Whisper (whose batches carry ``"frames"`` beside
+``model``).  The dry-run's ideal partition runs these steps with
+``"default"`` on the abstract mesh, where a profile changes only the
+placements; its count of rank 0 runs them under the cell's profile on
+the counting mesh.  Every step takes every family, over a ``model`` axis
+too: the decoders, xLSTM, Hymba and Whisper (whose batches carry ``"frames"`` beside
 ``"tokens"`` and ``"labels"``).  The serve steps of the last three read
 their recurrent states in place where they split (``models/
 linear_scan.py``: a block of the heads or of the key dim), move the
@@ -65,14 +68,6 @@ def fake_mode() -> FakeTensorMode:
     return FakeTensorMode(allow_non_fake_inputs=True)
 
 
-def _refuse_real(profile: str, batch: Dict[str, torch.Tensor]) -> None:
-    """A profile ``rules.moves_values`` refuses on real tensors raises."""
-    if all(rules.is_abstract(v) for v in batch.values()
-           if isinstance(v, torch.Tensor)):
-        return
-    rules.refuse_unmoved(profile)
-
-
 def _constrain(batch: Dict[str, torch.Tensor], profile: str = "default",
                axes=None) -> Dict[str, torch.Tensor]:
     mesh = current_mesh()
@@ -97,7 +92,6 @@ def build_train_step(api, train_cfg: TrainConfig, profile: str = "default"):
         api, dataclasses.replace(train_cfg, microbatch=0), profile=profile)
 
     def train_step(params, opt_state, batch, step_no):
-        _refuse_real(profile, batch)
         return step(params, opt_state, batch, step_no, mesh=current_mesh())
     return train_step, init_opt
 
@@ -150,7 +144,6 @@ def _serve_step(api, profile: str, fn, decode: bool):
     placed = {}         # the parameter shardings, once a mesh and tree kind
 
     def serve_step(params, batch, cache):
-        _refuse_real(profile, batch)
         mesh = current_mesh()
         refuse_coupled_batches(api, mesh, profile)
         key = (id(mesh), _quantized(params))
@@ -181,6 +174,7 @@ def build_decode_step(api):
     under ``api.cfg.sharding_profile`` (JAX's decode step takes no
     profile; its dry-run places by the config's), the token's batch
     block the cache's ``(pod, data)`` block."""
+    rules.moves_values(api.cfg.sharding_profile)   # an unknown name raises
     return _serve_step(api, api.cfg.sharding_profile, api.decode_step,
                        decode=True)
 

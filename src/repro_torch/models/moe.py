@@ -36,9 +36,11 @@ token).
   before the layer and cuts the output back to its block
   (``transformer._block_apply``), so routing, capacity and aux see every
   token of the data block, as JAX's.
-* On an abstract mesh (the dry-run's production meshes) the
-  ``moe_local*`` route raises ``NotImplementedError``, on fake tensors
-  too, since its program differs (ROADMAP.md Queue 1 item 4).
+* On an abstract mesh (the dry-run's production meshes, or any mesh
+  with a ``model`` axis and no process group) the ``moe_local*`` route
+  is :func:`moe_apply_whole`: JAX's ``moe_apply_local`` computed whole
+  in one process, every data block dispatched in one pass, on real or
+  fake tensors.
 
 What holds the layer to JAX's results (ROADMAP.md Queue 3):
 
@@ -193,7 +195,7 @@ def _aux(cfg: ModelConfig, counts: torch.Tensor, n_entries: int,
     summed across it first (the probabilities' gradient summed back)."""
     n = probs.shape[0]
     if data_group is not None:
-        ranks = C.dist.get_world_size(data_group)
+        ranks = C.group_size(data_group)
         counts = C.all_sum(counts, data_group)
         n_entries, n = n_entries * ranks, n * ranks
         prob_sum = C.sum_both(probs.sum(dim=0), data_group)
@@ -227,11 +229,7 @@ def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor
     mesh = current_mesh()
     if _routes_locally(cfg, mesh):
         if C.process_group(mesh, "model") is None:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.sharding_profile!r} dispatch on the "
-                f"abstract mesh {mesh.shape} (the dry-run's moe_local "
-                f"programs) waits for Queue 1 item 4 (the sharded part) in "
-                f"ROADMAP.md")
+            return moe_apply_whole(p, cfg, x, mesh)
         return moe_apply_local(p, cfg, x, mesh)
     pl = current_placement()
     split = pl.batch_axes if pl is not None else \
@@ -301,12 +299,11 @@ def dispatch_local(xf: torch.Tensor, top_e: torch.Tensor, e_lo: int,
                          keep)
 
 
-def combine_local(y_buf: torch.Tensor, disp: LocalDispatch,
-                  top_p: torch.Tensor) -> torch.Tensor:
-    """JAX's ``_combine_local`` before its ``psum``: each kept entry's
-    ``y * w`` in f32 (``w`` the f32 router weight), added into its token
-    from zero in ascending expert order: [E_loc, cap, d] -> [T_loc, d]
-    f32."""
+def _entries_local(y_buf: torch.Tensor, disp: LocalDispatch,
+                   top_p: torch.Tensor) -> torch.Tensor:
+    """Each token's k entries' ``y * w`` in f32 (``w`` the f32 router
+    weight; zero for an entry not kept), in ascending expert order:
+    [E_loc, cap, d] -> [T_loc, k, d]."""
     e_local, cap, d = y_buf.shape
     t_loc, k = top_p.shape
     y_flat = y_buf.reshape(e_local * cap, d)
@@ -317,9 +314,18 @@ def combine_local(y_buf: torch.Tensor, disp: LocalDispatch,
         (w * disp.keep.float())[:, None], 0.0)
     pos = torch.empty_like(disp.order)
     pos[disp.order] = torch.arange(t_loc * k, device=y_buf.device)
-    vals = y_sorted[pos.reshape(t_loc, k).sort(dim=-1).values]
-    out = y_buf.new_zeros((t_loc, d), dtype=torch.float32)
-    for j in range(k):
+    return y_sorted[pos.reshape(t_loc, k).sort(dim=-1).values]
+
+
+def combine_local(y_buf: torch.Tensor, disp: LocalDispatch,
+                  top_p: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_combine_local`` before its ``psum``: each kept entry's
+    ``y * w`` in f32 (``w`` the f32 router weight), added into its token
+    from zero in ascending expert order: [E_loc, cap, d] -> [T_loc, d]
+    f32."""
+    vals = _entries_local(y_buf, disp, top_p)
+    out = vals.new_zeros(vals[:, 0].shape)
+    for j in range(vals.shape[1]):
         out = out + vals[:, j]
     return out
 
@@ -374,3 +380,52 @@ def moe_apply_local(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
     y = C.scatter_sum(y.reshape(b, t, d), 0, group) if rows else \
         C.reduce_from(y, group).reshape(b, t, d)
     return y.to(x.dtype), aux
+
+
+def moe_apply_whole(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's ``moe_apply_local`` on an abstract ``mesh`` (a ``model``
+    axis, no process group), whole in one process, with every expert's
+    weights (``[E, d, f]``).  ``x`` [B, T, d] splits into ``n_dp`` data
+    blocks of ``t_loc = B*T/n_dp`` tokens (``n_dp`` the product of the
+    ``pod``/``data`` axes: JAX's ``in_specs=P(dp, None)``); every token
+    is routed, the capacity is :func:`local_capacity` of ``t_loc`` and
+    the aux loss is the whole batch's, as JAX computes them before its
+    ``shard_map``.  Each entry's expert becomes the virtual expert
+    ``block * E + e``, so one stable sort and one scatter
+    (:func:`dispatch_local` over ``n_dp * E`` experts) give every block's
+    dispatch at once, each entry in the slot the per-rank dispatch gives
+    it, laid out as JAX's ``[E, n_dp * cap, d]``
+    (``out_specs=P("model", dp, None)``).  The combine is
+    ``_combine_local``'s: ``y * w`` in f32, each ``model`` rank's experts
+    summed in ascending order, those partial outputs summed over the
+    ranks, one cast to ``x.dtype``."""
+    b, t, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    m = mesh.shape["model"]
+    n_dp = math.prod(mesh.shape[a] for a in batch_pspec(mesh))
+    n = b * t
+    if e % m or n % n_dp:
+        raise ValueError(f"{cfg.name}: {e} experts over 'model' ({m}) or "
+                         f"{n} tokens over the data blocks ({n_dp}) do not "
+                         f"divide")
+    t_loc, e_local = n // n_dp, e // m
+    cap = local_capacity(cfg, t_loc)
+    xf = x.reshape(n, d)
+    probs, top_p, top_e = route(p, cfg, xf)
+    aux = _aux(cfg, _counts(top_e, e), n * k, probs, None)
+    block = torch.arange(n, device=x.device) // t_loc
+    disp = dispatch_local(xf, top_e + (block * e)[:, None], 0, n_dp * e,
+                          cap)
+    hb = disp.buf.reshape(n_dp, e, cap, d).transpose(0, 1).reshape(
+        e, n_dp * cap, d)
+    yb = experts(p, hb).reshape(e, n_dp, cap, d).transpose(0, 1).reshape(
+        n_dp * e, cap, d)
+    vals = _entries_local(yb, disp, top_p)              # [N, k, d] f32
+    owner = top_e.sort(dim=-1).values // e_local        # [N, k] model rank
+    mine = owner[None] == torch.arange(m, device=x.device)[:, None, None]
+    parts = vals.new_zeros((m, n, d))                   # each rank's partial
+    for j in range(k):
+        parts = parts + torch.where(mine[:, :, j, None], vals[None, :, j],
+                                    0.0)
+    return parts.sum(dim=0).reshape(b, t, d).to(x.dtype), aux

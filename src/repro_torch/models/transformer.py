@@ -40,9 +40,10 @@ all-reduce and a slice: ``collectives.reduce_from`` then ``split_to``),
 and the stream is gathered whole after the last layer (before
 ``ln_f``).  A remat layer keeps only the rank's block.  The constraint
 moves no value where no mesh is current, ``model`` spans one device,
-the tensor is fake or meta (the dry-run), ``T`` does not divide over
-``model`` (a decode step, an odd prompt: JAX's constraint then leaves it
-whole) or the step's rows split over ``model`` already (``fsdp``,
+the tensor is fake or meta on an abstract mesh (the dry-run's ideal
+partition; on its counting mesh rank 0's block moves), ``T`` does not
+divide over ``model`` (a decode step, an odd prompt: JAX's constraint
+then leaves it whole) or the step's rows split over ``model`` already (``fsdp``,
 ``infer2d``), so those forwards are the same bits as without it; a real
 tensor on an abstract mesh raises ``ValueError``.  The norm gains (whole
 leaves read on a block) take their gradient summed over the group.
@@ -179,12 +180,14 @@ def seq_group(cfg: ModelConfig, x: torch.Tensor):
         return None
     mesh = current_mesh()
     m = 1 if mesh is None else mesh.shape.get("model", 1)
-    if m == 1 or rules.is_abstract(x) or x.shape[1] % m:
+    if m == 1 or x.shape[1] % m:
         return None
     pl = current_placement()
     if pl is not None and "model" in pl.batch_axes:
         return None             # the rows split over model: nothing moves
     group = C.process_group(mesh, "model")
+    if group is None and rules.is_abstract(x):
+        return None
     if group is None:
         raise ValueError(
             f"{cfg.name}: seq_parallel splits T={x.shape[1]} over the "

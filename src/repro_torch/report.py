@@ -10,11 +10,13 @@ table and dominant-term notes of the single pod, from the records
 
 The port of ``repro.report``: :func:`roofline_table` and
 :func:`dryrun_table` print JAX's tables byte for byte from the same
-records, except that a collective term the record leaves None (the
-port's dry-run models none yet) prints "—".  Records JAX's tables cannot
-take print a row of "—" in the roofline table: ``--fast`` ones (no
-roofline) and ``deferred`` ones (``status`` in the dry-run table).  The
-notes name what moves each dominant term on an H100.
+records; the collective term is rank 0's count priced on an H100 node
+(``launch/dryrun.py``), and a term the record leaves None (a cell whose
+per-rank program the global MoE route refuses, its
+``collective_reason``) prints "—".  Records JAX's tables cannot take
+print a row of "—" in the roofline table: ``--fast`` ones (no roofline)
+and ``deferred`` ones (``status`` in the dry-run table).  The notes
+name what moves each dominant term on an H100.
 """
 from __future__ import annotations
 
@@ -34,8 +36,9 @@ _IMPROVE = {
               "sequence-parallel sharding of the residual stream, int8 "
               "weights for the weight-read term",
     "collective": "re-shard to convert all-reduce to reduce-scatter "
-                  "(sequence parallel), localize MoE dispatch, compress "
-                  "gradients to int8 over NVLink",
+                  "(sequence parallel), localize MoE dispatch, keep the "
+                  "model axis within a node's NVLink, compress gradients "
+                  "to int8",
 }
 
 
@@ -133,7 +136,7 @@ def main(argv=None) -> None:
     print(f"\n## §Dry-run — {_mesh_label('multipod')}\n")
     print(dryrun_table(mp))
     print(f"\n## §Roofline — {_mesh_label('pod')}, per (arch × shape), "
-          f"ideal partition, no collective term\n")
+          f"ideal partition, rank 0's collectives\n")
     print(roofline_table(pod))
     print("\n### Dominant-term notes\n")
     print(bottleneck_summary(pod))

@@ -2,12 +2,18 @@
 
 :class:`Roofline` is ``repro.roofline.Roofline`` for the dry-run
 (``launch/dryrun.py``): a step's per-device FLOPs and memory bytes
-against a :class:`HardwareModel`'s peaks, ``t_compute``, ``t_memory``
-and the larger of them as the ``bottleneck``.  Its collective terms are
-optional: the port's dry-run models no collective yet (they come with
-the sharded part of ROADMAP.md Queue 1 item 4), so ``t_collective`` is
-None and ``bottleneck`` ranges over compute and memory.  The hardware
-is :data:`H100_SXM_BF16`, an LM's peaks on one H100.
+against a :class:`HardwareModel`'s peaks, ``t_compute``, ``t_memory``,
+``t_collective`` and the largest of them as the ``bottleneck``.  The
+collective term comes from a rank's log of the collectives its program
+issues (``sharding.collectives.record``, :meth:`Roofline.from_log`),
+priced with JAX's ring model (:func:`wire_bytes`, the port's own copy of
+``repro.roofline.parse_collectives``' rule): a group whose ranks sit in
+one node of ``node_size`` GPUs sends at ``link_bw`` (NVLink), any other
+at ``net_bw`` (the node's network).  Where no collective was counted
+(``coll_wire_bytes`` None) ``t_collective`` is None and ``bottleneck``
+ranges over compute and memory.  The hardware is
+:data:`H100_SXM_BF16`, an LM's peaks on one H100 in a DGX H100-style
+node.
 
 The plan-scope half of ``repro.roofline``: score a
 :class:`~repro_torch.api.plan.StagePlan` from its analytic
@@ -19,13 +25,13 @@ the estimate sums the per-op bounds.  Like JAX's, it counts no kNN or
 FPS work (``cost_breakdown`` has no row for them).
 
 ``parse_collectives`` and ``from_compiled`` read XLA's output and are
-not ported.
+not ported; the port has no HLO.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +47,9 @@ class HardwareModel:
     peak_int8_ops: float         # int8 OP/s per device
     hbm_bw: float                # device-memory bytes/s
     dispatch_overhead_s: float = 0.0
-    link_bw: float = 0.0         # interconnect bytes/s per device
+    link_bw: float = 0.0         # bytes/s a device sends within its node
+    net_bw: float = 0.0          # bytes/s a device sends to other nodes
+    node_size: int = 1           # devices a node
 
 
 #: A rough single-socket CPU host (``repro.roofline.CPU_HOST``'s numbers):
@@ -64,11 +72,42 @@ H100_SXM = HardwareModel("h100_sxm", peak_flops=67e12,
 #: An LM step on one NVIDIA H100 SXM (data sheet, dense, at the 700 W
 #: limit; the card the chip runs use is an NVIDIA H100 80GB HBM3 at
 #: 700.00 W): bf16 tensor cores at 989 TFLOP/s, int8 at 1979 TOP/s (2x),
-#: HBM3 at 3.35 TB/s, NVLink at 900 GB/s a GPU (for the collective term
-#: of the sharded part of ROADMAP.md Queue 1 item 4).
+#: HBM3 at 3.35 TB/s.  The collective term's node is a DGX H100's: 8
+#: GPUs, each with NVLink 4 at 900 GB/s, the two directions summed, so
+#: a GPU sends at 450 GB/s (the ring model counts bytes sent), and one
+#: 400 Gb/s NDR InfiniBand port a GPU to other nodes, 50 GB/s sent.
 H100_SXM_BF16 = HardwareModel("h100_sxm_bf16", peak_flops=989e12,
                               peak_int8_ops=1979e12, hbm_bw=3.35e12,
-                              link_bw=900e9)
+                              link_bw=450e9, net_bw=50e9, node_size=8)
+
+
+def wire_bytes(op: str, size: float, n: int) -> float:
+    """Bytes one device sends for a collective over ``n`` ranks whose
+    size (JAX's: an all-reduce's, all-to-all's or collective-permute's
+    operand, an all-gather's or reduce-scatter's result) is ``size``: the
+    ring model of ``repro.roofline.parse_collectives``, all-reduce
+    ``2(n-1)/n``, all-gather and all-to-all ``(n-1)/n``, reduce-scatter
+    ``n-1`` times it, a permute the size.  A group of one rank sends
+    nothing."""
+    if n <= 1:
+        return 0.0
+    frac = (n - 1) / n
+    if op == "all-reduce":
+        return 2.0 * frac * size
+    if op in ("all-gather", "all-to-all"):
+        return frac * size
+    if op == "reduce-scatter":
+        return (n - 1) * float(size)
+    if op == "collective-permute":
+        return float(size)
+    raise ValueError(f"unknown collective {op!r}")
+
+
+def within_node(ranks: Iterable[int], hw: "HardwareModel") -> bool:
+    """Whether a group of these global ranks sits in one node of
+    ``hw.node_size`` devices (ranks laid row-major, as
+    ``launch.mesh.make_group_mesh`` lays them)."""
+    return len({r // hw.node_size for r in ranks}) <= 1
 
 
 @dataclasses.dataclass
@@ -81,6 +120,30 @@ class Roofline:
     coll_by_type: Optional[Dict[str, float]] = None
     model_flops: Optional[float] = None   # 6·N·D (or 2·N·D fwd-only), global
     hw: HardwareModel = H100_SXM_BF16
+    # of coll_wire_bytes, those sent by groups that span nodes
+    coll_wire_bytes_across_nodes: Optional[float] = None
+
+    @classmethod
+    def from_log(cls, flops: float, hbm_bytes: float, log,
+                 model_flops: Optional[float] = None,
+                 hw: HardwareModel = H100_SXM_BF16) -> "Roofline":
+        """The roofline of a device whose program issued the
+        collectives of ``log`` (``sharding.collectives.Collective``s):
+        their sizes summed by op (JAX's ``coll_by_type``) and their wire
+        bytes (:func:`wire_bytes`), those of groups that span nodes
+        apart (:func:`within_node`)."""
+        by_type: Dict[str, float] = {}
+        wire = across = 0.0
+        for c in log:
+            by_type[c.op] = by_type.get(c.op, 0.0) + float(c.bytes)
+            w = wire_bytes(c.op, c.bytes, c.group_size)
+            wire += w
+            if not within_node(c.ranks, hw):
+                across += w
+        return cls(flops=flops, hbm_bytes=hbm_bytes,
+                   coll_bytes=sum(by_type.values()), coll_wire_bytes=wire,
+                   coll_by_type=by_type, model_flops=model_flops, hw=hw,
+                   coll_wire_bytes_across_nodes=across)
 
     @property
     def t_compute(self) -> float:
@@ -92,10 +155,14 @@ class Roofline:
 
     @property
     def t_collective(self) -> Optional[float]:
-        """None where no collective was modelled."""
+        """The wire bytes within a node over ``link_bw`` plus those across
+        nodes over ``net_bw``; None where no collective was counted."""
         if self.coll_wire_bytes is None:
             return None
-        return self.coll_wire_bytes / self.hw.link_bw
+        across = self.coll_wire_bytes_across_nodes or 0.0
+        inside = self.coll_wire_bytes - across
+        return (inside / self.hw.link_bw if inside else 0.0) + \
+            (across / self.hw.net_bw if across else 0.0)
 
     def _terms(self) -> Dict[str, float]:
         ts = {"compute": self.t_compute, "memory": self.t_memory,
@@ -129,6 +196,8 @@ class Roofline:
             "flops": self.flops, "hbm_bytes": self.hbm_bytes,
             "coll_bytes": self.coll_bytes,
             "coll_wire_bytes": self.coll_wire_bytes,
+            "coll_wire_bytes_across_nodes":
+                self.coll_wire_bytes_across_nodes,
             "coll_by_type": self.coll_by_type,
             "model_flops": self.model_flops,
             "t_compute": self.t_compute, "t_memory": self.t_memory,

@@ -60,11 +60,26 @@ loop's gradient and metric means and the clip's norm go through
 from a ``launch.mesh.Mesh`` over a process group (:func:`process_group`,
 :func:`block_index`), so the model code reads them without the launch
 layer.
+
+**Counting.**  :func:`record` logs one :class:`Collective` for each
+collective a primitive issues (``all_reduce_``, ``_gather``,
+``_all_to_all``): the op in JAX's HLO names, its bytes by JAX's
+convention and the dtype that moves (a bf16 sum moves f32; the
+reduce-scatter is the all-reduce it runs as).  A counting mesh
+(``launch.mesh.counting_mesh``: an abstract mesh acting as rank 0 of its
+process group) gives :class:`CountingGroup` groups, on which each
+primitive logs the same entry as on a real group and returns a tensor
+of the right shape and dtype, moving nothing; so rank 0's program runs
+on fake tensors with no process group, and its log is what each rank of
+a real group sends (the programs are SPMD).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
-from typing import Any, Dict, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -73,13 +88,85 @@ import torch.distributed as dist
 _HALF = (torch.bfloat16, torch.float16)
 
 
+@dataclasses.dataclass(frozen=True)
+class CountingGroup:
+    """Rank 0's process group on a counting mesh: the global ranks of its
+    members in group-rank order (this process is the first).  No
+    ``torch.distributed`` group stands behind it."""
+    ranks: Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One collective a rank issued.  ``op`` is JAX's HLO name
+    (``all-reduce``, ``all-gather``, ``all-to-all``); ``bytes`` JAX's
+    size (an all-reduce's or all-to-all's operand, an all-gather's
+    result) in ``dtype``, the dtype that moves; ``group_size`` the ranks
+    of the group.  ``ranks`` (the group's global ranks, which say whether
+    it spans nodes) and ``seconds`` (the host time of the call, with the
+    device synchronized around it where :func:`record` was given a
+    ``sync``) differ between ranks and runs, so equality leaves them
+    out."""
+    op: str
+    bytes: int
+    dtype: str
+    group_size: int
+    ranks: Tuple[int, ...] = dataclasses.field(default=(), compare=False)
+    seconds: float = dataclasses.field(default=0.0, compare=False)
+
+
+_LOGS: List[Tuple[list, Optional[Callable[[], Any]]]] = []
+
+
+@contextlib.contextmanager
+def record(sync: Optional[Callable[[], Any]] = None):
+    """A list that gets one :class:`Collective` for every collective
+    issued inside the block, in order (nested blocks each get every
+    entry).  ``sync`` (``torch.cuda.synchronize``) runs before and after
+    each call, so its ``seconds`` are the call's own."""
+    entry = ([], sync)
+    _LOGS.append(entry)
+    try:
+        yield entry[0]
+    finally:
+        _LOGS[:] = [e for e in _LOGS if e is not entry]
+
+
+def _ranks(group) -> Tuple[int, ...]:
+    if isinstance(group, CountingGroup):
+        return group.ranks
+    return tuple(dist.get_process_group_ranks(group))
+
+
+def _issue(op: str, x: torch.Tensor, nbytes: int, group,
+           move: Callable[[], Any]) -> None:
+    """Runs ``move`` (the collective; nothing on a counting group) and
+    logs it to every open :func:`record`."""
+    sync = next((s for _, s in _LOGS if s is not None), None)
+    if sync is not None:
+        sync()
+    t0 = time.perf_counter()
+    if not isinstance(group, CountingGroup):
+        move()
+    if sync is not None:
+        sync()
+    if _LOGS:
+        entry = Collective(op, int(nbytes),
+                           str(x.dtype).replace("torch.", ""),
+                           group_size(group), _ranks(group),
+                           time.perf_counter() - t0)
+        for log, _ in _LOGS:
+            log.append(entry)
+
+
 def all_reduce_(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """``x`` reduced over ``group`` in place, in its own dtype (``op``
     ``"sum"`` or ``"max"``), no gradient; ``x`` itself.  For a tensor
     the caller owns (a step's gradients, metrics, norms), none aliased."""
     if group is not None:
-        dist.all_reduce(x, op=getattr(dist.ReduceOp, op.upper()),
-                        group=group)
+        _issue("all-reduce", x, x.numel() * x.element_size(), group,
+               lambda: dist.all_reduce(
+                   x, op=getattr(dist.ReduceOp, op.upper()), group=group))
     return x
 
 
@@ -96,15 +183,16 @@ def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     gather copies bits; gloo refuses int16, so a 16-bit float is not
     moved as an int16 view)."""
     y = x.contiguous()
-    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, y, group=group)
+    parts = [torch.empty_like(y) for _ in range(group_size(group))]
+    _issue("all-gather", y, len(parts) * y.numel() * y.element_size(),
+           group, lambda: dist.all_gather(parts, y, group=group))
     return torch.cat(parts, dim=dim)
 
 
 def _block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    n = dist.get_world_size(group)
+    n = group_size(group)
     size = x.shape[dim] // n
-    return x.narrow(dim, dist.get_rank(group) * size, size).contiguous()
+    return x.narrow(dim, group_rank(group) * size, size).contiguous()
 
 
 class _CopyTo(torch.autograd.Function):
@@ -220,7 +308,9 @@ def _all_to_all(x: torch.Tensor, out_rows: int, in_splits, out_splits,
                 group) -> torch.Tensor:
     """``dist.all_to_all_single`` over dim 0 of a contiguous ``x``."""
     out = x.new_empty((out_rows,) + tuple(x.shape[1:]))
-    dist.all_to_all_single(out, x, out_splits, in_splits, group=group)
+    _issue("all-to-all", x, x.numel() * x.element_size(), group,
+           lambda: dist.all_to_all_single(out, x, out_splits, in_splits,
+                                          group=group))
     return out
 
 
@@ -234,7 +324,7 @@ def all_to_all(x: torch.Tensor, split_dim: int, cat_dim: int, group,
     ``all_to_all_single``: each byte crosses once."""
     if group is None:
         return x
-    n, me = dist.get_world_size(group), dist.get_rank(group)
+    n, me = group_size(group), group_rank(group)
     split_dim, cat_dim = split_dim % x.ndim, cat_dim % x.ndim
     if splits is None:
         if x.shape[split_dim] % n:
@@ -287,12 +377,19 @@ def all_sum(x: torch.Tensor, group) -> torch.Tensor:
 
 def group_size(group) -> int:
     """Processes in ``group`` (1 for no group)."""
-    return 1 if group is None else dist.get_world_size(group)
+    if group is None:
+        return 1
+    if isinstance(group, CountingGroup):
+        return len(group.ranks)
+    return dist.get_world_size(group)
 
 
 def group_rank(group) -> int:
-    """This process's rank in ``group`` (0 for no group)."""
-    return 0 if group is None else dist.get_rank(group)
+    """This process's rank in ``group`` (0 for no group and on a counting
+    group, whose process is rank 0)."""
+    if group is None or isinstance(group, CountingGroup):
+        return 0
+    return dist.get_rank(group)
 
 
 _FLAT_GROUPS: Dict[Tuple[int, Tuple[str, ...]], Any] = {}
@@ -303,13 +400,18 @@ def process_group(mesh, axis):
     group ranks run row-major over them) of a ``launch.mesh.Mesh`` over
     ``torch.distributed``, or None where no value moves between
     processes: no mesh, an abstract one, a mesh of another kind
-    (``serve.sharding.LocalMesh``), or no axis (``()``)."""
+    (``serve.sharding.LocalMesh``), or no axis (``()``).  On a counting
+    mesh (``launch.mesh.counting_mesh``), rank 0's
+    :class:`CountingGroup`."""
     device_mesh = getattr(mesh, "device_mesh", None)
     if device_mesh is None:
         return None
     axes = (axis,) if isinstance(axis, str) else tuple(axis)
     if not axes:
         return None
+    counting = getattr(device_mesh, "counting_group", None)
+    if counting is not None:
+        return counting(axes)
     if len(axes) == 1:
         return device_mesh.get_group(axes[0])
     key = (id(device_mesh), axes)
@@ -357,7 +459,7 @@ def split_group(local: int, whole: int, what: str):
     if local == whole:
         return None
     group = mesh_group("model")
-    if group is None or whole != local * dist.get_world_size(group):
+    if group is None or whole != local * group_size(group):
         raise ValueError(f"{what}: this rank holds {local} of {whole}, and "
                          f"the current mesh has no 'model' process group "
                          f"of {whole // max(local, 1)} ranks to split it "

@@ -19,7 +19,9 @@ packages' paths.
 
 On a mesh over a process group (``launch.mesh.make_group_mesh`` or
 ``make_host_mesh`` under ``init_distributed``) these specs move values,
-under every profile (:func:`moves_values`).
+under every profile (:func:`moves_values`), and on a counting mesh
+(``launch.mesh.counting_mesh``) they cut rank 0's blocks, of fake
+tensors too.
 :func:`place` is ``jax.device_put(tree, shardings)``: each rank keeps
 its block of every leaf (``NamedSharding.shard_shape``; a leaf whose
 axis ``_spec`` dropped stays whole on every rank, as in JAX), and
@@ -204,19 +206,6 @@ def moves_values(profile: str) -> bool:
             profile.startswith("moe_local") or "cache_seq" in profile:
         return True
     raise ValueError(f"unknown sharding profile {profile!r}")
-
-
-def refuse_unmoved(profile: str, what: str = "") -> None:
-    """``NotImplementedError`` citing ROADMAP.md Queue 1 item 4 where
-    :func:`moves_values` says no (``what`` names the caller's part); an
-    unknown profile raises ``ValueError``.  What waits there is not a
-    profile: serving xLSTM, Hymba and Whisper over ``model``
-    (``launch/steps.py``) and the dry-run's ``moe_local`` programs raise
-    where they are computed."""
-    if not moves_values(profile):
-        raise NotImplementedError(
-            f"{what or f'sharding profile {profile!r}'} on real tensors "
-            f"waits for Queue 1 item 4 (the sharded part) in ROADMAP.md")
 
 
 def _batch_axes(mesh, profile: str) -> Tuple:
@@ -510,9 +499,10 @@ class Placement:
 def constrain_batch(x: torch.Tensor, mesh, profile: str = "default",
                     axes: Tuple = None) -> torch.Tensor:
     """JAX's ``with_sharding_constraint`` of a batch leaf.  ``x`` itself
-    where the constraint moves no value: a fake or meta tensor, batch
-    axes of one device, or a dim 0 that does not divide over them (JAX's
-    spec then drops the axis).  On a process-group mesh, this rank's
+    where the constraint moves no value: a fake or meta tensor on an
+    abstract mesh, batch axes of one device, or a dim 0 that does not
+    divide over them (JAX's spec then drops the axis).  On a
+    process-group mesh (or a counting one, rank 0's), this rank's
     contiguous block of dim 0: block ``i`` at the row-major coordinate
     ``i`` over the batch axes (``(pod, data)``; every axis under
     ``fsdp``/``infer2d``), so every rank of a ``model`` group holds the
@@ -520,7 +510,8 @@ def constrain_batch(x: torch.Tensor, mesh, profile: str = "default",
     A real tensor an abstract mesh would split raises ``ValueError``."""
     baxes = _batch_axes(mesh, profile) if axes is None else tuple(axes)
     n = _axis_size(mesh, baxes)
-    if n == 1 or is_abstract(x) or x.ndim == 0 or x.shape[0] % n:
+    if n == 1 or x.ndim == 0 or x.shape[0] % n or \
+            (is_abstract(x) and process_group(mesh, baxes) is None):
         return x
     _need_group(mesh, baxes, "constrain_batch")
     block = x.shape[0] // n

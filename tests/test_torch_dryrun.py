@@ -11,13 +11,18 @@ with ``repro``'s, and of ``seq_parallel``.
   elsewhere and flip near-tied MoE routing) within 4e-2 of max|logit|,
   the LM tests' bf16 bound.
 * ``report.py``'s two tables equal JAX's byte for byte on the same
-  records, skipped rows included; a None collective term prints "—".
+  records, skipped rows included, with a numeric collective term; a None
+  term (a refused cell's) prints "—".
 * The fake step counts the FLOPs ``FlopCounterMode`` counts over the same
   step run for real on the CPU, exactly, at the smoke configs; xLSTM's
   slow cells are deferred unless asked for.
-* The refusals: ``moe_local*`` in the dry-run, flash on fake tensors,
-  and ``seq_parallel``/``constrain_batch`` on real tensors a mesh would
-  split.
+* moonshot's and maverick's ``moe_local*`` cells count on both meshes
+  (the whole view in the ideal partition, rank 0's dispatch in the
+  collective term), their ``default`` cells carry the Queue 3 refusal as
+  ``collective_reason``, and a dense arch's cell under ``moe_local`` is
+  its ``default`` program.
+* The refusals: flash on fake tensors, and ``seq_parallel``/
+  ``constrain_batch`` on real tensors an abstract mesh would split.
 
 ``repro.launch.dryrun`` sets ``XLA_FLAGS`` (512 host devices) when it is
 imported; the ``jdry`` fixture imports it after JAX's backend has
@@ -52,6 +57,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import steps as TS
 from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.models import moe as TM
 from repro_torch.models import transformer as TT
 from repro_torch.models.api import get_model
 from repro_torch.sharding import rules
@@ -61,7 +67,8 @@ BF16_ATOL = 4e-2
 B, T = 2, 24
 TC = TrainConfig(optimizer="adamw", lr=3e-4, lr_min=3e-5)
 MESH = make_production_mesh()
-ITEM4 = "Queue 1 item 4"
+JAX_OPS = {"all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+           "collective-permute"}
 
 
 @pytest.fixture(scope="module")
@@ -178,8 +185,14 @@ def test_records(records):
         assert on_disk == json.loads(json.dumps(rec))
         assert rec["n_chips"] == 256 and rec["status"] == "ok"
     r = full["roofline"]
-    assert r["t_collective"] is None and r["coll_bytes"] is None
-    assert r["bottleneck"] in ("compute", "memory")
+    assert r["t_collective"] > 0 and r["coll_bytes"] > 0
+    assert r["coll_wire_bytes"] >= r["coll_wire_bytes_across_nodes"] > 0
+    assert set(r["coll_by_type"]) <= JAX_OPS
+    assert r["coll_bytes"] == sum(r["coll_by_type"].values())
+    assert full["collectives"]["calls"] == \
+        sum(full["collectives"]["calls_by_type"].values()) > 0
+    assert full["rank_cost"]["flops"] > 0 and full["rank_cost"]["op_bytes"] > 0
+    assert r["bottleneck"] in ("compute", "memory", "collective")
     assert full["bytes_per_device"] == \
         full["memory"]["argument_size_in_bytes"] + \
         full["memory"]["temp_size_in_bytes"]
@@ -192,15 +205,19 @@ def test_records(records):
 
 def test_report_tables_are_jax(records):
     _, full, fast, skip = records
-    numeric = copy.deepcopy(full)
-    numeric["roofline"]["t_collective"] = 1.234e-3
-    assert report.roofline_table([numeric, skip]) == \
-        jreport.roofline_table([numeric, skip])
+    got = report.roofline_table([full, skip])
+    assert got == jreport.roofline_table([full, skip])
+    assert f"| {full['roofline']['t_collective']:.3e} |" in got
+    assert "| — |" not in got.splitlines()[2]
     recs = [full, fast, skip]
     assert report.dryrun_table(recs) == jreport.dryrun_table(recs)
-    got = report.roofline_table([full, skip])
-    want = jreport.roofline_table([numeric, skip])
-    assert got == want.replace("| 1.234e-03 |", "| — |")
+    assert "all-reduce" in report.dryrun_table([full])
+    # a null term (a refused cell's) prints "—" where JAX prints a time
+    refused = copy.deepcopy(full)
+    refused["roofline"]["t_collective"] = None
+    term = f"| {full['roofline']['t_collective']:.3e} |"
+    assert report.roofline_table([refused, skip]) == \
+        jreport.roofline_table([full, skip]).replace(term, "| — |")
     assert "int8 tensor-core" in report.bottleneck_summary(
         [dict(full, roofline=dict(full["roofline"],
                                   bottleneck="compute"))])
@@ -317,19 +334,52 @@ def test_counts_frees_and_views():
 
 # ------------------------------------------------------------ refusals --
 
-def test_moe_local_refused_in_dryrun(tmp_path):
-    for variant in ("moe_local", "moe_local_chunked"):
-        with pytest.raises(NotImplementedError, match=ITEM4):
-            D.run_cell("moonshot-v1-16b-a3b", "decode_32k", "pod",
-                       out_dir=str(tmp_path), variant=variant)
-    fast = D.run_cell("moonshot-v1-16b-a3b", "decode_32k", "pod",
-                      out_dir=str(tmp_path), variant="moe_local",
-                      fast=True)
-    assert fast["status"] == "ok"
-    # a dense arch's program is the default one under moe_local
-    rec = D.run_cell("llama3.2-1b", "decode_32k", "pod",
-                     out_dir=str(tmp_path), variant="moe_local")
-    assert rec["status"] == "ok"
+@pytest.mark.parametrize("arch,variant", [
+    ("moonshot-v1-16b-a3b", "moe_local"),
+    ("llama4-maverick-400b-a17b", "moe_local_sp")])
+def test_moe_local_cells_count_on_both_meshes(tmp_path, arch, variant):
+    """A ``moe_local*`` decode cell of each MoE arch at full width: the
+    ideal partition's count (the whole view) shared by both meshes, rank
+    0's program (the per-rank dispatch over model=16) and its collective
+    term for each; the ``default`` cell's term is the Queue 3 refusal."""
+    recs = {m: D.run_cell(arch, "decode_32k", m, out_dir=str(tmp_path),
+                          variant=variant) for m in ("pod", "multipod")}
+    for m, rec in recs.items():
+        r = rec["roofline"]
+        assert rec["status"] == "ok" and rec["profile"] == variant
+        assert r["flops"] == rec["global_cost"]["flops"] / rec["n_chips"]
+        assert r["t_collective"] > 0 and r["t_memory"] > 0
+        assert set(r["coll_by_type"]) <= JAX_OPS and \
+            r["coll_by_type"]["all-reduce"] > 0
+        assert rec["rank_cost"]["flops"] > 0
+        assert (tmp_path / m / arch / f"decode_32k.{variant}.json").exists()
+    assert recs["pod"]["global_cost"] == recs["multipod"]["global_cost"]
+    assert recs["pod"]["params_total"] == (
+        778_214_937_600 if "maverick" in arch else 28_057_995_264)
+    # the data group has 16 ranks on one pod and 32 on two, so rank 0's
+    # block and its term differ by mesh
+    assert recs["pod"]["roofline"]["t_collective"] != \
+        recs["multipod"]["roofline"]["t_collective"]
+    glob = D.run_cell(arch, "decode_32k", "pod", out_dir=str(tmp_path))
+    assert glob["status"] == "ok" and glob["collectives"] is None
+    assert "Queue 3" in glob["collective_reason"]
+    assert glob["roofline"]["t_collective"] is None
+    assert glob["roofline"]["bottleneck"] in ("compute", "memory")
+
+
+def test_dense_arch_under_moe_local_is_its_default_program(tmp_path):
+    """``moe_local`` places like ``default`` and changes only the MoE
+    layer, so a dense arch's cell counts as its ``default`` one."""
+    local = D.run_cell("llama3.2-1b", "decode_32k", "pod",
+                       out_dir=str(tmp_path), variant="moe_local")
+    plain = D.run_cell("llama3.2-1b", "decode_32k", "pod",
+                       out_dir=str(tmp_path))
+    assert local["status"] == plain["status"] == "ok"
+    assert local["global_cost"] == plain["global_cost"]
+    assert local["roofline"] == plain["roofline"]
+    assert local["collectives"] == plain["collectives"]
+    assert local["memory"]["argument_size_in_bytes"] == \
+        plain["memory"]["argument_size_in_bytes"]
 
 
 def test_moe_local_outside_a_model_mesh_takes_the_global_route():
@@ -343,9 +393,23 @@ def test_moe_local_outside_a_model_mesh_takes_the_global_route():
     for mesh in (None, Mesh(("data",), (1,))):
         with use_mesh(mesh):
             assert torch.equal(local.forward(params, x)[0], want)
+    # on an abstract mesh with a model axis, the whole view: on (1, 1) it
+    # is the one block's local dispatch, products and f32 combine
+    lcfg = local.cfg
+    p = TT.layer_params(params["blocks"], 0)["moe"]
+    h = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (B, 8, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
     with use_mesh(Mesh(("data", "model"), (1, 1))):
-        with pytest.raises(NotImplementedError, match=ITEM4):
-            local.forward(params, x)
+        y, aux = TM.moe_apply(p, lcfg, h)
+        assert local.forward(params, x)[0].shape == want.shape
+    xf = h.reshape(-1, cfg.d_model)
+    _, top_p, top_e = TM.route(p, lcfg, xf)
+    disp = TM.dispatch_local(xf, top_e, 0, cfg.n_experts,
+                             TM.local_capacity(lcfg, xf.shape[0]))
+    one = TM.combine_local(TM.experts(p, disp.buf), disp, top_p)
+    assert torch.equal(y, one.to(h.dtype).reshape(h.shape))
+    _, gaux = TM.moe_apply(p, cfg, h)
+    assert torch.equal(aux, gaux)
 
 
 def test_flash_refuses_fake_tensors():
