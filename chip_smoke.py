@@ -107,14 +107,21 @@ of the dry-run's temp bytes) and ``dryrun_cli`` (``python -m
 repro_torch.launch.dryrun --fast`` over all 80 production cells, one
 full-cost cell and ``repro_torch.report``'s tables).  Last, the
 ``dp_train`` phases train data-parallel over a ``torch.distributed``
-process group (no hand kernel on that path): one NCCL rank at
+process group (no hand kernel on the training path): one NCCL rank at
 tinyllama's full size (4 x 2048, remat), each step on
 ``make_host_mesh()`` bitwise the same step without a mesh, with the
 step's and the gradient all-reduce's times and bytes; two gloo ranks
 sharing the card (NCCL takes one rank a device) at full width cut to 2
 layers in f32, held against one process on the whole batch, their params
 bitwise equal, and the int8 compressed psum of their gradients bitwise
-against the same function on the CPU; and ``python -m
+against the same function on the CPU, then on the same two ranks
+moonshot's global MoE route over a batch split between them (full
+width, 2 layers, B2 x T256 bf16 under ``default``: a flash forward that
+launches the kernel once a layer on each rank, the loss and its
+gradient, a prefill and 8 decode steps), each rank routing its block
+after the other's entry counts, held against one process on the whole
+batch with its routing replayed (the drops of each block exactly its
+own), its collectives against the dry-run's count; and ``python -m
 torch.distributed.run --nproc-per-node 1 -m repro_torch.launch.train``
 through a checkpoint and a bitwise resume.  Every path is driven with
 the kernels' launch counts set to 0 just before it and read just
@@ -3410,14 +3417,14 @@ SMOKE_ARCHS = ("llama4-maverick-400b-a17b", "internvl2-26b", "yi-9b",
 def route_tap(fn, replay=None):
     """Run ``fn`` with ``moe.route`` and ``moe.dispatch`` wrapped: record
     each call's top-k experts, the gap between its k-th and (k+1)-th
-    router probabilities and its dropped entries (device tensors, no
-    sync).  With ``replay`` (another run's top-k experts, call by call)
+    router probabilities, its dropped entries and each dispatch's
+    ``(order, keep)`` (device tensors, no sync).  With ``replay`` (another run's top-k experts, call by call)
     route to those experts instead, with weights renormalized from this
     run's own probabilities: the two runs then dispatch and drop alike,
     and differ by rounding only.  Returns (fn's result, the record)."""
     from repro_torch.models import moe as M
     route, dispatch = M.route, M.dispatch
-    record = {"top_e": [], "gap": [], "dropped": []}
+    record = {"top_e": [], "gap": [], "dropped": [], "entries": []}
     calls = None if replay is None else iter(replay)
 
     def tapped_route(p, cfg, xf):
@@ -3432,9 +3439,10 @@ def route_tap(fn, replay=None):
         record["top_e"].append(top_e)
         return probs, top_p, top_e
 
-    def tapped_dispatch(cfg, xf, top_e, c):
-        d = dispatch(cfg, xf, top_e, c)
+    def tapped_dispatch(cfg, xf, top_e, c, off=None):
+        d = dispatch(cfg, xf, top_e, c, off)
         record["dropped"].append((~d.keep).sum())
+        record["entries"].append((d.order, d.keep))
         return d
 
     M.route, M.dispatch = tapped_route, tapped_dispatch
@@ -5393,6 +5401,20 @@ DP_CUT = dict(layers=2, batch=4, seq=512, steps=2, ranks=2)
 # the two ranks' blocks against one sum over the whole batch
 DP_RTOL = 1e-5
 DP_LEAF_ATOL = 1e-5
+# (b)'s global MoE case: moonshot at full width cut to MA_CUT's 2 layers,
+# bf16, global batch MA_CUT's MoE B2 x T256 over the two data ranks
+# (``default``: a sequence a rank, the experts whole on each), each rank
+# routing its block after the other's entry counts.  Held against one
+# process on the card running the whole batch, its routing replayed
+# (route_tap): the logits and served logits within MA_MOE_TOL of
+# max|logit|, the gradients (the mean of the ranks') within LM_GRAD_TOL
+# of each leaf's max|g| (bf16 sums over other row blocks), the drops of
+# each block exactly the one process's for its tokens.  The aux differs
+# only through the router probabilities' f32 mean over 512 tokens, whose
+# inputs carry the bf16 GEMMs' roundings of another row count; the loss
+# also through the cross-entropy of bf16 logits: both held relative.
+DP_MOE_AUX_RTOL = 1e-3
+DP_MOE_LOSS_RTOL = 1e-2
 
 
 class TimedMean:
@@ -5637,6 +5659,10 @@ def dp_gloo_rank(rank: int, work: str, seed: int) -> None:
                 "params": tree_map(lambda x: x.cpu(), params)})
     # the data-parallel steps are this phase's path: their launches
     _, out["launches"] = counted(torch, lambda: steps(params, opt))
+    del params, opt, step
+    torch.cuda.empty_cache()
+    import numpy as np
+    out["moe"] = dp_moe_rank(torch, np, mesh, dev, seed + 1, work)
     torch.save(out, f"{work}/rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -5667,6 +5693,186 @@ def dp_gloo_reference(torch, api, cfg, seed: int):
         ref.append({"metrics": {k: float(v) for k, v in metrics.items()},
                     "params": tree_cpu(params)})
     return ref, float(loss), grads
+
+
+def dp_moe_config():
+    from repro_torch.configs import get_config
+    return get_config(MOE_ARCH).replace(n_layers=MA_CUT["layers"])
+
+
+def dp_moe_inputs(torch, np, cfg, device):
+    """Token ids [B, T + MA_DECODE], drawn alike in each process, and the
+    training batch of the first T + 1 (labels the next token)."""
+    t = MA_CUT["moe_seq"]
+    ids = torch.from_numpy(lm_tokens(np, cfg.vocab_size, MA_CUT["moe_batch"],
+                                     t + MA_DECODE, SEED + 56)).to(device)
+    return ids, {"tokens": ids[:, :t], "labels": ids[:, 1:t + 1]}
+
+
+def dp_moe_run(torch, api, params, ids, batch, mesh=None, flash=True):
+    """The case's calls, in order, on this process's block of the batch
+    (``mesh``'s data block; the whole batch without one): the forward on
+    the flash route (``flash``; else xla), the loss and its gradient on
+    the xla route, then a prefill of the first T ids and MA_DECODE decode
+    steps through the serve steps.  Returns (logits, aux, loss, grads,
+    the serve steps' logits)."""
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models.api import get_model
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.context import use_mesh
+    from repro_torch.train import train_loop as loop
+
+    fwd = get_model(api.cfg.replace(attn_impl="flash")) if flash else api
+    t = MA_CUT["moe_seq"]
+    rows = ids.shape[0] // (1 if mesh is None else mesh.shape["data"])
+    block = batch if mesh is None else {
+        k: rules.constrain_batch(v, mesh) for k, v in batch.items()}
+    with use_mesh(mesh):
+        with torch.no_grad():
+            logits, aux = fwd.forward(params, block["tokens"])
+        (loss, _), grads = loop.value_and_grad(api.loss_fn, params, block)
+        cache = api.init_cache(rows, t + MA_DECODE, device=ids.device)
+        with torch.no_grad():
+            seq, _ = ma_decode(api, params, ids, cache,
+                               build_prefill_step(api),
+                               build_decode_step(api), t)
+    return logits, aux, loss, grads, seq
+
+
+def held_grads(grads):
+    """The gradient leaves the case holds: every layer's and the final
+    norm's (the two vocab tables, 1.3 GB in bf16, are left out)."""
+    return {k: v for k, v in grads.items() if k not in ("embed", "unembed")}
+
+
+def cross_block_drops(np, top_e, e: int, c: int, blocks: int) -> int:
+    """Entries a block keeps when routed on its own at capacity ``c`` but
+    drops after the blocks before it (host arithmetic on the routing)."""
+    flat = top_e.reshape(blocks, -1).cpu().numpy()
+    off = np.zeros(e, np.int64)
+    out = 0
+    for r in range(blocks):
+        cnt = np.bincount(flat[r], minlength=e)
+        out += int((np.minimum(cnt, c) - np.clip(c - off, 0, cnt)).sum())
+        off += cnt
+    return out
+
+
+def dp_moe_reference(torch, np, work: str, seed: int):
+    """(b)'s MoE case on one process on the card, the whole batch: its
+    calls' routing (replayed by the ranks), gaps, results and held
+    gradients saved to ``<work>/moe_ref.pt``.  Returns each call's drops
+    by block and the entries a later block drops for an earlier one."""
+    from repro_torch.models import moe as M
+    from repro_torch.models.api import get_model
+
+    cfg = dp_moe_config()
+    api = get_model(cfg)
+    params = ma_params(torch, api, seed)
+    ids, batch = dp_moe_inputs(torch, np, cfg, "cuda")
+    t0 = time.perf_counter()
+    (logits, aux, loss, grads, seq), rec = route_tap(
+        lambda: dp_moe_run(torch, api, params, ids, batch))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k, blocks = cfg.experts_per_token, DP_CUT["ranks"]
+    drops, cross = [], []
+    for top_e, (order, keep) in zip(rec["top_e"], rec["entries"]):
+        n = top_e.shape[0]
+        block = (order // k) // (n // blocks)
+        drops.append([int(((~keep) & (block == r)).sum())
+                      for r in range(blocks)])
+        cross.append(cross_block_drops(np, top_e, cfg.n_experts,
+                                       M.capacity(cfg, n), blocks))
+    torch.save({"routing": rec["top_e"], "gap": rec["gap"],
+                "logits": logits, "aux": aux, "loss": loss,
+                "grads": held_grads(grads), "serve": seq},
+               f"{work}/moe_ref.pt")
+    del params, grads
+    torch.cuda.empty_cache()
+    return {"drops": drops, "cross_block_drops": cross,
+            "calls": len(rec["top_e"]), "seconds": seconds,
+            "loss": float(loss), "aux": float(aux)}
+
+
+def dp_moe_rank(torch, np, mesh, dev, seed: int, work: str):
+    """(b)'s MoE case on this gloo rank: its own routing against the
+    reference's (flips, no replay), then the counted run with the
+    reference's routing replayed (its launches, collectives and drops),
+    held to the one process's results; the ranks' mean loss and
+    gradients through the data group."""
+    from repro_torch.models.api import get_model
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.context import use_mesh
+    from repro_torch.train import train_loop as loop
+
+    cfg = dp_moe_config()
+    api = get_model(cfg)
+    ref = torch.load(f"{work}/moe_ref.pt", map_location=dev)
+    params = ma_params(torch, api, seed, dev)
+    ids, batch = dp_moe_inputs(torch, np, cfg, dev)
+    r, n = mesh.coordinate("data"), mesh.shape["data"]
+
+    def mine(t):
+        return t.narrow(0, r * (t.shape[0] // n), t.shape[0] // n)
+    out = {}
+    flash = get_model(cfg.replace(attn_impl="flash"))
+    with torch.no_grad(), use_mesh(mesh):
+        _, own = route_tap(lambda: flash.forward(
+            params, rules.constrain_batch(batch["tokens"], mesh)))
+    out["routing_agreement"] = routing_agreement(
+        torch, {"top_e": [mine(t) for t in ref["routing"][:cfg.n_layers]],
+                "gap": [mine(g) for g in ref["gap"][:cfg.n_layers]]}, own)
+    with TimedCollectives(torch) as tc:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ((logits, aux, loss, grads, seq), rec), launches = counted(
+            torch, lambda: route_tap(
+                lambda: dp_moe_run(torch, api, params, ids, batch, mesh),
+                replay=[mine(t) for t in ref["routing"]]))
+        torch.cuda.synchronize()
+        out["run_ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = launches
+    out["collectives"] = tc.record()
+    out["collective_log"] = list(tc.log)
+    out["dropped"] = [int(d) for d in rec["dropped"]]
+    out["logits_err"] = rel_err(logits, mine(ref["logits"]))
+    out["serve_err"] = [rel_err(a, mine(b)) for a, b in zip(seq,
+                                                            ref["serve"])]
+    out["aux"] = (float(aux), float(ref["aux"]))
+    from repro_torch.tree import tree_map
+    mean = loop.group_mean({"loss": loss.float(), "grads": tree_map(
+        lambda g: g.float(), held_grads(grads))}, mesh)
+    out["loss"] = (float(mean["loss"]), float(ref["loss"]))
+    out["grads"] = grad_stats(mean["grads"], ref["grads"])
+    del params, grads, mean, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_moe_counted(torch):
+    """What rank 0 of the two data ranks sends in (b)'s MoE case, counted
+    as the dry-run counts: its calls on fake tensors on the counting mesh
+    (the xla route: flash refuses fake tensors; attention moves nothing
+    over ``data``).  Returns (its log of ``Collective``s, seconds)."""
+    from repro_torch.launch.mesh import Mesh, counting_mesh
+    from repro_torch.launch.steps import fake_mode
+    from repro_torch.models.api import get_model
+    from repro_torch.sharding import collectives as C
+
+    t0 = time.perf_counter()
+    mesh = counting_mesh(Mesh(("data",), (DP_CUT["ranks"],)))
+    cfg = dp_moe_config()
+    b, t = MA_CUT["moe_batch"], MA_CUT["moe_seq"]
+    with fake_mode():
+        api = get_model(cfg)
+        params = api.init(torch.Generator(), device="meta")
+        ids = torch.empty((b, t + MA_DECODE), dtype=torch.int64,
+                          device="meta")
+        batch = {"tokens": ids[:, :t], "labels": ids[:, 1:t + 1]}
+        with C.record() as log:
+            dp_moe_run(torch, api, params, ids, batch, mesh, flash=False)
+    return log, time.perf_counter() - t0
 
 
 def run_ranks(torch, target, n: int, work: str, seed: int, what: str,
@@ -5709,8 +5915,13 @@ def dp_gloo_phase(torch, smi):
     the card is bitwise the same function on the CPU with the same bits.
     Each rank counts the launches of its steps, which are the phase's.
     First each rank checks that gloo all-reduces CUDA tensors (SUM and
-    MAX, f32 and int32) in place on the card."""
+    MAX, f32 and int32) in place on the card.  Then the global MoE
+    route's case (DP_MOE_* above, :func:`dp_moe_check`): the one process
+    runs first, the ranks replay its routing, and the count runs while
+    the ranks do."""
     import tempfile
+
+    import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models.api import get_model
@@ -5722,11 +5933,18 @@ def dp_gloo_phase(torch, smi):
     api = get_model(cfg)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
-        # the one-process run on the whole batch meanwhile
-        ranks, (ref, loss, grads) = run_ranks(
+        # the MoE case's one process first: the ranks replay its routing
+        moe_ref = dp_moe_reference(torch, np, work, seed + 1)
+        t_moe_ref = time.perf_counter() - t0
+
+        def during():
+            # the one-process run on the whole batch, and the MoE case's
+            # count on the counting mesh, meanwhile
+            return dp_gloo_reference(torch, api, cfg, seed), \
+                dp_moe_counted(torch)
+        ranks, ((ref, loss, grads), (moe_log, moe_count_s)) = run_ranks(
             torch, dp_gloo_rank, DP_CUT["ranks"], work, seed,
-            "dp_train gloo",
-            during=lambda: dp_gloo_reference(torch, api, cfg, seed))
+            "dp_train gloo", during=during)
     phase_s = time.perf_counter() - t0
     n = DP_CUT["ranks"]
     launches = {k: 0 for k in counters()}
@@ -5785,6 +6003,90 @@ def dp_gloo_phase(torch, smi):
           "psum_cpu_s": [out["psum"]["cpu_s"] for out in ranks],
           "tolerance": f"rtol {DP_RTOL}, atol {DP_LEAF_ATOL} of each "
                        f"leaf's max", "seconds": phase_s, "card": smi})
+    add_launches(launches, dp_moe_check(ranks, moe_ref, moe_log,
+                                        moe_count_s, t_moe_ref, phase_s,
+                                        smi))
+    return launches
+
+
+def dp_moe_check(ranks, moe_ref, moe_log, count_s: float, ref_s: float,
+                 phase_s: float, smi):
+    """(b)'s MoE case, checked and printed: each rank held to the one
+    process (DP_MOE_* above), its collectives to the count, flash
+    launched once a layer by each rank's forward.  Returns the ranks'
+    launches."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    n_ranks, layers = DP_CUT["ranks"], MA_CUT["layers"]
+    launches = {k: 0 for k in counters()}
+    counted = [(c.op, c.bytes, c.dtype, c.group_size) for c in moe_log]
+    gather_bytes = n_ranks * cfg.n_experts * 8
+    lines = []
+    for r, out in enumerate(ranks):
+        m = out["moe"]
+        where = f"dp_train moe_global rank {r}"
+        add_launches(launches, m["launches"])
+        expect_launches(where, m["launches"], {"flash_attention": layers})
+        check_first_layer_flips(where, m["routing_agreement"])
+        err, scale = m["logits_err"]
+        check(err <= MA_MOE_TOL * scale, f"{where}: logits off by {err} of "
+                                         f"max {scale}")
+        for i, (err, scale) in enumerate(m["serve_err"]):
+            check(err <= MA_MOE_TOL * scale, f"{where}: serve step {i} "
+                                             f"logits off by {err} of {scale}")
+        got, want = m["aux"]
+        check(abs(got - want) <= DP_MOE_AUX_RTOL * abs(want),
+              f"{where}: aux {got} against one process's {want}")
+        got, want = m["loss"]
+        check(abs(got - want) <= DP_MOE_LOSS_RTOL * abs(want),
+              f"{where}: loss {got} against one process's {want}")
+        g = m["grads"]
+        check(g["grad_leaf_worst_frac_of_max"] <= LM_GRAD_TOL,
+              f"{where}: gradient {g['grad_leaf_worst_at']} off by "
+              f"{g['grad_leaf_worst_frac_of_max']} of its max|g|")
+        want = [d[r] for d in moe_ref["drops"]]
+        check(m["dropped"] == want, f"{where}: dropped {m['dropped']}, the "
+                                    f"one process's for its block {want}")
+        sent = [(c.op, c.bytes, c.dtype, c.group_size)
+                for c in m["collective_log"]]
+        check(sent == counted, f"{where}: its collectives differ from the "
+                               f"count: {sent[:8]} against {counted[:8]}")
+        gathers = [c for c in m["collective_log"] if c.dtype == "int64"]
+        check(len(gathers) == moe_ref["calls"] and all(
+            c.op == "all-gather" and c.bytes == gather_bytes
+            for c in gathers), f"{where}: the offsets' gathers {gathers}")
+        lines.append({
+            "rank": r, "launches": m["launches"], "run_ms": m["run_ms"],
+            "logits_err_of_max": m["logits_err"][0] / m["logits_err"][1],
+            "serve_err_of_max": [e / s for e, s in m["serve_err"]],
+            "aux": m["aux"], "loss": m["loss"], "grads": g,
+            "dropped": m["dropped"],
+            "routing_agreement_own": m["routing_agreement"],
+            "offsets_gather": {
+                "calls": len(gathers), "bytes_each": gather_bytes,
+                "bytes_sent": sum(c.bytes for c in gathers),
+                "ms": sum(c.seconds for c in gathers) * 1e3},
+            "collectives": m["collectives"]})
+    emit({"phase": "dp_train_moe_global", "arch": MOE_ARCH,
+          "layers": layers, "cut": f"n_layers {cfg.n_layers} -> {layers}",
+          "batch": MA_CUT["moe_batch"], "seq": MA_CUT["moe_seq"],
+          "decode_steps": MA_DECODE, "dtype": cfg.dtype,
+          "profile": cfg.sharding_profile,
+          "capacity_factor": cfg.capacity_factor, "ranks": n_ranks,
+          "backend": "gloo", "route_calls": moe_ref["calls"],
+          "drops_by_block_one_process": moe_ref["drops"],
+          "cross_block_drops": moe_ref["cross_block_drops"],
+          "one_process": {"loss": moe_ref["loss"], "aux": moe_ref["aux"],
+                          "ms": moe_ref["seconds"] * 1e3},
+          "offsets_gather_counted_bytes": sum(
+              b for op, b, dt, _ in counted if dt == "int64"),
+          "count_seconds": count_s, "reference_seconds": ref_s,
+          "ranks_detail": lines,
+          "tolerance": f"logits and serve logits {MA_MOE_TOL} of max|logit| "
+                       f"(routing replayed), aux rtol {DP_MOE_AUX_RTOL}, "
+                       f"loss rtol {DP_MOE_LOSS_RTOL}, gradients "
+                       f"{LM_GRAD_TOL} of each leaf's max|g|, drops exact",
+          "phase_seconds": phase_s, "card": smi})
     return launches
 
 
@@ -5881,8 +6183,10 @@ def dp_launch_phase(torch, smi):
 
 def dp_train_phases(torch, np, smi):
     """Data-parallel training over a process group (no hand kernel on the
-    path: the xla route, since flash refuses a gradient): (a) one NCCL
-    rank at full size, (b) two gloo ranks sharing the card, (c)
+    training path: the xla route, since flash refuses a gradient): (a)
+    one NCCL rank at full size, (b) two gloo ranks sharing the card (and
+    on them moonshot's global MoE route, whose flash forward launches
+    the kernel), (c)
     ``launch.train`` under ``torch.distributed.run``.  Returns the
     launches on the paths they drive."""
     t0 = time.perf_counter()

@@ -57,11 +57,10 @@ within one node of 8 GPUs at NVLink's rate, any other at the network's:
 every group of both production meshes spans nodes).  The record keeps
 rank 0's own FLOPs and op bytes from that run as ``rank_cost``, beside
 the ideal partition's.  This run differs by mesh (the data group has 16
-or 32 ranks), so it is counted once a mesh.  A step whose per-rank
-program raises the global MoE route's refusal over a split batch
-(ROADMAP.md Queue 3: the MoE archs under ``default`` and ``fsdp``) gets
-``"collectives": null``, the refusal as ``collective_reason``, and a
-roofline of compute and memory only.
+or 32 ranks), so it is counted once a mesh.  The MoE archs' global
+route (``default``, ``fsdp``) runs there as on a real group: each rank
+routes its block and all-gathers the experts' entry counts over the
+batch group (``models/moe.py``).
 
 Eager counting visits every layer, so JAX's unrolled lowerings and their
 extrapolation over the depth have no counterpart: JAX's
@@ -464,28 +463,18 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     mem = {"argument_size_in_bytes": arg_bytes,
            "temp_size_in_bytes": int(temp), "alias_size_in_bytes": 0}
     flops, hbm = cost["flops"] / n_chips, cost["op_bytes"] / n_chips
-    try:
-        rank = dict(_cached_rank_cost(*key, mesh_kind))
-    except NotImplementedError as e:
-        # the global MoE route's refusal of a batch split over several
-        # ranks (train_loop.refuse_coupled_batches, models.moe.moe_apply)
-        if "Queue 3" not in str(e):
-            raise
-        rl = RL.Roofline(flops=flops, hbm_bytes=hbm, model_flops=model_flops)
-        rec.update(collectives=None, collective_reason=str(e),
-                   rank_cost=None)
-    else:
-        rl = RL.Roofline.from_log(flops, hbm, rank["log"], model_flops)
-        rec.update(
-            collectives=collective_summary(rank["log"]),
-            collective_method=(
-                "rank 0's step on the counting mesh, fake tensors cut to "
-                "its blocks, every collective logged "
-                "(sharding.collectives.record); ring model, NVLink "
-                f"{rl.hw.link_bw / 1e9:g} GB/s sent within a node of "
-                f"{rl.hw.node_size}, {rl.hw.net_bw / 1e9:g} GB/s across"),
-            rank_cost={k: rank[k] for k in ("flops", "op_bytes",
-                                            "temp_bytes", "seconds")})
+    rank = dict(_cached_rank_cost(*key, mesh_kind))
+    rl = RL.Roofline.from_log(flops, hbm, rank["log"], model_flops)
+    rec.update(
+        collectives=collective_summary(rank["log"]),
+        collective_method=(
+            "rank 0's step on the counting mesh, fake tensors cut to "
+            "its blocks, every collective logged "
+            "(sharding.collectives.record); ring model, NVLink "
+            f"{rl.hw.link_bw / 1e9:g} GB/s sent within a node of "
+            f"{rl.hw.node_size}, {rl.hw.net_bw / 1e9:g} GB/s across"),
+        rank_cost={k: rank[k] for k in ("flops", "op_bytes",
+                                        "temp_bytes", "seconds")})
     rec.update(
         status="ok", n_chips=n_chips, compile_s=round(cost["seconds"], 2),
         cost_method=("fake_eager: FlopCounterMode FLOPs and op bytes "

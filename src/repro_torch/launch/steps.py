@@ -53,8 +53,7 @@ from repro_torch.core.quant import quantize_tree
 from repro_torch.sharding import rules
 from repro_torch.sharding.context import current_mesh, use_placement
 from repro_torch.train import optimizer as opt_lib
-from repro_torch.train.train_loop import (build_accumulating_step,
-                                         placement, refuse_coupled_batches)
+from repro_torch.train.train_loop import build_accumulating_step, placement
 from repro_torch.tree import leaves_with_paths
 
 #: The device of the dry-run's fake tensors (see the module docstring).
@@ -109,7 +108,8 @@ def serve_placement(base, batch, cache, decode: bool):
     ``train.train_loop.placement`` (None without a process group, and
     then so is this), with the rows its batch splits over (``rows``: the
     profile's batch axes for a prefill whose batch divides over them,
-    else ``(pod, data)``: a decode step's token block is the cache's)
+    else ``(pod, data)``: a decode step's token block is the cache's;
+    none where it divides over neither, and each rank holds it whole)
     and, under ``cache_seq*``, the whole slot count of a self-attention
     cache (a leaf ``k``; a cross cache is ``cross_k``) whose blocks split
     its positions over ``model`` (``cache_len``).  On a mesh with a
@@ -137,7 +137,8 @@ def serve_placement(base, batch, cache, decode: bool):
                   if str(path[-1]) == "k"), None)
         if k is not None and rules.whole_shape(k)[-3] != k.shape[-3]:
             cache_len = rules.whole_shape(k)[-3]
-    return dataclasses.replace(base, rows=tuple(rows), cache_len=cache_len)
+    pl = dataclasses.replace(base, rows=tuple(rows), cache_len=cache_len)
+    return pl.for_batch(lead[0]) if lead else pl
 
 
 def _serve_step(api, profile: str, fn, decode: bool):
@@ -145,7 +146,6 @@ def _serve_step(api, profile: str, fn, decode: bool):
 
     def serve_step(params, batch, cache):
         mesh = current_mesh()
-        refuse_coupled_batches(api, mesh, profile)
         key = (id(mesh), _quantized(params))
         if key not in placed:
             placed[key] = (mesh, placement(api, mesh, profile,

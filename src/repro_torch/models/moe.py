@@ -12,14 +12,34 @@ token).
 (``sharding.context``) has a ``model`` axis, where it takes
 :func:`moe_apply_local`.  On a mesh over processes:
 
-* **Expert parallel, the global route.**  A rank holding ``E/m`` experts
-  (``gate_w``/``up_w``/``down_w`` split on their expert dim over
-  ``model``) computes the dispatch of its tokens, the products of its
-  experts, then all-gathers the expert outputs over ``model`` and runs
-  the ordered combine below.  Its capacity counts the tokens it holds,
-  so over more than one data rank the global route (whose capacity and
-  aux couple the whole batch) raises ``NotImplementedError``
-  (ROADMAP.md Queue 3).
+* **The global route over a split batch** (JAX's ``moe_apply_global``,
+  which GSPMD partitions as one program).  The step's batch splits over
+  its batch axes (the placement's ``batch_axes``, else the mesh's
+  ``(pod, data)``) into ``R`` blocks in batch order; the rank at block
+  ``r`` (``collectives.block_index``) routes its own ``n`` tokens,
+  counts each expert's entries and all-gathers the ``[R, E]`` counts
+  over the batch group (``collectives.gather``: one small collective,
+  no tokens move, since the expert SwiGLU works row by row).  An
+  entry's position in its expert is ``off[e]`` (the entries of blocks
+  ``0..r-1``) plus its rank within the expert in stable token order;
+  it is kept below the global capacity ``capacity(cfg, n * R)``, so the
+  last blocks drop first, as JAX's one stable sort over the batch.  A
+  rank keeps at most ``n`` entries of an expert (a token picks an
+  expert once), so its buffer holds ``min(C, n)`` slots an expert,
+  filled at the local rank: a static shape that drops nothing extra.
+  The aux loss takes the gathered counts and the probabilities summed
+  over the batch group.  One rank is the trivial case: no prefix, the
+  buffer JAX's ``[E, C, d]``.  Expert parallel: a rank holding ``E/m``
+  experts (``gate_w``/``up_w``/``down_w`` split on their expert dim
+  over ``model``) computes the products of its experts' slots,
+  all-gathers the expert outputs over ``model`` and runs the
+  ordered combine below; the routing, replicated over ``model``, takes
+  its input's gradient summed once (``copy_to``).  Under ``fsdp`` and
+  ``infer2d`` a step's rows split over ``model`` too and each layer's
+  experts are gathered whole, so ``model`` is one more batch axis of
+  the prefix: each rank routes and computes its own rows (the placement
+  says which axes split them; a batch that does not divide is whole on
+  every rank, one block).
 * **:func:`moe_apply_local`** (JAX's ``shard_map`` MoE).  Routing stays
   on each data block, with a capacity of its own that truncates first
   (``int(t_loc * k / E * cf)``, unlike the global ``ceil``); a rank keeps
@@ -130,19 +150,25 @@ def route(p: Dict, cfg: ModelConfig, xf: torch.Tensor
 
 
 class Dispatch(NamedTuple):
-    hb: torch.Tensor        # [E, C, d] expert inputs, zeros where unused
+    hb: torch.Tensor        # [E, S, d] expert inputs, zeros where unused
     order: torch.Tensor     # [N*k] sorted position -> entry
-    dest: torch.Tensor      # [N*k] sorted position -> slot (E*C: dropped)
+    dest: torch.Tensor      # [N*k] sorted position -> slot (E*S: dropped)
     keep: torch.Tensor      # [N*k] bool, sorted position kept
     counts: torch.Tensor    # [E] entries routed to each expert
 
 
 def dispatch(cfg: ModelConfig, xf: torch.Tensor, top_e: torch.Tensor,
-             c: int) -> Dispatch:
+             c: int, off: torch.Tensor = None) -> Dispatch:
     """Sort the (token, slot) entries by expert and scatter each kept
-    entry's token into its expert's next free slot of ``c``."""
+    entry's token into its expert's next free slot.  An entry's position
+    in its expert is ``off[e]`` (the entries of the batch's earlier
+    blocks, ``[E]``; None: ``xf`` is the whole batch) plus its rank among
+    this block's entries of the expert; it is kept below the capacity
+    ``c``.  The buffer holds ``S = c`` slots an expert for the whole
+    batch, ``min(c, N)`` for a block, each entry at its local rank."""
     n, d = xf.shape
     e, k = cfg.n_experts, cfg.experts_per_token
+    s = c if off is None else min(c, n)
     flat_e = top_e.reshape(n * k)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
@@ -150,12 +176,12 @@ def dispatch(cfg: ModelConfig, xf: torch.Tensor, top_e: torch.Tensor,
         sorted_e, torch.arange(e, device=xf.device, dtype=sorted_e.dtype))
     counts = torch.diff(starts, append=starts.new_full((1,), n * k))
     rank = torch.arange(n * k, device=xf.device) - starts[sorted_e]
-    keep = rank < c
-    dest = torch.where(keep, sorted_e * c + rank, e * c)
-    buf = xf.new_zeros((e * c + 1, d))
+    keep = rank < c if off is None else off[sorted_e] + rank < c
+    dest = torch.where(keep, sorted_e * s + rank, e * s)
+    buf = xf.new_zeros((e * s + 1, d))
     # every dropped entry writes zeros into the spare last slot
     buf[dest] = xf[order // k] * keep[:, None].to(xf.dtype)
-    return Dispatch(buf[:-1].reshape(e, c, d), order, dest, keep, counts)
+    return Dispatch(buf[:-1].reshape(e, s, d), order, dest, keep, counts)
 
 
 def experts(p: Dict, hb: torch.Tensor) -> torch.Tensor:
@@ -190,14 +216,13 @@ def combine(yb: torch.Tensor, disp: Dispatch, top_p: torch.Tensor
 
 def _aux(cfg: ModelConfig, counts: torch.Tensor, n_entries: int,
          probs: torch.Tensor, data_group) -> torch.Tensor:
-    """``E * sum(frac * mean(probs))``, both means over the whole batch:
-    over a data group the entry counts and the probability sums are
-    summed across it first (the probabilities' gradient summed back)."""
+    """``E * sum(frac * mean(probs))``, both over the whole batch:
+    ``counts`` are its entries per expert and ``n_entries`` their number;
+    over a data group the probability sums are summed across it (their
+    gradient summed back)."""
     n = probs.shape[0]
     if data_group is not None:
-        ranks = C.group_size(data_group)
-        counts = C.all_sum(counts, data_group)
-        n_entries, n = n_entries * ranks, n * ranks
+        n = n * C.group_size(data_group)
         prob_sum = C.sum_both(probs.sum(dim=0), data_group)
         mean_prob = prob_sum / prob_sum.new_full((), n)
     else:
@@ -231,26 +256,29 @@ def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor
         if C.process_group(mesh, "model") is None:
             return moe_apply_whole(p, cfg, x, mesh)
         return moe_apply_local(p, cfg, x, mesh)
-    pl = current_placement()
-    split = pl.batch_axes if pl is not None else \
-        batch_pspec(mesh) if mesh is not None else ()
-    if C.process_group(mesh, split) is not None and \
-            math.prod(mesh.shape[a] for a in split) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: the global MoE route with its batch split over "
-            f"{dict((a, mesh.shape[a]) for a in split)}: its capacity and "
-            f"aux loss couple the whole batch, so a "
-            f"rank's block does not compute its share (ROADMAP.md Queue 3); "
-            f"sharding_profile='moe_local' on a mesh with a 'model' axis "
-            f"routes each data block on its own, as JAX's moe_apply_local")
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     n = b * t
     xf = x.reshape(n, d)
     probs, top_p, top_e = route(p, cfg, xf)
+    # the batch's blocks: this rank's is block r of R (module docstring)
+    pl = current_placement()
+    axes = tuple(pl.batch_axes) if pl is not None else \
+        batch_pspec(mesh) if mesh is not None else ()
+    data_group = C.process_group(mesh, axes) \
+        if C.axes_size(mesh, axes) > 1 else None
+    if data_group is None:
+        off, counts, ranks = None, None, 1
+    else:
+        ranks = C.group_size(data_group)
+        every = C.gather(_counts(top_e, e)[None], 0, data_group)   # [R, E]
+        off = every[:C.block_index(mesh, axes)].sum(dim=0)
+        counts = every.sum(dim=0)
     group = C.split_group(p["gate_w"].shape[-3], e, "MoE experts")
-    disp = dispatch(cfg, C.copy_to(xf, group), top_e, capacity(cfg, n))
-    aux = _aux(cfg, disp.counts, n * k, probs, None)
+    disp = dispatch(cfg, C.copy_to(xf, group), top_e,
+                    capacity(cfg, n * ranks), off)
+    aux = _aux(cfg, disp.counts if counts is None else counts,
+               n * ranks * k, probs, data_group)
     hb = disp.hb
     if group is not None:
         e_loc = p["gate_w"].shape[-3]
@@ -369,7 +397,8 @@ def moe_apply_local(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
     t_loc = b * t
     xf = x.reshape(t_loc, d)
     probs, top_p, top_e = route(p, cfg, xf)
-    aux = _aux(cfg, _counts(top_e, e), t_loc * k, probs, data_group)
+    aux = _aux(cfg, C.all_sum(_counts(top_e, e), data_group),
+               t_loc * k * C.group_size(data_group), probs, data_group)
     # the replicated routing's gradient: summed by copy_to where x is the
     # same on every model rank, by the rows' gather where it was gathered
     rep = None if rows else group

@@ -11,9 +11,7 @@ table and dominant-term notes of the single pod, from the records
 The port of ``repro.report``: :func:`roofline_table` and
 :func:`dryrun_table` print JAX's tables byte for byte from the same
 records; the collective term is rank 0's count priced on an H100 node
-(``launch/dryrun.py``), and a term the record leaves None (a cell whose
-per-rank program the global MoE route refuses, its
-``collective_reason``) prints "—".  Records JAX's tables cannot take
+(``launch/dryrun.py``).  Records JAX's tables cannot take
 print a row of "—" in the roofline table: ``--fast`` ones (no roofline)
 and ``deferred`` ones (``status`` in the dry-run table).  The notes
 name what moves each dominant term on an H100.
@@ -52,8 +50,8 @@ def load(dir_: str, mesh: str) -> List[Dict]:
     return out
 
 
-def fmt_t(x) -> str:
-    return "—" if x is None else f"{x:.3e}"
+def fmt_t(x: float) -> str:
+    return f"{x:.3e}"
 
 
 def roofline_table(recs: List[Dict]) -> str:

@@ -487,6 +487,16 @@ class Placement:
         return self.rows if self.rows is not None else \
             _batch_axes(self.mesh, self.profile)
 
+    def for_batch(self, x: torch.Tensor) -> "Placement":
+        """This placement for a step on the whole batch leaf ``x``: no
+        batch axes where its dim 0 does not divide over them, since
+        :func:`constrain_batch` then leaves it whole on every rank (the
+        global MoE route reads its blocks from them)."""
+        n = _axis_size(self.mesh, tuple(self.batch_axes))
+        if n > 1 and x.ndim and x.shape[0] % n:
+            return dataclasses.replace(self, rows=())
+        return self
+
     def sharded_axes(self, sharding: NamedSharding) -> Tuple[str, ...]:
         """The mesh axes a leaf's spec splits it over (several devices
         only), in mesh order."""

@@ -147,29 +147,6 @@ def _profile(api, profile=None) -> str:
                        else "default")
 
 
-def refuse_coupled_batches(api, mesh, profile=None) -> None:
-    """An MoE step whose batch the global route would split over several
-    ranks raises: its capacity and aux loss couple a batch's tokens.
-    The ``moe_local*`` route on a mesh with a ``model`` axis routes each
-    data block on its own, as JAX's ``moe_apply_local``."""
-    cfg = getattr(api, "cfg", None)
-    if getattr(mesh, "device_mesh", None) is None or \
-            not getattr(cfg, "n_experts", 0):
-        return
-    if cfg.sharding_profile.startswith("moe_local") and \
-            "model" in mesh.axis_names:
-        return
-    axes = rules._batch_axes(mesh, _profile(api, profile))
-    if C.axes_size(mesh, axes) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: an MoE layer's capacity and aux loss couple the "
-            f"tokens of a batch, so a rank's block of a batch split over "
-            f"{axes} does not compute its share of JAX's global step "
-            f"(ROADMAP.md Queue 3); sharding_profile='moe_local' on a mesh "
-            f"with a 'model' axis routes each data block on its own (JAX's "
-            f"moe_apply_local)")
-
-
 def placement(api, mesh, profile=None, init_opt=None,
               quantized=frozenset()):
     """The :class:`sharding.rules.Placement` of a step of ``api`` on
@@ -220,7 +197,6 @@ def build_accumulating_step(api, tc: TrainConfig, mesh=None, profile=None):
         if m is None:
             return None
         if id(m) not in placed:
-            refuse_coupled_batches(api, m, profile)
             placed[id(m)] = (m, placement(api, m, profile, init_opt))
         return placed[id(m)][1]
     placement_of(mesh)
@@ -235,24 +211,28 @@ def build_accumulating_step(api, tc: TrainConfig, mesh=None, profile=None):
             return {k: rules.constrain_batch(v, mesh, prof)
                     for k, v in b.items()}
 
-        with use_placement(pl):
-            if tc.microbatch and tc.microbatch < tc.batch_size:
-                n_micro = tc.batch_size // tc.microbatch
-                grads = tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=torch.float32, device=p.device), params)
-                for i in range(n_micro):
-                    mb = constrain({k: v[i * tc.microbatch:
-                                         (i + 1) * tc.microbatch]
-                                    for k, v in batch.items()})
-                    (_, metrics), g = value_and_grad(api.loss_fn, params, mb)
-                    grads = tree_map(torch.add, grads, g)
-                # a tensor divisor: CUDA multiplies by a rounded 1/n for a
-                # Python one
-                grads = tree_map(lambda g: g / g.new_tensor(float(n_micro)),
-                                 grads)
-            else:
-                (_, metrics), grads = value_and_grad(api.loss_fn, params,
-                                                     constrain(batch))
+        def grad(b):
+            # the model reads the rows this (micro)batch splits over
+            lead = next((v for v in b.values() if v.ndim), None)
+            with use_placement(pl if pl is None or lead is None
+                               else pl.for_batch(lead)):
+                return value_and_grad(api.loss_fn, params, constrain(b))
+
+        if tc.microbatch and tc.microbatch < tc.batch_size:
+            n_micro = tc.batch_size // tc.microbatch
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            for i in range(n_micro):
+                (_, metrics), g = grad({k: v[i * tc.microbatch:
+                                             (i + 1) * tc.microbatch]
+                                        for k, v in batch.items()})
+                grads = tree_map(torch.add, grads, g)
+            # a tensor divisor: CUDA multiplies by a rounded 1/n for a
+            # Python one
+            grads = tree_map(lambda g: g / g.new_tensor(float(n_micro)),
+                             grads)
+        else:
+            (_, metrics), grads = grad(batch)
         grads = group_mean(grads, mesh, pl)
         metrics = _metrics_mean(metrics, mesh, pl)
         grads, gnorm = opt_lib.clip_by_global_norm(grads, 1.0, pl)

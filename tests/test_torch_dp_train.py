@@ -26,6 +26,9 @@ JAX), meeting through a ``FileStore`` in a temporary directory.
   are bitwise equal after two steps.  With microbatches the metrics are
   the last global microbatch's (its rank blocks at 4 rows, the whole
   microbatch on every rank at 2, which does not divide over 4).
+* The global MoE route over the four ranks (moonshot's smoke config in
+  f32, capacity factor 0.5): gradients and losses against JAX's
+  ``moe_apply_global`` on the whole batch, microbatches included.
 * ``launch.train`` under ``torch.distributed.run --standalone
   --nproc-per-node 2 --device cpu``: 3 steps, then the same command after
   a crash that lost step 3's checkpoints resumes bitwise.
@@ -66,11 +69,17 @@ PSUM_SHAPES = {"a": (64, 33), "b": {"c": (7,), "d": (5, 4, 3)}}
 PSUM_CALLS = 2
 PSUM_KEY = 7
 MICRO = (4, 2)                          # 4 rows divide over 4 ranks; 2 not
+MOE = "moonshot-v1-16b-a3b"
+CF = 0.5                                # moonshot's capacity factor (drops)
 
 
 def _tc(microbatch=0):
     return TrainConfig(optimizer="adamw", lr=LR, lr_min=LR / 10, steps=10,
                        batch_size=GB, microbatch=microbatch)
+
+
+def _moe_cfg():
+    return get_smoke_config(MOE).replace(dtype="float32", capacity_factor=CF)
 
 
 def _batch(toks, labels, i):
@@ -117,6 +126,24 @@ def _rank_main(work: pathlib.Path) -> None:
     with use_mesh(mesh):
         step, _ = tsteps.build_train_step(api, _tc())
         out["steps_p1"] = step(params, init_opt(params), b0, STEP)[0]
+    # the global MoE route over the four blocks of the batch
+    moe = get_model(_moe_cfg())
+    mp = inp["moe_params"]
+    mb = _batch(inp["moe_toks"], inp["moe_labels"], 0)
+    with use_mesh(mesh):
+        _, g = tloop.value_and_grad(moe.loss_fn, mp, {
+            k: rules.constrain_batch(v, mesh) for k, v in mb.items()})
+    out["moe_grads"] = tloop.group_mean(g, mesh)
+    step, init_opt = tloop.build_accumulating_step(moe, _tc(), mesh)
+    out["moe_m1"] = step(mp, init_opt(mp), mb, STEP)[2]
+    for n in MICRO:
+        step, _ = tloop.build_accumulating_step(moe, _tc(n), mesh)
+        out[f"moe_micro{n}"] = step(mp, init_opt(mp), mb, STEP)[2]
+    # a prefill of one sequence: whole on every rank, one block
+    with use_mesh(mesh):
+        out["moe_prefill1"] = tsteps.build_prefill_step(moe)(
+            mp, {"tokens": mb["tokens"][:1]},
+            moe.init_cache(1, T, device="cpu"))[0]
     torch.save(out, work / f"rank{r}.pt")
     torch.distributed.destroy_process_group()
 
@@ -226,6 +253,14 @@ def dp(tmp_path_factory):
     toks = rng.integers(0, jcfg.vocab_size, (2, GB, T)).astype(np.int32)
     labels = rng.integers(0, jcfg.vocab_size, (2, GB, T)).astype(np.int32)
 
+    mcfg = jax_smoke(MOE).replace(dtype="float32", capacity_factor=CF)
+    moe_api = jax_get_model(mcfg)
+    np_moe = jax.tree_util.tree_map(np.asarray, jax.jit(moe_api.init)(
+        jax.random.PRNGKey(1)))
+    moe_toks = rng.integers(0, mcfg.vocab_size, (1, GB, T)).astype(np.int32)
+    moe_labels = rng.integers(0, mcfg.vocab_size, (1, GB, T)
+                              ).astype(np.int32)
+
     flat_shapes = [("/".join(p), s) for p, s in _shape_items(PSUM_SHAPES)]
     g = {p: (rng.standard_normal((PSUM_CALLS, WORLD) + s) * 0.01
              ).astype(np.float32) for p, s in flat_shapes}
@@ -236,6 +271,9 @@ def dp(tmp_path_factory):
              **{"g:" + p: v for p, v in g.items()},
              **{"e:" + p: v for p, v in e.items()})
     torch.save({"params": from_numpy_tree(np_params),
+                "moe_params": from_numpy_tree(np_moe),
+                "moe_toks": torch.from_numpy(moe_toks),
+                "moe_labels": torch.from_numpy(moe_labels),
                 "toks": torch.from_numpy(toks),
                 "labels": torch.from_numpy(labels),
                 "psum_grads": _nest({p: torch.from_numpy(v)
@@ -276,6 +314,18 @@ def dp(tmp_path_factory):
     micro_loss = {mb: float(jax_loss_fn(jparams, jbatch(slice(GB - mb,
                                                               GB)))[0])
                   for mb in MICRO}
+    # JAX's global MoE route on the whole batch, and on each microbatch
+    moe_vg = jax.jit(jax.value_and_grad(moe_api.loss_fn, has_aux=True))
+
+    def moe_batch(rows):
+        return {"tokens": jnp.asarray(moe_toks[0][rows]),
+                "labels": jnp.asarray(moe_labels[0][rows])}
+    (moe_loss, _), moe_g = moe_vg(np_moe, moe_batch(slice(None)))
+    moe_micro = {mb: float(moe_vg(np_moe, moe_batch(slice(GB - mb, GB)))
+                           [0][0]) for mb in MICRO}
+    moe_prefill1 = np.asarray(jax.jit(moe_api.prefill)(
+        np_moe, {"tokens": moe_batch(slice(0, 1))["tokens"]},
+        moe_api.init_cache(1, T))[0])
 
     # the port's one-process step
     api = get_model(get_smoke_config(ARCH).replace(dtype="float32"))
@@ -302,7 +352,11 @@ def dp(tmp_path_factory):
                  p1={"/".join(map(str, p)): np.asarray(v) for p, v in
                      leaves_with_paths(jax.tree_util.tree_map(np.asarray,
                                                               jp1))},
-                 micro_loss=micro_loss),
+                 micro_loss=micro_loss, moe_loss=float(moe_loss),
+                 moe_grads={"/".join(map(str, p)): np.asarray(v)
+                            for p, v in leaves_with_paths(
+                                jax.tree_util.tree_map(np.asarray, moe_g))},
+                 moe_micro=moe_micro, moe_prefill1=moe_prefill1),
         port=dict(loss=float(m["loss"]), grads=port_grads, m1=n1, m2=n2),
         params=np_params)
 
@@ -508,28 +562,38 @@ def test_microbatch_metrics_are_the_last_global_microbatch(dp, mb):
                                    rtol=1e-5)
 
 
-def test_moe_data_parallel_is_refused(monkeypatch):
-    """Capacity and the aux loss couple a batch's tokens, so the global
-    MoE route over several data ranks is refused (one data rank is not);
-    ``moe_local`` on a mesh with a ``model`` axis routes each data block
-    on its own (JAX's ``moe_apply_local``) and is taken."""
-    api = get_model(get_smoke_config("moonshot-v1-16b-a3b"))
+def test_moe_data_parallel_is_refused(dp):
+    """No longer refused (the name is kept from when it pinned the
+    refusal): the global MoE route over four data ranks (moonshot's
+    smoke config in f32 at capacity factor 0.5, where entries drop),
+    each rank routing its block after the earlier blocks' entry counts
+    (``models/moe.py``); the averaged gradients, one step's
+    loss, and the loss of the last microbatch at 4 rows (a row a rank)
+    and at 2 (which does not divide over 4: every rank takes the whole
+    microbatch as one block) against JAX's ``moe_apply_global`` on the
+    whole batch, at rtol 1e-5."""
+    j = dp["jax"]
+    for out in dp["ranks"]:
+        np.testing.assert_allclose(float(out["moe_m1"]["loss"]),
+                                   j["moe_loss"], rtol=1e-5)
+        grads = _flat(out["moe_grads"])
+        assert grads.keys() == j["moe_grads"].keys()
+        for p, want in j["moe_grads"].items():
+            _close(grads[p], want, f"moe {p}")
+        for mb in MICRO:
+            np.testing.assert_allclose(float(out[f"moe_micro{mb}"]["loss"]),
+                                       j["moe_micro"][mb], rtol=1e-5,
+                                       err_msg=f"microbatch {mb}")
 
-    class DeviceMesh:
-        def get_group(self, axis):
-            return object()
 
-    def mesh(names, sizes):
-        return mesh_lib.Mesh(names, sizes, device_mesh=DeviceMesh())
-    with pytest.raises(NotImplementedError, match="Queue 3"):
-        tloop.build_accumulating_step(api, _tc(), mesh(("data",), (2,)))
-    tloop.build_accumulating_step(api, _tc(), mesh(("data",), (1,)))
-    local = get_model(api.cfg.replace(sharding_profile="moe_local"))
-    with pytest.raises(NotImplementedError, match="Queue 3"):
-        tloop.build_accumulating_step(local, _tc(), mesh(("data",), (2,)))
-    step, _ = tloop.build_accumulating_step(
-        local, _tc(), mesh(("data", "model"), (2, 2)))
-    assert step.placement is not None
+def test_moe_serves_an_undivided_batch_whole(dp):
+    """A prefill of one sequence over four data ranks does not divide:
+    every rank takes the whole batch as its one block (``rules.Placement.
+    for_batch``), and the global MoE route its whole capacity, as JAX's
+    one program; the logits within rtol 1e-5 of JAX's."""
+    want = dp["jax"]["moe_prefill1"]
+    for out in dp["ranks"]:
+        _close(out["moe_prefill1"].numpy(), want, "one-row prefill")
 
 
 def test_nccl_without_a_gpu_raises(monkeypatch):

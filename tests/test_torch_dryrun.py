@@ -11,16 +11,16 @@ with ``repro``'s, and of ``seq_parallel``.
   elsewhere and flip near-tied MoE routing) within 4e-2 of max|logit|,
   the LM tests' bf16 bound.
 * ``report.py``'s two tables equal JAX's byte for byte on the same
-  records, skipped rows included, with a numeric collective term; a None
-  term (a refused cell's) prints "—".
+  records, skipped rows included, with a numeric collective term.
 * The fake step counts the FLOPs ``FlopCounterMode`` counts over the same
   step run for real on the CPU, exactly, at the smoke configs; xLSTM's
   slow cells are deferred unless asked for.
 * moonshot's and maverick's ``moe_local*`` cells count on both meshes
   (the whole view in the ideal partition, rank 0's dispatch in the
-  collective term), their ``default`` cells carry the Queue 3 refusal as
-  ``collective_reason``, and a dense arch's cell under ``moe_local`` is
-  its ``default`` program.
+  collective term), their ``default`` cells a term of the global route
+  (each rank's block, the experts' counts gathered over the data
+  group), and a dense arch's cell under ``moe_local`` is its
+  ``default`` program.
 * The refusals: flash on fake tensors, and ``seq_parallel``/
   ``constrain_batch`` on real tensors an abstract mesh would split.
 
@@ -29,7 +29,6 @@ imported; the ``jdry`` fixture imports it after JAX's backend has
 started in this process and restores the variable, so no later JAX test
 or child process sees it.
 """
-import copy
 import json
 import os
 
@@ -212,12 +211,9 @@ def test_report_tables_are_jax(records):
     recs = [full, fast, skip]
     assert report.dryrun_table(recs) == jreport.dryrun_table(recs)
     assert "all-reduce" in report.dryrun_table([full])
-    # a null term (a refused cell's) prints "—" where JAX prints a time
-    refused = copy.deepcopy(full)
-    refused["roofline"]["t_collective"] = None
-    term = f"| {full['roofline']['t_collective']:.3e} |"
-    assert report.roofline_table([refused, skip]) == \
-        jreport.roofline_table([full, skip]).replace(term, "| — |")
+    # every counted cell has a numeric term, printed as JAX prints it
+    t = full["roofline"]["t_collective"]
+    assert report.fmt_t(t) == jreport.fmt_t(t) == f"{t:.3e}"
     assert "int8 tensor-core" in report.bottleneck_summary(
         [dict(full, roofline=dict(full["roofline"],
                                   bottleneck="compute"))])
@@ -341,7 +337,8 @@ def test_moe_local_cells_count_on_both_meshes(tmp_path, arch, variant):
     """A ``moe_local*`` decode cell of each MoE arch at full width: the
     ideal partition's count (the whole view) shared by both meshes, rank
     0's program (the per-rank dispatch over model=16) and its collective
-    term for each; the ``default`` cell's term is the Queue 3 refusal."""
+    term for each; the ``default`` cell's term is the global route's,
+    with the experts' counts gathered over the data group."""
     recs = {m: D.run_cell(arch, "decode_32k", m, out_dir=str(tmp_path),
                           variant=variant) for m in ("pod", "multipod")}
     for m, rec in recs.items():
@@ -360,11 +357,17 @@ def test_moe_local_cells_count_on_both_meshes(tmp_path, arch, variant):
     # block and its term differ by mesh
     assert recs["pod"]["roofline"]["t_collective"] != \
         recs["multipod"]["roofline"]["t_collective"]
+    # the global route on the same mesh: rank 0 routes its block of the
+    # batch and all-gathers each MoE layer's [16, E] int64 entry counts
+    # over the data group of 16
     glob = D.run_cell(arch, "decode_32k", "pod", out_dir=str(tmp_path))
-    assert glob["status"] == "ok" and glob["collectives"] is None
-    assert "Queue 3" in glob["collective_reason"]
-    assert glob["roofline"]["t_collective"] is None
-    assert glob["roofline"]["bottleneck"] in ("compute", "memory")
+    cfg = get_config(arch)
+    assert glob["status"] == "ok" and glob["profile"] == "default"
+    assert "collective_reason" not in glob
+    assert glob["collectives"]["by_group"]["all-gather int64 x16"] == \
+        cfg.n_layers * 16 * cfg.n_experts * 8
+    assert glob["roofline"]["t_collective"] > 0
+    assert glob["roofline"]["coll_by_type"]["all-reduce"] > 0
 
 
 def test_dense_arch_under_moe_local_is_its_default_program(tmp_path):

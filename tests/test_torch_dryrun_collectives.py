@@ -11,8 +11,10 @@
   stands for all.  The steps: tinyllama's train step under ``default``,
   ``fsdp`` and ``seq_parallel``, its prefill and a decode step under
   ``default``, ``cache_seq`` and ``infer2d``; moonshot's train and
-  decode steps under ``moe_local``; a decode step each of xLSTM, Hymba
-  and Whisper.
+  decode steps under ``moe_local``, and its global route (each rank's
+  block, the experts' entry counts all-gathered over the batch group)
+  under ``default`` (train, prefill, decode) and ``fsdp`` (train); a
+  decode step each of xLSTM, Hymba and Whisper.
 * **The ring model is JAX's.**  ``roofline.wire_bytes`` and
   ``Roofline.from_log`` against ``repro.roofline.parse_collectives`` on an
   HLO line of the same op, shape, dtype and ``replica_groups``, for
@@ -76,6 +78,8 @@ CASES = {
                 ("prefill", "decode")),
     "moe_local": (MOE, {"sharding_profile": "moe_local"},
                   ("train", "decode")),
+    "moe_global": (MOE, {}, ("train", "prefill", "decode")),
+    "moe_fsdp": (MOE, {"sharding_profile": "fsdp"}, ("train",)),
     "xlstm": ("xlstm-1.3b", {}, ("decode",)),
     "hymba": ("hymba-1.5b", {}, ("decode",)),
     "whisper": ("whisper-tiny", {}, ("decode",)),
@@ -266,6 +270,15 @@ def test_counted_logs_name_what_moves(runs):
     assert ("all-gather", "bfloat16") in dtypes
     assert {c.group_size for c in counted["fsdp", "train"]["log"]} >= {4}
     assert any(c.op == "all-to-all" for c in counted["xlstm", "decode"]["log"])
+    # the global route's prefix: one [R, E] int64 gather a layer, over
+    # the data group (default) or every rank (fsdp's rows)
+    cfg = _api("moe_global").cfg
+    for name, ranks in (("moe_global", 2), ("moe_fsdp", 4)):
+        counts = [c for c in counted[name, "train"]["log"]
+                  if c.dtype == "int64"]
+        assert [(c.op, c.bytes, c.group_size) for c in counts] == \
+            [("all-gather", ranks * cfg.n_experts * 8, ranks)] * \
+            cfg.n_layers * (2 if cfg.remat else 1)
     for c in counted["default", "train"]["log"]:
         assert c.ranks in ((0, 1), (0, 2)), c
     for cost in counted.values():

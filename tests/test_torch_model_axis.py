@@ -52,6 +52,15 @@ package's Adam direction), as ``tests/test_torch_dp_train.py`` does.
   ``tests/test_torch_serve_axis.py``'s, the xLSTM, Hymba and Whisper serve
   steps ``tests/test_torch_family_serve_axis.py``'s), and
   ``seq_parallel``'s forward there, bitwise ``default``'s.
+* (viii) moonshot's global route (JAX's ``moe_apply_global``) over a
+  batch split into blocks, at ``capacity_factor`` 0.5, where a later
+  block drops entries because the earlier blocks filled their experts
+  (the test shows it, and that each half routed alone differs): on
+  ``(data=2)``, ``default`` on (2, 2) and ``fsdp`` on (2, 2) (with one
+  AdamW step), the logits, aux, loss and gradients against JAX's whole
+  batch in one program, each rank's routing against the port's one
+  process; a prefill and decode steps on (2, 2) under ``default`` and
+  ``infer2d`` against the port's one process.
 * (vii) ``launch.train --profile fsdp`` under ``torch.distributed.run
   --nproc-per-node 2 --device cpu`` resumes bitwise; ``--production-mesh``
   with 2 ranks raises.
@@ -184,6 +193,7 @@ def _refusals(inp, mesh):
     params = from_numpy_tree(inp["params"]["dense"])
     b0 = _batch(inp, "dense")
     out = {}
+    # the global MoE route over two data ranks, refused before, builds
     out["moe_global"] = _raises(lambda: tloop.build_accumulating_step(
         get_model(cfgs["moe"]), _tc(), mesh))
     xlstm = get_model(get_smoke_config("xlstm-1.3b"))
@@ -214,18 +224,20 @@ def _refusals(inp, mesh):
 
 
 def _serve_case(api, params, inp, mesh, name):
-    """(iii): prefill and DECODE steps through the step builders on this
-    rank's blocks and cache block; logits, the gathered cache."""
+    """(iii): prefill and DECODE steps through the step builders (under
+    ``api.cfg.sharding_profile``) on this rank's blocks and cache block;
+    logits, the gathered cache."""
     cfg = api.cfg
-    sh = rules.params_shardings(params, mesh)
+    profile = cfg.sharding_profile
+    sh = rules.params_shardings(params, mesh, profile)
     local = rules.place(params, sh)
     toks = inp[name + "_toks"][0]
     cache = api.init_cache(toks.shape[0], MAX_LEN, device="cpu")
-    csh = rules.cache_shardings(cache, mesh)
+    csh = rules.cache_shardings(cache, mesh, profile)
     cache = rules.place(cache, csh)
     logits = []
     with use_mesh(mesh):
-        lg, cache = tsteps.build_prefill_step(api)(
+        lg, cache = tsteps.build_prefill_step(api, profile)(
             local, {"tokens": toks[:, :PROMPT].long()}, cache)
         logits.append(lg)
         decode = tsteps.build_decode_step(api)
@@ -235,26 +247,60 @@ def _serve_case(api, params, inp, mesh, name):
             logits.append(lg)
     assert cfg.n_layers == cache["k"].shape[0]
     return {"logits": logits, "cache": rules.gather(cache, csh),
-            "cache_block": tuple(cache["k"].shape)}
+            "cache_block": tuple(cache["k"].shape),
+            "coords": {a: mesh.coordinate(a) for a in mesh.axis_names}}
 
 
-def _forward_grad_case(api, params, inp, mesh, name, profile="default"):
-    """Forward logits and aux, the loss and its gathered gradients."""
-    step, _ = tloop.build_accumulating_step(api, _tc(), mesh, profile)
+def _routing():
+    """A list that gets each ``moe.route`` call's top-k experts [N, k]
+    inside the block."""
+    import contextlib
+
+    from repro_torch.models import moe as TM
+
+    @contextlib.contextmanager
+    def tap():
+        seen, real = [], TM.route
+
+        def route(p, cfg, xf):
+            out = real(p, cfg, xf)
+            seen.append(out[2].detach().clone())
+            return out
+        TM.route = route
+        try:
+            yield seen
+        finally:
+            TM.route = real
+    return tap()
+
+
+def _forward_grad_case(api, params, inp, mesh, name, profile="default",
+                       step_too=False):
+    """Forward logits, aux and each MoE layer's routing, the loss and its
+    gathered gradients (and, with ``step_too``, one AdamW step's
+    metrics)."""
+    step, init_opt = tloop.build_accumulating_step(api, _tc(), mesh,
+                                                   profile)
     pl = step.placement(mesh)
-    local = rules.place(params, pl.params)
+    local = rules.place(params, pl.params) if pl.params else params
     b0 = {k: rules.constrain_batch(v, mesh, profile)
           for k, v in _batch(inp, name).items()}
-    with use_placement(pl):
+    with use_placement(pl), _routing() as routing:
         logits, aux = api.forward(local, b0["tokens"])
+    with use_placement(pl):
         (loss, _), g = tloop.value_and_grad(api.loss_fn, local, b0)
     g = tloop.group_mean(g, mesh, pl)
-    return {"logits": logits.detach(), "aux": float(aux),
-            "loss": float(tloop._metrics_mean({"loss": loss}, mesh,
-                                              pl)["loss"]),
-            "grads": rules.gather(g, pl.params),
-            "attn_blocks": {k: tuple(local["blocks"]["attn"][k]["w"].shape)
-                            for k in ("wq", "wk", "wo")}}
+    out = {"logits": logits.detach(), "aux": float(aux),
+           "routing": routing,
+           "loss": float(tloop._metrics_mean({"loss": loss}, mesh,
+                                             pl)["loss"]),
+           "grads": rules.gather(g, pl.params) if pl.params else g,
+           "attn_blocks": {k: tuple(local["blocks"]["attn"][k]["w"].shape)
+                           for k in ("wq", "wk", "wo")},
+           "coords": {a: mesh.coordinate(a) for a in mesh.axis_names}}
+    if step_too:
+        out["m1"] = step(local, init_opt(local), _batch(inp, name), STEP)[2]
+    return out
 
 
 def _fit_case(work, mesh):
@@ -318,6 +364,18 @@ def _rank_main(work: pathlib.Path, world: str) -> None:
         p1, _, m1 = step(local, init_opt(local), _batch(inp, "moe"), STEP)
         out["moe_local"].update(p1=rules.gather(p1, pl.params), m1=m1)
         out["refusals"] = _refusals(inp, m22)
+        # (viii) the global route over the batch's blocks
+        params = from_numpy_tree(inp["params"]["moe"])
+        out["moe_global22"] = _forward_grad_case(get_model(cfgs["moe"]),
+                                                 params, inp, m22, "moe")
+        out["moe_fsdp22"] = _forward_grad_case(
+            get_model(cfgs["moe"]), params, inp, m22, "moe", "fsdp",
+            step_too=True)
+        out["serve_moe22"] = _serve_case(get_model(cfgs["moe"]), params,
+                                         inp, m22, "moe")
+        out["serve_moe_infer2d22"] = _serve_case(
+            get_model(cfgs["moe"].replace(sharding_profile="infer2d")),
+            params, inp, m22, "moe")
         m14 = mesh_lib.make_group_mesh((("data", 1), ("model", 4)), dev)
         for name in UNEVEN:
             out[name] = _forward_grad_case(
@@ -346,6 +404,10 @@ def _rank_main(work: pathlib.Path, world: str) -> None:
         out["moe_ep"] = _forward_grad_case(
             get_model(cfgs["moe"]), from_numpy_tree(inp["params"]["moe"]),
             inp, m12, "moe")
+        m2 = mesh_lib.make_group_mesh((("data", 2),), dev)
+        out["moe_dp2"] = _forward_grad_case(
+            get_model(cfgs["moe"]), from_numpy_tree(inp["params"]["moe"]),
+            inp, m2, "moe")
         out["rank"] = torch.distributed.get_rank()
     torch.save(out, work / f"{world}{out['rank']}.pt")
     torch.distributed.destroy_process_group()
@@ -563,11 +625,19 @@ def runs(tmp_path_factory):
         api = get_model(cfgs[name])
         params = from_numpy_tree(inp["params"][name])
         b = _batch(inp, name)
-        logits, aux = api.forward(params, b["tokens"])
+        with _routing() as routing:
+            logits, aux = api.forward(params, b["tokens"])
         (loss, _), g = tloop.value_and_grad(api.loss_fn, params, b)
         port[name] = {"logits": logits.detach(), "aux": float(aux),
-                      "loss": float(loss), "grads": g}
-    for name in ("dense", "mqa"):
+                      "loss": float(loss), "grads": g, "routing": routing}
+    # each half of the batch routed on its own (its own capacity, no
+    # earlier block): the global route's output must differ
+    api = get_model(cfgs["moe"])
+    params = from_numpy_tree(inp["params"]["moe"])
+    toks = _batch(inp, "moe")["tokens"]
+    port["moe_halves"] = torch.cat([api.forward(params, toks[:GB // 2])[0],
+                                    api.forward(params, toks[GB // 2:])[0]])
+    for name in ("dense", "mqa", "moe"):
         api = get_model(cfgs[name])
         params = from_numpy_tree(inp["params"][name])
         toks = inp[name + "_toks"][0].long()
@@ -844,8 +914,144 @@ def test_moe_expert_parallel_matches_jax(runs):
             _close(grads[p], w, f"moe_ep grad {p}")
 
 
+# (viii) the global route over the batch's blocks: case -> (its world,
+# the axes its batch splits over, in block order)
+GLOBAL = {"moe_dp2": ("two", ("data",)),
+          "moe_global22": ("four", ("data",)),
+          "moe_fsdp22": ("four", ("data", "model"))}
+
+
+def _by_block(outs, key, axes):
+    """The ranks' records of ``key`` grouped by their batch block (the
+    row-major coordinate over ``axes``), in block order."""
+    by = {}
+    for out in outs:
+        r = out[key]
+        i = 0
+        for a in axes:
+            i = i * 2 + r["coords"][a]
+        by.setdefault(i, []).append(r)
+    return [by[i] for i in sorted(by)]
+
+
+def _cross_block_drops(top_e, e, c, blocks):
+    """Entries a block keeps routed on its own (at capacity ``c``) but
+    drops after the blocks before it: each expert's slots left by the
+    earlier blocks, against its own entries."""
+    flat = top_e.reshape(blocks, -1)
+    off = np.zeros(e, np.int64)
+    out = 0
+    for r in range(blocks):
+        cnt = np.bincount(flat[r].numpy(), minlength=e)
+        out += int((np.minimum(cnt, c) -
+                    np.clip(c - off, 0, cnt)).sum())
+        off += cnt
+    return out
+
+
+@pytest.mark.parametrize("key", list(GLOBAL))
+def test_global_moe_over_batch_blocks_matches_jax(runs, key):
+    """(viii) moonshot's global route at capacity factor 0.5, its batch
+    split into blocks (``(data=2)``; ``default`` on (2, 2): experts over
+    ``model`` too; ``fsdp`` on (2, 2): four blocks of rows, experts
+    gathered whole): the blocks' logits, each rank's aux, loss and
+    gathered gradients, and under ``fsdp`` one AdamW step's loss and
+    grad norm, against JAX's ``moe_apply_global`` on the whole batch in
+    one program (``moe_ep``), at rtol 1e-5."""
+    world, axes = GLOBAL[key]
+    jx = runs["jax"]
+    blocks = _by_block(runs[world], key, axes)
+    assert len(blocks) == 2 ** len(axes)
+    got = np.concatenate([b[0]["logits"].numpy() for b in blocks])
+    _close(got, jx["moe_ep:logits"], f"{key} logits")
+    for same in blocks:
+        for r in same[1:]:
+            assert np.array_equal(r["logits"].numpy(),
+                                  same[0]["logits"].numpy())
+    jg = _jax_tree(jx, "moe_ep_g")
+    jnorm = float(np.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
+                              for g in jg.values())))
+    for same in blocks:
+        for r in same:
+            np.testing.assert_allclose(r["aux"], float(jx["moe_ep:aux"]),
+                                       rtol=RTOL)
+            np.testing.assert_allclose(r["loss"], float(jx["moe_ep:loss"]),
+                                       rtol=RTOL)
+            grads = _flat(r["grads"])
+            assert grads.keys() == jg.keys()
+            for p, w in jg.items():
+                _close(grads[p], w, f"{key} grad {p}")
+            if "m1" in r:
+                np.testing.assert_allclose(float(r["m1"]["loss"]),
+                                           float(jx["moe_ep:loss"]),
+                                           rtol=RTOL)
+                np.testing.assert_allclose(float(r["m1"]["grad_norm"]),
+                                           jnorm, rtol=RTOL)
+
+
+@pytest.mark.parametrize("key", list(GLOBAL))
+def test_global_moe_blocks_route_as_one_process(runs, key):
+    """(viii) every rank's routing, layer by layer, is the one-process
+    run's on its block's tokens: the flips are counted, reported and
+    none is accepted (no gap)."""
+    world, axes = GLOBAL[key]
+    want = runs["port"]["moe"]["routing"]
+    blocks = _by_block(runs[world], key, axes)
+    per = want[0].shape[0] // len(blocks)
+    flips = 0
+    for i, same in enumerate(blocks):
+        for r in same:
+            assert len(r["routing"]) == len(want)
+            for got, w in zip(r["routing"], want):
+                flips += int((got != w[i * per:(i + 1) * per]).any(-1).sum())
+    print(f"{key}: {flips} tokens routed otherwise than in one process")
+    assert flips == 0
+
+
+def test_a_later_block_drops_for_an_earlier_one(runs):
+    """(viii) the inputs make the prefix matter: at capacity factor 0.5 a
+    later block drops entries that it would keep routed on its own,
+    because the blocks before it filled their experts (in two and four
+    blocks, every layer), and each half of the batch routed on its own
+    gives logits beyond the tolerance of JAX's whole-batch ones."""
+    from repro_torch.models import moe as TM
+    cfg = _cfgs()["moe"]
+    routing = runs["port"]["moe"]["routing"]
+    c = TM.capacity(cfg, routing[0].shape[0])
+    for blocks in (2, 4):
+        drops = [_cross_block_drops(top_e, cfg.n_experts, c, blocks)
+                 for top_e in routing]
+        print(f"{blocks} blocks: entries dropped for an earlier block, "
+              f"by layer: {drops}")
+        assert all(d > 0 for d in drops), drops
+    want = runs["jax"]["moe_ep:logits"]
+    gap = float(np.abs(runs["port"]["moe_halves"].numpy() - want).max())
+    assert gap > 100 * RTOL * float(np.abs(want).max()), gap
+
+
+@pytest.mark.parametrize("key", ["serve_moe22", "serve_moe_infer2d22"])
+def test_global_moe_serves_over_data_and_model(runs, key):
+    """(viii) a prefill and DECODE decode steps of moonshot's global route
+    on (2, 2): under ``default`` (prompt blocks and token blocks over
+    ``data``, experts and kv heads over ``model``) and ``infer2d`` (the
+    prompt's rows over every axis, each layer gathered whole; the decode
+    tokens over ``data``): each step's logits (the data blocks' rows) and
+    the gathered cache against the port's one process."""
+    port = runs["port"]["serve_moe"]
+    outs = runs["four"]
+    for i, want in enumerate(port["logits"]):
+        blocks = _by_block(outs, key, ("data",))
+        got = np.concatenate([b[0]["logits"][i].numpy() for b in blocks])
+        _close(got, want.numpy(), f"{key} logits {i}")
+    for out in outs:
+        r = out[key]
+        for k in ("k", "v"):
+            _close(r["cache"][k].numpy(), port["cache"][k].numpy(),
+                   f"{key} cache {k}")
+
+
 # what: (the error's kind, what it cites), or None where it serves now
-REFUSED = {"moe_global": ("NotImplementedError", "Queue 3"),
+REFUSED = {"moe_global": None,
            "xlstm": ("ValueError", "rules.place"),
            "rolling_cache_seq": None}
 
@@ -853,7 +1059,8 @@ REFUSED = {"moe_global": ("NotImplementedError", "Queue 3"),
 @pytest.mark.parametrize("what", list(REFUSED))
 def test_refusals_that_stay(runs, what):
     """(vi) on a real (data=2, model=2) mesh: the global MoE route over
-    two data ranks raises; an xLSTM serve step split over ``model`` with a
+    two data ranks, which raised before, builds its step (its parity with
+    JAX: (viii)); an xLSTM serve step split over ``model`` with a
     cache made whole by hand (not placed by ``rules.place``, whose rules
     split its state) raises ``ValueError`` naming ``rules.place`` (the
     step itself serves: ``tests/test_torch_family_serve_axis.py``); and a
