@@ -46,7 +46,10 @@ tinyllama shape) held bitwise against the wrapper's own pick and against
 the plain version, each timed (``tile_row`` lines), then one dispatch of
 each spec under every ``tuning_candidates(quick=False)`` entry and under
 ``plan_tuning``, bitwise ``DEFAULT_TUNING``'s logits with the pinned
-templates in the wrappers' ``.templates`` counters.  An early line prints
+templates in the wrappers' ``.templates`` counters.  Before the tuner,
+the ``trace`` phase runs the trace pass (``repro_torch.analysis.trace``)
+on CUDA tensors over the Lite, M-2 and fused Elite plans: no finding, and
+each plan's kernel launches named in its recorded op stream.  An early line prints
 the ``launch_profile()`` the script applied before torch started CUDA.
 The ``train`` phase trains on the card: full-width
 PointMLP-Lite (8/8 fake quant) on the synthetic set, one step against the
@@ -1322,9 +1325,10 @@ PRODUCT_KERNELS = ("int8_matmul", "fused_linear", "grouped_transfer_stats",
 def analysis_phase(torch):
     """``python -m repro_torch.analysis --all-variants`` in process: the
     spec passes over every shipped variant, the registry contracts (each
-    entry run twice on CPU tensors), README.md's fleet and the plan-space
-    sweep.  0 error findings; no kernel launch (it runs on the CPU).
-    Returns the launches."""
+    entry run twice on CPU tensors), the op traces of every variant's
+    stage callables (on CPU tensors), README.md's fleet and the
+    plan-space sweep.  0 error findings; no kernel launch (it runs on the
+    CPU).  Returns the launches."""
     import contextlib
     import io
 
@@ -1344,6 +1348,40 @@ def analysis_phase(torch):
     emit({"phase": "analysis", "summary": summary, "rc": rc,
           "seconds": time.perf_counter() - t0, "launches": launches})
     return launches
+
+
+def trace_phase(torch, smi, plans):
+    """The trace pass (``repro_torch.analysis.trace.analyze_plan_trace``)
+    on CUDA tensors, where the kernels launch: each of ``plans`` (name,
+    spec, the kernels its op stream must hold) finds nothing, and its
+    recorded stream names those kernels' launches.  One line a plan: the
+    callables traced, aten ops recorded, launches by kernel and float64
+    islands accepted.  An analysis, not a main path: its launches are
+    not counted."""
+    import collections
+
+    from repro_torch.analysis.trace import analyze_plan_trace
+    t_all = time.perf_counter()
+    for name, spec, want in plans:
+        traces = []
+        t0 = time.perf_counter()
+        found = analyze_plan_trace(spec, device="cuda", traces=traces)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = collections.Counter()
+        for tr in traces:
+            launches.update(tr.launches)
+        check(not found, f"trace {name}: {[str(f) for f in found]}")
+        check(set(want) <= set(launches),
+              f"trace {name}: expected launches of {sorted(want)} in the "
+              f"op stream, recorded {dict(launches)}")
+        emit({"phase": "trace", "plan": name, "card": smi,
+              "callables": len(traces),
+              "aten_ops": sum(tr.n_aten for tr in traces),
+              "launches": dict(sorted(launches.items())),
+              "f64_islands": sum(tr.islands for tr in traces),
+              "seconds": seconds})
+    emit({"phase": "trace_total", "seconds": time.perf_counter() - t_all})
 
 
 def ranks(values):
@@ -7613,6 +7651,9 @@ def main() -> int:
         total[k] += v
     add_launches(total, ladder_phases(torch, np, rng, params))
     add_launches(total, analysis_phase(torch))
+    trace_phase(torch, smi, (
+        ("lite", lite, {"int8_matmul"}), ("m2", m2, {"fused_linear"}),
+        ("elite", elite, {"grouped_transfer", "knn", "fused_linear"})))
     add_launches(total, tune_phase(torch, params, smi))
     add_launches(total, tiles_phase(torch, smi, (
         ("lite", lite, params, clouds), ("m2", m2, params, clouds),

@@ -9,9 +9,10 @@ by a registered spec pass (``passes``) or a registry contract check
     python -m repro_torch.analysis --all-variants
 
 ``findings`` is standard library only; ``passes`` pulls in
-``repro_torch.api`` and ``contracts`` runs registry entries on CPU
-tensors, so both load when first called.  JAX's trace pass reads jaxprs
-and has no counterpart here.
+``repro_torch.api``, ``contracts`` runs registry entries on CPU tensors
+and ``trace`` (the trace pass: each lowered stage callable run once
+under an op recorder and held to RPA201-204, RPA209) runs them on CPU or
+CUDA tensors, so all three load when first called.
 """
 from repro_torch.analysis.findings import (  # noqa: F401 — the public surface
     CODES,
@@ -48,6 +49,13 @@ def enforce_spec(spec, scopes=None, stacklevel: int = 3):
     return _impl(spec, scopes=scopes, stacklevel=stacklevel + 1)
 
 
+def analyze_plan_trace(spec, cfg=None, plan=None, device="cpu",
+                       traces=None):
+    """See :func:`repro_torch.analysis.trace.analyze_plan_trace`."""
+    from repro_torch.analysis.trace import analyze_plan_trace as _impl
+    return _impl(spec, cfg=cfg, plan=plan, device=device, traces=traces)
+
+
 def check_registry_contracts():
     """See :func:`repro_torch.analysis.contracts.check_registry_contracts`."""
     from repro_torch.analysis.contracts import check_registry_contracts as _impl
@@ -58,5 +66,5 @@ __all__ = [
     "CODES", "ERROR", "WARNING", "INFO", "AnalysisWarning", "Finding",
     "dedupe", "enforce", "error_codes", "finding", "format_findings",
     "has_errors", "warn_finding", "analyze_spec", "analyze_fleet_spec",
-    "enforce_spec", "check_registry_contracts",
+    "enforce_spec", "analyze_plan_trace", "check_registry_contracts",
 ]

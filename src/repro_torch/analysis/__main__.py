@@ -1,15 +1,18 @@
 """``python -m repro_torch.analysis``: the port's static plan-verification CLI.
 
-The twin of ``python -m repro.analysis`` without its trace stage (the
-port runs no jaxprs).  It sweeps the variant helpers (elite, m2, lite;
-with ``--all-variants`` also the compression ladder, a stream and a seg
-variant, README.md's ``FleetSpec`` and the plan-space product around
-each base) through
+The twin of ``python -m repro.analysis``.  It sweeps the variant helpers
+(elite, m2, lite; with ``--all-variants`` also the compression ladder, a
+stream and a seg variant, README.md's ``FleetSpec`` and the plan-space
+product around each base) through
 
   1. the spec passes (``repro_torch.analysis.passes``, every scope);
   2. the registry contracts (``repro_torch.analysis.contracts``, every
      entry run twice on CPU tensors);
-  3. the plan-space sweep: every analyzer-clean candidate must lower
+  3. the op traces (``repro_torch.analysis.trace``, per variant whose
+     spec passes found no error; ``--no-trace`` skips them): every
+     distinct stage callable run once on small CPU tensors under the op
+     recorder;
+  4. the plan-space sweep: every analyzer-clean candidate must lower
      (RPA298 if not); pruned candidates are counted per code.
 
 The exit status is 1 iff an error finding was produced.  ``--spec-json``
@@ -35,6 +38,11 @@ def _analyze_one(spec, args, out: List[F.Finding]) -> None:
     found = analyze_spec(spec)
     _report(f"spec {spec.name}", found, args)
     out.extend(found)
+    if not args.no_trace and not F.has_errors(found):
+        from repro_torch.analysis.trace import analyze_plan_trace
+        traced = analyze_plan_trace(spec)
+        _report(f"trace {spec.name}", traced, args)
+        out.extend(traced)
 
 
 def _report(title: str, found: List[F.Finding], args) -> None:
@@ -113,6 +121,8 @@ def main(argv=None) -> int:
     parser.add_argument("--spec-json", default=None, metavar="JSON",
                         help="analyze one spec: JSON field overrides on "
                              "--base (e.g. '{\"data_shards\": 2}')")
+    parser.add_argument("--no-trace", action="store_true",
+                        help="skip the op trace passes")
     parser.add_argument("--no-contracts", action="store_true",
                         help="skip the registry contract checks")
     parser.add_argument("-q", "--quiet", action="store_true",

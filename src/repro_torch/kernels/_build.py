@@ -163,12 +163,21 @@ def launcher(name: str):
     return getattr(lib, SIGNATURES[name][0])
 
 
+#: While a trace of ``repro_torch.analysis.trace`` runs, a callable
+#: ``(name, device, args)`` that :func:`launch` hands each launch to
+#: before it calls the kernel, so the trace's op stream names the kernel
+#: between its prologue and epilogue; None otherwise.
+RECORDER = None
+
+
 def launch(name: str, device, *args) -> None:
     """Call kernel ``name``'s C launch function with ``args`` and the
     current stream of ``device`` (a CUDA ``torch.device``), with
     ``device`` made the calling thread's current device for the call:
     the runtime launches on the current device whatever stream it is
     given.  Raises on a CUDA error code."""
+    if RECORDER is not None:
+        RECORDER(name, device, args)
     import torch
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -101,7 +101,7 @@ class RankZero:
             for a in axes:
                 ranks = [r + c * stride[a] for r in ranks
                          for c in range(shape[a])]
-            self._groups[axes] = CountingGroup(tuple(ranks))
+            self._groups[axes] = CountingGroup(tuple(ranks), axes)
         return self._groups[axes]
 
 

@@ -64,10 +64,11 @@ layer.
 **Counting.**  :func:`record` logs one :class:`Collective` for each
 collective a primitive issues (``all_reduce_``, ``_gather``,
 ``_all_to_all``): the op in JAX's HLO names, its bytes by JAX's
-convention and the dtype that moves (a bf16 sum moves f32; the
-reduce-scatter is the all-reduce it runs as).  A counting mesh
-(``launch.mesh.counting_mesh``: an abstract mesh acting as rank 0 of its
-process group) gives :class:`CountingGroup` groups, on which each
+convention, the dtype that moves (a bf16 sum moves f32; the
+reduce-scatter is the all-reduce it runs as) and the mesh axes of its
+group (``repro_torch.analysis.trace`` reads them: RPA204).  A counting
+mesh (``launch.mesh.counting_mesh``: an abstract mesh acting as rank 0
+of its process group) gives :class:`CountingGroup` groups, on which each
 primitive logs the same entry as on a real group and returns a tensor
 of the right shape and dtype, moving nothing; so rank 0's program runs
 on fake tensors with no process group, and its log is what each rank of
@@ -91,9 +92,10 @@ _HALF = (torch.bfloat16, torch.float16)
 @dataclasses.dataclass(frozen=True)
 class CountingGroup:
     """Rank 0's process group on a counting mesh: the global ranks of its
-    members in group-rank order (this process is the first).  No
-    ``torch.distributed`` group stands behind it."""
+    members in group-rank order (this process is the first) and the mesh
+    axes it spans.  No ``torch.distributed`` group stands behind it."""
     ranks: Tuple[int, ...]
+    axes: Tuple[str, ...] = dataclasses.field(default=(), compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,13 +108,15 @@ class Collective:
     it spans nodes) and ``seconds`` (the host time of the call, with the
     device synchronized around it where :func:`record` was given a
     ``sync``) differ between ranks and runs, so equality leaves them
-    out."""
+    out, and so does ``axes``, the mesh axes the group spans
+    (:func:`group_axes`; the trace pass reads it)."""
     op: str
     bytes: int
     dtype: str
     group_size: int
     ranks: Tuple[int, ...] = dataclasses.field(default=(), compare=False)
     seconds: float = dataclasses.field(default=0.0, compare=False)
+    axes: Tuple[str, ...] = dataclasses.field(default=(), compare=False)
 
 
 _LOGS: List[Tuple[list, Optional[Callable[[], Any]]]] = []
@@ -154,7 +158,7 @@ def _issue(op: str, x: torch.Tensor, nbytes: int, group,
         entry = Collective(op, int(nbytes),
                            str(x.dtype).replace("torch.", ""),
                            group_size(group), _ranks(group),
-                           time.perf_counter() - t0)
+                           time.perf_counter() - t0, group_axes(group))
         for log, _ in _LOGS:
             log.append(entry)
 
@@ -393,6 +397,16 @@ def group_rank(group) -> int:
 
 
 _FLAT_GROUPS: Dict[Tuple[int, Tuple[str, ...]], Any] = {}
+# id of each process group :func:`process_group` handed out -> its axes
+_GROUP_AXES: Dict[int, Tuple[str, ...]] = {}
+
+
+def group_axes(group) -> Tuple[str, ...]:
+    """The mesh axes ``group`` spans, as :func:`process_group` made it
+    (``()`` for no group or a group made elsewhere)."""
+    if isinstance(group, CountingGroup):
+        return group.axes
+    return _GROUP_AXES.get(id(group), ())
 
 
 def process_group(mesh, axis):
@@ -413,13 +427,16 @@ def process_group(mesh, axis):
     if counting is not None:
         return counting(axes)
     if len(axes) == 1:
-        return device_mesh.get_group(axes[0])
-    key = (id(device_mesh), axes)
-    if key not in _FLAT_GROUPS:         # made once: a new group is collective
-        sub = device_mesh if axes == tuple(mesh.axis_names) else \
-            device_mesh[axes]
-        _FLAT_GROUPS[key] = sub._flatten("_".join(axes)).get_group()
-    return _FLAT_GROUPS[key]
+        group = device_mesh.get_group(axes[0])
+    else:
+        key = (id(device_mesh), axes)
+        if key not in _FLAT_GROUPS:     # made once: a new group is collective
+            sub = device_mesh if axes == tuple(mesh.axis_names) else \
+                device_mesh[axes]
+            _FLAT_GROUPS[key] = sub._flatten("_".join(axes)).get_group()
+        group = _FLAT_GROUPS[key]
+    _GROUP_AXES[id(group)] = axes
+    return group
 
 
 def block_index(mesh, axes) -> int:
